@@ -1,0 +1,77 @@
+"""Hamming distance matrix: hand-written CUDA kernel + its plain version.
+
+Replaces ``tc2li_slam_tpu/ops/kernels/hamming.py:hamming_matrix_mxu`` (the
+TPU's bf16 matrix-unit formulation over unpacked bits), which every matcher
+of ``ops.matching`` reaches: stereo (2000 x 2000), projection-guided
+tracking and the keyframe fuse (landmark pool x features, up to
+32768 x 2000).
+
+Bound on the H100: the int32 [N, M] output write (262 MB at the largest
+call); the inputs are 32 bytes per descriptor. The kernel
+(``csrc/hamming.cu``) computes XOR + ``__popc`` over the 8 words of a pair
+from a 32 x 32 shared-memory tile of each side, with coalesced row stores.
+
+Descriptors are int32 tensors holding the uint32 bit patterns (torch's
+uint32 supports few ops). Torch has no popcount, so the plain version looks
+bytes up in a 256-entry table on the uint8 view, in row chunks that bound
+its memory. ``hamming_matrix`` launches the kernel for CUDA tensors and runs
+the plain version for CPU tensors; there is no other route.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+launches = 0   # kernel launches by hamming_matrix (plain-version calls excluded)
+
+_POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int32)
+_CHUNK_BYTES = 1 << 24   # byte lookups per chunk of the plain version
+
+
+def hamming_matrix_plain(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+    """[N, 8] x [M, 8] int32 words -> [N, M] int32 distances."""
+    N, M = d1.shape[0], d2.shape[0]
+    lut = _POPCOUNT8.to(d1.device)
+    out = torch.empty((N, M), dtype=torch.int32, device=d1.device)
+    rows = max(1, _CHUNK_BYTES // max(32 * M, 1))
+    for r0 in range(0, N, rows):
+        x = torch.bitwise_xor(d1[r0:r0 + rows, None, :], d2[None, :, :])
+        b = x.contiguous().view(torch.uint8)          # [n, M, 32]
+        out[r0:r0 + rows] = lut[b.long()].sum(dim=-1, dtype=torch.int32)
+    return out
+
+
+def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+    """[N, 8] x [M, 8] int32 descriptor words -> [N, M] int32 distances."""
+    for d in (d1, d2):
+        if d.ndim != 2 or d.shape[1] != 8 or d.dtype != torch.int32:
+            raise ValueError(f"hamming_matrix takes int32 [n, 8], got "
+                             f"{d.dtype} {tuple(d.shape)}")
+    if d1.device != d2.device:
+        raise ValueError("hamming_matrix: operands on different devices")
+    if d1.device.type == "cpu":
+        return hamming_matrix_plain(d1, d2)
+    if d1.device.type != "cuda":
+        raise ValueError(f"hamming_matrix: unsupported device {d1.device}")
+    return hamming_matrix_cuda(d1, d2)
+
+
+def hamming_matrix_cuda(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/hamming.cu`` on the current stream."""
+    global launches
+    N, M = d1.shape[0], d2.shape[0]
+    out = torch.empty((N, M), dtype=torch.int32, device=d1.device)
+    if N == 0 or M == 0:
+        return out
+    if N > 65535 * 32:
+        raise ValueError(f"hamming_matrix: N={N} exceeds the kernel's grid")
+    a = d1.contiguous()
+    b = d2.contiguous()
+    lib = build.library()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    build.check(lib.tc2li_hamming(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                  N, M, stream), "hamming")
+    launches += 1
+    return out

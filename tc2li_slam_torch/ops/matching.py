@@ -1,0 +1,101 @@
+"""Batched binary-descriptor matching (port of ``tc2li_slam_tpu/ops/matching.py``).
+
+Every matcher is a dense [N, M] Hamming matrix (the CUDA kernel of
+``ops.kernels.hamming``), a predicate mask, a row-wise best/second-best
+with distance and ratio tests, and optional rotation-histogram
+consistency. Thresholds mirror ORBmatcher: TH_LOW=50, TH_HIGH=100,
+HISTO_LENGTH=30.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .kernels.hamming import hamming_matrix
+from .orb import topk_stable
+
+TH_LOW = 50
+TH_HIGH = 100
+HISTO_LENGTH = 30
+BIG = 1 << 20
+
+
+def _masked_best2(dist: torch.Tensor, mask: torch.Tensor):
+    """Per-row (best_idx, best, second) over masked columns (masked = BIG)."""
+    d = torch.where(mask, dist, BIG)
+    idx = torch.argmin(d, dim=1)           # first index on ties, as jnp.argmin
+    best = torch.gather(d, 1, idx[:, None])[:, 0]
+    cols = torch.arange(d.shape[1], device=d.device)
+    d2 = torch.where(cols[None, :] == idx[:, None], BIG, d)
+    second = torch.min(d2, dim=1).values
+    return idx, best, second
+
+
+def match_descriptors(d1, d2, valid1, valid2, mask=None, max_dist: int = TH_LOW,
+                      ratio: float = 1.0, mutual: bool = False):
+    """Guarded nearest-neighbour match: (idx2 [N], dist [N], matched [N])."""
+    dist = hamming_matrix(d1, d2)
+    full_mask = valid1[:, None] & valid2[None, :]
+    if mask is not None:
+        full_mask = full_mask & mask
+    idx, best, second = _masked_best2(dist, full_mask)
+    ok = (best <= max_dist) & valid1
+    if ratio < 1.0:
+        ok = ok & (best.to(torch.float32) <= ratio * second.to(torch.float32))
+    if mutual:
+        dm = torch.where(full_mask, dist, BIG)
+        back = torch.argmin(dm, dim=0)
+        ok = ok & (back[idx] == torch.arange(d1.shape[0], device=d1.device))
+    return idx, best, ok
+
+
+def rotation_consistency(angles1, angles2, idx, matched, keep_bins: int = 3):
+    """Keep matches in the 3 dominant angle-difference bins
+    (ORBmatcher::ComputeThreeMaxima, 30 bins over 2*pi)."""
+    two_pi = 2 * math.pi
+    diff = torch.remainder(angles1 - angles2[idx], two_pi)
+    bins = torch.clamp((diff * (HISTO_LENGTH / two_pi)).to(torch.int32), 0, HISTO_LENGTH - 1)
+    hist = torch.zeros(HISTO_LENGTH, dtype=torch.int32, device=angles1.device)
+    hist.index_add_(0, bins, matched.to(torch.int32))
+    top_vals, top_idx = topk_stable(hist, keep_bins)
+    good_bin = (hist[bins] > 0) & torch.any(
+        (bins[:, None] == top_idx[None, :])
+        & (top_vals[None, :] >= (0.1 * top_vals[0]).to(torch.int32)), dim=-1)
+    return matched & good_bin
+
+
+def window_mask(uv1, uv2, radius):
+    """|du| < r and |dv| < r (SearchByProjection window)."""
+    du = torch.abs(uv1[:, None, 0] - uv2[None, :, 0])
+    dv = torch.abs(uv1[:, None, 1] - uv2[None, :, 1])
+    r = radius[:, None]
+    return (du < r) & (dv < r)
+
+
+def level_mask(lvl1, lvl2, lo: int = -1, hi: int = 1):
+    d = lvl2[None, :] - lvl1[:, None]
+    return (d >= lo) & (d <= hi)
+
+
+def search_by_projection(uv_proj, pred_level, d_map, valid_map, kp_uv, kp_level,
+                         kp_desc, kp_valid, radius, max_dist: int = TH_HIGH,
+                         ratio: float = 0.9):
+    """Map-point -> frame-keypoint guided match: (kp_idx, dist, matched)."""
+    mask = window_mask(uv_proj, kp_uv, radius) & level_mask(pred_level, kp_level)
+    return match_descriptors(d_map, kp_desc, valid_map, kp_valid, mask, max_dist, ratio)
+
+
+def resolve_duplicates(idx, dist, matched, m_size: int):
+    """Keep only the best query per target; ties go to the lowest query."""
+    d = torch.where(matched, dist, BIG)
+    best_for_target = torch.full((m_size,), BIG, dtype=torch.int32, device=d.device)
+    best_for_target.scatter_reduce_(0, idx, d.to(torch.int32), reduce="amin")
+    is_best = d <= best_for_target[idx]
+    N = idx.shape[0]
+    qidx = torch.arange(N, dtype=torch.int32, device=d.device)
+    q_big = torch.where(is_best & matched, qidx, N)
+    first_q = torch.full((m_size,), N, dtype=torch.int32, device=d.device)
+    first_q.scatter_reduce_(0, idx, q_big.to(torch.int32), reduce="amin")
+    return matched & is_best & (first_q[idx] == qidx)

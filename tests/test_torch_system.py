@@ -1,0 +1,109 @@
+"""End to end: the torch System vs the JAX System on the SMALL synthetic
+stereo+LiDAR sequence of tests/test_e2e.py (640x240, 512 features, 4
+levels), 8 frames with a keyframe every second frame so the mapping pass
+(culling, fuse, local BA with the BALM eigen-factor) runs."""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tc2li_slam_tpu.io import synthetic as syn
+from tc2li_slam_tpu.slam import config as jcfg, system as jsys
+from tc2li_slam_torch.ops.kernels import fast, hamming
+from tc2li_slam_torch.slam import config as tcfg, system as tsys
+from torch_parity import small_config, small_sequence
+
+N_FRAMES = 8
+# per-frame camera positions of the two systems; measured ~0.2 mm apart
+# (keypoints on upper pyramid levels and float32 solver sums differ)
+POS_TOL_M = 5e-3
+ATE_BOUND_M = 0.15
+
+
+def _run(sys_obj, frames):
+    states = []
+    for fr in frames:
+        sys_obj.track(fr.img_l, fr.img_r, fr.t, fr.scan, fr.scan_valid)
+        states.append(sys_obj.state)
+    return states, sys_obj.trajectory_world_from_cam()
+
+
+def test_system_matches_jax():
+    frames = small_sequence(N_FRAMES)
+    gt = np.stack([fr.T_wb_gt @ syn.body_from_cam() for fr in frames])
+    sj = jsys.System(small_config(jcfg))
+    states_j, est_j = _run(sj, frames)
+    launches0 = fast.launches, hamming.launches
+    st = tsys.System(small_config(tcfg), "cpu")
+    states_t, est_t = _run(st, frames)
+
+    assert states_t == states_j == [tsys.TrackingState.OK] * N_FRAMES
+    assert int(st.map.n_kf) == int(sj.map.n_kf) >= 3
+    assert st.n_ba_balm >= 1
+    n_lm_j, n_lm_t = int(sj.map.n_lm), int(st.map.n_lm)
+    assert abs(n_lm_t - n_lm_j) <= 0.02 * n_lm_j
+    dpos = np.linalg.norm(est_t[:, :3, 3] - est_j[:, :3, 3], axis=-1)
+    assert dpos.max() < POS_TOL_M, dpos
+    ate_j, ate_t = syn.ate_rmse(est_j, gt), syn.ate_rmse(est_t, gt)
+    assert ate_j < ATE_BOUND_M and ate_t < ATE_BOUND_M, (ate_j, ate_t)
+    assert int(st.vmap.count) > 0
+    # on the CPU the wrappers ran their plain versions: no kernel launches
+    assert (fast.launches, hamming.launches) == launches0
+
+
+def test_synthetic_copy_matches_jax_package():
+    """The port's numpy-only copies generate and configure identically."""
+    from tc2li_slam_tpu.ops import _orb_pattern as jpat
+    from tc2li_slam_torch.io import synthetic as tsyn
+    from tc2li_slam_torch.ops import _orb_pattern as tpat
+    a = syn.generate_sequence(n_frames=2, cam=syn.SMALL, seed=3, n_scan=512)[0]
+    b = tsyn.generate_sequence(n_frames=2, cam=tsyn.SMALL, seed=3, n_scan=512)[0]
+    for fa, fb in zip(a, b):
+        for x, y in zip(fa, fb):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    np.testing.assert_array_equal(tpat.PATTERN, jpat.PATTERN)
+    for name in ("CameraConfig", "OrbConfig", "ImuConfig", "LidarConfig",
+                 "TrackingConfig", "SystemConfig"):
+        a, b = getattr(tcfg, name)(), getattr(jcfg, name)()
+        assert [f.name for f in dataclasses.fields(a)] == [f.name for f in dataclasses.fields(b)]
+        for f in dataclasses.fields(a):
+            if f.name not in ("camera", "orb", "imu", "lidar", "tracking"):
+                np.testing.assert_array_equal(getattr(a, f.name), getattr(b, f.name))
+
+
+def test_port_import_loads_no_jax():
+    root = Path(__file__).resolve().parents[1]
+    code = ("import sys, pkgutil, importlib, tc2li_slam_torch as p\n"
+            "for m in pkgutil.walk_packages(p.__path__, 'tc2li_slam_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "assert 'jax' not in sys.modules and 'tc2li_slam_tpu' not in sys.modules\n"
+            "import torch; assert not torch.backends.cuda.matmul.allow_tf32\n"
+            "assert not torch.backends.cudnn.allow_tf32\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("change", [
+    dict(use_imu=True), dict(loop_closing=True),
+    dict(tracking=dataclasses.replace(tcfg.TrackingConfig(), triangulate=True)),
+])
+def test_paths_outside_the_slice_raise(change):
+    cfg = dataclasses.replace(small_config(tcfg), **change)
+    with pytest.raises(NotImplementedError, match="tc2li_slam_tpu"):
+        tsys.System(cfg, "cpu")
+
+
+def test_kernel_wrappers_take_no_other_route():
+    """A tensor that is neither on the CPU nor on a CUDA card is refused,
+    never sent to the plain version."""
+    with pytest.raises(ValueError):
+        fast.fast_score_raw(torch.zeros(16, 16, device="meta"))
+    with pytest.raises(ValueError):
+        hamming.hamming_matrix(torch.zeros(4, 8, dtype=torch.int32, device="meta"),
+                               torch.zeros(4, 8, dtype=torch.int32, device="meta"))

@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Profile the PyTorch port's STEREO_LIDAR slice on one CUDA card.
+
+    python3 tools/profile_torch_slice.py [--frames 14] [--warm 5] [--out build/profile]
+
+Runs the sequence and configuration of ``chip_smoke.py`` (KITTI-shaped,
+1241x376, 2000 features, 32768-point scans), then over the frames after the
+warm-up:
+
+- host wall ms per frame (clock around ``track`` + a final synchronize);
+- host syncs per frame, counted with ``torch.cuda.set_sync_debug_mode``;
+- a ``torch.profiler`` trace (CPU + CUDA): device busy share of the window,
+  kernel launches per frame, the top kernels by device time and the top
+  operators by host time. The gzipped chrome trace, the two tables and a
+  JSON summary are written under ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gzip
+import json
+import shutil
+import sys
+import time
+import warnings
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=14)
+    ap.add_argument("--warm", type=int, default=5)
+    ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from tc2li_slam_torch.io import synthetic as syn
+    from tc2li_slam_torch.slam import config as cfg_mod, system as sys_mod
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    smi = chip_smoke.nvidia_smi_line()
+    rng = np.random.default_rng(0)
+    world = syn.make_world(rng, n_surf=300_000)
+    frames, _, _ = syn.generate_sequence(
+        n_frames=args.frames, cam=syn.KITTI_LIKE, seed=0, n_scan=1 << 17, world=world,
+        traj=syn.Trajectory(w_body=(0, 0, 0.03), v_world=(1.5, 0.1, 0.0)))
+    scans = [np.where(fr.scan_valid[:, None], fr.scan, 0.0)[::4].astype(np.float32)
+             for fr in frames]
+    slam = sys_mod.System(chip_smoke.kitti_config(cfg_mod, syn), torch.device("cuda"))
+    for fr, sc in zip(frames[:args.warm], scans[:args.warm]):
+        slam.track(fr.img_l, fr.img_r, fr.t, sc)
+    torch.cuda.synchronize()
+    slam.timers.reset()
+
+    n_meas = args.frames - args.warm
+    frame_ms = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t_win0 = time.perf_counter()
+            for fr, sc in zip(frames[args.warm:], scans[args.warm:]):
+                t0 = time.perf_counter()
+                torch.cuda.set_sync_debug_mode("warn")
+                slam.track(fr.img_l, fr.img_r, fr.t, sc)
+                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                frame_ms.append(1e3 * (time.perf_counter() - t0))
+            t_win = time.perf_counter() - t_win0
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message).lower()]
+    trace = out / "slice_trace.json"
+    prof.export_chrome_trace(str(trace))
+    with open(trace, "rb") as src, gzip.open(f"{trace}.gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    trace.unlink()
+
+    events = prof.key_averages()
+    dev_us = 0.0
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us += e.time_range.elapsed_us()
+            n_kernels += 1
+    sort_dev = "device_time_total" if hasattr(events[0], "device_time_total") else "cuda_time_total"
+    table_dev = events.table(sort_by=sort_dev, row_limit=25)
+    table_cpu = events.table(sort_by="self_cpu_time_total", row_limit=25)
+    (out / "top_device.txt").write_text(table_dev)
+    (out / "top_host.txt").write_text(table_cpu)
+    summary = {
+        "card": smi, "frames": n_meas,
+        "host_ms_per_frame": frame_ms,
+        "window_s": t_win,
+        "device_busy_share": dev_us / 1e6 / t_win,
+        "kernel_launches_per_frame": n_kernels / n_meas,
+        "host_syncs_per_frame": len(syncs) / n_meas,
+        "sync_sites": sorted(set(syncs))[:20],
+        "stages_ms_per_frame": {k: v["total_ms"] / n_meas
+                                for k, v in slam.timers.stats().items()},
+    }
+    (out / "summary.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary, indent=1))
+    print(table_dev[:6000])
+    print(table_cpu[:6000])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
