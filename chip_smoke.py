@@ -8,21 +8,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. require a CUDA device; print the card (nvidia-smi name, power limit),
    torch and CUDA versions;
 2. build the CUDA kernels from ``tc2li_slam_torch/csrc`` (timed);
-3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (FAST on the 8 pyramid levels of a 1241x376 frame, Hamming
-   at 2000x2000 and 32768x2000): exact equality, and CUDA-event times;
-4. the STEREO_LIDAR slice: 20 KITTI-shaped synthetic frames (1241x376
+3. the STEREO_LIDAR slice: 20 KITTI-shaped synthetic frames (1241x376
    stereo, 2000 ORB features over 8 levels, 131072-point scans decimated
    1-in-4) through ``System(cfg, cuda).track``, with the kernel launch
    counters reset just before and read just after; checks tracking state,
-   keyframes, a BALM local-BA pass, the voxel map, finite poses, the launch
-   counts and the ATE against ground truth (< 0.5 m);
-5. one JSON line of kernel rows, the nvidia-smi line, and last the result
+   keyframes, a BALM local-BA pass, the voxel map, finite poses, the ATE
+   against ground truth (< 0.5 m), and that the launch counts equal what
+   the run's own counts imply (one detection per frame; a stereo match per
+   frame, a tracking match per tracked frame, one match per fuse pass);
+4. the duplicate-fusion pass (``culling.fuse_duplicates``, the caller of the
+   Hamming-matrix kernel) over the slice's landmarks, counted the same way
+   and held against the same call on the CPU;
+5. each kernel against its plain PyTorch version on the card, exact, at
+   the main path's shapes, with CUDA-event times and the least time the
+   card could take (bytes over 3.35 TB/s, operations over the float32 rate):
+   FAST detection on the real 8-level stacks of one and of two 1241x376
+   images, per pass and fused, beside the per-level route it replaced;
+   the fused matcher in its three mask modes on the slice's own data (the
+   last frame's stereo pair at 2000x2000; the landmark pool against a
+   keyframe's features at 32768x2000), on a full pool, on a dense worst
+   case and on edge rows; the Hamming matrix at 2000x2000 and 32768x2000;
+6. one JSON line of kernel rows, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -32,6 +44,19 @@ from pathlib import Path
 N_FRAMES = 20
 N_WARM = 5          # frames before the steady-state timing window
 ATE_BOUND_M = 0.5
+
+# Published peaks of one H100 SXM: device memory, float32 outside the tensor
+# cores (67 TFLOP/s counts a fused multiply-add as two, so a min, max,
+# compare or subtract issues at half of it), and __popc at an eighth of that
+# (16 a clock per SM against 128 simple lanes).
+PEAK_BYTES_S = 3.35e12
+PEAK_SIMPLE_S = 67e12 / 2
+PEAK_POPC_S = PEAK_SIMPLE_S / 8
+# operations per pixel of the segment test (csrc/fast.cu): 4 compass
+# differences and their bound; then 12 more differences, the doubling steps
+# and the final maxima
+FAST_OPS_REJECT = 21
+FAST_OPS_FULL = 174
 
 
 def fail(msg: str) -> int:
@@ -48,18 +73,36 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean CUDA-event time of ``fn`` over ``reps`` calls after one warm-up."""
+def cuda_ms(torch, fn, reps: int, backlog: bool = False) -> float:
+    """Mean CUDA-event time of ``fn`` over ``reps`` calls after one warm-up.
+
+    The events bracket the device's timeline, so where the host enqueues
+    more slowly than the device executes (a wrapper around one short
+    kernel) they would time the host. With ``backlog`` the device is first
+    kept busy with a few large matrix products while the host enqueues all
+    the calls; they then run back to back and the time is the device's."""
     fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    if backlog:
+        a = torch.empty((4096, 4096), device="cuda").normal_()
+        torch.cuda.synchronize()
+        for _ in range(6):
+            a @ a
     e0.record()
     for _ in range(reps):
         fn()
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def bound(n_bytes: float, simple_ops: float = 0.0, popc: float = 0.0):
+    """(least ms on the card, what bounds it) for that much work."""
+    t_bytes = n_bytes / PEAK_BYTES_S
+    t_ops = max(simple_ops / PEAK_SIMPLE_S, popc / PEAK_POPC_S)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def kitti_config(cfg_mod, syn):
@@ -81,6 +124,13 @@ def kitti_config(cfg_mod, syn):
     )
 
 
+def same(torch, got, ref) -> bool:
+    """Tuples of tensors (or None) equal in dtype and every value."""
+    return all((g is None and r is None) or
+               (g is not None and r is not None and g.dtype == r.dtype and torch.equal(g, r))
+               for g, r in zip(got, ref))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -91,14 +141,17 @@ def main() -> int:
     sys.path.insert(0, str(root))
     import numpy as np
 
+    from tc2li_slam_torch.geom import camera as cam_mod, lie
     from tc2li_slam_torch.io import synthetic as syn
     from tc2li_slam_torch.ops import orb
-    from tc2li_slam_torch.ops.kernels import build, fast, hamming
-    from tc2li_slam_torch.slam import config as cfg_mod, system as sys_mod
+    from tc2li_slam_torch.ops.kernels import build, fast, hamming, match
+    from tc2li_slam_torch.slam import (config as cfg_mod, culling, system as sys_mod,
+                                       tracking)
 
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
+    tag = f"[{kind} | {smi}]"
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
@@ -109,9 +162,10 @@ def main() -> int:
     build.library()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s -> {lib_path.name}", flush=True)
     if build.ptxas_log:
-        print(build.ptxas_log.strip(), flush=True)
+        print("\n".join(ln for ln in build.ptxas_log.splitlines()
+                        if "registers" in ln or "Compiling" in ln), flush=True)
 
-    # --- data (needed by the FAST check and the slice) ---------------------
+    # --- data ----------------------------------------------------------------
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     world = syn.make_world(rng, n_surf=300_000)
@@ -125,61 +179,21 @@ def main() -> int:
     print(f"generated {N_FRAMES} KITTI-shaped frames in {time.perf_counter() - t0:.1f} s "
           f"(scan {scans[0].shape[0]} points)", flush=True)
 
-    # --- 3. kernels vs plain versions --------------------------------------
-    rows = {}
-    img0 = torch.as_tensor(imgs[0][0]).to(dev).to(torch.float32)
-    levels = orb.pyramid(img0, 8, 1.2)
-    err = 0.0
-    for lvl, li in enumerate(levels):
-        got = fast.fast_score_raw(li)          # CUDA tensor: the kernel
-        ref = fast.fast_score_raw_plain(li)
-        torch.cuda.synchronize()
-        e = float((got[3:-3, 3:-3] - ref[3:-3, 3:-3]).abs().max())
-        ring_mask = torch.ones_like(got, dtype=torch.bool)
-        ring_mask[3:-3, 3:-3] = False
-        ring = float(got[ring_mask].abs().max())
-        print(f"FAST level {lvl} {tuple(li.shape)}: max |kernel - plain| {e}, ring {ring}",
-              flush=True)
-        if e != 0.0 or ring != 0.0:
-            return fail(f"FAST kernel disagrees with its plain version on level {lvl}")
-        err = max(err, e)
-    ms_k = cuda_ms(torch, lambda: [fast.fast_score_raw(li) for li in levels], 50)
-    ms_p = cuda_ms(torch, lambda: [fast.fast_score_raw_plain(li) for li in levels], 10)
-    print(f"FAST, 8 levels of one 1241x376 image: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms",
-          flush=True)
-    rows["fast"] = dict(name="fast_score", route="cuda", source="tc2li_slam_torch/csrc/fast.cu",
-                        replaces="tc2li_slam_tpu/ops/kernels/fast.py:80",
-                        max_abs_err=err, ms=ms_k, plain_ms=ms_p)
+    def reset_counts():
+        fast.score_launches = fast.nms_launches = hamming.launches = match.launches = 0
 
-    g = torch.Generator(device=dev).manual_seed(0)
-    ham_err = 0
-    for n, m in ((2000, 2000), (32768, 2000)):
-        a = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, 8), generator=g, device=dev, dtype=torch.int32)
-        b = torch.randint(-2 ** 31, 2 ** 31 - 1, (m, 8), generator=g, device=dev, dtype=torch.int32)
-        got = hamming.hamming_matrix(a, b)
-        ref = hamming.hamming_matrix_plain(a, b)
-        torch.cuda.synchronize()
-        e = int((got - ref).abs().max())
-        if e != 0 or got.shape != (n, m):
-            return fail(f"Hamming kernel disagrees with its plain version at {n}x{m}")
-        ham_err = max(ham_err, e)
-        ms_k = cuda_ms(torch, lambda: hamming.hamming_matrix(a, b), 50)
-        ms_p = cuda_ms(torch, lambda: hamming.hamming_matrix_plain(a, b), 3)
-        print(f"Hamming {n}x{m}: exact; kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms", flush=True)
-    rows["hamming"] = dict(name="hamming_matrix", route="cuda",
-                           source="tc2li_slam_torch/csrc/hamming.cu",
-                           replaces="tc2li_slam_tpu/ops/kernels/hamming.py:33",
-                           max_abs_err=float(ham_err), ms=ms_k, plain_ms=ms_p)
+    def read_counts():
+        return {"fast_score_planes": fast.score_launches, "fast_nms_planes": fast.nms_launches,
+                "hamming_matrix": hamming.launches, "match_best2": match.launches}
 
-    # --- 4. the slice --------------------------------------------------------
+    # --- 3. the slice --------------------------------------------------------
     cfg = kitti_config(cfg_mod, syn)
     slam = sys_mod.System(cfg, dev)
     gt = np.stack([fr.T_wb_gt @ syn.body_from_cam() for fr in frames])
     states = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fast.launches = 0
-    hamming.launches = 0
+    reset_counts()
     t_start = time.perf_counter()
     t_warm = None
     for i, fr in enumerate(frames):
@@ -191,7 +205,9 @@ def main() -> int:
         states.append(slam.state)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = {"fast": fast.launches, "hamming": hamming.launches}
+    launches = read_counts()
+    n_fuse = slam.n_fuse
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     stats = slam.timers.stats()
     est = slam.trajectory_world_from_cam()
     ate = syn.ate_rmse(est, gt)
@@ -201,13 +217,13 @@ def main() -> int:
     n_steady = N_FRAMES - N_WARM
     fps_all = N_FRAMES / (t_end - t_start)
     fps_steady = n_steady / (t_end - t_warm)
-    print(f"[{kind} | {smi}] slice: {N_FRAMES} frames, ATE {ate:.4f} m, keyframes {n_kf}, "
+    print(f"{tag} slice: {N_FRAMES} frames, ATE {ate:.4f} m, keyframes {n_kf}, "
           f"landmarks {n_lm}, voxel map {vcount} points, local BA passes {slam.n_ba} "
-          f"({slam.n_ba_balm} with BALM)", flush=True)
-    print(f"[{kind} | {smi}] frames/s: {fps_all:.3f} over all {N_FRAMES} frames, "
+          f"({slam.n_ba_balm} with BALM), fuse passes {slam.n_fuse}", flush=True)
+    print(f"{tag} frames/s: {fps_all:.3f} over all {N_FRAMES} frames, "
           f"{fps_steady:.3f} over frames {N_WARM}..{N_FRAMES - 1}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    print(f"[{kind} | {smi}] device ms/frame by stage (CUDA events, frames "
+          f"{peak_gib:.2f} GiB", flush=True)
+    print(f"{tag} device ms/frame by stage (CUDA events, frames "
           f"{N_WARM}..{N_FRAMES - 1}): "
           + json.dumps({k: round(v["total_ms"] / n_steady, 3) for k, v in stats.items()}),
           flush=True)
@@ -223,20 +239,254 @@ def main() -> int:
         return fail("voxel map is empty")
     if not np.all(np.isfinite(est)):
         return fail("non-finite poses")
-    if launches["fast"] != 16 * N_FRAMES:
-        return fail(f"FAST launches {launches['fast']} != 16 x {N_FRAMES}")
-    if launches["hamming"] <= 0:
-        return fail("no Hamming kernel launch in the slice")
+    expected = {"fast_score_planes": N_FRAMES, "fast_nms_planes": N_FRAMES,
+                "hamming_matrix": 0, "match_best2": N_FRAMES + (N_FRAMES - 1) + n_fuse}
+    if launches != expected:
+        return fail(f"launches {launches} != {expected} (one detection per frame; a stereo "
+                    f"match per frame, a tracking match per tracked frame, {n_fuse} fuse passes)")
+    if n_fuse < 1:
+        return fail("no fuse pass ran")
     if not ate < ATE_BOUND_M:
         return fail(f"ATE {ate:.4f} m >= {ATE_BOUND_M} m")
 
+    # --- 4. the duplicate-fusion pass (Hamming matrix) -----------------------
+    m = slam.map
+    high_water = int(torch.nonzero(m.lm_valid).max()) + 1
+    pool = max(2048, high_water)
+    if pool > 8192:
+        return fail(f"{high_water} landmark slots in use: too many for the O(L^2) fusion pass")
+    lm_fields = {f.name: getattr(m, f.name)[:pool] for f in dataclasses.fields(m)
+                 if f.name.startswith("lm_")}
+    sub = m.replace(**lm_fields)
+    sub_cpu = sub.replace(**{f.name: getattr(sub, f.name).cpu() for f in dataclasses.fields(sub)})
+    reset_counts()
+    fused = culling.fuse_duplicates(sub, radius=0.25)
+    torch.cuda.synchronize()
+    fuse_counts = read_counts()
+    fused_cpu = culling.fuse_duplicates(sub_cpu, radius=0.25)
+    if fuse_counts["hamming_matrix"] != 1:
+        return fail(f"fuse_duplicates launched the Hamming kernel {fuse_counts['hamming_matrix']} times")
+    for name in ("lm_valid", "kf_feat_lm", "lm_found", "lm_visible", "n_lm"):
+        if not torch.equal(getattr(fused, name).cpu(), getattr(fused_cpu, name)):
+            return fail(f"fuse_duplicates on the card disagrees with the CPU in {name}")
+    launches["hamming_matrix"] = fuse_counts["hamming_matrix"]
+    print(f"fuse_duplicates over {pool} landmark slots ({int(sub.n_lm)} valid): "
+          f"{int(sub.n_lm) - int(fused.n_lm)} merged, equal to the CPU route; "
+          f"Hamming launches {fuse_counts['hamming_matrix']}", flush=True)
+
+    # --- 5. kernels vs plain versions ----------------------------------------
+    rows = {}
+
+    # FAST: the real stacks of frame 0, one image and two
+    f_l = torch.as_tensor(imgs[0][0]).to(dev).to(torch.float32)
+    f_r = torch.as_tensor(imgs[0][1]).to(dev).to(torch.float32)
+    ini_th, min_th, cell = 20.0, 7.0, 35
+    fast_err = nms_err = 0.0
+    for fs in ([f_l], [f_l, f_r]):
+        stack, _, shapes, pad = orb.level_stacks(fs, 8, 1.2)
+        gated, flags = fast.score_planes(stack, shapes, pad, ini_th, min_th, cell)
+        gated_p, flags_p = fast.score_planes_plain(stack, shapes, pad, ini_th, min_th, cell)
+        out = fast.nms_planes(gated, flags, shapes, ini_th, min_th, cell)
+        out_p = fast.nms_planes_plain(gated_p, flags_p, shapes, ini_th, min_th, cell)
+        fused_out = fast.detect_planes(stack, shapes, pad, ini_th, min_th, cell)
+        torch.cuda.synchronize()
+        if not torch.equal(flags, flags_p):
+            return fail(f"fast_score_planes: cell flags disagree ({len(fs)} image(s))")
+        for p, (Hl, Wl) in enumerate(shapes):
+            plane = stack[p, pad:pad + Hl, pad:pad + Wl]
+            e1 = float((gated[p, :Hl, :Wl] - gated_p[p, :Hl, :Wl]).abs().max())
+            e2 = float((out[p, :Hl, :Wl] - out_p[p, :Hl, :Wl]).abs().max())
+            ref = fast.detect_level_plain(plane, ini_th, min_th, cell)
+            e3 = float((fused_out[p, :Hl, :Wl] - ref).abs().max())
+            raw = fast.fast_score_raw(plane)
+            e4 = float((raw - fast.fast_score_raw_plain(plane)).abs().max())
+            if len(fs) == 2:
+                print(f"FAST plane {p} {(Hl, Wl)}: max |kernel - plain| score {e1}, nms {e2}, "
+                      f"fused vs detect_level_plain {e3}, raw {e4}; corners "
+                      f"{int((ref > 0).sum())}", flush=True)
+            if max(e1, e2, e3, e4) != 0.0:
+                return fail(f"FAST kernels disagree with their plain versions on plane {p} "
+                            f"({len(fs)} image(s)): {e1} {e2} {e3} {e4}")
+            fast_err, nms_err = max(fast_err, e1, e4), max(nms_err, e2, e3)
+    # `stack`, `shapes`, `gated`, `flags` are now the two-image call's
+    n_pix = sum(h * w for h, w in shapes)
+    n_int = sum((h - 6) * (w - 6) for h, w in shapes)
+    # pixels whose compass bound does not reject them pay the whole segment test
+    n_full = 0
+    for p, (Hl, Wl) in enumerate(shapes):
+        c = stack[p, pad + 3:pad + Hl - 3, pad + 3:pad + Wl - 3]
+        d = [stack[p, pad + 3 + dy:pad + Hl - 3 + dy, pad + 3 + dx:pad + Wl - 3 + dx] - c
+             for dx, dy in ((0, -3), (3, 0), (0, 3), (-3, 0))]
+        pairs = [(d[i], d[(i + 1) % 4]) for i in range(4)]
+        up = torch.stack([torch.minimum(a, b) for a, b in pairs]).amax(0)
+        dn = -torch.stack([torch.maximum(a, b) for a, b in pairs]).amin(0)
+        n_full += int((torch.maximum(up, dn) > min(ini_th, min_th)).sum())
+    ms_score = cuda_ms(torch, lambda: fast.score_planes(stack, shapes, pad, ini_th, min_th, cell), 50, True)
+    ms_nms = cuda_ms(torch, lambda: fast.nms_planes(gated, flags, shapes, ini_th, min_th, cell), 50, True)
+    ms_fused = cuda_ms(torch, lambda: fast.detect_planes(stack, shapes, pad, ini_th, min_th, cell), 50, True)
+    ms_fused_host = cuda_ms(torch, lambda: fast.detect_planes(stack, shapes, pad, ini_th, min_th, cell), 50)
+    ms_score_p = cuda_ms(torch, lambda: fast.score_planes_plain(stack, shapes, pad, ini_th, min_th, cell), 5)
+    ms_nms_p = cuda_ms(torch, lambda: fast.nms_planes_plain(gated, flags, shapes, ini_th, min_th, cell), 5)
+    planes = [stack[p, pad:pad + h, pad:pad + w].contiguous() for p, (h, w) in enumerate(shapes)]
+    ms_level = cuda_ms(torch, lambda: [fast.gate_nms_plain(fast.fast_score_raw(pl), ini_th, min_th, cell)
+                                       for pl in planes], 20)
+    ms_raw = cuda_ms(torch, lambda: [fast.fast_score_raw(pl) for pl in planes], 20, True)
+    b_score = bound(8 * n_pix + 4 * flags.numel(),
+                    FAST_OPS_REJECT * (n_int - n_full) + FAST_OPS_FULL * n_full)
+    b_nms = bound(8 * n_pix + 4 * flags.numel(), 3 * n_pix)
+    print(f"{tag} FAST detection, 16 planes (8 levels of two 1241x376 images, {n_pix} pixels, "
+          f"{n_full} past the compass test): fast_score_planes {ms_score:.4f} ms (bound "
+          f"{b_score[0]:.4f} ms, {b_score[1]}; plain {ms_score_p:.4f} ms), fast_nms_planes "
+          f"{ms_nms:.4f} ms (bound {b_nms[0]:.4f} ms, {b_nms[1]}; plain {ms_nms_p:.4f} ms), both "
+          f"passes {ms_fused:.4f} ms on the device, {ms_fused_host:.4f} ms a call when the host "
+          f"enqueues one at a time; per-level route (16 one-plane launches + eager gates and "
+          f"NMS) {ms_level:.4f} ms, its 16 launches alone {ms_raw:.4f} ms", flush=True)
+    rows["fast_score_planes"] = dict(
+        source="tc2li_slam_torch/csrc/fast.cu", replaces="tc2li_slam_tpu/ops/kernels/fast.py:80",
+        max_abs_err=fast_err, ms=ms_score, plain_ms=ms_score_p, bound_ms=b_score[0],
+        bound_by=b_score[1])
+    rows["fast_nms_planes"] = dict(
+        source="tc2li_slam_torch/csrc/fast.cu", replaces="tc2li_slam_tpu/ops/orb.py:182",
+        max_abs_err=nms_err, ms=ms_nms, plain_ms=ms_nms_p, bound_ms=b_nms[0], bound_by=b_nms[1])
+
+    # matching: cases on the slice's own data, a full pool, a dense worst
+    # case, and edge rows
+    def match_case(name, d1, d2, v1, v2, mask, mutual, reps_plain=3):
+        got = match.match_best2(d1, d2, v1, v2, mask, mutual)
+        ref = match.match_best2_plain(d1, d2, v1, v2, mask, mutual)
+        torch.cuda.synchronize()
+        if not same(torch, got, ref):
+            raise RuntimeError(f"match_best2 disagrees with its plain version: {name}")
+        N, M = d1.shape[0], d2.shape[0]
+        full = v1[:, None] & v2[None, :]
+        if mask is not None:
+            full = full & (mask if isinstance(mask, torch.Tensor) else mask.dense())
+        admitted, valid_rows = int(full.sum()), int(v1.sum())
+        del full
+        ms_k = cuda_ms(torch, lambda: match.match_best2(d1, d2, v1, v2, mask, mutual), 50, True)
+        ms_h = cuda_ms(torch, lambda: match.match_best2(d1, d2, v1, v2, mask, mutual), 50)
+        ms_p = cuda_ms(torch, lambda: match.match_best2_plain(d1, d2, v1, v2, mask, mutual),
+                       reps_plain)
+        per_row = {match.WindowMask: 16, match.StereoMask: 12}.get(type(mask), 0)
+        per_col = {match.WindowMask: 12, match.StereoMask: 16}.get(type(mask), 0)
+        n_bytes = (N * (33 + per_row) + M * (33 + per_col) + 16 * N + (8 * M if mutual else 0)
+                   + (N * M if isinstance(mask, torch.Tensor) else 0))
+        b = bound(n_bytes, 8 * valid_rows * M + 10 * admitted, 8 * admitted)
+        print(f"{tag} match_best2 {name} {N}x{M}{' mutual' if mutual else ''}: exact; "
+              f"valid rows {valid_rows}, admitted pairs {admitted}; kernel {ms_k:.4f} ms on the "
+              f"device ({ms_h:.4f} ms a call enqueued one at a time), bound "
+              f"{b[0]:.4f} ms ({b[1]}), plain {ms_p:.4f} ms", flush=True)
+        return dict(ms=ms_k, plain_ms=ms_p, bound_ms=b[0], bound_by=b[1])
+
+    try:
+        # (a) the slice's own data: the last frame's stereo pair ...
+        kl, kr = orb.extract_images([torch.as_tensor(imgs[-1][0]).to(dev),
+                                     torch.as_tensor(imgs[-1][1]).to(dev)], 2000, 8)
+        band = 2.0 * slam.scale_factors[kr.level.long()]
+        max_d = float(np.float32(slam.cam.bf) / np.float32(slam.cam.baseline))
+        match_case("stereo, last frame", kl.desc, kr.desc, kl.valid, kr.valid,
+                   match.StereoMask(kl.xy, kl.level, kr.xy, kr.level, band, max_d), True)
+        # ... and the landmark pool projected into the reference keyframe
+        kf = max(slam.ref_kf, 0)
+        Xc = lie.se3_apply(m.kf_T_cw[kf], m.lm_pos)
+        uv = cam_mod.project(slam.cam, Xc)
+        dist, dist_ok = tracking.scale_gate(m, Xc)
+        cand = m.lm_valid & (Xc[:, 2] > 0.1) & cam_mod.in_image(slam.cam, uv) & dist_ok
+        pred = tracking.predict_level(m, dist, slam.scale_factors)
+        rad = cfg.tracking.match_radius_narrow * slam.scale_factors[pred.long()]
+        window = match.WindowMask(uv, rad, pred, m.kf_xy[kf], m.kf_level[kf])
+        rows["match_best2"] = match_case(
+            "window, landmark pool x keyframe", m.lm_desc, m.kf_desc[kf], cand,
+            m.kf_feat_valid[kf], window, False)
+        # (b) a full pool: every row a valid landmark near some keypoint
+        g = torch.Generator(device=dev).manual_seed(0)
+        L, F_ = m.L, m.F
+        src = torch.randint(0, F_, (L,), generator=g, device=dev)
+        uv_full = m.kf_xy[kf][src] + 4.0 * torch.randn((L, 2), generator=g, device=dev)
+        d_full = m.kf_desc[kf][src] ^ torch.randint(0, 1 << 10, (L, 8), generator=g, device=dev,
+                                                    dtype=torch.int32)
+        lvl_full = m.kf_level[kf][src]
+        rad_full = cfg.tracking.match_radius_narrow * slam.scale_factors[lvl_full.long()]
+        match_case("window, full pool", d_full, m.kf_desc[kf],
+                   torch.ones(L, dtype=torch.bool, device=dev), m.kf_feat_valid[kf],
+                   match.WindowMask(uv_full, rad_full, lvl_full, m.kf_xy[kf], m.kf_level[kf]),
+                   False)
+        # (c) dense worst case: all rows valid, every pair admitted
+        ones = torch.ones(2000, dtype=torch.bool, device=dev)
+        match_case("dense worst case", kl.desc, kr.desc, ones, ones, None, True)
+        match_case("dense mask, random half", kl.desc, kr.desc, kl.valid, kr.valid,
+                   torch.rand((2000, 2000), generator=g, device=dev) > 0.5, True)
+        # (d) edge rows at sizes that are no multiple of the tile: a valid
+        # row that admits nothing, an invalid row, a duplicated column
+        N, M = 1003, 517
+        d2 = torch.randint(-2 ** 31, 2 ** 31 - 1, (M, 8), generator=g, device=dev, dtype=torch.int32)
+        d2[1] = d2[0]
+        src = torch.randint(0, M, (N,), generator=g, device=dev)
+        src[5] = 0
+        d1 = d2[src] ^ torch.randint(0, 1 << 8, (N, 8), generator=g, device=dev, dtype=torch.int32)
+        d1[5] = d2[0]
+        uv2 = 300.0 * torch.rand((M, 2), generator=g, device=dev)
+        uv2[1] = uv2[0]
+        uv1 = uv2[src] + 3.0 * torch.randn((N, 2), generator=g, device=dev)
+        lvl2 = torch.randint(0, 8, (M,), generator=g, device=dev, dtype=torch.int32)
+        lvl2[1] = lvl2[0]
+        lvl1 = lvl2[src]
+        radius = 2.0 + 30.0 * torch.rand(N, generator=g, device=dev)
+        uv1[5], radius[5], radius[7] = uv2[0], 30.0, 0.0
+        v1 = torch.rand(N, generator=g, device=dev) > 0.2
+        v1[5] = v1[7] = True
+        v1[9] = False
+        v2 = torch.rand(M, generator=g, device=dev) > 0.1
+        v2[0] = v2[1] = True
+        for mutual in (False, True):
+            match_case("edge rows, window", d1, d2, v1, v2,
+                       match.WindowMask(uv1, radius, lvl1, uv2, lvl2), mutual)
+            match_case("edge rows, stereo", d1, d2, v1, v2,
+                       match.StereoMask(uv1, lvl1, uv2, lvl2, 2.0 + radius[:M] / 8, 25.0), mutual)
+            match_case("edge rows, dense", d1, d2, v1, v2,
+                       torch.rand((N, M), generator=g, device=dev) > 0.6, mutual)
+        idx, best, second, _ = match.match_best2(
+            d1, d2, v1, v2, match.WindowMask(uv1, radius, lvl1, uv2, lvl2))
+        edge = (int(idx[5]), int(best[5]), int(second[5]), int(idx[7]), int(best[7]),
+                int(idx[9]), int(best[9]))
+        if edge != (0, 0, 0, 0, match.BIG, 0, match.BIG):
+            return fail(f"match_best2 edge rows (tie, none admitted, invalid): {edge}")
+    except RuntimeError as e:
+        return fail(str(e))
+    rows["match_best2"].update(source="tc2li_slam_torch/csrc/match.cu",
+                               replaces="tc2li_slam_tpu/ops/matching.py:62", max_abs_err=0.0)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    ham_err = 0
+    for n, mm in ((2000, 2000), (32768, 2000)):
+        a = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, 8), generator=g, device=dev, dtype=torch.int32)
+        b = torch.randint(-2 ** 31, 2 ** 31 - 1, (mm, 8), generator=g, device=dev, dtype=torch.int32)
+        got = hamming.hamming_matrix(a, b)
+        ref = hamming.hamming_matrix_plain(a, b)
+        torch.cuda.synchronize()
+        e = int((got - ref).abs().max())
+        if e != 0 or got.shape != (n, mm):
+            return fail(f"Hamming kernel disagrees with its plain version at {n}x{mm}")
+        ham_err = max(ham_err, e)
+        ms_k = cuda_ms(torch, lambda: hamming.hamming_matrix(a, b), 50, True)
+        ms_p = cuda_ms(torch, lambda: hamming.hamming_matrix_plain(a, b), 3)
+        b_h = bound(32 * (n + mm) + 4 * n * mm, 8 * n * mm, 8 * n * mm)
+        print(f"{tag} Hamming {n}x{mm}: exact; kernel {ms_k:.4f} ms, bound {b_h[0]:.4f} ms "
+              f"({b_h[1]}), plain {ms_p:.4f} ms", flush=True)
+    rows["hamming_matrix"] = dict(
+        source="tc2li_slam_torch/csrc/hamming.cu",
+        replaces="tc2li_slam_tpu/ops/kernels/hamming.py:33", max_abs_err=float(ham_err),
+        ms=ms_k, plain_ms=ms_p, bound_ms=b_h[0], bound_by=b_h[1])
+
+    # --- 6. result -------------------------------------------------------------
     kernels = []
-    for key in ("fast", "hamming"):
-        r = rows[key]
-        kernels.append({"name": r["name"], "route": r["route"], "source": r["source"],
-                        "replaces": r["replaces"], "launches": launches[key],
+    for name in ("fast_score_planes", "fast_nms_planes", "hamming_matrix", "match_best2"):
+        r = rows[name]
+        kernels.append({"name": name, "route": "cuda", "source": r["source"],
+                        "replaces": r["replaces"], "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,15 +5,18 @@
 // On the H100 the direct form is cheaper: XOR and __popc over the 8 words
 // of a pair, 16 integer instructions per distance.
 //
-// Bound on the H100: the int32 [N, M] output. At the main path's largest
-// call (32768 landmarks x 2000 features) the store is 262 MB, ~80 us at the
-// card's 3.35 TB/s, while the inputs are 1 MB and the popcounts ~0.5 G.
+// Bound on the H100: operations, the popcount unit. At 32768 x 2000 the
+// matrix needs 524 M __popc; at 16 per clock per SM (132 SMs, ~1.755 GHz:
+// ~3.7 T/s) that is ~141 us, more than the 262 MB int32 store (~78 us at
+// 3.35 TB/s); the inputs are 1 MB. The kernel runs at that unit's rate, so
+// as a matrix kernel it is done.
 // A 32x8 block computes a 32x32 output tile: 32 descriptors of each side
 // are staged in shared memory (rows padded to 9 words so the column-side
 // reads hit distinct banks), each thread keeps its column descriptor in
 // registers and writes 4 rows; a warp's 32 stores are contiguous.
-// Fusing the row-wise best-two reduction so that [N, M] never reaches
-// device memory is left for a later change.
+// The matchers do not come here: they never need the matrix, and use the
+// fused mask-first kernel of csrc/match.cu. This one serves callers that
+// want all distances (slam/culling.fuse_duplicates).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

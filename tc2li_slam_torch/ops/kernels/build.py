@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``tc2li_slam_torch/csrc/*.cu``).
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The library
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` (one
+compiler process per source, side by side) into one shared library with a
+plain C interface, loaded with ``ctypes``. The library
 lands in ``build/tc2li_kernels/`` at the root of the checkout, keyed by a
 hash of the sources, so a fresh checkout builds it once and an edited source
 rebuilds. Nothing here runs at import time.
@@ -47,29 +48,44 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the library if it is not there yet; returns its path."""
+    """Compile the library if it is not there yet; returns its path.
+
+    One ``nvcc -c`` per source, all started together, then one link."""
     global ptxas_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never load
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", tmp, *map(str, sources())]
-    try:
+    nvcc = _nvcc()
+    # compile under private names, then rename: two processes building at
+    # once never load a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+                   "-Xptxas=-v", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        logs = []
+        for cmd, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                for _, _, other in jobs:
+                    if other.poll() is None:
+                        other.kill()
+                        other.communicate()
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{stdout}\n{stderr}")
+            logs.append(stderr)
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *(obj for _, obj, _ in jobs)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, out)
-        ptxas_log = res.stderr
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        os.replace(lib, out)
+        ptxas_log = "".join(logs)
     return out
 
 
@@ -78,11 +94,17 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.tc2li_fast_score.argtypes = [vp, vp, i, i, vp]
-        lib.tc2li_fast_score.restype = i
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.tc2li_fast_score_planes.argtypes = [vp, vp, vp, vp, i, i, i, i, f, f, i, vp]
+        lib.tc2li_fast_score_planes.restype = i
+        lib.tc2li_fast_nms_planes.argtypes = [vp, vp, vp, vp, i, i, f, f, i, i, vp]
+        lib.tc2li_fast_nms_planes.restype = i
         lib.tc2li_hamming.argtypes = [vp, vp, vp, i, i, vp]
         lib.tc2li_hamming.restype = i
+        lib.tc2li_match_max_columns.argtypes = [i]
+        lib.tc2li_match_max_columns.restype = i
+        lib.tc2li_match_best2.argtypes = [i, i] + [vp] * 11 + [i, i, f] + [vp] * 4 + [i, i, vp]
+        lib.tc2li_match_best2.restype = i
         lib.tc2li_error_string.argtypes = [i]
         lib.tc2li_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,0 +1,204 @@
+"""Masked best-two descriptor match: a fused CUDA kernel + its plain version.
+
+Replaces ``tc2li_slam_tpu/ops/matching.py:_masked_best2`` / ``match_descriptors``
+over ``hamming_matrix_mxu``: on the TPU a dense [N, M] Hamming matrix, a
+dense [N, M] predicate and three row reductions, fused by XLA. Eager
+PyTorch fuses nothing, so the 32768 x 2000 tracking match moved ~5 GB
+through device memory around a 0.15 ms matrix kernel.
+
+Bound on the H100: operations that depend on the data — a mask test of ~8
+simple operations per (valid row, column) pair, 8 XOR + 8 popcounts per
+admitted pair; the inputs are ~1.7 MB. The kernel (``csrc/match.cu``) keeps
+all of side 2 in one block's shared memory, gives a warp four rows, tests
+the mask first, computes a distance only for admitted pairs, and writes per
+row the first column of the minimum, the minimum and the minimum over the
+other columns; for the mutual test also, per column, the first row of the
+column's minimum. [N, M] never reaches device memory.
+
+The pair mask is one of:
+
+- ``WindowMask``: ``|du| < r[n]``, ``|dv| < r[n]``, ``lo <= lvl2 - lvl1 <= hi``
+  (``search_by_projection``);
+- ``StereoMask``: ``|dv| <= band[m]``, ``-2 <= u1 - u2 <= max_d``, the level
+  gate (``stereo.match_stereo``);
+- a dense bool [N, M], or ``None`` (the public ``match_descriptors``);
+
+each ANDed with ``valid1[n] & valid2[m]``. ``match_best2`` launches the
+kernel for CUDA tensors and runs the plain chain (``hamming_matrix_plain``,
+the dense mask, ``masked_best2_plain``) for CPU tensors; there is no other
+route. Every output is equal between the two.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import build
+from .hamming import hamming_matrix_plain
+
+BIG = 1 << 20     # distance of a row or column with no admitted pair
+
+launches = 0   # kernel launches by match_best2 (plain-version calls excluded)
+
+
+def window_mask(uv1, uv2, radius):
+    """|du| < r and |dv| < r (SearchByProjection window)."""
+    du = torch.abs(uv1[:, None, 0] - uv2[None, :, 0])
+    dv = torch.abs(uv1[:, None, 1] - uv2[None, :, 1])
+    r = radius[:, None]
+    return (du < r) & (dv < r)
+
+
+def level_mask(lvl1, lvl2, lo: int = -1, hi: int = 1):
+    d = lvl2[None, :] - lvl1[:, None]
+    return (d >= lo) & (d <= hi)
+
+
+class WindowMask(NamedTuple):
+    """Projection window around each row's predicted position + level gate."""
+
+    uv1: torch.Tensor      # [N, 2] float32
+    radius: torch.Tensor   # [N] float32
+    lvl1: torch.Tensor     # [N] int32
+    uv2: torch.Tensor      # [M, 2] float32
+    lvl2: torch.Tensor     # [M] int32
+    lo: int = -1
+    hi: int = 1
+
+    def dense(self) -> torch.Tensor:
+        return (window_mask(self.uv1, self.uv2, self.radius)
+                & level_mask(self.lvl1, self.lvl2, self.lo, self.hi))
+
+
+class StereoMask(NamedTuple):
+    """Row band of the right keypoint's level, disparity range, level gate."""
+
+    uv1: torch.Tensor      # [N, 2] float32 left keypoints
+    lvl1: torch.Tensor     # [N] int32
+    uv2: torch.Tensor      # [M, 2] float32 right keypoints
+    lvl2: torch.Tensor     # [M] int32
+    band: torch.Tensor     # [M] float32
+    max_d: float           # a float32 value
+    lo: int = -1
+    hi: int = 1
+
+    def dense(self) -> torch.Tensor:
+        dv = torch.abs(self.uv1[:, None, 1] - self.uv2[None, :, 1])
+        disp = self.uv1[:, None, 0] - self.uv2[None, :, 0]
+        return ((dv <= self.band[None, :]) & (disp >= -2.0) & (disp <= self.max_d)
+                & level_mask(self.lvl1, self.lvl2, self.lo, self.hi))
+
+
+def masked_best2_plain(dist: torch.Tensor, mask: torch.Tensor):
+    """Per-row (best_idx, best, second) over masked columns (masked = BIG)."""
+    d = torch.where(mask, dist, BIG)
+    idx = torch.argmin(d, dim=1)           # first index on ties, as jnp.argmin
+    best = torch.gather(d, 1, idx[:, None])[:, 0]
+    cols = torch.arange(d.shape[1], device=d.device)
+    d2 = torch.where(cols[None, :] == idx[:, None], BIG, d)
+    second = torch.min(d2, dim=1).values
+    return idx, best, second
+
+
+def match_best2_plain(d1, d2, valid1, valid2, mask=None, mutual: bool = False):
+    """The dense chain: Hamming matrix, [N, M] mask, row (and column) minima."""
+    dist = hamming_matrix_plain(d1, d2)
+    full_mask = valid1[:, None] & valid2[None, :]
+    if mask is not None:
+        full_mask = full_mask & (mask if isinstance(mask, torch.Tensor) else mask.dense())
+    idx, best, second = masked_best2_plain(dist, full_mask)
+    back = torch.argmin(torch.where(full_mask, dist, BIG), dim=0) if mutual else None
+    return idx, best, second, back
+
+
+def match_best2(d1, d2, valid1, valid2, mask=None, mutual: bool = False):
+    """Row-wise best two admitted columns of the masked Hamming matrix.
+
+    ``d1`` [N, 8], ``d2`` [M, 8] int32 descriptor words; ``valid1`` [N],
+    ``valid2`` [M] bool; ``mask`` a ``WindowMask``, a ``StereoMask``, a bool
+    [N, M] or None. Returns ``(idx, best, second, back)``: ``idx`` [N] int64
+    the first column of the row's minimum (0 if no pair is admitted),
+    ``best`` [N] int32 that minimum, ``second`` [N] int32 the minimum over
+    the other columns (both ``BIG`` where there is none), and with
+    ``mutual`` ``back`` [M] int64, the first row of each column's minimum
+    (0 if none), else None."""
+    for d in (d1, d2):
+        if d.ndim != 2 or d.shape[1] != 8 or d.dtype != torch.int32:
+            raise ValueError(f"match_best2 takes int32 [n, 8] descriptors, got "
+                             f"{d.dtype} {tuple(d.shape)}")
+    N, M = d1.shape[0], d2.shape[0]
+    if valid1.shape != (N,) or valid2.shape != (M,) or valid1.dtype != torch.bool \
+            or valid2.dtype != torch.bool:
+        raise ValueError("match_best2: valid1 [N] and valid2 [M] must be bool")
+    tensors = [d1, d2, valid1, valid2]
+    tensors += [x for x in (mask if isinstance(mask, tuple) else (mask,))
+                if isinstance(x, torch.Tensor)]
+    if any(x.device != d1.device for x in tensors):
+        raise ValueError("match_best2: operands on different devices")
+    if d1.device.type == "cpu":
+        return match_best2_plain(d1, d2, valid1, valid2, mask, mutual)
+    if d1.device.type != "cuda":
+        raise ValueError(f"match_best2: unsupported device {d1.device}")
+    return _match_best2_cuda(d1, d2, valid1, valid2, mask, mutual)
+
+
+def _arg(x: torch.Tensor, shape, dtype, name: str) -> torch.Tensor:
+    if tuple(x.shape) != tuple(shape) or x.dtype != dtype:
+        raise ValueError(f"match_best2: {name} must be {dtype} {tuple(shape)}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    return x.contiguous()
+
+
+def _match_best2_cuda(d1, d2, valid1, valid2, mask, mutual: bool):
+    """Launch ``csrc/match.cu`` on the current stream."""
+    global launches
+    N, M = d1.shape[0], d2.shape[0]
+    dev = d1.device
+    f32, i32 = torch.float32, torch.int32
+    uv1 = lvl1 = radius = uv2 = lvl2 = band = dense = None
+    lo, hi, max_d = -1, 1, 0.0
+    if isinstance(mask, WindowMask):
+        mode = 0
+        uv1, radius = _arg(mask.uv1, (N, 2), f32, "uv1"), _arg(mask.radius, (N,), f32, "radius")
+        lvl1 = _arg(mask.lvl1, (N,), i32, "lvl1")
+        uv2, lvl2 = _arg(mask.uv2, (M, 2), f32, "uv2"), _arg(mask.lvl2, (M,), i32, "lvl2")
+        lo, hi = int(mask.lo), int(mask.hi)
+    elif isinstance(mask, StereoMask):
+        mode = 1
+        uv1, lvl1 = _arg(mask.uv1, (N, 2), f32, "uv1"), _arg(mask.lvl1, (N,), i32, "lvl1")
+        uv2, lvl2 = _arg(mask.uv2, (M, 2), f32, "uv2"), _arg(mask.lvl2, (M,), i32, "lvl2")
+        band = _arg(mask.band, (M,), f32, "band")
+        lo, hi, max_d = int(mask.lo), int(mask.hi), float(mask.max_d)
+    elif mask is None or isinstance(mask, torch.Tensor):
+        mode = 2
+        if mask is not None:
+            dense = _arg(mask, (N, M), torch.bool, "mask")
+    else:
+        raise ValueError(f"match_best2: unsupported mask {type(mask).__name__}")
+
+    idx = torch.empty(N, dtype=torch.int64, device=dev)
+    best = torch.empty(N, dtype=i32, device=dev)
+    second = torch.empty(N, dtype=i32, device=dev)
+    colbest = (torch.full((M,), BIG << 32, dtype=torch.int64, device=dev)
+               if mutual else None)
+    if N == 0:
+        return idx, best, second, None if colbest is None else colbest & 0xFFFFFFFF
+    lib = build.library()
+    if M == 0 or M > lib.tc2li_match_max_columns(mode):
+        raise ValueError(f"match_best2: M={M} columns do not fit one block's shared "
+                         f"memory (1..{lib.tc2li_match_max_columns(mode)})")
+    a, b = d1.contiguous(), d2.contiguous()
+    v1, v2 = valid1.contiguous(), valid2.contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    build.check(lib.tc2li_match_best2(
+        mode, int(mutual), ptr(a), ptr(v1), ptr(b), ptr(v2), ptr(uv1), ptr(lvl1),
+        ptr(radius), ptr(uv2), ptr(lvl2), ptr(band), ptr(dense), lo, hi, max_d,
+        ptr(idx), ptr(best), ptr(second), ptr(colbest), N, M, stream), "match_best2")
+    launches += 1
+    return idx, best, second, None if colbest is None else colbest & 0xFFFFFFFF

@@ -1,10 +1,11 @@
 """Batched binary-descriptor matching (port of ``tc2li_slam_tpu/ops/matching.py``).
 
-Every matcher is a dense [N, M] Hamming matrix (the CUDA kernel of
-``ops.kernels.hamming``), a predicate mask, a row-wise best/second-best
-with distance and ratio tests, and optional rotation-histogram
-consistency. Thresholds mirror ORBmatcher: TH_LOW=50, TH_HIGH=100,
-HISTO_LENGTH=30.
+Every matcher is a masked row-wise best/second-best over Hamming distances
+with distance and ratio tests, and optional rotation-histogram consistency.
+The mask and the reduction run fused in the CUDA kernel of
+``ops.kernels.match`` (window, stereo-band or dense masks), so no [N, M]
+tensor is built on the card; on the CPU the same call runs the dense plain
+chain. Thresholds mirror ORBmatcher: TH_LOW=50, TH_HIGH=100, HISTO_LENGTH=30.
 """
 
 from __future__ import annotations
@@ -13,40 +14,28 @@ import math
 
 import torch
 
-from .kernels.hamming import hamming_matrix
+from .kernels.hamming import hamming_matrix  # noqa: F401  (public: all distances)
+from .kernels.match import (BIG, WindowMask, level_mask,  # noqa: F401
+                            match_best2, window_mask)
 from .orb import topk_stable
 
 TH_LOW = 50
 TH_HIGH = 100
 HISTO_LENGTH = 30
-BIG = 1 << 20
-
-
-def _masked_best2(dist: torch.Tensor, mask: torch.Tensor):
-    """Per-row (best_idx, best, second) over masked columns (masked = BIG)."""
-    d = torch.where(mask, dist, BIG)
-    idx = torch.argmin(d, dim=1)           # first index on ties, as jnp.argmin
-    best = torch.gather(d, 1, idx[:, None])[:, 0]
-    cols = torch.arange(d.shape[1], device=d.device)
-    d2 = torch.where(cols[None, :] == idx[:, None], BIG, d)
-    second = torch.min(d2, dim=1).values
-    return idx, best, second
 
 
 def match_descriptors(d1, d2, valid1, valid2, mask=None, max_dist: int = TH_LOW,
                       ratio: float = 1.0, mutual: bool = False):
-    """Guarded nearest-neighbour match: (idx2 [N], dist [N], matched [N])."""
-    dist = hamming_matrix(d1, d2)
-    full_mask = valid1[:, None] & valid2[None, :]
-    if mask is not None:
-        full_mask = full_mask & mask
-    idx, best, second = _masked_best2(dist, full_mask)
+    """Guarded nearest-neighbour match: (idx2 [N], dist [N], matched [N]).
+
+    ``mask`` is an extra pair predicate: a bool [N, M], or a ``WindowMask`` /
+    ``StereoMask`` of ``ops.kernels.match`` that the kernel evaluates per
+    pair without building it."""
+    idx, best, second, back = match_best2(d1, d2, valid1, valid2, mask, mutual)
     ok = (best <= max_dist) & valid1
     if ratio < 1.0:
         ok = ok & (best.to(torch.float32) <= ratio * second.to(torch.float32))
     if mutual:
-        dm = torch.where(full_mask, dist, BIG)
-        back = torch.argmin(dm, dim=0)
         ok = ok & (back[idx] == torch.arange(d1.shape[0], device=d1.device))
     return idx, best, ok
 
@@ -66,24 +55,11 @@ def rotation_consistency(angles1, angles2, idx, matched, keep_bins: int = 3):
     return matched & good_bin
 
 
-def window_mask(uv1, uv2, radius):
-    """|du| < r and |dv| < r (SearchByProjection window)."""
-    du = torch.abs(uv1[:, None, 0] - uv2[None, :, 0])
-    dv = torch.abs(uv1[:, None, 1] - uv2[None, :, 1])
-    r = radius[:, None]
-    return (du < r) & (dv < r)
-
-
-def level_mask(lvl1, lvl2, lo: int = -1, hi: int = 1):
-    d = lvl2[None, :] - lvl1[:, None]
-    return (d >= lo) & (d <= hi)
-
-
 def search_by_projection(uv_proj, pred_level, d_map, valid_map, kp_uv, kp_level,
                          kp_desc, kp_valid, radius, max_dist: int = TH_HIGH,
                          ratio: float = 0.9):
     """Map-point -> frame-keypoint guided match: (kp_idx, dist, matched)."""
-    mask = window_mask(uv_proj, kp_uv, radius) & level_mask(pred_level, kp_level)
+    mask = WindowMask(uv_proj, radius, pred_level, kp_uv, kp_level)
     return match_descriptors(d_map, kp_desc, valid_map, kp_valid, mask, max_dist, ratio)
 
 

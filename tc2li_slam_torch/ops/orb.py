@@ -1,12 +1,18 @@
 """Batched ORB extraction (pyramid FAST + oriented rBRIEF) on torch tensors.
 
 Port of ``tc2li_slam_tpu/ops/orb.py:extract`` and the stages it runs:
-pyramid resize, ``detect_level`` (adaptive two-threshold FAST + 3x3 NMS),
+pyramid resize, detection (adaptive two-threshold FAST + 3x3 NMS),
 ``select_topk_grid``, ``gaussian_blur7`` and the stacked orientation /
-rBRIEF over all levels' keypoints. The FAST score is the CUDA kernel of
-``ops.kernels.fast``.
+rBRIEF over all levels' keypoints. ``extract_images`` builds the padded
+level stack of one or two images first and then detects on the whole stack
+at once: two launches of the CUDA kernels of ``ops.kernels.fast`` for all
+levels (and both images of a stereo pair), where the JAX package calls
+``detect_level`` per level.
 
-Two deliberate differences in form, same results:
+Three deliberate differences in form, same results:
+
+- Detection runs on the level stack after the pyramid is built, not level
+  by level; ``detect_level`` is the one-plane entry of the same route.
 
 - rBRIEF gathers its 512 taps directly from the edge-padded blurred level
   stack, after the reference's integer rounding of the patch values. The
@@ -29,10 +35,9 @@ import torch
 import torch.nn.functional as F
 
 from ._orb_pattern import PATTERN
-from .kernels.fast import fast_score_raw
+from .kernels import fast
 
 HALF_PATCH = 15
-EDGE = 19  # ORB-SLAM3 EDGE_THRESHOLD
 
 
 def _umax_table() -> np.ndarray:
@@ -148,33 +153,12 @@ def pyramid(f: torch.Tensor, n_levels: int, scale: float) -> list[torch.Tensor]:
 # Detection
 # ---------------------------------------------------------------------------
 
-def _cell_has(x: torch.Tensor, cell: int) -> torch.Tensor:
-    """Per-cell max broadcast back to pixels (zero padding to whole cells)."""
-    H, W = x.shape
-    Hp = -(-H // cell) * cell
-    Wp = -(-W // cell) * cell
-    xp = F.pad(x, (0, Wp - W, 0, Hp - H))
-    cells = xp.reshape(Hp // cell, cell, Wp // cell, cell).amax(dim=(1, 3))
-    back = cells.repeat_interleave(cell, 0).repeat_interleave(cell, 1)
-    return back[:H, :W]
-
-
 def detect_level(img: torch.Tensor, ini_th: float = 20.0, min_th: float = 7.0,
                  cell: int = 35) -> torch.Tensor:
-    """Adaptive-threshold FAST + 3x3 NMS score map (ComputeKeyPointsOctTree)."""
-    raw = fast_score_raw(img)
-    zero = torch.zeros_like(raw)
-    s_ini = torch.where(raw > ini_th, raw, zero)
-    s_min = torch.where(raw > min_th, raw, zero)
-    has_ini = _cell_has((s_ini > 0).to(torch.float32), cell) > 0
-    score = torch.where(has_ini, s_ini, s_min)
-    pooled = F.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]
-    score = torch.where((score >= pooled) & (score > 0), score, zero)
-    H, W = img.shape
-    m = EDGE - 3
-    inner = torch.zeros((H, W), dtype=torch.bool, device=img.device)
-    inner[m:H - m, m:W - m] = True
-    return torch.where(inner, score, zero)
+    """Adaptive-threshold FAST + 3x3 NMS score map (ComputeKeyPointsOctTree)
+    of one image: ``fast.detect_planes`` on a one-plane stack."""
+    f = img.to(torch.float32)
+    return fast.detect_planes(f[None], (f.shape,), 0, ini_th, min_th, cell)[0]
 
 
 def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -282,41 +266,76 @@ def compute_descriptors_stacked(blur_stack, lvl, rows, cols, angles, pad: int):
     return pack_bits(bits)
 
 
+def level_stacks(fs, n_levels: int, scale: float):
+    """Edge-padded pyramid stacks of equally sized float32 images:
+    ``(img_stack, blur_stack, shapes, pad)``. Plane ``b * n_levels + lvl`` of
+    both [B * n_levels, H + 2 pad, W + 2 pad] stacks holds level ``lvl`` of
+    image ``b`` (resp. its 7-tap blur) with pixel (0, 0) at ``[pad, pad]``
+    and a replicated border of ``pad``; ``shapes`` lists each plane's
+    (Hl, Wl)."""
+    H, W = fs[0].shape
+    if any(f.shape != (H, W) for f in fs):
+        raise ValueError(f"images of one size expected, got {[tuple(f.shape) for f in fs]}")
+    pad = max(HALF_PATCH, _PATTERN_RADIUS)
+    img_stack = torch.zeros((len(fs) * n_levels, H + 2 * pad, W + 2 * pad),
+                            dtype=torch.float32, device=fs[0].device)
+    blur_stack = torch.zeros_like(img_stack)
+    shapes = []
+    for b, f in enumerate(fs):
+        for lvl, lvl_img in enumerate(pyramid(f, n_levels, scale)):
+            Hl, Wl = lvl_img.shape
+            p = b * n_levels + lvl
+            img_stack[p, :Hl + 2 * pad, :Wl + 2 * pad] = F.pad(
+                lvl_img[None, None], (pad,) * 4, mode="replicate")[0, 0]
+            blur_stack[p, :Hl + 2 * pad, :Wl + 2 * pad] = F.pad(
+                gaussian_blur7(lvl_img)[None, None], (pad,) * 4, mode="replicate")[0, 0]
+            shapes.append((Hl, Wl))
+    return img_stack, blur_stack, shapes, pad
+
+
+def extract_images(imgs, n_features: int = 2000, n_levels: int = 8,
+                   scale: float = 1.2, ini_th: float = 20.0,
+                   min_th: float = 7.0) -> list[Keypoints]:
+    """Full pyramid ORB extraction of equally sized images (one, or the two
+    of a stereo pair), each padded to ``n_features`` keypoints. All levels
+    of all images are detected in one call of ``fast.detect_planes``."""
+    fs = [img.to(torch.float32) for img in imgs]
+    dev = fs[0].device
+    per_level = features_per_level(n_features, n_levels, scale)
+    img_stack, blur_stack, shapes, pad = level_stacks(fs, n_levels, scale)
+    scores = fast.detect_planes(img_stack, shapes, pad, ini_th, min_th)
+
+    out = []
+    for b in range(len(fs)):
+        planes = slice(b * n_levels, (b + 1) * n_levels)
+        rows_l, cols_l, scores_l, lvl_l, s_l = [], [], [], [], []
+        for lvl, (Hl, Wl) in enumerate(shapes[planes]):
+            rows, cols, sel = select_topk_grid(scores[b * n_levels + lvl, :Hl, :Wl],
+                                               per_level[lvl])
+            k = rows.shape[0]
+            rows_l.append(rows)
+            cols_l.append(cols)
+            scores_l.append(sel)
+            lvl_l.append(torch.full((k,), lvl, dtype=torch.int32, device=dev))
+            s_l.append(torch.full((k,), scale ** lvl, dtype=torch.float32, device=dev))
+        rows_all = torch.cat(rows_l)
+        cols_all = torch.cat(cols_l)
+        scores_all = torch.cat(scores_l)
+        lvl_all = torch.cat(lvl_l)
+        s_all = torch.cat(s_l)
+        angles = compute_orientation_stacked(img_stack[planes], lvl_all, rows_all,
+                                             cols_all, pad)
+        desc = compute_descriptors_stacked(blur_stack[planes], lvl_all, rows_all,
+                                           cols_all, angles, pad)
+        xy_level = torch.stack([cols_all, rows_all], -1).to(torch.float32)
+        out.append(Keypoints(
+            xy=xy_level * s_all[:, None], xy_level=xy_level, level=lvl_all,
+            angle=angles, score=scores_all, desc=desc, valid=scores_all > 0,
+        ))
+    return out
+
+
 def extract(img: torch.Tensor, n_features: int = 2000, n_levels: int = 8,
             scale: float = 1.2, ini_th: float = 20.0, min_th: float = 7.0) -> Keypoints:
-    """Full pyramid ORB extraction, padded to ``n_features`` keypoints."""
-    f = img.to(torch.float32)
-    H, W = f.shape
-    per_level = features_per_level(n_features, n_levels, scale)
-    pad = max(HALF_PATCH, _PATTERN_RADIUS)
-    img_stack = torch.zeros((n_levels, H + 2 * pad, W + 2 * pad),
-                            dtype=torch.float32, device=f.device)
-    blur_stack = torch.zeros_like(img_stack)
-    rows_l, cols_l, scores_l, lvl_l, s_l = [], [], [], [], []
-    for lvl, lvl_img in enumerate(pyramid(f, n_levels, scale)):
-        Hl, Wl = lvl_img.shape
-        score = detect_level(lvl_img, ini_th, min_th)
-        rows, cols, scores = select_topk_grid(score, per_level[lvl])
-        img_stack[lvl, :Hl + 2 * pad, :Wl + 2 * pad] = F.pad(
-            lvl_img[None, None], (pad,) * 4, mode="replicate")[0, 0]
-        blur_stack[lvl, :Hl + 2 * pad, :Wl + 2 * pad] = F.pad(
-            gaussian_blur7(lvl_img)[None, None], (pad,) * 4, mode="replicate")[0, 0]
-        k = rows.shape[0]
-        rows_l.append(rows)
-        cols_l.append(cols)
-        scores_l.append(scores)
-        lvl_l.append(torch.full((k,), lvl, dtype=torch.int32, device=f.device))
-        s_l.append(torch.full((k,), scale ** lvl, dtype=torch.float32, device=f.device))
-    rows_all = torch.cat(rows_l)
-    cols_all = torch.cat(cols_l)
-    scores_all = torch.cat(scores_l)
-    lvl_all = torch.cat(lvl_l)
-    s_all = torch.cat(s_l)
-    angles = compute_orientation_stacked(img_stack, lvl_all, rows_all, cols_all, pad)
-    desc = compute_descriptors_stacked(blur_stack, lvl_all, rows_all, cols_all,
-                                       angles, pad)
-    xy_level = torch.stack([cols_all, rows_all], -1).to(torch.float32)
-    return Keypoints(
-        xy=xy_level * s_all[:, None], xy_level=xy_level, level=lvl_all,
-        angle=angles, score=scores_all, desc=desc, valid=scores_all > 0,
-    )
+    """Full pyramid ORB extraction of one image, padded to ``n_features``."""
+    return extract_images([img], n_features, n_levels, scale, ini_th, min_th)[0]

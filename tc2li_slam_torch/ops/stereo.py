@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from . import matching
+from .kernels.match import StereoMask
 
 SAD_W = 5      # half window (11x11 patches)
 SAD_L = 5      # slide +-5 px
@@ -21,12 +22,7 @@ def match_stereo(kpl_uv, kpl_level, kpl_desc, kpl_valid, kpr_uv, kpr_level,
     octave gate, mutual best + ratio 0.9."""
     max_d = float(np.float32(bf) / np.float32(min_z))   # f32, as the reference
     band = 2.0 * scale_factors[kpr_level.long()]
-    dv = torch.abs(kpl_uv[:, None, 1] - kpr_uv[None, :, 1])
-    row_ok = dv <= band[None, :]
-    disp = kpl_uv[:, None, 0] - kpr_uv[None, :, 0]
-    disp_ok = (disp >= -2.0) & (disp <= max_d)
-    lvl_ok = matching.level_mask(kpl_level, kpr_level)
-    mask = row_ok & disp_ok & lvl_ok
+    mask = StereoMask(kpl_uv, kpl_level, kpr_uv, kpr_level, band, max_d)
     idx, dist, ok = matching.match_descriptors(
         kpl_desc, kpr_desc, kpl_valid, kpr_valid, mask,
         max_dist=matching.TH_HIGH, ratio=0.9, mutual=True,

@@ -39,8 +39,8 @@ class VoxelMap:
         return dataclasses.replace(self, **kw)
 
 
-def create(capacity: int, voxel_size: float, origin=(0.0, 0.0, 0.0),
-           device: torch.device | str = "cpu") -> VoxelMap:
+def create(capacity: int, voxel_size: float, origin=(0.0, 0.0, 0.0), *,
+           device: torch.device | str) -> VoxelMap:
     vs = np.float32(voxel_size)
     corner = np.asarray(origin, np.float32) - np.float32((GRID_SIZE / 2.0) * voxel_size)
     return VoxelMap(

@@ -29,7 +29,7 @@ class LidarStore:
     valid: torch.Tensor    # [K, Ms] bool
 
     @staticmethod
-    def create(max_kf: int, n_points: int, device="cpu") -> "LidarStore":
+    def create(max_kf: int, n_points: int, device) -> "LidarStore":
         return LidarStore(
             torch.zeros((max_kf, n_points, 3), dtype=torch.float32, device=device),
             torch.zeros((max_kf, n_points), dtype=torch.bool, device=device))

@@ -75,7 +75,7 @@ class MapState:
 
 
 def create(max_kf: int = 512, max_feats: int = 1024, max_lm: int = 16384,
-           max_obs: int = 16, device: torch.device | str = "cpu") -> MapState:
+           max_obs: int = 16, *, device: torch.device | str) -> MapState:
     K, F, L, Ko = max_kf, max_feats, max_lm, max_obs
     i32, f32 = torch.int32, torch.float32
 

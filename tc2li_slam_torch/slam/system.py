@@ -152,6 +152,7 @@ class System:
         self._last_staged_scan = None
         self.n_ba = 0          # local BA passes run
         self.n_ba_balm = 0     # ... of which carried the BALM eigen-factor
+        self.n_fuse = 0        # fuse_into_keyframe passes run
 
     # ------------------------------------------------------------------
     def _input(self, x, dtype=None) -> torch.Tensor:
@@ -388,9 +389,9 @@ class System:
             neighbors = sorted((w for w in window if w not in (kf_id, mapstate.NO_KF)),
                                reverse=True)
             m = culling.cull_landmarks(self.map, kf_id)
-            m = culling.fuse_into_keyframe(m, kf_id, self.cam, self.scale_factors)
-            if neighbors:
-                m = culling.fuse_into_keyframe(m, neighbors[0], self.cam, self.scale_factors)
+            for kf in [kf_id] + neighbors[:1]:
+                m = culling.fuse_into_keyframe(m, kf, self.cam, self.scale_factors)
+                self.n_fuse += 1
             self.map = mapstate.update_landmark_stats(m)
         with self.timers.stage("local_ba"):
             self.map = local_mapping.run_local_ba(

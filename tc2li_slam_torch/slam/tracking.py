@@ -34,8 +34,7 @@ class Frame(NamedTuple):
 def build_frame(img_l, img_r, cam: cam_mod.Pinhole, scale_factors,
                 n_features: int = 1024, n_levels: int = 8) -> Frame:
     """ORB extract L/R + stereo match + subpixel refine (Frame ctor)."""
-    kl = orb.extract(img_l, n_features=n_features, n_levels=n_levels)
-    kr = orb.extract(img_r, n_features=n_features, n_levels=n_levels)
+    kl, kr = orb.extract_images([img_l, img_r], n_features=n_features, n_levels=n_levels)
     idx, disp, ok = stereo.match_stereo(
         kl.xy, kl.level, kl.desc, kl.valid, kr.xy, kr.level, kr.desc, kr.valid,
         scale_factors, cam.bf, cam.baseline)

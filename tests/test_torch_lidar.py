@@ -47,7 +47,7 @@ def test_preprocess_downsample(scans):
 
 def test_voxel_map_insert_knn_recenter(rng, scans):
     mj = jvm.create(1 << 13, 0.4)
-    mt = tvm.create(1 << 13, 0.4)
+    mt = tvm.create(1 << 13, 0.4, device="cpu")
     _vm_eq(mt, mj)
     for scan, valid in scans:   # third insert overflows the 8k pool
         T = random_poses(rng, 1, rot=0.05, trans=0.5)[0]
@@ -121,7 +121,7 @@ def test_camera_scan_stage_flush_and_plane_features(rng, scans):
     T_cl = np.linalg.inv(np.array([[0, 0, 1, 0], [-1, 0, 0, 0], [0, -1, 0, 0], [0, 0, 0, 1]],
                                   np.float64)).astype(np.float32)
     mj = jvm.create(1 << 14, 0.4)
-    mt = tvm.create(1 << 14, 0.4)
+    mt = tvm.create(1 << 14, 0.4, device="cpu")
     staged_j, staged_t, poses = [], [], []
     for scan, valid in scans:
         T_cw = random_poses(rng, 1, rot=0.02, trans=0.2)[0]

@@ -9,7 +9,7 @@ import torch
 from tc2li_slam_tpu.ops import matching as jm, stereo as jst
 from tc2li_slam_tpu.ops.kernels.hamming import hamming_matrix_mxu
 from tc2li_slam_torch.ops import matching as tm, stereo as tst
-from tc2li_slam_torch.ops.kernels import hamming as th
+from tc2li_slam_torch.ops.kernels import hamming as th, match as tmatch
 from torch_parity import n, random_words, t
 
 
@@ -85,6 +85,111 @@ def test_search_by_projection_resolve_rotation(rng):
                                   np.asarray(jm.window_mask(*map(jnp.asarray, (uv_proj, uv_kp, radius)))))
     np.testing.assert_array_equal(n(tm.level_mask(t(pred), t(lvl_kp))),
                                   np.asarray(jm.level_mask(jnp.asarray(pred), jnp.asarray(lvl_kp))))
+
+
+def _guided_case(rng, N=260, M=90):
+    """Map points near frame keypoints, with the edge rows a matcher meets:
+    a row no column passes, a duplicated column (tied minima), invalid rows
+    and columns."""
+    kp_desc = random_words(rng, (M, 8))
+    kp_desc[1] = kp_desc[0]
+    d_map = _near_copies(rng, kp_desc, N, flip=30)
+    d_map[5] = kp_desc[0]                               # distance 0 to columns 0 and 1
+    uv_kp = rng.uniform(0, 320, (M, 2)).astype(np.float32)
+    uv_kp[1] = uv_kp[0]
+    src = rng.integers(0, M, N)
+    src[5] = 0
+    uv_map = (uv_kp[src] + rng.normal(0, 3, (N, 2))).astype(np.float32)
+    lvl_kp = rng.integers(0, 4, M).astype(np.int32)
+    lvl_kp[1] = lvl_kp[0]
+    lvl_map = np.clip(lvl_kp[src] + rng.integers(-1, 2, N), 0, 3).astype(np.int32)
+    radius = rng.uniform(3, 30, N).astype(np.float32)
+    radius[5] = 30.0
+    radius[7] = 0.0                                     # valid, admits nothing
+    vm, vk = rng.random(N) > 0.1, rng.random(M) > 0.1
+    vm[[5, 7]] = True
+    vk[[0, 1]] = True
+    return dict(d_map=d_map, kp_desc=kp_desc, uv_map=uv_map, uv_kp=uv_kp, lvl_map=lvl_map,
+                lvl_kp=lvl_kp, radius=radius, vm=vm, vk=vk)
+
+
+def _same_ints(rt, rj):
+    for a, b in zip(rt, rj):
+        assert n(a).dtype.kind == np.asarray(b).dtype.kind
+        np.testing.assert_array_equal(n(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("ratio,max_dist", [(0.9, 100), (1.0, 50)])
+def test_window_entry_exact_with_edge_rows(rng, ratio, max_dist):
+    c = _guided_case(rng)
+    args = (c["uv_map"], c["lvl_map"], c["d_map"], c["vm"], c["uv_kp"], c["lvl_kp"],
+            c["kp_desc"], c["vk"], c["radius"])
+    rj = jm.search_by_projection(*map(jnp.asarray, args), max_dist=max_dist, ratio=ratio)
+    rt = tm.search_by_projection(*map(t, args), max_dist=max_dist, ratio=ratio)
+    _same_ints(rt, rj)
+    assert rt[0].dtype == torch.int64 and rt[1].dtype == torch.int32 and rt[2].dtype == torch.bool
+    idx, best, ok = (n(x) for x in rt)
+    assert idx[5] == 0 and best[5] == 0                 # tie -> lowest column
+    assert ok[5]                                        # second == best == 0: 0 <= ratio * 0
+    assert idx[7] == 0 and best[7] == tm.BIG and not ok[7]
+
+
+@pytest.mark.parametrize("mutual", [False, True])
+def test_best2_plain_all_mask_kinds_exact(rng, mutual):
+    """(idx, best, second, back) of the matcher's plain version for the
+    window, stereo-band and dense masks against ``jm._masked_best2`` on the
+    JAX package's dense masks; integer outputs and dtypes."""
+    c = _guided_case(rng)
+    band = rng.uniform(2, 8, len(c["vk"])).astype(np.float32)
+    ta = {k: t(v) for k, v in c.items()}
+    dense = rng.random((len(c["vm"]), len(c["vk"]))) > 0.5
+    jw = (jm.window_mask(*map(jnp.asarray, (c["uv_map"], c["uv_kp"], c["radius"])))
+          & jm.level_mask(jnp.asarray(c["lvl_map"]), jnp.asarray(c["lvl_kp"])))
+    dv = np.abs(c["uv_map"][:, None, 1] - c["uv_kp"][None, :, 1])
+    disp = c["uv_map"][:, None, 0] - c["uv_kp"][None, :, 0]
+    js = ((dv <= band[None]) & (disp >= -2.0) & (disp <= np.float32(12.5))
+          & np.asarray(jm.level_mask(jnp.asarray(c["lvl_map"]), jnp.asarray(c["lvl_kp"]))))
+    cases = [
+        (tmatch.WindowMask(ta["uv_map"], ta["radius"], ta["lvl_map"], ta["uv_kp"], ta["lvl_kp"]), jw),
+        (tmatch.StereoMask(ta["uv_map"], ta["lvl_map"], ta["uv_kp"], ta["lvl_kp"], t(band), 12.5), js),
+        (t(dense), dense),
+        (None, np.ones_like(dense)),
+    ]
+    dist = jm.hamming_matrix_xor(jnp.asarray(c["d_map"]), jnp.asarray(c["kp_desc"]))
+    for mask_t, mask_j in cases:
+        full = jnp.asarray(c["vm"])[:, None] & jnp.asarray(c["vk"])[None, :] & jnp.asarray(mask_j)
+        ij, bj, sj = jm._masked_best2(dist, full)
+        it, bt, st, back = tmatch.match_best2(ta["d_map"], ta["kp_desc"], ta["vm"], ta["vk"],
+                                              mask_t, mutual)
+        _same_ints((it, bt, st), (ij, bj, sj))
+        assert (it.dtype, bt.dtype, st.dtype) == (torch.int64, torch.int32, torch.int32)
+        if mutual:
+            bk = jnp.argmin(jnp.where(full, dist, tm.BIG), axis=0)
+            np.testing.assert_array_equal(n(back), np.asarray(bk))
+            assert back.dtype == torch.int64
+        else:
+            assert back is None
+    with pytest.raises(ValueError):
+        tmatch.match_best2(ta["d_map"].long(), ta["kp_desc"], ta["vm"], ta["vk"])
+    with pytest.raises(ValueError):
+        tmatch.match_best2(ta["d_map"], ta["kp_desc"], ta["vm"].to(torch.int32), ta["vk"])
+
+
+@pytest.mark.parametrize("bf", [12.5, 300.0])
+def test_stereo_entry_exact_synthetic(rng, bf):
+    """``match_stereo`` (band, disparity range, level gate, mutual, ratio
+    0.9) on synthetic keypoints with tied and all-masked rows."""
+    c = _guided_case(rng)
+    sf = (1.2 ** np.arange(4)).astype(np.float32)
+    args = (c["uv_map"], c["lvl_map"], c["d_map"], c["vm"], c["uv_kp"], c["lvl_kp"],
+            c["kp_desc"], c["vk"])
+    rj = jst.match_stereo(*map(jnp.asarray, args), jnp.asarray(sf), jnp.float32(bf),
+                          jnp.float32(1.0))
+    rt = tst.match_stereo(*map(t, args), t(sf), bf, 1.0)
+    for a, b in zip(rt, rj):
+        np.testing.assert_array_equal(n(a), np.asarray(b))
+    assert rt[0].dtype == torch.int64 and rt[2].dtype == torch.bool
+    assert 0 < n(rt[2]).sum() < len(c["vm"])
 
 
 @pytest.mark.parametrize("with_nan", [False, True])

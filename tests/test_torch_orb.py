@@ -77,6 +77,49 @@ def test_detect_and_select_exact_per_level(frame_img):
                 np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("ini_th,min_th", [(20.0, 7.0), (5.0, 9.0), (60.0, 7.0)])
+def test_detect_planes_stack_exact_per_level(rng, frame_img, ini_th, min_th):
+    """The stack entry of detection (all planes in one call) against the JAX
+    package's per-level ``detect_level``: ragged levels of two images inside
+    one padded stack, a flat plane with no corner, ``ini_th < min_th``."""
+    levels = _jax_levels(frame_img, 4)
+    planes = levels + [np.full((80, 90), 128.0, np.float32),
+                       np.asarray(small_sequence(1)[0].img_r, np.float32)]
+    pad = 19
+    H, W = frame_img.shape
+    stack = rng.uniform(0, 255, (len(planes), H + 2 * pad, W + 2 * pad)).astype(np.float32)
+    for p, li in enumerate(planes):
+        stack[p, pad:pad + li.shape[0], pad:pad + li.shape[1]] = li
+    shapes = [li.shape for li in planes]
+    got = n(tfast.detect_planes(t(stack), shapes, pad, ini_th, min_th))
+    gated, flags = tfast.score_planes(t(stack), shapes, pad, ini_th, min_th)
+    assert gated.dtype == torch.float32 and flags.dtype == torch.int32
+    assert flags.shape == (sum(-(-h // 35) * -(-w // 35) for h, w in shapes),)
+    for p, li in enumerate(planes):
+        Hl, Wl = li.shape
+        ref = np.asarray(jorb.detect_level(jnp.asarray(li), ini_th, min_th))
+        np.testing.assert_array_equal(got[p, :Hl, :Wl], ref)
+        np.testing.assert_array_equal(n(tfast.detect_level_plain(t(li), ini_th, min_th)), ref)
+        np.testing.assert_array_equal(n(torb.detect_level(t(li), ini_th, min_th)), ref)
+    assert (got[4, :80, :90] > 0).sum() == 0 and (got[0] > 0).sum() > 50
+    with pytest.raises(ValueError):
+        tfast.detect_planes(t(stack), shapes[:-1], pad)
+    with pytest.raises(ValueError):
+        tfast.detect_planes(t(stack), shapes, pad, ini_th=-1.0)
+
+
+def test_extract_images_pair_equals_single(frame_img):
+    """Left and right through one stack give what two single calls give."""
+    img_r = np.asarray(small_sequence(1)[0].img_r)
+    kl, kr = torb.extract_images([t(frame_img), t(img_r)], n_features=512, n_levels=4)
+    for pair, img in ((kl, frame_img), (kr, img_r)):
+        single = torb.extract(t(img), n_features=512, n_levels=4)
+        for a, b in zip(pair, single):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    with pytest.raises(ValueError):
+        torb.extract_images([t(frame_img), t(img_r[:-2])])
+
+
 def _jax_stacks(img, n_levels=4, n_features=512):
     """The edge-padded level/blur stacks and keypoints extract() builds."""
     H, W = img.shape

@@ -14,7 +14,7 @@ import torch
 
 from tc2li_slam_tpu.io import synthetic as syn
 from tc2li_slam_tpu.slam import config as jcfg, system as jsys
-from tc2li_slam_torch.ops.kernels import fast, hamming
+from tc2li_slam_torch.ops.kernels import fast, hamming, match
 from tc2li_slam_torch.slam import config as tcfg, system as tsys
 from torch_parity import small_config, small_sequence
 
@@ -23,6 +23,10 @@ N_FRAMES = 8
 # (keypoints on upper pyramid levels and float32 solver sums differ)
 POS_TOL_M = 5e-3
 ATE_BOUND_M = 0.15
+
+
+def _launches():
+    return fast.score_launches, fast.nms_launches, hamming.launches, match.launches
 
 
 def _run(sys_obj, frames):
@@ -38,7 +42,7 @@ def test_system_matches_jax():
     gt = np.stack([fr.T_wb_gt @ syn.body_from_cam() for fr in frames])
     sj = jsys.System(small_config(jcfg))
     states_j, est_j = _run(sj, frames)
-    launches0 = fast.launches, hamming.launches
+    launches0 = _launches()
     st = tsys.System(small_config(tcfg), "cpu")
     states_t, est_t = _run(st, frames)
 
@@ -53,7 +57,7 @@ def test_system_matches_jax():
     assert ate_j < ATE_BOUND_M and ate_t < ATE_BOUND_M, (ate_j, ate_t)
     assert int(st.vmap.count) > 0
     # on the CPU the wrappers ran their plain versions: no kernel launches
-    assert (fast.launches, hamming.launches) == launches0
+    assert _launches() == launches0
 
 
 def test_synthetic_copy_matches_jax_package():
@@ -104,6 +108,12 @@ def test_kernel_wrappers_take_no_other_route():
     never sent to the plain version."""
     with pytest.raises(ValueError):
         fast.fast_score_raw(torch.zeros(16, 16, device="meta"))
+    with pytest.raises(ValueError):
+        fast.detect_planes(torch.zeros(1, 64, 64, device="meta"), [(64, 64)])
+    meta8 = torch.zeros(4, 8, dtype=torch.int32, device="meta")
+    metav = torch.zeros(4, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError):
+        match.match_best2(meta8, meta8, metav, metav)
     with pytest.raises(ValueError):
         hamming.hamming_matrix(torch.zeros(4, 8, dtype=torch.int32, device="meta"),
                                torch.zeros(4, 8, dtype=torch.int32, device="meta"))
