@@ -19,6 +19,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
 4. the duplicate-fusion pass (``culling.fuse_duplicates``, the caller of the
    Hamming-matrix kernel) over the slice's landmarks, counted the same way
    and held against the same call on the CPU;
+4a. the default configuration (``triangulate=True``) with a vocabulary
+   trained on the host from the first frames' descriptors: 14 of the same
+   frames, every frame OK, new map points triangulated, the same ATE limit,
+   launch counts by call shape against what the run implies (one
+   epipolar-masked match per triangulated keyframe pair); the cost and the host syncs of the batched
+   4x4 SVD beside the null-vector iteration that replaces it;
+4b. recovery: the motion model set far off and an earlier frame fed at the
+   next timestamp: ``track_step`` fails, ``track_step_recover`` brings the
+   state back to OK within 0.3 m of that frame's ground truth;
+4c. ``relocalization.relocalize`` on the system's map, keyframe words and
+   an earlier frame: ok, within 0.3 m;
+4d. blackout and atlas: 3 uniform-noise stereo pairs (RECENTLY_LOST, then
+   the map frozen into the atlas), structured frames that initialise map 1,
+   a timestamp jump that starts another map; finite poses, one trajectory
+   pose per frame; over a-d the matcher's launches are read by call shape
+   from its wrapper and held against what the system's own counts imply;
 5. each kernel against its plain PyTorch version on the card, exact, at
    the main path's shapes, with CUDA-event times and the least time the
    card could take (bytes over 3.35 TB/s, operations over the float32 rate):
@@ -27,7 +43,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the fused matcher in its three mask modes on the slice's own data (the
    last frame's stereo pair at 2000x2000; the landmark pool against a
    keyframe's features at 32768x2000), on a full pool, on a dense worst
-   case and on edge rows; the Hamming matrix at 2000x2000 and 32768x2000;
+   case and on edge rows, and in the three call shapes of 4a-4d on that
+   run's data (a keyframe pair under its epipolar mask, the pool against a
+   frame, a frame against one column chunk of the pool and against all of
+   it); the Hamming matrix at 2000x2000 and
+   32768x2000;
 6. one JSON line of kernel rows, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 """
@@ -43,7 +63,9 @@ from pathlib import Path
 
 N_FRAMES = 20
 N_WARM = 5          # frames before the steady-state timing window
+N_TRI = 14          # frames of the triangulate=True run
 ATE_BOUND_M = 0.5
+RECOVER_BOUND_M = 0.3
 
 # Published peaks of one H100 SXM: device memory, float32 outside the tensor
 # cores (67 TFLOP/s counts a fused multiply-add as two, so a min, max,
@@ -105,8 +127,10 @@ def bound(n_bytes: float, simple_ops: float = 0.0, popc: float = 0.0):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def kitti_config(cfg_mod, syn):
-    """bench.py's KITTI-shaped STEREO_LIDAR configuration, triangulation off."""
+def kitti_config(cfg_mod, syn, triangulate: bool = False, **tracking):
+    """bench.py's KITTI-shaped STEREO_LIDAR configuration; ``triangulate=True``
+    is its default, off is the first slice's. ``tracking`` overrides fields
+    of the TrackingConfig."""
     import numpy as np
     cam = syn.KITTI_LIKE
     return cfg_mod.SystemConfig(
@@ -120,7 +144,7 @@ def kitti_config(cfg_mod, syn):
             T_cl=np.linalg.inv(syn.body_from_cam())),
         tracking=cfg_mod.TrackingConfig(
             max_kf=256, max_lm=32768, max_obs=8, kf_max_interval=5,
-            local_window=6, ba_iters=6, triangulate=False),
+            local_window=6, ba_iters=6, triangulate=triangulate, **tracking),
     )
 
 
@@ -141,12 +165,12 @@ def main() -> int:
     sys.path.insert(0, str(root))
     import numpy as np
 
-    from tc2li_slam_torch.geom import camera as cam_mod, lie
+    from tc2li_slam_torch.geom import camera as cam_mod, lie, triangulate as tri_geom
     from tc2li_slam_torch.io import synthetic as syn
-    from tc2li_slam_torch.ops import orb
+    from tc2li_slam_torch.ops import bow, orb
     from tc2li_slam_torch.ops.kernels import build, fast, hamming, match
-    from tc2li_slam_torch.slam import (config as cfg_mod, culling, system as sys_mod,
-                                       tracking)
+    from tc2li_slam_torch.slam import (config as cfg_mod, culling, relocalization,
+                                       system as sys_mod, tracking, triangulation)
 
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
@@ -181,6 +205,7 @@ def main() -> int:
 
     def reset_counts():
         fast.score_launches = fast.nms_launches = hamming.launches = match.launches = 0
+        match.launches_by_mode.clear()
 
     def read_counts():
         return {"fast_score_planes": fast.score_launches, "fast_nms_planes": fast.nms_launches,
@@ -196,6 +221,7 @@ def main() -> int:
     reset_counts()
     t_start = time.perf_counter()
     t_warm = None
+    lm_at_tri = None
     for i, fr in enumerate(frames):
         if i == N_WARM:
             torch.cuda.synchronize()
@@ -203,6 +229,8 @@ def main() -> int:
             t_warm = time.perf_counter()
         slam.track(imgs[i][0], imgs[i][1], fr.t, scans[i])
         states.append(slam.state)
+        if i == N_TRI - 1:     # device scalars, read after the run: no sync here
+            lm_at_tri = (slam.map.n_lm, slam.n_kf_host)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = read_counts()
@@ -273,6 +301,282 @@ def main() -> int:
     print(f"fuse_duplicates over {pool} landmark slots ({int(sub.n_lm)} valid): "
           f"{int(sub.n_lm) - int(fused.n_lm)} merged, equal to the CPU route; "
           f"Hamming launches {fuse_counts['hamming_matrix']}", flush=True)
+
+    # --- 4a. the default configuration: triangulate=True, with a vocabulary ---
+    import warnings
+    S = sys_mod.TrackingState
+    dt = float(frames[1].t - frames[0].t)
+    chunks = -(-cfg.tracking.max_lm // match.DENSE_MAX_COLUMNS)
+
+    # the matcher's wrapper counts its launches by call shape; the rows of
+    # the three new shapes report the sum of the readings of phases 4a-4d
+    SHAPES = {"match_best2/epipolar": "dense+mutual", "match_best2/global": "none+mutual",
+              "match_best2/reloc": "none+mutual+chunk"}
+    shape_launches = dict.fromkeys(SHAPES, 0)
+
+    def read_modes():
+        modes = dict(match.launches_by_mode)
+        for name, key in SHAPES.items():
+            shape_launches[name] += modes.get(key, 0)
+        return modes
+
+    def snap(sl):
+        return dict(n_recover=sl.n_recover, n_reloc=sl.n_reloc, n_fuse=sl.n_fuse, n_ba=sl.n_ba)
+
+    def cross_check(counts, modes, n_built, n_tracked, before, after, n_reloc_calls):
+        """What the system's own counts say of the measured launches, or
+        None: a detection and a stereo match per frame built; a windowed
+        match per tracked frame, per recovery and per fuse pass, and one to
+        three per relocalization (its refinement); a global match per
+        recovery; whole sets of column chunks, at most five candidates a
+        relocalization; at most ``tri_pairs`` epipolar matches a mapping
+        pass; no other call shape."""
+        d = {k: after[k] - before[k] for k in after}
+        get = modes.get
+        window_lo = n_tracked + d["n_recover"] + d["n_fuse"]
+        faults = []
+        if (counts["fast_score_planes"], counts["fast_nms_planes"], counts["hamming_matrix"]) \
+                != (n_built, n_built, 0):
+            faults.append(f"{n_built} frames built")
+        if sum(modes.values()) != counts["match_best2"]:
+            faults.append("the shapes do not sum to the matcher's count")
+        if get("stereo+mutual", 0) != n_built:
+            faults.append(f"{n_built} stereo matches")
+        if not window_lo <= get("window", 0) <= window_lo + 3 * n_reloc_calls:
+            faults.append(f"{window_lo}..{window_lo + 3 * n_reloc_calls} windowed matches")
+        if get("none+mutual", 0) != d["n_recover"]:
+            faults.append(f"{d['n_recover']} global matches")
+        if get("none+mutual+chunk", 0) % chunks or \
+                get("none+mutual+chunk", 0) > 5 * chunks * n_reloc_calls:
+            faults.append(f"sets of {chunks} chunk matches, at most {5 * n_reloc_calls}")
+        if get("dense+mutual", 0) > cfg2.tracking.tri_pairs * d["n_ba"]:
+            faults.append(f"at most {cfg2.tracking.tri_pairs * d['n_ba']} epipolar matches")
+        if set(modes) - {"stereo+mutual", "window", "none+mutual", "none+mutual+chunk",
+                         "dense+mutual"}:
+            faults.append("no other call shape")
+        if faults:
+            return f"launches {counts} by shape {modes} against {d}: expected " + "; ".join(faults)
+        return None
+
+    def gt_cw(i):
+        return np.linalg.inv(gt[i]) @ gt[0]
+
+    def image_pair(i):
+        return torch.as_tensor(imgs[i][0]).to(dev), torch.as_tensor(imgs[i][1]).to(dev)
+
+    t0 = time.perf_counter()
+    descs = []
+    for i in range(3):
+        kp = orb.extract(image_pair(i)[0], 2000, 8)
+        descs.append(kp.desc[kp.valid].cpu().numpy().view(np.uint32))
+    voc = bow.train_vocabulary(np.concatenate(descs), k=8, depth=3, seed=0, device=dev)
+    print(f"vocabulary: {voc.n_words} words from {sum(len(d) for d in descs)} descriptors of 3 "
+          f"frames, trained on the host in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    cfg2 = kitti_config(cfg_mod, syn, triangulate=True, recently_lost_frames=3, atlas_min_kf=2)
+    slam2 = sys_mod.System(cfg2, dev, voc=voc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = snap(slam2)
+    reset_counts()
+    states2 = []
+    t_start = time.perf_counter()
+    for i in range(N_TRI):
+        if i == N_WARM:
+            torch.cuda.synchronize()
+            slam2.timers.reset()
+            t_warm = time.perf_counter()
+        slam2.track(imgs[i][0], imgs[i][1], frames[i].t, scans[i])
+        states2.append(slam2.state)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    counts_a, modes_a = read_counts(), read_modes()
+    after = snap(slam2)
+    tri_pairs_a = modes_a.get("dense+mutual", 0)
+    n_lm2, n_kf2 = int(slam2.map.n_lm), slam2.n_kf_host
+    stats2 = slam2.timers.stats()
+    est2 = slam2.trajectory_world_from_cam()
+    ate2 = syn.ate_rmse(est2, gt[:N_TRI])
+    n_tri_lm = int(slam2.n_tri_landmarks)
+    n_lm1, n_kf1 = int(lm_at_tri[0]), lm_at_tri[1]
+    maintain = stats2.get("maintain", {"total_ms": 0.0, "count": 0})
+    print(f"{tag} triangulate=True: {N_TRI} frames, ATE {ate2:.4f} m, keyframes {n_kf2}, "
+          f"landmarks {n_lm2} ({n_lm2 / max(n_kf2, 1):.1f} a keyframe; without triangulation "
+          f"{n_lm1} landmarks, {n_lm1 / max(n_kf1, 1):.1f} a keyframe at the same frame), "
+          f"{n_tri_lm} landmarks triangulated in {slam2.n_ba} mapping passes over "
+          f"{tri_pairs_a} keyframe pairs (one epipolar-masked match launch each)", flush=True)
+    print(f"{tag} triangulate=True frames/s: {N_TRI / (t_end - t_start):.3f} over all {N_TRI} "
+          f"frames, {(N_TRI - N_WARM) / (t_end - t_warm):.3f} over frames {N_WARM}..{N_TRI - 1}; "
+          f"maintain stage {maintain['total_ms'] / max(maintain['count'], 1):.2f} ms a pass "
+          f"({maintain['count']} passes, CUDA events); device ms/frame by stage: "
+          + json.dumps({k: round(v["total_ms"] / (N_TRI - N_WARM), 3) for k, v in stats2.items()}),
+          flush=True)
+    print(f"kernel launches during the triangulate=True run: {counts_a}, the matcher's by "
+          f"call shape {modes_a}", flush=True)
+    if any(st != S.OK for st in states2):
+        return fail(f"triangulate=True: tracking states {states2}")
+    if n_tri_lm < 1 or tri_pairs_a < 1:
+        return fail("triangulate=True: no mapping pass allocated a triangulated landmark")
+    if not ate2 < ATE_BOUND_M:
+        return fail(f"triangulate=True: ATE {ate2:.4f} m >= {ATE_BOUND_M} m")
+    fault = cross_check(counts_a, modes_a, N_TRI, N_TRI - 1, before, after, 0)
+    if fault:
+        return fail(f"triangulate=True: {fault}")
+
+    # the batched 4x4 SVD the reference takes the null vector from, beside
+    # the iteration that replaces it, on the design matrices of noisy matches
+    # at a mapping pass's size (3 pairs x 2000)
+    g = torch.Generator(device=dev).manual_seed(2)
+    X = torch.rand((6000, 3), generator=g, device=dev) * torch.tensor(
+        [24.0, 10.0, 32.0], device=dev) + torch.tensor([-12.0, -5.0, 8.0], device=dev)
+    T1 = torch.eye(4, device=dev)
+    T2 = lie.se3(torch.eye(3, device=dev), torch.tensor([-1.0, 0.05, 0.1], device=dev))
+    X2 = lie.se3_apply(T2, X)
+    xn1 = X[:, :2] / X[:, 2:] + 1e-3 * torch.randn((6000, 2), generator=g, device=dev)
+    xn2 = X2[:, :2] / X2[:, 2:] + 1e-3 * torch.randn((6000, 2), generator=g, device=dev)
+    A = tri_geom.design_matrix(xn1, xn2, T1, T2)
+
+    def syncs_of(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+    ms_svd = cuda_ms(torch, lambda: torch.linalg.svd(A), 10)
+    ms_null = cuda_ms(torch, lambda: tri_geom.null_vector(A), 10)
+    n_sync_svd = syncs_of(lambda: torch.linalg.svd(A))
+    n_sync_null = syncs_of(lambda: tri_geom.null_vector(A))
+    v_svd = torch.linalg.svd(A.to(torch.float64))[2][:, 3, :]
+    agree = float(torch.abs(torch.sum(tri_geom.null_vector(A).to(torch.float64) * v_svd, -1)).min())
+    print(f"{tag} null vector of [6000, 4, 4]: torch.linalg.svd {ms_svd:.3f} ms a call, "
+          f"{n_sync_svd} host sync(s); null_vector (inverse iteration on A^T A, float64) "
+          f"{ms_null:.3f} ms a call, {n_sync_null} host sync(s); least |cos| between the two "
+          f"{agree:.9f}", flush=True)
+    if n_sync_null != 0:
+        return fail(f"null_vector synchronised the host {n_sync_null} times")
+    if not agree > 1.0 - 1e-5:
+        return fail(f"null_vector disagrees with the SVD: least |cos| {agree}")
+
+    # --- 4b. recovery -----------------------------------------------------------
+    i_back = 8
+    t_now = float(frames[N_TRI - 1].t) + dt
+    slam2.velocity = lie.se3_exp(torch.tensor([30.0, 20.0, -15.0, 0.6, -0.8, 0.9], device=dev))
+    frame_b = tracking.build_frame(*image_pair(i_back), slam2.cam, slam2.scale_factors,
+                                   n_features=2000, n_levels=8)
+    _, res0, _, _ = tracking.track_step(
+        slam2.map, frame_b, slam2.T_cw, slam2.velocity, slam2.cam, slam2.scale_factors,
+        slam2.sigma2, cfg2.tracking.match_radius_narrow)
+    n_before = int(res0.n_inliers)
+    before = snap(slam2)
+    reset_counts()
+    slam2.track(imgs[i_back][0], imgs[i_back][1], t_now, scans[i_back])
+    torch.cuda.synchronize()
+    counts_b, modes_b = read_counts(), read_modes()
+    after = snap(slam2)
+    err_b = float(np.linalg.norm(slam2.T_cw.cpu().numpy()[:3, 3] - gt_cw(i_back)[:3, 3]))
+    n_after = int(tracking.track_frame(
+        slam2.map, frame_b, slam2.T_cw, slam2.cam, slam2.scale_factors, slam2.sigma2,
+        cfg2.tracking.match_radius_narrow).n_inliers)
+    print(f"{tag} recovery: motion model set far off, frame {i_back} fed again: track_step "
+          f"{n_before} inliers, a windowed pass at the recovered pose {n_after}; state "
+          f"{slam2.state}, position {err_b:.4f} m from that frame's ground truth; launches "
+          f"{counts_b}, the matcher's by call shape {modes_b}", flush=True)
+    if n_before >= max(cfg2.tracking.min_inliers, 10):
+        return fail(f"recovery: track_step did not fail ({n_before} inliers)")
+    if slam2.state != S.OK or after["n_recover"] != before["n_recover"] + 1 \
+            or after["n_reloc"] != before["n_reloc"]:
+        return fail(f"recovery: state {slam2.state}, counts {before} -> {after}")
+    if not err_b < RECOVER_BOUND_M:
+        return fail(f"recovery: {err_b:.4f} m from ground truth")
+    if n_after < max(cfg2.tracking.min_inliers, 10):
+        return fail(f"recovery: only {n_after} inliers at the recovered pose")
+    fault = cross_check(counts_b, modes_b, 1, 1, before, after, 0)
+    if fault or modes_b.get("none+mutual", 0) != 1:
+        return fail(f"recovery: {fault or modes_b}")
+
+    # --- 4c. relocalization -----------------------------------------------------
+    i_reloc = 5
+    reset_counts()
+    frame_c = tracking.build_frame(*image_pair(i_reloc), slam2.cam, slam2.scale_factors,
+                                   n_features=2000, n_levels=8)
+    rr = relocalization.relocalize(
+        slam2.map, frame_c, slam2.cam, slam2.voc, slam2.kf_words, slam2.sigma2,
+        generator=torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    counts_c, modes_c = read_counts(), read_modes()
+    err_c = float(np.linalg.norm(rr.T_cw.cpu().numpy()[:3, 3] - gt_cw(i_reloc)[:3, 3]))
+    print(f"{tag} relocalize on frame {i_reloc}: ok {rr.ok}, {rr.n_inliers} inliers, position "
+          f"{err_c:.4f} m from ground truth; launches {counts_c}, the matcher's by call shape "
+          f"{modes_c}", flush=True)
+    if not rr.ok or not err_c < RECOVER_BOUND_M:
+        return fail(f"relocalize: ok {rr.ok}, {err_c:.4f} m from ground truth")
+    fault = cross_check(counts_c, modes_c, 1, 0, after, after, 1)
+    if fault or modes_c.get("none+mutual+chunk", 0) < chunks or modes_c.get("window", 0) < 1:
+        return fail(f"relocalize: {fault or modes_c}")
+    # the map of this run, for the kernel cases of phase 5
+    m2, kf_a = slam2.map, slam2.ref_kf
+
+    # --- 4d. blackout and atlas -------------------------------------------------
+    rng_n = np.random.default_rng(1)
+    shape = imgs[0][0].shape
+    kf_before = slam2.n_kf_host
+    before = snap(slam2)
+    reset_counts()
+    states_d, poses_d = [], []
+    feed = [(rng_n.integers(0, 255, shape, dtype=np.uint8),
+             rng_n.integers(0, 255, shape, dtype=np.uint8), scans[i_back], dt) for _ in range(3)]
+    feed += [(imgs[i][0], imgs[i][1], scans[i], dt) for i in (14, 15, 16)]
+    feed += [(imgs[17][0], imgs[17][1], scans[17], 5.0), (imgs[18][0], imgs[18][1], scans[18], dt)]
+    log_d = []
+    n_tracked_d = 0
+    for img_l, img_r, sc, step in feed:
+        t_now += step
+        # a frame goes through tracking unless the map waits to be
+        # initialised or the timestamp jump starts a new one
+        n_tracked_d += int(slam2.state != S.NOT_INITIALIZED and step <= 1.0)
+        poses_d.append(slam2.track(img_l, img_r, t_now, sc))
+        states_d.append(slam2.state)
+        log_d.append((slam2.state, slam2.map_id, slam2.n_kf_host, slam2.atlas.n_created,
+                      len(slam2.atlas.frozen), slam2.atlas.n_discarded))
+    torch.cuda.synchronize()
+    counts_d, modes_d = read_counts(), read_modes()
+    after = snap(slam2)
+    peak2_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    est_all = slam2.trajectory_world_from_cam()
+    print(f"{tag} blackout and atlas: (state, map, keyframes, maps created, frozen, discarded) "
+          f"per frame {log_d}; frozen map 0 holds {slam2.atlas.frozen[0].n_kf if slam2.atlas.frozen else None} "
+          f"keyframes (before: {kf_before}); recoveries {after['n_recover'] - before['n_recover']}, "
+          f"relocalization attempts {after['n_reloc'] - before['n_reloc']}; launches {counts_d}, "
+          f"the matcher's by call shape {modes_d}; "
+          f"peak device memory over 4a-4d {peak2_gib:.2f} GiB", flush=True)
+    if states_d[:3] != [S.RECENTLY_LOST, S.RECENTLY_LOST, S.NOT_INITIALIZED]:
+        return fail(f"blackout: states {states_d[:3]}")
+    if len(slam2.atlas.frozen) < 1 or slam2.atlas.frozen[0].n_kf != kf_before \
+            or log_d[2][3] != 2 or log_d[2][4] != 1:
+        return fail(f"blackout: the map was not frozen with its {kf_before} keyframes: {log_d}")
+    if states_d[3:6] != [S.OK] * 3 or log_d[3][1] != 1:
+        return fail(f"structured frames did not initialise map 1: {log_d}")
+    if log_d[6][3] != 3 or log_d[6][1] != 2 or states_d[6:] != [S.OK] * 2:
+        return fail(f"the timestamp jump did not start another map: {log_d}")
+    if not all(bool(torch.isfinite(T).all()) for T in poses_d) or not np.all(np.isfinite(est_all)):
+        return fail("blackout and atlas: non-finite poses")
+    if est_all.shape[0] != N_TRI + 1 + len(feed) or est_all.shape[0] != len(slam2.traj):
+        return fail(f"trajectory has {est_all.shape[0]} poses for {N_TRI + 1 + len(feed)} frames")
+    fault = cross_check(counts_d, modes_d, len(feed), n_tracked_d, before, after,
+                        after["n_reloc"] - before["n_reloc"])
+    if fault:
+        return fail(f"blackout and atlas: {fault}")
+    launches.update(shape_launches)
+    print(f"launches of the new call shapes over 4a-4d, as the wrapper counted them: "
+          f"{shape_launches}", flush=True)
+    for name, n_launched in shape_launches.items():
+        if n_launched < 1:
+            return fail(f"{name} was launched no time on the main path")
 
     # --- 5. kernels vs plain versions ----------------------------------------
     rows = {}
@@ -451,10 +755,38 @@ def main() -> int:
                 int(idx[9]), int(best[9]))
         if edge != (0, 0, 0, 0, match.BIG, 0, match.BIG):
             return fail(f"match_best2 edge rows (tie, none admitted, invalid): {edge}")
+        # (e) the call shapes of the triangulate=True run, on its own map: a
+        # keyframe pair under its epipolar mask; the whole pool against a
+        # frame (global tracking); a frame against the landmarks seen from
+        # one keyframe, the pool as side 2 (relocalization)
+        kf1c, kf2c = max(kf_a, 1), max(kf_a, 1) - 1
+        gates = triangulation.pair_gates(m2, kf1c, kf2c, slam2.cam, slam2.sigma2)
+        rows["match_best2/epipolar"] = match_case(
+            "dense epipolar mask, keyframe pair", m2.kf_desc[kf1c], m2.kf_desc[kf2c],
+            gates.unm1, gates.unm2, gates.epi, True)
+        rows["match_best2/global"] = match_case(
+            "no mask, landmark pool x frame", m2.lm_desc, frame_c.desc, m2.lm_valid,
+            frame_c.valid, None, True)
+        seen = torch.any(m2.lm_obs_kf == kf1c, dim=1) & m2.lm_valid
+        # the kernel's own shape there is a frame against one column chunk of
+        # the pool: the row times the chunk that holds the most of the
+        # keyframe's landmarks; the whole call (all chunks, merged per row by
+        # tensor operations the host enqueues) is held exact and timed beside it
+        step = -(-m2.L // chunks)
+        c0 = step * max(range(chunks), key=lambda c: int(seen[c * step:(c + 1) * step].sum()))
+        c1 = min(c0 + step, m2.L)
+        rows["match_best2/reloc"] = match_case(
+            f"no mask, frame x column chunk [{c0}:{c1}] of the pool, landmarks of keyframe {kf1c}",
+            frame_c.desc, m2.lm_desc[c0:c1], frame_c.valid, seen[c0:c1], None, True)
+        match_case(f"no mask, frame x whole pool, landmarks of keyframe {kf1c} ({chunks} chunk "
+                   f"launches and their merge)", frame_c.desc, m2.lm_desc, frame_c.valid, seen,
+                   None, True)
     except RuntimeError as e:
         return fail(str(e))
-    rows["match_best2"].update(source="tc2li_slam_torch/csrc/match.cu",
-                               replaces="tc2li_slam_tpu/ops/matching.py:62", max_abs_err=0.0)
+    for name in ("match_best2", "match_best2/epipolar", "match_best2/global",
+                 "match_best2/reloc"):
+        rows[name].update(source="tc2li_slam_torch/csrc/match.cu",
+                          replaces="tc2li_slam_tpu/ops/matching.py:62", max_abs_err=0.0)
 
     g = torch.Generator(device=dev).manual_seed(0)
     ham_err = 0
@@ -480,7 +812,8 @@ def main() -> int:
 
     # --- 6. result -------------------------------------------------------------
     kernels = []
-    for name in ("fast_score_planes", "fast_nms_planes", "hamming_matrix", "match_best2"):
+    for name in ("fast_score_planes", "fast_nms_planes", "hamming_matrix", "match_best2",
+                 "match_best2/epipolar", "match_best2/global", "match_best2/reloc"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": r["source"],
                         "replaces": r["replaces"], "launches": launches[name],

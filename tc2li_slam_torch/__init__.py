@@ -1,12 +1,14 @@
 """tc2li_slam_torch — the PyTorch/CUDA port of tc2li_slam_tpu.
 
-The STEREO_LIDAR frame loop of the JAX package (ORB stereo tracking,
-camera-pose-driven LiDAR voxel map, keyframe landmarks, local BA with the
-BALM plane eigen-factor, keyframe culling), written as plain functions on
-torch tensors for one NVIDIA H100. The two TPU-shaped kernels of that path,
-the FAST-9/16 score and the Hamming distance matrix, are hand-written CUDA
-(``csrc/``) built at first use; each keeps a plain PyTorch version that runs
-for CPU tensors only.
+The STEREO_LIDAR mode of the JAX package (ORB stereo tracking,
+camera-pose-driven LiDAR voxel map, keyframe landmarks, triangulated new
+map points, local BA with the BALM plane eigen-factor, keyframe culling,
+tracking recovery by PnP RANSAC, bag-of-words relocalization and the
+multi-map atlas), written as plain functions on torch tensors for one
+NVIDIA H100. The TPU-shaped kernels of that path, the FAST-9/16 detection,
+the masked best-two descriptor match and the Hamming distance matrix, are
+hand-written CUDA (``csrc/``) built at first use; each keeps a plain
+PyTorch version that runs for CPU tensors only.
 
 Subpackages mirror the JAX layout: ``geom``, ``ops`` (+ ``ops/kernels``),
 ``solver``, ``slam``, ``io``. The package never imports jax or

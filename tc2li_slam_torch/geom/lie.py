@@ -1,5 +1,5 @@
 """Batched SO(3)/SE(3) operations on torch tensors (the subset the
-STEREO_LIDAR slice calls; Sim(3) and the logs are not ported yet).
+STEREO_LIDAR mode calls; Sim(3) and the logs are not ported yet).
 
 Port of ``tc2li_slam_tpu/geom/lie.py``: same conventions (4x4 homogeneous
 SE(3), se3 tangent ordered (rho, phi), left Jacobian V of Barfoot) and the
@@ -109,6 +109,17 @@ def se3_orthonormalize(T: torch.Tensor, iters: int = 6) -> torch.Tensor:
     for _ in range(iters):
         R = 0.5 * R @ (3.0 * eye3 - R.transpose(-1, -2) @ R)
     return torch.cat([torch.cat([R, T[..., :3, 3:]], dim=-1), T[..., 3:, :]], dim=-2)
+
+
+def orthogonalize(R: torch.Tensor) -> torch.Tensor:
+    """Project [..., 3, 3] onto SO(3) via SVD, for matrices that may be far
+    from a rotation (PnP hypotheses), where the Newton-Schulz steps of
+    ``se3_orthonormalize`` diverge. The SVD checks its status on the host:
+    only for paths that are host-gated already."""
+    U, _, Vh = torch.linalg.svd(R)
+    det = torch.linalg.det(U @ Vh)
+    D = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    return (U * D[..., None, :]) @ Vh
 
 
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,10 @@ arrays (a mapping, or any NamedTuple via ``_asdict``) and build this
 package's containers on ``device``, and ``*_to_numpy`` give the fields
 back. Descriptor words travel as uint32 on the numpy side and int32 bit
 patterns on the torch side. This is how a run starts from a saved map, and
-how the tests start both packages from the same mid-sequence state.
+how the tests start both packages from the same mid-sequence state. A
+place-recognition vocabulary travels the same way
+(``vocabulary_from_numpy``): one trained by the JAX package quantizes the
+same descriptors to the same words here.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .ops import voxel_map as vm_mod
+from .ops import bow, voxel_map as vm_mod
 from .slam import local_mapping, mapstate
 
 _UINT32_FIELDS = ("kf_desc", "lm_desc")
@@ -78,3 +81,21 @@ def lidarstore_from_numpy(src, device="cpu") -> local_mapping.LidarStore:
 
 def lidarstore_to_numpy(s: local_mapping.LidarStore) -> dict[str, np.ndarray]:
     return {"points": _numpy("points", s.points), "valid": _numpy("valid", s.valid)}
+
+
+_VOC_TABLES = ("node_desc", "children", "is_leaf", "word_id", "weight")
+
+
+def vocabulary_from_numpy(src, device="cpu") -> bow.Vocabulary:
+    """A vocabulary's fields (the JAX package's ``Vocabulary`` or a mapping
+    of its fields as numpy arrays and ints) -> ``bow.Vocabulary`` on ``device``."""
+    f = _fields(src)
+    return bow.vocabulary_from_arrays(
+        *[np.asarray(f[k]) for k in _VOC_TABLES], f["k"], f["depth"], f["n_words"], device)
+
+
+def vocabulary_to_numpy(voc: bow.Vocabulary) -> dict:
+    out = {k: getattr(voc, k).detach().cpu().numpy() for k in _VOC_TABLES}
+    out["node_desc"] = out["node_desc"].view(np.uint32)
+    out.update(k=voc.k, depth=voc.depth, n_words=voc.n_words)
+    return out

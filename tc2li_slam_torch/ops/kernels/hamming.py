@@ -24,18 +24,31 @@ from __future__ import annotations
 
 import torch
 
+from ...tensors import to_device
 from . import build
 
 launches = 0   # kernel launches by hamming_matrix (plain-version calls excluded)
 
-_POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int32)
+_POPCOUNT8 = [bin(i).count("1") for i in range(256)]
+_popcount_tables: dict[torch.device, torch.Tensor] = {}
 _CHUNK_BYTES = 1 << 24   # byte lookups per chunk of the plain version
+
+
+def popcount_table(device) -> torch.Tensor:
+    """The 256-entry byte popcount table, int32, resident on ``device``: made
+    once per device and copied there without a stream sync."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _popcount_tables:
+        _popcount_tables[device] = to_device(_POPCOUNT8, torch.int32, device)
+    return _popcount_tables[device]
 
 
 def hamming_matrix_plain(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """[N, 8] x [M, 8] int32 words -> [N, M] int32 distances."""
     N, M = d1.shape[0], d2.shape[0]
-    lut = _POPCOUNT8.to(d1.device)
+    lut = popcount_table(d1.device)
     out = torch.empty((N, M), dtype=torch.int32, device=d1.device)
     rows = max(1, _CHUNK_BYTES // max(32 * M, 1))
     for r0 in range(0, N, rows):

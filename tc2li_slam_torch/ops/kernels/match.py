@@ -23,14 +23,24 @@ The pair mask is one of:
   gate (``stereo.match_stereo``);
 - a dense bool [N, M], or ``None`` (the public ``match_descriptors``);
 
-each ANDed with ``valid1[n] & valid2[m]``. ``match_best2`` launches the
-kernel for CUDA tensors and runs the plain chain (``hamming_matrix_plain``,
-the dense mask, ``masked_best2_plain``) for CPU tensors; there is no other
-route. Every output is equal between the two.
+each ANDed with ``valid1[n] & valid2[m]``. Side 2 must fit one block's shared
+memory (``DENSE_MAX_COLUMNS`` in the dense mode). A dense or unmasked match
+against more columns (a frame against the landmark pool, in relocalization)
+is matched one column chunk at a time and the per-row pairs merged, which is
+exact: the earlier chunk wins a tie, so the first column of the minimum stays
+the first. ``match_best2`` launches the kernel for CUDA tensors and runs the
+plain chain (``hamming_matrix_plain``, the dense mask, ``masked_best2_plain``)
+for CPU tensors, per chunk where it chunks; there is no other route. Every
+output is equal between the two.
+
+``launches`` counts the kernel's launches; ``launches_by_mode`` splits the
+same count by call shape (``mode_key``: the mask kind, ``+mutual``, and
+``+chunk`` for a launch that matched one column chunk of a larger side 2).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -39,8 +49,20 @@ from . import build
 from .hamming import hamming_matrix_plain
 
 BIG = 1 << 20     # distance of a row or column with no admitted pair
+# columns of side 2 that one block's shared memory holds in the dense mode
+# (tc2li_match_max_columns(2) of csrc/match.cu)
+DENSE_MAX_COLUMNS = 6456
 
 launches = 0   # kernel launches by match_best2 (plain-version calls excluded)
+launches_by_mode: dict[str, int] = {}   # the same launches, by ``mode_key``
+
+
+def mode_key(mask, mutual: bool, chunk: bool = False) -> str:
+    """Call shape of one launch: ``window``, ``stereo``, ``dense`` (a bool
+    [N, M] mask) or ``none``, then ``+mutual``, then ``+chunk``."""
+    kind = ("none" if mask is None else "dense" if isinstance(mask, torch.Tensor)
+            else {WindowMask: "window", StereoMask: "stereo"}[type(mask)])
+    return kind + ("+mutual" if mutual else "") + ("+chunk" if chunk else "")
 
 
 def window_mask(uv1, uv2, radius):
@@ -137,11 +159,13 @@ def match_best2(d1, d2, valid1, valid2, mask=None, mutual: bool = False):
                 if isinstance(x, torch.Tensor)]
     if any(x.device != d1.device for x in tensors):
         raise ValueError("match_best2: operands on different devices")
-    if d1.device.type == "cpu":
-        return match_best2_plain(d1, d2, valid1, valid2, mask, mutual)
-    if d1.device.type != "cuda":
+    if d1.device.type not in ("cpu", "cuda"):
         raise ValueError(f"match_best2: unsupported device {d1.device}")
-    return _match_best2_cuda(d1, d2, valid1, valid2, mask, mutual)
+    cpu = d1.device.type == "cpu"
+    if (mask is None or isinstance(mask, torch.Tensor)) and M > DENSE_MAX_COLUMNS and N > 0:
+        one = match_best2_plain if cpu else functools.partial(_match_best2_cuda, chunk=True)
+        return _match_best2_chunked(one, d1, d2, valid1, valid2, mask, mutual)
+    return (match_best2_plain if cpu else _match_best2_cuda)(d1, d2, valid1, valid2, mask, mutual)
 
 
 def _arg(x: torch.Tensor, shape, dtype, name: str) -> torch.Tensor:
@@ -151,8 +175,35 @@ def _arg(x: torch.Tensor, shape, dtype, name: str) -> torch.Tensor:
     return x.contiguous()
 
 
-def _match_best2_cuda(d1, d2, valid1, valid2, mask, mutual: bool):
-    """Launch ``csrc/match.cu`` on the current stream."""
+def _match_best2_chunked(one, d1, d2, valid1, valid2, mask, mutual: bool):
+    """Dense-mode match against more columns than one block holds: ``one``
+    (the kernel's launcher, or the plain version) matches each chunk of
+    columns, merged per row."""
+    M = d2.shape[0]
+    n_chunks = -(-M // DENSE_MAX_COLUMNS)
+    step = -(-M // n_chunks)
+    idx = best = second = None
+    backs = []
+    for c0 in range(0, M, step):
+        c1 = min(c0 + step, M)
+        sub = None if mask is None else mask[:, c0:c1]
+        i, b, s, back = one(d1, d2[c0:c1], valid1, valid2[c0:c1], sub, mutual)
+        i = i + c0
+        if idx is None:
+            idx, best, second = i, b, s
+        else:
+            keep = best <= b                      # the earlier chunk wins a tie
+            idx = torch.where(keep, idx, i)
+            second = torch.where(keep, torch.minimum(second, b), torch.minimum(best, s))
+            best = torch.where(keep, best, b)
+        backs.append(back)
+    # (a row with no admitted column keeps the first chunk's idx 0)
+    return idx, best, second, torch.cat(backs) if mutual else None
+
+
+def _match_best2_cuda(d1, d2, valid1, valid2, mask, mutual: bool, chunk: bool = False):
+    """Launch ``csrc/match.cu`` on the current stream; ``chunk`` says that
+    side 2 is one column chunk of a larger one (for the launch counts)."""
     global launches
     N, M = d1.shape[0], d2.shape[0]
     dev = d1.device
@@ -201,4 +252,6 @@ def _match_best2_cuda(d1, d2, valid1, valid2, mask, mutual: bool):
         ptr(radius), ptr(uv2), ptr(lvl2), ptr(band), ptr(dense), lo, hi, max_d,
         ptr(idx), ptr(best), ptr(second), ptr(colbest), N, M, stream), "match_best2")
     launches += 1
+    key = mode_key(mask, mutual, chunk)
+    launches_by_mode[key] = launches_by_mode.get(key, 0) + 1
     return idx, best, second, None if colbest is None else colbest & 0xFFFFFFFF

@@ -75,3 +75,18 @@ def resolve_duplicates(idx, dist, matched, m_size: int):
     first_q = torch.full((m_size,), N, dtype=torch.int32, device=d.device)
     first_q.scatter_reduce_(0, idx, q_big.to(torch.int32), reduce="amin")
     return matched & is_best & (first_q[idx] == qidx)
+
+
+def epipolar_mask(uv1, uv2, F12, sigma2, thresh: float = 3.84) -> torch.Tensor:
+    """Point-to-epiline distance gate (CheckDistEpipolarLine): bool [N, M].
+
+    ``uv1`` [N, 2] keypoints in view 1, ``uv2`` [M, 2] in view 2, ``F12``
+    [3, 3] the fundamental matrix view 1 -> view 2, ``sigma2`` [M] the
+    squared level sigma of the view-2 keypoints."""
+    x1 = torch.cat([uv1, torch.ones_like(uv1[:, :1])], dim=-1)
+    lines = x1 @ F12.T                                    # [N, 3] epilines in view 2
+    num = torch.abs(lines[:, None, 0] * uv2[None, :, 0]
+                    + lines[:, None, 1] * uv2[None, :, 1] + lines[:, None, 2])
+    den2 = lines[:, 0] ** 2 + lines[:, 1] ** 2
+    d2 = num * num / torch.clamp(den2[:, None], min=1e-12)
+    return d2 < thresh * sigma2[None, :]

@@ -1,25 +1,31 @@
 """System facade for STEREO_LIDAR mode: the per-frame entry point and the
-host state machine (port of the STEREO_LIDAR subset of
-``tc2li_slam_tpu/slam/system.py``).
+host state machine (port of ``tc2li_slam_tpu/slam/system.py`` in that mode,
+without loop closing and checkpoints).
 
     per frame:  build_frame -> const-velocity predict -> track_step
                 (guided match + pose-only LM) -> stage the scan at the
                 tracked pose -> batched voxel-map insert every few frames
                 -> keyframe decision
     per KF:     stereo landmarks gated by the LiDAR map, planar LiDAR
-                features; on the next frame the mapping pass (landmark
-                culling, fuse, local BA with the BALM eigen-factor,
-                keyframe culling)
+                features, BoW words when a vocabulary is given; on the
+                next frame the mapping pass (landmark culling, new map
+                points triangulated against the covisible neighbours, fuse,
+                local BA with the BALM eigen-factor, keyframe culling)
+    on loss:    window-free recovery (global match + PnP RANSAC), BoW
+                relocalization, RECENTLY_LOST with dead reckoning, then
+                LOST: the map is frozen into the atlas and a new one starts
+                (also on a timestamp jump)
 
 Every pool lives on the device given to ``System``. A frame makes one
 device-to-host transfer: the tracker's inlier count, fetched together with
 the scalars earlier keyframe events left pending (reference-KF tracked
-count, covisibility window, culled keyframe). Host data goes to the device
-through pinned memory without a stream sync.
+count, covisibility window, culled keyframe). A frame that fails to track
+reads one more scalar per rung of the recovery ladder, as the reference
+does. Host data goes to the device through pinned memory without a stream
+sync.
 
-Paths outside the slice raise ``NotImplementedError`` naming the JAX
-function still to be ported: IMU mode, loop closing, triangulation of new
-map points, tracking recovery (PnP), relocalization and the atlas.
+IMU mode and loop closing raise ``NotImplementedError`` naming the JAX
+modules still to be ported.
 """
 
 from __future__ import annotations
@@ -31,9 +37,10 @@ import numpy as np
 import torch
 
 from ..geom import camera as cam_mod, lie
-from ..ops import plane_fit, pointcloud, voxel_map
+from ..ops import bow, plane_fit, pointcloud, voxel_map
 from ..tensors import count, to_device
-from . import config as cfg_mod, culling, lio, local_mapping, mapstate, tracking
+from . import (atlas as atlas_mod, config as cfg_mod, culling, lio, local_mapping, mapstate,
+               relocalization, tracking, trajectory, triangulation)
 
 
 class TrackingState:
@@ -96,7 +103,10 @@ class StageTimer:
 class System:
     """Stereo+LiDAR SLAM system (System::TrackStereoLidar) on one device."""
 
-    def __init__(self, cfg: cfg_mod.SystemConfig, device: torch.device | str):
+    def __init__(self, cfg: cfg_mod.SystemConfig, device: torch.device | str,
+                 voc: bow.Vocabulary | None = None):
+        """``voc`` is the place-recognition vocabulary (``ops.bow``); with
+        one, each keyframe stores its words and a lost frame relocalizes."""
         if cfg.use_imu:
             raise NotImplementedError(
                 "IMU_STEREO_LIDAR mode is not ported yet: tc2li_slam_tpu.slam.lio."
@@ -104,13 +114,10 @@ class System:
         if cfg.loop_closing:
             raise NotImplementedError(
                 "loop closing is not ported yet: tc2li_slam_tpu.slam.loop_closing")
-        if cfg.tracking.triangulate:
-            raise NotImplementedError(
-                "tracking.triangulate=True is not ported yet: tc2li_slam_tpu.slam."
-                "triangulation.triangulate_batch and geom/triangulate.py")
         self.cfg = cfg
         self.device = torch.device(device)
         dev = self.device
+        self.voc = None if voc is None else voc.to(dev)
         c = cfg.camera
         self.cam = cam_mod.Pinhole.create(c.fx, c.fy, c.cx, c.cy, bf=c.bf,
                                           width=c.width, height=c.height)
@@ -133,7 +140,8 @@ class System:
 
         eye = torch.eye(4, dtype=torch.float32, device=dev)
         self.state = TrackingState.NOT_INITIALIZED
-        self._last_t: float | None = None
+        self.localization_only = False    # ActivateLocalizationMode
+        self._last_t: float | None = None  # timestamp-jump guard
         self.T_cw = eye                   # current pose, world -> camera
         self.velocity = eye               # T_cw_k @ inv(T_cw_{k-1})
         self.ref_kf = -1
@@ -142,8 +150,15 @@ class System:
         self.ref_kf_tracked = 0
         self.frames_since_kf = 0
         self.frame_idx = -1
-        # (timestamp, ref_kf, T_cur_wrt_ref on the device)
-        self.traj: list[tuple[float, int, torch.Tensor]] = []
+        # atlas multi-map recovery (CreateMapInAtlas)
+        self.atlas = atlas_mod.Atlas()
+        self.map_id = 0
+        self.n_lost = 0
+        self.kf_words = self._new_kf_words()
+        # draws the PnP hypotheses of the recovery and relocalization paths
+        self._generator = torch.Generator(device=dev).manual_seed(0)
+        # (timestamp, map_id, ref_kf, T_cur_wrt_ref on the device)
+        self.traj: list[tuple[float, int, int, torch.Tensor]] = []
         self.timers = StageTimer(dev)
         self._pending_mapping: int | None = None   # KF whose mapping pass is due
         self._pending_fetch: dict[str, torch.Tensor] = {}  # read at the next sync
@@ -153,6 +168,23 @@ class System:
         self.n_ba = 0          # local BA passes run
         self.n_ba_balm = 0     # ... of which carried the BALM eigen-factor
         self.n_fuse = 0        # fuse_into_keyframe passes run
+        self.n_recover = 0     # track_step_recover calls
+        self.n_reloc = 0       # relocalization attempts
+        # landmarks allocated by triangulation: a device counter, read it
+        # with int() after a run
+        self.n_tri_landmarks = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def _new_kf_words(self) -> torch.Tensor | None:
+        """[K, F] sorted BoW word ids per keyframe (-1 pads), with a vocabulary."""
+        if self.voc is None:
+            return None
+        return torch.full((self.cfg.tracking.max_kf, self.cfg.orb.n_features), -1,
+                          dtype=torch.int32, device=self.device)
+
+    def activate_localization_mode(self, on: bool = True):
+        """Localization only: track against the frozen map, create no
+        keyframes and no landmarks (System::ActivateLocalizationMode)."""
+        self.localization_only = on
 
     # ------------------------------------------------------------------
     def _input(self, x, dtype=None) -> torch.Tensor:
@@ -167,12 +199,12 @@ class System:
         LiDAR frame. Without ``scan_valid`` every point counts: padding slots
         are expected zeroed, inside the blind radius."""
         self.frame_idx += 1
+        # a gap above 1 s, or time running backwards, means the sensor stream
+        # broke: freeze the map into the atlas and restart tracking
         if self._last_t is not None and self.state != TrackingState.NOT_INITIALIZED:
             dt_frame = float(t) - self._last_t
             if dt_frame > 1.0 or dt_frame < 0.0:
-                raise NotImplementedError(
-                    "a timestamp jump restarts the map in the atlas, which is not "
-                    "ported yet: tc2li_slam_tpu.slam.system.System._create_map_in_atlas")
+                self._create_map_in_atlas()
         self._last_t = float(t)
         img_l, img_r = self._input(img_l), self._input(img_r)
         if scan is not None:
@@ -197,7 +229,10 @@ class System:
         n_depth = int(torch.sum(frame.valid & (frame.depth > 0)))
         if n_depth < 100:
             return
-        self.T_cw = torch.eye(4, dtype=torch.float32, device=self.device)
+        # map 0 starts at the origin; a recovery map is anchored at the
+        # dead-reckoned pose, so the exported trajectory stays continuous
+        if self.map_id == 0:
+            self.T_cw = torch.eye(4, dtype=torch.float32, device=self.device)
         kf_id = self._create_keyframe(
             frame, t, scan, scan_valid, run_ba=False,
             feat_lm=torch.full((self.map.F,), mapstate.NO_LM, dtype=torch.int32,
@@ -231,31 +266,74 @@ class System:
         self._pending_fetch = {}
         return n_inl
 
+    def _stage_scan(self, scan, scan_valid, T_cw):
+        """Preprocess the scan at ``T_cw`` for the batched map insert."""
+        with self.timers.stage("lidar_update"):
+            staged = lio.camera_scan_stage(
+                scan, scan_valid, T_cw, self.T_cl, self.cfg.lidar.blind,
+                self.cfg.lidar.map_voxel, insert_cap=self.cfg.lidar.insert_cap)
+            self._lidar_pending.append(staged)
+            self._last_staged_scan = staged
+        return staged
+
     def _track_frame(self, frame, t, scan, scan_valid):
         tc = self.cfg.tracking
+        T_pred = self.velocity @ self.T_cw
         with self.timers.stage("track_step"):
             new_map, res, T_new, vel_new = tracking.track_step(
                 self.map, frame, self.T_cw, self.velocity, self.cam,
                 self.scale_factors, self.sigma2, tc.match_radius_narrow)
         # stage the scan at the un-synced tracked pose (UpdateMap): it needs
         # no host decision, and overlaps the frame's sync
+        staged = None
         if self.lidar_enabled and scan is not None:
-            with self.timers.stage("lidar_update"):
-                staged = lio.camera_scan_stage(
-                    scan, scan_valid, res.T_cw, self.T_cl, self.cfg.lidar.blind,
-                    self.cfg.lidar.map_voxel, insert_cap=self.cfg.lidar.insert_cap)
-                self._lidar_pending.append(staged)
-                self._last_staged_scan = staged
+            staged = self._stage_scan(scan, scan_valid, res.T_cw)
         with self.timers.stage("sync"):
             n_inl = self._sync(res.n_inliers)
 
         if n_inl < max(tc.min_inliers, 10):
-            raise NotImplementedError(
-                f"frame {self.frame_idx}: {n_inl} inliers; tracking recovery is not "
-                "ported yet: tc2li_slam_tpu.slam.tracking.track_step_recover "
-                "(solver/pnp.py), relocalization and the atlas")
+            # the optimistic staging above used a failed pose: drop it
+            if staged is not None and self._lidar_pending \
+                    and self._lidar_pending[-1] is staged:
+                self._lidar_pending.pop()
+                staged = None
+            # window-free global re-acquisition + refinement, gated on the
+            # host so that a frame that tracks never pays for it
+            with self.timers.stage("track_recover"):
+                self.n_recover += 1
+                new_map, res, T_new, vel_new = tracking.track_step_recover(
+                    self.map, frame, self.T_cw, T_pred, self.velocity, self.cam,
+                    self.scale_factors, self.sigma2, tc.match_radius_narrow,
+                    generator=self._generator)
+                n_inl = int(res.n_inliers)
+
+        if n_inl < 10 and self.voc is not None:
+            # relocalization: BoW candidates + PnP RANSAC
+            with self.timers.stage("relocalize"):
+                self.n_reloc += 1
+                rr = relocalization.relocalize(
+                    self.map, frame, self.cam, self.voc, self.kf_words, self.sigma2,
+                    generator=self._generator)
+            if rr.ok:
+                n_dev = torch.full((), rr.n_inliers, dtype=torch.int32, device=self.device)
+                res = tracking.TrackResult(rr.T_cw, rr.feat_lm, n_dev, n_dev)
+                n_inl = rr.n_inliers
+                T_new = rr.T_cw
+                # the motion model is void after a relocalization
+                vel_new = torch.eye(4, dtype=torch.float32, device=self.device)
+
+        if n_inl < 10:
+            self.state = TrackingState.RECENTLY_LOST
+            self.n_lost += 1
+            self.T_cw = T_new       # the motion model's prediction (dead reckoning)
+            self.frames_since_kf += 1
+            if self.n_lost >= tc.recently_lost_frames:
+                # RECENTLY_LOST -> LOST: freeze the map, start a new one
+                self._create_map_in_atlas()
+            return
 
         self.state = TrackingState.OK
+        self.n_lost = 0
         self.T_cw = T_new
         self.velocity = vel_new
         self.map = new_map
@@ -267,9 +345,16 @@ class System:
                 kf_q, self._pending_mapping = self._pending_mapping, None
                 self._mapping_step(kf_q)
 
+        # a recovered frame dropped its staging: stage at the recovered pose
+        if staged is None and self.lidar_enabled and scan is not None:
+            self._stage_scan(scan, scan_valid, self.T_cw)
         if len(self._lidar_pending) >= self.cfg.lidar.insert_every:
             with self.timers.stage("lidar_update"):
                 self._lidar_flush()
+
+        if self.localization_only:
+            self.frames_since_kf += 1
+            return
 
         if self._need_new_keyframe(n_inl):
             with self.timers.stage("keyframe"):
@@ -327,6 +412,10 @@ class System:
         self.map, rkt = self._kf_create(kf_id, frame, t, feat_lm, use_gate)
         if self.lidar_enabled and scan is not None:
             self._store_kf_lidar(kf_id, scan, scan_valid)
+        if self.voc is not None:
+            words, _ = bow.quantize(self.voc, frame.desc, frame.valid, self.voc.depth)
+            self.kf_words = self.kf_words.index_copy(
+                0, mapstate.as_index(kf_id, self.device), torch.sort(words).values[None])
         self.ref_kf = kf_id
         # read at the next frame's sync (one-frame lag, no blocking)
         self._pending_fetch["ref_kf_tracked"] = rkt
@@ -377,8 +466,9 @@ class System:
 
     # ------------------------------------------------------------------
     def _mapping_step(self, kf_id: int):
-        """LocalMapping pass for a new keyframe: MapPointCulling -> Fuse
-        (both directions) -> landmark stats -> local BA -> KeyFrameCulling."""
+        """LocalMapping pass for a new keyframe: MapPointCulling ->
+        CreateNewMapPoints -> Fuse (both directions) -> landmark stats ->
+        local BA -> KeyFrameCulling."""
         t = self.cfg.tracking
         lc = self.cfg.lidar
         covis, self._covis = self._covis, None
@@ -389,6 +479,13 @@ class System:
             neighbors = sorted((w for w in window if w not in (kf_id, mapstate.NO_KF)),
                                reverse=True)
             m = culling.cull_landmarks(self.map, kf_id)
+            if t.triangulate:
+                nbs = neighbors[:t.tri_pairs]
+                n_before = m.n_lm
+                m = triangulation.triangulate_batch(
+                    m, kf_id, nbs + [mapstate.NO_KF] * (t.tri_pairs - len(nbs)),
+                    self.cam, self.sigma2, self.scale_factors, max_pairs=t.tri_pairs)
+                self.n_tri_landmarks = self.n_tri_landmarks + (m.n_lm - n_before)
             for kf in [kf_id] + neighbors[:1]:
                 m = culling.fuse_into_keyframe(m, kf, self.cam, self.scale_factors)
                 self.n_fuse += 1
@@ -419,25 +516,79 @@ class System:
         self.map, killed = culling.cull_keyframes(
             self.map, to_device(pm, torch.bool, self.device),
             thresh=self.cfg.tracking.cull_kf_redundancy)
-        if self.lidar_enabled:
+        if self.lidar_enabled or self.voc is not None:
             kill_mask = torch.zeros(K, dtype=torch.bool, device=self.device).index_put(
                 (torch.clamp(killed, 0, K - 1).reshape(1).long(),), (killed >= 0).reshape(1))
+        if self.lidar_enabled:
             self.lidar_store = self.lidar_store.replace(
                 valid=self.lidar_store.valid & ~kill_mask[:, None])
+        if self.voc is not None:
+            self.kf_words = torch.where(kill_mask[:, None], -1, self.kf_words)
         self._pending_fetch["killed"] = killed
+
+    # ------------------------------------------------------------------
+    def _create_map_in_atlas(self):
+        """Freeze the active map and start a fresh one (atlas recovery).
+
+        A map with fewer than ``atlas_min_kf`` keyframes is discarded
+        (ResetActiveMap). The new map initialises, anchored at the current
+        dead-reckoned pose, on the next frame with enough stereo depth."""
+        self.flush_mapping()    # deferred mapping lands on the old map first
+        t = self.cfg.tracking
+        bundle = atlas_mod.MapBundle(
+            map=self.map, lidar_store=self.lidar_store, kf_words=self.kf_words,
+            n_kf=self.n_kf_host, map_id=self.map_id)
+        self.atlas.freeze_or_discard(bundle, min_kf=t.atlas_min_kf)
+        self.map_id = self.atlas.n_created - 1
+        self.map = mapstate.create(max_kf=t.max_kf, max_feats=self.cfg.orb.n_features,
+                                   max_lm=t.max_lm, max_obs=t.max_obs, device=self.device)
+        if self.lidar_enabled:
+            self.lidar_store = local_mapping.LidarStore.create(
+                t.max_kf, self.cfg.lidar.kf_points, self.device)
+        self.kf_words = self._new_kf_words()
+        self.n_kf_host = 0
+        self.kf_alive = [True] * t.max_kf
+        self.ref_kf = -1
+        self.ref_kf_tracked = 0
+        self._pending_mapping = None
+        self._pending_fetch = {}
+        self._covis = None
+        self.frames_since_kf = 0
+        self.n_lost = 0
+        self.velocity = torch.eye(4, dtype=torch.float32, device=self.device)
+        self._last_staged_scan = None
+        self._lidar_pending = []
+        self.state = TrackingState.NOT_INITIALIZED
 
     # ------------------------------------------------------------------
     def _record_pose(self, t):
         T_ref = self.map.kf_T_cw[max(self.ref_kf, 0)]
-        self.traj.append((float(t), self.ref_kf, self.T_cw @ lie.se3_inverse(T_ref)))
+        self.traj.append((float(t), self.map_id, self.ref_kf,
+                          self.T_cw @ lie.se3_inverse(T_ref)))
 
     def trajectory_world_from_cam(self) -> np.ndarray:
         """Per-frame world-from-camera [N, 4, 4], recomposed against the
-        (BA-refined) keyframe poses (SaveTrajectoryKITTI logic)."""
+        (BA-refined) keyframe poses (SaveTrajectoryKITTI logic).
+
+        A frame's pose is stored relative to its reference keyframe within
+        its sub-map. Frames of a discarded sub-map, and frames without a
+        reference keyframe, keep their recorded pose (a dead-reckoned
+        segment)."""
         self.flush_mapping()
-        kf_T = self.map.kf_T_cw.cpu().numpy()
+        kf_T_by_map = {self.map_id: self.map.kf_T_cw.cpu().numpy()}
+        for bundle in self.atlas.frozen:
+            kf_T_by_map[bundle.map_id] = bundle.map.kf_T_cw.cpu().numpy()
         T_rels = torch.stack([T for *_, T in self.traj]).cpu().numpy()
         eye = np.eye(4, dtype=T_rels.dtype)
-        out = [np.linalg.inv(T_rel @ (kf_T[ref] if ref >= 0 else eye))
-               for (_, ref, _), T_rel in zip(self.traj, T_rels)]
+        out = []
+        for (_, mid, ref, _), T_rel in zip(self.traj, T_rels):
+            kf_T = kf_T_by_map.get(mid)
+            T_ref = kf_T[ref] if (kf_T is not None and ref >= 0) else eye
+            out.append(np.linalg.inv(T_rel @ T_ref))
         return np.stack(out)
+
+    def save_trajectory_kitti(self, path: str):
+        trajectory.save_kitti(path, self.trajectory_world_from_cam())
+
+    def save_trajectory_tum(self, path: str):
+        trajectory.save_tum(path, [t for t, *_ in self.traj], self.trajectory_world_from_cam())

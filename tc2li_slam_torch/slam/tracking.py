@@ -1,9 +1,9 @@
-"""Per-frame tracking: frame build, guided matching, pose tracking
-(port of ``tc2li_slam_tpu/slam/tracking.py`` without the recovery path).
+"""Per-frame tracking: frame build, windowed matching, pose tracking and the
+window-free recovery (port of ``tc2li_slam_tpu/slam/tracking.py``).
 
-The window-free recovery (``track_frame_global`` / ``track_step_recover``,
-global descriptor matching + PnP RANSAC) is not ported yet; the system
-raises ``NotImplementedError`` where it would run.
+``track_step`` is the per-frame path; the host calls ``track_step_recover``
+(global descriptor matching of the whole landmark pool + PnP RANSAC, then a
+windowed pass) only when that came back with too few inliers.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import torch
 
 from ..geom import camera as cam_mod, lie
 from ..ops import matching, orb, stereo
-from ..solver import lm as lm_mod
+from ..solver import lm as lm_mod, pnp as pnp_mod
 from ..tensors import count
 from . import mapstate
 
@@ -86,11 +86,7 @@ def track_frame(m: mapstate.MapState, frame: Frame, T_cw_pred, cam, scale_factor
         frame.valid, rad, max_dist=matching.TH_HIGH, ratio=0.9)
     matched = matching.resolve_duplicates(kp_idx, dist_h, matched, frame.xy.shape[0])
 
-    F = frame.xy.shape[0]
-    lm_ids = torch.arange(m.L, dtype=torch.int32, device=m.device)
-    buf = torch.full((F + 1,), mapstate.NO_LM, dtype=torch.int32, device=m.device)
-    buf[torch.where(matched, kp_idx, F)] = torch.where(matched, lm_ids, mapstate.NO_LM)
-    feat_lm = buf[:F]
+    feat_lm = _assign_features(m, kp_idx, matched, frame.xy.shape[0])
     has_lm = feat_lm != mapstate.NO_LM
 
     X_obs = m.lm_pos[torch.clamp(feat_lm, 0, m.L - 1).long()]
@@ -101,6 +97,63 @@ def track_frame(m: mapstate.MapState, frame: Frame, T_cw_pred, cam, scale_factor
     return TrackResult(res.T_cw, feat_lm, res.n_inliers, count(matched))
 
 
+def _assign_features(m: mapstate.MapState, kp_idx, matched, F: int) -> torch.Tensor:
+    """[F] landmark id per frame feature from a landmark-major match."""
+    lm_ids = torch.arange(m.L, dtype=torch.int32, device=m.device)
+    buf = torch.full((F + 1,), mapstate.NO_LM, dtype=torch.int32, device=m.device)
+    buf[torch.where(matched, kp_idx, F)] = torch.where(matched, lm_ids, mapstate.NO_LM)
+    return buf[:F]
+
+
+def track_frame_global(m: mapstate.MapState, frame: Frame, cam, sigma2,
+                       generator: torch.Generator | None = None,
+                       sample_idx: torch.Tensor | None = None) -> TrackResult:
+    """Window-free descriptor tracking (TrackReferenceKeyFrame's role): the
+    whole landmark pool against the frame, mutual, no window; the pose from
+    batched PnP RANSAC, so it needs no initial guess. The hypotheses' points
+    come from ``generator`` or are given as ``sample_idx`` [64, 6]."""
+    F = frame.xy.shape[0]
+    kp_idx, dist_h, matched = matching.match_descriptors(
+        m.lm_desc, frame.desc, m.lm_valid, frame.valid,
+        max_dist=matching.TH_LOW, ratio=0.75, mutual=True)
+    matched = matching.resolve_duplicates(kp_idx, dist_h, matched, F)
+    feat_lm = _assign_features(m, kp_idx, matched, F)
+    has_lm = feat_lm != mapstate.NO_LM
+    X_obs = m.lm_pos[torch.clamp(feat_lm, 0, m.L - 1).long()]
+    res = pnp_mod.pnp_ransac(cam, X_obs, frame.xy, has_lm & frame.valid, generator,
+                             n_hyp=64, min_inliers=12, sample_idx=sample_idx)
+    feat_lm = torch.where(res.inliers, feat_lm, mapstate.NO_LM)
+    return TrackResult(res.T_cw, feat_lm, res.n_inliers, count(matched))
+
+
+def _select(cond, a: TrackResult, b: TrackResult) -> TrackResult:
+    """Field-wise ``cond ? a : b`` (cond a device scalar)."""
+    return TrackResult(*[torch.where(cond, x, y) for x, y in zip(a, b)])
+
+
+def _finish_step(m, res: TrackResult, T_pred, T_cw_prev, velocity, cam):
+    """Dead-reckon on failure, count found/visible, update the motion model."""
+    ok = res.n_inliers >= 10
+    res = res._replace(T_cw=torch.where(ok, res.T_cw, T_pred),
+                       feat_lm=torch.where(ok, res.feat_lm, mapstate.NO_LM))
+    m = update_found_counters(m, res.feat_lm, res.T_cw, cam, ok)
+    vel_new = torch.where(ok, res.T_cw @ lie.se3_inverse(T_cw_prev), velocity)
+    return m, res, res.T_cw, vel_new
+
+
+def track_step_recover(m: mapstate.MapState, frame: Frame, T_cw_prev, T_pred, velocity,
+                       cam, scale_factors, sigma2, radius: float,
+                       generator: torch.Generator | None = None,
+                       sample_idx: torch.Tensor | None = None):
+    """Failure-path re-acquisition: global matching + PnP RANSAC, then a
+    windowed pass from that pose; the better of the two is kept on the device.
+    Returns what ``track_step`` returns."""
+    res_g = track_frame_global(m, frame, cam, sigma2, generator, sample_idx)
+    res2 = track_frame(m, frame, res_g.T_cw, cam, scale_factors, sigma2, radius)
+    res = _select((res_g.n_inliers >= 10) & (res2.n_inliers >= res_g.n_inliers), res2, res_g)
+    return _finish_step(m, res, T_pred, T_cw_prev, velocity, cam)
+
+
 def track_step(m: mapstate.MapState, frame: Frame, T_cw_prev, velocity, cam,
                scale_factors, sigma2, radius: float):
     """Motion-model guided tracking + found counters + motion update.
@@ -109,12 +162,7 @@ def track_step(m: mapstate.MapState, frame: Frame, T_cw_prev, velocity, cam,
     is the motion-model prediction and the velocity is unchanged."""
     T_pred = lie.se3_orthonormalize(velocity @ T_cw_prev)
     res = track_frame(m, frame, T_pred, cam, scale_factors, sigma2, radius)
-    ok = res.n_inliers >= 10
-    res = res._replace(T_cw=torch.where(ok, res.T_cw, T_pred),
-                       feat_lm=torch.where(ok, res.feat_lm, mapstate.NO_LM))
-    m = update_found_counters(m, res.feat_lm, res.T_cw, cam, ok)
-    vel_new = torch.where(ok, res.T_cw @ lie.se3_inverse(T_cw_prev), velocity)
-    return m, res, res.T_cw, vel_new
+    return _finish_step(m, res, T_pred, T_cw_prev, velocity, cam)
 
 
 def update_found_counters(m: mapstate.MapState, feat_lm, T_cw, cam, frame_ok):

@@ -157,13 +157,70 @@ def test_match_best2_all_invalid_and_limits(cuda):
     assert int(idx.abs().max()) == 0 and int(back.abs().max()) == 0
     assert bool((best == match.BIG).all()) and bool((second == match.BIG).all())
     wide = torch.zeros((8000, 8), dtype=torch.int32, device=cuda)
+    ones = torch.ones(8000, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):        # side 2 does not fit shared memory
-        match.match_best2(c["d1"], wide, c["valid1"],
-                          torch.ones(8000, dtype=torch.bool, device=cuda))
+        match.match_best2(c["d1"], wide, c["valid1"], ones, match.WindowMask(
+            c["uv1"], c["radius"], c["lvl1"], torch.zeros((8000, 2), device=cuda),
+            torch.zeros(8000, dtype=torch.int32, device=cuda)))
+    before = match.launches                # the dense mode takes it in two chunks
+    _same(match.match_best2(c["d1"], wide, c["valid1"], ones, None, True),
+          match.match_best2_plain(c["d1"], wide, c["valid1"], ones, None, True))
+    assert match.launches - before == 2
     with pytest.raises(ValueError):        # wrong dtype for the kernel
         match.match_best2(c["d1"], c["d2"], c["valid1"], c["valid2"],
                           match.WindowMask(c["uv1"].double(), c["radius"], c["lvl1"],
                                            c["uv2"], c["lvl2"]))
+
+
+def test_match_best2_epipolar_mask_shape(cuda):
+    """Triangulation's call: 2000 x 2000, a dense bool mask from the
+    epipolar gate of a real fundamental matrix, mutual."""
+    c = _match_case(21, 2000, 2000, cuda)
+    F12 = torch.tensor([[0.0, -1e-5, 2e-3], [1e-5, 0.0, -4e-3], [-2e-3, 4e-3, 0.1]], device=cuda)
+    sigma2 = (1.2 ** (2.0 * c["lvl2"].float()))
+    epi = matching.epipolar_mask(c["uv1"], c["uv2"], F12, sigma2)
+    assert epi.dtype == torch.bool and 0 < int(epi.sum()) < epi.numel()
+    before = match.launches
+    got = match.match_best2(c["d1"], c["d2"], c["valid1"], c["valid2"], epi, True)
+    assert match.launches - before == 1
+    _same(got, match.match_best2_plain(c["d1"], c["d2"], c["valid1"], c["valid2"], epi, True))
+
+
+@pytest.mark.parametrize("n_valid", [32768, 700])
+def test_match_best2_pool_against_frame_shape(cuda, n_valid):
+    """Global tracking's call: the whole 32768-slot landmark pool against a
+    frame's 2000 features, mutual, no mask."""
+    c = _match_case(22, 32768, 2000, cuda)
+    v1 = c["valid1"] & (torch.arange(32768, device=cuda) < n_valid)
+    before = match.launches
+    got = match.match_best2(c["d1"], c["d2"], v1, c["valid2"], None, True)
+    assert match.launches - before == 1
+    _same(got, match.match_best2_plain(c["d1"], c["d2"], v1, c["valid2"], None, True))
+    a = matching.match_descriptors(c["d1"], c["d2"], v1, c["valid2"], max_dist=50, ratio=0.75,
+                                   mutual=True)
+    b = matching.match_descriptors(c["d1"].cpu(), c["d2"].cpu(), v1.cpu(), c["valid2"].cpu(),
+                                   max_dist=50, ratio=0.75, mutual=True)
+    for g, r in zip(a, b):
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("n_seen", [32768, 400])
+def test_match_best2_frame_against_pool_shape(cuda, n_seen):
+    """Relocalization's call: a frame's 2000 features against the 32768-slot
+    pool as side 2 (only the landmarks seen from one keyframe valid),
+    mutual: six column chunks merged, exact, first column on ties."""
+    c = _match_case(23, 2000, 32768, cuda)
+    c["d2"][20000] = c["d2"][0]             # a tie across chunks
+    c["d2"][1] = c["d2"][0]
+    seen = c["valid2"] & (torch.rand(32768, device=cuda) < n_seen / 32768)
+    seen[0] = seen[1] = seen[20000] = True
+    from tc2li_slam_torch.ops.kernels import build
+    assert build.library().tc2li_match_max_columns(2) == match.DENSE_MAX_COLUMNS
+    before = match.launches, match.launches_by_mode.get("none+mutual+chunk", 0)
+    got = match.match_best2(c["d1"], c["d2"], c["valid1"], seen, None, True)
+    assert match.launches - before[0] == -(-32768 // match.DENSE_MAX_COLUMNS) == 6
+    assert match.launches_by_mode["none+mutual+chunk"] - before[1] == 6
+    _same(got, match.match_best2_plain(c["d1"], c["d2"], c["valid1"], seen, None, True))
 
 
 def test_matchers_on_cuda_match_cpu(cuda):
@@ -214,3 +271,61 @@ def test_system_on_cuda_matches_cpu(cuda):
     assert fast.score_launches - launches0[0] == 8
     assert fast.nms_launches - launches0[1] == 8
     assert match.launches - launches0[2] == 8 + 7 + sg.n_fuse
+
+
+def test_default_config_and_recovery_on_cuda(cuda):
+    """triangulate=True and a vocabulary on the card against the CPU: the
+    same keyframes and landmarks, positions within 5 mm; one more match
+    launch per triangulated pair; a teleport recovers within 0.3 m."""
+    import dataclasses
+    from tc2li_slam_torch.geom import lie
+    from tc2li_slam_torch.io import synthetic as syn
+    from tc2li_slam_torch.ops import bow
+    from tc2li_slam_torch.slam import config as tcfg, system as tsys
+    from torch_parity import small_config, small_sequence
+
+    frames = small_sequence(10)
+    cfg = small_config(tcfg)
+    cfg = dataclasses.replace(cfg, tracking=dataclasses.replace(cfg.tracking, triangulate=True))
+    descs = []
+    for fr in frames[:3]:
+        kp = orb.extract(torch.as_tensor(np.asarray(fr.img_l)), n_features=512, n_levels=4)
+        descs.append(kp.desc.numpy().view(np.uint32)[kp.valid.numpy()])
+    voc = bow.train_vocabulary(np.concatenate(descs), k=6, depth=3, seed=0)
+    launches0 = match.launches
+    by_mode0 = dict(match.launches_by_mode)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        s = tsys.System(cfg, dev, voc=voc)
+        for fr in frames:
+            s.track(fr.img_l, fr.img_r, fr.t, fr.scan, fr.scan_valid)
+            assert s.state == tsys.TrackingState.OK
+        runs[dev] = (s, s.trajectory_world_from_cam())
+    (sc, ec), (sg, eg) = runs["cpu"], runs["cuda"]
+    assert int(sg.map.n_kf) == int(sc.map.n_kf) >= 4
+    assert int(sg.map.n_lm) == int(sc.map.n_lm)
+    assert int(sg.n_tri_landmarks) == int(sc.n_tri_landmarks) > 0
+    assert torch.equal(sg.kf_words.cpu(), sc.kf_words)
+    assert np.linalg.norm(eg[:, :3, 3] - ec[:, :3, 3], axis=-1).max() < 5e-3
+    by_mode = {k: v - by_mode0.get(k, 0) for k, v in match.launches_by_mode.items()}
+    by_mode = {k: v for k, v in by_mode.items() if v}
+    # a stereo match per frame; a windowed match per tracked frame and per
+    # fuse pass; one epipolar-masked match per triangulated keyframe pair
+    n_pairs = by_mode.pop("dense+mutual")
+    assert by_mode == {"stereo+mutual": 10, "window": 9 + sg.n_fuse}
+    assert 3 <= n_pairs <= cfg.tracking.tri_pairs * sg.n_ba
+    assert match.launches - launches0 == 10 + 9 + sg.n_fuse + n_pairs
+
+    sg.velocity = lie.se3_exp(torch.tensor([30.0, 20.0, -15.0, 0.6, -0.8, 0.9], device=cuda))
+    fr = frames[5]
+    before = match.launches
+    global0 = match.launches_by_mode.get("none+mutual", 0)
+    sg.track(fr.img_l, fr.img_r, 1.0, fr.scan, fr.scan_valid)
+    assert sg.state == tsys.TrackingState.OK and sg.n_recover == 1
+    assert match.launches_by_mode["none+mutual"] - global0 == 1
+    T_bc = syn.body_from_cam()
+    gt_cw = np.linalg.inv(frames[5].T_wb_gt @ T_bc) @ (frames[0].T_wb_gt @ T_bc)
+    assert np.linalg.norm(sg.T_cw.cpu().numpy()[:3, 3] - gt_cw[:3, 3]) < 0.3
+    # stereo, the failed windowed match, the global match, the windowed retry,
+    # plus whatever the deferred mapping pass of this frame launched
+    assert match.launches - before >= 4

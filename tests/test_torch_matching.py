@@ -175,6 +175,37 @@ def test_best2_plain_all_mask_kinds_exact(rng, mutual):
         tmatch.match_best2(ta["d_map"], ta["kp_desc"], ta["vm"].to(torch.int32), ta["vk"])
 
 
+@pytest.mark.parametrize("mutual", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_column_chunks_merge_exact(rng, monkeypatch, mutual, masked):
+    """More columns than one launch of the kernel holds are matched chunk by
+    chunk and merged per row (here through ``match_best2`` with the column
+    limit lowered): equal to the one-piece match, with a
+    duplicated column in a later chunk (the first must stay first) and rows
+    whose only admitted column lies in the last chunk."""
+    N, M = 200, 700
+    d2 = random_words(rng, (M, 8))
+    d2[450] = d2[3]
+    d2[690] = d2[3]
+    d1 = _near_copies(rng, d2, N, flip=6)
+    d1[0] = d2[3]
+    v1, v2 = rng.random(N) > 0.2, rng.random(M) > 0.3
+    v1[0] = v2[3] = v2[450] = v2[690] = True
+    mask = rng.random((N, M)) > 0.5 if masked else None
+    if masked:
+        mask[1] = False
+        mask[1, 699] = v1[1] = v2[699] = True
+        mask[0, [3, 450, 690]] = True
+    args = (t(d1), t(d2), t(v1), t(v2), None if mask is None else t(mask), mutual)
+    ref = tmatch.match_best2_plain(*args)
+    for chunk in (256, 699, 64):
+        monkeypatch.setattr(tmatch, "DENSE_MAX_COLUMNS", chunk)
+        got = tmatch.match_best2(*args)
+        for a, b in zip(got, ref):
+            assert (a is None and b is None) or (a.dtype == b.dtype and torch.equal(a, b))
+    assert int(ref[0][0]) == 3 and int(ref[1][0]) == 0 and int(ref[2][0]) == 0
+
+
 @pytest.mark.parametrize("bf", [12.5, 300.0])
 def test_stereo_entry_exact_synthetic(rng, bf):
     """``match_stereo`` (band, disparity range, level gate, mutual, ratio

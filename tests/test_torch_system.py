@@ -60,6 +60,36 @@ def test_system_matches_jax():
     assert _launches() == launches0
 
 
+def test_system_matches_jax_triangulate():
+    """The JAX package's default: new map points triangulated between
+    covisible keyframes at every mapping pass. Same keyframes, the same
+    number of landmarks, per-frame positions within 5 mm."""
+    n_frames = 10
+
+    def cfg(mod):
+        c = small_config(mod)
+        return dataclasses.replace(
+            c, tracking=dataclasses.replace(c.tracking, triangulate=True))
+
+    assert jcfg.TrackingConfig().triangulate and tcfg.TrackingConfig().triangulate
+    frames = small_sequence(n_frames)
+    gt = np.stack([fr.T_wb_gt @ syn.body_from_cam() for fr in frames])
+    sj = jsys.System(cfg(jcfg))
+    states_j, est_j = _run(sj, frames)
+    st = tsys.System(cfg(tcfg), "cpu")
+    states_t, est_t = _run(st, frames)
+    assert states_t == states_j == [tsys.TrackingState.OK] * n_frames
+    assert int(st.map.n_kf) == int(sj.map.n_kf) >= 4
+    np.testing.assert_array_equal(st.map.kf_valid.numpy(), np.asarray(sj.map.kf_valid))
+    assert int(st.map.n_lm) == int(sj.map.n_lm)
+    assert int(st.n_tri_landmarks) > 10 and st.n_tri_landmarks.dtype == torch.int32
+    np.testing.assert_array_equal(st.map.lm_valid.numpy(), np.asarray(sj.map.lm_valid))
+    np.testing.assert_array_equal(st.map.lm_n_obs.numpy(), np.asarray(sj.map.lm_n_obs))
+    dpos = np.linalg.norm(est_t[:, :3, 3] - est_j[:, :3, 3], axis=-1)
+    assert dpos.max() < POS_TOL_M, dpos
+    assert syn.ate_rmse(est_t, gt) < ATE_BOUND_M
+
+
 def test_synthetic_copy_matches_jax_package():
     """The port's numpy-only copies generate and configure identically."""
     from tc2li_slam_tpu.ops import _orb_pattern as jpat
@@ -94,13 +124,23 @@ def test_port_import_loads_no_jax():
 
 
 @pytest.mark.parametrize("change", [
-    dict(use_imu=True), dict(loop_closing=True),
-    dict(tracking=dataclasses.replace(tcfg.TrackingConfig(), triangulate=True)),
+    dict(use_imu=True), dict(loop_closing=True), dict(use_imu=True, loop_closing=True),
 ])
 def test_paths_outside_the_slice_raise(change):
+    """IMU mode and loop closing are the only paths still to be ported."""
     cfg = dataclasses.replace(small_config(tcfg), **change)
     with pytest.raises(NotImplementedError, match="tc2li_slam_tpu"):
         tsys.System(cfg, "cpu")
+
+
+def test_default_tracking_config_constructs():
+    """The JAX package's default TrackingConfig (triangulate=True) is taken."""
+    cfg = dataclasses.replace(small_config(tcfg, lidar=False), tracking=tcfg.TrackingConfig(
+        max_kf=8, max_lm=1024))
+    assert cfg.tracking.triangulate
+    s = tsys.System(cfg, "cpu")
+    assert s.state == tsys.TrackingState.NOT_INITIALIZED and s.kf_words is None
+    assert s.atlas.n_maps == 1 and s.map_id == 0 and not s.localization_only
 
 
 def test_kernel_wrappers_take_no_other_route():

@@ -12,6 +12,7 @@ from tc2li_slam_tpu.slam import mapstate as jms, tracking as jtr
 from tc2li_slam_torch import interop
 from tc2li_slam_torch.geom import camera as tcam
 from tc2li_slam_torch.slam import mapstate as tms, tracking as ttr
+from test_torch_pnp import jax_sample_idx
 from torch_parity import jax_midsequence, n, t, words_u32
 
 # poses after 40 LM iterations in float32 in two libraries
@@ -77,6 +78,75 @@ def test_track_step(mid):
     np.testing.assert_allclose(n(vt), np.asarray(vj), atol=POSE_ATOL)
     np.testing.assert_array_equal(n(mt.lm_found), np.asarray(mj.lm_found))
     np.testing.assert_array_equal(n(mt.lm_visible), np.asarray(mj.lm_visible))
+
+
+def _global_samples(mid, key):
+    """The hypotheses the JAX package draws in ``track_frame_global``: its
+    draw repeated on the valid set of the port's (exact) global match."""
+    from tc2li_slam_torch.ops import matching as tmatch
+    mt, ft = mid["m_t"], mid["frame_t"]
+    F = ft.xy.shape[0]
+    kp_idx, dist_h, matched = tmatch.match_descriptors(
+        mt.lm_desc, ft.desc, mt.lm_valid, ft.valid, max_dist=tmatch.TH_LOW, ratio=0.75,
+        mutual=True)
+    matched = tmatch.resolve_duplicates(kp_idx, dist_h, matched, F)
+    has = ttr._assign_features(mt, kp_idx, matched, F) != tms.NO_LM
+    return t(jax_sample_idx(key, n(has & ft.valid), 64))
+
+
+def test_track_frame_global(mid):
+    """Window-free tracking: no prediction goes in, so the pose comes out of
+    the PnP hypotheses alone. Same matches, same inliers, pose to 1e-4."""
+    s = mid["s"]
+    key = jax.random.PRNGKey(11)
+    rj = jtr.track_frame_global(s.map, mid["frame_j"], key, s.cam, s.sigma2)
+    rt = ttr.track_frame_global(mid["m_t"], mid["frame_t"], mid["cam_t"], t(mid["sigma2"]),
+                                sample_idx=_global_samples(mid, key))
+    assert int(rt.n_matches) == int(rj.n_matches) > 50
+    assert int(rt.n_inliers) == int(rj.n_inliers) > 30
+    assert rt.n_inliers.dtype == rt.n_matches.dtype == torch.int32
+    np.testing.assert_array_equal(n(rt.feat_lm), np.asarray(rj.feat_lm))
+    np.testing.assert_allclose(n(rt.T_cw), np.asarray(rj.T_cw), atol=POSE_ATOL)
+
+
+def test_track_step_recover_from_wrong_prediction(mid):
+    """A motion model that points far away: ``track_step`` fails in both
+    (dead reckoning, counters untouched), ``track_step_recover`` brings the
+    same pose, matches and counters back."""
+    from tc2li_slam_tpu.geom import lie as jlie
+    s = mid["s"]
+    radius = float(s.cfg.tracking.match_radius_narrow)
+    vel = np.asarray(jlie.se3_exp(jnp.asarray([30.0, 20.0, -15.0, 0.6, -0.8, 0.9], jnp.float32)))
+    T_prev = np.asarray(s.T_cw, np.float32)
+    T_pred = vel @ T_prev
+    key = jax.random.PRNGKey(4)
+    sf, sigma2 = t(mid["sf"]), t(mid["sigma2"])
+    _, rj0, Tj0, _ = jtr.track_step(s.map, mid["frame_j"], s.T_cw, jnp.asarray(vel), key, s.cam,
+                                    s.scale_factors, s.sigma2, jnp.float32(radius))
+    _, rt0, Tt0, _ = ttr.track_step(mid["m_t"], mid["frame_t"], t(T_prev), t(vel), mid["cam_t"],
+                                    sf, sigma2, radius)
+    assert int(rj0.n_inliers) < 10 and int(rt0.n_inliers) < 10
+    np.testing.assert_allclose(n(Tt0), np.asarray(Tj0), atol=1e-3)   # both the prediction
+
+    mj, rj, Tj, vj = jtr.track_step_recover(
+        s.map, mid["frame_j"], s.T_cw, jnp.asarray(T_pred), jnp.asarray(vel), key, s.cam,
+        s.scale_factors, s.sigma2, jnp.float32(radius))
+    mt, rt, Tt, vt = ttr.track_step_recover(
+        mid["m_t"], mid["frame_t"], t(T_prev), t(T_pred), t(vel), mid["cam_t"], sf, sigma2,
+        radius, sample_idx=_global_samples(mid, key))
+    assert int(rt.n_inliers) == int(rj.n_inliers) > 50
+    assert int(rt.n_matches) == int(rj.n_matches)
+    np.testing.assert_array_equal(n(rt.feat_lm), np.asarray(rj.feat_lm))
+    np.testing.assert_allclose(n(Tt), np.asarray(Tj), atol=POSE_ATOL)
+    np.testing.assert_allclose(n(vt), np.asarray(vj), atol=POSE_ATOL)
+    np.testing.assert_array_equal(n(mt.lm_found), np.asarray(mj.lm_found))
+    np.testing.assert_array_equal(n(mt.lm_visible), np.asarray(mj.lm_visible))
+    # with its own generator the port recovers to the same place
+    _, rg, Tg, _ = ttr.track_step_recover(
+        mid["m_t"], mid["frame_t"], t(T_prev), t(T_pred), t(vel), mid["cam_t"], sf, sigma2,
+        radius, generator=torch.Generator().manual_seed(0))
+    assert int(rg.n_inliers) > 50
+    np.testing.assert_allclose(n(Tg)[:3, 3], np.asarray(Tj)[:3, 3], atol=5e-3)
 
 
 def test_landmark_gates(mid):

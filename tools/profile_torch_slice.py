@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's STEREO_LIDAR slice on one CUDA card.
 
-    python3 tools/profile_torch_slice.py [--frames 14] [--warm 5] [--out build/profile]
+    python3 tools/profile_torch_slice.py [--frames 14] [--warm 5] [--triangulate]
+                                         [--voc] [--out build/profile]
 
 Runs the sequence and configuration of ``chip_smoke.py`` (KITTI-shaped,
-1241x376, 2000 features, 32768-point scans), then over the frames after the
-warm-up:
+1241x376, 2000 features, 32768-point scans); with ``--triangulate`` the
+configuration's default, new map points triangulated at every mapping pass
+(the first slice ran with it off); with ``--voc`` a vocabulary trained on the
+host from the first three frames' descriptors, as ``chip_smoke.py`` trains
+it, so that every keyframe quantizes its descriptors to words. Then over the
+frames after the warm-up:
 
 - host wall ms per frame (clock around ``track`` + a final synchronize);
-- host syncs per frame, counted with ``torch.cuda.set_sync_debug_mode``;
+- host syncs per frame, counted with ``torch.cuda.set_sync_debug_mode``,
+  as a mean and frame by frame beside the frames that made a keyframe;
 - a ``torch.profiler`` trace (CPU + CUDA): device busy share of the window,
   kernel launches per frame, the top kernels by device time and the top
   operators by host time. The gzipped chrome trace, the two tables and a
@@ -34,6 +40,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=14)
     ap.add_argument("--warm", type=int, default=5)
+    ap.add_argument("--triangulate", action="store_true",
+                    help="tracking.triangulate=True, the configuration's default")
+    ap.add_argument("--voc", action="store_true",
+                    help="give the system a vocabulary trained on the first three frames")
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     args = ap.parse_args()
 
@@ -46,6 +56,8 @@ def main() -> int:
         return 2
     import chip_smoke
     from tc2li_slam_torch.io import synthetic as syn
+    from tc2li_slam_torch.ops import bow, orb
+    from tc2li_slam_torch.ops.kernels import match
     from tc2li_slam_torch.slam import config as cfg_mod, system as sys_mod
 
     out = Path(args.out)
@@ -58,25 +70,40 @@ def main() -> int:
         traj=syn.Trajectory(w_body=(0, 0, 0.03), v_world=(1.5, 0.1, 0.0)))
     scans = [np.where(fr.scan_valid[:, None], fr.scan, 0.0)[::4].astype(np.float32)
              for fr in frames]
-    slam = sys_mod.System(chip_smoke.kitti_config(cfg_mod, syn), torch.device("cuda"))
+    cfg = chip_smoke.kitti_config(cfg_mod, syn, triangulate=args.triangulate)
+    dev = torch.device("cuda")
+    voc = None
+    if args.voc:
+        descs = []
+        for fr in frames[:3]:
+            img = torch.as_tensor(np.clip(fr.img_l, 0, 255).astype(np.uint8)).to(dev)
+            kp = orb.extract(img, 2000, 8)
+            descs.append(kp.desc[kp.valid].cpu().numpy().view(np.uint32))
+        voc = bow.train_vocabulary(np.concatenate(descs), k=8, depth=3, seed=0, device=dev)
+    slam = sys_mod.System(cfg, dev, voc=voc)
     for fr, sc in zip(frames[:args.warm], scans[:args.warm]):
         slam.track(fr.img_l, fr.img_r, fr.t, sc)
     torch.cuda.synchronize()
     slam.timers.reset()
 
     n_meas = args.frames - args.warm
-    frame_ms = []
+    frame_ms, frame_syncs, frame_kf = [], [], []
+    pairs0 = match.launches_by_mode.get("dense+mutual", 0)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t_win0 = time.perf_counter()
             for fr, sc in zip(frames[args.warm:], scans[args.warm:]):
                 t0 = time.perf_counter()
+                n_warned, n_kf = len(caught), slam.n_kf_host
                 torch.cuda.set_sync_debug_mode("warn")
                 slam.track(fr.img_l, fr.img_r, fr.t, sc)
                 torch.cuda.set_sync_debug_mode("default")
                 torch.cuda.synchronize()
                 frame_ms.append(1e3 * (time.perf_counter() - t0))
+                frame_syncs.append(sum("synchroniz" in str(w.message).lower()
+                                       for w in caught[n_warned:]))
+                frame_kf.append(slam.n_kf_host > n_kf)
             t_win = time.perf_counter() - t_win0
     syncs = [str(w.message).splitlines()[0] for w in caught
              if "synchroniz" in str(w.message).lower()]
@@ -99,12 +126,18 @@ def main() -> int:
     (out / "top_device.txt").write_text(table_dev)
     (out / "top_host.txt").write_text(table_cpu)
     summary = {
-        "card": smi, "frames": n_meas,
+        "card": smi, "frames": n_meas, "triangulate": args.triangulate,
+        "vocabulary_words": None if voc is None else voc.n_words,
+        "keyframes": slam.n_kf_host,
+        "triangulated_pairs": match.launches_by_mode.get("dense+mutual", 0) - pairs0,
+        "triangulated_landmarks": int(slam.n_tri_landmarks),
         "host_ms_per_frame": frame_ms,
         "window_s": t_win,
         "device_busy_share": dev_us / 1e6 / t_win,
         "kernel_launches_per_frame": n_kernels / n_meas,
         "host_syncs_per_frame": len(syncs) / n_meas,
+        "host_syncs_by_frame": frame_syncs,
+        "frame_made_keyframe": frame_kf,
         "sync_sites": sorted(set(syncs))[:20],
         "stages_ms_per_frame": {k: v["total_ms"] / n_meas
                                 for k, v in slam.timers.stats().items()},
