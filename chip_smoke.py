@@ -35,6 +35,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    a timestamp jump that starts another map; finite poses, one trajectory
    pose per frame; over a-d the matcher's launches are read by call shape
    from its wrapper and held against what the system's own counts imply;
+4e. the IMU mode (IMU_STEREO_LIDAR, ``use_imu=True``, ``inertial_ba=True``,
+   bench.py's IMU noise figures): a third ``System`` on 26 of the same
+   frames at full width with their IMU windows and per-point scan times;
+   every frame OK, the filter's static init, gravity of 9.81 m/s^2 within
+   0.2, the staged visual-inertial initialization, at least one LVI-BA pass
+   with the BALM term, at least three frames refined by the pose-inertial
+   optimizers, an IMU factor at every keyframe but the first, no bad-IMU
+   flag, finite poses, the same ATE limit, and the three kernels' launch
+   counts against what the run implies; then a forced bad-IMU event (a
+   window with non-finite samples): ``lio_scan_step`` returns ``bad`` with
+   the filter and the voxel map as they were, and through ``track`` the
+   inertial stack is re-armed at that frame's sync and initialises again on
+   the next frame;
 5. each kernel against its plain PyTorch version on the card, exact, at
    the main path's shapes, with CUDA-event times and the least time the
    card could take (bytes over 3.35 TB/s, operations over the float32 rate):
@@ -64,6 +77,8 @@ from pathlib import Path
 N_FRAMES = 20
 N_WARM = 5          # frames before the steady-state timing window
 N_TRI = 14          # frames of the triangulate=True run
+N_IMU = 26          # frames of the IMU-mode run (the first N_FRAMES are phase 3's)
+N_IMU_WARM = 16     # ... of which before its steady-state window (the VI init is over)
 ATE_BOUND_M = 0.5
 RECOVER_BOUND_M = 0.3
 
@@ -169,7 +184,7 @@ def main() -> int:
     from tc2li_slam_torch.io import synthetic as syn
     from tc2li_slam_torch.ops import bow, orb
     from tc2li_slam_torch.ops.kernels import build, fast, hamming, match
-    from tc2li_slam_torch.slam import (config as cfg_mod, culling, relocalization,
+    from tc2li_slam_torch.slam import (config as cfg_mod, culling, lio, relocalization,
                                        system as sys_mod, tracking, triangulation)
 
     dev = torch.device("cuda")
@@ -193,14 +208,18 @@ def main() -> int:
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     world = syn.make_world(rng, n_surf=300_000)
-    frames, _, _ = syn.generate_sequence(
-        n_frames=N_FRAMES, cam=syn.KITTI_LIKE, seed=0, n_scan=1 << 17, world=world,
+    # one sequence: phase 3 takes its first N_FRAMES frames, the IMU-mode
+    # run (4e) N_IMU and the two after them for its bad-IMU event
+    frames_all, _, _ = syn.generate_sequence(
+        n_frames=N_IMU + 2, cam=syn.KITTI_LIKE, seed=0, n_scan=1 << 17, world=world,
         traj=syn.Trajectory(w_body=(0, 0, 0.03), v_world=(1.5, 0.1, 0.0)))
     scans = [np.where(fr.scan_valid[:, None], fr.scan, 0.0)[::4].astype(np.float32)
-             for fr in frames]
+             for fr in frames_all]
     imgs = [(np.clip(fr.img_l, 0, 255).astype(np.uint8),
-             np.clip(fr.img_r, 0, 255).astype(np.uint8)) for fr in frames]
-    print(f"generated {N_FRAMES} KITTI-shaped frames in {time.perf_counter() - t0:.1f} s "
+             np.clip(fr.img_r, 0, 255).astype(np.uint8)) for fr in frames_all]
+    gt_all = np.stack([fr.T_wb_gt @ syn.body_from_cam() for fr in frames_all])
+    frames = frames_all[:N_FRAMES]
+    print(f"generated {N_IMU + 2} KITTI-shaped frames in {time.perf_counter() - t0:.1f} s "
           f"(scan {scans[0].shape[0]} points)", flush=True)
 
     def reset_counts():
@@ -214,7 +233,7 @@ def main() -> int:
     # --- 3. the slice --------------------------------------------------------
     cfg = kitti_config(cfg_mod, syn)
     slam = sys_mod.System(cfg, dev)
-    gt = np.stack([fr.T_wb_gt @ syn.body_from_cam() for fr in frames])
+    gt = gt_all[:N_FRAMES]
     states = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -578,6 +597,120 @@ def main() -> int:
         if n_launched < 1:
             return fail(f"{name} was launched no time on the main path")
 
+    # --- 4e. the IMU mode ----------------------------------------------------------
+    cfg3 = dataclasses.replace(
+        kitti_config(cfg_mod, syn, triangulate=True), use_imu=True, inertial_ba=True,
+        imu=cfg_mod.ImuConfig(noise_gyro=1e-4, noise_acc=1e-3, gyro_walk=1e-6, acc_walk=1e-5,
+                              T_bc=syn.body_from_cam()))
+    slam3 = sys_mod.System(cfg3, dev)
+
+    def track_imu(i, t=None, acc=None):
+        fr = frames_all[i]
+        return slam3.track(imgs[i][0], imgs[i][1], fr.t if t is None else t, scans[i], None,
+                           gyro=fr.gyro, acc=fr.acc if acc is None else acc,
+                           imu_dts=fr.imu_dts, imu_trel=fr.imu_trel,
+                           scan_times=fr.scan_times[::4])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = snap(slam3)
+    reset_counts()
+    states3, vi_at = [], None
+    t_start = time.perf_counter()
+    for i in range(N_IMU):
+        if i == N_IMU_WARM:
+            torch.cuda.synchronize()
+            slam3.timers.reset()
+            t_warm = time.perf_counter()
+        track_imu(i)
+        states3.append(slam3.state)
+        if vi_at is None and slam3._vi_initialized:
+            vi_at = i
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    counts_e, modes_e = read_counts(), dict(match.launches_by_mode)
+    after = snap(slam3)
+    peak3_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats3 = slam3.timers.stats()
+    est3 = slam3.trajectory_world_from_cam()
+    ate3 = syn.ate_rmse(est3, gt_all[:N_IMU])
+    n_kf3 = slam3.n_kf_host
+    grav3 = float(torch.linalg.norm(slam3.filt.x.grav))
+    n_fac3 = int(slam3.imu_store.has_factor.sum())
+    n_steady3 = N_IMU - N_IMU_WARM
+    print(f"{tag} IMU mode: {N_IMU} frames, ATE {ate3:.4f} m, keyframes {n_kf3}, landmarks "
+          f"{int(slam3.map.n_lm)}, voxel map {int(slam3.vmap.count)} points; visual-inertial "
+          f"initialization at frame {vi_at}, |gravity| {grav3:.4f} m/s^2, IMU factors at "
+          f"{n_fac3} keyframes; LVI-BA passes {slam3.n_lvi_ba} ({slam3.n_lvi_ba_balm} with "
+          f"BALM) of {slam3.n_ba} mapping passes; frames refined against the last keyframe "
+          f"{slam3.n_vi_refine_kf}, against the last frame {slam3.n_vi_refine_frame}; bad-IMU "
+          f"flags {slam3.n_imu_bad}, resets {slam3.n_imu_reset}", flush=True)
+    print(f"{tag} IMU mode frames/s: {N_IMU / (t_end - t_start):.3f} over all {N_IMU} frames, "
+          f"{n_steady3 / (t_end - t_warm):.3f} over frames {N_IMU_WARM}..{N_IMU - 1}; peak "
+          f"device memory {peak3_gib:.2f} GiB; device ms/frame by stage (CUDA events, frames "
+          f"{N_IMU_WARM}..{N_IMU - 1}): "
+          + json.dumps({k: round(v["total_ms"] / n_steady3, 3) for k, v in stats3.items()}),
+          flush=True)
+    print(f"kernel launches during the IMU-mode run: {counts_e}, the matcher's by call shape "
+          f"{modes_e}", flush=True)
+    if any(st != S.OK for st in states3):
+        return fail(f"IMU mode: tracking states {states3}")
+    if not slam3._imu_initialized or not abs(grav3 - 9.81) < 0.2:
+        return fail(f"IMU mode: static init {slam3._imu_initialized}, |gravity| {grav3}")
+    if not slam3._vi_initialized:
+        return fail("IMU mode: the visual-inertial initialization never ran")
+    if slam3.n_lvi_ba_balm < 1:
+        return fail("IMU mode: no LVI-BA pass with the BALM term ran")
+    if slam3.n_vi_refine_kf + slam3.n_vi_refine_frame < 3 or slam3.n_vi_refine_frame < 1:
+        return fail(f"IMU mode: frames refined {slam3.n_vi_refine_kf} + {slam3.n_vi_refine_frame}")
+    if n_fac3 < n_kf3 - 1 or n_kf3 < 5:
+        return fail(f"IMU mode: {n_fac3} IMU factors for {n_kf3} keyframes")
+    if slam3.n_imu_bad or slam3.n_imu_reset:
+        return fail(f"IMU mode: bad-IMU flags {slam3.n_imu_bad}, resets {slam3.n_imu_reset}")
+    if not np.all(np.isfinite(est3)) or not ate3 < ATE_BOUND_M:
+        return fail(f"IMU mode: ATE {ate3:.4f} m")
+    fault = cross_check(counts_e, modes_e, N_IMU, N_IMU - 1, before, after, 0)
+    if fault or after["n_recover"] != before["n_recover"]:
+        return fail(f"IMU mode: {fault or 'a frame went through recovery'}")
+    imu_launches = {"fast_score_planes": counts_e["fast_score_planes"],
+                    "fast_nms_planes": counts_e["fast_nms_planes"],
+                    "match_best2": modes_e.get("stereo+mutual", 0) + modes_e.get("window", 0),
+                    "match_best2/epipolar": modes_e.get("dense+mutual", 0)}
+    for name, n_launched in imu_launches.items():
+        if n_launched < 1:
+            return fail(f"IMU mode: {name} was launched no time")
+
+    # a forced bad-IMU event: a window with non-finite samples. First on the
+    # scan step alone (it is functional), then through track.
+    fr = frames_all[N_IMU]
+    acc_bad = fr.acc.copy()
+    acc_bad[2] = np.nan
+    up = lambda a, dt_=torch.float32: torch.as_tensor(a).to(dev, dt_)
+    filt0, vmap0 = slam3.filt, slam3.vmap
+    bad_res = lio.lio_scan_step(
+        filt0, vmap0, up(scans[N_IMU]), up(fr.scan_times[::4]),
+        torch.ones(scans[N_IMU].shape[0], dtype=torch.bool, device=dev), up(fr.gyro),
+        up(acc_bad), up(fr.imu_dts), up(fr.imu_trel), slam3.imu_noise, slam3.lio_cfg)
+    kept = all(torch.equal(a, b) for a, b in zip(bad_res.filt.x, filt0.x)) \
+        and torch.equal(bad_res.filt.P, filt0.P)
+    if not bool(bad_res.bad) or not kept or int(bad_res.map.count) != int(vmap0.count):
+        return fail(f"bad IMU: lio_scan_step bad {bool(bad_res.bad)}, filter kept {kept}, voxel "
+                    f"map {int(vmap0.count)} -> {int(bad_res.map.count)}")
+    count0, n_init0 = int(slam3.vmap.count), slam3.n_imu_init
+    track_imu(N_IMU, acc=acc_bad)
+    reset_at_sync = (slam3.n_imu_bad, slam3.n_imu_reset, slam3._imu_initialized,
+                     slam3._vi_initialized, int(slam3.vmap.count), slam3.state)
+    track_imu(N_IMU + 1)
+    print(f"{tag} forced bad-IMU event: lio_scan_step bad, filter and voxel map kept; through "
+          f"track (flags, resets, filter initialised, VI initialised, voxel map points, state) "
+          f"after that frame {reset_at_sync} (voxel map before: {count0}); static inits "
+          f"{n_init0} -> {slam3.n_imu_init} and state {slam3.state} after the next frame",
+          flush=True)
+    if reset_at_sync != (1, 1, False, False, count0, S.OK):
+        return fail(f"bad IMU: after the frame's sync {reset_at_sync}")
+    if slam3.n_imu_init != n_init0 + 1 or slam3.state != S.OK:
+        return fail("bad IMU: the inertial stack did not initialise again on the next frame")
+
     # --- 5. kernels vs plain versions ----------------------------------------
     rows = {}
 
@@ -819,7 +952,8 @@ def main() -> int:
                         "replaces": r["replaces"], "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+                        "bound_by": r["bound_by"], "library_ms": None,
+                        "launches_imu_mode": imu_launches.get(name, 0)})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,5 +1,5 @@
-"""Batched SO(3)/SE(3) operations on torch tensors (the subset the
-STEREO_LIDAR mode calls; Sim(3) and the logs are not ported yet).
+"""Batched SO(3)/SE(3) operations on torch tensors (Sim(3) is not ported
+yet: it waits for loop closing).
 
 Port of ``tc2li_slam_tpu/geom/lie.py``: same conventions (4x4 homogeneous
 SE(3), se3 tangent ordered (rho, phi), left Jacobian V of Barfoot) and the
@@ -32,6 +32,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hat`: [..., 3, 3] -> [..., 3]."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
 
 
 def _sinc(x):
@@ -76,6 +81,58 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
     return _eye3(W) + _cosc(theta)[..., None, None] * W + _sinc3(theta)[..., None, None] * W2
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> so3 tangent [..., 3] (principal branch).
+
+    theta comes from atan2(sin, cos), which is smooth at the identity; near
+    pi the axis is recovered from the diagonal of (R + I) / 2. Both branches
+    are computed and selected with ``torch.where``, so forward-mode
+    derivatives stay finite on the unselected one."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    w_skew = vee(R - R.transpose(-1, -2))          # = 2 sin(theta) * axis
+    sin_theta = 0.5 * torch.sqrt(torch.clamp(torch.sum(w_skew * w_skew, dim=-1), min=1e-24))
+    theta = torch.atan2(sin_theta, cos_theta)
+    generic = 0.5 / _sinc(theta)[..., None] * w_skew
+
+    near_pi = theta > (torch.pi - 1e-3)
+    Rp = (R + _eye3(R)) * 0.5
+    diag = torch.clamp(torch.diagonal(Rp, dim1=-2, dim2=-1), min=0.0)
+    axis_abs = torch.sqrt(diag)
+    # the largest component takes the sign +, the others follow from the
+    # symmetric off-diagonals: axis_i * axis_j = Rp_ij at theta = pi
+    k = torch.argmax(axis_abs, dim=-1)
+    off = Rp - torch.diag_embed(torch.diagonal(Rp, dim1=-2, dim2=-1)) + torch.diag_embed(diag)
+    row_k = torch.gather(off, -2, k[..., None, None].expand(k.shape + (1, 3)))[..., 0, :]
+    denom = torch.gather(axis_abs, -1, k[..., None])
+    axis_pi = row_k / torch.where(denom < 1e-12, torch.ones_like(denom), denom)
+    axis_pi = axis_pi / torch.clamp(torch.linalg.norm(axis_pi, dim=-1, keepdim=True), min=1e-12)
+    return torch.where(near_pi[..., None], axis_pi * theta[..., None], generic)
+
+
+def so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian J_r(w) = J_l(-w)."""
+    return so3_left_jacobian(-w)
+
+
+def so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian of SO(3)."""
+    theta = _safe_theta(w)
+    W = hat(w)
+    W2 = W @ W
+    small = theta < _EPS
+    ts = torch.where(small, torch.ones_like(theta), theta)
+    t2 = theta * theta
+    cot_term = torch.where(
+        small, 1.0 / 12.0 + t2 / 720.0 + t2 * t2 / 30240.0,
+        (1.0 / (ts * ts)) - (torch.sin(ts) / (2.0 * ts * (1.0 - torch.cos(ts)))))
+    return _eye3(W) - 0.5 * W + cot_term[..., None, None] * W2
+
+
+def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    return so3_left_jacobian_inv(-w)
+
+
 def se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Pack rotation [..., 3, 3] + translation [..., 3] into [..., 4, 4]."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
@@ -86,6 +143,10 @@ def se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     bottom = torch.nn.functional.pad(
         torch.ones(batch + (1, 1), dtype=R.dtype, device=R.device), (3, 0))
     return torch.cat([top, bottom], dim=-2)
+
+
+def se3_identity(batch: tuple = (), dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device).expand(tuple(batch) + (4, 4))
 
 
 def rotation(T: torch.Tensor) -> torch.Tensor:
@@ -146,6 +207,21 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     V = so3_left_jacobian(phi)
     t = (V @ rho[..., None])[..., 0]
     return se3(R, t)
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """[..., 4, 4] -> se3 tangent [..., 6] (rho, phi)."""
+    phi = so3_log(rotation(T))
+    Vinv = so3_left_jacobian_inv(phi)
+    rho = (Vinv @ translation(T)[..., None])[..., 0]
+    return torch.cat([rho, phi], dim=-1)
+
+
+def se3_interpolate(T0: torch.Tensor, T1: torch.Tensor, alpha) -> torch.Tensor:
+    """Geodesic interpolation T0 * exp(alpha * log(T0^-1 T1))."""
+    dxi = se3_log(se3_inverse(T0) @ T1)
+    alpha = torch.as_tensor(alpha, dtype=dxi.dtype, device=dxi.device)
+    return T0 @ se3_exp(alpha[..., None] * dxi)
 
 
 def se3_adjoint(T: torch.Tensor) -> torch.Tensor:

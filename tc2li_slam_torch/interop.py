@@ -9,7 +9,9 @@ patterns on the torch side. This is how a run starts from a saved map, and
 how the tests start both packages from the same mid-sequence state. A
 place-recognition vocabulary travels the same way
 (``vocabulary_from_numpy``): one trained by the JAX package quantizes the
-same descriptors to the same words here.
+same descriptors to the same words here. The IMU mode's state does too: the
+ESEKF ``Filter`` (``filter_from_numpy``), the per-keyframe inertial store
+(``imustore_from_numpy``) and a preintegration (``preintegrated_from_numpy``).
 """
 
 from __future__ import annotations
@@ -19,8 +21,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from .estimation import esekf, imu as imu_est
 from .ops import bow, voxel_map as vm_mod
-from .slam import local_mapping, mapstate
+from .slam import imu_mode, local_mapping, mapstate
 
 _UINT32_FIELDS = ("kf_desc", "lm_desc")
 
@@ -99,3 +102,33 @@ def vocabulary_to_numpy(voc: bow.Vocabulary) -> dict:
     out["node_desc"] = out["node_desc"].view(np.uint32)
     out.update(k=voc.k, depth=voc.depth, n_words=voc.n_words)
     return out
+
+
+def filter_from_numpy(src, device="cpu") -> esekf.Filter:
+    """An ESEKF filter from ``(x, P)`` where ``x`` has the fields of
+    ``esekf.State`` (the JAX package's ``Filter``, or a mapping ``{"x": ..., "P": ...}``)."""
+    f = _fields(src)
+    x = _fields(f["x"])
+    return esekf.Filter(esekf.State(**{k: _tensor(k, x[k], device) for k in esekf.State._fields}),
+                        _tensor("P", f["P"], device))
+
+
+def filter_to_numpy(f: esekf.Filter) -> dict:
+    return {"x": {k: _numpy(k, v) for k, v in f.x._asdict().items()}, "P": _numpy("P", f.P)}
+
+
+def imustore_from_numpy(src, device="cpu") -> imu_mode.ImuKfStore:
+    f = _fields(src)
+    return imu_mode.ImuKfStore(**{k.name: _tensor(k.name, f[k.name], device)
+                                  for k in dataclasses.fields(imu_mode.ImuKfStore)})
+
+
+def imustore_to_numpy(s: imu_mode.ImuKfStore) -> dict[str, np.ndarray]:
+    return {k.name: _numpy(k.name, getattr(s, k.name))
+            for k in dataclasses.fields(imu_mode.ImuKfStore)}
+
+
+def preintegrated_from_numpy(src, device="cpu") -> imu_est.Preintegrated:
+    f = _fields(src)
+    return imu_est.Preintegrated(**{k: _tensor(k, f[k], device)
+                                    for k in imu_est.Preintegrated._fields})

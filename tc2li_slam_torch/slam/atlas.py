@@ -25,6 +25,7 @@ class MapBundle:
     map: mapstate.MapState
     lidar_store: Any = None       # local_mapping.LidarStore | None
     kf_words: Any = None          # [K, F] int32 | None
+    imu_store: Any = None         # imu_mode.ImuKfStore | None (IMU mode)
     n_kf: int = 0                 # host mirror of map.n_kf
     map_id: int = 0               # creation index in the atlas
 

@@ -1,6 +1,6 @@
-"""System facade for STEREO_LIDAR mode: the per-frame entry point and the
-host state machine (port of ``tc2li_slam_tpu/slam/system.py`` in that mode,
-without loop closing and checkpoints).
+"""System facade: the per-frame entry point and the host state machine
+(port of ``tc2li_slam_tpu/slam/system.py``, STEREO_LIDAR and IMU_STEREO_LIDAR
+modes, without loop closing and checkpoints).
 
     per frame:  build_frame -> const-velocity predict -> track_step
                 (guided match + pose-only LM) -> stage the scan at the
@@ -16,16 +16,28 @@ without loop closing and checkpoints).
                 LOST: the map is frozen into the atlas and a new one starts
                 (also on a timestamp jump)
 
+In IMU mode (``cfg.use_imu``, IMU samples passed to ``track``) the FAST-LIO2
+scan step runs first: ESEKF predict over the frame's IMU window, scan
+undistortion, the iterated point-to-plane update against the voxel map and
+the map insert. The filter's relative motion replaces the constant-velocity
+prediction. Keyframes carry the IMU preintegration since the previous one;
+with ``cfg.inertial_ba`` the mapping pass runs the staged visual-inertial
+initialization once four keyframes exist, then the temporal-window LVI-BA
+in place of the covisibility BA, and every tracked frame's pose is refined
+against its IMU factor (last keyframe or last frame with the
+marginalization prior chain).
+
 Every pool lives on the device given to ``System``. A frame makes one
 device-to-host transfer: the tracker's inlier count, fetched together with
 the scalars earlier keyframe events left pending (reference-KF tracked
-count, covisibility window, culled keyframe). A frame that fails to track
+count, covisibility window, culled keyframe, the scan step's bad-IMU flag).
+A frame that fails to track
 reads one more scalar per rung of the recovery ladder, as the reference
 does. Host data goes to the device through pinned memory without a stream
 sync.
 
-IMU mode and loop closing raise ``NotImplementedError`` naming the JAX
-modules still to be ported.
+Loop closing raises ``NotImplementedError`` naming the JAX module still to
+be ported.
 """
 
 from __future__ import annotations
@@ -36,11 +48,13 @@ import time
 import numpy as np
 import torch
 
+from ..estimation import esekf, imu as imu_est
 from ..geom import camera as cam_mod, lie
 from ..ops import bow, plane_fit, pointcloud, voxel_map
-from ..tensors import count, to_device
-from . import (atlas as atlas_mod, config as cfg_mod, culling, lio, local_mapping, mapstate,
-               relocalization, tracking, trajectory, triangulation)
+from ..solver import balm as balm_mod, inertial_ba, inertial_init, pose_inertial as pi_mod
+from ..tensors import axis_vector, count, to_device
+from . import (atlas as atlas_mod, config as cfg_mod, culling, imu_mode, lio, local_mapping,
+               mapstate, relocalization, tracking, trajectory, triangulation)
 
 
 class TrackingState:
@@ -101,16 +115,20 @@ class StageTimer:
 
 
 class System:
-    """Stereo+LiDAR SLAM system (System::TrackStereoLidar) on one device."""
+    """Stereo+LiDAR(+IMU) SLAM system (System::TrackStereoLidar) on one device."""
+
+    # slots a frame's IMU window may fill since the last keyframe before the
+    # per-frame refinement holds off (the reference's ring capacity)
+    IMU_RING_CAP = 1024
+    # (priorG, priorA) bias-prior weights of the refinement stages, and the
+    # time since the first initialization at which each stage opens (s)
+    VI_STAGE_PRIORS = ((1e2, 1e6), (1.0, 1e4), (0.1, 1e3))
+    VI_STAGE_TIMES = (0.0, 5.0, 15.0)
 
     def __init__(self, cfg: cfg_mod.SystemConfig, device: torch.device | str,
                  voc: bow.Vocabulary | None = None):
         """``voc`` is the place-recognition vocabulary (``ops.bow``); with
         one, each keyframe stores its words and a lost frame relocalizes."""
-        if cfg.use_imu:
-            raise NotImplementedError(
-                "IMU_STEREO_LIDAR mode is not ported yet: tc2li_slam_tpu.slam.lio."
-                "lio_scan_step, slam/imu_mode.py and solver/inertial_ba.py")
         if cfg.loop_closing:
             raise NotImplementedError(
                 "loop closing is not ported yet: tc2li_slam_tpu.slam.loop_closing")
@@ -144,6 +162,7 @@ class System:
         self._last_t: float | None = None  # timestamp-jump guard
         self.T_cw = eye                   # current pose, world -> camera
         self.velocity = eye               # T_cw_k @ inv(T_cw_{k-1})
+        self.last_T_cw = eye
         self.ref_kf = -1
         self.n_kf_host = 0                # host mirror of map.n_kf
         self.kf_alive = [True] * t.max_kf  # host mirror of kf_valid
@@ -174,6 +193,52 @@ class System:
         # with int() after a run
         self.n_tri_landmarks = torch.zeros((), dtype=torch.int32, device=dev)
 
+        # --- IMU_STEREO_LIDAR mode (LidarInertialProcess + inertial BA) ---
+        self.use_imu = cfg.use_imu
+        if self.use_imu:
+            if not self.lidar_enabled:
+                raise ValueError("use_imu needs the LiDAR (cfg.lidar.enabled)")
+            self.filt = esekf.init_filter(device=dev)
+            self.imu_noise = esekf.NoiseCfg.create(
+                gyr=cfg.imu.noise_gyro * 100.0, acc=cfg.imu.noise_acc * 100.0,
+                bg_rw=cfg.imu.gyro_walk, ba_rw=cfg.imu.acc_walk)
+            self.imu_cal = imu_est.ImuCalib.create(
+                cfg.imu.noise_gyro, cfg.imu.noise_acc, cfg.imu.gyro_walk, cfg.imu.acc_walk,
+                device=dev)
+            self.T_bc = to_device(cfg.imu.T_bc, torch.float32, dev)
+            self.T_cb = lie.se3_inverse(self.T_bc)
+            self.imu_store = imu_mode.ImuKfStore.create(t.max_kf, dev)
+            self.gravity_vis = axis_vector(1, 9.81, dev)   # set at the static init
+            self._imu_initialized = False
+            self._last_filt_Twc = None    # the filter's camera pose at the previous frame
+            # staged visual-inertial initialization (InitializeIMU): True once
+            # gravity, biases and velocities were optimised on the keyframe map
+            self._vi_initialized = False
+            self._vi_stage = 0            # 0 = first init, 1 = after 5 s, 2 = after 15 s
+            self._vi_init_time = None     # timestamp of the first init
+            self._has_factor_host = [False] * t.max_kf   # mirror of imu_store.has_factor
+            # IMU windows since the last keyframe, live samples only, as
+            # (gyro [n, 3], acc [n, 3], dts [n]) device tensors: the keyframe
+            # factor integrates _imu_buf, the per-frame refinement _imu_ring
+            # (which stops growing once IMU_RING_CAP slots were offered)
+            self._imu_buf: list = []
+            self._imu_ring: list = []
+            self._imu_ring_n = 0           # slots offered since the last keyframe
+            self._imu_ring_overflow = False
+            self._last_imu_window = None
+            # per-frame pose-inertial refinement: the marginalization-prior chain
+            self._frame_prior = None       # FramePrior of the previous frame
+            self._prev_vi_state = None
+            self._vi_vel = torch.zeros(3, dtype=torch.float32, device=dev)
+            self._last_frame = None
+            self.n_lvi_ba = 0       # LVI-BA passes (the local window's; not a full one)
+            self.n_lvi_ba_balm = 0  # ... of which carried the BALM term
+            self.n_vi_refine_kf = 0     # frames refined by optimize_last_kf
+            self.n_vi_refine_frame = 0  # frames refined by optimize_last_frame
+            self.n_imu_init = 0     # static initializations of the filter
+            self.n_imu_reset = 0    # _reset_imu calls
+            self.n_imu_bad = 0      # scan steps that came back bad
+
     def _new_kf_words(self) -> torch.Tensor | None:
         """[K, F] sorted BoW word ids per keyframe (-1 pads), with a vocabulary."""
         if self.voc is None:
@@ -192,12 +257,20 @@ class System:
             return x.to(self.device, dtype=dtype, non_blocking=True)
         return to_device(x, dtype, self.device)
 
-    def track(self, img_l, img_r, t: float, scan=None, scan_valid=None) -> torch.Tensor:
-        """Process one stereo(+LiDAR) frame; returns T_cw [4, 4] (device).
+    def track(self, img_l, img_r, t: float, scan=None, scan_valid=None, gyro=None, acc=None,
+              imu_dts=None, imu_trel=None, scan_times=None) -> torch.Tensor:
+        """Process one stereo(+LiDAR[+IMU]) frame; returns T_cw [4, 4] (device).
 
         Images are [H, W] (uint8 or float); ``scan`` is [N, 3] float32 in the
         LiDAR frame. Without ``scan_valid`` every point counts: padding slots
-        are expected zeroed, inside the blind radius."""
+        are expected zeroed, inside the blind radius.
+
+        In IMU mode ``gyro`` / ``acc`` [W, 3], ``imu_dts`` [W] (0 = padding)
+        and ``imu_trel`` [W] (sample times within the scan, +inf padded) are
+        the IMU window since the previous frame, as host arrays (the host
+        reads which samples are live), and ``scan_times`` [N] the per-point
+        times (zeros when absent). The scan step runs first and gives the
+        motion prediction for visual tracking."""
         self.frame_idx += 1
         # a gap above 1 s, or time running backwards, means the sensor stream
         # broke: freeze the map into the atlas and restart tracking
@@ -205,6 +278,8 @@ class System:
             dt_frame = float(t) - self._last_t
             if dt_frame > 1.0 or dt_frame < 0.0:
                 self._create_map_in_atlas()
+                if self.use_imu:
+                    self._reset_imu()
         self._last_t = float(t)
         img_l, img_r = self._input(img_l), self._input(img_r)
         if scan is not None:
@@ -212,6 +287,9 @@ class System:
             scan_valid = (torch.ones(scan.shape[0], dtype=torch.bool, device=self.device)
                           if scan_valid is None else self._input(scan_valid, torch.bool))
         with self.timers.stage("frame"):
+            if self.use_imu and gyro is not None and scan is not None:
+                with self.timers.stage("lio"):
+                    self._lio_step(scan, scan_times, scan_valid, gyro, acc, imu_dts, imu_trel)
             with self.timers.stage("build_frame"):
                 frame = tracking.build_frame(
                     img_l, img_r, self.cam, self.scale_factors,
@@ -251,6 +329,7 @@ class System:
         parts += [self._pending_fetch[k].reshape(-1).to(torch.int64) for k in names]
         vals = torch.cat(parts).tolist()
         n_inl, off = vals[0], 1
+        bad_imu = False
         for k in names:
             n = self._pending_fetch[k].numel()
             v = vals[off:off + n]
@@ -263,7 +342,15 @@ class System:
             elif k == "covis":
                 half = n // 2
                 self._covis = (v[:half], v[half:])
+            elif k == "imu_bad":
+                bad_imu = bool(v[0])
         self._pending_fetch = {}
+        if bad_imu:
+            # a diverged or non-finite filter: the device side already
+            # reverted the state and skipped the insert; re-arm the inertial
+            # stack (the static init will converge again)
+            self.n_imu_bad += 1
+            self._reset_imu()
         return n_inl
 
     def _stage_scan(self, scan, scan_valid, T_cw):
@@ -286,7 +373,8 @@ class System:
         # stage the scan at the un-synced tracked pose (UpdateMap): it needs
         # no host decision, and overlaps the frame's sync
         staged = None
-        if self.lidar_enabled and scan is not None:
+        stage_scans = self.lidar_enabled and scan is not None and not self.use_imu
+        if stage_scans:
             staged = self._stage_scan(scan, scan_valid, res.T_cw)
         with self.timers.stage("sync"):
             n_inl = self._sync(res.n_inliers)
@@ -325,7 +413,14 @@ class System:
         if n_inl < 10:
             self.state = TrackingState.RECENTLY_LOST
             self.n_lost += 1
-            self.T_cw = T_new       # the motion model's prediction (dead reckoning)
+            self.last_T_cw = self.T_cw
+            # dead reckoning: the motion model's prediction, or with a matured
+            # inertial stack the last keyframe's state carried through the
+            # IMU preintegration since then (PredictStateIMU)
+            if (self.use_imu and self._vi_initialized and self._imu_ring
+                    and not self._imu_ring_overflow):
+                T_new = self._predict_pose_imu()
+            self.T_cw = T_new
             self.frames_since_kf += 1
             if self.n_lost >= tc.recently_lost_frames:
                 # RECENTLY_LOST -> LOST: freeze the map, start a new one
@@ -334,6 +429,7 @@ class System:
 
         self.state = TrackingState.OK
         self.n_lost = 0
+        self.last_T_cw = self.T_cw
         self.T_cw = T_new
         self.velocity = vel_new
         self.map = new_map
@@ -345,8 +441,15 @@ class System:
                 kf_q, self._pending_mapping = self._pending_mapping, None
                 self._mapping_step(kf_q)
 
+        # tightly-coupled pose refinement (reprojection + the IMU factor)
+        # once the inertial stack is initialised
+        if self.use_imu and self._imu_initialized and self._vi_initialized:
+            self._last_frame = frame
+            with self.timers.stage("vi_refine"):
+                self._vi_frame_refine(res)
+
         # a recovered frame dropped its staging: stage at the recovered pose
-        if staged is None and self.lidar_enabled and scan is not None:
+        if staged is None and stage_scans:
             self._stage_scan(scan, scan_valid, self.T_cw)
         if len(self._lidar_pending) >= self.cfg.lidar.insert_every:
             with self.timers.stage("lidar_update"):
@@ -403,7 +506,7 @@ class System:
         return m, rkt
 
     def _create_keyframe(self, frame, t, scan, scan_valid, feat_lm, run_ba: bool) -> int:
-        if self.lidar_enabled:
+        if self.lidar_enabled and not self.use_imu:
             self._lidar_flush()   # the KF event reads the voxel map
         tc = self.cfg.tracking
         kf_id = min(self.n_kf_host, tc.max_kf - 1)
@@ -416,6 +519,8 @@ class System:
             words, _ = bow.quantize(self.voc, frame.desc, frame.valid, self.voc.depth)
             self.kf_words = self.kf_words.index_copy(
                 0, mapstate.as_index(kf_id, self.device), torch.sort(words).values[None])
+        if self.use_imu:
+            self._store_kf_imu(kf_id)
         self.ref_kf = kf_id
         # read at the next frame's sync (one-frame lag, no blocking)
         self._pending_fetch["ref_kf_tracked"] = rkt
@@ -431,7 +536,8 @@ class System:
         (BuildLidarFeat4KeyFrame); reuses this frame's staged scan."""
         lc = self.cfg.lidar
         T_wl = lie.se3_inverse(self.T_cw) @ self.T_cl
-        if self._last_staged_scan is not None and lc.scan_voxel == lc.map_voxel:
+        if (not self.use_imu and self._last_staged_scan is not None
+                and lc.scan_voxel == lc.map_voxel):
             src, dsv = self._last_staged_scan
             ds = lie.se3_apply(lie.se3_inverse(T_wl), src)
         else:
@@ -459,7 +565,7 @@ class System:
                 self._sync(torch.zeros((), dtype=torch.int32, device=self.device))
             kf_q, self._pending_mapping = self._pending_mapping, None
             self._mapping_step(kf_q)
-        if self.lidar_enabled:
+        if self.lidar_enabled and not self.use_imu:
             self._lidar_flush()
         if self._pending_fetch:
             self._sync(torch.zeros((), dtype=torch.int32, device=self.device))
@@ -491,14 +597,28 @@ class System:
                 self.n_fuse += 1
             self.map = mapstate.update_landmark_stats(m)
         with self.timers.stage("local_ba"):
-            self.map = local_mapping.run_local_ba(
-                self.map, self.lidar_store, self.cam, self.sigma2, self.T_cl,
-                window, fixed, balm_window=lc.balm_window, balm_voxel=lc.balm_voxel,
-                balm_max_voxels=lc.balm_max_voxels, balm_min_points=lc.balm_min_points,
-                w_lba=lc.w_lba if self.lidar_enabled else 0.0, iters=t.ba_iters,
-                max_active=t.ba_active_landmarks)
+            use_lvi = self.use_imu and self.cfg.inertial_ba
+            if use_lvi and not self._vi_initialized:
+                # the staged bootstrap needs a few consecutive keyframes with factors
+                if self.n_kf_host >= 4:
+                    self._initialize_imu(kf_id)
+                use_lvi = self._vi_initialized
+            if use_lvi:
+                self._run_lvi_ba(kf_id)
+                self.n_lvi_ba += 1
+                self.n_lvi_ba_balm += int(self.lidar_enabled and lc.w_lba > 0)
+                # the refinement ladder runs before the reference pose is
+                # recomposed below, so the current frame follows its correction
+                self._maybe_refine_imu_init(kf_id)
+            else:
+                self.map = local_mapping.run_local_ba(
+                    self.map, self.lidar_store, self.cam, self.sigma2, self.T_cl,
+                    window, fixed, balm_window=lc.balm_window, balm_voxel=lc.balm_voxel,
+                    balm_max_voxels=lc.balm_max_voxels, balm_min_points=lc.balm_min_points,
+                    w_lba=lc.w_lba if self.lidar_enabled else 0.0, iters=t.ba_iters,
+                    max_active=t.ba_active_landmarks)
+                self.n_ba_balm += int(self.lidar_enabled and lc.w_lba > 0)
             self.n_ba += 1
-            self.n_ba_balm += int(self.lidar_enabled and lc.w_lba > 0)
         # the current frame follows the BA's correction of its reference KF
         T_ref_new = self.map.kf_T_cw[kf_id]
         self.T_cw = (self.T_cw @ lie.se3_inverse(T_ref_old)) @ T_ref_new
@@ -527,6 +647,344 @@ class System:
         self._pending_fetch["killed"] = killed
 
     # ------------------------------------------------------------------
+    # IMU mode
+    # ------------------------------------------------------------------
+    def _lio_step(self, scan, scan_times, scan_valid, gyro, acc, dts, trel):
+        """Run the LiDAR-inertial scan step and refresh the motion
+        prediction from the filter's relative motion."""
+        dev = self.device
+        dts_h = np.asarray(dts, np.float32)
+        live = np.nonzero(dts_h > 0)[0]
+        n_slots = dts_h.shape[0]
+        if not self._imu_initialized and live.size < 3:
+            return   # wait for a window with real IMU data (frame 0 has none)
+        # the window's leading part up to its last live sample (at least two
+        # slots, which is what scan undistortion needs): a padded slot is an
+        # exact no-op in every loop over samples, and costs its launches
+        n_keep = max(int(live[-1]) + 1 if live.size else 0, 2)
+        g_dev = to_device(np.asarray(gyro, np.float32)[:n_keep], torch.float32, dev)
+        a_dev = to_device(np.asarray(acc, np.float32)[:n_keep], torch.float32, dev)
+        d_dev = to_device(dts_h[:n_keep], torch.float32, dev)
+        trel_dev = to_device(np.asarray(trel, np.float32)[:n_keep], torch.float32, dev)
+        if not self._imu_initialized:
+            # static init: gravity + gyro bias from the first window
+            self.filt = esekf.static_init(self.filt, g_dev, a_dev, d_dev > 0)
+            # gravity in the visual world (the first camera's axes): the
+            # first body's axes rotated by the camera-body extrinsic
+            self.gravity_vis = lie.rotation(self.T_cb) @ self.filt.x.grav
+            self._imu_initialized = True
+            self.n_imu_init += 1
+        st = (torch.zeros(scan.shape[0], dtype=torch.float32, device=dev)
+              if scan_times is None else self._input(scan_times, torch.float32))
+        res = lio.lio_scan_step(self.filt, self.vmap, scan, st, scan_valid, g_dev, a_dev,
+                                d_dev, trel_dev, self.imu_noise, self.lio_cfg)
+        self.filt, self.vmap = res.filt, res.map
+        self.vmap, _ = lio.maybe_recenter(self.vmap, self.filt.x.pos)
+        # the bad-IMU flag joins the scalars of this frame's one sync, where
+        # the inertial stack is re-armed; frames that make no sync (a map
+        # waiting for its first keyframe) accumulate it
+        bad = res.bad
+        if "imu_bad" in self._pending_fetch:
+            bad = bad | self._pending_fetch["imu_bad"]
+        self._pending_fetch["imu_bad"] = bad
+        window = (g_dev, a_dev, d_dev)
+        self._imu_buf.append(window)
+        self._last_imu_window = window
+        if self._imu_ring_n + n_slots > self.IMU_RING_CAP:
+            # the since-keyframe window is no longer contiguous: the
+            # per-frame refinement holds off until the next keyframe
+            self._imu_ring_overflow = True
+        else:
+            self._imu_ring.append(window)
+            self._imu_ring_n += n_slots
+        # prediction: the filter's relative camera motion composed onto the
+        # visual pose. On a bad scan the filter kept its state, the relative
+        # motion would be the identity: keep the previous velocity instead.
+        T_wc_lio = lie.se3(self.filt.x.R, self.filt.x.pos) @ self.T_bc
+        if self._last_filt_Twc is not None:
+            rel = lie.se3_inverse(T_wc_lio) @ self._last_filt_Twc
+            self.velocity = torch.where(res.bad, self.velocity, rel)
+        self._last_filt_Twc = T_wc_lio
+
+    def _imu_ring_reset(self):
+        self._imu_ring = []
+        self._imu_ring_n = 0
+        self._imu_ring_overflow = False
+
+    def _integrate(self, windows, bg, ba) -> imu_est.Preintegrated:
+        """Preintegration over a list of (gyro, acc, dts) windows."""
+        g, a, d = (torch.cat(x) for x in zip(*windows))
+        return imu_est.integrate(self.imu_cal, g, a, d, bg, ba)
+
+    def _vi_frame_refine(self, res):
+        """Per-frame tightly-coupled pose refinement: against the last
+        keyframe right after a map update, against the previous frame and
+        its marginalization prior otherwise. Adopts the refined pose and
+        velocity and chains the prior; the adoption gate stays on the device."""
+        if not self._imu_ring:
+            return
+        if self._imu_ring_overflow:
+            # the preintegration since the keyframe would span a gap
+            self._frame_prior = None
+            return
+        m, frame, cal = self.map, self._last_frame, self.imu_cal
+        kf = max(self.ref_kf, 0)
+        has_prev = self._prev_vi_state is not None
+        use_last_frame = (self.frames_since_kf > 0 and self._frame_prior is not None
+                          and has_prev)
+        anchor = pi_mod.FrameVIState(
+            T_wb=lie.se3_inverse(m.kf_T_cw[kf]) @ self.T_cb, vel=self.imu_store.vel[kf],
+            bg=self.imu_store.bg[kf], ba=self.imu_store.ba[kf])
+        # the landmarks matched to this frame (track_step's assignment)
+        has = res.feat_lm != mapstate.NO_LM
+        X_w = m.lm_pos[torch.clamp(res.feat_lm, 0, m.L - 1).long()]
+        inv_s2 = 1.0 / self.sigma2[torch.clamp(frame.level, 0, self.sigma2.shape[0] - 1).long()]
+        stereo = frame.uvr[:, 2] > 0
+        valid = has & frame.valid
+        T_wb0 = lie.se3_inverse(res.T_cw) @ self.T_cb
+        state0 = pi_mod.FrameVIState(T_wb=T_wb0, vel=self._vi_vel if has_prev else anchor.vel,
+                                     bg=anchor.bg, ba=anchor.ba)
+        if use_last_frame:
+            # this frame's window only, at the previous frame's biases
+            prev = self._prev_vi_state
+            pre = self._integrate([self._last_imu_window], prev.bg, prev.ba)
+        else:
+            pre = self._integrate(self._imu_ring, anchor.bg, anchor.ba)
+        # the covariance floor of the keyframe store (imu_mode.set_kf)
+        C = pre.C.clone()
+        C[:9, :9] = imu_mode.floor_cov9(pre.C[:9, :9])
+        pre = pre._replace(C=C)
+        dt_c = torch.clamp(pre.dt, min=1e-3)
+        info_bg = 1.0 / (cal.sigma_gw ** 2 * dt_c)
+        info_ba = 1.0 / (cal.sigma_aw ** 2 * dt_c)
+        if use_last_frame:
+            out = pi_mod.optimize_last_frame(
+                self.cam, self.T_cb, state0, prev, self._frame_prior, pre, self.gravity_vis,
+                X_w, frame.uvr, inv_s2, stereo, valid, info_bg, info_ba)
+            self.n_vi_refine_frame += 1
+        else:
+            out = pi_mod.optimize_last_kf(
+                self.cam, self.T_cb, state0, anchor, pre, self.gravity_vis,
+                X_w, frame.uvr, inv_s2, stereo, valid, info_bg, info_ba)
+            self.n_vi_refine_kf += 1
+        # adoption gate: a degenerate solve (few visual inliers behind it, or
+        # a non-finite state) must not overwrite the accepted visual pose
+        st_ok = torch.all(torch.isfinite(torch.cat(
+            [out.state.T_wb.reshape(-1), out.state.vel, out.state.bg, out.state.ba])))
+        good = (out.n_inliers >= 10) & st_ok
+        T_cw_new = torch.where(good, lie.se3_inverse(out.state.T_wb @ self.T_bc), res.T_cw)
+        fallback = pi_mod.FrameVIState(T_wb=T_wb0, vel=state0.vel, bg=state0.bg, ba=state0.ba)
+        adopted = pi_mod.FrameVIState(
+            *[torch.where(good, a, b) for a, b in zip(out.state, fallback)])
+        self.T_cw = T_cw_new
+        self.velocity = T_cw_new @ lie.se3_inverse(self.last_T_cw)
+        self._vi_vel = adopted.vel
+        # on failure the prior chain is dropped (weight 0 disables the factor)
+        self._frame_prior = out.prior._replace(weight=out.prior.weight * good.to(torch.float32))
+        self._prev_vi_state = adopted
+
+    def _predict_pose_imu(self) -> torch.Tensor:
+        """PredictStateIMU: dead-reckon the frame pose from the last
+        keyframe's state and the IMU preintegration since then, when visual
+        tracking failed."""
+        kf = max(self.ref_kf, 0)
+        T_wb_kf = lie.se3_inverse(self.map.kf_T_cw[kf]) @ self.T_cb
+        pre = self._integrate(self._imu_ring, self.imu_store.bg[kf], self.imu_store.ba[kf])
+        R1, p1 = T_wb_kf[:3, :3], T_wb_kf[:3, 3]
+        # the state composition of the EdgeInertial model
+        R2 = R1 @ pre.dR
+        p2 = (p1 + self.imu_store.vel[kf] * pre.dt + 0.5 * self.gravity_vis * pre.dt * pre.dt
+              + R1 @ pre.dP)
+        return lie.se3_inverse(lie.se3(R2, p2) @ self.T_bc)
+
+    def _reset_imu(self):
+        """Re-arm the inertial stack after a bad-IMU or stream-break event."""
+        self.n_imu_reset += 1
+        self.filt = esekf.init_filter(device=self.device)
+        self._imu_initialized = False
+        self._vi_initialized = False
+        self._imu_buf = []
+        self._last_filt_Twc = None
+        self.velocity = torch.eye(4, dtype=torch.float32, device=self.device)
+        self._imu_ring_reset()
+        self._frame_prior = None
+        self._prev_vi_state = None
+        self._pending_fetch.pop("imu_bad", None)
+        self._vi_stage = 0
+        self._vi_init_time = None
+
+    def _store_kf_imu(self, kf_id: int):
+        """The keyframe's inertial record: the preintegration since the
+        previous keyframe, a velocity snapshot and the filter's biases."""
+        pre = None
+        if self._imu_buf and kf_id > 0:
+            pre = self._integrate(self._imu_buf, self.filt.x.bg, self.filt.x.ba)
+        self._imu_buf = []
+        # velocity in visual-world axes; the per-frame refinement's estimate
+        # once it runs (it lives in the visual frame)
+        if self._prev_vi_state is not None and self._vi_initialized:
+            v_vis = self._vi_vel
+        else:
+            v_vis = lie.rotation(self.T_cb) @ self.filt.x.vel
+        self.imu_store = self.imu_store.set_kf(kf_id, pre, v_vis, bg=self.filt.x.bg,
+                                               ba=self.filt.x.ba)
+        if pre is not None:
+            self._has_factor_host[kf_id] = True
+        # the per-frame coupling restarts from the keyframe
+        self._imu_ring_reset()
+        self._frame_prior = None
+
+    def _kf_body_poses(self, window_arr: torch.Tensor) -> torch.Tensor:
+        """T_wb per window keyframe from the visual map, T_wb = inv(T_bc T_cw)."""
+        return lie.se3_inverse(self.map.kf_T_cw[window_arr.long()]) @ self.T_cb
+
+    def _seed_velocities(self, window_arr: torch.Tensor, T_wb_win: torch.Tensor):
+        """Per-keyframe velocity seeds: an optimizer's output where there is
+        one, else a finite difference of keyframe positions."""
+        w = window_arr.long()
+        pos_w = T_wb_win[:, :3, 3]
+        dts = torch.clamp(self.imu_store.dt[w][1:], min=1e-2)
+        v_mid = (pos_w[1:] - pos_w[:-1]) / dts[:, None]
+        v_fd = torch.cat([v_mid[:1], v_mid], dim=0)
+        return torch.where(self.imu_store.vel_opt[w][:, None], self.imu_store.vel[w], v_fd)
+
+    def _initialize_imu(self, kf_id: int, stage: int = 0) -> bool:
+        """Staged visual-inertial initialization (InitializeIMU): on fixed
+        keyframe poses, estimate shared biases and per-keyframe velocities
+        (and the gravity direction when no filter owns it) from the
+        preintegration factors, and adopt them. Stereo fixes the scale.
+
+        ``stage`` selects the refinement rung: later rungs loosen the bias
+        priors, then a joint inertial BA over the whole recent window
+        (FullInertialBA) refines poses, velocities, biases and structure
+        together. Returns True iff the optimization ran; a caller must not
+        advance the ladder otherwise."""
+        dev = self.device
+        # a consecutive temporal window, culled keyframes included: a culled
+        # slot keeps its frozen pose and its factor, so the chain stays whole
+        window = list(range(max(0, kf_id - 19), kf_id + 1))
+        if len(window) < 4:
+            return False
+        if sum(self._has_factor_host[b] for b in window[1:]) < 3:
+            return False
+        # padded to 20 slots by repeating the last keyframe (real poses,
+        # invalid factors), as the reference does
+        n_real = len(window)
+        window = window + [window[-1]] * (20 - n_real)
+        window_arr = to_device(window, torch.int64, dev)
+        fac = imu_mode.window_factors(self.imu_store, window, has_factor=self._has_factor_host)
+        T_wb = self._kf_body_poses(window_arr)
+        # with a running filter the ESEKF owns gravity at every stage: its S2
+        # state is corrected by every point-to-plane update
+        if self._imu_initialized:
+            R_wg0 = inertial_init.gravity_to_rwg(self.gravity_vis)
+        else:
+            R_wg0 = inertial_init.estimate_gravity_direction(T_wb[:, :3, :3], fac.dV, fac.valid)
+        prior_g, prior_a = self.VI_STAGE_PRIORS[min(stage, 2)]
+        res = inertial_init.inertial_optimization(
+            T_wb, fac.dR, fac.dV, fac.dP, fac.JRg, fac.JVg, fac.JVa, fac.JPg, fac.JPa, fac.dt,
+            fac.C_inv, fac.bg_lin, fac.ba_lin, fac.valid, R_wg0,
+            self._seed_velocities(window_arr, T_wb), prior_g=prior_g, prior_a=prior_a,
+            fix_scale=True, fix_gravity=self._imu_initialized)
+        self.gravity_vis = res.R_wg @ axis_vector(2, -9.81, dev)
+        # the padded (repeated) slots are dropped from the write-back
+        w = window_arr[:n_real]
+        st = self.imu_store
+        self.imu_store = st.replace(
+            vel=st.vel.index_copy(0, w, res.vel[:n_real]),
+            vel_opt=st.vel_opt.index_fill(0, w, True),
+            bg=st.bg.index_copy(0, w, res.bg.expand(n_real, 3)),
+            ba=st.ba.index_copy(0, w, res.ba.expand(n_real, 3)))
+        if not self._vi_initialized:
+            self._vi_init_time = self._last_t
+        self._vi_initialized = True
+        if stage >= 1:
+            self._run_lvi_ba(kf_id, n_window=20, use_balm=False, iters=10)
+        return True
+
+    def _maybe_refine_imu_init(self, kf_id: int):
+        """Advance the staged-initialization ladder (VIBA1 5 s and VIBA2
+        15 s after the first init)."""
+        if not self._vi_initialized or self._vi_stage >= 2 or self._last_t is None:
+            return
+        if self._vi_init_time is None:
+            self._vi_init_time = self._last_t
+            return
+        nxt = self._vi_stage + 1
+        if self._last_t - self._vi_init_time > self.VI_STAGE_TIMES[nxt]:
+            # the ladder advances only when the rung ran; an early-out is
+            # tried again at a later keyframe
+            if self._initialize_imu(kf_id, stage=nxt):
+                self._vi_stage = nxt
+
+    def _run_lvi_ba(self, kf_id: int, n_window: int | None = None, use_balm: bool = True,
+                    iters: int | None = None):
+        """Temporal-window visual-inertial(-LiDAR) BA (LocalLVIBA) with
+        write-back of poses, velocities, biases and landmarks. With
+        ``n_window`` spanning the whole early map and ``use_balm=False`` it is
+        the FullInertialBA."""
+        dev, tc, lc = self.device, self.cfg.tracking, self.cfg.lidar
+        m, st = self.map, self.imu_store
+        P = n_window or tc.local_window
+        n_real = min(P, self.n_kf_host, kf_id + 1)
+        pad = P - n_real
+        # the window is padded to P slots as in the reference: a padded slot
+        # has an invalid factor, no observation and a fixed identity state
+        window = list(range(kf_id - n_real + 1, kf_id + 1))
+        window_arr = to_device(window + [0] * pad, torch.int64, dev)
+        wvalid = to_device([True] * n_real + [False] * pad, torch.bool, dev)
+        fac_valid = to_device([self._has_factor_host[b] for b in window[1:]] + [False] * pad,
+                              torch.bool, dev)
+        use_balm = use_balm and self.lidar_enabled and lc.w_lba > 0
+        n_l = min(lc.balm_window, P) if use_balm else 0
+        fac = imu_mode.factors_at(st, window_arr[1:], fac_valid)
+        window_masked = torch.where(wvalid, window_arr, mapstate.NO_KF).to(torch.int32)
+        obs, lm_active, sel, _, X0, _ = local_mapping._ba_prep(
+            m, window_masked, self.sigma2, tc.ba_active_landmarks)
+        eye4 = torch.eye(4, dtype=torch.float32, device=dev)
+        T_wb_win = self._kf_body_poses(window_arr)
+        # velocities and per-keyframe biases: an optimizer's output where
+        # there is one, else finite differences and the filter's biases
+        opt = st.vel_opt[window_arr][:, None]
+        vel0 = self._seed_velocities(window_arr, T_wb_win)
+        bg0 = torch.where(opt, st.bg[window_arr], self.filt.x.bg.expand(P, 3))
+        ba0 = torch.where(opt, st.ba[window_arr], self.filt.x.ba.expand(P, 3))
+        state0 = inertial_ba.InertialState(
+            T_wb=torch.where(wvalid[:, None, None], T_wb_win, eye4),
+            vel=vel0 * wvalid[:, None], bg=bg0, ba=ba0)
+        fixed = to_device([True] + [False] * (n_real - 1) + [True] * pad, torch.bool, dev)
+        balm_kw = {}
+        if use_balm:
+            # the BALM plane eigen-factor over the first n_l poses (EdgeLidar)
+            lidx = window_arr[:n_l]
+            lv = wvalid[:n_l]
+            T_wl_init = lie.se3_inverse(
+                torch.where(lv[:, None, None], m.kf_T_cw[lidx], eye4)) @ self.T_cl
+            clusters = balm_mod.build_clusters(
+                self.lidar_store.points[lidx], self.lidar_store.valid[lidx] & lv[:, None],
+                T_wl_init, voxel_size=lc.balm_voxel, max_voxels=lc.balm_max_voxels,
+                min_points=lc.balm_min_points)
+            balm_kw = dict(balm_clusters=clusters, T_bl=self.T_bc @ self.T_cl,
+                           w_lidar=lc.w_lba, use_balm=True, n_lidar=n_l)
+        res = inertial_ba.lvi_ba(
+            self.cam, self.T_cb, state0, X0, obs, fac, fixed, lm_active, self.gravity_vis,
+            iters=iters if iters is not None else tc.ba_iters, **balm_kw)
+        # write back: T_cw = inv(T_wb T_bc), velocities and biases
+        w_sc = torch.where(wvalid, window_arr, m.K)
+        new_X = m.lm_pos.clone()
+        new_X[sel] = torch.where(lm_active[:, None], res.X_w, m.lm_pos[sel])
+        self.map = m.replace(
+            kf_T_cw=mapstate.set_rows_drop(m.kf_T_cw, w_sc,
+                                           lie.se3_inverse(res.state.T_wb @ self.T_bc)),
+            lm_pos=new_X)
+        self.imu_store = st.replace(
+            vel=mapstate.set_rows_drop(st.vel, w_sc, res.state.vel),
+            vel_opt=mapstate.set_rows_drop(st.vel_opt, w_sc,
+                                           torch.ones(P, dtype=torch.bool, device=dev)),
+            bg=mapstate.set_rows_drop(st.bg, w_sc, res.state.bg),
+            ba=mapstate.set_rows_drop(st.ba, w_sc, res.state.ba))
+
+    # ------------------------------------------------------------------
     def _create_map_in_atlas(self):
         """Freeze the active map and start a fresh one (atlas recovery).
 
@@ -537,6 +995,7 @@ class System:
         t = self.cfg.tracking
         bundle = atlas_mod.MapBundle(
             map=self.map, lidar_store=self.lidar_store, kf_words=self.kf_words,
+            imu_store=self.imu_store if self.use_imu else None,
             n_kf=self.n_kf_host, map_id=self.map_id)
         self.atlas.freeze_or_discard(bundle, min_kf=t.atlas_min_kf)
         self.map_id = self.atlas.n_created - 1
@@ -546,6 +1005,15 @@ class System:
             self.lidar_store = local_mapping.LidarStore.create(
                 t.max_kf, self.cfg.lidar.kf_points, self.device)
         self.kf_words = self._new_kf_words()
+        if self.use_imu:
+            self.imu_store = imu_mode.ImuKfStore.create(t.max_kf, self.device)
+            self._vi_initialized = False
+            self._vi_stage = 0
+            self._vi_init_time = None
+            self._has_factor_host = [False] * t.max_kf
+            self._imu_ring_reset()
+            self._frame_prior = None
+            self._prev_vi_state = None
         self.n_kf_host = 0
         self.kf_alive = [True] * t.max_kf
         self.ref_kf = -1

@@ -95,11 +95,20 @@ def test_synthetic_copy_matches_jax_package():
     from tc2li_slam_tpu.ops import _orb_pattern as jpat
     from tc2li_slam_torch.io import synthetic as tsyn
     from tc2li_slam_torch.ops import _orb_pattern as tpat
-    a = syn.generate_sequence(n_frames=2, cam=syn.SMALL, seed=3, n_scan=512)[0]
-    b = tsyn.generate_sequence(n_frames=2, cam=tsyn.SMALL, seed=3, n_scan=512)[0]
+    # three frames: frames >= 1 carry non-empty IMU windows
+    a = syn.generate_sequence(n_frames=3, cam=syn.SMALL, seed=3, n_scan=512)[0]
+    b = tsyn.generate_sequence(n_frames=3, cam=tsyn.SMALL, seed=3, n_scan=512)[0]
+    assert len(a) == len(b) == 3
     for fa, fb in zip(a, b):
+        assert fa._fields == fb._fields
         for x, y in zip(fa, fb):
             np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    for fb in b[1:]:
+        live = fb.imu_dts > 0
+        assert live.sum() >= 9 and np.all(np.isfinite(fb.imu_trel[live]))
+        assert np.all(np.isinf(fb.imu_trel[~live])) and np.any(fb.gyro[live] != 0)
+        assert np.all(np.abs(np.linalg.norm(fb.acc[live], axis=-1) - 9.81) < 1.0)
+    np.testing.assert_array_equal(tsyn.body_from_cam(), syn.body_from_cam())
     np.testing.assert_array_equal(tpat.PATTERN, jpat.PATTERN)
     for name in ("CameraConfig", "OrbConfig", "ImuConfig", "LidarConfig",
                  "TrackingConfig", "SystemConfig"):
@@ -108,6 +117,12 @@ def test_synthetic_copy_matches_jax_package():
         for f in dataclasses.fields(a):
             if f.name not in ("camera", "orb", "imu", "lidar", "tracking"):
                 np.testing.assert_array_equal(getattr(a, f.name), getattr(b, f.name))
+    # an ImuConfig built from arguments, T_bc included
+    kw = dict(noise_gyro=1e-4, noise_acc=1e-3, gyro_walk=1e-6, acc_walk=1e-5, frequency=200.0,
+              T_bc=tsyn.body_from_cam())
+    a, b = tcfg.ImuConfig(**kw), jcfg.ImuConfig(**kw)
+    for f in dataclasses.fields(a):
+        np.testing.assert_array_equal(getattr(a, f.name), getattr(b, f.name))
 
 
 def test_port_import_loads_no_jax():
@@ -127,8 +142,11 @@ def test_port_import_loads_no_jax():
     dict(use_imu=True), dict(loop_closing=True), dict(use_imu=True, loop_closing=True),
 ])
 def test_paths_outside_the_slice_raise(change):
-    """IMU mode and loop closing are the only paths still to be ported."""
+    """Loop closing is the only path still to be ported; IMU mode constructs."""
     cfg = dataclasses.replace(small_config(tcfg), **change)
+    if not cfg.loop_closing:
+        assert tsys.System(cfg, "cpu").use_imu
+        return
     with pytest.raises(NotImplementedError, match="tc2li_slam_tpu"):
         tsys.System(cfg, "cpu")
 

@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's STEREO_LIDAR slice on one CUDA card.
+"""Profile the PyTorch port's frame loop on one CUDA card.
 
     python3 tools/profile_torch_slice.py [--frames 14] [--warm 5] [--triangulate]
-                                         [--voc] [--out build/profile]
+                                         [--voc] [--imu] [--out build/profile]
 
 Runs the sequence and configuration of ``chip_smoke.py`` (KITTI-shaped,
 1241x376, 2000 features, 32768-point scans); with ``--triangulate`` the
 configuration's default, new map points triangulated at every mapping pass
 (the first slice ran with it off); with ``--voc`` a vocabulary trained on the
 host from the first three frames' descriptors, as ``chip_smoke.py`` trains
-it, so that every keyframe quantizes its descriptors to words. Then over the
-frames after the warm-up:
+it, so that every keyframe quantizes its descriptors to words; with ``--imu``
+the IMU mode (``use_imu``, ``inertial_ba``, triangulation on, the IMU windows
+and per-point scan times of the sequence; by default 24 frames of which 18
+warm up, so that the visual-inertial initialization is over and the window
+holds a keyframe and its LVI-BA pass), where the
+device events of the ``lio`` and ``vi_refine`` stages are also counted a
+frame and the run fails above 1.2 host syncs a frame. Then over the frames
+after the warm-up:
 
 - host wall ms per frame (clock around ``track`` + a final synchronize);
 - host syncs per frame, counted with ``torch.cuda.set_sync_debug_mode``,
-  as a mean and frame by frame beside the frames that made a keyframe;
+  as a mean and frame by frame beside the frames that made a keyframe,
+  with the line of the port each one was made from;
 - a ``torch.profiler`` trace (CPU + CUDA): device busy share of the window,
   kernel launches per frame, the top kernels by device time and the top
   operators by host time. The gzipped chrome trace, the two tables and a
@@ -29,6 +36,7 @@ import json
 import shutil
 import sys
 import time
+import traceback
 import warnings
 from pathlib import Path
 
@@ -38,18 +46,26 @@ sys.path.insert(0, str(ROOT))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frames", type=int, default=14)
-    ap.add_argument("--warm", type=int, default=5)
+    ap.add_argument("--frames", type=int, default=None, help="14, or 24 with --imu")
+    ap.add_argument("--warm", type=int, default=None, help="5, or 18 with --imu")
+    ap.add_argument("--imu", action="store_true", help="IMU mode (IMU_STEREO_LIDAR)")
     ap.add_argument("--triangulate", action="store_true",
                     help="tracking.triangulate=True, the configuration's default")
     ap.add_argument("--voc", action="store_true",
                     help="give the system a vocabulary trained on the first three frames")
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     args = ap.parse_args()
+    if args.frames is None:
+        args.frames = 24 if args.imu else 14
+    if args.warm is None:
+        args.warm = 18 if args.imu else 5
+
+    import bisect
+    import dataclasses
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -70,7 +86,12 @@ def main() -> int:
         traj=syn.Trajectory(w_body=(0, 0, 0.03), v_world=(1.5, 0.1, 0.0)))
     scans = [np.where(fr.scan_valid[:, None], fr.scan, 0.0)[::4].astype(np.float32)
              for fr in frames]
-    cfg = chip_smoke.kitti_config(cfg_mod, syn, triangulate=args.triangulate)
+    cfg = chip_smoke.kitti_config(cfg_mod, syn, triangulate=args.triangulate or args.imu)
+    if args.imu:
+        cfg = dataclasses.replace(
+            cfg, use_imu=True, inertial_ba=True,
+            imu=cfg_mod.ImuConfig(noise_gyro=1e-4, noise_acc=1e-3, gyro_walk=1e-6,
+                                  acc_walk=1e-5, T_bc=syn.body_from_cam()))
     dev = torch.device("cuda")
     voc = None
     if args.voc:
@@ -81,23 +102,55 @@ def main() -> int:
             descs.append(kp.desc[kp.valid].cpu().numpy().view(np.uint32))
         voc = bow.train_vocabulary(np.concatenate(descs), k=8, depth=3, seed=0, device=dev)
     slam = sys_mod.System(cfg, dev, voc=voc)
+
+    def track(fr, sc):
+        if args.imu:
+            return slam.track(fr.img_l, fr.img_r, fr.t, sc, None, gyro=fr.gyro, acc=fr.acc,
+                              imu_dts=fr.imu_dts, imu_trel=fr.imu_trel,
+                              scan_times=fr.scan_times[::4])
+        return slam.track(fr.img_l, fr.img_r, fr.t, sc)
+
+    # the two IMU-mode stages as named ranges in the trace, so that the
+    # launches the host makes inside them can be counted
+    STAGES = ("_lio_step", "_vi_frame_refine") if args.imu else ()
+    for name in STAGES:
+        def ranged(*a, _fn=getattr(slam, name), _name=name, **kw):
+            with record_function(f"stage:{_name}"):
+                return _fn(*a, **kw)
+        setattr(slam, name, ranged)
+
     for fr, sc in zip(frames[:args.warm], scans[:args.warm]):
-        slam.track(fr.img_l, fr.img_r, fr.t, sc)
+        track(fr, sc)
     torch.cuda.synchronize()
     slam.timers.reset()
 
     n_meas = args.frames - args.warm
     frame_ms, frame_syncs, frame_kf = [], [], []
     pairs0 = match.launches_by_mode.get("dense+mutual", 0)
+    sync_lines = []
+
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
+        record = warnings.showwarning
+
+        def showwarning(message, *a, **kw):
+            # where in the port the host waited: the innermost frame of the
+            # package on the stack when the sync warning fired
+            if "synchroniz" in str(message).lower():
+                inner = [f for f in traceback.extract_stack() if "tc2li_slam_torch" in f.filename]
+                if inner:
+                    f = inner[-1]
+                    sync_lines.append(f"{Path(f.filename).relative_to(ROOT)}:{f.lineno} {f.line}")
+            record(message, *a, **kw)
+
+        warnings.showwarning = showwarning
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t_win0 = time.perf_counter()
             for fr, sc in zip(frames[args.warm:], scans[args.warm:]):
                 t0 = time.perf_counter()
                 n_warned, n_kf = len(caught), slam.n_kf_host
                 torch.cuda.set_sync_debug_mode("warn")
-                slam.track(fr.img_l, fr.img_r, fr.t, sc)
+                track(fr, sc)
                 torch.cuda.set_sync_debug_mode("default")
                 torch.cuda.synchronize()
                 frame_ms.append(1e3 * (time.perf_counter() - t0))
@@ -117,16 +170,37 @@ def main() -> int:
     dev_us = 0.0
     n_kernels = 0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # (a named range has a device-side twin that spans its kernels)
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("stage:"):
             dev_us += e.time_range.elapsed_us()
             n_kernels += 1
+    # device events enqueued inside each named stage: the host-side launch
+    # calls (kernels, copies, memsets) whose start lies in one of its ranges
+    stage_events = {}
+    if STAGES:
+        cpu_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+        launches = sorted(e.time_range.start for e in cpu_events
+                          if e.name.startswith(("cudaLaunchKernel", "cudaMemcpyAsync",
+                                                "cudaMemsetAsync")))
+        for name in STAGES:
+            spans = [(e.time_range.start, e.time_range.end) for e in cpu_events
+                     if e.name == f"stage:{name}"]
+            n_in = sum(bisect.bisect_right(launches, b) - bisect.bisect_left(launches, a)
+                       for a, b in spans)
+            stage_events[name] = {"calls": len(spans), "device_events_per_frame": n_in / n_meas,
+                                  "host_ms_per_frame": sum(b - a for a, b in spans) / 1e3 / n_meas}
     sort_dev = "device_time_total" if hasattr(events[0], "device_time_total") else "cuda_time_total"
     table_dev = events.table(sort_by=sort_dev, row_limit=25)
     table_cpu = events.table(sort_by="self_cpu_time_total", row_limit=25)
     (out / "top_device.txt").write_text(table_dev)
     (out / "top_host.txt").write_text(table_cpu)
     summary = {
-        "card": smi, "frames": n_meas, "triangulate": args.triangulate,
+        "card": smi, "frames": n_meas, "triangulate": cfg.tracking.triangulate,
+        "imu_mode": args.imu, "imu_stage_device_events": stage_events,
+        "vi_initialized": bool(getattr(slam, "_vi_initialized", False)),
+        "frames_refined": [getattr(slam, "n_vi_refine_kf", 0),
+                           getattr(slam, "n_vi_refine_frame", 0)],
+        "lvi_ba_passes": getattr(slam, "n_lvi_ba", 0),
         "vocabulary_words": None if voc is None else voc.n_words,
         "keyframes": slam.n_kf_host,
         "triangulated_pairs": match.launches_by_mode.get("dense+mutual", 0) - pairs0,
@@ -139,6 +213,7 @@ def main() -> int:
         "host_syncs_by_frame": frame_syncs,
         "frame_made_keyframe": frame_kf,
         "sync_sites": sorted(set(syncs))[:20],
+        "sync_lines": {k: sync_lines.count(k) for k in sorted(set(sync_lines))},
         "stages_ms_per_frame": {k: v["total_ms"] / n_meas
                                 for k, v in slam.timers.stats().items()},
     }
@@ -146,6 +221,10 @@ def main() -> int:
     print(json.dumps(summary, indent=1))
     print(table_dev[:6000])
     print(table_cpu[:6000])
+    if args.imu and summary["host_syncs_per_frame"] > 1.2:
+        print(f"IMU mode made {summary['host_syncs_per_frame']:.2f} host syncs a frame (> 1.2)",
+              file=sys.stderr)
+        return 1
     return 0
 
 
