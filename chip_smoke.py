@@ -7,7 +7,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. require a CUDA device; print the card (nvidia-smi name, power limit),
    torch and CUDA versions;
-2. build the CUDA kernels from ``tc2li_slam_torch/csrc`` (timed);
+2. build the CUDA kernels from ``tc2li_slam_torch/csrc`` (timed); the
+   synthetic stereo pairs of every phase are rendered on the host by a few
+   worker processes that end with the rendering;
 3. the STEREO_LIDAR slice: 20 KITTI-shaped synthetic frames (1241x376
    stereo, 2000 ORB features over 8 levels, 131072-point scans decimated
    1-in-4) through ``System(cfg, cuda).track``, with the kernel launch
@@ -48,6 +50,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the filter and the voxel map as they were, and through ``track`` the
    inertial stack is re-armed at that frame's sync and initialises again on
    the next frame;
+4f. loop closing at full width (1241x376, 2000 features, 8 levels,
+   ``max_lm`` 32768, ``max_kf`` 256; LiDAR off, as the gauge ramp below moves
+   the visual map only): a fourth ``System`` with ``loop_closing=True`` and a
+   vocabulary (k=8, depth=4) trained on the host from every seventh frame,
+   on 140 frames of a circle of radius 4 m that revisits its start after 126
+   frames, with a gauge ramp (~1 m, ~13 degrees) injected over frames 45..75
+   into the recent map segment as accumulated drift. Every frame OK; at least
+   one loop closed through ``track`` (candidates from the device-side ladder
+   in the frame's one transfer, Sim3 RANSAC, pose graph, global BA); the loop
+   edge's residual after ``close_loop`` below 0.3 of what it was; the ATE of
+   the frames so far lower after the closure than just before it; finite
+   poses and landmarks; the matcher's unmasked mutual launches equal to the
+   candidates verified; host syncs counted frame by frame. Then a
+   checkpoint round trip on the card: ``save_system``, ``load_system``, two
+   more frames on both, poses equal to 1e-4;
 5. each kernel against its plain PyTorch version on the card, exact, at
    the main path's shapes, with CUDA-event times and the least time the
    card could take (bytes over 3.35 TB/s, operations over the float32 rate):
@@ -59,8 +76,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    case and on edge rows, and in the three call shapes of 4a-4d on that
    run's data (a keyframe pair under its epipolar mask, the pool against a
    frame, a frame against one column chunk of the pool and against all of
-   it); the Hamming matrix at 2000x2000 and
-   32768x2000;
+   it), and in the call shape of 4f (two keyframes' 2000 features, no mask,
+   mutual); the Hamming matrix at 2000x2000 and 32768x2000;
 6. one JSON line of kernel rows, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 """
@@ -79,6 +96,10 @@ N_WARM = 5          # frames before the steady-state timing window
 N_TRI = 14          # frames of the triangulate=True run
 N_IMU = 26          # frames of the IMU-mode run (the first N_FRAMES are phase 3's)
 N_IMU_WARM = 16     # ... of which before its steady-state window (the VI init is over)
+N_LOOP = 140        # frames of the loop-closing run (4f), plus 2 after the checkpoint
+LOOP_PERIOD = 126   # frames per revolution: 2 pi / omega * fps
+LOOP_DRIFT = (45, 75)                       # frames of the injected gauge ramp
+LOOP_DRIFT_XI = (0.8, 0.0, 0.5, 0.0, 0.22, 0.0)   # its total, an se3 tangent
 ATE_BOUND_M = 0.5
 RECOVER_BOUND_M = 0.3
 
@@ -170,6 +191,269 @@ def same(torch, got, ref) -> bool:
                for g, r in zip(got, ref))
 
 
+def inject_drift(torch, lie, slam, W):
+    """Accumulated odometric drift as a gauge jump: the recent map segment
+    (the last 8 keyframes and the landmarks they first observed) and the
+    live pose move to the drifted world gauge ``W`` [4, 4]. Older map entries
+    keep the old gauge, so the revisit carries a real loop error."""
+    slam.flush_mapping()   # deferred mapping lands in the old gauge
+    W_inv = lie.se3_inverse(W)
+    cut = max(slam.n_kf_host - 8, 1)
+    m = slam.map
+    recent_kf = (torch.arange(m.K, device=m.device) >= cut) & m.kf_valid
+    lm_recent = (m.lm_first_kf >= cut) & m.lm_valid
+    slam.map = m.replace(
+        kf_T_cw=torch.where(recent_kf[:, None, None], m.kf_T_cw @ W_inv, m.kf_T_cw),
+        lm_pos=torch.where(lm_recent[:, None], lie.se3_apply(W, m.lm_pos), m.lm_pos))
+    slam.T_cw = slam.T_cw @ W_inv
+    slam.last_T_cw = slam.last_T_cw @ W_inv
+
+
+RENDER_WORKERS = 7   # processes that render the synthetic stereo pairs
+
+
+def _render_pair(args):
+    """One stereo pair of the synthetic world (a worker of ``render_pairs``)."""
+    planes, cam_rig, T_wb = args
+    from tc2li_slam_torch.io import synthetic as syn
+    return syn.render_stereo(syn.World(planes=planes, surf=None), cam_rig, T_wb)
+
+
+def render_pairs(cam_rig, world, poses, workers: int = RENDER_WORKERS):
+    """The (img_l, img_r) of each world-from-body pose, rendered by
+    ``workers`` processes that end with this call (the renderer is numpy on
+    one core, ~1.5-3 s a KITTI-sized pair)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(max_workers=workers,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        return list(pool.map(_render_pair, [(world.planes, cam_rig, T) for T in poses],
+                             chunksize=2))
+
+
+def loop_phase(torch, dev, cam_rig, cfg, n_frames=N_LOOP, world=None, voc_stride=7, log=print,
+               reset_counts=lambda: None, read_counts=dict, workers=RENDER_WORKERS):
+    """Phase 4f on ``dev``: the circle with the gauge ramp through
+    ``System.track`` with loop closing on, then the checkpoint round trip.
+    ``cfg`` is the configuration without loop closing (its camera must be
+    ``cam_rig``'s); ``reset_counts`` is called just before the tracked run and
+    ``read_counts`` just after it. Returns a dict of what was measured;
+    raises RuntimeError where a check fails."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+
+    from tc2li_slam_torch.geom import lie
+    from tc2li_slam_torch.io import synthetic as syn
+    from tc2li_slam_torch.ops import bow, orb
+    from tc2li_slam_torch.ops.kernels import match
+    from tc2li_slam_torch.slam import checkpoint, loop_closing, system as sys_mod
+
+    S = sys_mod.TrackingState
+    cuda = torch.device(dev).type == "cuda"
+    t0 = time.perf_counter()
+    if world is None:
+        world = syn.make_world(np.random.default_rng(0))
+    # the circle of radius 4 m that tests/test_loop_e2e.py drives, at 10 Hz
+    poses = syn.trajectory_poses(syn.CircleTrajectory(omega=0.5, speed=2.0), n_frames + 2)
+    frames = [(0.1 * i, img_l, img_r, T_wb) for i, ((img_l, img_r), T_wb) in enumerate(
+        zip(render_pairs(cam_rig, world, poses, workers), poses))]
+    gt = np.stack([T_wb @ syn.body_from_cam() for T_wb in poses])
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    descs = []
+    for _, img_l, _, _ in frames[:n_frames:voc_stride]:
+        kp = orb.extract(torch.as_tensor(img_l).to(dev), cfg.orb.n_features, cfg.orb.n_levels)
+        descs.append(kp.desc[kp.valid].cpu().numpy().view(np.uint32))
+    voc = bow.train_vocabulary(np.concatenate(descs), k=8, depth=4, seed=0, device=dev)
+    log(f"loop closing: {n_frames + 2} frames of the circle rendered in {t_gen:.1f} s by "
+        f"{workers} processes; "
+        f"vocabulary of {voc.n_words} words from {sum(len(d) for d in descs)} descriptors of "
+        f"{len(descs)} frames, trained on the host in {time.perf_counter() - t0:.1f} s")
+
+    cfg = dataclasses.replace(
+        cfg, loop_closing=True, loop_min_gap=15, loop_min_kf=18,
+        lidar=dataclasses.replace(cfg.lidar, enabled=False),
+        tracking=dataclasses.replace(cfg.tracking, kf_max_interval=3, triangulate=True))
+    slam = sys_mod.System(cfg, dev, voc=voc)
+
+    def trajectory(kf_T, n):
+        """World-from-camera poses of the first ``n`` frames against the
+        keyframe poses ``kf_T`` (no flush: the map is read as it stands)."""
+        T_rel = torch.stack([T for *_, T in slam.traj[:n]])
+        ref = torch.as_tensor([max(r, 0) for _, _, r, _ in slam.traj[:n]], device=kf_T.device)
+        return torch.linalg.inv(T_rel @ kf_T[ref]).cpu().numpy()
+
+    def edge_residual(kf_T, kf, cand, S_loop):
+        rel = kf_T[kf] @ lie.se3_inverse(kf_T[cand])
+        return float(torch.linalg.norm(lie.se3_log(lie.se3_inverse(S_loop) @ rel)))
+
+    def n_syncs(caught):
+        return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+    closures = []
+    close_loop = loop_closing.close_loop
+    caught_now = [[]]    # the warnings list of the frame in flight
+
+    def spy(m, kf_id, cand_id, S_loop, **kw):
+        """``close_loop``, and what the phase reports of it (the syncs the
+        report itself makes are counted apart)."""
+        out = close_loop(m, kf_id, cand_id, S_loop, **kw)
+        n0 = n_syncs(caught_now[0])
+        n_done = len(slam.traj)
+        closures.append(dict(
+            frame=slam.frame_idx, kf=kf_id, cand=cand_id, n_traj=n_done, map_before=m,
+            S=S_loop, n_kf=kw["n_kf"],
+            edges=int(loop_closing.loop_edges(m, kf_id, cand_id, S_loop, kw["n_kf"]).i.shape[0]),
+            residual=(edge_residual(m.kf_T_cw, kf_id, cand_id, S_loop),
+                      edge_residual(out.kf_T_cw, kf_id, cand_id, S_loop)),
+            ate_before=syn.ate_rmse(trajectory(m.kf_T_cw, n_done), gt[:n_done])))
+        closures[-1]["report_syncs"] = n_syncs(caught_now[0]) - n0
+        return out
+
+    loop_closing.close_loop = spy
+    states, syncs, frame_ms, busy = [], [], [], []
+    reset_counts()
+    xi = torch.as_tensor(np.asarray(LOOP_DRIFT_XI, np.float32) / (LOOP_DRIFT[1] - LOOP_DRIFT[0]))
+    W_step = lie.se3_exp(xi.to(dev))
+    try:
+        for k, (t, img_l, img_r, _) in enumerate(frames[:n_frames]):
+            if LOOP_DRIFT[0] <= k < LOOP_DRIFT[1]:
+                inject_drift(torch, lie, slam, W_step)
+            n_events = slam.n_loop_verified + slam.n_recover + slam.n_reloc
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                caught_now[0] = caught
+                if cuda:
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    slam.track(img_l, img_r, t)
+                finally:
+                    if cuda:
+                        torch.cuda.set_sync_debug_mode("default")
+            if cuda:
+                torch.cuda.synchronize()
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+            syncs.append(n_syncs(caught))
+            states.append(slam.state)
+            # a frame that verified a candidate, recovered or relocalized
+            # reads more than its one transfer, and so does a ramp frame
+            busy.append(slam.n_loop_verified + slam.n_recover + slam.n_reloc > n_events
+                        or LOOP_DRIFT[0] <= k < LOOP_DRIFT[1])
+            if closures and "ate_after" not in closures[-1]:
+                c = closures[-1]
+                c["ate_after"] = syn.ate_rmse(trajectory(slam.map.kf_T_cw, c["n_traj"]),
+                                              gt[:c["n_traj"]])
+                c["inliers"] = slam.last_loop[1].n_inliers
+    finally:
+        loop_closing.close_loop = close_loop
+    counts, modes = read_counts(), dict(match.launches_by_mode)
+    stats = slam.timers.stats()
+    est = slam.trajectory_world_from_cam()
+    out = dict(slam=slam, closures=closures, counts=counts, modes=modes, frame_ms=frame_ms,
+               ate=syn.ate_rmse(est, gt[:n_frames]), n_kf=slam.n_kf_host)
+    detect = stats.get("loop_detect", {"total_ms": 0.0, "count": 0})
+    closing = stats.get("loop_closing", {"total_ms": 0.0, "count": 0})
+    log(f"loop closing: {n_frames} frames, {slam.n_kf_host} keyframes, {int(slam.map.n_lm)} "
+        f"landmarks; "
+        f"loops closed {slam.n_loops_closed}, candidates verified {slam.n_loop_verified}, "
+        f"detections {detect['count']} ({detect['total_ms'] / max(detect['count'], 1):.3f} ms each "
+        f"by stage events), closing attempts {closing['count']} "
+        f"({closing['total_ms'] / max(closing['count'], 1):.1f} ms each); ATE of all frames "
+        f"{out['ate']:.4f} m; matcher launches by call shape {modes}")
+    for c in closures:
+        log(f"loop closing: closure at frame {c['frame']}: keyframe {c['kf']} -> candidate "
+            f"{c['cand']}, {c['inliers']} inliers, {c['edges']} edges, loop edge residual "
+            f"{c['residual'][0]:.4f} -> {c['residual'][1]:.4f}, ATE of the {c['n_traj']} frames "
+            f"so far {c['ate_before']:.4f} m -> {c['ate_after']:.4f} m; host syncs at that frame "
+            f"{syncs[c['frame']] - c['report_syncs']} (and {c['report_syncs']} by this report), "
+            f"{frame_ms[c['frame']]:.1f} ms on the host clock")
+    quiet = [n for n, b in zip(syncs, busy) if not b]
+    log(f"loop closing: host syncs a frame (sync debug mode, its notice included) over the "
+        f"{len(quiet)} frames that verified no candidate, recovered nothing and lie outside the "
+        f"ramp: mean {np.mean(quiet):.3f}, max {max(quiet)}; over the {sum(busy)} others: mean "
+        f"{np.mean([n for n, b in zip(syncs, busy) if b]):.3f}")
+
+    if any(st != S.OK for st in states):
+        raise RuntimeError(f"loop closing: tracking states {states}")
+    if slam.n_loops_closed < 1 or not closures:
+        raise RuntimeError("loop closing: no loop was closed")
+    first = closures[0]
+    if first["frame"] < LOOP_PERIOD - 25:
+        raise RuntimeError(f"loop closing: a closure at frame {first['frame']}, before the revisit")
+    if not first["residual"][1] < 0.3 * first["residual"][0]:
+        raise RuntimeError(f"loop closing: loop edge residual {first['residual']}")
+    if not first["ate_after"] < first["ate_before"]:
+        raise RuntimeError(f"loop closing: ATE {first['ate_before']} -> {first['ate_after']}")
+    if not np.all(np.isfinite(est)) or not bool(torch.isfinite(slam.map.lm_pos).all()) \
+            or not bool(torch.isfinite(slam.map.kf_T_cw).all()):
+        raise RuntimeError("loop closing: non-finite poses or landmarks")
+    if cuda and modes.get("none+mutual", 0) != slam.n_loop_verified + slam.n_recover:
+        raise RuntimeError(f"loop closing: {modes.get('none+mutual', 0)} unmasked mutual launches "
+                           f"for {slam.n_loop_verified} candidates verified and "
+                           f"{slam.n_recover} recoveries")
+    if max(quiet) > 2:
+        raise RuntimeError(f"loop closing: {max(quiet)} host syncs at a frame that verified no "
+                           f"candidate")
+    if cuda:
+        # device events of one verification and one closure: the first
+        # closure replayed on the map as it was, under the profiler
+        from torch.profiler import ProfilerActivity, profile
+        replay = {
+            "verify_candidate": lambda: loop_closing.verify_candidate(
+                first["map_before"], first["kf"], first["cand"],
+                generator=torch.Generator(device=dev).manual_seed(0)),
+            "close_loop": lambda: close_loop(first["map_before"], first["kf"], first["cand"],
+                                             first["S"], n_kf=first["n_kf"]),
+            "detect_candidates_device": lambda: loop_closing.detect_candidates_device(
+                slam.map, first["kf"], slam.kf_words, min_gap=cfg.loop_min_gap, n_best=3,
+                word_weights=slam._word_idf, n_kf=slam.n_kf_host)}
+        for name, fn in replay.items():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+            dev_events = [e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA]
+            log(f"loop closing: {name} replayed under the profiler: {len(dev_events)} device "
+                f"events, {sum(e.time_range.elapsed_us() for e in dev_events) / 1e3:.3f} ms of "
+                f"device time, {ms:.1f} ms on the host clock")
+
+    # checkpoint round trip: save, load on the same device, two more frames on both
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "loop.npz")
+        t0 = time.perf_counter()
+        checkpoint.save_system(slam, path)
+        t_save = time.perf_counter() - t0
+        size_mb = Path(path).stat().st_size / 1e6
+        t0 = time.perf_counter()
+        slam_b = checkpoint.load_system(path, cfg, dev, voc=voc)
+        t_load = time.perf_counter() - t0
+    if slam_b.device != slam.device or slam_b.map.lm_pos.device != slam.map.lm_pos.device \
+            or not torch.equal(slam_b.map.kf_T_cw, slam.map.kf_T_cw) \
+            or not torch.equal(slam_b.map.kf_desc, slam.map.kf_desc) \
+            or not torch.equal(slam_b.kf_words, slam.kf_words):
+        raise RuntimeError("checkpoint: the loaded system differs from the saved one")
+    worst = 0.0
+    for t, img_l, img_r, _ in frames[n_frames:n_frames + 2]:
+        Ta = slam.track(img_l, img_r, t)
+        Tb = slam_b.track(img_l, img_r, t)
+        worst = max(worst, float((Ta - Tb).abs().max()))
+        if slam.state != S.OK or slam_b.state != S.OK:
+            raise RuntimeError(f"checkpoint: states {slam.state}, {slam_b.state} after the resume")
+    log(f"checkpoint round trip on {slam_b.device}: {size_mb:.1f} MB written in {t_save:.2f} s, "
+        f"loaded in {t_load:.2f} s; two more frames on both, largest pose entry difference "
+        f"{worst:.2e}")
+    if not worst < 1e-4:
+        raise RuntimeError(f"checkpoint: resumed poses differ by {worst}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -187,6 +471,7 @@ def main() -> int:
     from tc2li_slam_torch.slam import (config as cfg_mod, culling, lio, relocalization,
                                        system as sys_mod, tracking, triangulation)
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -210,9 +495,10 @@ def main() -> int:
     world = syn.make_world(rng, n_surf=300_000)
     # one sequence: phase 3 takes its first N_FRAMES frames, the IMU-mode
     # run (4e) N_IMU and the two after them for its bad-IMU event
+    traj = syn.Trajectory(w_body=(0, 0, 0.03), v_world=(1.5, 0.1, 0.0))
     frames_all, _, _ = syn.generate_sequence(
-        n_frames=N_IMU + 2, cam=syn.KITTI_LIKE, seed=0, n_scan=1 << 17, world=world,
-        traj=syn.Trajectory(w_body=(0, 0, 0.03), v_world=(1.5, 0.1, 0.0)))
+        n_frames=N_IMU + 2, cam=syn.KITTI_LIKE, seed=0, n_scan=1 << 17, world=world, traj=traj,
+        stereo_pairs=render_pairs(syn.KITTI_LIKE, world, syn.trajectory_poses(traj, N_IMU + 2)))
     scans = [np.where(fr.scan_valid[:, None], fr.scan, 0.0)[::4].astype(np.float32)
              for fr in frames_all]
     imgs = [(np.clip(fr.img_l, 0, 255).astype(np.uint8),
@@ -711,6 +997,29 @@ def main() -> int:
     if slam3.n_imu_init != n_init0 + 1 or slam3.state != S.OK:
         return fail("bad IMU: the inertial stack did not initialise again on the next frame")
 
+    # --- 4f. loop closing and the checkpoint round trip ----------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        lp = loop_phase(torch, dev, syn.KITTI_LIKE, kitti_config(cfg_mod, syn, triangulate=True),
+                        world=world, log=lambda msg: print(f"{tag} {msg}", flush=True),
+                        reset_counts=reset_counts, read_counts=read_counts)
+    except RuntimeError as e:
+        return fail(str(e))
+    slam4, counts_f, modes_f = lp["slam"], lp["counts"], lp["modes"]
+    print(f"{tag} loop closing phase: {time.perf_counter() - t0:.1f} s in all; frames/s over "
+          f"frames {LOOP_PERIOD}..{N_LOOP - 1} {1e3 * (N_LOOP - LOOP_PERIOD) / sum(lp['frame_ms'][LOOP_PERIOD:]):.3f}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; kernel "
+          f"launches {counts_f}", flush=True)
+    if (counts_f["fast_score_planes"], counts_f["fast_nms_planes"], counts_f["hamming_matrix"],
+            modes_f.get("stereo+mutual", 0)) != (N_LOOP, N_LOOP, 0, N_LOOP):
+        return fail(f"loop closing: launches {counts_f} by shape {modes_f} for {N_LOOP} frames")
+    launches["match_best2/loop"] = modes_f.get("none+mutual", 0) - slam4.n_recover
+    if launches["match_best2/loop"] != slam4.n_loop_verified or slam4.n_loop_verified < 1:
+        return fail(f"loop closing: {launches['match_best2/loop']} launches of the verification "
+                    f"match for {slam4.n_loop_verified} candidates verified")
+
     # --- 5. kernels vs plain versions ----------------------------------------
     rows = {}
 
@@ -914,10 +1223,19 @@ def main() -> int:
         match_case(f"no mask, frame x whole pool, landmarks of keyframe {kf1c} ({chunks} chunk "
                    f"launches and their merge)", frame_c.desc, m2.lm_desc, frame_c.valid, seen,
                    None, True)
+        # (f) the call shape of loop verification, on the first closure's own
+        # keyframes as the map held them: the features linked to a landmark
+        c4 = lp["closures"][0]
+        m4 = c4["map_before"]
+        rows["match_best2/loop"] = match_case(
+            f"no mask, keyframe {c4['kf']} x loop candidate {c4['cand']}",
+            m4.kf_desc[c4["kf"]], m4.kf_desc[c4["cand"]],
+            m4.kf_feat_valid[c4["kf"]] & (m4.kf_feat_lm[c4["kf"]] != -1),
+            m4.kf_feat_valid[c4["cand"]] & (m4.kf_feat_lm[c4["cand"]] != -1), None, True)
     except RuntimeError as e:
         return fail(str(e))
     for name in ("match_best2", "match_best2/epipolar", "match_best2/global",
-                 "match_best2/reloc"):
+                 "match_best2/reloc", "match_best2/loop"):
         rows[name].update(source="tc2li_slam_torch/csrc/match.cu",
                           replaces="tc2li_slam_tpu/ops/matching.py:62", max_abs_err=0.0)
 
@@ -946,7 +1264,8 @@ def main() -> int:
     # --- 6. result -------------------------------------------------------------
     kernels = []
     for name in ("fast_score_planes", "fast_nms_planes", "hamming_matrix", "match_best2",
-                 "match_best2/epipolar", "match_best2/global", "match_best2/reloc"):
+                 "match_best2/epipolar", "match_best2/global", "match_best2/reloc",
+                 "match_best2/loop"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": r["source"],
                         "replaces": r["replaces"], "launches": launches[name],
@@ -954,6 +1273,7 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
                         "launches_imu_mode": imu_launches.get(name, 0)})
+    print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,9 @@
-"""Batched SO(3)/SE(3) operations on torch tensors (Sim(3) is not ported
-yet: it waits for loop closing).
+"""Batched SO(3)/SE(3)/Sim(3) operations on torch tensors.
 
 Port of ``tc2li_slam_tpu/geom/lie.py``: same conventions (4x4 homogeneous
-SE(3), se3 tangent ordered (rho, phi), left Jacobian V of Barfoot) and the
-same f32 Taylor switchovers below ``_EPS`` = 5e-3. Every function is written
+SE(3), se3 tangent ordered (rho, phi), left Jacobian V of Barfoot; Sim(3)
+packed as a 4x4 whose rotation block carries ``s R``, tangent ordered
+(rho, phi, sigma)) and the same f32 Taylor switchovers below ``_EPS`` = 5e-3. Every function is written
 with out-of-place ops only, so ``torch.func`` transforms (the BALM Hessian)
 can run through it.
 """
@@ -233,3 +233,145 @@ def se3_adjoint(T: torch.Tensor) -> torch.Tensor:
     top = torch.cat([R, tR], dim=-1)
     bot = torch.cat([z, R], dim=-1)
     return torch.cat([top, bot], dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3)
+# ---------------------------------------------------------------------------
+
+def sim3(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Pack scale [...], rotation [..., 3, 3], translation [..., 3] -> 4x4."""
+    return se3(s[..., None, None] * R, t)
+
+
+def sim3_scale(S: torch.Tensor) -> torch.Tensor:
+    """Recover s from the packed 4x4 (the norm of the first row of sR)."""
+    return torch.linalg.norm(S[..., 0, :3], dim=-1)
+
+
+def sim3_rotation(S: torch.Tensor) -> torch.Tensor:
+    return S[..., :3, :3] / sim3_scale(S)[..., None, None]
+
+
+def sim3_inverse(S: torch.Tensor) -> torch.Tensor:
+    s_inv = 1.0 / sim3_scale(S)
+    Rt = sim3_rotation(S).transpose(-1, -2)
+    t = translation(S)
+    return sim3(s_inv, Rt, -s_inv[..., None] * (Rt @ t[..., None])[..., 0])
+
+
+def _sim3_W(theta, sigma, phi):
+    """Sim(3) translation matrix W = C I + A Phi + B Phi^2, the closed form
+    of ``W = int_0^1 exp(sigma u) exp(u phi^) du``, so that
+    ``exp(rho, phi, sigma)`` has translation ``t = W rho``:
+
+        C = (s - 1) / sigma
+        A = (a sigma + (1 - b) theta) / (theta (sigma^2 + theta^2))
+        B = (C - ((b - 1) sigma + a theta) / (sigma^2 + theta^2)) / theta^2
+
+    with ``s = e^sigma``, ``a = s sin(theta)``, ``b = s cos(theta)``. Taylor
+    limits: theta -> 0: A = ((sigma - 1) s + 1) / sigma^2,
+    B = (s (1 - sigma + sigma^2 / 2) - 1) / sigma^3; sigma -> 0 on top of
+    that: C = 1 + sigma / 2, A = 1/2 + sigma / 3, B = 1/6 + sigma / 8."""
+    Phi = hat(phi)
+    Phi2 = Phi @ Phi
+    s = torch.exp(sigma)
+    one = torch.ones_like(sigma)
+
+    small_sig = torch.abs(sigma) < _EPS
+    sig_s = torch.where(small_sig, one, sigma)
+    small_th = theta < _EPS
+    th_s = torch.where(small_th, one, theta)
+    denom = sigma * sigma + theta * theta
+    denom_s = torch.where(denom < _EPS * _EPS, one, denom)
+
+    C = torch.where(small_sig, 1.0 + 0.5 * sigma + sigma * sigma / 6.0, (s - 1.0) / sig_s)
+
+    a_ = s * torch.sin(theta)
+    b_ = s * torch.cos(theta)
+    A_gen = (a_ * sigma + (1.0 - b_) * theta) / (th_s * denom_s)
+    B_gen = (C - ((b_ - 1.0) * sigma + a_ * theta) / denom_s) / (th_s * th_s)
+
+    A_th0 = torch.where(small_sig, 0.5 + sigma / 3.0,
+                        ((sigma - 1.0) * s + 1.0) / (sig_s * sig_s))
+    B_th0 = torch.where(
+        small_sig, 1.0 / 6.0 + sigma / 8.0,
+        (s * (1.0 - sigma + 0.5 * sigma * sigma) - 1.0) / (sig_s * sig_s * sig_s))
+
+    A = torch.where(small_th, A_th0, A_gen)
+    B = torch.where(small_th, B_th0, B_gen)
+    return (C[..., None, None] * _eye3(Phi) + A[..., None, None] * Phi
+            + B[..., None, None] * Phi2)
+
+
+def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """sim3 tangent [..., 7] (rho, phi, sigma) -> packed 4x4."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    W = _sim3_W(_safe_theta(phi), sigma, phi)
+    return sim3(torch.exp(sigma), so3_exp(phi), (W @ rho[..., None])[..., 0])
+
+
+def solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x of A x = b for [..., 3, 3] systems by the adjugate (cross products
+    of the rows): no solver call, so no status is read on the host."""
+    r0, r1, r2 = A[..., 0, :], A[..., 1, :], A[..., 2, :]
+    c0 = torch.linalg.cross(r1, r2)
+    c1 = torch.linalg.cross(r2, r0)
+    c2 = torch.linalg.cross(r0, r1)
+    det = torch.sum(r0 * c0, dim=-1, keepdim=True)
+    return (c0 * b[..., 0:1] + c1 * b[..., 1:2] + c2 * b[..., 2:3]) / det
+
+
+def sim3_log(S: torch.Tensor) -> torch.Tensor:
+    """Packed Sim(3) -> tangent [..., 7] (rho, phi, sigma)."""
+    sigma = torch.log(sim3_scale(S))
+    phi = so3_log(sim3_rotation(S))
+    W = _sim3_W(_safe_theta(phi), sigma, phi)
+    rho = solve3(W, translation(S))
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)
+
+
+def sim3_apply(S: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply Sim(3) to points (the packed form already contains sR)."""
+    return se3_apply(S, p)
+
+
+# ---------------------------------------------------------------------------
+# Quaternions
+# ---------------------------------------------------------------------------
+
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [..., 4] (w, x, y, z), normalised here -> rotation matrix."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+        ],
+        dim=-2,
+    )
+
+
+def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> unit quaternion (w, x, y, z): of the four
+    constructions, the one with the largest pivot, selected without a branch."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def half_root(x):
+        return torch.sqrt(torch.clamp(1.0 + x, min=1e-12)) * 0.5
+
+    pivots = torch.stack([tr, m00 - m11 - m22, -m00 + m11 - m22, -m00 - m11 + m22], -1)
+    qw, qx, qy, qz = (half_root(pivots[..., i]) for i in range(4))
+    c0 = torch.stack([qw, (m21 - m12) / (4 * qw), (m02 - m20) / (4 * qw), (m10 - m01) / (4 * qw)], -1)
+    c1 = torch.stack([(m21 - m12) / (4 * qx), qx, (m01 + m10) / (4 * qx), (m02 + m20) / (4 * qx)], -1)
+    c2 = torch.stack([(m02 - m20) / (4 * qy), (m01 + m10) / (4 * qy), qy, (m12 + m21) / (4 * qy)], -1)
+    c3 = torch.stack([(m10 - m01) / (4 * qz), (m02 + m20) / (4 * qz), (m12 + m21) / (4 * qz), qz], -1)
+    best = torch.argmax(pivots, dim=-1)
+    cands = torch.stack([c0, c1, c2, c3], dim=-2)
+    q = torch.gather(cands, -2, best[..., None, None].expand(best.shape + (1, 4)))[..., 0, :]
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)

@@ -12,6 +12,10 @@ place-recognition vocabulary travels the same way
 same descriptors to the same words here. The IMU mode's state does too: the
 ESEKF ``Filter`` (``filter_from_numpy``), the per-keyframe inertial store
 (``imustore_from_numpy``) and a preintegration (``preintegrated_from_numpy``).
+So do the loop-closing containers: a pose graph's edges
+(``posegraph_edges_from_numpy``) and a whole atlas bundle with its LiDAR
+store, keyframe words and inertial store (``mapbundle_from_numpy``).
+``slam.checkpoint`` writes and reads its files through these converters.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ import torch
 
 from .estimation import esekf, imu as imu_est
 from .ops import bow, voxel_map as vm_mod
-from .slam import imu_mode, local_mapping, mapstate
+from .slam import atlas as atlas_mod, imu_mode, local_mapping, mapstate
+from .solver import sim3 as sim3_mod
 
 _UINT32_FIELDS = ("kf_desc", "lm_desc")
 
@@ -132,3 +137,39 @@ def preintegrated_from_numpy(src, device="cpu") -> imu_est.Preintegrated:
     f = _fields(src)
     return imu_est.Preintegrated(**{k: _tensor(k, f[k], device)
                                     for k in imu_est.Preintegrated._fields})
+
+
+def posegraph_edges_from_numpy(src, device="cpu") -> sim3_mod.PoseGraphEdges:
+    f = _fields(src)
+    return sim3_mod.PoseGraphEdges(**{k: _tensor(k, f[k], device)
+                                      for k in sim3_mod.PoseGraphEdges._fields})
+
+
+def posegraph_edges_to_numpy(e: sim3_mod.PoseGraphEdges) -> dict[str, np.ndarray]:
+    return {k: _numpy(k, v) for k, v in e._asdict().items()}
+
+
+def mapbundle_from_numpy(src, device="cpu") -> atlas_mod.MapBundle:
+    """An atlas bundle from the fields of the JAX package's ``MapBundle`` (or
+    a mapping): ``map`` and the optional ``lidar_store``, ``kf_words`` and
+    ``imu_store`` as numpy containers, ``n_kf`` and ``map_id`` as ints."""
+    f = src if isinstance(src, dict) else {k: getattr(src, k) for k in (
+        "map", "lidar_store", "kf_words", "imu_store", "n_kf", "map_id")}
+
+    def opt(key, conv):
+        return None if f.get(key) is None else conv(f[key], device)
+
+    return atlas_mod.MapBundle(
+        map=mapstate_from_numpy(f["map"], device),
+        lidar_store=opt("lidar_store", lidarstore_from_numpy),
+        kf_words=opt("kf_words", lambda a, d: _tensor("kf_words", a, d)),
+        imu_store=opt("imu_store", imustore_from_numpy),
+        n_kf=int(f["n_kf"]), map_id=int(f["map_id"]))
+
+
+def mapbundle_to_numpy(b: atlas_mod.MapBundle) -> dict:
+    return {"map": mapstate_to_numpy(b.map),
+            "lidar_store": None if b.lidar_store is None else lidarstore_to_numpy(b.lidar_store),
+            "kf_words": None if b.kf_words is None else _numpy("kf_words", b.kf_words),
+            "imu_store": None if b.imu_store is None else imustore_to_numpy(b.imu_store),
+            "n_kf": b.n_kf, "map_id": b.map_id}

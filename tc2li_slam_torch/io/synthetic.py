@@ -283,24 +283,36 @@ class FrameData(NamedTuple):
     T_wb_gt: np.ndarray
 
 
+def trajectory_poses(traj, n_frames: int, fps: float = 10.0) -> list:
+    """World-from-body poses [4, 4] of ``n_frames`` frames at ``fps``."""
+    poses = []
+    for i in range(n_frames):
+        R, p = traj.pose(i / fps)
+        T_wb = np.eye(4)
+        T_wb[:3, :3] = R
+        T_wb[:3, 3] = p
+        poses.append(T_wb)
+    return poses
+
+
 def generate_sequence(
     n_frames=30, fps=10.0, cam: CameraRig = SMALL, seed=0,
     traj: Trajectory | None = None, world: World | None = None,
-    lidar_noise=0.015, n_scan=4096,
+    lidar_noise=0.015, n_scan=4096, stereo_pairs=None,
 ):
-    """Yield FrameData for a full synthetic run (deterministic per seed)."""
+    """Yield FrameData for a full synthetic run (deterministic per seed).
+    ``stereo_pairs`` takes the (img_l, img_r) of each frame rendered
+    beforehand (``render_stereo`` at ``trajectory_poses``, which draws no
+    random number), for callers that render in several processes."""
     rng = np.random.default_rng(seed)
     world = world or make_world(rng)
     traj = traj or Trajectory()
     dt = 1.0 / fps
     frames = []
-    for i in range(n_frames):
+    for i, T_wb in enumerate(trajectory_poses(traj, n_frames, fps)):
         t = i * dt
-        R, p = traj.pose(t)
-        T_wb = np.eye(4)
-        T_wb[:3, :3] = R
-        T_wb[:3, 3] = p
-        img_l, img_r = render_stereo(world, cam, T_wb, rng)
+        img_l, img_r = (render_stereo(world, cam, T_wb, rng) if stereo_pairs is None
+                        else stereo_pairs[i])
         scan, sv = lidar_scan(world, T_wb, rng, noise=lidar_noise, n_max=n_scan)
         gyro, acc, dts, trel = imu_window(traj, max(t - dt, 0.0), t) if i else (
             np.zeros((32, 3), np.float32), np.zeros((32, 3), np.float32),

@@ -263,6 +263,40 @@ def top_covisible(m: MapState, kf_id, n: int, min_weight: int = 15):
     return torch.where(ok, idx, NO_KF).to(torch.int32), vals
 
 
+def covisibility_matrix(m: MapState, n_rows: int | None = None, block: int = 256) -> torch.Tensor:
+    """``covisibility_weights`` of keyframes 0 .. n_rows-1 at once:
+    [n_rows, K] int32, row by row the same counts. Row blocks bound the
+    [block, F, Ko] index tensor."""
+    R = m.K if n_rows is None else min(int(n_rows), m.K)
+    dev = m.device
+    out = []
+    for r0 in range(0, R, block):
+        r1 = min(r0 + block, R)
+        lm = m.kf_feat_lm[r0:r1]
+        seen = m.kf_feat_valid[r0:r1] & (lm != NO_LM)
+        lm_c = torch.clamp(lm, 0, m.L - 1).long()
+        obs_kf = m.lm_obs_kf[lm_c]                       # [B, F, Ko]
+        obs_ok = (obs_kf != NO_KF) & (seen & m.lm_valid[lm_c])[..., None]
+        rows = torch.arange(r1 - r0, device=dev)[:, None, None] * (m.K + 1)
+        idx = rows + torch.where(obs_ok, obs_kf, m.K).long()
+        w = torch.zeros((r1 - r0) * (m.K + 1), dtype=torch.int32, device=dev)
+        w.index_add_(0, idx.reshape(-1), obs_ok.reshape(-1).to(torch.int32))
+        w = w.reshape(r1 - r0, m.K + 1)[:, :m.K]
+        own = torch.arange(r0, r1, device=dev)[:, None] == torch.arange(m.K, device=dev)[None, :]
+        out.append(torch.where(own | ~m.kf_valid[None, :], 0, w))
+    if not out:
+        return torch.zeros((0, m.K), dtype=torch.int32, device=dev)
+    return torch.cat(out)
+
+
+def top_covisible_table(m: MapState, n_rows: int | None, n: int, min_weight: int = 15):
+    """``top_covisible`` of keyframes 0 .. n_rows-1 at once: (ids [n_rows, n]
+    int32 with NO_KF below ``min_weight``, weights [n_rows, n])."""
+    vals, idx = torch.sort(covisibility_matrix(m, n_rows), dim=1, descending=True, stable=True)
+    vals, idx = vals[:, :n], idx[:, :n]
+    return torch.where(vals >= min_weight, idx, NO_KF).to(torch.int32), vals
+
+
 # ---------------------------------------------------------------------------
 # Solver views
 # ---------------------------------------------------------------------------

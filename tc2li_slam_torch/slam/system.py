@@ -1,14 +1,17 @@
 """System facade: the per-frame entry point and the host state machine
 (port of ``tc2li_slam_tpu/slam/system.py``, STEREO_LIDAR and IMU_STEREO_LIDAR
-modes, without loop closing and checkpoints).
+modes; ``slam.checkpoint`` saves and restores it).
 
     per frame:  build_frame -> const-velocity predict -> track_step
                 (guided match + pose-only LM) -> stage the scan at the
                 tracked pose -> batched voxel-map insert every few frames
                 -> keyframe decision
     per KF:     stereo landmarks gated by the LiDAR map, planar LiDAR
-                features, BoW words when a vocabulary is given; on the
-                next frame the mapping pass (landmark culling, new map
+                features, BoW words when a vocabulary is given, and with
+                ``cfg.loop_closing`` the loop candidates of the keyframe;
+                on the next frame the loop closure if a candidate verifies
+                (Sim3 RANSAC, pose graph, a global BA over the newest 64
+                keyframes), then the mapping pass (landmark culling, new map
                 points triangulated against the covisible neighbours, fuse,
                 local BA with the BALM eigen-factor, keyframe culling)
     on loss:    window-free recovery (global match + PnP RANSAC), BoW
@@ -36,8 +39,13 @@ reads one more scalar per rung of the recovery ladder, as the reference
 does. Host data goes to the device through pinned memory without a stream
 sync.
 
-Loop closing raises ``NotImplementedError`` naming the JAX module still to
-be ported.
+Loop closing (``cfg.loop_closing`` and a vocabulary) detects at every
+keyframe past ``cfg.loop_min_kf``: the candidate ladder runs on the device at
+the keyframe event and its result rides in the next frame's transfer, so a
+keyframe at which no loop closes costs no transfer of its own. The closure
+itself (a rare event) reads one scalar pair per verified candidate and the
+neighbour table of the edge list. ``_try_close_loop(kf_id)`` called by hand
+detects, verifies and closes at once, as the reference does at the keyframe.
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ from ..ops import bow, plane_fit, pointcloud, voxel_map
 from ..solver import balm as balm_mod, inertial_ba, inertial_init, pose_inertial as pi_mod
 from ..tensors import axis_vector, count, to_device
 from . import (atlas as atlas_mod, config as cfg_mod, culling, imu_mode, lio, local_mapping,
-               mapstate, relocalization, tracking, trajectory, triangulation)
+               loop_closing, mapstate, relocalization, tracking, trajectory, triangulation)
 
 
 class TrackingState:
@@ -124,14 +132,13 @@ class System:
     # time since the first initialization at which each stage opens (s)
     VI_STAGE_PRIORS = ((1e2, 1e6), (1.0, 1e4), (0.1, 1e3))
     VI_STAGE_TIMES = (0.0, 5.0, 15.0)
+    GLOBAL_BA_KFS = 64   # keyframes of the global BA after a loop closure
 
     def __init__(self, cfg: cfg_mod.SystemConfig, device: torch.device | str,
                  voc: bow.Vocabulary | None = None):
         """``voc`` is the place-recognition vocabulary (``ops.bow``); with
-        one, each keyframe stores its words and a lost frame relocalizes."""
-        if cfg.loop_closing:
-            raise NotImplementedError(
-                "loop closing is not ported yet: tc2li_slam_tpu.slam.loop_closing")
+        one, each keyframe stores its words, a lost frame relocalizes, and
+        with ``cfg.loop_closing`` loops are detected and closed."""
         self.cfg = cfg
         self.device = torch.device(device)
         dev = self.device
@@ -189,6 +196,15 @@ class System:
         self.n_fuse = 0        # fuse_into_keyframe passes run
         self.n_recover = 0     # track_step_recover calls
         self.n_reloc = 0       # relocalization attempts
+        # loop closing
+        self.n_loops_closed = 0
+        self.n_loop_verified = 0   # candidates that reached verify_candidate
+        self.last_loop = None      # (kf_id, LoopCandidate) of the last closure
+        self._last_loop_kf = -100  # closure cooldown
+        self._post_loop_ba = True  # global BA after the pose graph
+        self._word_idf = None if self.voc is None else bow.word_idf(self.voc)
+        self._loop_kf_in_flight: int | None = None   # its candidates are in _pending_fetch
+        self._loop_cands: tuple[int, list[int]] | None = None   # fetched, not yet tried
         # landmarks allocated by triangulation: a device counter, read it
         # with int() after a run
         self.n_tri_landmarks = torch.zeros((), dtype=torch.int32, device=dev)
@@ -344,6 +360,8 @@ class System:
                 self._covis = (v[:half], v[half:])
             elif k == "imu_bad":
                 bad_imu = bool(v[0])
+            elif k == "loop_cands":
+                self._loop_cands = (self._loop_kf_in_flight, [c for c in v if c >= 0])
         self._pending_fetch = {}
         if bad_imu:
             # a diverged or non-finite filter: the device side already
@@ -433,6 +451,10 @@ class System:
         self.T_cw = T_new
         self.velocity = vel_new
         self.map = new_map
+
+        # the loop candidates of the keyframe created last frame arrived with
+        # the sync: verify and close before that keyframe's mapping pass
+        self._close_pending_loop()
 
         # the mapping pass for the keyframe created last frame (the
         # reference's LocalMapping thread runs it while tracking continues)
@@ -524,6 +546,16 @@ class System:
         self.ref_kf = kf_id
         # read at the next frame's sync (one-frame lag, no blocking)
         self._pending_fetch["ref_kf_tracked"] = rkt
+        # loop detection (per keyframe, when place recognition is available,
+        # the config enables it and the closure cooldown is over): the
+        # candidates join the next sync
+        if (self.voc is not None and self.cfg.loop_closing and run_ba
+                and kf_id > self.cfg.loop_min_kf and kf_id >= self._last_loop_kf + 10):
+            with self.timers.stage("loop_detect"):
+                self._pending_fetch["loop_cands"] = loop_closing.detect_candidates_device(
+                    self.map, kf_id, self.kf_words, min_gap=self.cfg.loop_min_gap, n_best=3,
+                    word_weights=self._word_idf, n_kf=self.n_kf_host)
+            self._loop_kf_in_flight = kf_id
         if run_ba and self.n_kf_host >= 3:
             self._pending_mapping = kf_id
             neigh, w = mapstate.top_covisible(self.map, kf_id, tc.local_window - 1,
@@ -559,10 +591,12 @@ class System:
         self.vmap = lio.camera_map_flush(self.vmap, pts, val, center)
 
     def flush_mapping(self):
-        """Run any deferred mapping work and land staged scans now."""
+        """Run any deferred loop closure and mapping work and land staged
+        scans now."""
+        if self._pending_fetch:
+            self._sync(torch.zeros((), dtype=torch.int32, device=self.device))
+        self._close_pending_loop()
         if self._pending_mapping is not None:
-            if self._pending_fetch:
-                self._sync(torch.zeros((), dtype=torch.int32, device=self.device))
             kf_q, self._pending_mapping = self._pending_mapping, None
             self._mapping_step(kf_q)
         if self.lidar_enabled and not self.use_imu:
@@ -985,6 +1019,82 @@ class System:
             ba=mapstate.set_rows_drop(st.ba, w_sc, res.state.ba))
 
     # ------------------------------------------------------------------
+    # Loop closing
+    # ------------------------------------------------------------------
+    def _close_pending_loop(self):
+        """Try the loop candidates that the last sync delivered. The frame
+        in flight is not the keyframe any more: it keeps its pose relative to
+        the keyframe through the correction (the motion model is invariant
+        under the common right factor)."""
+        if self._loop_cands is None:
+            return
+        (kf_id, cands), self._loop_cands = self._loop_cands, None
+        if not cands:
+            return
+        T_kf_inv = lie.se3_inverse(self.map.kf_T_cw[kf_id])
+        rel, rel_last, vel = self.T_cw @ T_kf_inv, self.last_T_cw @ T_kf_inv, self.velocity
+        if self._try_close_loop(kf_id, cands):
+            T_kf = self.map.kf_T_cw[kf_id]
+            self.T_cw, self.last_T_cw, self.velocity = rel @ T_kf, rel_last @ T_kf, vel
+
+    def _try_close_loop(self, kf_id: int, cands: list[int] | None = None) -> bool:
+        """Sim3 verification of up to three loop candidates of keyframe
+        ``kf_id`` and the pose-graph correction for the first that verifies
+        (the LoopClosing thread's job). Without ``cands`` the detection runs
+        here and is read at once. On a closure the current pose becomes the
+        corrected keyframe's and the motion model is reset. Returns whether a
+        loop was closed."""
+        # closure cooldown (LoopClosing::DetectLoop's mLastLoopKFid + 10
+        # gate): closing again from the next keyframes re-solves the graph
+        # against an already corrected chain and accumulates noise
+        if kf_id < self._last_loop_kf + 10:
+            return False
+        with self.timers.stage("loop_closing"):
+            if cands is None:
+                cands = loop_closing.detect_candidates(
+                    self.map, kf_id, self.kf_words, min_gap=self.cfg.loop_min_gap, n_best=3,
+                    word_weights=self._word_idf, n_kf=self.n_kf_host)
+            for cand in cands:
+                # stereo gives metric scale: the relative transform is
+                # verified as SE3 (mono would pass with_scale=True)
+                ok, S, n_inl, _ = loop_closing.verify_candidate(
+                    self.map, kf_id, cand, generator=self._generator, with_scale=False)
+                self.n_loop_verified += 1
+                if not ok:
+                    continue
+                self.map = loop_closing.close_loop(self.map, kf_id, cand, S,
+                                                   n_kf=self.n_kf_host)
+                # the pose graph only spreads the loop error along the poses;
+                # a joint pose + structure solve welds the re-mapped
+                # landmarks to the corrected poses
+                if self._post_loop_ba:
+                    self._global_ba(anchor=cand)
+                # the current pose follows the corrected keyframe
+                self.T_cw = self.map.kf_T_cw[kf_id]
+                self.velocity = torch.eye(4, dtype=torch.float32, device=self.device)
+                self.n_loops_closed += 1
+                self._last_loop_kf = kf_id
+                self.last_loop = (kf_id, loop_closing.LoopCandidate(cand, S, n_inl))
+                return True
+        return False
+
+    def _global_ba(self, anchor: int, iters: int = 8):
+        """Bundle adjustment after a loop closure (Optimizer::BundleAdjustment
+        role) over the newest ``GLOBAL_BA_KFS`` alive keyframes, visual terms
+        only, with the loop candidate fixed when it is in the window and the
+        window's oldest keyframe otherwise."""
+        alive = [k for k in range(self.n_kf_host) if self.kf_alive[k]]
+        window = alive[-self.GLOBAL_BA_KFS:]
+        if len(window) < 3:
+            return
+        fixed = [(w == anchor) if anchor in window else (w == window[0]) for w in window]
+        pad = self.GLOBAL_BA_KFS - len(window)
+        self.map = local_mapping.run_local_ba(
+            self.map, None, self.cam, self.sigma2, self.T_cl,
+            window + [mapstate.NO_KF] * pad, fixed + [True] * pad, w_lba=0.0, iters=iters,
+            max_active=self.cfg.tracking.ba_active_landmarks)
+
+    # ------------------------------------------------------------------
     def _create_map_in_atlas(self):
         """Freeze the active map and start a fresh one (atlas recovery).
 
@@ -1021,6 +1131,7 @@ class System:
         self._pending_mapping = None
         self._pending_fetch = {}
         self._covis = None
+        self._loop_kf_in_flight = self._loop_cands = None
         self.frames_since_kf = 0
         self.n_lost = 0
         self.velocity = torch.eye(4, dtype=torch.float32, device=self.device)

@@ -142,13 +142,15 @@ def test_port_import_loads_no_jax():
     dict(use_imu=True), dict(loop_closing=True), dict(use_imu=True, loop_closing=True),
 ])
 def test_paths_outside_the_slice_raise(change):
-    """Loop closing is the only path still to be ported; IMU mode constructs."""
+    """No path raises any more: the IMU mode and loop closing both construct
+    (every configuration switch of the JAX package is ported), with their
+    counters at zero."""
     cfg = dataclasses.replace(small_config(tcfg), **change)
-    if not cfg.loop_closing:
-        assert tsys.System(cfg, "cpu").use_imu
-        return
-    with pytest.raises(NotImplementedError, match="tc2li_slam_tpu"):
-        tsys.System(cfg, "cpu")
+    system = tsys.System(cfg, "cpu")
+    assert system.use_imu == cfg.use_imu and system.cfg.loop_closing == cfg.loop_closing
+    assert (system.n_loops_closed, system.n_loop_verified, system._last_loop_kf) == (0, 0, -100)
+    if cfg.use_imu:
+        assert system.n_lvi_ba == 0
 
 
 def test_default_tracking_config_constructs():

@@ -2,7 +2,7 @@
 """Profile the PyTorch port's frame loop on one CUDA card.
 
     python3 tools/profile_torch_slice.py [--frames 14] [--warm 5] [--triangulate]
-                                         [--voc] [--imu] [--out build/profile]
+                                         [--voc] [--imu] [--loop] [--out build/profile]
 
 Runs the sequence and configuration of ``chip_smoke.py`` (KITTI-shaped,
 1241x376, 2000 features, 32768-point scans); with ``--triangulate`` the
@@ -15,8 +15,13 @@ and per-point scan times of the sequence; by default 24 frames of which 18
 warm up, so that the visual-inertial initialization is over and the window
 holds a keyframe and its LVI-BA pass), where the
 device events of the ``lio`` and ``vi_refine`` stages are also counted a
-frame and the run fails above 1.2 host syncs a frame. Then over the frames
-after the warm-up:
+frame and the run fails above 1.2 host syncs a frame; with ``--loop`` loop
+closing on (``loop_closing=True``, ``loop_min_kf=1``, triangulation on, the
+vocabulary of ``--voc``) on this straight path, where no loop closes: every
+keyframe past the first two runs the candidate ladder on the device, whose
+device events are counted a call, and the run fails above 1.2 host syncs a
+frame (the candidates must ride in the frame's one transfer). Then over the
+frames after the warm-up:
 
 - host wall ms per frame (clock around ``track`` + a final synchronize);
 - host syncs per frame, counted with ``torch.cuda.set_sync_debug_mode``,
@@ -53,8 +58,12 @@ def main() -> int:
                     help="tracking.triangulate=True, the configuration's default")
     ap.add_argument("--voc", action="store_true",
                     help="give the system a vocabulary trained on the first three frames")
+    ap.add_argument("--loop", action="store_true",
+                    help="loop closing on (implies --voc and --triangulate)")
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     args = ap.parse_args()
+    if args.loop:
+        args.voc = args.triangulate = True
     if args.frames is None:
         args.frames = 24 if args.imu else 14
     if args.warm is None:
@@ -92,6 +101,8 @@ def main() -> int:
             cfg, use_imu=True, inertial_ba=True,
             imu=cfg_mod.ImuConfig(noise_gyro=1e-4, noise_acc=1e-3, gyro_walk=1e-6,
                                   acc_walk=1e-5, T_bc=syn.body_from_cam()))
+    if args.loop:
+        cfg = dataclasses.replace(cfg, loop_closing=True, loop_min_kf=1)
     dev = torch.device("cuda")
     voc = None
     if args.voc:
@@ -118,6 +129,16 @@ def main() -> int:
             with record_function(f"stage:{_name}"):
                 return _fn(*a, **kw)
         setattr(slam, name, ranged)
+    if args.loop:
+        # the detection is a function of the loop-closing module that System
+        # calls at a keyframe: the same kind of named range around it
+        STAGES = ("detect_candidates_device",)
+        detect = sys_mod.loop_closing.detect_candidates_device
+
+        def ranged_detect(*a, **kw):
+            with record_function("stage:detect_candidates_device"):
+                return detect(*a, **kw)
+        sys_mod.loop_closing.detect_candidates_device = ranged_detect
 
     for fr, sc in zip(frames[:args.warm], scans[:args.warm]):
         track(fr, sc)
@@ -188,6 +209,7 @@ def main() -> int:
             n_in = sum(bisect.bisect_right(launches, b) - bisect.bisect_left(launches, a)
                        for a, b in spans)
             stage_events[name] = {"calls": len(spans), "device_events_per_frame": n_in / n_meas,
+                                  "device_events_per_call": n_in / max(len(spans), 1),
                                   "host_ms_per_frame": sum(b - a for a, b in spans) / 1e3 / n_meas}
     sort_dev = "device_time_total" if hasattr(events[0], "device_time_total") else "cuda_time_total"
     table_dev = events.table(sort_by=sort_dev, row_limit=25)
@@ -197,6 +219,8 @@ def main() -> int:
     summary = {
         "card": smi, "frames": n_meas, "triangulate": cfg.tracking.triangulate,
         "imu_mode": args.imu, "imu_stage_device_events": stage_events,
+        "loop_closing": args.loop, "loops_closed": slam.n_loops_closed,
+        "loop_candidates_verified": slam.n_loop_verified,
         "vi_initialized": bool(getattr(slam, "_vi_initialized", False)),
         "frames_refined": [getattr(slam, "n_vi_refine_kf", 0),
                            getattr(slam, "n_vi_refine_frame", 0)],
@@ -221,9 +245,9 @@ def main() -> int:
     print(json.dumps(summary, indent=1))
     print(table_dev[:6000])
     print(table_cpu[:6000])
-    if args.imu and summary["host_syncs_per_frame"] > 1.2:
-        print(f"IMU mode made {summary['host_syncs_per_frame']:.2f} host syncs a frame (> 1.2)",
-              file=sys.stderr)
+    if (args.imu or args.loop) and summary["host_syncs_per_frame"] > 1.2:
+        print(f"{'IMU mode' if args.imu else 'loop closing'} made "
+              f"{summary['host_syncs_per_frame']:.2f} host syncs a frame (> 1.2)", file=sys.stderr)
         return 1
     return 0
 
