@@ -65,6 +65,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    candidates verified; host syncs counted frame by frame. Then a
    checkpoint round trip on the card: ``save_system``, ``load_system``, two
    more frames on both, poses equal to 1e-4;
+4g. the modules off the frame loop: phase 3's ``System`` (stage timers on,
+   ``profile=True``) prints its stage report; a disabled ``StageTimer``
+   around a kernel launch records nothing; ``profiling.device_trace`` around
+   one more of its frames writes a Chrome trace that names the FAST and
+   matcher kernels; the three map exporters write as many vertices as the
+   map holds (valid landmarks, stored voxel-map points up to 100000,
+   keyframes) and ``draw_frame`` returns the frame's RGB image; LOAM scan
+   features on a 64-ring x 2048-point organized scan (an HDL-64E sweep's
+   size) equal to the CPU's but where a float gate sits within 1e-5 of its
+   threshold; then distributed BA on a NCCL group of world size 1 (one card:
+   NCCL takes one rank per device): the reference's test problem equal to a
+   gloo group on the CPU to 1e-4 and to ``lm.local_ba`` to 5e-3, the
+   KITTI-shaped window at full width (ms an iteration, no host sync, peak
+   memory), and ``System(cfg, cuda, mesh=...)`` on phase 3's frames within
+   the reference's ATE rule against phase 3, with its host syncs by frame;
 5. each kernel against its plain PyTorch version on the card, exact, at
    the main path's shapes, with CUDA-event times and the least time the
    card could take (bytes over 3.35 TB/s, operations over the float32 rate):
@@ -164,9 +179,9 @@ def bound(n_bytes: float, simple_ops: float = 0.0, popc: float = 0.0):
 
 
 def kitti_config(cfg_mod, syn, triangulate: bool = False, **tracking):
-    """bench.py's KITTI-shaped STEREO_LIDAR configuration; ``triangulate=True``
-    is its default, off is the first slice's. ``tracking`` overrides fields
-    of the TrackingConfig."""
+    """bench.py's KITTI-shaped STEREO_LIDAR configuration, stage timers on
+    (``profile=True``) as there; ``triangulate=True`` is its default, off is
+    the first slice's. ``tracking`` overrides fields of the TrackingConfig."""
     import numpy as np
     cam = syn.KITTI_LIKE
     return cfg_mod.SystemConfig(
@@ -181,6 +196,7 @@ def kitti_config(cfg_mod, syn, triangulate: bool = False, **tracking):
         tracking=cfg_mod.TrackingConfig(
             max_kf=256, max_lm=32768, max_obs=8, kf_max_interval=5,
             local_window=6, ba_iters=6, triangulate=triangulate, **tracking),
+        profile=True,
     )
 
 
@@ -207,6 +223,131 @@ def inject_drift(torch, lie, slam, W):
         lm_pos=torch.where(lm_recent[:, None], lie.se3_apply(W, m.lm_pos), m.lm_pos))
     slam.T_cw = slam.T_cw @ W_inv
     slam.last_T_cw = slam.last_T_cw @ W_inv
+
+
+def dist_problem(torch, rng, Pn: int = 6, L: int = 512, K: int = 4, pose_noise: float = 0.03,
+                 lm_noise: float = 0.10):
+    """tests/test_dist_ba.py's ``make_problem`` with numpy and the port: a
+    window of ``Pn`` poses (the first the gauge anchor) and ``L`` landmarks,
+    each seen from min(K, Pn) distinct poses with 0.3 px of noise (the rest
+    of its K observation slots padding), the initial poses and landmarks
+    perturbed. The same draws from ``rng`` as the reference's ``make_problem``.
+    Returns (camera, dict of numpy arrays)."""
+    import numpy as np
+    from tc2li_slam_torch.geom import camera as cam_mod, lie
+    cam = cam_mod.Pinhole.create(500.0, 500.0, 320.0, 240.0, bf=250.0)
+    exp = lambda xi: lie.se3_exp(torch.as_tensor(np.asarray(xi, np.float32))).numpy()
+    X = np.stack([rng.uniform(-15, 15, L), rng.uniform(-8, 8, L), rng.uniform(10, 50, L)],
+                 -1).astype(np.float32)
+    T_gt = np.stack([exp(np.concatenate([[0.6 * p, 0.02 * p, 0.0], rng.uniform(-0.02, 0.02, 3)]))
+                     for p in range(Pn)])
+    n_obs = min(K, Pn)
+    pose_idx = np.zeros((L, K), np.int32)
+    pose_idx[:, :n_obs] = np.stack([rng.choice(Pn, n_obs, replace=False) for _ in range(L)])
+    T = T_gt[pose_idx]
+    Xc = np.einsum("lkij,lj->lki", T[..., :3, :3], X) + T[..., :3, 3]
+    uv = cam_mod.project_stereo(cam, torch.as_tensor(Xc.astype(np.float32))).numpy()
+    uv[..., :2] += rng.normal(0, 0.3, uv[..., :2].shape)
+    T0 = [T_gt[0]]
+    for p in range(1, Pn):
+        T0.append(T_gt[p] @ exp(pose_noise * rng.standard_normal(6).astype(np.float32)))
+    X0 = X + lm_noise * rng.standard_normal(X.shape).astype(np.float32)
+    valid = np.broadcast_to(np.arange(K) < n_obs, (L, K)).copy()
+    return cam, dict(T_gt=T_gt, X=X, T0=np.stack(T0), X0=X0, pose_idx=pose_idx, uv=uv,
+                     inv_sigma2=np.ones((L, K), np.float32), stereo=np.ones((L, K), bool),
+                     valid=valid, fixed=np.arange(Pn) == 0)
+
+
+def scan_rings(n_rings: int, n_points: int, seed: int = 0):
+    """An organized scan of ``n_rings`` azimuth rings, each
+    tests/test_scan_features.py's ``ring_scene`` drawn from its own seed
+    (a square room of half-extent 10 m, a thin pole at ~4 m) and lifted to
+    an elevation between -24.8 and +2 degrees (an HDL-64E's span): the walls
+    and the pole are vertical, so every ring sees the same planes.
+    Returns float32 points [R, N, 3]."""
+    import numpy as np
+    out = []
+    for e, elev in enumerate(np.linspace(np.deg2rad(-24.8), np.deg2rad(2.0), n_rings)):
+        rng = np.random.default_rng(seed + e)
+        ang = np.linspace(-np.pi, np.pi, n_points, endpoint=False)
+        d = np.stack([np.cos(ang), np.sin(ang)], -1)
+        t_wall = 10.0 / np.maximum(np.abs(d[:, 0]), np.abs(d[:, 1]))
+        rng_w = t_wall + rng.normal(0, 0.003, n_points)
+        pole = np.abs(ang - 0.7) < 2.2 * np.pi / n_points
+        r = np.where(pole, 4.0 + rng.normal(0, 0.03, n_points), rng_w)
+        out.append(np.stack([r * np.cos(ang), r * np.sin(ang), r * np.tan(elev)], -1))
+    return np.stack(out).astype(np.float32)
+
+
+def scan_gate_near(sf, points, valid, blind: float, rel: float = 1e-5):
+    """[R, N] bool: points whose scan-feature masks could follow a float gate
+    that lies within ``rel`` (relative) of its threshold while the other
+    gates of its test pass: the gates of ``ops.scan_features`` re-derived in
+    float64 with numpy, and each point within reach of such a gate (a plane
+    window's G points, a neighbour). ``sf`` is the scan-features module."""
+    import numpy as np
+    p = np.asarray(points, np.float64)
+    valid = np.asarray(valid, bool)
+    sh = lambda x, s: np.roll(x, -s, axis=1)      # the point s slots ahead
+    sq = lambda v: np.sum(v * v, -1)
+
+    def gate(a, b, less=True):
+        """(a < b or a > b, whether a lies within rel of b)"""
+        close = np.abs(a - b) <= rel * np.maximum(np.maximum(np.abs(a), np.abs(b)), 1e-30)
+        return (a < b) if less else (a > b), close
+
+    def test(*gates):
+        """the gates whose flip can flip their conjunction"""
+        out = np.zeros(p.shape[:2], bool)
+        for i, (_, close) in enumerate(gates):
+            others = np.ones_like(out)
+            for j, (ok, c) in enumerate(gates):
+                if j != i:
+                    others &= ok | c
+            out |= close & others
+        return out
+
+    r = np.linalg.norm(p, axis=-1)
+    hit = gate(r, blind, less=False)[1] & valid
+    valid = valid & (r > blind)
+    G = sf.GROUP_G
+    chord = sh(p, G - 1) - p
+    chord_n2 = np.maximum(sq(chord), 1e-12)
+    max_p2l, max_sp, min_sp = np.zeros_like(r), np.zeros_like(r), np.full_like(r, np.inf)
+    win_ok = valid.copy()
+    for k in range(1, G - 1):
+        max_p2l = np.maximum(max_p2l, sq(np.cross(sh(p, k) - p, chord)) / chord_n2)
+        s = sq(sh(p, k) - sh(p, k - 1))
+        max_sp, min_sp = np.maximum(max_sp, s), np.minimum(min_sp, s)
+        win_ok &= sh(valid, k)
+    win_ok &= sh(valid, G - 1)
+    hit |= win_ok & test(gate(max_p2l * sf.P2L_RATIO, chord_n2),
+                         gate(max_sp, (sf.DIS_A * r + sf.DIS_B) ** 2),
+                         gate(max_sp, sf.LIMIT_MAXMID * np.maximum(min_sp, 1e-12)))
+    nxt, prv = sh(p, 1), sh(p, -1)
+    d_fwd = sq(nxt - p)
+    d_prev = np.roll(d_fwd, 1, axis=1)
+    a, b = p - prv, nxt - p
+    cos_i = np.sum(a * b, -1) / (np.maximum(np.linalg.norm(a, axis=-1), 1e-9)
+                                 * np.maximum(np.linalg.norm(b, axis=-1), 1e-9))
+    hit |= valid & sh(valid, -1) & sh(valid, 1) & test(
+        gate(180.0 - np.rad2deg(np.arccos(np.clip(cos_i, -1, 1))), sf.SMALLP_INTERSECT, False),
+        gate(np.maximum(d_prev, d_fwd) / np.maximum(np.minimum(d_prev, d_fwd), 1e-12),
+             sf.SMALLP_RATIO))
+    d_min = np.minimum(np.maximum(d_prev, 1e-12), np.maximum(d_fwd, 1e-12))
+    for s in (-1, 1):
+        e = sh(p, s) - p
+        d_n = sq(e)
+        cos_b = np.sum(p / np.maximum(r, 1e-9)[..., None] * e, -1) / np.maximum(
+            np.linalg.norm(e, axis=-1), 1e-9)
+        up, down = gate(cos_b, sf.JUMP_UP_COS), gate(cos_b, sf.JUMP_DOWN_COS, False)
+        hit |= valid & sh(valid, s) & test(
+            gate(d_n, sf.EDGE_A * sf.EDGE_A * d_min, False), (up[0] | down[0], up[1] | down[1]),
+            gate(d_n, sf.EDGE_B, False), gate(r, sh(r, s)))
+    reach = np.zeros_like(hit)
+    for s in range(-G - 1, G + 2):
+        reach |= np.roll(hit, s, axis=1)
+    return reach
 
 
 RENDER_WORKERS = 7   # processes that render the synthetic stereo pairs
@@ -289,9 +430,6 @@ def loop_phase(torch, dev, cam_rig, cfg, n_frames=N_LOOP, world=None, voc_stride
         rel = kf_T[kf] @ lie.se3_inverse(kf_T[cand])
         return float(torch.linalg.norm(lie.se3_log(lie.se3_inverse(S_loop) @ rel)))
 
-    def n_syncs(caught):
-        return sum("synchroniz" in str(w.message).lower() for w in caught)
-
     closures = []
     close_loop = loop_closing.close_loop
     caught_now = [[]]    # the warnings list of the frame in flight
@@ -354,14 +492,14 @@ def loop_phase(torch, dev, cam_rig, cfg, n_frames=N_LOOP, world=None, voc_stride
     est = slam.trajectory_world_from_cam()
     out = dict(slam=slam, closures=closures, counts=counts, modes=modes, frame_ms=frame_ms,
                ate=syn.ate_rmse(est, gt[:n_frames]), n_kf=slam.n_kf_host)
-    detect = stats.get("loop_detect", {"total_ms": 0.0, "count": 0})
-    closing = stats.get("loop_closing", {"total_ms": 0.0, "count": 0})
+    detect = stats.get("loop_detect", {"total_s": 0.0, "n": 0})
+    closing = stats.get("loop_closing", {"total_s": 0.0, "n": 0})
     log(f"loop closing: {n_frames} frames, {slam.n_kf_host} keyframes, {int(slam.map.n_lm)} "
         f"landmarks; "
         f"loops closed {slam.n_loops_closed}, candidates verified {slam.n_loop_verified}, "
-        f"detections {detect['count']} ({detect['total_ms'] / max(detect['count'], 1):.3f} ms each "
-        f"by stage events), closing attempts {closing['count']} "
-        f"({closing['total_ms'] / max(closing['count'], 1):.1f} ms each); ATE of all frames "
+        f"detections {detect['n']} ({1e3 * detect['total_s'] / max(detect['n'], 1):.3f} ms each "
+        f"by stage events), closing attempts {closing['n']} "
+        f"({1e3 * closing['total_s'] / max(closing['n'], 1):.1f} ms each); ATE of all frames "
         f"{out['ate']:.4f} m; matcher launches by call shape {modes}")
     for c in closures:
         log(f"loop closing: closure at frame {c['frame']}: keyframe {c['kf']} -> candidate "
@@ -451,6 +589,277 @@ def loop_phase(torch, dev, cam_rig, cfg, n_frames=N_LOOP, world=None, voc_stride
         f"{worst:.2e}")
     if not worst < 1e-4:
         raise RuntimeError(f"checkpoint: resumed poses differ by {worst}")
+    return out
+
+
+def ply_vertices(path) -> int:
+    """The vertex count in a PLY header."""
+    with open(path) as f:
+        for line in f:
+            if line.startswith("element vertex"):
+                return int(line.split()[-1])
+    raise RuntimeError(f"{path}: no vertex count")
+
+
+def n_syncs(caught) -> int:
+    """Host syncs among warnings caught under ``set_sync_debug_mode("warn")``."""
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def syncs_of(torch, fn) -> int:
+    """The host syncs ``fn()`` makes (on a CUDA card; 0 without one)."""
+    import warnings
+    if not torch.cuda.is_available():
+        fn()
+        return 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return n_syncs(caught)
+
+
+def profile_export_phase(torch, slam, frame, log=print):
+    """4g, timers, trace and exporters, on phase 3's ``System`` (``profile``
+    on) and one more of its frames ``frame = (img_l, img_r, t, scan)``: the
+    stage report; a disabled ``StageTimer`` around a kernel launch records
+    nothing; ``device_trace`` around that frame's ``track`` writes a Chrome
+    trace that names the FAST and matcher kernels (on a CUDA device); the
+    three exporters' vertex counts and ``draw_frame`` of that frame. Raises
+    RuntimeError where a check fails."""
+    import tempfile
+
+    import numpy as np
+
+    from tc2li_slam_torch.ops import orb, voxel_map
+    from tc2li_slam_torch.slam import profiling, system as sys_mod, viewer
+
+    dev = slam.device
+    cuda = dev.type == "cuda"
+    if not slam.timers.enabled or not slam.timers.stats().get("frame", {}).get("n"):
+        raise RuntimeError("timers: phase 3's System recorded no frame with profile=True")
+    log("stage timers of phase 3's System (profile=True; frames after the warm-up):\n"
+        + slam.timers.report())
+    img_l, img_r, t, scan = frame
+    off = profiling.StageTimer(dev, enabled=False)
+    with off.stage("orb.extract"):
+        kp = orb.extract(torch.as_tensor(img_l).to(dev), slam.cfg.orb.n_features,
+                         slam.cfg.orb.n_levels)
+    if cuda:
+        torch.cuda.synchronize()
+    if off.stats() != {} or off._events:
+        raise RuntimeError("timers: a disabled StageTimer recorded a stage")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.device_trace(tmp, dev) as path:
+            slam.track(img_l, img_r, t, scan)
+            if cuda:
+                torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events = json.loads(path.read_text())["traceEvents"]
+        kernels = [str(e.get("name", "")) for e in events if e.get("cat") == "kernel"]
+        named = {k: sum(k in name for name in kernels) for k in ("fast_score", "fast_nms",
+                                                                  "match_best2")}
+        log(f"device_trace of one more frame of phase 3's System: {path.stat().st_size / 1e6:.1f} "
+            f"MB of Chrome trace, {len(events)} events, {len(kernels)} kernels, parsed in "
+            f"{time.perf_counter() - t0:.2f} s; kernels by name {named}")
+        if slam.state != sys_mod.TrackingState.OK:
+            raise RuntimeError(f"device_trace: the traced frame's state {slam.state}")
+        if cuda and not (named["fast_score"] and named["match_best2"]):
+            raise RuntimeError(f"device_trace: the trace does not name the kernels: {named}")
+
+        m, vm = slam.map, slam.vmap
+        stored = int((vm.keys != voxel_map.EMPTY_KEY).sum())
+        want = {"map_points": int(m.lm_valid.sum()), "lidar_map": min(stored, 100_000),
+                "keyframe_path": slam.n_kf_host}
+        for name, fn in (("map_points", lambda p: viewer.export_map_points(slam, p)),
+                         ("lidar_map", lambda p: viewer.export_lidar_map(slam, p,
+                                                                         max_points=100_000)),
+                         ("keyframe_path", lambda p: viewer.export_keyframe_path(slam, p))):
+            p = str(Path(tmp) / f"{name}.ply")
+            t0 = time.perf_counter()
+            fn(p)
+            out[name] = (ply_vertices(p), time.perf_counter() - t0)
+        img = viewer.draw_frame(img_l, kp.xy.cpu().numpy(), kp.valid.cpu().numpy(),
+                                state_text="OK")
+    log(f"exporters: (vertices, seconds) {out} against {want} (voxel map {stored} points "
+        f"stored); draw_frame {img.shape} {img.dtype}")
+    if any(out[k][0] != want[k] for k in want):
+        raise RuntimeError(f"exporters: vertex counts {out} against {want}")
+    if img.shape != np.shape(img_l) + (3,):
+        raise RuntimeError(f"draw_frame returned {img.shape}")
+    return out
+
+
+def scan_phase(torch, dev, n_rings: int = 64, n_points: int = 2048, log=print, timer=None):
+    """4g, scan features: an organized ``n_rings`` x ``n_points`` scan
+    (``scan_rings``) through ``extract_features_rings`` on ``dev`` and on the
+    CPU; the masks must be equal but at points near a float gate
+    (``scan_gate_near``). ``timer(fn) -> ms`` times one call. Returns the
+    flips; raises RuntimeError where a check fails."""
+    import numpy as np
+
+    from tc2li_slam_torch.ops import scan_features as sf
+
+    pts = scan_rings(n_rings, n_points)
+    valid = np.ones(pts.shape[:2], bool)
+    p_d, v_d = torch.as_tensor(pts).to(dev), torch.as_tensor(valid).to(dev)
+    got = sf.extract_features_rings(p_d, v_d)
+    ref = sf.extract_features_rings(torch.as_tensor(pts), torch.as_tensor(valid))
+    near = scan_gate_near(sf, pts, valid, 2.0)
+    flips = {k: (getattr(got, k).cpu() != getattr(ref, k)).numpy() for k in got._fields}
+    outside = {k: int((f & ~near).sum()) for k, f in flips.items()}
+    counts = {k: int(getattr(ref, k).sum()) for k in got._fields}
+    ms = timer(lambda: sf.extract_features_rings(p_d, v_d)) if timer else None
+    log(f"scan features, {n_rings} rings x {n_points} points on {dev}: {counts} on the CPU; "
+        f"flips against the CPU {({k: int(f.sum()) for k, f in flips.items()})}, of them "
+        f"away from a float gate {outside} ({int(near.sum())} points lie near one); "
+        + (f"{ms:.4f} ms a call on the device" if ms is not None else "not timed"))
+    if any(outside.values()):
+        raise RuntimeError(f"scan features: masks differ away from a float gate: {outside}")
+    if counts["plane"] < pts.shape[0] * pts.shape[1] // 2 or counts["edge"] < n_rings:
+        raise RuntimeError(f"scan features: {counts}")
+    return {k: int(f.sum()) for k, f in flips.items()}
+
+
+def dist_phase(torch, dev, cfg, frames, gt, ref, backend: str = "nccl", log=print,
+               reset_counts=lambda: None, read_counts=dict):
+    """4g, distributed BA on a world-size-1 group of ``backend`` made from a
+    file store: the reference's test problem through ``dist_ba.optimize`` on
+    ``dev`` against a gloo group on the CPU and against ``lm.local_ba``; the
+    KITTI-shaped window at full width (ms an iteration, host syncs, peak
+    memory); then ``System(cfg, dev, mesh=...)`` on ``frames`` (tuples for
+    ``track``) with ground truth ``gt``, held against ``ref`` (the run
+    without a mesh: its ATE, ``local_ba`` stage statistics and per-pass ms).
+    The group is destroyed at the end. Raises RuntimeError where a check
+    fails."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from tc2li_slam_torch.io import synthetic as syn
+    from tc2li_slam_torch.parallel import dist_ba
+    from tc2li_slam_torch.solver import lm as lm_mod
+    from tc2li_slam_torch.slam import local_mapping, system as sys_mod
+
+    cuda = torch.device(dev).type == "cuda"
+    out = {}
+
+    def tensors(p, d):
+        obs = lm_mod.BAObservations(*(torch.as_tensor(p[k]).to(d) for k in (
+            "pose_idx", "uv", "inv_sigma2", "stereo", "valid")))
+        return (torch.as_tensor(p["T0"]).to(d), torch.as_tensor(p["X0"]).to(d), obs,
+                torch.as_tensor(p["fixed"]).to(d))
+
+    def solve(mesh, cam, args, iters):
+        T0, X0, obs, fixed = args
+        valid = torch.ones(X0.shape[0], dtype=torch.bool, device=X0.device)
+        return dist_ba.optimize(mesh, cam, T0, *dist_ba.shard_problem(mesh, X0, obs, valid),
+                                fixed, iters=iters)
+
+    def single(cam, args, iters):
+        T0, X0, obs, fixed = args
+        valid = torch.ones(X0.shape[0], dtype=torch.bool, device=X0.device)
+        return lm_mod.local_ba(cam, T0, X0, obs, fixed, valid, iters=iters)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = dist_ba.make_mesh(backend, f"file://{tmp}/store", 0, 1)
+        try:
+            gloo = dist_ba.mesh_of(dist.new_group([0], backend="gloo"))
+            # (1) the reference's test problem
+            cam, p = dist_problem(torch, np.random.default_rng(0))
+            T_d, X_d, c_d = solve(mesh, cam, tensors(p, dev), 10)
+            T_c, X_c, c_c = solve(gloo, cam, tensors(p, "cpu"), 10)
+            res = single(cam, tensors(p, dev), 10)
+            d_cpu = float((T_d.cpu() - T_c).abs().max())
+            d_lm = float((X_d.cpu() - X_c).abs().max())
+            d_single = float((T_d - res.T_cw).abs().max())
+            out["vs_cpu"], out["vs_local_ba"] = d_cpu, d_single
+            log(f"dist_ba.optimize, {backend} world size 1 on {dev}, P 6, L 512, K 4, 10 "
+                f"iterations: poses against a gloo group on the CPU {d_cpu:.2e} (landmarks "
+                f"{d_lm:.2e} m, cost {float(c_d):.6f} / {float(c_c):.6f}); against lm.local_ba "
+                f"on {dev} {d_single:.2e}")
+            if not d_cpu <= 1e-4 or not d_lm <= 5e-3 or not d_single < 5e-3:
+                raise RuntimeError(f"dist_ba: poses {d_cpu} from the CPU, landmarks {d_lm}, "
+                                   f"{d_single} from lm.local_ba")
+
+            # (2) the KITTI-shaped window: P 6, max_active 8192, K = max_obs 8
+            t = cfg.tracking
+            cam_w, pw = dist_problem(torch, np.random.default_rng(1), Pn=t.local_window,
+                                     L=t.ba_active_landmarks, K=t.max_obs)
+            if cuda:
+                args = tensors(pw, dev)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(torch, lambda: solve(mesh, cam_w, args, t.ba_iters), 3)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                ms_lm = cuda_ms(torch, lambda: single(cam_w, args, t.ba_iters), 3)
+                syncs = [syncs_of(torch, lambda: solve(mesh, cam_w, args, t.ba_iters)),
+                         syncs_of(torch, lambda: single(cam_w, args, t.ba_iters))]
+                out["full_ms_per_iter"] = ms / t.ba_iters
+                log(f"dist_ba.optimize at full width (P {t.local_window}, L "
+                    f"{t.ba_active_landmarks}, K {t.max_obs}, {t.ba_iters} iterations, no BALM "
+                    f"term): {ms / t.ba_iters:.3f} ms an iteration ({ms:.2f} ms a call), "
+                    f"lm.local_ba {ms_lm / t.ba_iters:.3f} ms an iteration; host syncs a call "
+                    f"{syncs[0]} (lm.local_ba {syncs[1]}); peak device memory {peak:.3f} GiB")
+                if syncs[0] != 0:
+                    raise RuntimeError(f"dist_ba.optimize synchronised the host {syncs[0]} times")
+
+            # (3) the System through the mesh on the same frames, with the
+            # BALM quadratic's evaluations counted
+            slam = sys_mod.System(cfg, dev, mesh=mesh)
+            states, syncs = [], []
+            balm_extra, n_balm = local_mapping._balm_extra, [0]
+
+            def counted(*a, **kw):
+                n_balm[0] += 1
+                return balm_extra(*a, **kw)
+
+            local_mapping._balm_extra = counted
+            reset_counts()
+            try:
+                for i, args in enumerate(frames):
+                    if i == N_WARM:
+                        if cuda:
+                            torch.cuda.synchronize()
+                        slam.timers.reset()
+                    syncs.append(syncs_of(torch, lambda: slam.track(*args)))
+                    states.append(slam.state)
+                if cuda:
+                    torch.cuda.synchronize()
+                counts = read_counts()
+                # the stages as phase 3 reads them: before the last mapping
+                # pass, which the trajectory's flush runs
+                ba = slam.timers.stats().get("local_ba", {"mean_ms": float("nan"), "n": 0})
+                passes = [round(1e3 * x, 1) for x in slam.timers.samples.get("local_ba", [])]
+                ate = syn.ate_rmse(slam.trajectory_world_from_cam(), gt)
+            finally:
+                local_mapping._balm_extra = balm_extra
+            ba0 = ref["stats"].get("local_ba", {"mean_ms": float("nan"), "n": 0})
+            out.update(ate=ate, syncs=syncs, local_ba_ms=ba["mean_ms"])
+            log(f"System(mesh={backend} world size 1) on {len(frames)} frames: ATE {ate:.4f} m "
+                f"(without a mesh {ref['ate']:.4f} m), keyframes {slam.n_kf_host}, local BA "
+                f"passes {slam.n_ba} ({slam.n_ba_balm} with BALM), the BALM quadratic evaluated "
+                f"{n_balm[0]} times in them; local_ba stage {ba['mean_ms']:.1f} ms a pass over {ba['n']} "
+                f"passes after frame {N_WARM}, by pass {passes} (without a mesh "
+                f"{ba0['mean_ms']:.1f} ms over {ba0['n']}, by pass {ref.get('local_ba_ms')}); "
+                f"host syncs by frame {syncs}; kernel launches {counts}")
+            if any(s != sys_mod.TrackingState.OK for s in states) or slam.n_ba < 1:
+                raise RuntimeError(f"System(mesh): states {states}, {slam.n_ba} BA passes")
+            if not ate < ATE_BOUND_M or not ate <= 1.5 * ref["ate"] + 0.02:
+                raise RuntimeError(f"System(mesh): ATE {ate:.4f} m against {ref['ate']:.4f} m")
+            if cuda and (max(syncs[1:]) > 2 or np.mean(syncs[1:]) > 1.2):
+                raise RuntimeError(f"System(mesh): host syncs by frame {syncs}")
+            n = len(frames)
+            if cuda and (counts["fast_score_planes"], counts["fast_nms_planes"]) != (n, n):
+                raise RuntimeError(f"System(mesh): launches {counts} for {n} frames")
+        finally:
+            dist.destroy_process_group()
     return out
 
 
@@ -558,7 +967,7 @@ def main() -> int:
           f"{peak_gib:.2f} GiB", flush=True)
     print(f"{tag} device ms/frame by stage (CUDA events, frames "
           f"{N_WARM}..{N_FRAMES - 1}): "
-          + json.dumps({k: round(v["total_ms"] / n_steady, 3) for k, v in stats.items()}),
+          + json.dumps({k: round(1e3 * v["total_s"] / n_steady, 3) for k, v in stats.items()}),
           flush=True)
     print(f"kernel launches during the slice: {launches}", flush=True)
 
@@ -583,7 +992,9 @@ def main() -> int:
         return fail(f"ATE {ate:.4f} m >= {ATE_BOUND_M} m")
 
     # --- 4. the duplicate-fusion pass (Hamming matrix) -----------------------
-    m = slam.map
+    # (phase 4g tracks more frames on this System: phase 5 reads the map and
+    # the reference keyframe of the slice as they are here)
+    m, kf_slice = slam.map, max(slam.ref_kf, 0)
     high_water = int(torch.nonzero(m.lm_valid).max()) + 1
     pool = max(2048, high_water)
     if pool > 8192:
@@ -608,7 +1019,6 @@ def main() -> int:
           f"Hamming launches {fuse_counts['hamming_matrix']}", flush=True)
 
     # --- 4a. the default configuration: triangulate=True, with a vocabulary ---
-    import warnings
     S = sys_mod.TrackingState
     dt = float(frames[1].t - frames[0].t)
     chunks = -(-cfg.tracking.max_lm // match.DENSE_MAX_COLUMNS)
@@ -704,7 +1114,7 @@ def main() -> int:
     ate2 = syn.ate_rmse(est2, gt[:N_TRI])
     n_tri_lm = int(slam2.n_tri_landmarks)
     n_lm1, n_kf1 = int(lm_at_tri[0]), lm_at_tri[1]
-    maintain = stats2.get("maintain", {"total_ms": 0.0, "count": 0})
+    maintain = stats2.get("maintain", {"total_s": 0.0, "n": 0})
     print(f"{tag} triangulate=True: {N_TRI} frames, ATE {ate2:.4f} m, keyframes {n_kf2}, "
           f"landmarks {n_lm2} ({n_lm2 / max(n_kf2, 1):.1f} a keyframe; without triangulation "
           f"{n_lm1} landmarks, {n_lm1 / max(n_kf1, 1):.1f} a keyframe at the same frame), "
@@ -712,9 +1122,9 @@ def main() -> int:
           f"{tri_pairs_a} keyframe pairs (one epipolar-masked match launch each)", flush=True)
     print(f"{tag} triangulate=True frames/s: {N_TRI / (t_end - t_start):.3f} over all {N_TRI} "
           f"frames, {(N_TRI - N_WARM) / (t_end - t_warm):.3f} over frames {N_WARM}..{N_TRI - 1}; "
-          f"maintain stage {maintain['total_ms'] / max(maintain['count'], 1):.2f} ms a pass "
-          f"({maintain['count']} passes, CUDA events); device ms/frame by stage: "
-          + json.dumps({k: round(v["total_ms"] / (N_TRI - N_WARM), 3) for k, v in stats2.items()}),
+          f"maintain stage {1e3 * maintain['total_s'] / max(maintain['n'], 1):.2f} ms a pass "
+          f"({maintain['n']} passes, CUDA events); device ms/frame by stage: "
+          + json.dumps({k: round(1e3 * v["total_s"] / (N_TRI - N_WARM), 3) for k, v in stats2.items()}),
           flush=True)
     print(f"kernel launches during the triangulate=True run: {counts_a}, the matcher's by "
           f"call shape {modes_a}", flush=True)
@@ -741,21 +1151,10 @@ def main() -> int:
     xn2 = X2[:, :2] / X2[:, 2:] + 1e-3 * torch.randn((6000, 2), generator=g, device=dev)
     A = tri_geom.design_matrix(xn1, xn2, T1, T2)
 
-    def syncs_of(fn):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        return sum("synchroniz" in str(w.message).lower() for w in caught)
-
     ms_svd = cuda_ms(torch, lambda: torch.linalg.svd(A), 10)
     ms_null = cuda_ms(torch, lambda: tri_geom.null_vector(A), 10)
-    n_sync_svd = syncs_of(lambda: torch.linalg.svd(A))
-    n_sync_null = syncs_of(lambda: tri_geom.null_vector(A))
+    n_sync_svd = syncs_of(torch, lambda: torch.linalg.svd(A))
+    n_sync_null = syncs_of(torch, lambda: tri_geom.null_vector(A))
     v_svd = torch.linalg.svd(A.to(torch.float64))[2][:, 3, :]
     agree = float(torch.abs(torch.sum(tri_geom.null_vector(A).to(torch.float64) * v_svd, -1)).min())
     print(f"{tag} null vector of [6000, 4, 4]: torch.linalg.svd {ms_svd:.3f} ms a call, "
@@ -935,7 +1334,7 @@ def main() -> int:
           f"{n_steady3 / (t_end - t_warm):.3f} over frames {N_IMU_WARM}..{N_IMU - 1}; peak "
           f"device memory {peak3_gib:.2f} GiB; device ms/frame by stage (CUDA events, frames "
           f"{N_IMU_WARM}..{N_IMU - 1}): "
-          + json.dumps({k: round(v["total_ms"] / n_steady3, 3) for k, v in stats3.items()}),
+          + json.dumps({k: round(1e3 * v["total_s"] / n_steady3, 3) for k, v in stats3.items()}),
           flush=True)
     print(f"kernel launches during the IMU-mode run: {counts_e}, the matcher's by call shape "
           f"{modes_e}", flush=True)
@@ -1019,6 +1418,27 @@ def main() -> int:
     if launches["match_best2/loop"] != slam4.n_loop_verified or slam4.n_loop_verified < 1:
         return fail(f"loop closing: {launches['match_best2/loop']} launches of the verification "
                     f"match for {slam4.n_loop_verified} candidates verified")
+
+    # --- 4g. timers and trace, exporters, scan features, distributed BA -----------
+    log = lambda msg: print(f"{tag} {msg}", flush=True)
+    frame = lambda i: (imgs[i][0], imgs[i][1], frames_all[i].t, scans[i])
+    t0 = time.perf_counter()
+    try:
+        profile_export_phase(torch, slam, frame(N_FRAMES), log=log)
+        # phase 3's System on the frame after, its host syncs counted as the
+        # mesh run's are below
+        n_sync3 = syncs_of(torch, lambda: slam.track(*frame(N_FRAMES + 1)))
+        log(f"host syncs of phase 3's System on one more frame: {n_sync3}")
+        scan_phase(torch, dev, log=log,
+                   timer=lambda fn: cuda_ms(torch, fn, 20, backlog=True))
+        dist_phase(torch, dev, cfg, [frame(i) for i in range(N_FRAMES)], gt,
+                   ref=dict(ate=ate, stats=stats, local_ba_ms=[
+                       round(1e3 * x, 1) for x in
+                       slam.timers.samples["local_ba"][:stats["local_ba"]["n"]]]),
+                   log=log, reset_counts=reset_counts, read_counts=read_counts)
+    except RuntimeError as e:
+        return fail(str(e))
+    print(f"phase 4g: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- 5. kernels vs plain versions ----------------------------------------
     rows = {}
@@ -1133,7 +1553,7 @@ def main() -> int:
         match_case("stereo, last frame", kl.desc, kr.desc, kl.valid, kr.valid,
                    match.StereoMask(kl.xy, kl.level, kr.xy, kr.level, band, max_d), True)
         # ... and the landmark pool projected into the reference keyframe
-        kf = max(slam.ref_kf, 0)
+        kf = kf_slice
         Xc = lie.se3_apply(m.kf_T_cw[kf], m.lm_pos)
         uv = cam_mod.project(slam.cam, Xc)
         dist, dist_ok = tracking.scale_gate(m, Xc)

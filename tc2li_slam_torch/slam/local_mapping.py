@@ -6,6 +6,8 @@ poses + landmarks with reprojection factors, plus the BALM eigen-factor over
 the window's last ``balm_window`` keyframes, injected into the reduced
 camera system as a dense quadratic. The landmark budget is the plain cap
 ``max_active`` (no power-of-2 buckets: nothing here compiles per shape).
+With a ``mesh`` the same problem goes through ``parallel.dist_ba``: the
+landmarks are sharded over the process group's ranks.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from dataclasses import dataclass
 import torch
 
 from ..geom import camera as cam_mod, lie
+from ..parallel import dist_ba
 from ..solver import balm as balm_mod, lm as lm_mod
 from ..tensors import to_device
 from . import mapstate
@@ -133,9 +136,13 @@ def run_local_ba(m: mapstate.MapState, lidar: LidarStore | None, cam: cam_mod.Pi
                  balm_window: int = 6, balm_voxel: float = 1.0,
                  balm_max_voxels: int = 512, balm_min_points: int = 15,
                  w_lba: float = 0.01, iters: int = 8,
-                 max_active: int = 8192) -> mapstate.MapState:
+                 max_active: int = 8192, mesh: dist_ba.Mesh | None = None) -> mapstate.MapState:
     """One LocalLVBundleAdjustment pass over ``window`` (host list from
-    ``select_window``); returns the map with refined poses and landmarks."""
+    ``select_window``); returns the map with refined poses and landmarks.
+
+    With ``mesh`` the landmarks are sharded over its ranks and the reduced
+    camera system is summed over them (``dist_ba.optimize``); every rank
+    holds the same map and gets the same result."""
     dev = m.device
     window_arr = to_device(window, torch.int32, dev)
     fixed_arr = to_device(fixed, torch.bool, dev)
@@ -153,9 +160,16 @@ def run_local_ba(m: mapstate.MapState, lidar: LidarStore | None, cam: cam_mod.Pi
             m, lidar, to_device(lidar_ids, torch.int32, dev),
             to_device(pos_list, torch.int64, dev), T_cl, w_lba,
             balm_voxel, balm_max_voxels, balm_min_points)
-    res = lm_mod.local_ba(cam, T0, X0, obs, fixed_arr, lm_active, iters=iters,
-                          extra_fn=extra_fn)
-    new_T = mapstate.set_rows_drop(m.kf_T_cw, torch.where(wvalid, window_arr, m.K), res.T_cw)
+    if mesh is None:
+        res_T, res_X, _ = lm_mod.local_ba(cam, T0, X0, obs, fixed_arr, lm_active, iters=iters,
+                                          extra_fn=extra_fn)
+    else:
+        X_s, obs_s, act_s = dist_ba.shard_problem(mesh, X0, obs, lm_active)
+        res_T, X_s, _ = dist_ba.optimize(mesh, cam, T0, X_s, obs_s, act_s, fixed_arr,
+                                         iters=iters, extra_fn=extra_fn)
+        # every rank's replica takes the whole landmark result
+        res_X = dist_ba.all_gather_rows(mesh, X_s, X0.shape[0])
+    new_T = mapstate.set_rows_drop(m.kf_T_cw, torch.where(wvalid, window_arr, m.K), res_T)
     new_X = m.lm_pos.clone()
-    new_X[sel] = torch.where(lm_active[:, None], res.X_w, m.lm_pos[sel])
+    new_X[sel] = torch.where(lm_active[:, None], res_X, m.lm_pos[sel])
     return m.replace(kf_T_cw=new_T, lm_pos=new_X)

@@ -50,9 +50,6 @@ detects, verifies and closes at once, as the reference does at the keyframe.
 
 from __future__ import annotations
 
-import contextlib
-import time
-
 import numpy as np
 import torch
 
@@ -62,7 +59,8 @@ from ..ops import bow, plane_fit, pointcloud, voxel_map
 from ..solver import balm as balm_mod, inertial_ba, inertial_init, pose_inertial as pi_mod
 from ..tensors import axis_vector, count, to_device
 from . import (atlas as atlas_mod, config as cfg_mod, culling, imu_mode, lio, local_mapping,
-               loop_closing, mapstate, relocalization, tracking, trajectory, triangulation)
+               loop_closing, mapstate, profiling, relocalization, tracking, trajectory,
+               triangulation)
 
 
 class TrackingState:
@@ -70,56 +68,6 @@ class TrackingState:
     OK = 1
     RECENTLY_LOST = 2
     LOST = 3
-
-
-class StageTimer:
-    """Per-stage timings: CUDA events on a CUDA device (device time between
-    the stage's start and end on the current stream), the host clock on
-    the CPU. ``stats`` synchronises once to read the events."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self._events: list[tuple[str, object, object]] = []
-        self._total_ms: dict[str, float] = {}
-        self._count: dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        self._count[name] = self._count.get(name, 0) + 1
-        if self.cuda:
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            yield
-            e1.record()
-            self._events.append((name, e0, e1))
-            # fold finished pairs into the totals (query() does not block)
-            while self._events and self._events[0][2].query():
-                self._fold(*self._events.pop(0))
-        else:
-            t0 = time.perf_counter()
-            yield
-            self._add(name, (time.perf_counter() - t0) * 1e3)
-
-    def _add(self, name: str, ms: float):
-        self._total_ms[name] = self._total_ms.get(name, 0.0) + ms
-
-    def _fold(self, name, e0, e1):
-        self._add(name, e0.elapsed_time(e1))
-
-    def stats(self) -> dict[str, dict[str, float]]:
-        """{stage: {"total_ms", "count"}}."""
-        if self._events:
-            torch.cuda.synchronize()
-            while self._events:
-                self._fold(*self._events.pop(0))
-        return {k: {"total_ms": v, "count": self._count[k]}
-                for k, v in sorted(self._total_ms.items())}
-
-    def reset(self):
-        self._events.clear()
-        self._total_ms.clear()
-        self._count.clear()
 
 
 class System:
@@ -135,11 +83,14 @@ class System:
     GLOBAL_BA_KFS = 64   # keyframes of the global BA after a loop closure
 
     def __init__(self, cfg: cfg_mod.SystemConfig, device: torch.device | str,
-                 voc: bow.Vocabulary | None = None):
+                 voc: bow.Vocabulary | None = None, mesh=None):
         """``voc`` is the place-recognition vocabulary (``ops.bow``); with
         one, each keyframe stores its words, a lost frame relocalizes, and
-        with ``cfg.loop_closing`` loops are detected and closed."""
+        with ``cfg.loop_closing`` loops are detected and closed. ``mesh``
+        (``parallel.dist_ba.Mesh``) sends the mapping pass's local BA through
+        the distributed solver; every rank runs the whole frame loop."""
         self.cfg = cfg
+        self.mesh = mesh
         self.device = torch.device(device)
         dev = self.device
         self.voc = None if voc is None else voc.to(dev)
@@ -185,7 +136,7 @@ class System:
         self._generator = torch.Generator(device=dev).manual_seed(0)
         # (timestamp, map_id, ref_kf, T_cur_wrt_ref on the device)
         self.traj: list[tuple[float, int, int, torch.Tensor]] = []
-        self.timers = StageTimer(dev)
+        self.timers = profiling.StageTimer(dev, enabled=cfg.profile)
         self._pending_mapping: int | None = None   # KF whose mapping pass is due
         self._pending_fetch: dict[str, torch.Tensor] = {}  # read at the next sync
         self._covis: tuple[list[int], list[int]] | None = None
@@ -650,7 +601,7 @@ class System:
                     window, fixed, balm_window=lc.balm_window, balm_voxel=lc.balm_voxel,
                     balm_max_voxels=lc.balm_max_voxels, balm_min_points=lc.balm_min_points,
                     w_lba=lc.w_lba if self.lidar_enabled else 0.0, iters=t.ba_iters,
-                    max_active=t.ba_active_landmarks)
+                    max_active=t.ba_active_landmarks, mesh=self.mesh)
                 self.n_ba_balm += int(self.lidar_enabled and lc.w_lba > 0)
             self.n_ba += 1
         # the current frame follows the BA's correction of its reference KF

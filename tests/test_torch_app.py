@@ -313,7 +313,7 @@ def test_run_kitti_torch_end_to_end(kitti_root, tmp_path):
     assert np.loadtxt(os.path.join(out, "99.txt")).shape == (6, 12)
     assert np.loadtxt(os.path.join(out, "99_tum.txt")).shape == (6, 8)
     stages = json.loads(proc.stderr.strip().splitlines()[-1])
-    assert "track_step" in stages and stages["frame"]["count"] == 6
+    assert "track_step" in stages and stages["frame"]["n"] == 6
     if not torch.cuda.is_available():
         proc = subprocess.run(args, capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
         assert proc.returncode == 2 and "no CUDA device" in proc.stderr and not proc.stdout.strip()

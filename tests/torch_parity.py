@@ -12,6 +12,7 @@ against the JAX package's.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -92,3 +93,15 @@ def jax_midsequence(n_frames: int = 5):
         s.track(fr.img_l, fr.img_r, fr.t, fr.scan, fr.scan_valid)
     s.flush_mapping()
     return s, frames
+
+
+@contextlib.contextmanager
+def gloo_mesh(tmpdir):
+    """A world-size-1 gloo process group (``parallel.dist_ba.Mesh``) made
+    from a file store in ``tmpdir`` (no TCP port), destroyed on exit."""
+    from tc2li_slam_torch.parallel import dist_ba
+    mesh = dist_ba.make_mesh("gloo", f"file://{tmpdir}/store", 0, 1)
+    try:
+        yield mesh
+    finally:
+        torch.distributed.destroy_process_group()
