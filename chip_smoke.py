@@ -17,7 +17,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    keyframes, a BALM local-BA pass, the voxel map, finite poses, the ATE
    against ground truth (< 0.5 m), and that the launch counts equal what
    the run's own counts imply (one detection per frame; a stereo match per
-   frame, a tracking match per tracked frame, one match per fuse pass);
+   frame, a tracking match per tracked frame, one match per fuse pass; one
+   pose-only LM per tracked frame); prints ``track_step``'s stage ms a
+   frame. In this and every later phase that counts launches the pose-only
+   LM kernel must have launched once per ``track_frame`` and once per
+   ``pnp_ransac`` call of the phase's run (both counted where the port calls
+   them), and at least once;
 4. the duplicate-fusion pass (``culling.fuse_duplicates``, the caller of the
    Hamming-matrix kernel) over the slice's landmarks, counted the same way
    and held against the same call on the CPU;
@@ -92,7 +97,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    run's data (a keyframe pair under its epipolar mask, the pool against a
    frame, a frame against one column chunk of the pool and against all of
    it), and in the call shape of 4f (two keyframes' 2000 features, no mask,
-   mutual); the Hamming matrix at 2000x2000 and 32768x2000;
+   mutual); the Hamming matrix at 2000x2000 and 32768x2000; the pose-only
+   LM on the inputs of phase 3's last ``pose_only_optimize`` call, on 4b's
+   PnP polish, at N = 5000, with nothing valid and with a masked NaN row
+   (poses to 1e-4, costs to 1e-3 relative, inlier flags equal but where a
+   row's chi2, re-derived in float64, sits at its threshold; times behind a
+   device backlog beside the plain version's);
 6. one JSON line of kernel rows, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 """
@@ -130,6 +140,14 @@ PEAK_POPC_S = PEAK_SIMPLE_S / 8
 # and the final maxima
 FAST_OPS_REJECT = 21
 FAST_OPS_FULL = 174
+# pose-only LM (csrc/pose_lm.cu): bytes read once (T_cw0, then per row the
+# point, the observation, inv_sigma2 and two flags) and written once (the
+# pose, an inlier flag per row, the count and the cost); operations per row
+# and pass: the transform, the residual and its gates, the Huber weight,
+# the 3x6 Jacobian and the 27 sums of (w J)^T [J | r] and the cost
+POSE_BYTES_FIXED = 64 + 64 + 4 + 4
+POSE_BYTES_ROW = 12 + 12 + 4 + 1 + 1 + 1
+POSE_OPS_ROW = 180
 
 
 def fail(msg: str) -> int:
@@ -256,6 +274,104 @@ def dist_problem(torch, rng, Pn: int = 6, L: int = 512, K: int = 4, pose_noise: 
     return cam, dict(T_gt=T_gt, X=X, T0=np.stack(T0), X0=X0, pose_idx=pose_idx, uv=uv,
                      inv_sigma2=np.ones((L, K), np.float32), stereo=np.ones((L, K), bool),
                      valid=valid, fixed=np.arange(Pn) == 0)
+
+
+POSE_CASES = ("tracking", "pnp", "all_invalid", "behind_and_z0", "masked_nan")
+
+
+def pose_problem(rng, n: int = 2000, case: str = "tracking"):
+    """Inputs of ``pose_only_optimize`` (numpy, from ``rng``) for one of
+    ``POSE_CASES``, with the KITTI-shaped camera. ``tracking``: a frame's
+    ``n`` features, about half of them matched (``valid``; the rest padding
+    that repeats point 0, as ``track_frame``'s clamp does), 60% stereo, 10%
+    outliers of ~40 px, noise and ``inv_sigma2`` from 8 pyramid levels, the
+    initial pose ~1 cm and ~0.6 degrees off. ``pnp``: PnP RANSAC's polish,
+    2 rounds of 8 iterations, no stereo column, unit ``inv_sigma2``, 5%
+    outliers among its inliers. ``all_invalid``: nothing valid.
+    ``behind_and_z0``: an initial pose without rotation, and two valid
+    stereo points: one 5 m behind it, one at depth exactly 0. ``masked_nan``:
+    a masked row whose point is NaN. Returns (Pinhole.create arguments,
+    (T_cw0, X_w, uv_obs, inv_sigma2, stereo, valid), dict(rounds, iters))."""
+    import numpy as np
+    from tc2li_slam_torch.io.synthetic import KITTI_LIKE as rig, so3_exp_np
+
+    def pose(rot, trans):
+        T = np.eye(4)
+        T[:3, :3] = so3_exp_np(rng.normal(0, rot, 3))
+        T[:3, 3] = rng.normal(0, trans, 3)
+        return T
+
+    fx, fy, cx, cy, bf = rig.fx, rig.fy, rig.cx, rig.cy, rig.fx * rig.baseline
+    T0 = pose(0.05, 0.5)
+    if case == "behind_and_z0":
+        T0[:3, :3] = np.eye(3)
+    T0 = T0.astype(np.float32)
+    T_true = T0.astype(np.float64) @ pose(0.01, 0.01)
+    z = rng.uniform(3.0, 40.0, n)
+    u, v = rng.uniform(0, rig.width, n), rng.uniform(0, rig.height, n)
+    Xc = np.stack([(u - cx) / fx * z, (v - cy) / fy * z, z], -1)
+    X = ((Xc - T_true[:3, 3]) @ T_true[:3, :3]).astype(np.float32)
+    level = rng.integers(0, 8, n)
+    uv = np.stack([u, v, u - bf / z], -1)
+    pnp = case == "pnp"
+    uv[:, :2] += rng.normal(0, 0.7, (n, 2)) if pnp else \
+        rng.normal(0, 0.5, (n, 2)) * 1.2 ** level[:, None]
+    uv[:, 2] = uv[:, 0] - bf / z
+    out = rng.random(n) < (0.05 if pnp else 0.1)
+    uv[out, :2] += rng.normal(0, 40.0, (int(out.sum()), 2))
+    stereo = np.zeros(n, bool) if pnp else rng.random(n) < 0.6
+    uv[~stereo, 2] = -1.0
+    inv_s2 = np.ones(n) if pnp else 1.0 / 1.44 ** level
+    valid = rng.random(n) < (0.6 if pnp else 0.5)
+    if not pnp:
+        X[~valid] = X[0]
+    if case == "all_invalid":
+        valid[:] = False
+    elif case == "behind_and_z0":
+        valid[:2] = stereo[:2] = True
+        X[0, 2] = -5.0 - T0[2, 3]
+        X[1, 2] = -T0[2, 3]        # R = I: z = X_z + t_z is exactly 0 in float32
+    elif case == "masked_nan":
+        X[np.flatnonzero(~valid)[0]] = np.nan
+    args = (T0, X, uv.astype(np.float32), inv_s2.astype(np.float32), stereo, valid)
+    return (fx, fy, cx, cy, bf, rig.width, rig.height), args, \
+        dict(rounds=2, iters=8) if pnp else dict(rounds=4, iters=10)
+
+
+def pose_agreement(cam, args, got, ref) -> dict:
+    """How two ``PoseOnlyResult``s on the inputs ``args`` (tensors) agree:
+    ``pose`` the largest |T| difference, ``cost`` the relative cost
+    difference (0 where both are NaN), ``flips`` the rows whose inlier flag
+    differs and ``near`` those of them that sit at a gate: their chi2
+    re-derived in float64 at either pose within 1e-3 relative of its
+    threshold or on both sides of it, or their depth so at 0.05. Sums taken
+    in another order move a row only there."""
+    import numpy as np
+    X, uv, s2, st = (np.asarray(a.detach().cpu(), np.float64) for a in args[1:5])
+    st = st.astype(bool)
+    thr = np.where(st, 7.815, 5.991)
+
+    def gates(T):
+        T = np.asarray(T.detach().cpu(), np.float64)
+        Xc = X @ T[:3, :3].T + T[:3, 3]
+        z = np.where(np.abs(Xc[:, 2]) < 1e-9, 1e-9, Xc[:, 2])
+        u = cam.fx * Xc[:, 0] / z + cam.cx
+        r = np.stack([u - uv[:, 0], cam.fy * Xc[:, 1] / z + cam.cy - uv[:, 1],
+                      np.where(st, u - cam.bf / z - uv[:, 2], 0.0)], -1)
+        return s2 * np.sum(r * r, -1), Xc[:, 2]
+
+    with np.errstate(invalid="ignore", over="ignore"):
+        (c1, z1), (c2, z2) = gates(got.T_cw), gates(ref.T_cw)
+        near = ((np.minimum(np.abs(c1 - thr), np.abs(c2 - thr)) <= 1e-3 * thr)
+                | ((c1 - thr) * (c2 - thr) <= 0)
+                | (np.minimum(np.abs(z1 - 0.05), np.abs(z2 - 0.05)) <= 5e-5)
+                | ((z1 - 0.05) * (z2 - 0.05) <= 0))
+    flips = np.asarray((got.inliers != ref.inliers).cpu())
+    cg, cr = float(got.cost), float(ref.cost)
+    cost = 0.0 if np.isnan(cg) and np.isnan(cr) else abs(cg - cr) / max(abs(cr), 1e-30)
+    return dict(pose=float((got.T_cw - ref.T_cw).abs().max()), cost=cost,
+                flips=int(flips.sum()), near=int((flips & near).sum()),
+                n_inliers=(int(got.n_inliers), int(ref.n_inliers)))
 
 
 def scan_rings(n_rings: int, n_points: int, seed: int = 0):
@@ -841,7 +957,7 @@ def dist_phase(torch, dev, cfg, frames, gt, ref, backend: str = "nccl", log=prin
             finally:
                 local_mapping._balm_extra = balm_extra
             ba0 = ref["stats"].get("local_ba", {"mean_ms": float("nan"), "n": 0})
-            out.update(ate=ate, syncs=syncs, local_ba_ms=ba["mean_ms"])
+            out.update(ate=ate, syncs=syncs, local_ba_ms=ba["mean_ms"], counts=counts)
             log(f"System(mesh={backend} world size 1) on {len(frames)} frames: ATE {ate:.4f} m "
                 f"(without a mesh {ref['ate']:.4f} m), keyframes {slam.n_kf_host}, local BA "
                 f"passes {slam.n_ba} ({slam.n_ba_balm} with BALM), the BALM quadratic evaluated "
@@ -876,9 +992,10 @@ def main() -> int:
     from tc2li_slam_torch.geom import camera as cam_mod, lie, triangulate as tri_geom
     from tc2li_slam_torch.io import synthetic as syn
     from tc2li_slam_torch.ops import bow, orb
-    from tc2li_slam_torch.ops.kernels import build, fast, hamming, match
+    from tc2li_slam_torch.ops.kernels import build, fast, hamming, match, pose_lm
     from tc2li_slam_torch.slam import (config as cfg_mod, culling, lio, relocalization,
                                        system as sys_mod, tracking, triangulation)
+    from tc2li_slam_torch.solver import lm as lm_mod, pnp as pnp_mod
 
     t_script = time.perf_counter()
     dev = torch.device("cuda")
@@ -917,13 +1034,49 @@ def main() -> int:
     print(f"generated {N_IMU + 2} KITTI-shaped frames in {time.perf_counter() - t0:.1f} s "
           f"(scan {scans[0].shape[0]} points)", flush=True)
 
+    # what the run implies of pose_only_lm's launches: one per track_frame
+    # and one per pnp_ransac call, counted where the port calls them (their
+    # module attributes); and the inputs of the last pose_only_optimize call
+    # of each form (4 rounds: tracking; 2: PnP's polish), for phase 5
+    calls = {"track_frame": 0, "pnp_ransac": 0}
+    pose_inputs = {}
+
+    def spy(mod, name, record=None):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **kw):
+            if record is None:
+                calls[name] += 1
+            else:
+                form = {"rounds": 4, "iters": 10, **kw}   # the defaults made explicit
+                record[form["rounds"]] = (a, form)
+            return fn(*a, **kw)
+        setattr(mod, name, wrapped)
+
+    spy(tracking, "track_frame")
+    spy(pnp_mod, "pnp_ransac")
+    spy(lm_mod, "pose_only_optimize", pose_inputs)
+
     def reset_counts():
         fast.score_launches = fast.nms_launches = hamming.launches = match.launches = 0
+        pose_lm.launches = calls["track_frame"] = calls["pnp_ransac"] = 0
         match.launches_by_mode.clear()
 
     def read_counts():
         return {"fast_score_planes": fast.score_launches, "fast_nms_planes": fast.nms_launches,
-                "hamming_matrix": hamming.launches, "match_best2": match.launches}
+                "hamming_matrix": hamming.launches, "match_best2": match.launches,
+                "pose_only_lm": pose_lm.launches, "calls:track_frame": calls["track_frame"],
+                "calls:pnp_ransac": calls["pnp_ransac"]}
+
+    def pose_fault(counts):
+        """None if pose_only_lm launched once per track_frame and pnp_ransac
+        call, and at least once."""
+        implied = counts["calls:track_frame"] + counts["calls:pnp_ransac"]
+        if counts["pose_only_lm"] != implied or implied < 1:
+            return (f"pose_only_lm launched {counts['pose_only_lm']} times for "
+                    f"{counts['calls:track_frame']} track_frame and "
+                    f"{counts['calls:pnp_ransac']} pnp_ransac calls")
+        return None
 
     # --- 3. the slice --------------------------------------------------------
     cfg = kitti_config(cfg_mod, syn)
@@ -969,7 +1122,12 @@ def main() -> int:
           f"{N_WARM}..{N_FRAMES - 1}): "
           + json.dumps({k: round(1e3 * v["total_s"] / n_steady, 3) for k, v in stats.items()}),
           flush=True)
+    track_ms = 1e3 * stats["track_step"]["total_s"] / n_steady
+    print(f"{tag} track_step stage: {track_ms:.3f} ms a frame over frames {N_WARM}..{N_FRAMES - 1} "
+          f"(CUDA events, {stats['track_step']['n']} calls; pose_only_optimize is one "
+          f"pose_only_lm launch in it)", flush=True)
     print(f"kernel launches during the slice: {launches}", flush=True)
+    track_case = pose_inputs[4]        # the slice's last frame
 
     if any(s != sys_mod.TrackingState.OK for s in states):
         return fail(f"tracking states {states}")
@@ -982,10 +1140,14 @@ def main() -> int:
     if not np.all(np.isfinite(est)):
         return fail("non-finite poses")
     expected = {"fast_score_planes": N_FRAMES, "fast_nms_planes": N_FRAMES,
-                "hamming_matrix": 0, "match_best2": N_FRAMES + (N_FRAMES - 1) + n_fuse}
-    if launches != expected:
+                "hamming_matrix": 0, "match_best2": N_FRAMES + (N_FRAMES - 1) + n_fuse,
+                "pose_only_lm": N_FRAMES - 1, "calls:track_frame": N_FRAMES - 1,
+                "calls:pnp_ransac": 0}
+    if launches != expected or slam.n_recover or slam.n_reloc:
         return fail(f"launches {launches} != {expected} (one detection per frame; a stereo "
-                    f"match per frame, a tracking match per tracked frame, {n_fuse} fuse passes)")
+                    f"match per frame, a tracking match and a pose-only LM per tracked frame, "
+                    f"{n_fuse} fuse passes; recoveries {slam.n_recover}, relocalizations "
+                    f"{slam.n_reloc})")
     if n_fuse < 1:
         return fail("no fuse pass ran")
     if not ate < ATE_BOUND_M:
@@ -1069,6 +1231,17 @@ def main() -> int:
         if set(modes) - {"stereo+mutual", "window", "none+mutual", "none+mutual+chunk",
                          "dense+mutual"}:
             faults.append("no other call shape")
+        # a track_frame per tracked frame and per recovery, one to three per
+        # relocalization; a pnp_ransac per recovery, at most five per
+        # relocalization; pose_only_lm once per call of either
+        tf, pr = counts["calls:track_frame"], counts["calls:pnp_ransac"]
+        tf_lo = n_tracked + d["n_recover"]
+        if not tf_lo <= tf <= tf_lo + 3 * n_reloc_calls or \
+                not d["n_recover"] <= pr <= d["n_recover"] + 5 * n_reloc_calls:
+            faults.append(f"{tf_lo}..{tf_lo + 3 * n_reloc_calls} track_frame and "
+                          f"{d['n_recover']}..{d['n_recover'] + 5 * n_reloc_calls} pnp_ransac calls")
+        if pose_fault(counts):
+            faults.append(pose_fault(counts))
         if faults:
             return f"launches {counts} by shape {modes} against {d}: expected " + "; ".join(faults)
         return None
@@ -1202,6 +1375,7 @@ def main() -> int:
     fault = cross_check(counts_b, modes_b, 1, 1, before, after, 0)
     if fault or modes_b.get("none+mutual", 0) != 1:
         return fail(f"recovery: {fault or modes_b}")
+    pnp_case = pose_inputs[2]          # the recovery's PnP polish
 
     # --- 4c. relocalization -----------------------------------------------------
     i_reloc = 5
@@ -1220,7 +1394,8 @@ def main() -> int:
     if not rr.ok or not err_c < RECOVER_BOUND_M:
         return fail(f"relocalize: ok {rr.ok}, {err_c:.4f} m from ground truth")
     fault = cross_check(counts_c, modes_c, 1, 0, after, after, 1)
-    if fault or modes_c.get("none+mutual+chunk", 0) < chunks or modes_c.get("window", 0) < 1:
+    if fault or modes_c.get("none+mutual+chunk", 0) < chunks or modes_c.get("window", 0) < 1 \
+            or counts_c["calls:pnp_ransac"] < 1:
         return fail(f"relocalize: {fault or modes_c}")
     # the map of this run, for the kernel cases of phase 5
     m2, kf_a = slam2.map, slam2.ref_kf
@@ -1276,6 +1451,9 @@ def main() -> int:
     if fault:
         return fail(f"blackout and atlas: {fault}")
     launches.update(shape_launches)
+    pose_launches = {"3": launches["pose_only_lm"]}
+    for name, c in (("4a", counts_a), ("4b", counts_b), ("4c", counts_c), ("4d", counts_d)):
+        pose_launches[name] = c["pose_only_lm"]
     print(f"launches of the new call shapes over 4a-4d, as the wrapper counted them: "
           f"{shape_launches}", flush=True)
     for name, n_launched in shape_launches.items():
@@ -1357,8 +1535,10 @@ def main() -> int:
     fault = cross_check(counts_e, modes_e, N_IMU, N_IMU - 1, before, after, 0)
     if fault or after["n_recover"] != before["n_recover"]:
         return fail(f"IMU mode: {fault or 'a frame went through recovery'}")
+    pose_launches["4e"] = counts_e["pose_only_lm"]
     imu_launches = {"fast_score_planes": counts_e["fast_score_planes"],
                     "fast_nms_planes": counts_e["fast_nms_planes"],
+                    "pose_only_lm": counts_e["pose_only_lm"],
                     "match_best2": modes_e.get("stereo+mutual", 0) + modes_e.get("window", 0),
                     "match_best2/epipolar": modes_e.get("dense+mutual", 0)}
     for name, n_launched in imu_launches.items():
@@ -1414,6 +1594,9 @@ def main() -> int:
     if (counts_f["fast_score_planes"], counts_f["fast_nms_planes"], counts_f["hamming_matrix"],
             modes_f.get("stereo+mutual", 0)) != (N_LOOP, N_LOOP, 0, N_LOOP):
         return fail(f"loop closing: launches {counts_f} by shape {modes_f} for {N_LOOP} frames")
+    if pose_fault(counts_f):
+        return fail(f"loop closing: {pose_fault(counts_f)}")
+    pose_launches["4f"] = counts_f["pose_only_lm"]
     launches["match_best2/loop"] = modes_f.get("none+mutual", 0) - slam4.n_recover
     if launches["match_best2/loop"] != slam4.n_loop_verified or slam4.n_loop_verified < 1:
         return fail(f"loop closing: {launches['match_best2/loop']} launches of the verification "
@@ -1431,13 +1614,18 @@ def main() -> int:
         log(f"host syncs of phase 3's System on one more frame: {n_sync3}")
         scan_phase(torch, dev, log=log,
                    timer=lambda fn: cuda_ms(torch, fn, 20, backlog=True))
-        dist_phase(torch, dev, cfg, [frame(i) for i in range(N_FRAMES)], gt,
-                   ref=dict(ate=ate, stats=stats, local_ba_ms=[
-                       round(1e3 * x, 1) for x in
-                       slam.timers.samples["local_ba"][:stats["local_ba"]["n"]]]),
-                   log=log, reset_counts=reset_counts, read_counts=read_counts)
+        dp = dist_phase(torch, dev, cfg, [frame(i) for i in range(N_FRAMES)], gt,
+                        ref=dict(ate=ate, stats=stats, local_ba_ms=[
+                            round(1e3 * x, 1) for x in
+                            slam.timers.samples["local_ba"][:stats["local_ba"]["n"]]]),
+                        log=log, reset_counts=reset_counts, read_counts=read_counts)
     except RuntimeError as e:
         return fail(str(e))
+    if pose_fault(dp["counts"]):
+        return fail(f"System(mesh): {pose_fault(dp['counts'])}")
+    pose_launches["4g"] = dp["counts"]["pose_only_lm"]
+    print(f"pose_only_lm launches by phase, each equal to the track_frame and pnp_ransac calls "
+          f"of that phase's run: {pose_launches}", flush=True)
     print(f"phase 4g: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- 5. kernels vs plain versions ----------------------------------------
@@ -1681,11 +1869,70 @@ def main() -> int:
         replaces="tc2li_slam_tpu/ops/kernels/hamming.py:33", max_abs_err=float(ham_err),
         ms=ms_k, plain_ms=ms_p, bound_ms=b_h[0], bound_by=b_h[1])
 
+    # pose-only LM: phase 3's last frame (the inputs track_frame built), the
+    # recovery's PnP polish of 4b, a length that is no multiple of the block,
+    # nothing valid, and a masked row whose point is NaN
+    (cam_t, *args_t), kw_t = track_case
+    (cam_p, *args_p), kw_p = pnp_case
+    X_nan = args_t[1].clone()
+    X_nan[int(torch.nonzero(~args_t[5])[0, 0])] = float("nan")
+    cam_args5, args5, kw5 = pose_problem(np.random.default_rng(5), 5000)
+    cases = [("phase 3's last frame", cam_t, args_t, kw_t),
+             ("4b's PnP polish", cam_p, args_p, kw_p),
+             ("N 5000", cam_mod.Pinhole.create(*cam_args5),
+              [torch.as_tensor(a).to(dev) for a in args5], kw5),
+             ("nothing valid", cam_t, args_t[:5] + [torch.zeros_like(args_t[5])], kw_t),
+             ("a masked NaN row", cam_t, [args_t[0], X_nan] + args_t[2:], kw_t)]
+    pose_err = 0.0
+    for name, cam_c, args_c, kw_c in cases:
+        got = pose_lm.pose_only_lm(cam_c, *args_c, **kw_c)
+        ref = pose_lm.pose_only_plain(cam_c, *args_c, **kw_c)
+        torch.cuda.synchronize()
+        agr = pose_agreement(cam_c, args_c, got, ref)
+        print(f"{tag} pose_only_lm {name} (N {args_c[1].shape[0]}, {int(args_c[5].sum())} valid, "
+              f"{kw_c['rounds']} x {kw_c['iters']}): |T - plain| {agr['pose']:.3e}, cost "
+              f"{float(got.cost):.6f} / plain {float(ref.cost):.6f} (relative {agr['cost']:.2e}), "
+              f"inliers {agr['n_inliers']}, flags that differ {agr['flips']}, of which at a "
+              f"gate {agr['near']}", flush=True)
+        if not (agr["pose"] <= 1e-4 and agr["cost"] <= 1e-3 and agr["flips"] == agr["near"]):
+            return fail(f"pose_only_lm disagrees with its plain version on {name}: {agr}")
+        if name in ("nothing valid", "a masked NaN row") and not torch.equal(got.T_cw, args_c[0]):
+            return fail(f"pose_only_lm moved the pose on {name}")
+        if name == "nothing valid" and (int(got.n_inliers) or float(got.cost) != 0.0):
+            return fail(f"pose_only_lm with nothing valid: {int(got.n_inliers)} inliers, cost "
+                        f"{float(got.cost)}")
+        if name == "a masked NaN row" and not bool(torch.isnan(got.cost)):
+            return fail("pose_only_lm: the masked NaN row did not make the cost NaN")
+        pose_err = max(pose_err, agr["pose"])
+    for label, cam_c, args_c, kw_c in cases[:2]:
+        N = args_c[1].shape[0]
+        passes = 1 + kw_c["rounds"] * (kw_c["iters"] + 1)
+        ms_k = cuda_ms(torch, lambda: pose_lm.pose_only_lm(cam_c, *args_c, **kw_c), 50, True)
+        ms_h = cuda_ms(torch, lambda: pose_lm.pose_only_lm(cam_c, *args_c, **kw_c), 50)
+        ms_p = cuda_ms(torch, lambda: pose_lm.pose_only_plain(cam_c, *args_c, **kw_c), 5)
+        b_p = bound(POSE_BYTES_FIXED + POSE_BYTES_ROW * N, POSE_OPS_ROW * N * passes)
+        # both float32 results beside the plain version run in float64
+        T64 = pose_lm.pose_only_plain(
+            cam_c, *(a.double() if a.is_floating_point() else a for a in args_c), **kw_c).T_cw
+        d64 = [float((r.T_cw.double() - T64).abs().max()) for r in (
+            pose_lm.pose_only_lm(cam_c, *args_c, **kw_c),
+            pose_lm.pose_only_plain(cam_c, *args_c, **kw_c))]
+        print(f"{tag} pose_only_lm {label}, N {N}, {kw_c['rounds']} x {kw_c['iters']} "
+              f"({passes} passes): kernel {ms_k:.4f} ms on the device ({ms_h:.4f} ms a call "
+              f"enqueued one at a time), bound {b_p[0]:.6f} ms ({b_p[1]}), plain {ms_p:.4f} ms; "
+              f"|T - the plain version in float64| kernel {d64[0]:.3e}, plain {d64[1]:.3e}",
+              flush=True)
+        if label == cases[0][0]:
+            rows["pose_only_lm"] = dict(
+                source="tc2li_slam_torch/csrc/pose_lm.cu",
+                replaces="tc2li_slam_tpu/solver/lm.py:92", max_abs_err=pose_err, ms=ms_k,
+                plain_ms=ms_p, bound_ms=b_p[0], bound_by=b_p[1])
+
     # --- 6. result -------------------------------------------------------------
     kernels = []
     for name in ("fast_score_planes", "fast_nms_planes", "hamming_matrix", "match_best2",
                  "match_best2/epipolar", "match_best2/global", "match_best2/reloc",
-                 "match_best2/loop"):
+                 "match_best2/loop", "pose_only_lm"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": r["source"],
                         "replaces": r["replaces"], "launches": launches[name],

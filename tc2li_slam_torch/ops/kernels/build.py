@@ -105,6 +105,8 @@ def library() -> ctypes.CDLL:
         lib.tc2li_match_max_columns.restype = i
         lib.tc2li_match_best2.argtypes = [i, i] + [vp] * 11 + [i, i, f] + [vp] * 4 + [i, i, vp]
         lib.tc2li_match_best2.restype = i
+        lib.tc2li_pose_only_lm.argtypes = [vp] * 6 + [i] + [f] * 5 + [i, i] + [vp] * 5
+        lib.tc2li_pose_only_lm.restype = i
         lib.tc2li_error_string.argtypes = [i]
         lib.tc2li_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,11 +1,12 @@
 """Levenberg-Marquardt core with Schur landmark elimination (port of
 ``tc2li_slam_tpu/solver/lm.py``: ``pose_only_optimize`` and ``local_ba``).
 
-The reference's ``lax.scan`` loops become Python loops with the same fixed
-iteration counts; accept/reject stays on the device (``torch.where``), so
-an optimisation issues no host sync. Small dense solves use
-``torch.linalg.solve_ex`` without its host-side error check for the same
-reason.
+``pose_only_optimize``, on every tracked frame, is one hand-written kernel
+on the card (``ops/kernels/pose_lm.py``). ``local_ba``'s ``lax.scan``
+becomes a Python loop with the same fixed iteration count; accept/reject
+stays on the device (``torch.where``), so an optimisation issues no host
+sync. Small dense solves use ``torch.linalg.solve_ex`` without its
+host-side error check for the same reason.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..geom import camera as cam_mod, lie
-from ..tensors import count
+from ..ops.kernels import pose_lm
+from ..ops.kernels.pose_lm import PoseOnlyResult
 from . import factors
 
 
@@ -59,51 +61,18 @@ def precond_solve(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 # Pose-only optimization
 # ---------------------------------------------------------------------------
 
-class PoseOnlyResult(NamedTuple):
-    T_cw: torch.Tensor
-    inliers: torch.Tensor
-    n_inliers: torch.Tensor
-    cost: torch.Tensor
-
-
 def pose_only_optimize(cam: cam_mod.Pinhole, T_cw0, X_w, uv_obs, inv_sigma2, stereo,
                        valid, rounds: int = 4, iters: int = 10) -> PoseOnlyResult:
-    """PoseOptimization: LM on the frame pose with chi2 re-gating per round."""
-    thresh = torch.where(stereo, factors.CHI2_STEREO, factors.CHI2_MONO)
-    eye6 = torch.eye(6, dtype=T_cw0.dtype, device=T_cw0.device)
+    """PoseOptimization: LM on the frame pose with chi2 re-gating per round.
 
-    def residuals(T, active):
-        rr = factors.reproj_residuals(
-            cam, T.expand(X_w.shape[0], 4, 4), X_w, uv_obs, inv_sigma2, stereo)
-        w = (inv_sigma2 * factors.huber_weight(rr.chi2, thresh)
-             * active.to(rr.r.dtype) * rr.depth_ok.to(rr.r.dtype))
-        return rr, w
-
-    def cost_of(rr, w):
-        return torch.sum(w * torch.sum(rr.r * rr.r, dim=-1))
-
-    T = T_cw0
-    active = valid
-    cost = torch.zeros((), dtype=T_cw0.dtype, device=T_cw0.device)
-    for _ in range(rounds):
-        lam = torch.full((), 1e-3, dtype=T.dtype, device=T.device)
-        rr0, w0 = residuals(T, active)
-        cost = cost_of(rr0, w0)
-        for _ in range(iters):
-            rr, w = residuals(T, active)
-            Jw = rr.J_pose * w[:, None, None]
-            H = torch.einsum("oij,oik->jk", Jw, rr.J_pose)
-            g = torch.einsum("oij,oi->j", Jw, rr.r)
-            Haug = H + lam * torch.diag(torch.diagonal(H)) + 1e-8 * eye6
-            T_new = lie.se3_exp(-solve(Haug, g)) @ T
-            cost_new = cost_of(*residuals(T_new, active))
-            accept = cost_new < cost
-            T = torch.where(accept, T_new, T)
-            lam = torch.where(accept, lam * 0.5, lam * 4.0)
-            cost = torch.where(accept, cost_new, cost)
-        rr, _ = residuals(T, valid)
-        active = valid & (rr.chi2 <= thresh) & rr.depth_ok
-    return PoseOnlyResult(T, active, count(active), cost)
+    CUDA tensors go to the one-launch kernel (``ops/kernels/pose_lm.py``),
+    CPU tensors to its plain version; any other device raises."""
+    args = (cam, T_cw0, X_w, uv_obs, inv_sigma2, stereo, valid, rounds, iters)
+    if T_cw0.device.type == "cuda":
+        return pose_lm.pose_only_lm(*args)
+    if T_cw0.device.type == "cpu":
+        return pose_lm.pose_only_plain(*args)
+    raise ValueError(f"pose_only_optimize: unsupported device {T_cw0.device}")
 
 
 # ---------------------------------------------------------------------------

@@ -3,16 +3,21 @@
 Marked ``gpu``: they skip where torch sees no CUDA device (the decision is
 taken inside the fixture, never at import). On a machine with one card:
 ``python -m pytest --noconftest -m gpu tests/test_torch_kernels_cuda.py``.
-Every comparison is exact: the kernels only subtract, compare, take
-min/max, XOR and count bits.
+The FAST, Hamming and matching comparisons are exact: those kernels only
+subtract, compare, take min/max, XOR and count bits. The pose-only LM sums
+in float32 in another order than its plain version: poses to 1e-4, costs to
+1e-3 relative, inlier flags equal but at a gate.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from tc2li_slam_torch.geom import camera as cam_mod
 from tc2li_slam_torch.ops import matching, orb, stereo
-from tc2li_slam_torch.ops.kernels import fast, hamming, match
+from tc2li_slam_torch.ops.kernels import fast, hamming, match, pose_lm
+from tc2li_slam_torch.solver import lm
 
 pytestmark = pytest.mark.gpu
 
@@ -329,3 +334,42 @@ def test_default_config_and_recovery_on_cuda(cuda):
     # stereo, the failed windowed match, the global match, the windowed retry,
     # plus whatever the deferred mapping pass of this frame launched
     assert match.launches - before >= 4
+
+
+@pytest.mark.parametrize("case,N", [(c, 2000) for c in chip_smoke.POSE_CASES]
+                         + [("tracking", 5000), ("pnp", 1)])
+def test_pose_only_lm_matches_plain(cuda, case, N):
+    """The cases of tests/test_torch_pose_lm.py, and a length that is no
+    multiple of the block: one launch, the plain version's result."""
+    cam_args, args, kw = chip_smoke.pose_problem(np.random.default_rng(7), N, case)
+    cam = cam_mod.Pinhole.create(*cam_args)
+    ts = [torch.as_tensor(a).to(cuda) for a in args]
+    before = pose_lm.launches
+    got = lm.pose_only_optimize(cam, *ts, **kw)
+    ref = pose_lm.pose_only_plain(cam, *ts, **kw)
+    torch.cuda.synchronize()
+    assert pose_lm.launches - before == 1
+    assert (got.T_cw.dtype, got.inliers.dtype, got.n_inliers.dtype, got.cost.dtype) == \
+        (ref.T_cw.dtype, ref.inliers.dtype, ref.n_inliers.dtype, ref.cost.dtype)
+    a = chip_smoke.pose_agreement(cam, ts, got, ref)
+    assert a["pose"] <= 1e-4 and a["cost"] <= 1e-3 and a["flips"] == a["near"], a
+    assert int(got.n_inliers) == int(got.inliers.sum())
+    if case in ("all_invalid", "masked_nan"):
+        assert torch.equal(got.T_cw, ts[0])
+    if case == "masked_nan":
+        assert bool(torch.isnan(got.cost))
+
+
+def test_pose_only_lm_refuses_what_it_does_not_take(cuda):
+    cam_args, args, kw = chip_smoke.pose_problem(np.random.default_rng(7), 64, "tracking")
+    cam = cam_mod.Pinhole.create(*cam_args)
+    ts = [torch.as_tensor(a).to(cuda) for a in args]
+    with pytest.raises(ValueError):                    # float64 points
+        pose_lm.pose_only_lm(cam, ts[0], ts[1].double(), *ts[2:], **kw)
+    with pytest.raises(ValueError):                    # a mask of the wrong length
+        pose_lm.pose_only_lm(cam, *ts[:5], ts[5][:10], **kw)
+    with pytest.raises(ValueError):                    # one tensor on the CPU
+        pose_lm.pose_only_lm(cam, ts[0].cpu(), *ts[1:], **kw)
+    res = pose_lm.pose_only_lm(cam, *ts, rounds=0, iters=10)
+    assert torch.equal(res.T_cw, ts[0]) and torch.equal(res.inliers, ts[5])
+    assert float(res.cost) == 0.0 and int(res.n_inliers) == int(ts[5].sum())
