@@ -19,10 +19,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the run's own counts imply (one detection per frame; a stereo match per
    frame, a tracking match per tracked frame, one match per fuse pass; one
    pose-only LM per tracked frame); prints ``track_step``'s stage ms a
-   frame. In this and every later phase that counts launches the pose-only
-   LM kernel must have launched once per ``track_frame`` and once per
-   ``pnp_ransac`` call of the phase's run (both counted where the port calls
-   them), and at least once;
+   frame and ``local_ba``'s by pass. In this and every later phase that
+   counts launches the pose-only LM kernel must have launched once per
+   ``track_frame`` and once per ``pnp_ransac`` call of the phase's run (both
+   counted where the port calls them), and at least once; the BALM
+   quadratic twice per local-BA pass with the BALM term (``n_ba_balm``; 2 x
+   iterations on the mesh path of 4g), once per LVI-BA pass with it
+   (``n_lvi_ba_balm``); the window BA's kernels ``launches_per_call(iters)``
+   times per ``run_local_ba`` call off the mesh (``_global_ba``'s included),
+   counted where ``System`` calls it;
 4. the duplicate-fusion pass (``culling.fuse_duplicates``, the caller of the
    Hamming-matrix kernel) over the slice's landmarks, counted the same way
    and held against the same call on the CPU;
@@ -102,7 +107,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    PnP polish, at N = 5000, with nothing valid and with a masked NaN row
    (poses to 1e-4, costs to 1e-3 relative, inlier flags equal but where a
    row's chi2, re-derived in float64, sits at its threshold; times behind a
-   device backlog beside the plain version's);
+   device backlog beside the plain version's); the window BA's kernels on
+   the inputs of phase 3's last local-BA pass with the BALM term, of 4f's
+   global BA (64 poses) and on phase 3's pass with no valid landmark (poses
+   to 1e-4, landmarks to 1e-3 m, cost to 1e-4 relative), the BALM quadratic
+   on phase 3's last clusters (H and g to 1e-3 of their largest entry, the
+   cost to 1e-3 relative, the same bits on a second call) and with every
+   voxel invalid (exactly 0);
 6. one JSON line of kernel rows, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 """
@@ -148,6 +159,22 @@ FAST_OPS_FULL = 174
 POSE_BYTES_FIXED = 64 + 64 + 4 + 4
 POSE_BYTES_ROW = 12 + 12 + 4 + 1 + 1 + 1
 POSE_OPS_ROW = 180
+# window BA (csrc/local_ba.cu), operations an iteration: per observation of
+# non-zero weight the residual, both Jacobians, the weight, Hpp's 21 and gp's
+# 6 sums, B and Hll, gl, B Hll^-1 and its gradient term, and the candidate's
+# back-substitution and cost; per ordered pair of such observations of one
+# valid landmark half of a 6x6 Schur block (S is symmetric); per landmark
+# the damped 3x3 inverse; then the dense solve, (2/3) D^3 + 3 D^2
+LBA_OPS_LIVE = 670
+LBA_OPS_PAIR = 108
+LBA_OPS_LANDMARK = 80
+# BALM quadratic (csrc/balm.cu), per valid voxel: the eigenvalue's jet
+# (~3,000), a derivative row per tangent (~130), the pose-diagonal second
+# order terms (~150 each of 9 W) and ~20 per Hessian entry
+BALM_OPS_JET = 3000
+BALM_OPS_ROW = 130
+BALM_OPS_POSE_TERM = 150
+BALM_OPS_ENTRY = 20
 
 
 def fail(msg: str) -> int:
@@ -372,6 +399,212 @@ def pose_agreement(cam, args, got, ref) -> dict:
     return dict(pose=float((got.T_cw - ref.T_cw).abs().max()), cost=cost,
                 flips=int(flips.sum()), near=int((flips & near).sum()),
                 n_inliers=(int(got.n_inliers), int(ref.n_inliers)))
+
+
+BA_CASES = ("visual", "balm", "global_p64", "all_fixed", "no_valid_landmark", "masked_nan")
+BA_CAM = (320.0, 320.0, 320.0, 120.0, 160.0, 640, 240)   # fx fy cx cy bf width height
+BALM_CASES = ("planar", "padded_poses", "invalid_voxels", "all_invalid")
+
+
+def _np_poses(rng, k: int, rot: float, trans: float):
+    """[k, 4, 4] float32 poses with N(0, rot) rotation vectors and N(0, trans)
+    translations."""
+    import numpy as np
+    from tc2li_slam_torch.io.synthetic import so3_exp_np
+    T = np.tile(np.eye(4), (k, 1, 1))
+    for i in range(k):
+        T[i, :3, :3] = so3_exp_np(rng.normal(0, rot, 3))
+        T[i, :3, 3] = rng.normal(0, trans, 3)
+    return T.astype(np.float32)
+
+
+def planar_window(rng, W: int = 4, M: int = 3000):
+    """Per-keyframe LiDAR points [W, M, 3] (each in its own frame) of three
+    planes seen from W nearby poses T_wl, with 5% of them invalid, and the
+    poses perturbed by a few mm (T_pert). Returns (points, valid, T_wl, T_pert)."""
+    import numpy as np
+    T_wl = _np_poses(rng, W, 0.02, 0.3)
+    pts = []
+    for _ in range(W):
+        u, v = rng.uniform(-3, 3, M), rng.uniform(-3, 3, M)
+        face = rng.integers(0, 3, M)
+        p = np.stack([u, v, np.zeros(M)], 1)
+        p[face == 1] = np.stack([u, np.full(M, 4.0), v], 1)[face == 1]
+        p[face == 2] = np.stack([np.full(M, -3.0), u, v], 1)[face == 2]
+        pts.append(p + rng.normal(0, 0.01, p.shape))
+    pl = np.einsum("wji,wmj->wmi", T_wl[:, :3, :3], np.stack(pts) - T_wl[:, None, :3, 3])
+    valid = rng.random((W, M)) > 0.05
+    T_pert = (T_wl @ _np_poses(rng, W, 0.002, 0.01)).astype(np.float32)
+    return pl.astype(np.float32), valid, T_wl, T_pert
+
+
+def balm_case(rng, case: str = "planar"):
+    """Inputs of the BALM quadratic, ``BALM_CASES``: the points, their flags
+    and the poses to build the voxel clusters at (``build_clusters`` with 1 m
+    voxels, 256 slots, 15 points), the poses to take the quadratic at, and
+    the voxels to mark invalid after the build. ``planar``: a window of 4
+    LiDAR keyframes of three planes; ``padded_poses``: 6 slots of which the
+    last 2 are ``NO_KF`` padding (identity poses, no valid point);
+    ``invalid_voxels``: every third voxel marked invalid; ``all_invalid``:
+    every voxel."""
+    import numpy as np
+    W = 6 if case == "padded_poses" else 4
+    pl, valid, T_wl, T_pert = planar_window(rng, W)
+    if case == "padded_poses":
+        valid[4:] = False
+        T_wl[4:] = T_pert[4:] = np.eye(4, dtype=np.float32)
+    kill = np.zeros(256, bool)
+    if case == "invalid_voxels":
+        kill[::3] = True
+    if case == "all_invalid":
+        kill[:] = True
+    return dict(points=pl, valid=valid, T_build=T_wl, T_eval=T_pert, kill=kill)
+
+
+def ba_problem(rng, case: str = "visual"):
+    """A window bundle adjustment, ``BA_CASES``, as numpy arrays for
+    ``lm.local_ba`` (``BA_CAM``, 6 iterations): landmarks seen by K = 4 of the
+    window's real poses with 0.7 px noise, 10% of the observations and 2%
+    of the landmarks masked, the first pose fixed, poses and landmarks
+    perturbed. ``visual``: 6 poses, 400 landmarks. ``balm``: 4 poses that are
+    also the LiDAR keyframes of ``planar_window`` (camera and LiDAR frames
+    equal), with its points for a BALM term of weight 0.1 built at the
+    perturbed poses. ``global_p64``: the global BA's shape, 8 real poses and 56
+    ``NO_KF`` pads (identity, fixed, never observed). ``all_fixed``: every pose
+    fixed. ``no_valid_landmark``: every landmark masked. ``masked_nan``: one
+    landmark all of whose observations are masked has a NaN position.
+    ``global_p64`` takes 3 iterations: its cost is at float32 rounding after
+    the third, where whether a step is accepted depends on the order of a
+    float32 sum, so two libraries can part by a step (1.6 mm on a 30 m
+    landmark at the fourth)."""
+    import numpy as np
+    fx, fy, cx, cy, bf = BA_CAM[:5]
+    Pr = {"balm": 4, "global_p64": 8}.get(case, 6)
+    P = 64 if case == "global_p64" else Pr
+    L, K = 400, 4
+    out = {}
+    if case == "balm":
+        pl, pv, T_wl, T_pert = planar_window(rng, Pr)
+        T_true, T0 = np.linalg.inv(T_wl), np.linalg.inv(T_pert)
+        out.update(points=pl, points_valid=pv, T_cl=np.eye(4, dtype=np.float32), w_lba=0.1,
+                   pos_in_win=np.arange(Pr), lvalid=np.ones(Pr, bool))
+    else:
+        T_true = _np_poses(rng, Pr, 0.03, 0.5)
+        T0 = T_true @ _np_poses(rng, Pr, 0.003, 0.02)
+    X = np.concatenate([rng.uniform(-8, 8, (L, 2)), rng.uniform(4, 30, (L, 1))], 1)
+    pose_idx = np.stack([rng.permutation(Pr)[:K] for _ in range(L)]).astype(np.int32)
+    Tp = T_true[pose_idx]
+    xc = np.einsum("lkij,lj->lki", Tp[..., :3, :3], X) + Tp[..., :3, 3]
+    uv = np.stack([fx * xc[..., 0] / xc[..., 2] + cx, fy * xc[..., 1] / xc[..., 2] + cy,
+                   fx * xc[..., 0] / xc[..., 2] + cx - bf / xc[..., 2]], -1)
+    uv = (uv + rng.normal(0, 0.7, uv.shape)).astype(np.float32)
+    stereo = rng.random((L, K)) > 0.4
+    uv[~stereo, 2] = -1.0
+    valid = rng.random((L, K)) > 0.1
+    X0 = (X + rng.normal(0, 0.05, X.shape)).astype(np.float32)
+    valid_lm = rng.random(L) > 0.02
+    T0 = np.concatenate([T0, np.tile(np.eye(4), (P - Pr, 1, 1))]).astype(np.float32)
+    fixed = np.arange(P) == 0
+    fixed[Pr:] = True
+    if case == "all_fixed":
+        fixed[:] = True
+    if case == "no_valid_landmark":
+        valid_lm[:] = False
+    if case == "masked_nan":
+        valid[3] = False
+        X0[3] = np.nan
+    out.update(T0=T0, X0=X0, pose_idx=pose_idx, uv=uv,
+               inv_sigma2=(1.0 / 1.44 ** rng.integers(0, 3, (L, K))).astype(np.float32),
+               stereo=stereo, valid=valid, fixed=fixed, valid_lm=valid_lm,
+               iters=3 if case == "global_p64" else 6)
+    return out
+
+
+def ba_torch(torch, p, dev, clusters=None):
+    """``ba_problem``'s arrays as the port's ``lm.local_ba`` arguments on
+    ``dev``: (camera, T0, X0, BAObservations, fixed, valid_lm) and keywords
+    (``iters``, and for ``balm`` the ``extra_fn`` of ``local_mapping._balm_extra``
+    over ``clusters``, by default built with ``balm.build_clusters`` at the
+    entry poses)."""
+    from tc2li_slam_torch.geom import camera as cam_mod, lie
+    from tc2li_slam_torch.slam import local_mapping
+    from tc2li_slam_torch.solver import balm, lm
+    t = lambda k: torch.as_tensor(p[k]).to(dev)
+    cam = cam_mod.Pinhole.create(*BA_CAM[:4], bf=BA_CAM[4], width=BA_CAM[5], height=BA_CAM[6])
+    obs = lm.BAObservations(*(t(k) for k in ("pose_idx", "uv", "inv_sigma2", "stereo", "valid")))
+    kw = {"iters": p["iters"]}
+    if "points" in p:
+        T_cl, pos, lvalid = t("T_cl"), t("pos_in_win"), t("lvalid")
+        if clusters is None:
+            clusters = balm.build_clusters(t("points"), t("points_valid"),
+                                           lie.se3_inverse(t("T0")[pos]) @ T_cl,
+                                           voxel_size=1.0, max_voxels=256, min_points=15)
+        kw["extra_fn"] = lambda T: local_mapping._balm_extra(T, clusters, pos, lvalid, T_cl,
+                                                             p["w_lba"])
+    return (cam, t("T0"), t("X0"), obs, t("fixed"), t("valid_lm")), kw
+
+
+def ba_agreement(torch, got, ref) -> dict:
+    """The largest differences of two ``BAResult``s: poses, landmarks (m),
+    cost (relative); NaN positions must match."""
+    def diff(a, b):
+        a, b = a.double(), b.double()
+        same_nan = bool(torch.equal(torch.isnan(a), torch.isnan(b)))
+        d = (a - b).abs()
+        d = torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(d), d)
+        return float(d.max()) if same_nan and d.numel() else (0.0 if same_nan else float("inf"))
+    c, cr = float(got.cost), float(ref.cost)
+    cost = 0.0 if (c != c and cr != cr) else abs(c - cr) / max(abs(cr), 1e-12)
+    return {"pose": diff(got.T_cw, ref.T_cw), "landmark": diff(got.X_w, ref.X_w), "cost": cost}
+
+
+def ba_float64(torch, a, kw):
+    """``lm.local_ba``'s arguments ``(a, kw)`` in float64 (an ``extra_fn``
+    still evaluated in float32 at the rounded poses)."""
+    from tc2li_slam_torch.solver import lm
+    d = lambda x: x.double() if x.is_floating_point() else x
+    cam, T0, X0, obs, fixed, vlm = a
+    kw64 = dict(kw)
+    if kw.get("extra_fn") is not None:
+        kw64["extra_fn"] = lambda T, f=kw["extra_fn"]: tuple(x.double() for x in f(T.float()))
+    return (cam, d(T0), d(X0), lm.BAObservations(*(d(x) for x in obs)), fixed, vlm), kw64
+
+
+def ba_outside(torch, got, ref, ref64, pose_tol: float = 1e-4, lm_tol: float = 1e-3,
+               cost_tol: float = 1e-4) -> dict:
+    """Poses, landmarks and the cost of ``got`` (the kernel) against ``ref``
+    (the plain version) within their tolerance, or else no farther from
+    ``ref64`` (the plain version run in float64) than ``ref`` is: a window
+    float32 cannot resolve to the tolerance is held to float32's own error.
+    Returns the counts of each outside both, of each within only the second,
+    and the largest distances."""
+    def rows(x, n):
+        return x.double().reshape(n, -1)
+    out = {}
+    for name, g, r, r64, tol in (("pose", got.T_cw, ref.T_cw, ref64.T_cw, pose_tol),
+                                 ("landmark", got.X_w, ref.X_w, ref64.X_w, lm_tol),
+                                 ("cost", got.cost, ref.cost, ref64.cost, None)):
+        n = g.shape[0] if g.dim() else 1
+        g, r, r64 = rows(g, n), rows(r, n), rows(r64, n)
+        if tol is None:   # relative
+            tol = cost_tol * r.abs().clamp(min=1e-12)
+        else:
+            tol = torch.full_like(r[:, :1], tol)
+        both_nan = torch.isnan(g) & torch.isnan(r)
+        d = torch.where(both_nan, torch.zeros_like(g), (g - r).abs()).amax(1)
+        dg = torch.where(torch.isnan(g) & torch.isnan(r64), torch.zeros_like(g),
+                         (g - r64).abs()).amax(1)
+        dr = torch.where(torch.isnan(r) & torch.isnan(r64), torch.zeros_like(r),
+                         (r - r64).abs()).amax(1)
+        d = torch.where(torch.isnan(d), torch.full_like(d, float("inf")), d)
+        within = d <= tol[:, 0]
+        nearer = dg <= dr
+        out[name] = {"outside": int((~within & ~nearer).sum()),
+                     "nearer_float64": int((~within & nearer).sum()),
+                     "max_vs_plain": float(d.max()) if d.numel() else 0.0,
+                     "max_vs_float64": float(dg.max()) if dg.numel() else 0.0,
+                     "plain_vs_float64": float(dr.max()) if dr.numel() else 0.0}
+    return out
 
 
 def scan_rings(n_rings: int, n_points: int, seed: int = 0):
@@ -949,6 +1182,7 @@ def dist_phase(torch, dev, cfg, frames, gt, ref, backend: str = "nccl", log=prin
                 if cuda:
                     torch.cuda.synchronize()
                 counts = read_counts()
+                out.update(n_ba_balm=slam.n_ba_balm, n_balm_evals=n_balm[0])
                 # the stages as phase 3 reads them: before the last mapping
                 # pass, which the trajectory's flush runs
                 ba = slam.timers.stats().get("local_ba", {"mean_ms": float("nan"), "n": 0})
@@ -992,10 +1226,12 @@ def main() -> int:
     from tc2li_slam_torch.geom import camera as cam_mod, lie, triangulate as tri_geom
     from tc2li_slam_torch.io import synthetic as syn
     from tc2li_slam_torch.ops import bow, orb
-    from tc2li_slam_torch.ops.kernels import build, fast, hamming, match, pose_lm
-    from tc2li_slam_torch.slam import (config as cfg_mod, culling, lio, relocalization,
-                                       system as sys_mod, tracking, triangulation)
-    from tc2li_slam_torch.solver import lm as lm_mod, pnp as pnp_mod
+    from tc2li_slam_torch.ops.kernels import (balm as kbalm, build, fast, hamming,
+                                              local_ba as klba, match, pose_lm)
+    from tc2li_slam_torch.slam import (config as cfg_mod, culling, lio, local_mapping,
+                                       relocalization, system as sys_mod, tracking,
+                                       triangulation)
+    from tc2li_slam_torch.solver import balm as balm_mod, lm as lm_mod, pnp as pnp_mod
 
     t_script = time.perf_counter()
     dev = torch.device("cuda")
@@ -1040,6 +1276,13 @@ def main() -> int:
     # of each form (4 rounds: tracking; 2: PnP's polish), for phase 5
     calls = {"track_frame": 0, "pnp_ransac": 0}
     pose_inputs = {}
+    # what the run implies of local_ba_lm's launches: launches_per_call(iters)
+    # for each run_local_ba call off the mesh (the global BA's included),
+    # counted where System calls it; and the inputs of the last local-BA call
+    # with the BALM term, of the last 64-pose one (the global BA) and of the
+    # last BALM quadratic, for phase 5
+    ba_calls = {"run_local_ba": 0, "global_ba": 0, "implied": 0}
+    ba_inputs = {}
 
     def spy(mod, name, record=None):
         fn = getattr(mod, name)
@@ -1057,16 +1300,69 @@ def main() -> int:
     spy(pnp_mod, "pnp_ransac")
     spy(lm_mod, "pose_only_optimize", pose_inputs)
 
+    run_local_ba, global_ba = local_mapping.run_local_ba, sys_mod.System._global_ba
+    local_ba, quadratic = lm_mod.local_ba, balm_mod.quadratic
+
+    def run_local_ba_spy(*a, **kw):
+        if kw.get("mesh") is None:
+            ba_calls["run_local_ba"] += 1
+            ba_calls["implied"] += klba.launches_per_call(kw.get("iters", 8))
+        return run_local_ba(*a, **kw)
+
+    def global_ba_spy(self, *a, **kw):
+        ba_calls["global_ba"] += 1
+        return global_ba(self, *a, **kw)
+
+    def local_ba_spy(*a, **kw):
+        if kw.get("extra_fn") is not None:
+            ba_inputs["balm"] = (a, kw)
+        if a[1].shape[0] == sys_mod.System.GLOBAL_BA_KFS:
+            ba_inputs["global"] = (a, kw)
+        return local_ba(*a, **kw)
+
+    def quadratic_spy(c, T_wl):
+        ba_inputs["quadratic"] = (c, T_wl)
+        ba_inputs.setdefault("valid_voxels", []).append(c.valid.sum())   # (read later)
+        return quadratic(c, T_wl)
+
+    local_mapping.run_local_ba = run_local_ba_spy
+    sys_mod.System._global_ba = global_ba_spy
+    lm_mod.local_ba = local_ba_spy
+    balm_mod.quadratic = quadratic_spy
+
     def reset_counts():
         fast.score_launches = fast.nms_launches = hamming.launches = match.launches = 0
         pose_lm.launches = calls["track_frame"] = calls["pnp_ransac"] = 0
+        kbalm.launches = klba.launches = 0
+        ba_calls.update(dict.fromkeys(ba_calls, 0))
+        ba_inputs["valid_voxels"] = []
         match.launches_by_mode.clear()
 
     def read_counts():
         return {"fast_score_planes": fast.score_launches, "fast_nms_planes": fast.nms_launches,
                 "hamming_matrix": hamming.launches, "match_best2": match.launches,
                 "pose_only_lm": pose_lm.launches, "calls:track_frame": calls["track_frame"],
-                "calls:pnp_ransac": calls["pnp_ransac"]}
+                "calls:pnp_ransac": calls["pnp_ransac"], "balm_quadratic": kbalm.launches,
+                "local_ba_lm": klba.launches, "calls:run_local_ba": ba_calls["run_local_ba"],
+                "calls:global_ba": ba_calls["global_ba"],
+                "implied:local_ba_lm": ba_calls["implied"]}
+
+    def ba_fault(counts, n_balm, n_lvi_balm=0, mesh_iters=0):
+        """None if balm_quadratic launched twice a local-BA pass with the BALM
+        term (2 x iters on the mesh path) and once an LVI-BA pass with it, and
+        local_ba_lm launches_per_call(iters) times a run_local_ba call off
+        the mesh."""
+        want = n_balm * (2 * mesh_iters if mesh_iters else 2) + n_lvi_balm
+        faults = []
+        if counts["balm_quadratic"] != want:
+            faults.append(f"balm_quadratic launched {counts['balm_quadratic']} times for "
+                          f"{n_balm} BALM local-BA passes and {n_lvi_balm} LVI-BA passes with "
+                          f"BALM (expected {want})")
+        if counts["local_ba_lm"] != counts["implied:local_ba_lm"]:
+            faults.append(f"local_ba_lm launched {counts['local_ba_lm']} times for "
+                          f"{counts['calls:run_local_ba']} run_local_ba calls (expected "
+                          f"{counts['implied:local_ba_lm']})")
+        return "; ".join(faults) or None
 
     def pose_fault(counts):
         """None if pose_only_lm launched once per track_frame and pnp_ransac
@@ -1101,7 +1397,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = read_counts()
-    n_fuse = slam.n_fuse
+    n_fuse, n_ba3, n_balm3 = slam.n_fuse, slam.n_ba, slam.n_ba_balm
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     stats = slam.timers.stats()
     est = slam.trajectory_world_from_cam()
@@ -1127,7 +1423,19 @@ def main() -> int:
           f"(CUDA events, {stats['track_step']['n']} calls; pose_only_optimize is one "
           f"pose_only_lm launch in it)", flush=True)
     print(f"kernel launches during the slice: {launches}", flush=True)
+    ba_ms = [round(1e3 * x, 1) for x in slam.timers.samples.get("local_ba", [])]
+    print(f"{tag} local_ba stage by pass over frames {N_WARM}..{N_FRAMES - 1} (CUDA events, "
+          f"ms): {ba_ms}; {n_ba3} mapping passes, {n_balm3} with BALM: balm_quadratic "
+          f"{launches['balm_quadratic']} launches, local_ba_lm {launches['local_ba_lm']} "
+          f"({klba.launches_per_call(cfg.tracking.ba_iters)} a call)", flush=True)
     track_case = pose_inputs[4]        # the slice's last frame
+    balm_case3 = ba_inputs.get("balm")   # the slice's last BALM local-BA pass
+    quad_case3 = ba_inputs.get("quadratic")
+    print(f"valid voxels of the BALM quadratics of the slice, call by call: "
+          f"{[int(v) for v in ba_inputs['valid_voxels']]} of "
+          f"{cfg.lidar.balm_max_voxels} slots ({cfg.lidar.kf_points} points a LiDAR keyframe, "
+          f"{cfg.lidar.balm_voxel} m voxels, at least {cfg.lidar.balm_min_points} points)",
+          flush=True)
 
     if any(s != sys_mod.TrackingState.OK for s in states):
         return fail(f"tracking states {states}")
@@ -1142,12 +1450,18 @@ def main() -> int:
     expected = {"fast_score_planes": N_FRAMES, "fast_nms_planes": N_FRAMES,
                 "hamming_matrix": 0, "match_best2": N_FRAMES + (N_FRAMES - 1) + n_fuse,
                 "pose_only_lm": N_FRAMES - 1, "calls:track_frame": N_FRAMES - 1,
-                "calls:pnp_ransac": 0}
+                "calls:pnp_ransac": 0, "balm_quadratic": 2 * n_balm3,
+                "local_ba_lm": klba.launches_per_call(cfg.tracking.ba_iters) * n_ba3,
+                "calls:run_local_ba": n_ba3, "calls:global_ba": 0,
+                "implied:local_ba_lm": klba.launches_per_call(cfg.tracking.ba_iters) * n_ba3}
     if launches != expected or slam.n_recover or slam.n_reloc:
         return fail(f"launches {launches} != {expected} (one detection per frame; a stereo "
                     f"match per frame, a tracking match and a pose-only LM per tracked frame, "
-                    f"{n_fuse} fuse passes; recoveries {slam.n_recover}, relocalizations "
-                    f"{slam.n_reloc})")
+                    f"{n_fuse} fuse passes; two BALM quadratics and one local_ba_lm call a "
+                    f"mapping pass, {n_ba3} passes; recoveries {slam.n_recover}, "
+                    f"relocalizations {slam.n_reloc})")
+    if n_balm3 < 1 or balm_case3 is None or quad_case3 is None:
+        return fail("no local BA pass with the BALM term went through the kernels")
     if n_fuse < 1:
         return fail("no fuse pass ran")
     if not ate < ATE_BOUND_M:
@@ -1198,7 +1512,9 @@ def main() -> int:
         return modes
 
     def snap(sl):
-        return dict(n_recover=sl.n_recover, n_reloc=sl.n_reloc, n_fuse=sl.n_fuse, n_ba=sl.n_ba)
+        return dict(n_recover=sl.n_recover, n_reloc=sl.n_reloc, n_fuse=sl.n_fuse, n_ba=sl.n_ba,
+                    n_ba_balm=sl.n_ba_balm, n_lvi_ba=getattr(sl, "n_lvi_ba", 0),
+                    n_lvi_ba_balm=getattr(sl, "n_lvi_ba_balm", 0))   # (IMU mode only)
 
     def cross_check(counts, modes, n_built, n_tracked, before, after, n_reloc_calls):
         """What the system's own counts say of the measured launches, or
@@ -1242,6 +1558,11 @@ def main() -> int:
                           f"{d['n_recover']}..{d['n_recover'] + 5 * n_reloc_calls} pnp_ransac calls")
         if pose_fault(counts):
             faults.append(pose_fault(counts))
+        # a local BA pass is a run_local_ba call unless it was an LVI-BA pass
+        if ba_fault(counts, d["n_ba_balm"], d["n_lvi_ba_balm"]):
+            faults.append(ba_fault(counts, d["n_ba_balm"], d["n_lvi_ba_balm"]))
+        if counts["calls:run_local_ba"] != d["n_ba"] - d["n_lvi_ba"] + counts["calls:global_ba"]:
+            faults.append(f"{d['n_ba'] - d['n_lvi_ba']} run_local_ba calls")
         if faults:
             return f"launches {counts} by shape {modes} against {d}: expected " + "; ".join(faults)
         return None
@@ -1540,7 +1861,9 @@ def main() -> int:
                     "fast_nms_planes": counts_e["fast_nms_planes"],
                     "pose_only_lm": counts_e["pose_only_lm"],
                     "match_best2": modes_e.get("stereo+mutual", 0) + modes_e.get("window", 0),
-                    "match_best2/epipolar": modes_e.get("dense+mutual", 0)}
+                    "match_best2/epipolar": modes_e.get("dense+mutual", 0),
+                    "balm_quadratic": counts_e["balm_quadratic"],
+                    "local_ba_lm": counts_e["local_ba_lm"]}
     for name, n_launched in imu_launches.items():
         if n_launched < 1:
             return fail(f"IMU mode: {name} was launched no time")
@@ -1597,6 +1920,15 @@ def main() -> int:
     if pose_fault(counts_f):
         return fail(f"loop closing: {pose_fault(counts_f)}")
     pose_launches["4f"] = counts_f["pose_only_lm"]
+    global_case = ba_inputs.get("global")     # 4f's global BA, 64 poses
+    if counts_f["balm_quadratic"] or ba_fault(counts_f, 0) or counts_f["calls:global_ba"] < 1 \
+            or global_case is None:
+        return fail(f"loop closing: {ba_fault(counts_f, 0)}; launches {counts_f} (LiDAR off: no "
+                    f"BALM quadratic; at least one global BA)")
+    print(f"window BA launches in the loop-closing run: local_ba_lm {counts_f['local_ba_lm']} "
+          f"for {counts_f['calls:run_local_ba']} run_local_ba calls, of which "
+          f"{counts_f['calls:global_ba']} from _global_ba (64 poses, 8 iterations: "
+          f"{klba.launches_per_call(8)} launches each); balm_quadratic 0", flush=True)
     launches["match_best2/loop"] = modes_f.get("none+mutual", 0) - slam4.n_recover
     if launches["match_best2/loop"] != slam4.n_loop_verified or slam4.n_loop_verified < 1:
         return fail(f"loop closing: {launches['match_best2/loop']} launches of the verification "
@@ -1623,6 +1955,10 @@ def main() -> int:
         return fail(str(e))
     if pose_fault(dp["counts"]):
         return fail(f"System(mesh): {pose_fault(dp['counts'])}")
+    mesh_fault = ba_fault(dp["counts"], dp["n_ba_balm"], mesh_iters=cfg.tracking.ba_iters)
+    if mesh_fault or dp["counts"]["balm_quadratic"] != dp["n_balm_evals"] or dp["n_ba_balm"] < 1:
+        return fail(f"System(mesh): {mesh_fault}; {dp['n_balm_evals']} BALM evaluations, "
+                    f"{dp['n_ba_balm']} BALM passes, launches {dp['counts']}")
     pose_launches["4g"] = dp["counts"]["pose_only_lm"]
     print(f"pose_only_lm launches by phase, each equal to the track_frame and pnp_ransac calls "
           f"of that phase's run: {pose_launches}", flush=True)
@@ -1928,11 +2264,122 @@ def main() -> int:
                 replaces="tc2li_slam_tpu/solver/lm.py:92", max_abs_err=pose_err, ms=ms_k,
                 plain_ms=ms_p, bound_ms=b_p[0], bound_by=b_p[1])
 
+    # window BA: phase 3's last local-BA pass with the BALM term (its inputs as
+    # System passed them), 4f's global BA (64 poses), and phase 3's pass with
+    # no valid landmark; the BALM quadratic on phase 3's last clusters and on
+    # them with every voxel invalid
+    (a3, kw3), (ag, kwg) = balm_case3, global_case
+    c3, T3 = quad_case3
+    a3_none = a3[:5] + (torch.zeros_like(a3[5]),)
+    lba_cases = [("phase 3's last BALM pass", a3, kw3), ("4f's global BA", ag, kwg),
+                 ("phase 3's pass, no valid landmark", a3_none, kw3)]
+    lba_err = 0.0
+    for name, a, kw in lba_cases:
+        got = klba.local_ba_lm(*a, **kw)
+        ref = klba.local_ba_plain(*a, **kw)
+        a64, kw64 = ba_float64(torch, a, kw)
+        ref64 = klba.local_ba_plain(*a64, **kw64)
+        torch.cuda.synchronize()
+        agr = ba_outside(torch, got, ref, ref64)
+        P_, (L_, K_) = a[1].shape[0], a[3].pose_idx.shape
+        print(f"{tag} local_ba_lm {name} (P {P_}, L {L_}, K {K_}, {kw['iters']} iterations, "
+              f"{int(a[5].sum())} valid landmarks, BALM {kw.get('extra_fn') is not None}): "
+              f"cost {float(got.cost):.6f} / plain {float(ref.cost):.6f} / plain in float64 "
+              f"{float(ref64.cost):.6f}; against the plain version (poses to 1e-4, landmarks to "
+              f"1e-3 m, the cost to 1e-4 relative), or else no farther from its float64 run: "
+              f"{json.dumps(agr)}", flush=True)
+        if any(v["outside"] for v in agr.values()):
+            return fail(f"local_ba_lm disagrees with its plain version on {name}: {agr}")
+        if a is a3_none and not torch.equal(got.X_w, a[2]):
+            return fail("local_ba_lm moved a landmark with no valid landmark")
+        lba_err = max(lba_err, agr["pose"]["max_vs_plain"], agr["landmark"]["max_vs_plain"])
+    # times with the BALM term held at its entry value (the kernels' own work:
+    # the wrapper calls extra_fn before and after the launches)
+    for label, a, kw in lba_cases[:2]:
+        q0 = kw["extra_fn"](a[1]) if kw.get("extra_fn") is not None else None
+        kwc = dict(kw, extra_fn=(lambda T, q0=q0: q0) if q0 is not None else None)
+        P_, (L_, K_) = a[1].shape[0], a[3].pose_idx.shape
+        D_, it = 6 * P_, kw["iters"]
+        rr, w, _, _ = lm_mod._assemble_visual(a[0], a[1], a[2], a[3], False)
+        live = (w != 0).reshape(L_, K_)
+        n_live = int(live.sum())
+        n_pairs = int(((live.sum(1) ** 2) * a[5]).sum())
+        ms_k = cuda_ms(torch, lambda: klba.local_ba_lm(*a, **kwc), 20, True)
+        ms_p = cuda_ms(torch, lambda: klba.local_ba_plain(*a, **kwc), 3)
+        ms_full = cuda_ms(torch, lambda: klba.local_ba_lm(*a, **kw), 5)
+        n_bytes = (128 * P_ + P_ + 24 * L_ + L_ + 22 * L_ * K_ + 12
+                   + (4 * D_ * D_ + 4 * D_ + 4 if q0 is not None else 0))
+        b_l = bound(n_bytes, it * (LBA_OPS_LIVE * n_live + LBA_OPS_PAIR * n_pairs
+                                   + LBA_OPS_LANDMARK * L_ + 2 * D_ ** 3 / 3 + 3 * D_ ** 2))
+        print(f"{tag} local_ba_lm {label}, P {P_}, L {L_}, K {K_}, {it} iterations "
+              f"({klba.launches_per_call(it)} launches; {n_live} observations of non-zero "
+              f"weight, {n_pairs} pairs): kernels {ms_k:.4f} ms on the device, bound "
+              f"{b_l[0]:.6f} ms ({b_l[1]}), plain {ms_p:.4f} ms; the whole call with its BALM "
+              f"term evaluated twice {ms_full:.4f} ms", flush=True)
+        if label == lba_cases[0][0]:
+            rows["local_ba_lm"] = dict(
+                source="tc2li_slam_torch/csrc/local_ba.cu",
+                replaces="tc2li_slam_tpu/solver/lm.py:194", max_abs_err=lba_err, ms=ms_k,
+                plain_ms=ms_p, bound_ms=b_l[0], bound_by=b_l[1])
+
+    # the BALM quadratic on phase 3's last clusters, on them with every voxel
+    # invalid, and on a window of 6 LiDAR keyframes of 20000 points on three
+    # planes (phase 3's keyframes hold 2048 points each, too few for a 1 m
+    # voxel to pass the plane test: their clusters may hold no valid voxel)
+    pl, pv, T_wl, T_pert = planar_window(np.random.default_rng(6), 6, 20000)
+    up = lambda x: torch.as_tensor(x).to(dev)
+    c_pl = balm_mod.build_clusters(up(pl), up(pv), up(T_wl), voxel_size=cfg.lidar.balm_voxel,
+                                   max_voxels=cfg.lidar.balm_max_voxels,
+                                   min_points=cfg.lidar.balm_min_points)
+    quad_cases = [("phase 3's last clusters", c3, T3),
+                  ("every voxel invalid", c3._replace(valid=torch.zeros_like(c3.valid)), T3),
+                  ("6 keyframes on three planes", c_pl, up(T_pert))]
+    quad_err = 0.0
+    for name, c, T in quad_cases:
+        got = kbalm.balm_quadratic(c, T)
+        again = kbalm.balm_quadratic(c, T)
+        ref = kbalm.quadratic_plain(c, T)
+        torch.cuda.synchronize()
+        rel = lambda x, y: float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+        e = (rel(got.H, ref.H), rel(got.g, ref.g),
+             abs(float(got.cost) - float(ref.cost)) / max(abs(float(ref.cost)), 1e-30))
+        same_bits = all(torch.equal(x, y) for x, y in zip(got, again))
+        print(f"{tag} balm_quadratic {name} (V {c.N.shape[0]}, W {c.N.shape[1]}, "
+              f"{int(c.valid.sum())} valid voxels): |H - plain| / max|H| {e[0]:.2e}, "
+              f"|g - plain| / max|g| {e[1]:.2e}, cost {float(got.cost):.6f} / plain "
+              f"{float(ref.cost):.6f}; the same bits on a second call {same_bits}", flush=True)
+        if not same_bits:
+            return fail(f"balm_quadratic gave other bits on a second call ({name})")
+        if max(e) > 1e-3:
+            return fail(f"balm_quadratic disagrees with its plain version on {name}: {e}")
+        if name == "every voxel invalid" and (got.H.any() or got.g.any() or float(got.cost) != 0.0):
+            return fail("balm_quadratic with every voxel invalid is not 0")
+        quad_err = max(quad_err, float((got.H - ref.H).abs().max()),
+                       float((got.g - ref.g).abs().max()))
+    if int(c_pl.valid.sum()) < 50:
+        return fail(f"the planar window holds {int(c_pl.valid.sum())} valid voxels")
+    for name, c, T in quad_cases[::2]:
+        V_, W_ = c.N.shape
+        D_ = 6 * W_
+        n_vox = int(c.valid.sum())
+        ms_k = cuda_ms(torch, lambda: kbalm.balm_quadratic(c, T), 50, True)
+        ms_p = cuda_ms(torch, lambda: kbalm.quadratic_plain(c, T), 3)
+        b_q = bound(V_ * W_ * 52 + 13 * V_ + 64 * W_ + 4 * D_ * D_ + 4 * D_ + 4,
+                    n_vox * (BALM_OPS_JET + BALM_OPS_ROW * D_ + BALM_OPS_POSE_TERM * 9 * W_
+                             + BALM_OPS_ENTRY * D_ * D_))
+        print(f"{tag} balm_quadratic {name}, V {V_}, W {W_}, {n_vox} valid voxels: kernel "
+              f"{ms_k:.4f} ms on the device, bound {b_q[0]:.6f} ms ({b_q[1]}), plain "
+              f"{ms_p:.4f} ms", flush=True)
+    # the row: the planar window (the main path's shapes, V 512 and W 6)
+    rows["balm_quadratic"] = dict(
+        source="tc2li_slam_torch/csrc/balm.cu", replaces="tc2li_slam_tpu/solver/balm.py:303",
+        max_abs_err=quad_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_q[0], bound_by=b_q[1])
+
     # --- 6. result -------------------------------------------------------------
     kernels = []
     for name in ("fast_score_planes", "fast_nms_planes", "hamming_matrix", "match_best2",
                  "match_best2/epipolar", "match_best2/global", "match_best2/reloc",
-                 "match_best2/loop", "pose_only_lm"):
+                 "match_best2/loop", "pose_only_lm", "balm_quadratic", "local_ba_lm"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": r["source"],
                         "replaces": r["replaces"], "launches": launches[name],

@@ -34,25 +34,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using tc2li::Cam;
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kH = 21;             // upper triangle of H, row-major
 constexpr int kCost = kH + 6;      // after g
 constexpr int kSums = kCost + 1;
-constexpr float kChi2Mono = 5.991f;     // solver/factors.py CHI2_MONO
-constexpr float kChi2Stereo = 7.815f;   // CHI2_STEREO
-constexpr float kEps = 5e-3f;           // geom/lie.py _EPS: Taylor branches below it
 
 // how a pass finds each observation's active flag
 enum Mode { kKeep = 0, kInit = 1, kRegate = 2 };
-
-struct Cam {
-  float fx, fy, cx, cy, bf;
-};
-
-__device__ __forceinline__ float z_safe(float z) { return fabsf(z) < 1e-9f ? 1e-9f : z; }
 
 // Evaluate every observation at the pose T (row-major 4x4 in shared memory)
 // and leave the block's sums of H, g and the cost in `out`. kKeep reads the
@@ -64,31 +59,21 @@ __device__ void pass(const float* T, const float* __restrict__ X, const float* _
                      const uint8_t* __restrict__ valid, uint8_t* active, int N, const Cam cam,
                      const int mode, float (*part)[kSums + 1], unsigned* part_n, float* out,
                      int* n_active) {
-  const float R00 = T[0], R01 = T[1], R02 = T[2], t0 = T[3];
-  const float R10 = T[4], R11 = T[5], R12 = T[6], t1 = T[7];
-  const float R20 = T[8], R21 = T[9], R22 = T[10], t2 = T[11];
   float acc[kSums];
 #pragma unroll
   for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
   unsigned cnt = 0;
 
   for (int i = threadIdx.x; i < N; i += kThreads) {
-    const float x = X[3 * i], y = X[3 * i + 1], zw = X[3 * i + 2];
-    const float xc = R00 * x + R01 * y + R02 * zw + t0;
-    const float yc = R10 * x + R11 * y + R12 * zw + t1;
-    const float zc = R20 * x + R21 * y + R22 * zw + t2;
-    const float z = z_safe(zc);
     const bool st = stereo[i] != 0;
-    // residual (predicted - observed); the third row selected to 0 for mono
-    const float u = cam.fx * xc / z + cam.cx;
-    const float v = cam.fy * yc / z + cam.cy;
-    const float r[3] = {u - uv[3 * i], v - uv[3 * i + 1],
-                        st ? (u - cam.bf / z) - uv[3 * i + 2] : 0.f};
+    const tc2li::Reproj o = tc2li::reproject(T, X[3 * i], X[3 * i + 1], X[3 * i + 2],
+                                             uv + 3 * i, st, cam);
+    const float* r = o.r;
     const float rr = r[0] * r[0] + r[1] * r[1] + r[2] * r[2];
     const float is2 = inv_s2[i];
     const float chi2 = is2 * rr;
-    const bool depth_ok = zc > 0.05f;
-    const float thr = st ? kChi2Stereo : kChi2Mono;
+    const bool depth_ok = o.zc > 0.05f;
+    const float thr = st ? tc2li::kChi2Stereo : tc2li::kChi2Mono;
     bool act;
     if (mode == kKeep) {
       act = active[i] != 0;
@@ -97,29 +82,11 @@ __device__ void pass(const float* T, const float* __restrict__ X, const float* _
       active[i] = act;
       cnt += act;
     }
-    // Huber weight; a NaN chi2 stays NaN through the clamp, as torch.clamp
-    const float huber = chi2 <= thr ? 1.f : sqrtf(thr / (chi2 < 1e-12f ? 1e-12f : chi2));
-    const float w = is2 * huber * (act ? 1.f : 0.f) * (depth_ok ? 1.f : 0.f);
+    const float w = is2 * tc2li::huber(chi2, thr) * (act ? 1.f : 0.f) * (depth_ok ? 1.f : 0.f);
     acc[kCost] += w * rr;
 
-    // d(u, v, u_r)/dXc, its mono row selected to 0; then J = a [I | -hat(Xc)],
-    // the zeros of [I | -hat(Xc)] multiplied in as in the plain version's
-    // product, so a non-finite entry of `a` spreads the same way
-    const float iz = 1.f / z;
-    const float iz2 = iz * iz;
-    const float a[3][3] = {{cam.fx * iz, 0.f, -cam.fx * xc * iz2},
-                           {0.f, cam.fy * iz, -cam.fy * yc * iz2},
-                           {st ? cam.fx * iz : 0.f, 0.f, st ? (-cam.fx * xc + cam.bf) * iz2 : 0.f}};
     float J[3][6];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      J[k][0] = a[k][0];
-      J[k][1] = a[k][1];
-      J[k][2] = a[k][2];
-      J[k][3] = a[k][0] * 0.f + a[k][1] * (-zc) + a[k][2] * yc;
-      J[k][4] = a[k][0] * zc + a[k][1] * 0.f + a[k][2] * (-xc);
-      J[k][5] = a[k][0] * (-yc) + a[k][1] * xc + a[k][2] * 0.f;
-    }
+    tc2li::pose_jacobian(o, J);
     // (w J)^T J and (w J)^T r, the weight applied to J first as the plain
     // version does (0 * a large J stays 0)
     int idx = 0;
@@ -161,22 +128,6 @@ __device__ void pass(const float* T, const float* __restrict__ X, const float* _
     }
   }
   __syncthreads();
-}
-
-__device__ __forceinline__ float sinc(float x) {
-  const float x2 = x * x;
-  return fabsf(x) < kEps ? 1.f - x2 / 6.f + x2 * x2 / 120.f : sinf(x) / x;
-}
-
-__device__ __forceinline__ float cosc(float x) {
-  const float x2 = x * x;
-  return fabsf(x) < kEps ? 0.5f - x2 / 24.f + x2 * x2 / 720.f : (1.f - cosf(x)) / (x * x);
-}
-
-__device__ __forceinline__ float sinc3(float x) {
-  const float x2 = x * x;
-  return fabsf(x) < kEps ? 1.f / 6.f - x2 / 120.f + x2 * x2 / 5040.f
-                         : (x - sinf(x)) / (x * x * x);
 }
 
 // One LM step on one thread: solve (H + lam diag(H) + 1e-8 I) x = g from
@@ -242,36 +193,8 @@ __device__ void lm_step(const float* s, float lam, const float* T, float* Tn) {
     x[r] = acc / A[r][r];
   }
 
-  // se3_exp of xi = -x = (rho, phi)
-  const float rho[3] = {-x[0], -x[1], -x[2]};
-  const float p0 = -x[3], p1 = -x[4], p2 = -x[5];
-  float th2 = p0 * p0 + p1 * p1 + p2 * p2;
-  th2 = th2 < 1e-24f ? 1e-24f : th2;
-  const float th = sqrtf(th2);
-  const float sa = sinc(th), ca = cosc(th), s3 = sinc3(th);
-  const float W[3][3] = {{0.f, -p2, p1}, {p2, 0.f, -p0}, {-p1, p0, 0.f}};
-  float E[4][4];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    float V[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float W2 = W[i][0] * W[0][j] + W[i][1] * W[1][j] + W[i][2] * W[2][j];
-      const float I = i == j ? 1.f : 0.f;
-      E[i][j] = I + sa * W[i][j] + ca * W2;
-      V[j] = I + ca * W[i][j] + s3 * W2;
-    }
-    E[i][3] = V[0] * rho[0] + V[1] * rho[1] + V[2] * rho[2];
-  }
-  E[3][0] = E[3][1] = E[3][2] = 0.f;
-  E[3][3] = 1.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      Tn[4 * i + j] = E[i][0] * T[j] + E[i][1] * T[4 + j] + E[i][2] * T[8 + j] + E[i][3] * T[12 + j];
-    }
-  }
+  const float xi[6] = {-x[0], -x[1], -x[2], -x[3], -x[4], -x[5]};
+  tc2li::se3_exp_left(xi, T, Tn);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)

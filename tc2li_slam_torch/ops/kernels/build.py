@@ -4,8 +4,8 @@ The sources are compiled at first use with ``nvcc`` for ``sm_90a`` (one
 compiler process per source, side by side) into one shared library with a
 plain C interface, loaded with ``ctypes``. The library
 lands in ``build/tc2li_kernels/`` at the root of the checkout, keyed by a
-hash of the sources, so a fresh checkout builds it once and an edited source
-rebuilds. Nothing here runs at import time.
+hash of the sources and the headers they share (``csrc/*.cuh``), so a fresh
+checkout builds it once and an edited source or header rebuilds. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -38,9 +38,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS).encode())
@@ -107,6 +111,14 @@ def library() -> ctypes.CDLL:
         lib.tc2li_match_best2.restype = i
         lib.tc2li_pose_only_lm.argtypes = [vp] * 6 + [i] + [f] * 5 + [i, i] + [vp] * 5
         lib.tc2li_pose_only_lm.restype = i
+        lib.tc2li_balm_blocks.argtypes = [i]
+        lib.tc2li_balm_blocks.restype = i
+        lib.tc2li_balm_quadratic.argtypes = [vp] * 6 + [i, i] + [vp] * 6
+        lib.tc2li_balm_quadratic.restype = i
+        lib.tc2li_local_ba_scratch.argtypes = [i, i, i]
+        lib.tc2li_local_ba_scratch.restype = ctypes.c_longlong
+        lib.tc2li_local_ba_lm.argtypes = [vp] * 12 + [i, i, i] + [f] * 5 + [i] + [vp] * 5
+        lib.tc2li_local_ba_lm.restype = i
         lib.tc2li_error_string.argtypes = [i]
         lib.tc2li_error_string.restype = ctypes.c_char_p
         _lib = lib

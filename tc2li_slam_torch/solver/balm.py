@@ -4,9 +4,10 @@
 Per-(voxel, keyframe) point clusters are built once in each keyframe's
 LiDAR frame, stored centred (mean + scatter) around a per-voxel anchor.
 The cost sum_v N_v lambda_min(cov_v) is a closed function of the window
-pose tangents; its gradient and Hessian come from ``torch.func``
-(``jax.hessian`` in the reference), through the closed-form
-``smallest_eigval_sym3``. Padded voxels get a fixed well-separated
+pose tangents; ``quadratic`` gives its gradient and Hessian (``jax.hessian``
+in the reference) through the closed-form ``smallest_eigval_sym3``: on the
+card one hand-written kernel, on the CPU ``torch.func``
+(``ops/kernels/balm.py``). Padded voxels get a fixed well-separated
 spectrum so no repeated eigenvalue reaches the derivatives.
 """
 
@@ -15,9 +16,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.func import grad_and_value, hessian
 
 from ..geom import lie
+from ..ops.kernels import balm as balm_kernel
 from ..ops.plane_fit import smallest_eigval_sym3, smallest_two_eigvals_sym3
 
 BIG_KEY = torch.iinfo(torch.int32).max
@@ -162,9 +163,12 @@ class BalmQuad(NamedTuple):
 
 def quadratic(c: VoxelClusters, T_wl) -> BalmQuad:
     """Exact gradient + Hessian of the eigen cost at the current poses
-    (right perturbation per pose)."""
-    W = T_wl.shape[0]
-    xi0 = torch.zeros(W * 6, dtype=T_wl.dtype, device=T_wl.device)
-    g, cost = grad_and_value(_cost_of_tangent)(xi0, c, T_wl)
-    H = hessian(_cost_of_tangent)(xi0, c, T_wl)
-    return BalmQuad(H, g, cost)
+    (right perturbation per pose).
+
+    CUDA tensors go to the one-launch kernel (``ops/kernels/balm.py``), CPU
+    tensors to its plain version; any other device raises."""
+    if T_wl.device.type == "cuda":
+        return balm_kernel.balm_quadratic(c, T_wl)
+    if T_wl.device.type == "cpu":
+        return balm_kernel.quadratic_plain(c, T_wl)
+    raise ValueError(f"quadratic: unsupported device {T_wl.device}")

@@ -6,7 +6,11 @@ taken inside the fixture, never at import). On a machine with one card:
 The FAST, Hamming and matching comparisons are exact: those kernels only
 subtract, compare, take min/max, XOR and count bits. The pose-only LM sums
 in float32 in another order than its plain version: poses to 1e-4, costs to
-1e-3 relative, inlier flags equal but at a gate.
+1e-3 relative, inlier flags equal but at a gate. So do the window BA's two
+kernels: ``local_ba_lm`` to 1e-4 in pose, 1e-3 m in landmarks and 1e-4 in
+cost, relative (as the CPU tests against the JAX package);
+``balm_quadratic`` H and g to 1e-3 of their largest entry, the cost to 1e-3
+relative.
 """
 
 import numpy as np
@@ -16,8 +20,8 @@ import torch
 import chip_smoke
 from tc2li_slam_torch.geom import camera as cam_mod
 from tc2li_slam_torch.ops import matching, orb, stereo
-from tc2li_slam_torch.ops.kernels import fast, hamming, match, pose_lm
-from tc2li_slam_torch.solver import lm
+from tc2li_slam_torch.ops.kernels import balm as kbalm, fast, hamming, local_ba as klba, match, pose_lm
+from tc2li_slam_torch.solver import balm, lm
 
 pytestmark = pytest.mark.gpu
 
@@ -373,3 +377,119 @@ def test_pose_only_lm_refuses_what_it_does_not_take(cuda):
     res = pose_lm.pose_only_lm(cam, *ts, rounds=0, iters=10)
     assert torch.equal(res.T_cw, ts[0]) and torch.equal(res.inliers, ts[5])
     assert float(res.cost) == 0.0 and int(res.n_inliers) == int(ts[5].sum())
+
+
+def _clusters(b, dev):
+    t = lambda k: torch.as_tensor(b[k]).to(dev)
+    c = balm.build_clusters(t("points"), t("valid"), t("T_build"), voxel_size=1.0,
+                            max_voxels=256, min_points=15)
+    return c._replace(valid=c.valid & ~t("kill"))
+
+
+def _quad_agree(got, ref):
+    """Largest differences: H and g over their largest entry, cost relative."""
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+    return (rel(got.H, ref.H), rel(got.g, ref.g),
+            abs(float(got.cost) - float(ref.cost)) / max(abs(float(ref.cost)), 1e-30))
+
+
+@pytest.mark.parametrize("case", chip_smoke.BALM_CASES)
+def test_balm_quadratic_matches_plain(cuda, case):
+    """tests/test_torch_local_ba.py's cases: one launch, the plain
+    version's H, g and cost; the same bits on a second call."""
+    b = chip_smoke.balm_case(np.random.default_rng(4), case)
+    c = _clusters(b, cuda)
+    T = torch.as_tensor(b["T_eval"]).to(cuda)
+    before = kbalm.launches
+    got = balm.quadratic(c, T)
+    ref = kbalm.quadratic_plain(c, T)
+    again = kbalm.balm_quadratic(c, T)
+    torch.cuda.synchronize()
+    assert kbalm.launches - before == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if case == "all_invalid":
+        assert not got.H.any() and not got.g.any() and float(got.cost) == 0.0
+        return
+    e = _quad_agree(got, ref)
+    assert max(e) <= 1e-3, e
+
+
+def test_balm_quadratic_full_width(cuda):
+    """The main path's size: 512 voxel slots over a window of 6 keyframes."""
+    pl, valid, T_wl, T_pert = chip_smoke.planar_window(np.random.default_rng(6), 6, 20000)
+    t = lambda a: torch.as_tensor(a).to(cuda)
+    c = balm.build_clusters(t(pl), t(valid), t(T_wl), voxel_size=0.5, max_voxels=512,
+                            min_points=15)
+    got = kbalm.balm_quadratic(c, t(T_pert))
+    ref = kbalm.quadratic_plain(c, t(T_pert))
+    torch.cuda.synchronize()
+    assert int(c.valid.sum()) > 100
+    e = _quad_agree(got, ref)
+    assert max(e) <= 1e-3, e
+
+
+def test_balm_quadratic_refuses_what_it_does_not_take(cuda):
+    b = chip_smoke.balm_case(np.random.default_rng(4), "planar")
+    c = _clusters(b, cuda)
+    T = torch.as_tensor(b["T_eval"]).to(cuda)
+    with pytest.raises(ValueError):                    # float64 poses
+        kbalm.balm_quadratic(c, T.double())
+    with pytest.raises(ValueError):                    # one tensor on the CPU
+        kbalm.balm_quadratic(c._replace(N=c.N.cpu()), T)
+    with pytest.raises(ValueError):                    # too many poses
+        kbalm.balm_quadratic(c._replace(N=torch.zeros((c.N.shape[0], 17), device=cuda)),
+                             torch.eye(4, device=cuda).expand(17, 4, 4))
+
+
+@pytest.mark.parametrize("case", chip_smoke.BA_CASES)
+def test_local_ba_lm_matches_plain(cuda, case):
+    """tests/test_torch_local_ba.py's cases: 2 + 4 iters launches (and two of
+    the BALM kernel with its term), the plain version's result."""
+    p = chip_smoke.ba_problem(np.random.default_rng(3), case)
+    args, kw = chip_smoke.ba_torch(torch, p, cuda)
+    before = (klba.launches, kbalm.launches)
+    got = lm.local_ba(*args, **kw)
+    assert klba.launches - before[0] == klba.launches_per_call(p["iters"])
+    assert kbalm.launches - before[1] == (2 if case == "balm" else 0)
+    ref = klba.local_ba_plain(*args, **kw)   # (its extra_fn launches the BALM kernel)
+    torch.cuda.synchronize()
+    a = chip_smoke.ba_agreement(torch, got, ref)
+    assert a["pose"] <= 1e-4 and a["landmark"] <= 1e-3 and a["cost"] <= 1e-4, a
+    if case == "all_fixed":
+        assert torch.equal(got.T_cw, args[1])
+    if case == "no_valid_landmark":
+        assert torch.equal(got.X_w, args[2])
+    if case == "masked_nan":
+        assert torch.equal(got.T_cw, args[1]) and bool(torch.isnan(got.cost))
+
+
+@pytest.mark.parametrize("P,K", [(6, 8), (8, 8), (64, 8)])
+def test_local_ba_lm_full_width(cuda, P, K):
+    """The main path's shapes: 8192 landmarks, 8 views, a window of 6 or 8
+    poses, and the global BA's 64 (8 real, 56 padded and fixed)."""
+    cam, p = chip_smoke.dist_problem(torch, np.random.default_rng(1), Pn=min(P, 8), L=8192, K=K)
+    if P > 8:
+        pad = P - 8
+        p["T0"] = np.concatenate([p["T0"], np.tile(np.eye(4, dtype=np.float32), (pad, 1, 1))])
+        p["fixed"] = np.concatenate([p["fixed"], np.ones(pad, bool)])
+    t = lambda k: torch.as_tensor(p[k]).to(cuda)
+    obs = lm.BAObservations(*(t(k) for k in ("pose_idx", "uv", "inv_sigma2", "stereo", "valid")))
+    args = (cam, t("T0"), t("X0"), obs, t("fixed"), torch.ones(8192, dtype=torch.bool, device=cuda))
+    got = klba.local_ba_lm(*args, iters=6)
+    ref = klba.local_ba_plain(*args, iters=6)
+    torch.cuda.synchronize()
+    a = chip_smoke.ba_agreement(torch, got, ref)
+    assert a["pose"] <= 1e-4 and a["landmark"] <= 1e-3 and a["cost"] <= 1e-4, a
+
+
+def test_local_ba_lm_refuses_what_it_does_not_take(cuda):
+    p = chip_smoke.ba_problem(np.random.default_rng(3), "visual")
+    (cam, T0, X0, obs, fixed, vlm), kw = chip_smoke.ba_torch(torch, p, cuda)
+    with pytest.raises(ValueError):                    # float64 landmarks
+        klba.local_ba_lm(cam, T0, X0.double(), obs, fixed, vlm, **kw)
+    with pytest.raises(ValueError):                    # a mask of the wrong length
+        klba.local_ba_lm(cam, T0, X0, obs, fixed, vlm[:10], **kw)
+    with pytest.raises(ValueError):                    # one tensor on the CPU
+        klba.local_ba_lm(cam, T0, X0, obs, fixed.cpu(), vlm, **kw)
+    res = klba.local_ba_lm(cam, T0, X0, obs, fixed, vlm, iters=0)
+    assert torch.equal(res.T_cw, T0) and torch.equal(res.X_w, X0)

@@ -20,7 +20,10 @@ closing on (``loop_closing=True``, ``loop_min_kf=1``, triangulation on, the
 vocabulary of ``--voc``) on this straight path, where no loop closes: every
 keyframe past the first two runs the candidate ladder on the device, whose
 device events are counted a call, and the run fails above 1.2 host syncs a
-frame (the candidates must ride in the frame's one transfer). Then over the
+frame (the candidates must ride in the frame's one transfer). In every mode
+the window BA's parts are named ranges too (``balm.build_clusters``,
+``balm.quadratic``, ``lm.local_ba``, the last holding the quadratic's calls):
+calls, host ms and device events a call of each (``ba_split``). Then over the
 frames after the warm-up:
 
 - host wall ms per frame (clock around ``track`` + a final synchronize);
@@ -84,6 +87,7 @@ def main() -> int:
     from tc2li_slam_torch.ops import bow, orb
     from tc2li_slam_torch.ops.kernels import match
     from tc2li_slam_torch.slam import config as cfg_mod, system as sys_mod
+    from tc2li_slam_torch.solver import balm as balm_mod, lm as lm_mod
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -140,6 +144,14 @@ def main() -> int:
                 return detect(*a, **kw)
         sys_mod.loop_closing.detect_candidates_device = ranged_detect
 
+    # the window BA's parts, as module attributes the mapping pass calls
+    BA_PARTS = (("build_clusters", balm_mod), ("quadratic", balm_mod), ("local_ba", lm_mod))
+    for name, mod in BA_PARTS:
+        def ranged_part(*a, _fn=getattr(mod, name), _name=name, **kw):
+            with record_function(f"ba:{_name}"):
+                return _fn(*a, **kw)
+        setattr(mod, name, ranged_part)
+
     for fr, sc in zip(frames[:args.warm], scans[:args.warm]):
         track(fr, sc)
     torch.cuda.synchronize()
@@ -192,25 +204,28 @@ def main() -> int:
     n_kernels = 0
     for e in prof.events():
         # (a named range has a device-side twin that spans its kernels)
-        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("stage:"):
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not e.name.startswith(("stage:", "ba:")):
             dev_us += e.time_range.elapsed_us()
             n_kernels += 1
-    # device events enqueued inside each named stage: the host-side launch
-    # calls (kernels, copies, memsets) whose start lies in one of its ranges
-    stage_events = {}
-    if STAGES:
-        cpu_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
-        launches = sorted(e.time_range.start for e in cpu_events
-                          if e.name.startswith(("cudaLaunchKernel", "cudaMemcpyAsync",
-                                                "cudaMemsetAsync")))
-        for name in STAGES:
-            spans = [(e.time_range.start, e.time_range.end) for e in cpu_events
-                     if e.name == f"stage:{name}"]
-            n_in = sum(bisect.bisect_right(launches, b) - bisect.bisect_left(launches, a)
-                       for a, b in spans)
-            stage_events[name] = {"calls": len(spans), "device_events_per_frame": n_in / n_meas,
-                                  "device_events_per_call": n_in / max(len(spans), 1),
-                                  "host_ms_per_frame": sum(b - a for a, b in spans) / 1e3 / n_meas}
+    # device events enqueued inside each named range: the host-side launch
+    # calls (kernels, copies, memsets) whose start lies in one of its spans
+    cpu_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    launches = sorted(e.time_range.start for e in cpu_events
+                      if e.name.startswith(("cudaLaunchKernel", "cudaMemcpyAsync",
+                                            "cudaMemsetAsync", "cuLaunchKernel")))
+
+    def range_events(rname):
+        spans = [(e.time_range.start, e.time_range.end) for e in cpu_events if e.name == rname]
+        n_in = sum(bisect.bisect_right(launches, b) - bisect.bisect_left(launches, a)
+                   for a, b in spans)
+        return {"calls": len(spans), "device_events_per_frame": n_in / n_meas,
+                "device_events_per_call": n_in / max(len(spans), 1),
+                "host_ms_per_frame": sum(b - a for a, b in spans) / 1e3 / n_meas,
+                "host_ms_per_call": sum(b - a for a, b in spans) / 1e3 / max(len(spans), 1)}
+
+    stage_events = {name: range_events(f"stage:{name}") for name in STAGES}
+    ba_split = {name: range_events(f"ba:{name}") for name, _ in BA_PARTS}
     sort_dev = "device_time_total" if hasattr(events[0], "device_time_total") else "cuda_time_total"
     table_dev = events.table(sort_by=sort_dev, row_limit=25)
     table_cpu = events.table(sort_by="self_cpu_time_total", row_limit=25)
@@ -219,6 +234,7 @@ def main() -> int:
     summary = {
         "card": smi, "frames": n_meas, "triangulate": cfg.tracking.triangulate,
         "imu_mode": args.imu, "imu_stage_device_events": stage_events,
+        "ba_split": ba_split,
         "loop_closing": args.loop, "loops_closed": slam.n_loops_closed,
         "loop_candidates_verified": slam.n_loop_verified,
         "vi_initialized": bool(getattr(slam, "_vi_initialized", False)),
