@@ -107,10 +107,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    PnP polish, at N = 5000, with nothing valid and with a masked NaN row
    (poses to 1e-4, costs to 1e-3 relative, inlier flags equal but where a
    row's chi2, re-derived in float64, sits at its threshold; times behind a
-   device backlog beside the plain version's); the window BA's kernels on
-   the inputs of phase 3's last local-BA pass with the BALM term, of 4f's
-   global BA (64 poses) and on phase 3's pass with no valid landmark (poses
-   to 1e-4, landmarks to 1e-3 m, cost to 1e-4 relative), the BALM quadratic
+   device backlog beside the plain version's, and a pass's share); the
+   window BA's kernels on the inputs of phase 3's last local-BA pass with
+   the BALM term, of 4f's global BA (64 poses) and on phase 3's pass with
+   no valid landmark (poses to 1e-4, landmarks to 1e-3 m, cost to 1e-4
+   relative, or else no farther from the plain version run in float64; the
+   same bits on a second call; the device time of a call split by launch
+   with ``torch.profiler``), the BALM quadratic
    on phase 3's last clusters (H and g to 1e-3 of their largest entry, the
    cost to 1e-3 relative, the same bits on a second call) and with every
    voxel invalid (exactly 0);
@@ -214,6 +217,32 @@ def cuda_ms(torch, fn, reps: int, backlog: bool = False) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def kernel_split(torch, fn, calls: int) -> dict:
+    """Device ms a call of each kernel name that ``fn`` launches, from a
+    ``torch.profiler`` trace of ``calls`` calls after one warm-up: {name:
+    {"launches_a_call", "ms_a_call"}}, the largest first. Names are cut to
+    the function's (``build_kernel`` for ``(anonymous namespace)::
+    build_kernel(...)``)."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"([A-Za-z_]\w*)(?:<[^(]*>)?\(", e.name)
+        k = m.group(1) if m else e.name
+        n, us = per.get(k, (0, 0.0))
+        per[k] = (n + 1, us + e.time_range.elapsed_us())
+    return {k: {"launches_a_call": n / calls, "ms_a_call": us / 1e3 / calls}
+            for k, (n, us) in sorted(per.items(), key=lambda kv: -kv[1][1])}
 
 
 def bound(n_bytes: float, simple_ops: float = 0.0, popc: float = 0.0):
@@ -2240,6 +2269,10 @@ def main() -> int:
         if name == "a masked NaN row" and not bool(torch.isnan(got.cost)):
             return fail("pose_only_lm: the masked NaN row did not make the cost NaN")
         pose_err = max(pose_err, agr["pose"])
+    n_sync = syncs_of(torch, lambda: pose_lm.pose_only_lm(cam_t, *args_t, **kw_t))
+    print(f"{tag} pose_only_lm: {n_sync} host syncs in a call", flush=True)
+    if n_sync:
+        return fail(f"pose_only_lm synchronised the host {n_sync} times in a call")
     for label, cam_c, args_c, kw_c in cases[:2]:
         N = args_c[1].shape[0]
         passes = 1 + kw_c["rounds"] * (kw_c["iters"] + 1)
@@ -2254,7 +2287,8 @@ def main() -> int:
             pose_lm.pose_only_lm(cam_c, *args_c, **kw_c),
             pose_lm.pose_only_plain(cam_c, *args_c, **kw_c))]
         print(f"{tag} pose_only_lm {label}, N {N}, {kw_c['rounds']} x {kw_c['iters']} "
-              f"({passes} passes): kernel {ms_k:.4f} ms on the device ({ms_h:.4f} ms a call "
+              f"({passes} passes): kernel {ms_k:.4f} ms on the device, {1e3 * ms_k / passes:.2f} "
+              f"us a pass ({ms_h:.4f} ms a call "
               f"enqueued one at a time), bound {b_p[0]:.6f} ms ({b_p[1]}), plain {ms_p:.4f} ms; "
               f"|T - the plain version in float64| kernel {d64[0]:.3e}, plain {d64[1]:.3e}",
               flush=True)
@@ -2276,6 +2310,7 @@ def main() -> int:
     lba_err = 0.0
     for name, a, kw in lba_cases:
         got = klba.local_ba_lm(*a, **kw)
+        again = klba.local_ba_lm(*a, **kw)
         ref = klba.local_ba_plain(*a, **kw)
         a64, kw64 = ba_float64(torch, a, kw)
         ref64 = klba.local_ba_plain(*a64, **kw64)
@@ -2290,9 +2325,17 @@ def main() -> int:
               f"{json.dumps(agr)}", flush=True)
         if any(v["outside"] for v in agr.values()):
             return fail(f"local_ba_lm disagrees with its plain version on {name}: {agr}")
+        same_bits = same(torch, got, again)
+        print(f"{tag} local_ba_lm {name}: the same bits on a second call {same_bits}", flush=True)
+        if not same_bits:
+            return fail(f"local_ba_lm gave other bits on a second call ({name})")
         if a is a3_none and not torch.equal(got.X_w, a[2]):
             return fail("local_ba_lm moved a landmark with no valid landmark")
         lba_err = max(lba_err, agr["pose"]["max_vs_plain"], agr["landmark"]["max_vs_plain"])
+    n_sync = [syncs_of(torch, lambda: klba.local_ba_lm(*a, **kw)) for _, a, kw in lba_cases]
+    print(f"{tag} local_ba_lm: host syncs in a call {n_sync}", flush=True)
+    if any(n_sync):
+        return fail(f"local_ba_lm synchronised the host in a call: {n_sync}")
     # times with the BALM term held at its entry value (the kernels' own work:
     # the wrapper calls extra_fn before and after the launches)
     for label, a, kw in lba_cases[:2]:
@@ -2303,19 +2346,26 @@ def main() -> int:
         rr, w, _, _ = lm_mod._assemble_visual(a[0], a[1], a[2], a[3], False)
         live = (w != 0).reshape(L_, K_)
         n_live = int(live.sum())
-        n_pairs = int(((live.sum(1) ** 2) * a[5]).sum())
+        # the reduced system's pairs: live observations on free poses
+        on_free = ~a[4][a[3].pose_idx.long().clamp(0, P_ - 1)]
+        n_pairs = int((((live & on_free).sum(1) ** 2) * a[5]).sum())
+        Df = 6 * int((~a[4]).sum())
         ms_k = cuda_ms(torch, lambda: klba.local_ba_lm(*a, **kwc), 20, True)
         ms_p = cuda_ms(torch, lambda: klba.local_ba_plain(*a, **kwc), 3)
         ms_full = cuda_ms(torch, lambda: klba.local_ba_lm(*a, **kw), 5)
         n_bytes = (128 * P_ + P_ + 24 * L_ + L_ + 22 * L_ * K_ + 12
                    + (4 * D_ * D_ + 4 * D_ + 4 if q0 is not None else 0))
         b_l = bound(n_bytes, it * (LBA_OPS_LIVE * n_live + LBA_OPS_PAIR * n_pairs
-                                   + LBA_OPS_LANDMARK * L_ + 2 * D_ ** 3 / 3 + 3 * D_ ** 2))
+                                   + LBA_OPS_LANDMARK * L_ + 2 * Df ** 3 / 3 + 3 * Df ** 2))
+        split = kernel_split(torch, lambda: klba.local_ba_lm(*a, **kwc), 5)
         print(f"{tag} local_ba_lm {label}, P {P_}, L {L_}, K {K_}, {it} iterations "
               f"({klba.launches_per_call(it)} launches; {n_live} observations of non-zero "
-              f"weight, {n_pairs} pairs): kernels {ms_k:.4f} ms on the device, bound "
-              f"{b_l[0]:.6f} ms ({b_l[1]}), plain {ms_p:.4f} ms; the whole call with its BALM "
-              f"term evaluated twice {ms_full:.4f} ms", flush=True)
+              f"weight, {n_pairs} pairs, {Df} free rows): kernels {ms_k:.4f} ms on the device, "
+              f"bound {b_l[0]:.6f} ms ({b_l[1]}), plain {ms_p:.4f} ms; the whole call with its "
+              f"BALM term evaluated twice {ms_full:.4f} ms; device ms a call by kernel "
+              f"(torch.profiler): "
+              + ", ".join(f"{k} {v['ms_a_call']:.4f} ({v['launches_a_call']:g})"
+                          for k, v in split.items()), flush=True)
         if label == lba_cases[0][0]:
             rows["local_ba_lm"] = dict(
                 source="tc2li_slam_torch/csrc/local_ba.cu",

@@ -91,38 +91,66 @@ __device__ __forceinline__ float sinc3(float x) {
                          : (x - sinf(x)) / (x * x * x);
 }
 
-// Tn = se3_exp(xi) T for xi = (rho, phi) (geom/lie.py se3_exp); T and Tn
-// row-major 4x4.
-__device__ __forceinline__ void se3_exp_left(const float* xi, const float* T, float* Tn) {
-  const float rho[3] = {xi[0], xi[1], xi[2]};
+// se3_exp(xi) for xi = (rho, phi) (geom/lie.py se3_exp): the coefficients,
+// then one row of the 4x4 at a time, so that one thread can take the whole
+// product (se3_exp_left) or a lane one entry of it, with the same arithmetic.
+struct Se3Exp {
+  float rho[3];
+  float W[3][3];   // hat(phi)
+  float sa, ca, s3;
+};
+
+__device__ __forceinline__ Se3Exp se3_exp_coef(const float* xi) {
+  Se3Exp e;
   const float p0 = xi[3], p1 = xi[4], p2 = xi[5];
   float th2 = p0 * p0 + p1 * p1 + p2 * p2;
   th2 = th2 < 1e-24f ? 1e-24f : th2;
   const float th = sqrtf(th2);
-  const float sa = sinc(th), ca = cosc(th), s3 = sinc3(th);
-  const float W[3][3] = {{0.f, -p2, p1}, {p2, 0.f, -p0}, {-p1, p0, 0.f}};
-  float E[4][4];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    float V[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float W2 = W[i][0] * W[0][j] + W[i][1] * W[1][j] + W[i][2] * W[2][j];
-      const float I = i == j ? 1.f : 0.f;
-      E[i][j] = I + sa * W[i][j] + ca * W2;
-      V[j] = I + ca * W[i][j] + s3 * W2;
-    }
-    E[i][3] = V[0] * rho[0] + V[1] * rho[1] + V[2] * rho[2];
+  e.sa = sinc(th);
+  e.ca = cosc(th);
+  e.s3 = sinc3(th);
+  e.rho[0] = xi[0];
+  e.rho[1] = xi[1];
+  e.rho[2] = xi[2];
+  e.W[0][0] = 0.f; e.W[0][1] = -p2; e.W[0][2] = p1;
+  e.W[1][0] = p2; e.W[1][1] = 0.f; e.W[1][2] = -p0;
+  e.W[2][0] = -p1; e.W[2][1] = p0; e.W[2][2] = 0.f;
+  return e;
+}
+
+// row i of exp(xi) = [[R, V rho], [0, 1]]
+__device__ __forceinline__ void se3_exp_row(const Se3Exp& e, int i, float E[4]) {
+  if (i == 3) {
+    E[0] = E[1] = E[2] = 0.f;
+    E[3] = 1.f;
+    return;
   }
-  E[3][0] = E[3][1] = E[3][2] = 0.f;
-  E[3][3] = 1.f;
+  float V[3];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      Tn[4 * i + j] = E[i][0] * T[j] + E[i][1] * T[4 + j] + E[i][2] * T[8 + j] + E[i][3] * T[12 + j];
-    }
+  for (int j = 0; j < 3; ++j) {
+    const float W2 = e.W[i][0] * e.W[0][j] + e.W[i][1] * e.W[1][j] + e.W[i][2] * e.W[2][j];
+    const float I = i == j ? 1.f : 0.f;
+    E[j] = I + e.sa * e.W[i][j] + e.ca * W2;
+    V[j] = I + e.ca * e.W[i][j] + e.s3 * W2;
   }
+  E[3] = V[0] * e.rho[0] + V[1] * e.rho[1] + V[2] * e.rho[2];
+}
+
+// entry (i, j) of se3_exp(xi) T, T row-major 4x4
+__device__ __forceinline__ float se3_exp_left_entry(const Se3Exp& e, const float* T, int i,
+                                                    int j) {
+  float E[4];
+  se3_exp_row(e, i, E);
+  return E[0] * T[j] + E[1] * T[4 + j] + E[2] * T[8 + j] + E[3] * T[12 + j];
+}
+
+// Tn = se3_exp(xi) T; T and Tn row-major 4x4.
+__device__ __forceinline__ void se3_exp_left(const float* xi, const float* T, float* Tn) {
+  const Se3Exp e = se3_exp_coef(xi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) Tn[4 * i + j] = se3_exp_left_entry(e, T, i, j);
 }
 
 }  // namespace tc2li

@@ -17,65 +17,94 @@
 //     Hll + lam diag(Hll) + 1e-6 I inverted in closed form (the 1e-20
 //     determinant guard), times valid_lm;
 //   - the reduced camera system S = Hpp - sum_l B Hll^-1 B^T and
-//     g = gp - sum_l B Hll^-1 gl, the fixed poses' rows and columns zeroed
-//     and their diagonal 1, lam diag(S) + 1e-8 I added, then H_e0 (fixed
-//     rows masked) and g_e0 + H_e0 xi;
-//   - the Jacobi-scaled system solved by Gaussian elimination with partial
-//     pivoting (S + H_e0 need not be positive definite), dp = -x on free poses,
+//     g = gp - sum_l B Hll^-1 gl over the free poses (the fixed poses' rows
+//     and columns, zero but for a unit diagonal in the plain version, are
+//     left out: that changes the free poses' step only by rounding),
+//     lam diag(S) + 1e-8 I added, then H_e0 and g_e0 + H_e0 xi;
+//   - the Jacobi-scaled system solved by elimination with partial pivoting
+//     (S + H_e0 need not be positive definite), dp = -x on free poses,
 //     T_new = exp(dp) T, dl = -Hll^-1 (gl + sum_k B_k^T dp_k) on valid
 //     landmarks, xi_new = xi + dp;
 //   - the candidate's cost, visual plus c_e0 + g_e0 xi + xi^T H_e0 xi / 2;
 //     accepted when strictly lower (lam x 0.5), else lam x 4.
 // Weights are multiplied in, as there. Where an input is not finite the
 // entry cost is NaN and no candidate is accepted, as there: the result is
-// the entry state whatever the sums in between held, so the Schur sums may
-// skip the observations whose weight is exactly 0.
+// the entry state whatever the sums in between held, so the Schur sums
+// select away the observations whose weight is exactly 0.
 // Precision: each observation's terms are float32, as there; the sums over
 // observations and landmarks (Hll, gl, S, g, the costs), the 3x3 inverses,
-// the back-substitution and the elimination are float64. The global BA
-// (P 64, 8192 landmarks) is ill-conditioned enough that float32 sums in
-// another order than the plain version's move poses by ~2e-4 and landmarks
-// seen at small parallax by decimetres; in float64 the result lies nearer
-// the plain version run in float64 than the float32 plain version does.
+// B Hll^-1, the elimination and the back-substitution are float64. The
+// global BA (P 64, 8192 landmarks) is ill-conditioned enough that float32
+// sums in another order than the plain version's move poses by ~2e-4 and
+// landmarks seen at small parallax by decimetres.
 //
 // Bound on the H100: a 6-iteration call at L 8192, K 8, P 6 reads ~1.4 MB
-// of observations a pass and does ~60 M float operations an iteration
-// (~12 us of either all told); latency: 4 dependent launches an iteration,
-// one of them a single block that solves the 6P system.
-// Design: a fixed sequence of launches on the caller's stream,
-//   init (landmark grid): X = X0, the accumulators zeroed, the entry cost's
-//        per-block sums;            commit: the entry state;
+// of observations a pass and does ~60 M operations an iteration (~12 us of
+// either all told); latency: 5 dependent launches an iteration.
+// Design: a fixed sequence of launches on the caller's stream, every sum in
+// an order that depends only on the inputs (the same bits on every call):
+//   init (landmark grid): X = X0, the entry cost's per-block sums;
+//   commit: the entry state;
 //   per iteration
-//   build (landmark grid): a thread a landmark (dealt to the blocks in
-//        turn); Hpp, gp and the Schur terms of the blocks on and above the
-//        diagonal added into S and g (shared memory per block, then device
-//        atomics, for 6P <= 48; device atomics beyond), Hll^-1, gl, B kept
-//        for the back-substitution;
-//   solve (one block): S and g assembled as above, elimination in shared
-//        memory up to 6P = 48 and in device memory beyond (6P = 384 for
-//        the global BA), T_new, xi_new and the candidate's model cost; the
-//        accumulators zeroed for the next build;
+//   build (observation grid): a thread an observation, G (the power of two
+//        >= K) lanes a landmark summing its Hll and gl by a fixed shuffle
+//        tree, no atomics. It keeps Hll^-1, gl and B for the
+//        back-substitution and writes, for each observation of the pair
+//        table, its Hpp term, gp - W gl and W = B Hll^-1 (float64, 6x3),
+//        each selected to 0 where w = 0;
+//   reduce (a warp a chunk): the pair table, built once a call by the
+//        wrapper (pair_table), lists for each upper 6x6 block (p1 <= p2) of
+//        S the observation pairs (l, k1, k2) of one landmark on those two
+//        free poses, in landmark order, cut into at most 32 chunks of at
+//        least 32 pairs. A lane takes every 32nd pair of its warp's chunk
+//        and keeps the 42 float64 sums of the block in registers (minus
+//        W_k1 B_k2^T, plus the Hpp and gradient terms on k1 = k2), the next
+//        pair's loads in flight; a fixed shuffle tree adds the lanes; the
+//        block's last chunk adds the chunks in chunk order. (Lanes owning
+//        the block's sums, which read each pair's operands from a tile in
+//        shared memory, with plain FMAs or with the float64 tensor cores'
+//        mma.m8n8k4, were slower on the H100: the walk over the tile, not
+//        the loads, took the time.)
+//   solve (a cluster of 8 blocks): the free poses numbered by a prefix
+//        sum over `fixed`; S and g read from each block's folded row;
+//        Gauss-Jordan elimination with partial pivoting (the first
+//        largest |a| at or below the diagonal, as before), then x = b / diag
+//        with no back-substitution. Up to 48 free rows block 0 holds the
+//        system in its shared memory; beyond, the [D, D + 1] system lives in
+//        the 8 blocks' shared memory as row slabs and each column takes one
+//        cluster barrier: every block sends its best candidate row to every
+//        block (distributed shared memory) before it, and picks the same
+//        winner after it (an exchange by mbarriers, one arrival from each
+//        block, was slower on the H100). Block 0 takes T_new, xi_new and
+//        the candidate's model cost;
 //   eval (landmark grid): dl, X_new and the per-block sums of the candidate's
 //        visual cost;
 //   commit (landmark grid): every block adds the per-block sums in block
 //        order (the same bits in every block), decides, and moves its
 //        landmarks; block 0 writes the next state (two slots, read one,
 //        write the other) and the outputs.
-// 2 + 4 iters launches a call. The S sums use float64 atomics, so their
-// order, and a result's last float32 bits, can change from run to run.
+// 2 + 5 iters launches a call. The solve's shared memory grows with 6P and
+// caps P at 67: a larger window's launch is refused and reported.
 
+#include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using tc2li::Cam;
 
 constexpr int kLmThreads = 128;
-constexpr int kSolveThreads = 1024;
-constexpr int kSharedD = 48;   // 6P up to which S and the elimination live in shared memory
+constexpr int kReduceWarps = 4;  // warps a block of the reduce launch
+constexpr int kSolveThreads = 512;
+constexpr int kCluster = 8;      // blocks of the solve's cluster
+constexpr int kSharedD = 48;     // free rows up to which block 0 solves alone
+constexpr int kPart = 42;        // a chunk's sums: its 6x6 block of S, then 6 of g
 
 struct Problem {
   const float* T0;        // [P, 4, 4]
@@ -91,32 +120,54 @@ struct Problem {
   const float* ge;        // [D]
   const float* ce;        // [1]
   int L, K, P, D;
+  int G;                  // lanes a landmark in the build: the power of two >= K
   Cam cam;
+};
+
+// the pair table (ops/kernels/local_ba.py: pair_table), block b of the
+// upper blocks (p1 <= p2) numbered row by row
+struct Table {
+  const long long* order;   // [E] each pair's l K K + k1 K + k2
+  const long long* start;   // [nb + 1] each block's first pair
+  const long long* cstart;  // [nb + 1] each block's first chunk
+  int nb;
+  int chunk;                // pairs a chunk at least
+  int max_chunks;           // chunks a block at most
+  int K;
 };
 
 // a state slot: T [16 P], xi [D], then lam, cost, visual cost, entry cost
 struct Work {
-  double* S;        // [D, D] accumulators, 0 between iterations
-  double* g;        // [D]
+  double* part;     // [chunks, kPart] each chunk's sums
   double* Hinv;     // [L, 9]
   double* gl;       // [L, 3]
+  double* W;        // [L, K, 18] B Hll^-1 (0 where w = 0 or the landmark is invalid)
+  double* gd;       // [L, K, 6] gp - W gl (0 where w = 0)
+  double* partial;  // [grid] per-block visual cost sums
   float* B;         // [L, K, 18]
+  float* Hd;        // [L, K, 36] Hpp's term (0 where w = 0)
   float* X;         // [L, 3] the accepted landmarks (the output)
   float* Xc;        // [L, 3] the candidate's
   float* dp;        // [D]
   float* Tc;        // [16 P] the candidate's poses
   float* xic;       // [D]
   float* model;     // [1] the candidate's quadratic-model cost
-  double* partial;  // [grid] per-block visual cost sums
   float* state[2];
-  double* A;        // [D, D + 1] elimination scratch beyond kSharedD
   float* T_out;     // [16 P]
   float* scal;      // [3] cost, visual cost, entry cost
+  uint8_t* live;    // [L, K] w != 0 (NaN counts as live)
+  int* done;        // [nb] chunks of each block summed so far (0 between launches)
 };
 
 __device__ __forceinline__ int lam_at(const Problem& pr) { return 16 * pr.P + pr.D; }
 
-// One observation: residual, weight and Jacobians. Returns w.
+__device__ __forceinline__ int block_of(int p1, int p2, int P) {
+  return p1 * P - p1 * (p1 - 1) / 2 + (p2 - p1);
+}
+
+__device__ __forceinline__ int clamp_pose(int p, int P) { return p < 0 ? 0 : (p > P - 1 ? P - 1 : p); }
+
+// One observation: residual, weight and Jacobians.
 struct Obs {
   float r[3];
   float w;
@@ -126,9 +177,7 @@ struct Obs {
 
 __device__ __forceinline__ void observe(const Problem& pr, const float* Ts, int o, float x,
                                         float y, float z, Obs& ob) {
-  int p = pr.pidx[o];
-  p = p < 0 ? 0 : (p > pr.P - 1 ? pr.P - 1 : p);
-  const float* T = Ts + 16 * p;
+  const float* T = Ts + 16 * clamp_pose(pr.pidx[o], pr.P);
   const bool st = pr.stereo[o] != 0;
   const tc2li::Reproj rp = tc2li::reproject(T, x, y, z, pr.uv + 3 * o, st, pr.cam);
   const float is2 = pr.is2[o];
@@ -153,10 +202,9 @@ __device__ float landmark_cost(const Problem& pr, const float* Ts, int l, float 
   float c = 0.f;
   for (int k = 0; k < pr.K; ++k) {
     const int o = l * pr.K + k;
-    int p = pr.pidx[o];
-    p = p < 0 ? 0 : (p > pr.P - 1 ? pr.P - 1 : p);
     const bool st = pr.stereo[o] != 0;
-    const tc2li::Reproj rp = tc2li::reproject(Ts + 16 * p, x, y, z, pr.uv + 3 * o, st, pr.cam);
+    const tc2li::Reproj rp = tc2li::reproject(Ts + 16 * clamp_pose(pr.pidx[o], pr.P), x, y, z,
+                                              pr.uv + 3 * o, st, pr.cam);
     const float is2 = pr.is2[o];
     const float rr = rp.r[0] * rp.r[0] + rp.r[1] * rp.r[1] + rp.r[2] * rp.r[2];
     const float thr = st ? tc2li::kChi2Stereo : tc2li::kChi2Mono;
@@ -181,18 +229,14 @@ __device__ double block_sum(double v, double* red) {
   return s;
 }
 
-// (init) X = X0, accumulators zeroed, the entry cost's per-block sums
+// (init) X = X0, the entry cost's per-block sums
 __global__ void __launch_bounds__(kLmThreads) init_kernel(const Problem pr, Work wk) {
   extern __shared__ float sm[];
   __shared__ double red[kLmThreads / 32];
   for (int e = threadIdx.x; e < 16 * pr.P; e += blockDim.x) sm[e] = pr.T0[e];
-  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
-  for (int e = gtid; e < pr.D * pr.D + pr.D; e += gridDim.x * blockDim.x) {
-    if (e < pr.D * pr.D) wk.S[e] = 0.0; else wk.g[e - pr.D * pr.D] = 0.0;
-  }
   __syncthreads();
   float c = 0.f;
-  const int l = gtid;
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l < pr.L) {
     const float x = pr.X0[3 * l], y = pr.X0[3 * l + 1], z = pr.X0[3 * l + 2];
     wk.X[3 * l] = x;
@@ -202,255 +246,507 @@ __global__ void __launch_bounds__(kLmThreads) init_kernel(const Problem pr, Work
   }
   const double s = block_sum(c, red);
   if (threadIdx.x == 0) wk.partial[blockIdx.x] = s;
+  for (int b = l; b < pr.P * (pr.P + 1) / 2; b += gridDim.x * blockDim.x) wk.done[b] = 0;
 }
 
-// (build) normal equations at the accepted state, reduced by the landmarks
+// (build) each landmark's normal equations at the accepted state and the
+// per-observation terms of the reduced system; no sums across landmarks.
+// A thread an observation, G (a power of two >= K) lanes a landmark: the
+// landmark's Hll and gl are summed over its lanes by a fixed shuffle tree,
+// and every lane inverts the damped block itself.
 __global__ void __launch_bounds__(kLmThreads) build_kernel(const Problem pr, Work wk, int slot) {
-  extern __shared__ double smd[];
+  extern __shared__ float Ts[];
   const float* st = wk.state[slot];
-  const int D = pr.D;
-  const bool shared_acc = D <= kSharedD;
-  double* S = shared_acc ? smd : wk.S;
-  double* g = shared_acc ? smd + D * D : wk.g;
-  float* Ts = reinterpret_cast<float*>(smd + (shared_acc ? D * D + D : 0));
   for (int e = threadIdx.x; e < 16 * pr.P; e += blockDim.x) Ts[e] = st[e];
-  if (shared_acc)
-    for (int e = threadIdx.x; e < D * D + D; e += blockDim.x) S[e] = 0.0;
   __syncthreads();
   const float lam = st[lam_at(pr)];
-  // landmarks dealt to the blocks in turn: the active ones come first in
-  // the table, and a block of them alone would hold the work on a few SMs
-  const int l = threadIdx.x * gridDim.x + blockIdx.x;
-  if (l < pr.L) {
-    const float x = wk.X[3 * l], y = wk.X[3 * l + 1], z = wk.X[3 * l + 2];
-    double Hll[9] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-    double gl[3] = {0.0, 0.0, 0.0};
-    unsigned live = 0u;   // observations of non-zero weight (K <= 32)
-    // each lane starts at another slot: neighbouring landmarks' slots tend to
-    // hold the same poses, and lanes adding into one address serialise
-    const int rot = (threadIdx.x & 31) % pr.K;
-    for (int kk = 0; kk < pr.K; ++kk) {
-      const int k = (kk + rot) % pr.K;
-      const int o = l * pr.K + k;
-      Obs ob;
-      observe(pr, Ts, o, x, y, z, ob);
-      float Jp[3][6];
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int l = t / pr.G, k = t % pr.G;   // G divides 32: a landmark's lanes share a warp
+  const bool on = l < pr.L && k < pr.K;
+  const int o = on ? l * pr.K + k : 0;
+  double Hll[9] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  double gl[3] = {0.0, 0.0, 0.0};
+  float B[18];
+  double gp[6];
+  bool live = false, listed = false;
+  if (on) {
+    Obs ob;
+    observe(pr, Ts, o, wk.X[3 * l], wk.X[3 * l + 1], wk.X[3 * l + 2], ob);
+    float Jp[3][6];
 #pragma unroll
-      for (int r = 0; r < 3; ++r)
+    for (int r = 0; r < 3; ++r)
 #pragma unroll
-        for (int j = 0; j < 6; ++j) Jp[r][j] = ob.J[r][j] * ob.w;
-      const bool is_live = !(ob.w == 0.f);   // NaN counts as live
-      live |= (is_live ? 1u : 0u) << k;
-      int p = pr.pidx[o];
-      p = p < 0 ? 0 : (p > pr.P - 1 ? pr.P - 1 : p);
-      float* Bo = wk.B + static_cast<size_t>(o) * 18;
+      for (int j = 0; j < 6; ++j) Jp[r][j] = ob.J[r][j] * ob.w;
+    live = !(ob.w == 0.f);   // NaN counts as live
+    wk.live[o] = live;
+    // only the observations of the pair table need the pose terms
+    listed = pr.valid[o] != 0 && !pr.fixed[clamp_pose(pr.pidx[o], pr.P)];
 #pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        if (is_live) {
+    for (int j = 0; j < 6; ++j) {
 #pragma unroll
-          for (int c = 0; c < 6; ++c)
-            atomicAdd(S + (6 * p + j) * D + 6 * p + c,
-                      static_cast<double>(Jp[0][j] * ob.J[0][c] + Jp[1][j] * ob.J[1][c] +
-                                          Jp[2][j] * ob.J[2][c]));
-          atomicAdd(g + 6 * p + j, static_cast<double>(Jp[0][j] * ob.r[0] + Jp[1][j] * ob.r[1] +
-                                                       Jp[2][j] * ob.r[2]));
-        }
-#pragma unroll
-        for (int m = 0; m < 3; ++m)
-          Bo[3 * j + m] = Jp[0][j] * ob.Jl[0][m] + Jp[1][j] * ob.Jl[1][m] + Jp[2][j] * ob.Jl[2][m];
-      }
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float w0 = ob.Jl[0][j] * ob.w, w1 = ob.Jl[1][j] * ob.w, w2 = ob.Jl[2][j] * ob.w;
-#pragma unroll
-        for (int m = 0; m < 3; ++m) Hll[3 * j + m] += w0 * ob.Jl[0][m] + w1 * ob.Jl[1][m] + w2 * ob.Jl[2][m];
-        gl[j] += w0 * ob.r[0] + w1 * ob.r[1] + w2 * ob.r[2];
-      }
+      for (int m = 0; m < 3; ++m)
+        B[3 * j + m] = Jp[0][j] * ob.Jl[0][m] + Jp[1][j] * ob.Jl[1][m] + Jp[2][j] * ob.Jl[2][m];
+      gp[j] = static_cast<double>(Jp[0][j] * ob.r[0] + Jp[1][j] * ob.r[1] + Jp[2][j] * ob.r[2]);
     }
-    // damped block, inverted in closed form (lm.inv3x3), masked by valid_lm
-    double A[9];
+    float2* Bo = reinterpret_cast<float2*>(wk.B + static_cast<size_t>(o) * 18);
 #pragma unroll
-    for (int e = 0; e < 9; ++e) A[e] = Hll[e];
+    for (int q = 0; q < 9; ++q) Bo[q] = make_float2(B[2 * q], B[2 * q + 1]);
+    if (listed) {
+      float H[36];
 #pragma unroll
-    for (int j = 0; j < 3; ++j) A[4 * j] = Hll[4 * j] + (lam * Hll[4 * j] + 1e-6);
-    const double a = A[0], b = A[1], c = A[2], d = A[3], e = A[4], f = A[5];
-    const double g_ = A[6], h = A[7], i = A[8];
-    const double A00 = e * i - f * h, A01 = c * h - b * i, A02 = b * f - c * e;
-    const double A10 = f * g_ - d * i, A11 = a * i - c * g_, A12 = c * d - a * f;
-    const double A20 = d * h - e * g_, A21 = b * g_ - a * h, A22 = a * e - b * d;
-    const double det = a * A00 + b * A10 + c * A20;
-    const double inv_det = 1.0 / (fabs(det) > 1e-20 ? det : 1.0);
-    const double lmw = pr.vlm[l] ? 1.0 : 0.0;
-    const double Hi[9] = {A00 * inv_det * lmw, A01 * inv_det * lmw, A02 * inv_det * lmw,
-                          A10 * inv_det * lmw, A11 * inv_det * lmw, A12 * inv_det * lmw,
-                          A20 * inv_det * lmw, A21 * inv_det * lmw, A22 * inv_det * lmw};
+      for (int j = 0; j < 6; ++j)
 #pragma unroll
-    for (int k = 0; k < 9; ++k) wk.Hinv[9 * l + k] = Hi[k];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) wk.gl[3 * l + k] = gl[k];
-    if (pr.vlm[l]) {
-      // Schur terms of the live observation pairs
-      for (int i1 = 0; i1 < pr.K; ++i1) {
-        const int k1 = (i1 + rot) % pr.K;
-        if (!((live >> k1) & 1u)) continue;
-        const int o1 = l * pr.K + k1;
-        int p1 = pr.pidx[o1];
-        p1 = p1 < 0 ? 0 : (p1 > pr.P - 1 ? pr.P - 1 : p1);
-        const float* B1 = wk.B + static_cast<size_t>(o1) * 18;
-        double BH[18];
-#pragma unroll
-        for (int r = 0; r < 6; ++r)
-#pragma unroll
-          for (int m = 0; m < 3; ++m)
-            BH[3 * r + m] = B1[3 * r] * Hi[m] + B1[3 * r + 1] * Hi[3 + m] + B1[3 * r + 2] * Hi[6 + m];
-#pragma unroll
-        for (int r = 0; r < 6; ++r)
-          atomicAdd(g + 6 * p1 + r, -(BH[3 * r] * gl[0] + BH[3 * r + 1] * gl[1] + BH[3 * r + 2] * gl[2]));
-        for (int i2 = 0; i2 < pr.K; ++i2) {
-          const int k2 = (i2 + rot) % pr.K;
-          if (!((live >> k2) & 1u)) continue;
-          const int o2 = l * pr.K + k2;
-          int p2 = pr.pidx[o2];
-          p2 = p2 < 0 ? 0 : (p2 > pr.P - 1 ? pr.P - 1 : p2);
-          if (p1 > p2) continue;   // S is symmetric: its lower blocks are read transposed
-          const float* B2 = wk.B + static_cast<size_t>(o2) * 18;
-          double b2[18];
-#pragma unroll
-          for (int q = 0; q < 18; ++q) b2[q] = B2[q];
-#pragma unroll
-          for (int r = 0; r < 6; ++r)
-#pragma unroll
-            for (int c2 = 0; c2 < 6; ++c2)
-              atomicAdd(S + (6 * p1 + r) * D + 6 * p2 + c2,
-                        -(BH[3 * r] * b2[3 * c2] + BH[3 * r + 1] * b2[3 * c2 + 1] +
-                          BH[3 * r + 2] * b2[3 * c2 + 2]));
+        for (int c = 0; c < 6; ++c) {
+          const float v = Jp[0][j] * ob.J[0][c] + Jp[1][j] * ob.J[1][c] + Jp[2][j] * ob.J[2][c];
+          H[6 * j + c] = live ? v : 0.f;
         }
-      }
+      float4* Ho = reinterpret_cast<float4*>(wk.Hd + static_cast<size_t>(o) * 36);
+#pragma unroll
+      for (int q = 0; q < 9; ++q) Ho[q] = make_float4(H[4 * q], H[4 * q + 1], H[4 * q + 2], H[4 * q + 3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float w0 = ob.Jl[0][j] * ob.w, w1 = ob.Jl[1][j] * ob.w, w2 = ob.Jl[2][j] * ob.w;
+#pragma unroll
+      for (int m = 0; m < 3; ++m) Hll[3 * j + m] = w0 * ob.Jl[0][m] + w1 * ob.Jl[1][m] + w2 * ob.Jl[2][m];
+      gl[j] = w0 * ob.r[0] + w1 * ob.r[1] + w2 * ob.r[2];
     }
   }
-  if (shared_acc) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < D * D + D; e += blockDim.x) {
-      const double v = S[e];
-      if (v != 0.0 || v != v) {
-        if (e < D * D) atomicAdd(wk.S + e, v); else atomicAdd(wk.g + e - D * D, v);
-      }
-    }
+  // the landmark's sums over its G lanes, the same tree in every lane
+#pragma unroll
+  for (int e = 0; e < 12; ++e) {
+    double v = e < 9 ? Hll[e] : gl[e - 9];
+    for (int d = pr.G >> 1; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+    if (e < 9) Hll[e] = v; else gl[e - 9] = v;
   }
+  if (!on) return;
+  // damped block, inverted in closed form (lm.inv3x3), masked by valid_lm
+  double A[9];
+#pragma unroll
+  for (int e = 0; e < 9; ++e) A[e] = Hll[e];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) A[4 * j] = Hll[4 * j] + (lam * Hll[4 * j] + 1e-6);
+  const double a = A[0], b = A[1], c = A[2], d = A[3], e = A[4], f = A[5];
+  const double g_ = A[6], h = A[7], i = A[8];
+  const double A00 = e * i - f * h, A01 = c * h - b * i, A02 = b * f - c * e;
+  const double A10 = f * g_ - d * i, A11 = a * i - c * g_, A12 = c * d - a * f;
+  const double A20 = d * h - e * g_, A21 = b * g_ - a * h, A22 = a * e - b * d;
+  const double det = a * A00 + b * A10 + c * A20;
+  const double inv_det = 1.0 / (fabs(det) > 1e-20 ? det : 1.0);
+  const bool vl = pr.vlm[l] != 0;
+  const double lmw = vl ? 1.0 : 0.0;
+  const double Hi[9] = {A00 * inv_det * lmw, A01 * inv_det * lmw, A02 * inv_det * lmw,
+                        A10 * inv_det * lmw, A11 * inv_det * lmw, A12 * inv_det * lmw,
+                        A20 * inv_det * lmw, A21 * inv_det * lmw, A22 * inv_det * lmw};
+  if (k == 0) {
+#pragma unroll
+    for (int q = 0; q < 9; ++q) wk.Hinv[9 * l + q] = Hi[q];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) wk.gl[3 * l + q] = gl[q];
+  }
+  if (!listed) return;
+  // W = B Hll^-1 and gp - W gl
+  const bool schur = live && vl;
+  double W[18];
+#pragma unroll
+  for (int r = 0; r < 6; ++r)
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const double v = B[3 * r] * Hi[m] + B[3 * r + 1] * Hi[3 + m] + B[3 * r + 2] * Hi[6 + m];
+      W[3 * r + m] = schur ? v : 0.0;
+    }
+  double2* Wo = reinterpret_cast<double2*>(wk.W + static_cast<size_t>(o) * 18);
+#pragma unroll
+  for (int q = 0; q < 9; ++q) Wo[q] = make_double2(W[2 * q], W[2 * q + 1]);
+  double gd[6];
+#pragma unroll
+  for (int r = 0; r < 6; ++r) {
+    const double v = gp[r] - (W[3 * r] * gl[0] + W[3 * r + 1] * gl[1] + W[3 * r + 2] * gl[2]);
+    gd[r] = live ? v : 0.0;
+  }
+  double2* go = reinterpret_cast<double2*>(wk.gd + static_cast<size_t>(o) * 6);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) go[q] = make_double2(gd[2 * q], gd[2 * q + 1]);
 }
 
-// (solve) one block: the damped reduced system, Jacobi-scaled, by Gaussian
-// elimination with partial pivoting; the candidate's poses and model cost
-__global__ void __launch_bounds__(kSolveThreads) solve_kernel(const Problem pr, Work wk,
-                                                              int slot) {
-  extern __shared__ double smd[];
-  __shared__ double red[kSolveThreads / 32];
-  __shared__ int piv;
-  const float* st = wk.state[slot];
-  const int D = pr.D, Wd = D + 1, tid = threadIdx.x;
-  double* M = D <= kSharedD ? smd : wk.A;              // [D, D + 1], the right-hand side last
-  double* dsc = (D <= kSharedD ? smd + D * Wd : smd);  // [D] the Jacobi scale
-  double* x = dsc + D;                                 // [D]
-  double* xi = x + D;                                  // [D] the accepted tangent
-  const float lam = st[lam_at(pr)];
-  const float* xi_cur = st + 16 * pr.P;
-  for (int e = tid; e < D; e += blockDim.x) xi[e] = xi_cur[e];
-  __syncthreads();
-  for (int e = tid; e < D * D; e += blockDim.x) {
-    const int r = e / D, c = e % D;
-    const double fr = pr.fixed[r / 6] ? 0.0 : 1.0, fc = pr.fixed[c / 6] ? 0.0 : 1.0;
-    // the Schur sums fill the blocks on and above the diagonal
-    double a = (r / 6 > c / 6 ? wk.S[c * D + r] : wk.S[e]) * fr * fc;
+// (reduce) a warp a chunk of the pair table. A block of S (p1 <= p2) is cut
+// into at most tb.max_chunks chunks of at least tb.chunk pairs. Lane l takes
+// the chunk's pairs l, l + 32, ... in order: it reads the pair's W (9
+// double2) and B (9 float2), the next pair's already in flight, and adds
+// the pair's term into its 42 float64 sums (the block of S row by row, then
+// g): minus W_k1 B_k2^T where the second observation's weight is not 0, plus
+// Hpp and gp - W gl on a diagonal pair (k1 = k2). The lanes' sums are then
+// added by a fixed shuffle tree. The last warp to finish a block of S (a
+// counter a block) adds the block's chunk rows in chunk order into its first
+// chunk's row: the solve reads one row a block.
+struct PairData {
+  double W[18];
+  float B[18];
+  int o1;
+  bool live2, diag, here;
+};
+
+__device__ __forceinline__ void load_pair(const Table& tb, const Work& wk, int e, bool here,
+                                          PairData& d) {
+  d.here = here;
+  if (!here) return;
+  const int ord = static_cast<int>(__ldg(tb.order + e));   // L K K < 2^31
+  const int lk1 = ord / tb.K;                              // l K + k1
+  const int o1 = lk1, o2 = lk1 - lk1 % tb.K + ord % tb.K;
+  const double2* W1 = reinterpret_cast<const double2*>(wk.W + static_cast<size_t>(o1) * 18);
+  const float2* B2 = reinterpret_cast<const float2*>(wk.B + static_cast<size_t>(o2) * 18);
+#pragma unroll
+  for (int q = 0; q < 9; ++q) {
+    const double2 w = __ldg(W1 + q);
+    const float2 b = __ldg(B2 + q);
+    d.W[2 * q] = w.x;
+    d.W[2 * q + 1] = w.y;
+    d.B[2 * q] = b.x;
+    d.B[2 * q + 1] = b.y;
+  }
+  d.o1 = o1;
+  d.live2 = __ldg(wk.live + o2) != 0;
+  d.diag = o1 == o2;
+}
+
+__global__ void __launch_bounds__(kReduceWarps * 32) reduce_kernel(const Table tb, Work wk) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kReduceWarps + (threadIdx.x >> 5);
+  if (w >= tb.cstart[tb.nb]) return;   // the whole warp
+  int lo = 0, hi = tb.nb - 1;          // the last block whose first chunk is <= w
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (tb.cstart[mid] <= w) lo = mid; else hi = mid - 1;
+  }
+  const int b0 = static_cast<int>(tb.start[lo]), cnt = static_cast<int>(tb.start[lo + 1]) - b0;
+  const int len = max(tb.chunk, (cnt + tb.max_chunks - 1) / tb.max_chunks);
+  const int e0 = b0 + (w - static_cast<int>(tb.cstart[lo])) * len;
+  const int e1 = min(e0 + len, b0 + cnt);
+  double acc[kPart];
+#pragma unroll
+  for (int q = 0; q < kPart; ++q) acc[q] = 0.0;
+  PairData cur, nxt;
+  load_pair(tb, wk, e0 + lane, e0 + lane < e1, cur);
+  for (int e = e0 + lane; e - lane < e1; e += 32) {
+    load_pair(tb, wk, e + 32, e + 32 < e1, nxt);
+    if (cur.here) {
+#pragma unroll
+      for (int r = 0; r < 6; ++r)
+#pragma unroll
+        for (int c = 0; c < 6; ++c) {
+          const double v = cur.W[3 * r] * cur.B[3 * c] + cur.W[3 * r + 1] * cur.B[3 * c + 1] +
+                           cur.W[3 * r + 2] * cur.B[3 * c + 2];
+          acc[6 * r + c] -= cur.live2 ? v : 0.0;
+        }
+      if (cur.diag) {
+        const float4* H1 = reinterpret_cast<const float4*>(wk.Hd + static_cast<size_t>(cur.o1) * 36);
+        const double2* G1 = reinterpret_cast<const double2*>(wk.gd + static_cast<size_t>(cur.o1) * 6);
+#pragma unroll
+        for (int q = 0; q < 9; ++q) {
+          const float4 h = __ldg(H1 + q);
+          acc[4 * q] += static_cast<double>(h.x);
+          acc[4 * q + 1] += static_cast<double>(h.y);
+          acc[4 * q + 2] += static_cast<double>(h.z);
+          acc[4 * q + 3] += static_cast<double>(h.w);
+        }
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const double2 gv = __ldg(G1 + q);
+          acc[36 + 2 * q] += gv.x;
+          acc[36 + 2 * q + 1] += gv.y;
+        }
+      }
+    }
+    cur = nxt;
+  }
+  // the lanes' sums by a fixed shuffle tree; lane q keeps sum q (and q + 32)
+  double* out = wk.part + static_cast<size_t>(w) * kPart;
+#pragma unroll
+  for (int q = 0; q < kPart; ++q) {
+    double v = acc[q];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(full, v, o);
+    if (lane == (q & 31)) out[q] = v;
+  }
+  // the block's last chunk to finish adds them all, in chunk order
+  __threadfence();
+  int last = 0;
+  if (lane == 0) last = atomicAdd(wk.done + lo, 1) == tb.cstart[lo + 1] - tb.cstart[lo] - 1;
+  if (!__shfl_sync(full, last, 0)) return;
+  __threadfence();
+  const int ch0 = static_cast<int>(tb.cstart[lo]), nch = static_cast<int>(tb.cstart[lo + 1]) - ch0;
+  const double* rows = wk.part + static_cast<size_t>(ch0) * kPart;
+  const int q1 = lane + 32;
+  double t0 = 0.0, t1 = 0.0;
+#pragma unroll 8
+  for (int ch = 0; ch < nch; ++ch) {
+    t0 += __ldcg(rows + static_cast<size_t>(ch) * kPart + lane);
+    t1 += __ldcg(rows + static_cast<size_t>(ch) * kPart + (q1 < kPart ? q1 : lane));
+  }
+  double* first = wk.part + static_cast<size_t>(ch0) * kPart;
+  first[lane] = t0;
+  if (q1 < kPart) first[q1] = t1;
+  if (lane == 0) wk.done[lo] = 0;
+}
+
+// the solve's view of the assembled system: free row r (6 a free pose) of
+// the reduced system, its chunk sums added in chunk order
+struct Assembly {
+  const double* part;
+  const long long* cstart;
+  const int* fpose;   // [free poses] the pose of each free index
+  const double* xi;   // [D] the accepted tangent
+  const float* He;
+  const float* ge;
+  int P, D;
+  double lam;
+
+  __device__ __forceinline__ int full(int r) const { return 6 * fpose[r / 6] + r % 6; }
+  __device__ double S(int r, int c) const {
+    int pa = fpose[r / 6], pb = fpose[c / 6], i = r % 6, j = c % 6;
+    if (pa > pb) {   // the lower blocks are the upper ones transposed
+      const int t = pa; pa = pb; pb = t;
+      const int u = i; i = j; j = u;
+    }
+    const int b = block_of(pa, pb, P);
+    return cstart[b] < cstart[b + 1] ? part[static_cast<size_t>(cstart[b]) * kPart + 6 * i + j] : 0.0;
+  }
+  // the damped system's entry (r, c), as the plain version forms it
+  __device__ double M(int r, int c) const {
+    double a = S(r, c);
     if (r == c) {
-      a = a + (1.0 - fr);
       a = a + lam * a;
       a = a + 1e-8;
     }
-    if (pr.He) a = a + static_cast<double>(pr.He[e]) * fr * fc;
-    M[r * Wd + c] = a;
+    if (He) a = a + static_cast<double>(He[full(r) * D + full(c)]);
+    return a;
   }
-  for (int r = tid; r < D; r += blockDim.x) {
-    const double fr = pr.fixed[r / 6] ? 0.0 : 1.0;
-    double b = wk.g[r] * fr;
-    if (pr.He) {
-      double ge = 0.0;
-      for (int c = 0; c < D; ++c) ge += static_cast<double>(pr.He[r * D + c]) * xi[c];
-      b = b + (pr.ge[r] + ge) * fr;
+  __device__ double rhs(int r) const {
+    const int p = fpose[r / 6], b = block_of(p, p, P);
+    double s = cstart[b] < cstart[b + 1] ? part[static_cast<size_t>(cstart[b]) * kPart + 36 + r % 6] : 0.0;
+    if (He) {
+      const int R = full(r);
+      double gx = 0.0;
+      for (int c = 0; c < D; ++c) gx += static_cast<double>(He[R * D + c]) * xi[c];
+      s = s + (ge[R] + gx);
     }
-    M[r * Wd + D] = b;
+    return s;
+  }
+};
+
+// (solve) a cluster of kCluster blocks: the free poses' damped reduced
+// system, Jacobi-scaled, reduced by Gauss-Jordan elimination with partial
+// pivoting; block 0 then takes the candidate's poses and model cost. Up to
+// kSharedD free rows block 0 holds the whole system and the other blocks
+// return; beyond, block q holds rows [q R, q R + R) of it. The rows stay
+// where they are: every block keeps the same permutation (position <-> row),
+// so the pivot of column c is the first largest |a| by position among the
+// rows not yet pivots, as with swapped rows. A column: warp 0 finds its
+// block's best candidate row; alone, the block updates its rows but that
+// one; in the cluster, the block writes it, with its |a|, position, row and
+// 1 / a, into its slot in every block (distributed shared memory), one
+// cluster barrier, then each block picks the winner from its own slots and
+// updates its rows but the pivot row.
+__global__ void __launch_bounds__(kSolveThreads) solve_kernel(const Problem pr, const Table tb,
+                                                              Work wk, int slot) {
+  extern __shared__ double smd[];
+  __shared__ double red[kSolveThreads / 32];
+  __shared__ int fpose[128], fidx[128];
+  __shared__ int s_nf, s_row, s_pos;
+  __shared__ double s_best;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const float* st = wk.state[slot];
+  const int D = pr.D, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* xi_cur = st + 16 * pr.P;
+  // shared memory: this block's rows, the candidates' slots [2][kCluster]
+  // (a row's entries, then |a|, position, row and 1 / a at D + 1 .. D + 4),
+  // the Jacobi scale, x and xi; then the row at each position and the
+  // position of each row
+  const int rows_max = (D + kCluster - 1) / kCluster, cw = D + 5;
+  const int m_elems = max(kSharedD * (kSharedD + 1), rows_max * (D + 1));
+  double* M = smd;
+  double* cand = M + m_elems;
+  double* dsc = cand + 2 * kCluster * cw;
+  double* x = dsc + D;
+  double* xi = x + D;
+  int* pos2row = reinterpret_cast<int*>(xi + D);
+  int* row2pos = pos2row + D;
+  for (int p = tid; p < pr.P; p += blockDim.x) fidx[p] = pr.fixed[p];
+  for (int e = tid; e < D; e += blockDim.x) xi[e] = xi_cur[e];
+  __syncthreads();
+  if (tid == 0) {   // the free poses, numbered by a prefix sum over `fixed`
+    int n = 0;
+    for (int p = 0; p < pr.P; ++p) {
+      const bool fixed = fidx[p] != 0;
+      fidx[p] = fixed ? -1 : n;
+      if (!fixed) fpose[n++] = p;
+    }
+    s_nf = n;
   }
   __syncthreads();
-  // the accumulators are read: zero them for the next build
-  for (int e = tid; e < D * D + D; e += blockDim.x) {
-    if (e < D * D) wk.S[e] = 0.0; else wk.g[e - D * D] = 0.0;
-  }
-  // Jacobi scaling (lm.precond_solve)
-  for (int r = tid; r < D; r += blockDim.x) {
-    const double a = fabs(M[r * Wd + r]);
-    dsc[r] = sqrt(a < 1e-12 ? 1e-12 : a);
+  const int Df = 6 * s_nf, Wd = Df + 1;
+  const bool multi = Df > kSharedD;
+  if (!multi && rank != 0) return;
+  const int R = multi ? (Df + kCluster - 1) / kCluster : Df;
+  const int r0 = multi ? rank * R : 0, nloc = max(min(r0 + R, Df) - r0, 0);
+  const Assembly as{wk.part, tb.cstart, fpose, xi, pr.He, pr.ge, pr.P, D,
+                    static_cast<double>(st[lam_at(pr)])};
+  for (int r = tid; r < Df; r += blockDim.x) {   // every block scales every column
+    const double a = fabs(as.M(r, r));
+    dsc[r] = sqrt(a < 1e-12 ? 1e-12 : a);   // Jacobi scaling (lm.precond_solve)
+    pos2row[r] = r;
+    row2pos[r] = r;
   }
   __syncthreads();
-  for (int e = tid; e < D * Wd; e += blockDim.x) {
-    const int r = e / Wd, c = e % Wd;
-    M[e] = c < D ? M[e] / (dsc[r] * dsc[c]) : M[e] / dsc[r];
+  for (int i = warp; i < nloc; i += kSolveThreads / 32) {   // local row i is row r0 + i
+    const int r = r0 + i;
+    for (int c = lane; c < Wd; c += 32)
+      M[i * Wd + c] = c < Df ? as.M(r, c) / (dsc[r] * dsc[c]) : as.rhs(r) / dsc[r];
   }
   __syncthreads();
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int c = 0; c < D; ++c) {
-    if (warp == 0) {   // the first largest |a| of column c at or below the diagonal
-      double best = -1.0;
-      int bi = c;
-      for (int r = c + lane; r < D; r += 32) {
-        const double v = fabs(M[r * Wd + c]);
-        if (v > best) {
-          best = v;
-          bi = r;
-        }
+  // this block's candidate for the pivot of column c, in every lane of the
+  // calling warp: the first largest |a| by position among the rows not yet
+  // pivots; a NaN never wins; the row at position c stands in, |a| -1,
+  // where no row has a number (the serial rule's start)
+  auto candidate = [&](int c, double& best, int& bpos, int& brow) {
+    const int rc = pos2row[c];
+    const bool owns_c = rc >= r0 && rc < r0 + nloc;
+    best = -1.0;
+    bpos = owns_c ? c : INT_MAX;
+    brow = owns_c ? rc : -1;
+    for (int i = lane; i < nloc; i += 32) {
+      const int pos = row2pos[r0 + i];
+      const double v = fabs(M[i * Wd + c]);
+      if (pos >= c && (v > best || (v == best && pos < bpos))) {
+        best = v;
+        bpos = pos;
+        brow = r0 + i;
       }
+    }
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const double ob = __shfl_xor_sync(0xffffffffu, best, o);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-        if (ob > best || (ob == best && oi < bi)) {
-          best = ob;
-          bi = oi;
-        }
+    for (int o = 16; o > 0; o >>= 1) {
+      const double ob = __shfl_xor_sync(0xffffffffu, best, o);
+      const int op = __shfl_xor_sync(0xffffffffu, bpos, o);
+      const int orw = __shfl_xor_sync(0xffffffffu, brow, o);
+      if (ob > best || (ob == best && op < bpos)) {
+        best = ob;
+        bpos = op;
+        brow = orw;
       }
-      if (lane == 0) piv = bi;
     }
-    __syncthreads();
-    const int p = piv;
-    if (p != c) {
-      for (int k = c + tid; k < Wd; k += blockDim.x) {
-        const double t = M[c * Wd + k];
-        M[c * Wd + k] = M[p * Wd + k];
-        M[p * Wd + k] = t;
+  };
+  // positions c and wpos swap their rows (p the pivot row)
+  auto swap_positions = [&](int c, int wpos, int p) {
+    const int rc = pos2row[c];
+    pos2row[c] = p;
+    pos2row[wpos] = rc;
+    row2pos[p] = c;
+    row2pos[rc] = wpos;
+  };
+  if (!multi) {
+    // block 0 holds every row: the pivot row read where it is (its step
+    // leaves it as it is)
+    for (int c = 0; c < Df; ++c) {
+      if (warp == 0) {
+        double best;
+        int bpos, brow;
+        candidate(c, best, bpos, brow);
+        if (lane == 0) {
+          s_pos = bpos;
+          s_row = brow;
+        }
       }
       __syncthreads();
+      const int p = s_row, wpos = s_pos;
+      const double* prow = M + p * Wd;
+      const double inv = __drcp_rn(prow[c]);   // 1 / a, correctly rounded
+      for (int i = warp; i < nloc; i += kSolveThreads / 32) {   // a warp a row
+        if (i == p) continue;
+        const double l = M[i * Wd + c] * inv;
+        for (int k = c + 1 + lane; k < Wd; k += 32) M[i * Wd + k] -= l * prow[k];
+      }
+      if (tid == 0) swap_positions(c, wpos, p);
+      __syncthreads();
     }
-    const double inv = 1.0 / M[c * Wd + c];
-    const int rows = D - c - 1, cols = Wd - c - 1;
-    for (int e = tid; e < rows * cols; e += blockDim.x) {
-      const int r = c + 1 + e / cols, k = c + 1 + e % cols;
-      const double l = M[r * Wd + c] * inv;
-      M[r * Wd + k] -= l * M[c * Wd + k];
+  } else {
+    cluster.sync();   // every block runs before any writes into another
+    for (int c = 0; c < Df; ++c) {
+      const int par = c & 1;
+      if (warp == 0) {
+        double best;
+        int bpos, brow;
+        candidate(c, best, bpos, brow);
+        if (lane == 0) {
+          s_best = best;
+          s_pos = bpos;
+          s_row = brow;
+        }
+      }
+      __syncthreads();
+      // the candidate into slot [par][rank] of every block, then one barrier
+      const int brow = s_row;
+      for (int q = 0; q < kCluster; ++q) {
+        double* dst = cluster.map_shared_rank(cand, q) + (par * kCluster + rank) * cw;
+        if (brow >= 0)
+          for (int k = c + tid; k < Wd; k += blockDim.x) dst[k] = M[(brow - r0) * Wd + k];
+      }
+      if (tid < kCluster) {   // the scalars, a thread a block
+        double* dst = cluster.map_shared_rank(cand, tid) + (par * kCluster + rank) * cw;
+        dst[D + 1] = s_best;
+        dst[D + 2] = s_pos;
+        dst[D + 3] = brow;
+        dst[D + 4] = brow >= 0 ? __drcp_rn(M[(brow - r0) * Wd + c]) : 0.0;
+      }
+      cluster.sync();
+      // the winner over the blocks, in every warp, from this block's slots:
+      // lane q < kCluster reads slot q; (largest, first) is associative
+      double wbest = -1.0;
+      int wq = lane, wpos = INT_MAX;
+      if (lane < kCluster) {
+        const double* sq = cand + (par * kCluster + lane) * cw;
+        wbest = sq[D + 1];
+        wpos = static_cast<int>(sq[D + 2]);
+      }
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) {
+        const double ob = __shfl_xor_sync(0xffffffffu, wbest, o);
+        const int op = __shfl_xor_sync(0xffffffffu, wpos, o), oq = __shfl_xor_sync(0xffffffffu, wq, o);
+        if (ob > wbest || (ob == wbest && op < wpos)) {
+          wbest = ob;
+          wpos = op;
+          wq = oq;
+        }
+      }
+      wpos = __shfl_sync(0xffffffffu, wpos, 0);   // lanes 0..7's answer
+      wq = __shfl_sync(0xffffffffu, wq, 0);
+      const double* prow = cand + (par * kCluster + wq) * cw;   // entries c .. Df
+      const int p = static_cast<int>(prow[D + 3]);
+      const double inv = prow[D + 4];
+      for (int i = warp; i < nloc; i += kSolveThreads / 32) {   // a warp a row
+        if (r0 + i == p) continue;
+        const double l = M[i * Wd + c] * inv;
+        for (int k = c + 1 + lane; k < Wd; k += 32) M[i * Wd + k] -= l * prow[k];
+      }
+      if (tid == 0) swap_positions(c, wpos, p);
+      __syncthreads();
     }
+  }
+  double* x0 = multi ? cluster.map_shared_rank(x, 0) : x;
+  for (int i = tid; i < nloc; i += blockDim.x) {
+    const int c = row2pos[r0 + i];
+    x0[c] = M[i * Wd + Df] / M[i * Wd + c];
+  }
+  if (multi) {
+    cluster.sync();   // x is whole in block 0
+    if (rank != 0) return;
+  } else {
     __syncthreads();
   }
-  if (warp == 0) {   // back substitution
-    for (int r = D - 1; r >= 0; --r) {
-      double acc = 0.0;
-      for (int k = r + 1 + lane; k < D; k += 32) acc += M[r * Wd + k] * x[k];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (lane == 0) x[r] = (M[r * Wd + D] - acc) / M[r * Wd + r];
-      __syncwarp();
-    }
-  }
-  __syncthreads();
   for (int r = tid; r < D; r += blockDim.x) {
-    const float fr = pr.fixed[r / 6] ? 0.f : 1.f;
-    const float dp = static_cast<float>(-(x[r] / dsc[r])) * fr;
+    const int f = fidx[r / 6];
+    const float dp = f < 0 ? 0.f : static_cast<float>(-(x[6 * f + r % 6] / dsc[6 * f + r % 6]));
     wk.dp[r] = dp;
     wk.xic[r] = xi_cur[r] + dp;
   }
@@ -489,8 +785,7 @@ __global__ void __launch_bounds__(kLmThreads) eval_kernel(const Problem pr, Work
     double bt[3] = {0.0, 0.0, 0.0};
     for (int k = 0; k < pr.K; ++k) {
       const int o = l * pr.K + k;
-      int p = pr.pidx[o];
-      p = p < 0 ? 0 : (p > pr.P - 1 ? pr.P - 1 : p);
+      const int p = clamp_pose(pr.pidx[o], pr.P);
       const float* Bo = wk.B + static_cast<size_t>(o) * 18;
 #pragma unroll
       for (int m = 0; m < 3; ++m) {
@@ -573,76 +868,149 @@ __global__ void __launch_bounds__(kLmThreads) commit_kernel(const Problem pr, Wo
 
 int grid_of(int L) { return L < 1 ? 1 : (L + kLmThreads - 1) / kLmThreads; }
 
+size_t solve_smem(int P) {
+  const int D = 6 * P, rows_max = (D + kCluster - 1) / kCluster;
+  const int m_elems = rows_max * (D + 1) > kSharedD * (kSharedD + 1) ? rows_max * (D + 1)
+                                                                     : kSharedD * (kSharedD + 1);
+  return sizeof(double) * (static_cast<size_t>(m_elems) + 2 * kCluster * (D + 5) + 3 * D) +
+         sizeof(int) * 2 * D;
+}
+
+// the scratch's arrays, each at a 16-byte boundary (the build's vector stores)
+struct Layout {
+  size_t Hinv, gl, W, gd, partial, B, Hd, Xc, dp, Tc, xic, model, state0, state1, done, live,
+      total;
+};
+
+Layout layout(int L, int K, int P) {
+  const size_t D = 6 * static_cast<size_t>(P), LK = static_cast<size_t>(L) * K;
+  const size_t slot = 16 * static_cast<size_t>(P) + D + 4;
+  size_t off = 0;
+  auto take = [&off](size_t bytes) {
+    const size_t at = off;
+    off += (bytes + 15) / 16 * 16;
+    return at;
+  };
+  Layout y;
+  y.Hinv = take(8 * 9 * static_cast<size_t>(L));
+  y.gl = take(8 * 3 * static_cast<size_t>(L));
+  y.W = take(8 * 18 * LK);
+  y.gd = take(8 * 6 * LK);
+  y.partial = take(8 * static_cast<size_t>(grid_of(L)));
+  y.B = take(4 * 18 * LK);
+  y.Hd = take(4 * 36 * LK);
+  y.Xc = take(4 * 3 * static_cast<size_t>(L));
+  y.dp = take(4 * D);
+  y.Tc = take(4 * 16 * static_cast<size_t>(P));
+  y.xic = take(4 * D);
+  y.model = take(4);
+  y.state0 = take(4 * slot);
+  y.state1 = take(4 * slot);
+  y.done = take(4 * (static_cast<size_t>(P) * (P + 1) / 2));
+  y.live = take(LK);
+  y.total = off;
+  return y;
+}
+
 }  // namespace
 
-// bytes of scratch a call takes: the float64 arrays of Work, then its
-// float32 ones (see tc2li_local_ba_lm)
+// bytes of scratch a call takes (see tc2li_local_ba_lm)
 extern "C" long long tc2li_local_ba_scratch(int L, int K, int P) {
-  const long long D = 6LL * P;
-  const long long slot = 16LL * P + D + 4;
-  const long long n64 = D * D + D + 9LL * L + 3LL * L + grid_of(L) + (D > kSharedD ? D * (D + 1) : 0);
-  const long long n32 = 18LL * L * K + 3LL * L + D + 16LL * P + D + 1 + 2 * slot;
-  return 8 * n64 + 4 * n32;
+  return static_cast<long long>(layout(L, K, P).total);
 }
 
 // T0 [P, 4, 4], X0 [L, 3], uv [L, K, 3], is2 [L, K] float32; pidx [L, K]
 // int32; stereo, valid [L, K], fixed [P], valid_lm [L] uint8 (0 or 1);
-// He [6P, 6P], ge [6P], ce [1] float32 or all three null; scratch of
-// tc2li_local_ba_scratch(L, K, P) bytes, 8-byte aligned; outputs T_out [P, 4, 4], X_out
-// [L, 3], scal [3] (cost, visual cost, entry cost) float32. All contiguous
-// on the device. Launches 2 + 4 iters kernels on `stream`; returns the first
-// cudaGetLastError() that is not cudaSuccess.
+// He [6P, 6P], ge [6P], ce [1] float32 or all three null; the pair table
+// (ops/kernels/local_ba.py: pair_table) order [E], start, cstart
+// [P (P + 1) / 2 + 1] int64, a block cut into at most `max_chunks` chunks of
+// at least `chunk` pairs, and part [n_chunks, 42] float64 with n_chunks at
+// least cstart's last entry; scratch of
+// tc2li_local_ba_scratch(L, K, P) bytes, 16-byte aligned; outputs T_out [P, 4,
+// 4], X_out [L, 3], scal [3] (cost, visual cost, entry cost) float32. All
+// contiguous on the device. Launches 2 + 5 iters kernels on `stream`;
+// returns the first CUDA error code that is not cudaSuccess (a refused
+// launch included: P above 67 exceeds the solve's shared memory).
 extern "C" int tc2li_local_ba_lm(const float* T0, const float* X0, const int* pidx,
                                  const float* uv, const float* is2, const uint8_t* stereo,
                                  const uint8_t* valid, const uint8_t* fixed,
                                  const uint8_t* valid_lm, const float* He, const float* ge,
-                                 const float* ce, int L, int K, int P, float fx, float fy,
-                                 float cx, float cy, float bf, int iters, void* scratch,
-                                 float* T_out, float* X_out, float* scal, void* stream) {
-  if (K < 1 || K > 32 || P < 1 || L < 0 || iters < 0) return static_cast<int>(cudaErrorInvalidValue);
+                                 const float* ce, const long long* pair_order,
+                                 const long long* pair_start, const long long* chunk_start,
+                                 double* part,
+                                 int L, int K, int P, int n_chunks, int chunk, int max_chunks,
+                                 float fx,
+                                 float fy, float cx, float cy, float bf, int iters,
+                                 void* scratch, float* T_out, float* X_out, float* scal,
+                                 void* stream) {
+  if (K < 1 || K > 32 || P < 1 || P > 128 || L < 0 || iters < 0 || chunk < 1 ||
+      max_chunks < 1 || n_chunks < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int G = 1;
+  while (G < K) G <<= 1;
   Problem pr{T0, X0, pidx, uv, is2, stereo, valid, fixed, valid_lm, He, ge, ce, L, K, P, 6 * P,
-             Cam{fx, fy, cx, cy, bf}};
+             G, Cam{fx, fy, cx, cy, bf}};
+  const Table tb{pair_order, pair_start, chunk_start, P * (P + 1) / 2, chunk, max_chunks, K};
   const int D = 6 * P;
+  const Layout y = layout(L, K, P);
+  char* base = static_cast<char*>(scratch);
   Work wk;
-  double* q8 = static_cast<double*>(scratch);
-  wk.S = q8; q8 += static_cast<size_t>(D) * D;
-  wk.g = q8; q8 += D;
-  wk.Hinv = q8; q8 += 9LL * L;
-  wk.gl = q8; q8 += 3LL * L;
-  wk.partial = q8; q8 += grid_of(L);
-  wk.A = nullptr;
-  if (D > kSharedD) {
-    wk.A = q8;
-    q8 += static_cast<size_t>(D) * (D + 1);
-  }
-  float* q = reinterpret_cast<float*>(q8);
-  wk.B = q; q += 18LL * L * K;
-  wk.Xc = q; q += 3LL * L;
-  wk.dp = q; q += D;
-  wk.Tc = q; q += 16 * P;
-  wk.xic = q; q += D;
-  wk.model = q; q += 1;
-  wk.state[0] = q; q += 16 * P + D + 4;
-  wk.state[1] = q;
+  wk.part = part;
+  wk.Hinv = reinterpret_cast<double*>(base + y.Hinv);
+  wk.gl = reinterpret_cast<double*>(base + y.gl);
+  wk.W = reinterpret_cast<double*>(base + y.W);
+  wk.gd = reinterpret_cast<double*>(base + y.gd);
+  wk.partial = reinterpret_cast<double*>(base + y.partial);
+  wk.B = reinterpret_cast<float*>(base + y.B);
+  wk.Hd = reinterpret_cast<float*>(base + y.Hd);
+  wk.Xc = reinterpret_cast<float*>(base + y.Xc);
+  wk.dp = reinterpret_cast<float*>(base + y.dp);
+  wk.Tc = reinterpret_cast<float*>(base + y.Tc);
+  wk.xic = reinterpret_cast<float*>(base + y.xic);
+  wk.model = reinterpret_cast<float*>(base + y.model);
+  wk.state[0] = reinterpret_cast<float*>(base + y.state0);
+  wk.state[1] = reinterpret_cast<float*>(base + y.state1);
+  wk.done = reinterpret_cast<int*>(base + y.done);
+  wk.live = reinterpret_cast<uint8_t*>(base + y.live);
   wk.X = X_out;
   wk.T_out = T_out;
   wk.scal = scal;
   const int grid = grid_of(L);
+  const int build_grid = grid_of(L * G);
+  const int reduce_grid = n_chunks < 1 ? 1 : (n_chunks + kReduceWarps - 1) / kReduceWarps;
   const size_t sm_T = sizeof(float) * 16 * P;
-  const size_t sm_build = sm_T + (D <= kSharedD ? sizeof(double) * (D * D + D) : 0);
-  const size_t sm_solve = sizeof(double) * ((D <= kSharedD ? D * (D + 1) : 0) + 3 * D);
   const size_t sm_eval = sm_T + sizeof(float) * D;
+  const size_t sm_solve = solve_smem(P);
   int rc;
+  if ((rc = static_cast<int>(cudaFuncSetAttribute(
+           solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           static_cast<int>(sm_solve)))) != 0)
+    return rc;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kSolveThreads);
+  cfg.dynamicSmemBytes = sm_solve;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   init_kernel<<<grid, kLmThreads, sm_T, s>>>(pr, wk);
   if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
   commit_kernel<<<grid, kLmThreads, 0, s>>>(pr, wk, 1, 1);
   if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
   int slot = 0;
   for (int it = 0; it < iters; ++it) {
-    build_kernel<<<grid, kLmThreads, sm_build, s>>>(pr, wk, slot);
+    build_kernel<<<build_grid, kLmThreads, sm_T, s>>>(pr, wk, slot);
     if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
-    solve_kernel<<<1, kSolveThreads, sm_solve, s>>>(pr, wk, slot);
+    reduce_kernel<<<reduce_grid, kReduceWarps * 32, 0, s>>>(tb, wk);
+    if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
+    if ((rc = static_cast<int>(cudaLaunchKernelEx(&cfg, solve_kernel, pr, tb, wk, slot))) != 0)
+      return rc;
     if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
     eval_kernel<<<grid, kLmThreads, sm_eval, s>>>(pr, wk);
     if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;

@@ -117,7 +117,7 @@ def library() -> ctypes.CDLL:
         lib.tc2li_balm_quadratic.restype = i
         lib.tc2li_local_ba_scratch.argtypes = [i, i, i]
         lib.tc2li_local_ba_scratch.restype = ctypes.c_longlong
-        lib.tc2li_local_ba_lm.argtypes = [vp] * 12 + [i, i, i] + [f] * 5 + [i] + [vp] * 5
+        lib.tc2li_local_ba_lm.argtypes = [vp] * 16 + [i] * 6 + [f] * 5 + [i] + [vp] * 5
         lib.tc2li_local_ba_lm.restype = i
         lib.tc2li_error_string.argtypes = [i]
         lib.tc2li_error_string.restype = ctypes.c_char_p

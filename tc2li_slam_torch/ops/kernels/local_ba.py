@@ -8,17 +8,24 @@ eigen-factor) linearised at the entry poses. Written as eager PyTorch
 (``local_ba_plain``) an iteration issues ~60 small ops and a dense solve.
 
 Bound on the H100: latency. At L = 8192, K = 8, P = 6 an iteration reads
-~1.4 MB of observations and does ~60 M float operations (a few
-microseconds of either); its steps are serial. ``csrc/local_ba.cu`` runs a
-call as 2 + 4 ``iters`` launches on the current stream (an iteration: the
-landmark pass that builds the reduced camera system, a one-block solve by
-Gaussian elimination, the landmark pass that back-substitutes and costs the
-candidate, the accept/reject), with no host sync; its sums, 3x3 inverses and
-elimination run in float64 (the global BA's 64 poses are too ill-conditioned
-for float32 sums in another order than the plain version's). With ``extra_fn`` the
+~1.4 MB of observations and does ~60 M operations (a few microseconds of
+either); its steps are serial. ``csrc/local_ba.cu`` runs a call as
+2 + 5 ``iters`` launches on the current stream (an iteration: the landmark
+pass, the reduction of the reduced camera system over the pair table, the
+solve over the free poses on a cluster of 8 blocks, the landmark pass that
+back-substitutes and costs the candidate, the accept/reject), with no host
+sync and no atomics: the same bits on every call. The pair table
+(``pair_table``: for each upper 6x6 block of the reduced system, the
+observation pairs of one landmark on those two free poses, in landmark
+order) depends only on the observation table, ``valid_lm`` and
+``fixed_pose``; the wrapper builds it once a call with a few tensor ops on
+the device. Sums, 3x3 inverses and elimination run in float64 (the global
+BA's 64 poses are too ill-conditioned for float32 sums in another order
+than the plain version's). With ``extra_fn`` the
 wrapper evaluates it at the entry poses before the launches and at the exit
 poses after them, and reverts the update on the device where the true total
-cost rose, as the plain version does.
+cost rose, as the plain version does. Windows of more than 67 poses exceed
+the solve's shared memory: their launch is refused and raises.
 
 ``local_ba_lm`` launches the kernels (CUDA tensors only);
 ``solver.lm.local_ba`` sends CUDA tensors there and CPU tensors to
@@ -27,7 +34,7 @@ cost rose, as the plain version does.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -36,12 +43,70 @@ from ...solver import lm as lm_mod
 from . import build
 
 launches = 0   # kernel launches by local_ba_lm (plain-version calls excluded)
+CHUNK = 32        # pairs a chunk at least: the reduction's unit of work (a warp)
+MAX_CHUNKS = 32   # chunks a block of the reduced system at most
 
 
 def launches_per_call(iters: int) -> int:
     """Kernel launches of one ``local_ba_lm`` call: init and its commit, then
-    build, solve, eval and commit an iteration."""
-    return 2 + 4 * iters
+    build, reduce, solve, eval and commit an iteration."""
+    return 2 + 5 * iters
+
+
+class PairTable(NamedTuple):
+    """The observation pairs of the reduced camera system, by block.
+
+    Block ``b`` of the upper 6x6 blocks ``(p1, p2)``, ``p1 <= p2``, numbered
+    row by row (``p1 P - p1 (p1 - 1) / 2 + p2 - p1``), holds the pairs
+    ``order[start[b]:start[b + 1]]`` (``l K K + k1 K + k2``: observations
+    ``l K + k1`` and ``l K + k2``), in landmark order; its chunks,
+    ``cstart[b]:cstart[b + 1]`` of at most ``n_chunks``, are
+    ``max(CHUNK, ceil(n / MAX_CHUNKS))`` pairs long for its ``n`` pairs."""
+
+    order: torch.Tensor    # [L K K] int64; the tail past start[-1] unused
+    start: torch.Tensor    # [nb + 1] int64
+    cstart: torch.Tensor   # [nb + 1] int64
+    n_chunks: int          # a bound of cstart[-1] known from the shapes
+
+
+_block_keys_cache: dict = {}
+
+
+def _block_keys(P: int, dev) -> torch.Tensor:
+    """The blocks' sort keys ``p1 P + p2`` (``p1 <= p2``) row by row, then the
+    key of no block, ``P P``; made once a window size and device."""
+    key = (P, str(dev))
+    if key not in _block_keys_cache:
+        iu = torch.triu_indices(P, P, device=dev)
+        _block_keys_cache[key] = torch.cat(
+            [iu[0] * P + iu[1], torch.full((1,), P * P, device=dev)]).to(torch.int32)
+    return _block_keys_cache[key]
+
+
+def pair_table(pose_idx, valid, valid_lm, fixed_pose) -> PairTable:
+    """The pairs ``(l, k1, k2)`` whose term enters the reduced camera system:
+    both observations valid and on free poses (``pose_idx`` clamped as the
+    solver does), and either ``k1 == k2`` (the observation's own pose terms)
+    or a valid landmark with ``p1 <= p2`` (both orders where ``p1 == p2``).
+    Fixed-size tensor ops only: no host sync on a device. The flags may be
+    bool or uint8 (0 or 1)."""
+    L, K = pose_idx.shape
+    P = fixed_pose.shape[0]
+    dev = pose_idx.device
+    nb = P * (P + 1) // 2
+    flag = lambda x: x.view(torch.bool) if x.dtype == torch.uint8 else x
+    pc = pose_idx.to(torch.int32).clamp(0, P - 1)
+    use = flag(valid) & ~flag(fixed_pose)[pc]
+    p1, p2 = pc[:, :, None], pc[:, None, :]
+    keep = (use[:, :, None] & use[:, None, :]
+            & (torch.eye(K, dtype=torch.bool, device=dev)
+               | (flag(valid_lm)[:, None, None] & (p1 <= p2))))
+    skey, order = torch.sort(torch.where(keep, p1 * P + p2, P * P).reshape(-1), stable=True)
+    start = torch.searchsorted(skey, _block_keys(P, dev))
+    cnt = start[1:] - start[:-1]
+    length = torch.clamp((cnt + MAX_CHUNKS - 1) // MAX_CHUNKS, min=CHUNK)
+    cstart = torch.nn.functional.pad(torch.cumsum((cnt + length - 1) // length, 0), (1, 0))
+    return PairTable(order, start, cstart, min(MAX_CHUNKS * nb, -(-L * K * K // CHUNK) + nb))
 
 
 def local_ba_plain(cam: cam_mod.Pinhole, T_cw0, X_w0, obs, fixed_pose, valid_lm,
@@ -184,6 +249,8 @@ def local_ba_lm(cam: cam_mod.Pinhole, T_cw0, X_w0, obs, fixed_pose, valid_lm,
     T0, X0, uv, s2 = (x.contiguous() for x in (T_cw0, X_w0, obs.uv, obs.inv_sigma2))
     pidx = obs.pose_idx.to(torch.int32).contiguous()
     st, va, fx_, vl = (u8(x) for x in (obs.stereo, obs.valid, fixed_pose, valid_lm))
+    tb = pair_table(pidx, obs.valid, valid_lm, fixed_pose)
+    part = torch.empty((max(tb.n_chunks, 1), 42), dtype=torch.float64, device=dev)
     lib = build.library()
     scratch = torch.empty(int(lib.tc2li_local_ba_scratch(L, K, P)), dtype=torch.uint8,
                           device=dev)
@@ -195,7 +262,10 @@ def local_ba_lm(cam: cam_mod.Pinhole, T_cw0, X_w0, obs, fixed_pose, valid_lm,
     build.check(lib.tc2li_local_ba_lm(
         T0.data_ptr(), X0.data_ptr(), pidx.data_ptr(), uv.data_ptr(), s2.data_ptr(),
         st.data_ptr(), va.data_ptr(), fx_.data_ptr(), vl.data_ptr(), ptr(He), ptr(ge), ptr(ce),
-        L, K, P, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, int(iters), scratch.data_ptr(),
+        tb.order.data_ptr(), tb.start.data_ptr(), tb.cstart.data_ptr(),
+        part.data_ptr(), L, K, P, tb.n_chunks, CHUNK, MAX_CHUNKS, cam.fx, cam.fy, cam.cx, cam.cy,
+        cam.bf,
+        int(iters), scratch.data_ptr(),
         T_out.data_ptr(), X_out.data_ptr(), scal.data_ptr(), stream), "local_ba_lm")
     launches += launches_per_call(iters)
     T_cw, X_w, cost = T_out, X_out, scal[0]

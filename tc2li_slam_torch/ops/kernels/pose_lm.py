@@ -7,13 +7,17 @@ one call issues ~11,600 small ops, each a launch, on every tracked frame.
 
 Bound on the H100: latency. A 4 x 10 call over 2000 observations reads
 60 KB and does ~15 M float operations (well under a microsecond of either),
-but its 40 iterations are serial, each a block-wide reduction and a 6x6
-solve. The kernel (``csrc/pose_lm.cu``) runs the whole call in one block of
-1024 threads: one pass over the observations an iteration (the pass at the
-candidate pose yields its cost and, if accepted, the next H and g), one
-thread for the solve and ``se3_exp``, no host sync. Its sums run in another
-order than the plain version's, so poses agree to ~1e-5 and an inlier can
-flip only where its chi2 sits at the threshold.
+but its 45 passes are serial, each a block-wide reduction and a 6x6 solve.
+The kernel (``csrc/pose_lm.cu``) runs the whole call in one launch of a
+cluster of 8 blocks of 512 threads, an eighth of the rows each, staged
+once in its shared memory (up to 7,096 rows a block; more stream from
+device memory): one pass over them an iteration (the pass at the candidate
+pose yields its cost and, if accepted, the next H and g), each warp's 28
+sums reduced by a reduce-scatter, the blocks' sums exchanged through
+distributed shared memory (one cluster barrier a pass), and the solve and
+``se3_exp`` on one warp of every block, no host sync. Its sums run in another order than the plain
+version's, so poses agree to ~1e-5 and an inlier can flip only where its
+chi2 sits at the threshold.
 
 ``pose_only_lm`` launches the kernel (CUDA tensors only);
 ``solver.lm.pose_only_optimize`` sends CUDA tensors there and CPU tensors to

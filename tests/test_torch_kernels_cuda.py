@@ -364,6 +364,29 @@ def test_pose_only_lm_matches_plain(cuda, case, N):
         assert bool(torch.isnan(got.cost))
 
 
+@pytest.mark.parametrize("N", [0, 3, 56768, 56769, 70000])
+def test_pose_only_lm_staged_and_streamed_rows(cuda, N):
+    """No row; fewer rows than blocks; the rows the kernel's eight blocks
+    stage in shared memory (7,096 each) exactly; one more, and many more,
+    that stream from device memory."""
+    cam_args, args, kw = chip_smoke.pose_problem(np.random.default_rng(8), max(N, 1), "tracking")
+    cam = cam_mod.Pinhole.create(*cam_args)
+    ts = [torch.as_tensor(a).to(cuda) for a in args]
+    ts = ts[:1] + [a[:N] for a in ts[1:]]
+    got = pose_lm.pose_only_lm(cam, *ts, **kw)
+    ref = pose_lm.pose_only_plain(cam, *ts, **kw)
+    again = pose_lm.pose_only_lm(cam, *ts, **kw)
+    torch.cuda.synchronize()
+    assert _same_bits(got, again)
+    a = chip_smoke.pose_agreement(cam, ts, got, ref)
+    assert a["pose"] <= 1e-4 and a["cost"] <= 1e-3 and a["flips"] == a["near"], a
+    assert int(got.n_inliers) == int(got.inliers.sum())
+    if N == 0:
+        assert torch.equal(got.T_cw, ts[0]) and float(got.cost) == 0.0
+    elif N > 100:
+        assert int(got.n_inliers) > 0.4 * N
+
+
 def test_pose_only_lm_refuses_what_it_does_not_take(cuda):
     cam_args, args, kw = chip_smoke.pose_problem(np.random.default_rng(7), 64, "tracking")
     cam = cam_mod.Pinhole.create(*cam_args)
@@ -443,8 +466,9 @@ def test_balm_quadratic_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.parametrize("case", chip_smoke.BA_CASES)
 def test_local_ba_lm_matches_plain(cuda, case):
-    """tests/test_torch_local_ba.py's cases: 2 + 4 iters launches (and two of
-    the BALM kernel with its term), the plain version's result."""
+    """tests/test_torch_local_ba.py's cases: ``launches_per_call(iters)``
+    launches (and two of the BALM kernel with its term), the plain version's
+    result."""
     p = chip_smoke.ba_problem(np.random.default_rng(3), case)
     args, kw = chip_smoke.ba_torch(torch, p, cuda)
     before = (klba.launches, kbalm.launches)
@@ -463,23 +487,101 @@ def test_local_ba_lm_matches_plain(cuda, case):
         assert torch.equal(got.T_cw, args[1]) and bool(torch.isnan(got.cost))
 
 
-@pytest.mark.parametrize("P,K", [(6, 8), (8, 8), (64, 8)])
-def test_local_ba_lm_full_width(cuda, P, K):
-    """The main path's shapes: 8192 landmarks, 8 views, a window of 6 or 8
-    poses, and the global BA's 64 (8 real, 56 padded and fixed)."""
-    cam, p = chip_smoke.dist_problem(torch, np.random.default_rng(1), Pn=min(P, 8), L=8192, K=K)
-    if P > 8:
-        pad = P - 8
+@pytest.mark.parametrize("case", chip_smoke.BA_CASES)
+def test_local_ba_lm_same_bits(cuda, case):
+    """No atomics: a second call gives the same bits."""
+    p = chip_smoke.ba_problem(np.random.default_rng(3), case)
+    args, kw = chip_smoke.ba_torch(torch, p, cuda)
+    got = klba.local_ba_lm(*args, **kw)
+    again = klba.local_ba_lm(*args, **kw)
+    torch.cuda.synchronize()
+    assert _same_bits(got, again)
+
+
+def test_local_ba_lm_balm_cluster_draws(cuda):
+    """The BALM window with its clusters built on the card six times: the
+    builds' float atomics change their last bits, and on some draws the
+    float32 plain version's landmarks by ~5 cm from its float64 run. On
+    every draw the kernel is within tolerance of the plain version or no
+    farther from the float64 run (chip_smoke.ba_outside), and gives the same
+    bits on a second call."""
+    p = chip_smoke.ba_problem(np.random.default_rng(3), "balm")
+    for _ in range(6):
+        args, kw = chip_smoke.ba_torch(torch, p, cuda)   # the clusters built anew
+        got = klba.local_ba_lm(*args, **kw)
+        again = klba.local_ba_lm(*args, **kw)
+        ref = klba.local_ba_plain(*args, **kw)
+        a64, kw64 = chip_smoke.ba_float64(torch, args, kw)
+        ref64 = klba.local_ba_plain(*a64, **kw64)
+        torch.cuda.synchronize()
+        out = chip_smoke.ba_outside(torch, got, ref, ref64)
+        assert not any(v["outside"] for v in out.values()), out
+        assert _same_bits(got, again)
+
+
+def _same_bits(got, again):
+    """Tuples of tensors with the same bits (a NaN equal to the same NaN)."""
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    return all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again))
+
+
+def _full_width(cuda, P, Pn, K=8, L=8192):
+    """``chip_smoke.dist_problem``'s window of ``Pn`` real poses (the first
+    fixed) padded to ``P`` with fixed identity poses, at full width."""
+    cam, p = chip_smoke.dist_problem(torch, np.random.default_rng(1), Pn=Pn, L=L, K=K)
+    if P > Pn:
+        pad = P - Pn
         p["T0"] = np.concatenate([p["T0"], np.tile(np.eye(4, dtype=np.float32), (pad, 1, 1))])
         p["fixed"] = np.concatenate([p["fixed"], np.ones(pad, bool)])
     t = lambda k: torch.as_tensor(p[k]).to(cuda)
     obs = lm.BAObservations(*(t(k) for k in ("pose_idx", "uv", "inv_sigma2", "stereo", "valid")))
-    args = (cam, t("T0"), t("X0"), obs, t("fixed"), torch.ones(8192, dtype=torch.bool, device=cuda))
+    return (cam, t("T0"), t("X0"), obs, t("fixed"), torch.ones(L, dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.parametrize("P,Pn", [(64, 8), (9, 9), (12, 12), (64, 40)])
+def test_local_ba_lm_same_bits_full_width(cuda, P, Pn):
+    """The global BA's 64 poses with pads; free rows 48 (block 0 alone), 66
+    and 234 (the cluster's elimination): the same bits on a second call."""
+    args = _full_width(cuda, P, Pn)
+    got = klba.local_ba_lm(*args, iters=4)
+    again = klba.local_ba_lm(*args, iters=4)
+    torch.cuda.synchronize()
+    assert _same_bits(got, again)
+
+
+def test_local_ba_lm_refuses_a_window_too_large(cuda):
+    """80 poses need more shared memory than a block has for the solve: the
+    launch is refused and raises (no fallback)."""
+    args = _full_width(cuda, 80, 8, L=256)
+    with pytest.raises(RuntimeError, match="local_ba_lm launch failed"):
+        klba.local_ba_lm(*args, iters=1)
+
+
+@pytest.mark.parametrize("P,K", [(6, 8), (8, 8), (64, 8)])
+def test_local_ba_lm_full_width(cuda, P, K):
+    """The main path's shapes: 8192 landmarks, 8 views, a window of 6 or 8
+    poses, and the global BA's 64 (8 real, 56 padded and fixed)."""
+    args = _full_width(cuda, P, min(P, 8), K=K)
     got = klba.local_ba_lm(*args, iters=6)
     ref = klba.local_ba_plain(*args, iters=6)
     torch.cuda.synchronize()
     a = chip_smoke.ba_agreement(torch, got, ref)
     assert a["pose"] <= 1e-4 and a["landmark"] <= 1e-3 and a["cost"] <= 1e-4, a
+
+
+@pytest.mark.parametrize("P,Pn", [(12, 12), (64, 40)])
+def test_local_ba_lm_cluster_solve(cuda, P, Pn):
+    """66 and 234 free rows, solved by the cluster: the plain version's
+    result, or else no farther from its float64 run (chip_smoke.ba_outside:
+    a window float32 cannot resolve to the tolerance)."""
+    args = _full_width(cuda, P, Pn)
+    got = klba.local_ba_lm(*args, iters=6)
+    ref = klba.local_ba_plain(*args, iters=6)
+    a64, kw64 = chip_smoke.ba_float64(torch, args, {"iters": 6})
+    ref64 = klba.local_ba_plain(*a64, **kw64)
+    torch.cuda.synchronize()
+    out = chip_smoke.ba_outside(torch, got, ref, ref64)
+    assert not any(v["outside"] for v in out.values()), out
 
 
 def test_local_ba_lm_refuses_what_it_does_not_take(cuda):

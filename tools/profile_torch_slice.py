@@ -23,7 +23,9 @@ device events are counted a call, and the run fails above 1.2 host syncs a
 frame (the candidates must ride in the frame's one transfer). In every mode
 the window BA's parts are named ranges too (``balm.build_clusters``,
 ``balm.quadratic``, ``lm.local_ba``, the last holding the quadratic's calls):
-calls, host ms and device events a call of each (``ba_split``). Then over the
+calls, host ms and device events a call of each (``ba_split``), and the
+device ms and launches a frame of each kernel of ``csrc/local_ba.cu``
+(``ba_split["local_ba_lm kernels"]``). Then over the
 frames after the warm-up:
 
 - host wall ms per frame (clock around ``track`` + a final synchronize);
@@ -41,6 +43,7 @@ from __future__ import annotations
 import argparse
 import gzip
 import json
+import re
 import shutil
 import sys
 import time
@@ -50,6 +53,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+LOCAL_BA_KERNELS = ("init_kernel", "build_kernel", "reduce_kernel", "solve_kernel",
+                    "eval_kernel", "commit_kernel")   # csrc/local_ba.cu
 
 
 def main() -> int:
@@ -226,6 +231,17 @@ def main() -> int:
 
     stage_events = {name: range_events(f"stage:{name}") for name in STAGES}
     ba_split = {name: range_events(f"ba:{name}") for name, _ in BA_PARTS}
+    # csrc/local_ba.cu's launches apart: device ms and launches a frame by kernel
+    lba = {}
+    for e in prof.events():
+        m = re.search(r"([A-Za-z_]\w*)\(", e.name)
+        k = m.group(1) if m else ""
+        if e.device_type == torch.autograd.DeviceType.CUDA and k in LOCAL_BA_KERNELS:
+            n, us = lba.get(k, (0, 0.0))
+            lba[k] = (n + 1, us + e.time_range.elapsed_us())
+    ba_split["local_ba_lm kernels"] = {
+        k: {"launches_per_frame": n / n_meas, "device_ms_per_frame": us / 1e3 / n_meas}
+        for k, (n, us) in lba.items()}
     sort_dev = "device_time_total" if hasattr(events[0], "device_time_total") else "cuda_time_total"
     table_dev = events.table(sort_by=sort_dev, row_limit=25)
     table_cpu = events.table(sort_by="self_cpu_time_total", row_limit=25)
