@@ -16,7 +16,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    counters reset just before and read just after; checks tracking state,
    keyframes, a BALM local-BA pass, the voxel map, finite poses, the ATE
    against ground truth (< 0.5 m), and that the launch counts equal what
-   the run's own counts imply (one detection per frame; a stereo match per
+   the run's own counts imply (one frame build per frame: the pyramid and
+   blur planes, the FAST pair, the grid top-k and orientation with rBRIEF,
+   one launch each; a stereo match per
    frame, a tracking match per tracked frame, one match per fuse pass; one
    pose-only LM per tracked frame); prints ``track_step``'s stage ms a
    frame and ``local_ba``'s by pass. In this and every later phase that
@@ -94,7 +96,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the main path's shapes, with CUDA-event times and the least time the
    card could take (bytes over 3.35 TB/s, operations over the float32 rate):
    FAST detection on the real 8-level stacks of one and of two 1241x376
-   images, per pass and fused, beside the per-level route it replaced;
+   images, per pass and fused, beside the per-level route it replaced; the
+   three other ORB kernels on the same images (the pyramid and blur planes,
+   the grid top-k, orientation and rBRIEF: bit-equal, the descriptors of
+   every keypoint whose angle is), and no host sync in one ``build_frame``;
    the fused matcher in its three mask modes on the slice's own data (the
    last frame's stereo pair at 2000x2000; the landmark pool against a
    keyframe's features at 32768x2000), on a full pool, on a dense worst
@@ -140,6 +145,9 @@ LOOP_PERIOD = 126   # frames per revolution: 2 pi / omega * fps
 LOOP_DRIFT = (45, 75)                       # frames of the injected gauge ramp
 LOOP_DRIFT_XI = (0.8, 0.0, 0.5, 0.0, 0.22, 0.0)   # its total, an se3 tangent
 ATE_BOUND_M = 0.5
+# the kernels of one frame build (ops/orb.extract_images): one launch each
+ORB_KERNELS = ("orb_level_planes", "fast_score_planes", "fast_nms_planes", "orb_select_grid",
+               "orb_describe")
 RECOVER_BOUND_M = 0.3
 
 # Published peaks of one H100 SXM: device memory, float32 outside the tensor
@@ -1001,6 +1009,148 @@ def syncs_of(torch, fn) -> int:
     return n_syncs(caught)
 
 
+def describe_pixels(torch, img_stack, rows, cols, level, angles, n_levels, pad):
+    """What ``orb_describe`` must read of the stacks for keypoints [B, K] at
+    ``angles``: the number of distinct pixels of ``img_stack`` in their
+    masked 31x31 patches, of ``blur_stack`` at their rotated taps (each
+    union over all keypoints of a plane), and the patch mask's size."""
+    from tc2li_slam_torch.ops.kernels import orb as korb
+    P, Hs, Ws = img_stack.shape
+    B = rows.shape[0]
+    dev = rows.device
+    plane = (level.long() + n_levels * torch.arange(B, device=dev)[:, None]).reshape(-1, 1)
+    r0, c0 = (x.reshape(-1, 1).long() + pad for x in (rows, cols))
+    mask = torch.as_tensor(korb._ic_angle_weights()[0] > 0, device=dev)
+    dv, du = (x - korb.HALF_PATCH for x in mask.nonzero().unbind(1))
+    tr, tc = korb.tap_coords(rows.reshape(-1), cols.reshape(-1), angles.reshape(-1), pad)
+
+    def distinct(r, c):
+        seen = torch.zeros(P * Hs * Ws, dtype=torch.bool, device=dev)
+        return int(seen.index_fill_(0, ((plane * Hs + r) * Ws + c).reshape(-1), True).sum())
+    return distinct(r0 + dv, c0 + du), distinct(tr, tc), int(mask.sum())
+
+
+def orb_kernel_rows(torch, pair, log=print) -> dict:
+    """Phase 5's rows of the three ORB kernels (``csrc/orb.cu``) on the real
+    images ``pair`` (float32 [H, W] on the card): each against its plain
+    version on one and on two images, bit for bit (the descriptors of every
+    keypoint whose angle is equal; any other is printed and fails), then
+    device ms behind a backlog beside the bound, the plain version and, for
+    the pyramid, ``F.interpolate(..., "bilinear", antialias=True)`` of every
+    level. Raises RuntimeError on a disagreement."""
+    import math
+    import torch.nn.functional as F
+    from tc2li_slam_torch.ops import orb
+    from tc2li_slam_torch.ops.kernels import fast, orb as korb
+    n_levels, scale, n_feat = 8, 1.2, 2000
+    per = orb.features_per_level(n_feat, n_levels, scale)
+    err = {"level": 0.0, "select": 0.0, "describe": 0.0}
+    for fs in (pair[:1], pair):
+        imgs = torch.stack(fs)
+        st, bl, shapes = korb.orb_level_planes(imgs, n_levels, scale)
+        st_p, bl_p, shapes_p = korb.level_planes_plain(imgs, n_levels, scale)
+        pad = korb.PAD
+        if shapes != shapes_p:
+            raise RuntimeError(f"orb_level_planes: shapes {shapes} against {shapes_p}")
+        for p, (h, w) in enumerate(shapes):
+            for got, ref in ((st, st_p), (bl, bl_p)):
+                e = float((got[p, :h + 2 * pad, :w + 2 * pad]
+                           - ref[p, :h + 2 * pad, :w + 2 * pad]).abs().max())
+                err["level"] = max(err["level"], e)
+                if not torch.equal(got[p, :h + 2 * pad, :w + 2 * pad],
+                                   ref[p, :h + 2 * pad, :w + 2 * pad]):
+                    raise RuntimeError(f"orb_level_planes disagrees with its plain version on "
+                                       f"plane {p} ({len(fs)} image(s)): max |diff| {e}")
+        scores = fast.detect_planes(st, shapes, pad)
+        sel = korb.orb_select_grid(scores, shapes, per, scale)
+        sel_p = korb.select_grid_plain(scores, shapes, per, scale)
+        err["select"] = max([err["select"]] + [float((a.double() - b.double()).abs().max())
+                                               for a, b in zip(sel, sel_p) if a.numel()])
+        if not all(torch.equal(a, b) for a, b in zip(sel, sel_p)):
+            raise RuntimeError(f"orb_select_grid disagrees with its plain version "
+                               f"({len(fs)} image(s))")
+        rows, cols, score, level, _ = sel
+        ang, desc = korb.orb_describe(st, bl, rows, cols, level, n_levels, pad)
+        ang_p, desc_p = korb.describe_plain(st, bl, rows, cols, level, n_levels, pad)
+        same_ang = ang.view(torch.int32) == ang_p.view(torch.int32)
+        same_desc = (desc == desc_p).all(-1)
+        bad = (~same_ang) | (same_ang & ~same_desc)
+        err["describe"] = max(err["describe"], float((ang - ang_p).abs().max()))
+        log(f"orb kernels, {len(fs)} image(s): {int(same_ang.sum())} of {same_ang.numel()} "
+            f"angles bit-equal, descriptors equal on {int((same_ang & same_desc).sum())} of "
+            f"them; {int((score > 0).sum())} keypoints")
+        if bad.any():
+            idx = bad.nonzero().tolist()[:10]
+            raise RuntimeError(
+                "orb_describe disagrees with its plain version at (image, keypoint) "
+                + "; ".join(f"{b, i}: angle {float(ang[b, i])!r} vs {float(ang_p[b, i])!r}, "
+                            f"words {desc[b, i].tolist()} vs {desc_p[b, i].tolist()}"
+                            for b, i in idx))
+    # timings and bounds on the two images, the main path's call
+    B, H, W = imgs.shape
+    K = rows.numel()
+    n_pix = sum(h * w for h, w in shapes)
+    n_padded = sum((h + 2 * pad) * (w + 2 * pad) for h, w in shapes)
+    ops_level = 28 * n_pix
+    for lvl in range(1, n_levels):
+        h, w = shapes[lvl]
+        tr = korb.resize_taps(H, h)[1].shape[1]
+        tc = korb.resize_taps(W, w)[1].shape[1]
+        ops_level += B * (2 * h * W * tr + 2 * h * w * tc)
+    b_level = bound(4 * B * H * W + 8 * n_padded, ops_level)
+    # the grid top-k: every pixel read and compared for each of its cell's
+    # candidates, the positive candidates sorted, the slots written
+    ops_sel, n_pos = 0, 0
+    for p, (h, w) in enumerate(shapes):
+        hc, wc = -(-h // korb.CELL), -(-w // korb.CELL)
+        m = korb.cell_candidates(hc * wc, per[p % n_levels])
+        cells = F.pad(scores[p, :h, :w], (0, wc * korb.CELL - w, 0, hc * korb.CELL - h))
+        cells = cells.reshape(hc, korb.CELL, wc, korb.CELL).permute(0, 2, 1, 3).reshape(hc * wc, -1)
+        pos = int(torch.clamp((cells > 0).sum(1), max=m).sum())
+        n_pos += pos
+        ops_sel += m * h * w + pos * max(1.0, math.log2(max(pos, 1)))
+    b_sel = bound(4 * n_pix + 20 * K, ops_sel)
+    # the distinct pixels read on each plane (keypoints share them): the
+    # masked patches' in img_stack and the rotated taps' in blur_stack; 3
+    # ints in, an angle and 8 words out a keypoint; per keypoint the float64
+    # multiply-adds of both moments over the masked patch counted twice (half
+    # the float32 rate), 8 operations a tap, a compare a test
+    n_img, n_blur, n_mask = describe_pixels(torch, st, rows, cols, level, ang, n_levels, pad)
+    b_desc = bound(4 * (n_img + n_blur) + K * (12 + 36), K * (n_mask * 8 + 512 * 8 + 256))
+    ms_level = cuda_ms(torch, lambda: korb.orb_level_planes(imgs, n_levels, scale), 50, True)
+    ms_sel = cuda_ms(torch, lambda: korb.orb_select_grid(scores, shapes, per, scale), 50, True)
+    ms_desc = cuda_ms(torch, lambda: korb.orb_describe(st, bl, rows, cols, level, n_levels, pad),
+                      50, True)
+    ms_level_p = cuda_ms(torch, lambda: korb.level_planes_plain(imgs, n_levels, scale), 5)
+    ms_sel_p = cuda_ms(torch, lambda: korb.select_grid_plain(scores, shapes, per, scale), 5)
+    ms_desc_p = cuda_ms(torch, lambda: korb.describe_plain(st, bl, rows, cols, level, n_levels,
+                                                           pad), 5)
+    x = imgs[:, None]
+    ms_interp = cuda_ms(torch, lambda: [F.interpolate(x, size=shapes[lvl], mode="bilinear",
+                                                      antialias=True)
+                                        for lvl in range(1, n_levels)], 50, True)
+    log(f"orb_level_planes, 2 images x {n_levels} levels ({n_padded} padded pixels a stack): "
+        f"{ms_level:.4f} ms on the device (bound {b_level[0]:.4f} ms, {b_level[1]}; plain "
+        f"{ms_level_p:.4f} ms; F.interpolate bilinear antialias, one call a level, "
+        f"{ms_interp:.4f} ms); orb_select_grid, {len(shapes)} planes, {n_pos} positive "
+        f"candidates: {ms_sel:.4f} ms (bound {b_sel[0]:.6f} ms, {b_sel[1]}; plain "
+        f"{ms_sel_p:.4f} ms); orb_describe, {K} keypoints ({n_img} patch and {n_blur} tap "
+        f"pixels): {ms_desc:.4f} ms (bound "
+        f"{b_desc[0]:.6f} ms, {b_desc[1]}; plain {ms_desc_p:.4f} ms)")
+    src, ref = "tc2li_slam_torch/csrc/orb.cu", "tc2li_slam_tpu/ops/orb.py"
+    return {
+        "orb_level_planes": dict(source=src, replaces=f"{ref}:425", max_abs_err=err["level"],
+                                 ms=ms_level, plain_ms=ms_level_p, bound_ms=b_level[0],
+                                 bound_by=b_level[1], library_ms=ms_interp),
+        "orb_select_grid": dict(source=src, replaces=f"{ref}:204", max_abs_err=err["select"],
+                                ms=ms_sel, plain_ms=ms_sel_p, bound_ms=b_sel[0],
+                                bound_by=b_sel[1]),
+        "orb_describe": dict(source=src, replaces=f"{ref}:369", max_abs_err=err["describe"],
+                             ms=ms_desc, plain_ms=ms_desc_p, bound_ms=b_desc[0],
+                             bound_by=b_desc[1]),
+    }
+
+
 def profile_export_phase(torch, slam, frame, log=print):
     """4g, timers, trace and exporters, on phase 3's ``System`` (``profile``
     on) and one more of its frames ``frame = (img_l, img_r, t, scan)``: the
@@ -1235,7 +1385,7 @@ def dist_phase(torch, dev, cfg, frames, gt, ref, backend: str = "nccl", log=prin
             if cuda and (max(syncs[1:]) > 2 or np.mean(syncs[1:]) > 1.2):
                 raise RuntimeError(f"System(mesh): host syncs by frame {syncs}")
             n = len(frames)
-            if cuda and (counts["fast_score_planes"], counts["fast_nms_planes"]) != (n, n):
+            if cuda and any(counts[k] != n for k in ORB_KERNELS):
                 raise RuntimeError(f"System(mesh): launches {counts} for {n} frames")
         finally:
             dist.destroy_process_group()
@@ -1256,7 +1406,7 @@ def main() -> int:
     from tc2li_slam_torch.io import synthetic as syn
     from tc2li_slam_torch.ops import bow, orb
     from tc2li_slam_torch.ops.kernels import (balm as kbalm, build, fast, hamming,
-                                              local_ba as klba, match, pose_lm)
+                                              local_ba as klba, match, orb as korb, pose_lm)
     from tc2li_slam_torch.slam import (config as cfg_mod, culling, lio, local_mapping,
                                        relocalization, system as sys_mod, tracking,
                                        triangulation)
@@ -1363,12 +1513,15 @@ def main() -> int:
         fast.score_launches = fast.nms_launches = hamming.launches = match.launches = 0
         pose_lm.launches = calls["track_frame"] = calls["pnp_ransac"] = 0
         kbalm.launches = klba.launches = 0
+        korb.level_launches = korb.select_launches = korb.describe_launches = 0
         ba_calls.update(dict.fromkeys(ba_calls, 0))
         ba_inputs["valid_voxels"] = []
         match.launches_by_mode.clear()
 
     def read_counts():
-        return {"fast_score_planes": fast.score_launches, "fast_nms_planes": fast.nms_launches,
+        return {"orb_level_planes": korb.level_launches, "fast_score_planes": fast.score_launches,
+                "fast_nms_planes": fast.nms_launches, "orb_select_grid": korb.select_launches,
+                "orb_describe": korb.describe_launches,
                 "hamming_matrix": hamming.launches, "match_best2": match.launches,
                 "pose_only_lm": pose_lm.launches, "calls:track_frame": calls["track_frame"],
                 "calls:pnp_ransac": calls["pnp_ransac"], "balm_quadratic": kbalm.launches,
@@ -1476,8 +1629,7 @@ def main() -> int:
         return fail("voxel map is empty")
     if not np.all(np.isfinite(est)):
         return fail("non-finite poses")
-    expected = {"fast_score_planes": N_FRAMES, "fast_nms_planes": N_FRAMES,
-                "hamming_matrix": 0, "match_best2": N_FRAMES + (N_FRAMES - 1) + n_fuse,
+    expected = {**dict.fromkeys(ORB_KERNELS, N_FRAMES), "hamming_matrix": 0, "match_best2": N_FRAMES + (N_FRAMES - 1) + n_fuse,
                 "pose_only_lm": N_FRAMES - 1, "calls:track_frame": N_FRAMES - 1,
                 "calls:pnp_ransac": 0, "balm_quadratic": 2 * n_balm3,
                 "local_ba_lm": klba.launches_per_call(cfg.tracking.ba_iters) * n_ba3,
@@ -1557,8 +1709,7 @@ def main() -> int:
         get = modes.get
         window_lo = n_tracked + d["n_recover"] + d["n_fuse"]
         faults = []
-        if (counts["fast_score_planes"], counts["fast_nms_planes"], counts["hamming_matrix"]) \
-                != (n_built, n_built, 0):
+        if any(counts[k] != n_built for k in ORB_KERNELS) or counts["hamming_matrix"]:
             faults.append(f"{n_built} frames built")
         if sum(modes.values()) != counts["match_best2"]:
             faults.append("the shapes do not sum to the matcher's count")
@@ -1886,8 +2037,7 @@ def main() -> int:
     if fault or after["n_recover"] != before["n_recover"]:
         return fail(f"IMU mode: {fault or 'a frame went through recovery'}")
     pose_launches["4e"] = counts_e["pose_only_lm"]
-    imu_launches = {"fast_score_planes": counts_e["fast_score_planes"],
-                    "fast_nms_planes": counts_e["fast_nms_planes"],
+    imu_launches = {**{k: counts_e[k] for k in ORB_KERNELS},
                     "pose_only_lm": counts_e["pose_only_lm"],
                     "match_best2": modes_e.get("stereo+mutual", 0) + modes_e.get("window", 0),
                     "match_best2/epipolar": modes_e.get("dense+mutual", 0),
@@ -1943,8 +2093,8 @@ def main() -> int:
           f"frames {LOOP_PERIOD}..{N_LOOP - 1} {1e3 * (N_LOOP - LOOP_PERIOD) / sum(lp['frame_ms'][LOOP_PERIOD:]):.3f}; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; kernel "
           f"launches {counts_f}", flush=True)
-    if (counts_f["fast_score_planes"], counts_f["fast_nms_planes"], counts_f["hamming_matrix"],
-            modes_f.get("stereo+mutual", 0)) != (N_LOOP, N_LOOP, 0, N_LOOP):
+    if any(counts_f[k] != N_LOOP for k in ORB_KERNELS) or counts_f["hamming_matrix"] \
+            or modes_f.get("stereo+mutual", 0) != N_LOOP:
         return fail(f"loop closing: launches {counts_f} by shape {modes_f} for {N_LOOP} frames")
     if pose_fault(counts_f):
         return fail(f"loop closing: {pose_fault(counts_f)}")
@@ -2067,6 +2217,20 @@ def main() -> int:
     rows["fast_nms_planes"] = dict(
         source="tc2li_slam_torch/csrc/fast.cu", replaces="tc2li_slam_tpu/ops/orb.py:182",
         max_abs_err=nms_err, ms=ms_nms, plain_ms=ms_nms_p, bound_ms=b_nms[0], bound_by=b_nms[1])
+
+    # the rest of the frame build: the three ORB kernels on frame 0's real
+    # images, and no host sync in one whole build_frame
+    try:
+        rows.update(orb_kernel_rows(torch, [f_l, f_r], log=lambda m: print(f"{tag} {m}",
+                                                                          flush=True)))
+    except RuntimeError as e:
+        return fail(str(e))
+    img_l0, img_r0 = (torch.as_tensor(im).to(dev) for im in imgs[0])
+    n_sync_bf = syncs_of(torch, lambda: tracking.build_frame(
+        img_l0, img_r0, slam.cam, slam.scale_factors, cfg.orb.n_features, cfg.orb.n_levels))
+    print(f"host syncs in one build_frame: {n_sync_bf}", flush=True)
+    if n_sync_bf:
+        return fail(f"build_frame made {n_sync_bf} host syncs")
 
     # matching: cases on the slice's own data, a full pool, a dense worst
     # case, and edge rows
@@ -2427,7 +2591,8 @@ def main() -> int:
 
     # --- 6. result -------------------------------------------------------------
     kernels = []
-    for name in ("fast_score_planes", "fast_nms_planes", "hamming_matrix", "match_best2",
+    for name in ("orb_level_planes", "fast_score_planes", "fast_nms_planes", "orb_select_grid",
+                 "orb_describe", "hamming_matrix", "match_best2",
                  "match_best2/epipolar", "match_best2/global", "match_best2/reloc",
                  "match_best2/loop", "pose_only_lm", "balm_quadratic", "local_ba_lm"):
         r = rows[name]
@@ -2435,7 +2600,7 @@ def main() -> int:
                         "replaces": r["replaces"], "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None,
+                        "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                         "launches_imu_mode": imu_launches.get(name, 0)})
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))

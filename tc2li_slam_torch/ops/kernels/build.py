@@ -119,6 +119,12 @@ def library() -> ctypes.CDLL:
         lib.tc2li_local_ba_scratch.restype = ctypes.c_longlong
         lib.tc2li_local_ba_lm.argtypes = [vp] * 16 + [i] * 6 + [f] * 5 + [i] + [vp] * 5
         lib.tc2li_local_ba_lm.restype = i
+        lib.tc2li_orb_level_planes.argtypes = [vp] * 6 + [i] * 5 + [vp, vp]
+        lib.tc2li_orb_level_planes.restype = i
+        lib.tc2li_orb_select_grid.argtypes = [vp] * 7 + [i, i, vp]
+        lib.tc2li_orb_select_grid.restype = i
+        lib.tc2li_orb_describe.argtypes = [vp] * 8 + [i] * 7 + [vp, vp]
+        lib.tc2li_orb_describe.restype = i
         lib.tc2li_error_string.argtypes = [i]
         lib.tc2li_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -45,6 +45,7 @@ from . import build
 launches = 0   # kernel launches by local_ba_lm (plain-version calls excluded)
 CHUNK = 32        # pairs a chunk at least: the reduction's unit of work (a warp)
 MAX_CHUNKS = 32   # chunks a block of the reduced system at most
+MAX_POSES = 67    # poses of a window: the solve's shared memory (csrc/local_ba.cu)
 
 
 def launches_per_call(iters: int) -> int:

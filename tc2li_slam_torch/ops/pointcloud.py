@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from ..tensors import sum_rows
+
 BIG_KEY = torch.iinfo(torch.int32).max
 
 
@@ -33,8 +35,8 @@ def voxel_downsample(points: torch.Tensor, valid: torch.Tensor, voxel_size: floa
     is_head = torch.cat([torch.ones(1, dtype=torch.bool, device=points.device),
                          key_s[1:] != key_s[:-1]]) & valid_s
     seg_id = torch.clamp(torch.cumsum(is_head.to(torch.int32), 0) - 1, 0, N - 1).long()
-    sums = torch.zeros((N, 3), dtype=points.dtype, device=points.device)
-    sums.index_add_(0, seg_id, torch.where(valid_s[:, None], pts_s, 0.0))
+    # float sums in a fixed order (sum_rows): the same centroids every run
+    sums = sum_rows(N, seg_id, torch.where(valid_s[:, None], pts_s, 0.0))
     counts = torch.zeros(N, dtype=torch.int32, device=points.device)
     counts.index_add_(0, seg_id, valid_s.to(torch.int32))
     centroids = sums / torch.clamp(counts, min=1)[:, None]

@@ -56,6 +56,7 @@ import torch
 from ..estimation import esekf, imu as imu_est
 from ..geom import camera as cam_mod, lie
 from ..ops import bow, plane_fit, pointcloud, voxel_map
+from ..ops.kernels import local_ba as local_ba_kernel
 from ..solver import balm as balm_mod, inertial_ba, inertial_init, pose_inertial as pi_mod
 from ..tensors import axis_vector, count, to_device
 from . import (atlas as atlas_mod, config as cfg_mod, culling, imu_mode, lio, local_mapping,
@@ -93,6 +94,10 @@ class System:
         self.mesh = mesh
         self.device = torch.device(device)
         dev = self.device
+        if dev.type == "cuda" and cfg.tracking.local_window > local_ba_kernel.MAX_POSES:
+            raise ValueError(
+                f"tracking.local_window {cfg.tracking.local_window}: the window BA's kernel "
+                f"(local_ba_lm) takes at most {local_ba_kernel.MAX_POSES} poses on the card")
         self.voc = None if voc is None else voc.to(dev)
         c = cfg.camera
         self.cam = cam_mod.Pinhole.create(c.fx, c.fy, c.cx, c.cy, bf=c.bf,

@@ -20,6 +20,7 @@ import torch
 from ..geom import lie
 from ..ops.kernels import balm as balm_kernel
 from ..ops.plane_fit import smallest_eigval_sym3, smallest_two_eigvals_sym3
+from ..tensors import sum_rows
 
 BIG_KEY = torch.iinfo(torch.int32).max
 
@@ -47,15 +48,14 @@ def _cluster_pass(key, pts_l, pts_w, kf, W: int, max_voxels: int):
     wgt = (key_s != BIG_KEY).to(dt)
     flat = vox * W + kf_s                                  # (voxel, KF) cell
     n_cells = (max_voxels + 1) * W
-    N = torch.zeros(n_cells, dtype=dt, device=dev).index_add_(0, flat, wgt)
-    S = torch.zeros((n_cells, 3), dtype=dt, device=dev).index_add_(
-        0, flat, pts_l_s * wgt[:, None])
+    # sums in a fixed order (sum_rows), so that the window is the same bits
+    # on every run
+    N = sum_rows(n_cells, flat, wgt)
+    S = sum_rows(n_cells, flat, pts_l_s * wgt[:, None])
     mean = S / torch.clamp(N, min=1.0)[:, None]
     centered = (pts_l_s - mean[flat]) * wgt[:, None]
-    Pc = torch.zeros((n_cells, 3, 3), dtype=dt, device=dev).index_add_(
-        0, flat, centered[:, :, None] * centered[:, None, :])
-    Sw = torch.zeros((max_voxels + 1, 3), dtype=dt, device=dev).index_add_(
-        0, vox, pts_w[order] * wgt[:, None])[:max_voxels]
+    Pc = sum_rows(n_cells, flat, centered[:, :, None] * centered[:, None, :])
+    Sw = sum_rows(max_voxels + 1, vox, pts_w[order] * wgt[:, None])[:max_voxels]
     N = N.reshape(max_voxels + 1, W)[:max_voxels]
     mean = mean.reshape(max_voxels + 1, W, 3)[:max_voxels]
     Pc = Pc.reshape(max_voxels + 1, W, 3, 3)[:max_voxels]

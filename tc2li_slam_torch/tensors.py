@@ -23,6 +23,18 @@ def count(mask: torch.Tensor, dim=None) -> torch.Tensor:
     return torch.sum(mask, dim=dim, dtype=torch.int32)
 
 
+def sum_rows(n: int, idx: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """[n, ...] sums of the rows of ``values`` by ``idx``, as ``index_add_``
+    into zeros, in the same order on every call. On the card a float
+    ``index_add_`` adds with atomics, whose order (and so the last bits of
+    the sums) changes from run to run; ``index_put_`` with ``accumulate``
+    sorts the indices stably and adds each run of equal indices in row
+    order, one run at a time (it is not on the list of
+    ``torch.use_deterministic_algorithms``)."""
+    out = torch.zeros((n, *values.shape[1:]), dtype=values.dtype, device=values.device)
+    return out.index_put_((idx,), values, accumulate=True)
+
+
 def matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Batched matrix-vector product: [..., n, m] x [..., m] -> [..., n]."""
     return (M @ v[..., None])[..., 0]

@@ -21,6 +21,7 @@ import chip_smoke
 from tc2li_slam_torch.geom import camera as cam_mod
 from tc2li_slam_torch.ops import matching, orb, stereo
 from tc2li_slam_torch.ops.kernels import balm as kbalm, fast, hamming, local_ba as klba, match, pose_lm
+from tc2li_slam_torch.ops.kernels import orb as korb
 from tc2li_slam_torch.solver import balm, lm
 
 pytestmark = pytest.mark.gpu
@@ -499,15 +500,15 @@ def test_local_ba_lm_same_bits(cuda, case):
 
 
 def test_local_ba_lm_balm_cluster_draws(cuda):
-    """The BALM window with its clusters built on the card six times: the
-    builds' float atomics change their last bits, and on some draws the
-    float32 plain version's landmarks by ~5 cm from its float64 run. On
-    every draw the kernel is within tolerance of the plain version or no
-    farther from the float64 run (chip_smoke.ba_outside), and gives the same
-    bits on a second call."""
-    p = chip_smoke.ba_problem(np.random.default_rng(3), "balm")
-    for _ in range(6):
-        args, kw = chip_smoke.ba_torch(torch, p, cuda)   # the clusters built anew
+    """Six BALM windows (``ba_problem`` drawn from seeds 3 to 8), their
+    clusters built on the card (the float32 plain version can land
+    centimetres from its float64 run on a window). On every window the
+    kernel is within tolerance of the plain version or no farther from the
+    float64 run (chip_smoke.ba_outside), and gives the same bits on a
+    second call."""
+    for seed in range(3, 9):
+        p = chip_smoke.ba_problem(np.random.default_rng(seed), "balm")
+        args, kw = chip_smoke.ba_torch(torch, p, cuda)
         got = klba.local_ba_lm(*args, **kw)
         again = klba.local_ba_lm(*args, **kw)
         ref = klba.local_ba_plain(*args, **kw)
@@ -595,3 +596,116 @@ def test_local_ba_lm_refuses_what_it_does_not_take(cuda):
         klba.local_ba_lm(cam, T0, X0, obs, fixed.cpu(), vlm, **kw)
     res = klba.local_ba_lm(cam, T0, X0, obs, fixed, vlm, iters=0)
     assert torch.equal(res.T_cw, T0) and torch.equal(res.X_w, X0)
+
+
+def test_build_clusters_and_voxel_downsample_same_bits(cuda):
+    """The cluster sums and the scan centroids add in a fixed order on the
+    card (``tensors.sum_rows``): a second call gives the same bits."""
+    from tc2li_slam_torch.ops import pointcloud
+    b = chip_smoke.balm_case(np.random.default_rng(4), "planar")
+    c1, c2 = _clusters(b, cuda), _clusters(b, cuda)
+    torch.cuda.synchronize()
+    assert _same_bits(c1, c2)
+    rng = np.random.default_rng(5)
+    pts = torch.as_tensor(rng.normal(0, 20, (32768, 3)).astype(np.float32)).to(cuda)
+    valid = torch.as_tensor(rng.uniform(size=32768) < 0.9).to(cuda)
+    d1 = pointcloud.voxel_downsample(pts, valid, 0.5)
+    d2 = pointcloud.voxel_downsample(pts, valid, 0.5)
+    torch.cuda.synchronize()
+    assert _same_bits(d1, d2) and int(d1[1].sum()) > 1000
+
+
+ORB_SHAPES = [(376, 1241), (64, 64), (101, 203)]
+
+
+def _orb_images(shape, n):
+    return torch.stack([_image(10 + i, shape, smooth=i == 0) for i in range(n)])
+
+
+def _orb_regions(shapes, pad):
+    return [(p, slice(0, h + 2 * pad), slice(0, w + 2 * pad)) for p, (h, w) in enumerate(shapes)]
+
+
+@pytest.mark.parametrize("shape", ORB_SHAPES)
+@pytest.mark.parametrize("n_images", [1, 2])
+def test_orb_level_planes_matches_plain(cuda, shape, n_images):
+    """Every plane's padded region bit-equal to the plain version's; the
+    same bits on a second call; one launch."""
+    imgs = _orb_images(shape, n_images).to(cuda)
+    before = korb.level_launches
+    st, bl, shapes, pad = orb.level_stacks(list(imgs), 8, 1.2)
+    st2, bl2, _ = korb.orb_level_planes(imgs, 8, 1.2)
+    ref_st, ref_bl, ref_shapes = korb.level_planes_plain(imgs, 8, 1.2)
+    torch.cuda.synchronize()
+    assert korb.level_launches - before == 2 and shapes == ref_shapes
+    for p, ys, xs in _orb_regions(shapes, pad):
+        for got, again, ref in ((st, st2, ref_st), (bl, bl2, ref_bl)):
+            assert torch.equal(got[p, ys, xs], ref[p, ys, xs]), p
+            assert torch.equal(got[p, ys, xs], again[p, ys, xs]), p
+
+
+def _orb_scores(cuda, shape, n_images):
+    imgs = _orb_images(shape, n_images).to(cuda)
+    st, bl, shapes, pad = orb.level_stacks(list(imgs), 8, 1.2)
+    return st, bl, shapes, pad, fast.detect_planes(st, shapes, pad)
+
+
+@pytest.mark.parametrize("shape", ORB_SHAPES)
+@pytest.mark.parametrize("n_images", [1, 2])
+def test_orb_select_grid_matches_plain(cuda, shape, n_images):
+    """The grid top-k of every plane equal to the plain version's, also on
+    tie-heavy scores; the same bits on a second call; one launch."""
+    _, _, shapes, _, scores = _orb_scores(cuda, shape, n_images)
+    per = orb.features_per_level(2000 if shape[0] > 300 else 500, 8, 1.2)
+    ties = torch.round(scores / 16)
+    for s in (scores, ties):
+        before = korb.select_launches
+        got = orb.select_grid(s, shapes, per, 1.2)
+        again = korb.orb_select_grid(s, shapes, per, 1.2)
+        ref = korb.select_grid_plain(s, shapes, per, 1.2)
+        torch.cuda.synchronize()
+        assert korb.select_launches - before == 2
+        assert _same_bits(got, ref) and _same_bits(got, again)
+        assert int((got[2] > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("shape", ORB_SHAPES)
+@pytest.mark.parametrize("n_images", [1, 2])
+def test_orb_describe_matches_plain(cuda, shape, n_images):
+    """Angles bit-equal to the plain version's, and the descriptors of every
+    keypoint whose angle is; the same bits on a second call; one launch."""
+    st, bl, shapes, pad, scores = _orb_scores(cuda, shape, n_images)
+    per = orb.features_per_level(2000 if shape[0] > 300 else 500, 8, 1.2)
+    rows, cols, sel, level, _ = orb.select_grid(scores, shapes, per, 1.2)
+    before = korb.describe_launches
+    ang, desc = orb.describe(st, bl, rows, cols, level, 8, pad)
+    ang2, desc2 = korb.orb_describe(st, bl, rows, cols, level, 8, pad)
+    ref_ang, ref_desc = korb.describe_plain(st, bl, rows, cols, level, 8, pad)
+    torch.cuda.synchronize()
+    assert korb.describe_launches - before == 2
+    assert _same_bits((ang, desc), (ang2, desc2))
+    assert torch.equal(ang.view(torch.int32), ref_ang.view(torch.int32))
+    assert torch.equal(desc, ref_desc)
+
+
+def test_orb_kernels_refuse_what_they_do_not_take(cuda):
+    imgs = _orb_images((64, 64), 2).to(cuda)
+    with pytest.raises(ValueError):                     # float64 images
+        korb.orb_level_planes(imgs.double(), 8, 1.2)
+    with pytest.raises(ValueError):                     # CPU images
+        korb.orb_level_planes(imgs.cpu(), 8, 1.2)
+    with pytest.raises(ValueError):                     # 40 planes
+        korb.orb_level_planes(torch.zeros((5, 64, 64), device=cuda), 8, 1.2)
+    with pytest.raises(ValueError):                     # a tile reading too many columns
+        korb.orb_level_planes(torch.zeros((1, 64, 4000), device=cuda), 2, 6.0)
+    st, bl, shapes, pad, scores = _orb_scores(cuda, (64, 64), 2)
+    per = orb.features_per_level(500, 8, 1.2)
+    with pytest.raises(ValueError):                     # shapes of another plane count
+        korb.orb_select_grid(scores, shapes[:-1], per, 1.2)
+    with pytest.raises(ValueError):                     # more candidates than the kernel holds
+        korb.orb_select_grid(scores[:1], shapes[:1], [5000], 1.2)
+    rows, cols, sel, level, _ = korb.orb_select_grid(scores, shapes, per, 1.2)
+    with pytest.raises(ValueError):                     # int64 rows
+        korb.orb_describe(st, bl, rows.long(), cols, level, 8, pad)
+    with pytest.raises(ValueError):                     # a pad short of the pattern
+        korb.orb_describe(st, bl, rows, cols, level, 8, 10)

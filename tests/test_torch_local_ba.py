@@ -289,3 +289,20 @@ def test_dispatch_by_device():
         klba.local_ba_lm(*args, **kw)
     with pytest.raises(ValueError, match="CUDA"):
         kbalm.balm_quadratic(c, t(b["T_eval"]))
+
+
+@pytest.mark.parametrize("window", [67, 68])
+def test_system_refuses_a_window_over_the_kernel_limit(window):
+    """On the card ``System`` takes a window BA of at most 67 poses, the
+    kernel's limit, and says so at construction, before it allocates
+    anything; on the CPU any window."""
+    import dataclasses
+    from tc2li_slam_torch.slam import config as tcfg, system as tsys
+    from torch_parity import small_config
+    cfg = small_config(tcfg)
+    cfg = dataclasses.replace(cfg, tracking=dataclasses.replace(cfg.tracking,
+                                                                local_window=window))
+    assert tsys.System(cfg, "cpu").cfg.tracking.local_window == window
+    if window > klba.MAX_POSES:
+        with pytest.raises(ValueError, match="at most 67 poses"):
+            tsys.System(cfg, torch.device("cuda"))

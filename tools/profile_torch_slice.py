@@ -3,6 +3,7 @@
 
     python3 tools/profile_torch_slice.py [--frames 14] [--warm 5] [--triangulate]
                                          [--voc] [--imu] [--loop] [--out build/profile]
+                                         [--tree DIR]
 
 Runs the sequence and configuration of ``chip_smoke.py`` (KITTI-shaped,
 1241x376, 2000 features, 32768-point scans); with ``--triangulate`` the
@@ -25,7 +26,15 @@ the window BA's parts are named ranges too (``balm.build_clusters``,
 ``balm.quadratic``, ``lm.local_ba``, the last holding the quadratic's calls):
 calls, host ms and device events a call of each (``ba_split``), and the
 device ms and launches a frame of each kernel of ``csrc/local_ba.cu``
-(``ba_split["local_ba_lm kernels"]``). Then over the
+(``ba_split["local_ba_lm kernels"]``). The frame build is split the same
+way (``orb_split``): ``build_frame`` and its parts ``orb:level_stacks`` (the
+pyramid and blur planes), ``orb:detect`` (the FAST pair), ``orb:select``
+(the grid top-k), ``orb:describe`` (orientation and rBRIEF),
+``stereo:match`` and ``stereo:subpixel``, each with host ms, device ms (the
+kernels, copies and fills whose launch lies in the range, linked by the
+profiler's correlation ids) and device events a frame. ``--tree DIR`` runs
+the package of another checkout (an unpacked parent, say) under this
+script, so that two trees are split by the same code. Then over the
 frames after the warm-up:
 
 - host wall ms per frame (clock around ``track`` + a final synchronize);
@@ -69,6 +78,8 @@ def main() -> int:
     ap.add_argument("--loop", action="store_true",
                     help="loop closing on (implies --voc and --triangulate)")
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
+    ap.add_argument("--tree", default=None,
+                    help="import tc2li_slam_torch from this checkout (default: this one)")
     args = ap.parse_args()
     if args.loop:
         args.voc = args.triangulate = True
@@ -87,11 +98,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    import chip_smoke
+    import chip_smoke   # (this checkout's helpers)
+    if args.tree:
+        sys.path.insert(0, str(Path(args.tree).resolve()))
+    import tc2li_slam_torch
     from tc2li_slam_torch.io import synthetic as syn
-    from tc2li_slam_torch.ops import bow, orb
-    from tc2li_slam_torch.ops.kernels import match
-    from tc2li_slam_torch.slam import config as cfg_mod, system as sys_mod
+    from tc2li_slam_torch.ops import bow, orb, stereo
+    from tc2li_slam_torch.ops.kernels import fast, match
+    from tc2li_slam_torch.slam import config as cfg_mod, system as sys_mod, tracking
     from tc2li_slam_torch.solver import balm as balm_mod, lm as lm_mod
 
     out = Path(args.out)
@@ -156,6 +170,27 @@ def main() -> int:
             with record_function(f"ba:{_name}"):
                 return _fn(*a, **kw)
         setattr(mod, name, ranged_part)
+    # the frame build's parts: each range wraps the module attributes that
+    # compute it. ``select_topk_grid`` and ``compute_*_stacked`` are what a
+    # checkout from before the ORB kernels calls (its ``orb`` lacks
+    # ``select_grid`` and ``describe``); with ``--tree`` on such a checkout
+    # they give the "before" split of PERF.md. The current tree never calls
+    # them on the card, so there they wrap nothing that runs.
+    ORB_PARTS = (("build_frame", ((tracking, "build_frame"),)),
+                 ("orb:level_stacks", ((orb, "level_stacks"),)),
+                 ("orb:detect", ((fast, "detect_planes"),)),
+                 ("orb:select", ((orb, "select_topk_grid"), (orb, "select_grid"))),
+                 ("orb:describe", ((orb, "compute_orientation_stacked"),
+                                   (orb, "compute_descriptors_stacked"), (orb, "describe"))),
+                 ("stereo:match", ((stereo, "match_stereo"),)),
+                 ("stereo:subpixel", ((stereo, "subpixel_refine"),)))
+    for rname, attrs in ORB_PARTS:
+        for mod, name in attrs:
+            if hasattr(mod, name):
+                def ranged_orb(*a, _fn=getattr(mod, name), _rname=rname, **kw):
+                    with record_function(_rname):
+                        return _fn(*a, **kw)
+                setattr(mod, name, ranged_orb)
 
     for fr, sc in zip(frames[:args.warm], scans[:args.warm]):
         track(fr, sc)
@@ -205,32 +240,56 @@ def main() -> int:
     trace.unlink()
 
     events = prof.key_averages()
+    RANGE_PREFIXES = ("stage:", "ba:", "orb:", "stereo:", "build_frame")
     dev_us = 0.0
     n_kernels = 0
     for e in prof.events():
         # (a named range has a device-side twin that spans its kernels)
         if e.device_type == torch.autograd.DeviceType.CUDA and \
-                not e.name.startswith(("stage:", "ba:")):
+                not e.name.startswith(RANGE_PREFIXES):
             dev_us += e.time_range.elapsed_us()
             n_kernels += 1
     # device events enqueued inside each named range: the host-side launch
     # calls (kernels, copies, memsets) whose start lies in one of its spans
     cpu_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
-    launches = sorted(e.time_range.start for e in cpu_events
-                      if e.name.startswith(("cudaLaunchKernel", "cudaMemcpyAsync",
-                                            "cudaMemsetAsync", "cuLaunchKernel")))
+    launch_events = [e for e in cpu_events
+                     if e.name.startswith(("cudaLaunchKernel", "cudaMemcpyAsync",
+                                           "cudaMemsetAsync", "cuLaunchKernel"))]
+    launches = sorted(e.time_range.start for e in launch_events)
+    # a device event and the runtime call that enqueued it share a
+    # correlation id: the device time of each launch, by its start
+    launch_at = {e.id: e.time_range.start for e in launch_events}
+    dev_by_launch = []
+    n_dev, n_linked = 0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not e.name.startswith(RANGE_PREFIXES):
+            n_dev += 1
+            if e.id in launch_at:
+                n_linked += 1
+                dev_by_launch.append((launch_at[e.id], e.time_range.elapsed_us()))
+    dev_by_launch.sort()
+    dev_starts = [t for t, _ in dev_by_launch]
+    dev_cum = [0.0]
+    for _, us in dev_by_launch:
+        dev_cum.append(dev_cum[-1] + us)
 
     def range_events(rname):
         spans = [(e.time_range.start, e.time_range.end) for e in cpu_events if e.name == rname]
         n_in = sum(bisect.bisect_right(launches, b) - bisect.bisect_left(launches, a)
                    for a, b in spans)
+        dev_in = sum(dev_cum[bisect.bisect_right(dev_starts, b)]
+                     - dev_cum[bisect.bisect_left(dev_starts, a)] for a, b in spans)
         return {"calls": len(spans), "device_events_per_frame": n_in / n_meas,
+                "device_ms_per_frame": dev_in / 1e3 / n_meas,
                 "device_events_per_call": n_in / max(len(spans), 1),
                 "host_ms_per_frame": sum(b - a for a, b in spans) / 1e3 / n_meas,
                 "host_ms_per_call": sum(b - a for a, b in spans) / 1e3 / max(len(spans), 1)}
 
     stage_events = {name: range_events(f"stage:{name}") for name in STAGES}
     ba_split = {name: range_events(f"ba:{name}") for name, _ in BA_PARTS}
+    orb_split = {rname: range_events(rname) for rname, _ in ORB_PARTS}
+    orb_split["device events linked to their launch"] = f"{n_linked} of {n_dev}"
     # csrc/local_ba.cu's launches apart: device ms and launches a frame by kernel
     lba = {}
     for e in prof.events():
@@ -248,9 +307,10 @@ def main() -> int:
     (out / "top_device.txt").write_text(table_dev)
     (out / "top_host.txt").write_text(table_cpu)
     summary = {
-        "card": smi, "frames": n_meas, "triangulate": cfg.tracking.triangulate,
+        "card": smi, "tree": str(Path(tc2li_slam_torch.__file__).resolve().parents[1]),
+        "frames": n_meas, "triangulate": cfg.tracking.triangulate,
         "imu_mode": args.imu, "imu_stage_device_events": stage_events,
-        "ba_split": ba_split,
+        "ba_split": ba_split, "orb_split": orb_split,
         "loop_closing": args.loop, "loops_closed": slam.n_loops_closed,
         "loop_candidates_verified": slam.n_loop_verified,
         "vi_initialized": bool(getattr(slam, "_vi_initialized", False)),
