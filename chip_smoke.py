@@ -18,7 +18,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against ground truth (< 0.5 m), and that the launch counts equal what
    the run's own counts imply (one frame build per frame: the pyramid and
    blur planes, the FAST pair, the grid top-k and orientation with rBRIEF,
-   one launch each; a stereo match per
+   one launch each, the grid top-k two; a stereo match per
    frame, a tracking match per tracked frame, one match per fuse pass; one
    pose-only LM per tracked frame); prints ``track_step``'s stage ms a
    frame and ``local_ba``'s by pass. In this and every later phase that
@@ -99,7 +99,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    images, per pass and fused, beside the per-level route it replaced; the
    three other ORB kernels on the same images (the pyramid and blur planes,
    the grid top-k, orientation and rBRIEF: bit-equal, the descriptors of
-   every keypoint whose angle is), and no host sync in one ``build_frame``;
+   every keypoint whose angle is), the first two also on the pair resampled
+   to 1280x720 (7,200 grid candidates at level 0), and no host sync in one
+   ``build_frame``;
    the fused matcher in its three mask modes on the slice's own data (the
    last frame's stereo pair at 2000x2000; the landmark pool against a
    keyframe's features at 32768x2000), on a full pool, on a dense worst
@@ -145,9 +147,11 @@ LOOP_PERIOD = 126   # frames per revolution: 2 pi / omega * fps
 LOOP_DRIFT = (45, 75)                       # frames of the injected gauge ramp
 LOOP_DRIFT_XI = (0.8, 0.0, 0.5, 0.0, 0.22, 0.0)   # its total, an se3 tangent
 ATE_BOUND_M = 0.5
-# the kernels of one frame build (ops/orb.extract_images): one launch each
-ORB_KERNELS = ("orb_level_planes", "fast_score_planes", "fast_nms_planes", "orb_select_grid",
-               "orb_describe")
+# the kernels of one frame build (ops/orb.extract_images) and their launches:
+# one each, the grid top-k two (its cell pass, then its selection)
+ORB_LAUNCHES = {"orb_level_planes": 1, "fast_score_planes": 1, "fast_nms_planes": 1,
+                "orb_select_grid": 2, "orb_describe": 1}
+ORB_KERNELS = tuple(ORB_LAUNCHES)
 RECOVER_BOUND_M = 0.3
 
 # Published peaks of one H100 SXM: device memory, float32 outside the tensor
@@ -260,12 +264,13 @@ def bound(n_bytes: float, simple_ops: float = 0.0, popc: float = 0.0):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def kitti_config(cfg_mod, syn, triangulate: bool = False, **tracking):
+def kitti_config(cfg_mod, syn, triangulate: bool = False, cam=None, **tracking):
     """bench.py's KITTI-shaped STEREO_LIDAR configuration, stage timers on
     (``profile=True``) as there; ``triangulate=True`` is its default, off is
-    the first slice's. ``tracking`` overrides fields of the TrackingConfig."""
+    the first slice's. ``cam``, a ``syn.CameraRig``, replaces the KITTI-like
+    camera. ``tracking`` overrides fields of the TrackingConfig."""
     import numpy as np
-    cam = syn.KITTI_LIKE
+    cam = cam or syn.KITTI_LIKE
     return cfg_mod.SystemConfig(
         camera=cfg_mod.CameraConfig(
             fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=cam.width,
@@ -1030,45 +1035,163 @@ def describe_pixels(torch, img_stack, rows, cols, level, angles, n_levels, pad):
     return distinct(r0 + dv, c0 + du), distinct(tr, tc), int(mask.sum())
 
 
-def orb_kernel_rows(torch, pair, log=print) -> dict:
+def orb_level_check(torch, korb, imgs, n_levels, scale):
+    """``orb_level_planes`` against its plain version on float32 images
+    [B, H, W]: (img_stack, blur_stack, shapes, max |diff|); raises
+    RuntimeError unless every plane's padded region is bit-equal."""
+    st, bl, shapes = korb.orb_level_planes(imgs, n_levels, scale)
+    st_p, bl_p, shapes_p = korb.level_planes_plain(imgs, n_levels, scale)
+    pad = korb.PAD
+    if shapes != shapes_p:
+        raise RuntimeError(f"orb_level_planes: shapes {shapes} against {shapes_p}")
+    err = 0.0
+    for p, (h, w) in enumerate(shapes):
+        for got, ref in ((st, st_p), (bl, bl_p)):
+            g, r = got[p, :h + 2 * pad, :w + 2 * pad], ref[p, :h + 2 * pad, :w + 2 * pad]
+            e = float((g - r).abs().max())
+            err = max(err, e)
+            if not torch.equal(g, r):
+                raise RuntimeError(f"orb_level_planes disagrees with its plain version on "
+                                   f"plane {p} of {tuple(imgs.shape)}: max |diff| {e}")
+    return st, bl, shapes, err
+
+
+def orb_select_check(torch, korb, scores, shapes, per, scale):
+    """``orb_select_grid`` against its plain version: (outputs, max |diff|);
+    raises RuntimeError unless every output is bit-equal."""
+    sel = korb.orb_select_grid(scores, shapes, per, scale)
+    sel_p = korb.select_grid_plain(scores, shapes, per, scale)
+    err = max([0.0] + [float((a.double() - b.double()).abs().max()) for a, b in zip(sel, sel_p)
+                       if a.numel()])
+    if not all(torch.equal(a, b) for a, b in zip(sel, sel_p)):
+        raise RuntimeError(f"orb_select_grid disagrees with its plain version on "
+                           f"{len(shapes)} planes of {tuple(scores.shape)}: max |diff| {err}")
+    return sel, err
+
+
+def orb_level_bound(korb, shapes, B, H, W, n_levels):
+    """The least time of ``orb_level_planes``: the images read once, both
+    stacks' padded regions written once; the resize's taps and the blur's 28
+    operations a level pixel."""
+    pad = korb.PAD
+    n_pix = sum(h * w for h, w in shapes)
+    n_padded = sum((h + 2 * pad) * (w + 2 * pad) for h, w in shapes)
+    ops = 28 * n_pix
+    for lvl in range(1, n_levels):
+        h, w = shapes[lvl]
+        tr = korb.resize_taps(H, h)[1].shape[1]
+        tc = korb.resize_taps(W, w)[1].shape[1]
+        ops += B * (2 * h * W * tr + 2 * h * w * tc)
+    return bound(4 * B * H * W + 8 * n_padded, ops), n_padded
+
+
+def orb_select_bound(torch, korb, scores, shapes, per, n_levels, K):
+    """The least time of ``orb_select_grid``: every plane pixel read and
+    compared for each of its cell's candidates, the positive candidates
+    ordered, the K slots written (20 bytes each)."""
+    import math
+    import torch.nn.functional as F
+    ops, n_pos = 0, 0
+    for p, (h, w) in enumerate(shapes):
+        hc, wc = -(-h // korb.CELL), -(-w // korb.CELL)
+        m = korb.cell_candidates(hc * wc, per[p % n_levels])
+        cells = F.pad(scores[p, :h, :w], (0, wc * korb.CELL - w, 0, hc * korb.CELL - h))
+        cells = cells.reshape(hc, korb.CELL, wc, korb.CELL).permute(0, 2, 1, 3).reshape(hc * wc, -1)
+        pos = int(torch.clamp((cells > 0).sum(1), max=m).sum())
+        n_pos += pos
+        ops += m * h * w + pos * max(1.0, math.log2(max(pos, 1)))
+    return bound(4 * sum(h * w for h, w in shapes) + 20 * K, ops), n_pos
+
+
+def subpixel_bound(n: int):
+    """The least time of ``ops/stereo.subpixel_refine`` on n keypoints: each
+    keypoint's 11 x 11 left patch and 11 x 21 right strip read once (uint8
+    pixels), its coordinates and flag in (13 bytes), u_r and the flag out (5);
+    per keypoint 121 subtractions to centre the patch, then for each of the 11
+    offsets 121 each to centre, subtract, take the absolute value and add,
+    the arg-min and the parabola (~20)."""
+    return bound(n * (121 + 231 + 13 + 5), n * (121 + 11 * 4 * 121 + 20))
+
+
+def orb_interp_ms(torch, imgs, shapes, n_levels):
+    """``F.interpolate(..., "bilinear", antialias=True)`` of every level but
+    0 of the images, one call a level (no blur): the library's yardstick."""
+    import torch.nn.functional as F
+    x = imgs[:, None]
+    return cuda_ms(torch, lambda: [F.interpolate(x, size=shapes[lvl], mode="bilinear",
+                                                 antialias=True)
+                                   for lvl in range(1, n_levels)], 50, True)
+
+
+def orb_hd_rows(torch, pair, size, log=print) -> dict:
+    """The pyramid and the grid top-k of ``pair`` (float32 [H, W] on the
+    card) resampled to ``size`` (H, W) and rounded to grey levels: both
+    kernels bit-equal to their plain versions on one and on two images, then
+    their device ms behind a backlog on two, beside the bound, the plain
+    version and ``F.interpolate``. Raises RuntimeError on a disagreement."""
+    import torch.nn.functional as F
+    from tc2li_slam_torch.ops import orb
+    from tc2li_slam_torch.ops.kernels import fast, orb as korb
+    n_levels, scale = 8, 1.2
+    per = orb.features_per_level(2000, n_levels, scale)
+    H, W = size
+    big = F.interpolate(torch.stack(pair)[:, None], size=size, mode="bilinear",
+                        antialias=True)[:, 0].round().clamp(0, 255)
+    err = {"level": 0.0, "select": 0.0}
+    for B in (1, 2):
+        imgs = big[:B].contiguous()
+        st, bl, shapes, e = orb_level_check(torch, korb, imgs, n_levels, scale)
+        err["level"] = max(err["level"], e)
+        scores = fast.detect_planes(st, shapes, korb.PAD)
+        sel, e = orb_select_check(torch, korb, scores, shapes, per, scale)
+        err["select"] = max(err["select"], e)
+    hc, wc = -(-H // korb.CELL), -(-W // korb.CELL)
+    n_cand = hc * wc * korb.cell_candidates(hc * wc, per[0])
+    b_level, n_padded = orb_level_bound(korb, shapes, 2, H, W, n_levels)
+    b_sel, n_pos = orb_select_bound(torch, korb, scores, shapes, per, n_levels, sel[0].numel())
+    ms_level = cuda_ms(torch, lambda: korb.orb_level_planes(imgs, n_levels, scale), 50, True)
+    ms_sel = cuda_ms(torch, lambda: korb.orb_select_grid(scores, shapes, per, scale), 50, True)
+    ms_level_p = cuda_ms(torch, lambda: korb.level_planes_plain(imgs, n_levels, scale), 3)
+    ms_sel_p = cuda_ms(torch, lambda: korb.select_grid_plain(scores, shapes, per, scale), 3)
+    ms_interp = orb_interp_ms(torch, imgs, shapes, n_levels)
+    log(f"{W}x{H}, 2 images: orb_level_planes bit-equal, {n_padded} padded pixels a stack, "
+        f"{ms_level:.4f} ms on the device (bound {b_level[0]:.4f} ms, {b_level[1]}; plain "
+        f"{ms_level_p:.4f} ms; F.interpolate {ms_interp:.4f} ms); orb_select_grid bit-equal, "
+        f"level 0 {n_cand} candidates, {n_pos} positive in all, "
+        f"{int((sel[2] > 0).sum())} keypoints: {ms_sel:.4f} ms (bound {b_sel[0]:.6f} ms, "
+        f"{b_sel[1]}; plain {ms_sel_p:.4f} ms)")
+    return {"orb_level_planes": dict(ms=ms_level, plain_ms=ms_level_p, bound_ms=b_level[0],
+                                     bound_by=b_level[1], library_ms=ms_interp,
+                                     max_abs_err=err["level"]),
+            "orb_select_grid": dict(ms=ms_sel, plain_ms=ms_sel_p, bound_ms=b_sel[0],
+                                    bound_by=b_sel[1], max_abs_err=err["select"],
+                                    level0_candidates=n_cand)}
+
+
+def orb_kernel_rows(torch, pair, log=print, hd_size=(720, 1280)) -> dict:
     """Phase 5's rows of the three ORB kernels (``csrc/orb.cu``) on the real
     images ``pair`` (float32 [H, W] on the card): each against its plain
     version on one and on two images, bit for bit (the descriptors of every
     keypoint whose angle is equal; any other is printed and fails), then
     device ms behind a backlog beside the bound, the plain version and, for
     the pyramid, ``F.interpolate(..., "bilinear", antialias=True)`` of every
-    level. Raises RuntimeError on a disagreement."""
-    import math
-    import torch.nn.functional as F
+    level; then the pyramid and the grid top-k of the pair at ``hd_size``
+    (``orb_hd_rows``; at 1280x720 level 0 holds 7,200 grid candidates), its
+    errors joined to the rows', unless ``hd_size`` is None. Raises
+    RuntimeError on a disagreement."""
     from tc2li_slam_torch.ops import orb
     from tc2li_slam_torch.ops.kernels import fast, orb as korb
     n_levels, scale, n_feat = 8, 1.2, 2000
     per = orb.features_per_level(n_feat, n_levels, scale)
     err = {"level": 0.0, "select": 0.0, "describe": 0.0}
+    pad = korb.PAD
     for fs in (pair[:1], pair):
         imgs = torch.stack(fs)
-        st, bl, shapes = korb.orb_level_planes(imgs, n_levels, scale)
-        st_p, bl_p, shapes_p = korb.level_planes_plain(imgs, n_levels, scale)
-        pad = korb.PAD
-        if shapes != shapes_p:
-            raise RuntimeError(f"orb_level_planes: shapes {shapes} against {shapes_p}")
-        for p, (h, w) in enumerate(shapes):
-            for got, ref in ((st, st_p), (bl, bl_p)):
-                e = float((got[p, :h + 2 * pad, :w + 2 * pad]
-                           - ref[p, :h + 2 * pad, :w + 2 * pad]).abs().max())
-                err["level"] = max(err["level"], e)
-                if not torch.equal(got[p, :h + 2 * pad, :w + 2 * pad],
-                                   ref[p, :h + 2 * pad, :w + 2 * pad]):
-                    raise RuntimeError(f"orb_level_planes disagrees with its plain version on "
-                                       f"plane {p} ({len(fs)} image(s)): max |diff| {e}")
+        st, bl, shapes, e = orb_level_check(torch, korb, imgs, n_levels, scale)
+        err["level"] = max(err["level"], e)
         scores = fast.detect_planes(st, shapes, pad)
-        sel = korb.orb_select_grid(scores, shapes, per, scale)
-        sel_p = korb.select_grid_plain(scores, shapes, per, scale)
-        err["select"] = max([err["select"]] + [float((a.double() - b.double()).abs().max())
-                                               for a, b in zip(sel, sel_p) if a.numel()])
-        if not all(torch.equal(a, b) for a, b in zip(sel, sel_p)):
-            raise RuntimeError(f"orb_select_grid disagrees with its plain version "
-                               f"({len(fs)} image(s))")
+        sel, e = orb_select_check(torch, korb, scores, shapes, per, scale)
+        err["select"] = max(err["select"], e)
         rows, cols, score, level, _ = sel
         ang, desc = korb.orb_describe(st, bl, rows, cols, level, n_levels, pad)
         ang_p, desc_p = korb.describe_plain(st, bl, rows, cols, level, n_levels, pad)
@@ -1089,27 +1212,8 @@ def orb_kernel_rows(torch, pair, log=print) -> dict:
     # timings and bounds on the two images, the main path's call
     B, H, W = imgs.shape
     K = rows.numel()
-    n_pix = sum(h * w for h, w in shapes)
-    n_padded = sum((h + 2 * pad) * (w + 2 * pad) for h, w in shapes)
-    ops_level = 28 * n_pix
-    for lvl in range(1, n_levels):
-        h, w = shapes[lvl]
-        tr = korb.resize_taps(H, h)[1].shape[1]
-        tc = korb.resize_taps(W, w)[1].shape[1]
-        ops_level += B * (2 * h * W * tr + 2 * h * w * tc)
-    b_level = bound(4 * B * H * W + 8 * n_padded, ops_level)
-    # the grid top-k: every pixel read and compared for each of its cell's
-    # candidates, the positive candidates sorted, the slots written
-    ops_sel, n_pos = 0, 0
-    for p, (h, w) in enumerate(shapes):
-        hc, wc = -(-h // korb.CELL), -(-w // korb.CELL)
-        m = korb.cell_candidates(hc * wc, per[p % n_levels])
-        cells = F.pad(scores[p, :h, :w], (0, wc * korb.CELL - w, 0, hc * korb.CELL - h))
-        cells = cells.reshape(hc, korb.CELL, wc, korb.CELL).permute(0, 2, 1, 3).reshape(hc * wc, -1)
-        pos = int(torch.clamp((cells > 0).sum(1), max=m).sum())
-        n_pos += pos
-        ops_sel += m * h * w + pos * max(1.0, math.log2(max(pos, 1)))
-    b_sel = bound(4 * n_pix + 20 * K, ops_sel)
+    b_level, n_padded = orb_level_bound(korb, shapes, B, H, W, n_levels)
+    b_sel, n_pos = orb_select_bound(torch, korb, scores, shapes, per, n_levels, K)
     # the distinct pixels read on each plane (keypoints share them): the
     # masked patches' in img_stack and the rotated taps' in blur_stack; 3
     # ints in, an angle and 8 words out a keypoint; per keypoint the float64
@@ -1125,10 +1229,7 @@ def orb_kernel_rows(torch, pair, log=print) -> dict:
     ms_sel_p = cuda_ms(torch, lambda: korb.select_grid_plain(scores, shapes, per, scale), 5)
     ms_desc_p = cuda_ms(torch, lambda: korb.describe_plain(st, bl, rows, cols, level, n_levels,
                                                            pad), 5)
-    x = imgs[:, None]
-    ms_interp = cuda_ms(torch, lambda: [F.interpolate(x, size=shapes[lvl], mode="bilinear",
-                                                      antialias=True)
-                                        for lvl in range(1, n_levels)], 50, True)
+    ms_interp = orb_interp_ms(torch, imgs, shapes, n_levels)
     log(f"orb_level_planes, 2 images x {n_levels} levels ({n_padded} padded pixels a stack): "
         f"{ms_level:.4f} ms on the device (bound {b_level[0]:.4f} ms, {b_level[1]}; plain "
         f"{ms_level_p:.4f} ms; F.interpolate bilinear antialias, one call a level, "
@@ -1137,12 +1238,18 @@ def orb_kernel_rows(torch, pair, log=print) -> dict:
         f"{ms_sel_p:.4f} ms); orb_describe, {K} keypoints ({n_img} patch and {n_blur} tap "
         f"pixels): {ms_desc:.4f} ms (bound "
         f"{b_desc[0]:.6f} ms, {b_desc[1]}; plain {ms_desc_p:.4f} ms)")
+    hd = orb_hd_rows(torch, pair, hd_size, log=log) if hd_size else {
+        "orb_level_planes": {"max_abs_err": 0.0}, "orb_select_grid": {"max_abs_err": 0.0}}
     src, ref = "tc2li_slam_torch/csrc/orb.cu", "tc2li_slam_tpu/ops/orb.py"
     return {
-        "orb_level_planes": dict(source=src, replaces=f"{ref}:425", max_abs_err=err["level"],
+        "orb_level_planes": dict(source=src, replaces=f"{ref}:425",
+                                 max_abs_err=max(err["level"], hd["orb_level_planes"][
+                                     "max_abs_err"]),
                                  ms=ms_level, plain_ms=ms_level_p, bound_ms=b_level[0],
                                  bound_by=b_level[1], library_ms=ms_interp),
-        "orb_select_grid": dict(source=src, replaces=f"{ref}:204", max_abs_err=err["select"],
+        "orb_select_grid": dict(source=src, replaces=f"{ref}:204",
+                                max_abs_err=max(err["select"], hd["orb_select_grid"][
+                                    "max_abs_err"]),
                                 ms=ms_sel, plain_ms=ms_sel_p, bound_ms=b_sel[0],
                                 bound_by=b_sel[1]),
         "orb_describe": dict(source=src, replaces=f"{ref}:369", max_abs_err=err["describe"],
@@ -1385,7 +1492,7 @@ def dist_phase(torch, dev, cfg, frames, gt, ref, backend: str = "nccl", log=prin
             if cuda and (max(syncs[1:]) > 2 or np.mean(syncs[1:]) > 1.2):
                 raise RuntimeError(f"System(mesh): host syncs by frame {syncs}")
             n = len(frames)
-            if cuda and any(counts[k] != n for k in ORB_KERNELS):
+            if cuda and any(counts[k] != n * ORB_LAUNCHES[k] for k in ORB_KERNELS):
                 raise RuntimeError(f"System(mesh): launches {counts} for {n} frames")
         finally:
             dist.destroy_process_group()
@@ -1629,7 +1736,7 @@ def main() -> int:
         return fail("voxel map is empty")
     if not np.all(np.isfinite(est)):
         return fail("non-finite poses")
-    expected = {**dict.fromkeys(ORB_KERNELS, N_FRAMES), "hamming_matrix": 0, "match_best2": N_FRAMES + (N_FRAMES - 1) + n_fuse,
+    expected = {**{k: N_FRAMES * v for k, v in ORB_LAUNCHES.items()}, "hamming_matrix": 0, "match_best2": N_FRAMES + (N_FRAMES - 1) + n_fuse,
                 "pose_only_lm": N_FRAMES - 1, "calls:track_frame": N_FRAMES - 1,
                 "calls:pnp_ransac": 0, "balm_quadratic": 2 * n_balm3,
                 "local_ba_lm": klba.launches_per_call(cfg.tracking.ba_iters) * n_ba3,
@@ -1709,7 +1816,8 @@ def main() -> int:
         get = modes.get
         window_lo = n_tracked + d["n_recover"] + d["n_fuse"]
         faults = []
-        if any(counts[k] != n_built for k in ORB_KERNELS) or counts["hamming_matrix"]:
+        if any(counts[k] != n_built * ORB_LAUNCHES[k] for k in ORB_KERNELS) \
+                or counts["hamming_matrix"]:
             faults.append(f"{n_built} frames built")
         if sum(modes.values()) != counts["match_best2"]:
             faults.append("the shapes do not sum to the matcher's count")
@@ -2093,7 +2201,8 @@ def main() -> int:
           f"frames {LOOP_PERIOD}..{N_LOOP - 1} {1e3 * (N_LOOP - LOOP_PERIOD) / sum(lp['frame_ms'][LOOP_PERIOD:]):.3f}; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; kernel "
           f"launches {counts_f}", flush=True)
-    if any(counts_f[k] != N_LOOP for k in ORB_KERNELS) or counts_f["hamming_matrix"] \
+    if any(counts_f[k] != N_LOOP * ORB_LAUNCHES[k] for k in ORB_KERNELS) \
+            or counts_f["hamming_matrix"] \
             or modes_f.get("stereo+mutual", 0) != N_LOOP:
         return fail(f"loop closing: launches {counts_f} by shape {modes_f} for {N_LOOP} frames")
     if pose_fault(counts_f):

@@ -31,12 +31,20 @@
 // entry cost is NaN and no candidate is accepted, as there: the result is
 // the entry state whatever the sums in between held, so the Schur sums
 // select away the observations whose weight is exactly 0.
-// Precision: each observation's terms are float32, as there; the sums over
-// observations and landmarks (Hll, gl, S, g, the costs), the 3x3 inverses,
-// B Hll^-1, the elimination and the back-substitution are float64. The
-// global BA (P 64, 8192 landmarks) is ill-conditioned enough that float32
-// sums in another order than the plain version's move poses by ~2e-4 and
-// landmarks seen at small parallax by decimetres.
+// Precision: each observation's terms of the normal equations are float32,
+// as there; the sums over observations and landmarks (Hll, gl, S, g), the
+// 3x3 inverses, B Hll^-1, the elimination and the back-substitution are
+// float64. The global BA (P 64, 8192 landmarks) is ill-conditioned enough
+// that float32 sums in another order than the plain version's move poses by
+// ~2e-4 and landmarks seen at small parallax by decimetres. The costs (the
+// entry's and each candidate's) are evaluated in float64 from the float32
+// state, observation by observation, and kept in float64: the accept test
+// of the last iterations compares costs that differ by ~5e-4 on a window
+// cost of ~907, below the ~1e-3 noise of a float32 evaluation, so a float32
+// cost decided those steps by its rounding (tools/balm_windows.py --trace 8
+// on an NVIDIA H100 80GB HBM3 at 700 W: the float32 evaluation rejected at
+// iteration 3 the step the float64 run accepts, and left landmarks 2 cm
+// from it; in float64 the kernel takes the float64 run's decisions).
 //
 // Bound on the H100: a 6-iteration call at L 8192, K 8, P 6 reads ~1.4 MB
 // of observations a pass and does ~60 M operations an iteration (~12 us of
@@ -77,12 +85,13 @@
 //        winner after it (an exchange by mbarriers, one arrival from each
 //        block, was slower on the H100). Block 0 takes T_new, xi_new and
 //        the candidate's model cost;
-//   eval (landmark grid): dl, X_new and the per-block sums of the candidate's
-//        visual cost;
+//   eval (landmark grid): dl, X_new and the per-block float64 sums of the
+//        candidate's visual cost;
 //   commit (landmark grid): every block adds the per-block sums in block
-//        order (the same bits in every block), decides, and moves its
-//        landmarks; block 0 writes the next state (two slots, read one,
-//        write the other) and the outputs.
+//        order (the same bits in every block), decides (candidate strictly
+//        below the accepted cost, both float64), and moves its landmarks;
+//        block 0 writes the next state (two slots, read one, write the
+//        other) and the outputs, and the iteration's trace where asked.
 // 2 + 5 iters launches a call. The solve's shared memory grows with 6P and
 // caps P at 67: a larger window's launch is refused and reported.
 
@@ -136,7 +145,7 @@ struct Table {
   int K;
 };
 
-// a state slot: T [16 P], xi [D], then lam, cost, visual cost, entry cost
+// a state slot: T [16 P], xi [D], then lam; its costs in float64 beside it (Work::cost)
 struct Work {
   double* part;     // [chunks, kPart] each chunk's sums
   double* Hinv;     // [L, 9]
@@ -151,12 +160,14 @@ struct Work {
   float* dp;        // [D]
   float* Tc;        // [16 P] the candidate's poses
   float* xic;       // [D]
-  float* model;     // [1] the candidate's quadratic-model cost
-  float* state[2];
+  double* model;    // [1] the candidate's quadratic-model cost
+  float* state[2];  // T [16 P], xi [D], lam
+  double* cost[2];  // with state[i]: the cost, the visual cost, the entry cost
   float* T_out;     // [16 P]
   float* scal;      // [3] cost, visual cost, entry cost
   uint8_t* live;    // [L, K] w != 0 (NaN counts as live)
   int* done;        // [nb] chunks of each block summed so far (0 between launches)
+  double* trace;    // [iters, 4] or null: candidate cost, cost after, lam, accepted
 };
 
 __device__ __forceinline__ int lam_at(const Problem& pr) { return 16 * pr.P + pr.D; }
@@ -196,21 +207,34 @@ __device__ __forceinline__ void observe(const Problem& pr, const float* Ts, int 
       ob.Jl[k][j] = rp.a[k][0] * T[j] + rp.a[k][1] * T[4 + j] + rp.a[k][2] * T[8 + j];
 }
 
-// the visual cost w |r|^2 of one landmark's observations
-__device__ float landmark_cost(const Problem& pr, const float* Ts, int l, float x, float y,
-                               float z) {
-  float c = 0.f;
+// the visual cost w |r|^2 of one landmark's observations, in float64 from
+// the float32 state: the cost decides whether a step is accepted, and a
+// float32 evaluation is noisier (~1e-3 on a 900 cost) than the steps that
+// decide the last iterations
+__device__ double landmark_cost(const Problem& pr, const float* Ts, int l, float x, float y,
+                                float z) {
+  using D = double;
+  D c = 0.0;
   for (int k = 0; k < pr.K; ++k) {
     const int o = l * pr.K + k;
     const bool st = pr.stereo[o] != 0;
-    const tc2li::Reproj rp = tc2li::reproject(Ts + 16 * clamp_pose(pr.pidx[o], pr.P), x, y, z,
-                                              pr.uv + 3 * o, st, pr.cam);
-    const float is2 = pr.is2[o];
-    const float rr = rp.r[0] * rp.r[0] + rp.r[1] * rp.r[1] + rp.r[2] * rp.r[2];
-    const float thr = st ? tc2li::kChi2Stereo : tc2li::kChi2Mono;
-    const bool active = pr.valid[o] != 0 && rp.zc > 0.05f;
-    const float w = is2 * tc2li::huber(is2 * rr, thr) * (active ? 1.f : 0.f);
-    c += w * rr;
+    const float* T = Ts + 16 * clamp_pose(pr.pidx[o], pr.P);
+    const D xc = D(T[0]) * x + D(T[1]) * y + D(T[2]) * z + D(T[3]);
+    const D yc = D(T[4]) * x + D(T[5]) * y + D(T[6]) * z + D(T[7]);
+    const D zc = D(T[8]) * x + D(T[9]) * y + D(T[10]) * z + D(T[11]);
+    const D zs = fabs(zc) < 1e-9 ? 1e-9 : zc;
+    const D u = D(pr.cam.fx) * xc / zs + D(pr.cam.cx);
+    const D v = D(pr.cam.fy) * yc / zs + D(pr.cam.cy);
+    const float* uv = pr.uv + 3 * o;
+    const D r0 = u - uv[0], r1 = v - uv[1];
+    const D r2 = st ? (u - D(pr.cam.bf) / zs) - uv[2] : 0.0;
+    const D is2 = pr.is2[o];
+    const D rr = r0 * r0 + r1 * r1 + r2 * r2;
+    const D chi2 = is2 * rr;
+    const D thr = st ? D(tc2li::kChi2Stereo) : D(tc2li::kChi2Mono);
+    const bool active = pr.valid[o] != 0 && zc > 0.05;
+    const D hub = chi2 <= thr ? 1.0 : sqrt(thr / (chi2 < 1e-12 ? 1e-12 : chi2));
+    c += is2 * hub * (active ? 1.0 : 0.0) * rr;
   }
   return c;
 }
@@ -235,7 +259,7 @@ __global__ void __launch_bounds__(kLmThreads) init_kernel(const Problem pr, Work
   __shared__ double red[kLmThreads / 32];
   for (int e = threadIdx.x; e < 16 * pr.P; e += blockDim.x) sm[e] = pr.T0[e];
   __syncthreads();
-  float c = 0.f;
+  double c = 0.0;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l < pr.L) {
     const float x = pr.X0[3 * l], y = pr.X0[3 * l + 1], z = pr.X0[3 * l + 2];
@@ -764,9 +788,9 @@ __global__ void __launch_bounds__(kSolveThreads) solve_kernel(const Problem pr, 
     const double q = block_sum(part, red);
     __syncthreads();
     const double gx = block_sum(lin, red);
-    if (tid == 0) *wk.model = static_cast<float>(pr.ce[0] + gx + 0.5 * q);
+    if (tid == 0) *wk.model = pr.ce[0] + gx + 0.5 * q;
   } else if (tid == 0) {
-    *wk.model = 0.f;
+    *wk.model = 0.0;
   }
 }
 
@@ -779,7 +803,7 @@ __global__ void __launch_bounds__(kLmThreads) eval_kernel(const Problem pr, Work
   for (int e = threadIdx.x; e < 16 * pr.P; e += blockDim.x) Ts[e] = wk.Tc[e];
   for (int e = threadIdx.x; e < pr.D; e += blockDim.x) dp[e] = wk.dp[e];
   __syncthreads();
-  float c = 0.f;
+  double c = 0.0;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l < pr.L) {
     double bt[3] = {0.0, 0.0, 0.0};
@@ -815,20 +839,23 @@ __global__ void __launch_bounds__(kLmThreads) eval_kernel(const Problem pr, Work
 // (commit) accept or reject; slot `from` is read, the other written.
 // init: the entry state from T0 and the entry cost.
 __global__ void __launch_bounds__(kLmThreads) commit_kernel(const Problem pr, Work wk, int from,
-                                                            int init) {
-  __shared__ float s_tot;
+                                                            int init, int it) {
+  __shared__ double s_vis, s_cand;
   __shared__ int s_acc;
   const float* cur = wk.state[from];
   float* nxt = wk.state[from ^ 1];
+  const double* ccur = wk.cost[from];
+  double* cnxt = wk.cost[from ^ 1];
   const int li = lam_at(pr);
   if (threadIdx.x == 0) {
     double vis = 0.0;
     for (int b = 0; b < static_cast<int>(gridDim.x); ++b) vis += wk.partial[b];
-    s_tot = static_cast<float>(vis);
-    s_acc = init ? 1 : ((vis + *wk.model) < cur[li + 1]);   // NaN rejects
+    s_vis = vis;
+    s_cand = init ? vis : vis + *wk.model;
+    s_acc = init ? 1 : (s_cand < ccur[0]);   // NaN rejects
   }
   __syncthreads();
-  const float vis = s_tot;
+  const double vis = s_vis;
   const bool acc = s_acc != 0;
   if (!init && acc) {
     const int l = blockIdx.x * blockDim.x + threadIdx.x;
@@ -844,25 +871,33 @@ __global__ void __launch_bounds__(kLmThreads) commit_kernel(const Problem pr, Wo
   for (int e = threadIdx.x; e < pr.D; e += blockDim.x)
     nxt[16 * pr.P + e] = init ? 0.f : (acc ? wk.xic[e] : cur[16 * pr.P + e]);
   if (threadIdx.x == 0) {
-    float lam, cost, v, cost0;
+    float lam;
+    double cost, v, cost0;
     if (init) {
       lam = 1e-4f;
-      cost = pr.He ? vis + pr.ce[0] : vis;
+      cost = pr.He ? vis + static_cast<double>(pr.ce[0]) : vis;
       v = vis;
       cost0 = cost;
     } else {
       lam = acc ? cur[li] * 0.5f : cur[li] * 4.f;
-      cost = acc ? vis + *wk.model : cur[li + 1];
-      v = acc ? vis : cur[li + 2];
-      cost0 = cur[li + 3];
+      cost = acc ? s_cand : ccur[0];
+      v = acc ? vis : ccur[1];
+      cost0 = ccur[2];
     }
     nxt[li] = lam;
-    nxt[li + 1] = cost;
-    nxt[li + 2] = v;
-    nxt[li + 3] = cost0;
-    wk.scal[0] = cost;
-    wk.scal[1] = v;
-    wk.scal[2] = cost0;
+    cnxt[0] = cost;
+    cnxt[1] = v;
+    cnxt[2] = cost0;
+    wk.scal[0] = static_cast<float>(cost);
+    wk.scal[1] = static_cast<float>(v);
+    wk.scal[2] = static_cast<float>(cost0);
+    if (wk.trace && !init) {
+      double* tr = wk.trace + 4 * it;
+      tr[0] = s_cand;
+      tr[1] = cost;
+      tr[2] = cur[li];
+      tr[3] = acc ? 1.0 : 0.0;
+    }
   }
 }
 
@@ -878,13 +913,13 @@ size_t solve_smem(int P) {
 
 // the scratch's arrays, each at a 16-byte boundary (the build's vector stores)
 struct Layout {
-  size_t Hinv, gl, W, gd, partial, B, Hd, Xc, dp, Tc, xic, model, state0, state1, done, live,
-      total;
+  size_t Hinv, gl, W, gd, partial, B, Hd, Xc, dp, Tc, xic, model, state0, state1, cost0, cost1,
+      done, live, total;
 };
 
 Layout layout(int L, int K, int P) {
   const size_t D = 6 * static_cast<size_t>(P), LK = static_cast<size_t>(L) * K;
-  const size_t slot = 16 * static_cast<size_t>(P) + D + 4;
+  const size_t slot = 16 * static_cast<size_t>(P) + D + 1;
   size_t off = 0;
   auto take = [&off](size_t bytes) {
     const size_t at = off;
@@ -903,9 +938,11 @@ Layout layout(int L, int K, int P) {
   y.dp = take(4 * D);
   y.Tc = take(4 * 16 * static_cast<size_t>(P));
   y.xic = take(4 * D);
-  y.model = take(4);
+  y.model = take(8);
   y.state0 = take(4 * slot);
   y.state1 = take(4 * slot);
+  y.cost0 = take(8 * 3);
+  y.cost1 = take(8 * 3);
   y.done = take(4 * (static_cast<size_t>(P) * (P + 1) / 2));
   y.live = take(LK);
   y.total = off;
@@ -927,7 +964,9 @@ extern "C" long long tc2li_local_ba_scratch(int L, int K, int P) {
 // at least `chunk` pairs, and part [n_chunks, 42] float64 with n_chunks at
 // least cstart's last entry; scratch of
 // tc2li_local_ba_scratch(L, K, P) bytes, 16-byte aligned; outputs T_out [P, 4,
-// 4], X_out [L, 3], scal [3] (cost, visual cost, entry cost) float32. All
+// 4], X_out [L, 3], scal [3] (cost, visual cost, entry cost) float32; trace
+// [iters, 4] float64 or null (each iteration's candidate cost, cost after
+// the decision, lam and 1 where accepted). All
 // contiguous on the device. Launches 2 + 5 iters kernels on `stream`;
 // returns the first CUDA error code that is not cudaSuccess (a refused
 // launch included: P above 67 exceeds the solve's shared memory).
@@ -942,7 +981,7 @@ extern "C" int tc2li_local_ba_lm(const float* T0, const float* X0, const int* pi
                                  float fx,
                                  float fy, float cx, float cy, float bf, int iters,
                                  void* scratch, float* T_out, float* X_out, float* scal,
-                                 void* stream) {
+                                 double* trace, void* stream) {
   if (K < 1 || K > 32 || P < 1 || P > 128 || L < 0 || iters < 0 || chunk < 1 ||
       max_chunks < 1 || n_chunks < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -968,14 +1007,17 @@ extern "C" int tc2li_local_ba_lm(const float* T0, const float* X0, const int* pi
   wk.dp = reinterpret_cast<float*>(base + y.dp);
   wk.Tc = reinterpret_cast<float*>(base + y.Tc);
   wk.xic = reinterpret_cast<float*>(base + y.xic);
-  wk.model = reinterpret_cast<float*>(base + y.model);
+  wk.model = reinterpret_cast<double*>(base + y.model);
   wk.state[0] = reinterpret_cast<float*>(base + y.state0);
   wk.state[1] = reinterpret_cast<float*>(base + y.state1);
+  wk.cost[0] = reinterpret_cast<double*>(base + y.cost0);
+  wk.cost[1] = reinterpret_cast<double*>(base + y.cost1);
   wk.done = reinterpret_cast<int*>(base + y.done);
   wk.live = reinterpret_cast<uint8_t*>(base + y.live);
   wk.X = X_out;
   wk.T_out = T_out;
   wk.scal = scal;
+  wk.trace = trace;
   const int grid = grid_of(L);
   const int build_grid = grid_of(L * G);
   const int reduce_grid = n_chunks < 1 ? 1 : (n_chunks + kReduceWarps - 1) / kReduceWarps;
@@ -1001,7 +1043,7 @@ extern "C" int tc2li_local_ba_lm(const float* T0, const float* X0, const int* pi
   cfg.numAttrs = 1;
   init_kernel<<<grid, kLmThreads, sm_T, s>>>(pr, wk);
   if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
-  commit_kernel<<<grid, kLmThreads, 0, s>>>(pr, wk, 1, 1);
+  commit_kernel<<<grid, kLmThreads, 0, s>>>(pr, wk, 1, 1, 0);
   if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
   int slot = 0;
   for (int it = 0; it < iters; ++it) {
@@ -1014,7 +1056,7 @@ extern "C" int tc2li_local_ba_lm(const float* T0, const float* X0, const int* pi
     if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
     eval_kernel<<<grid, kLmThreads, sm_eval, s>>>(pr, wk);
     if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
-    commit_kernel<<<grid, kLmThreads, 0, s>>>(pr, wk, slot, 0);
+    commit_kernel<<<grid, kLmThreads, 0, s>>>(pr, wk, slot, 0, it);
     if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
     slot ^= 1;
   }

@@ -1,6 +1,6 @@
 // ORB after FAST: the pyramid and blur planes, the grid top-k and
-// orientation with rBRIEF, each in one launch for every plane or every
-// keypoint of one or two images.
+// orientation with rBRIEF, for every plane or every keypoint of one or two
+// images: one launch each, the grid top-k two.
 //
 // Replaces the jit-compiled body of tc2li_slam_tpu/ops/orb.py:extract
 // around the FAST kernel: jax.image.resize(..., "linear") with
@@ -16,34 +16,50 @@
 // FMAs cannot change a bit: the outputs are bit-equal to the plain version.
 //
 // orb_level_planes. Bound: bytes (the padded planes of both stacks, ~27.8 MB
-// for two 1241x376 images, ~8.3 us at 3.35 TB/s; 0.095 ms on an NVIDIA H100
-// 80GB HBM3 at 700 W, chip_smoke.py, with the halo recomputation and the
-// level-7 taps). The grid is the flat list of 32x32 tiles of every plane's
-// padded region; a tile maps, by edge
-// clamping, onto at most 32x32 level pixels, and the block computes those
-// (and a 3-pixel halo for the blur) from the image in shared memory: the
-// row pass of the resize (only the nonzero taps of each output row, from a
-// precomputed table), then the column pass, the vertical and the horizontal
-// 7-tap REFLECT_101 blur. Each tile recomputes its halo, so no pass waits
-// for another block and nothing but the two stacks is written. What lies
-// outside each plane's padded region is not written (no reader looks there).
+// for two 1241x376 images, ~8.3 us at 3.35 TB/s). A block takes a tile of
+// 32 x 64 pixels of one level (the wrapper's level_tiles lists them) and
+// writes its part of both stacks: the tile, and where the tile lies on the
+// plane's edge the replicated border beside it, so every pixel of a padded
+// region is written by one block, from level pixels it has computed. The
+// tile and the blur's 3-pixel halo are built in shared memory in the halo's
+// reflected coordinates (REFLECT_101 once a pixel; the blur loops read
+// without clamps): level 0 copies the image; a resized level runs a warp a
+// level row, the vertical pass over the image columns the tile reads into
+// the warp's own row buffer, then the horizontal pass, with no block
+// barrier between rows; the tap count is a template parameter (a switch on
+// the plane's count), so an output's loads are issued together. The
+// vertical blur takes a run of 4 rows a thread, the horizontal blur a run of
+// 4 columns, each from 10 loads. ~30 KB of shared memory and at most 80
+// registers a thread (3 blocks an SM); the halo adds 30% to a whole tile's
+// level pixels. The wrapper orders the grid top level first: a tile's
+// resize reads more image pixels the higher its level, and started first
+// the long tiles no longer trail the launch. On an NVIDIA H100 80GB HBM3 at
+// 700 W (tools/orb_kernels.py, a KITTI pair): 0.072 ms in level order, 0.049
+// top level first, 0.046 with the templated taps; loads of a group of taps
+// under a runtime count, narrower tiles at the top levels and 16 warps a
+// block were each slower.
 //
-// orb_select_grid. Bound: bytes (the 16 score planes, ~3.5 us), but one
-// block a plane runs level 0 alone on one SM (0.146 ms a stereo pair on the
-// same card). A warp takes a 16x16
-// cell at a time and picks its top m_cand by rounds of warp arg-max (ties to
-// the lower in-cell index); the positive candidates are keyed (rank
-// descending, candidate index ascending) and bitonic-sorted in shared
-// memory (at most 4,096: KITTI's level 0 has 1,872 cells of 2); the first k
-// are written. Only comparisons and the one float add of the slot-0 boost.
+// orb_select_grid, two launches. Bound: bytes (the score planes, ~3.5 us for
+// a KITTI pair). (1) The cell pass, a warp a 16x16 cell, over the cells of
+// every plane: the cell's top m_cand by rounds of warp arg-max (ties to the
+// lower in-cell index), each written as a key (rank descending, then the
+// candidate index ascending; ~0 where the slot keeps no candidate) and its
+// pixel, at the candidate's own slot cell x m_cand + slot: no atomics, no
+// position that depends on the schedule. (2) A block a plane takes its
+// first k keys in order: a radix select of the k-th smallest key, 8 bits a
+// pass (integer histograms in shared memory: their counts do not depend on
+// the order of the adds), then each selected key's slot by a rank count
+// among the k. A plane's keys lie in scratch in device memory (the
+// wrapper's torch.empty), held in shared memory as far as they fit, so a
+// plane takes any number of candidates. The launch boundary is the barrier
+// between a plane's cells, which many blocks compute, and its selection.
 //
-// orb_describe. Bound: bytes (4,000 keypoints a stereo pair, 1,473 reads
-// each, ~7 us; 0.012 ms on the same card). A warp a keypoint: lane dx sums
-// its patch column of both moments in float64 (every product of two
-// floats is exact there), the columns are
-// added in order, the moments rounded to float32 before atan2f; then each
-// lane takes 8 of the 256 tests (rintf, half to even, as torch.round) and a
-// ballot packs each word.
+// orb_describe. Bound: bytes (4,000 keypoints a stereo pair; the distinct
+// pixels the patches and taps read). A warp a keypoint: lane dx sums its
+// patch column of both moments in float64 (every product of two floats is
+// exact there), the columns are added in order, the moments rounded to
+// float32 before atan2f; then each lane takes 8 of the 256 tests (rintf,
+// half to even, as torch.round) and a ballot packs each word.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,16 +68,25 @@
 namespace {
 
 constexpr int kMaxPlanes = 32;
-constexpr int kTile = 32;
-constexpr int kHalo = 3;                    // blur radius
-constexpr int kSrc = kTile + 2 * kHalo;     // level pixels a tile side needs
-constexpr int kMaxSpan = 192;               // image columns a tile's resize reads
-constexpr int kMaxTaps = 16;
-constexpr int kLevelThreads = 256;
 
 // ---------------------------------------------------------------------------
 // orb_level_planes
 // ---------------------------------------------------------------------------
+
+constexpr int kTileH = 32;                   // level rows of a tile (a lane a row below)
+constexpr int kTileW = 64;                   // level columns of a tile
+constexpr int kHalo = 3;                     // blur radius
+constexpr int kLH = kTileH + 2 * kHalo;      // rows of the tile with its halo
+constexpr int kLW = kTileW + 2 * kHalo;      // columns of the tile with its halo
+constexpr int kLPitch = kLW + 1;             // odd: a lane a row reads distinct banks
+constexpr int kBPitch = kTileW + 1;
+constexpr int kMaxSpan = 320;                // image columns a tile's resize reads
+constexpr int kMaxTaps = 16;                 // taps an output of the resize
+constexpr int kLevelWarps = 8;
+constexpr int kLevelThreads = 32 * kLevelWarps;
+constexpr int kRun = 4;                      // outputs a thread of each blur pass
+static_assert(kTileH == 32, "the horizontal blur takes a lane a row");
+static_assert(kTileH * kBPitch <= kLevelWarps * kMaxSpan, "the blurred tile in the row buffers");
 
 struct LevelPlane {
   int img;        // image of the plane
@@ -72,7 +97,7 @@ struct LevelPlane {
   int tr, tc;     // taps per output row / column
   int out_off;    // offset (floats) of the plane's padded pixel (0, 0) in the stacks
   int tile0;      // first tile of the plane in the flat grid
-  int tiles_x;    // tiles per row of the padded region
+  int tiles_x;    // tiles per row of the level
 };
 
 struct LevelTable {
@@ -92,14 +117,78 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__global__ void __launch_bounds__(kLevelThreads)
+// A resized level row in two passes, T taps an output (a template
+// parameter: the T loads of an output are issued together, none waits on
+// the sum). Each output adds its taps in order from the first product, as
+// the plain version does.
+template <int T>
+__device__ __forceinline__ float tap_sum(const float (&w)[T], const float (&x)[T]) {
+  float acc = __fmul_rn(w[0], x[0]);
+#pragma unroll
+  for (int k = 1; k < T; ++k) acc = __fadd_rn(acc, __fmul_rn(w[k], x[k]));
+  return acc;
+}
+
+// vertical pass: buf[c] over the image rows col, col + stride, ...
+template <int T>
+__device__ void vertical_row(float* buf, const float* __restrict__ w,
+                             const float* __restrict__ col, int stride, int nc, int lane) {
+  float wv[T];
+#pragma unroll
+  for (int k = 0; k < T; ++k) wv[k] = w[k];
+#pragma unroll 2
+  for (int c = lane; c < nc; c += 32) {
+    float x[T];
+#pragma unroll
+    for (int k = 0; k < T; ++k) x[k] = col[static_cast<size_t>(k) * stride + c];
+    buf[c] = tap_sum(wv, x);
+  }
+}
+
+// horizontal pass: the tile's level columns (halo reflected) from buf
+template <int T>
+__device__ void horizontal_row(float* Lrow, const float* buf, const float* __restrict__ wc,
+                               const int* __restrict__ fcol, int c0, int sx0, int W, int nlx,
+                               int lane) {
+  for (int j = lane; j < nlx; j += 32) {
+    const int lx = reflect101(sx0 - kHalo + j, W);
+    const float* tp = buf + (fcol[lx] - c0);
+    float wv[T], x[T];
+#pragma unroll
+    for (int k = 0; k < T; ++k) {
+      wv[k] = wc[lx * T + k];
+      x[k] = tp[k];
+    }
+    Lrow[j] = tap_sum(wv, x);
+  }
+}
+
+// fn<n>(args) for a tap count n of 1 .. kMaxTaps (the wrapper checks n)
+#define TAPS_CASE(n, fn, args) \
+  case n:                      \
+    fn<n> args;                \
+    break;
+#define TAPS_DISPATCH(n, fn, args)                                                       \
+  switch (n) {                                                                           \
+    TAPS_CASE(1, fn, args) TAPS_CASE(2, fn, args) TAPS_CASE(3, fn, args)                 \
+    TAPS_CASE(4, fn, args) TAPS_CASE(5, fn, args) TAPS_CASE(6, fn, args)                 \
+    TAPS_CASE(7, fn, args) TAPS_CASE(8, fn, args) TAPS_CASE(9, fn, args)                 \
+    TAPS_CASE(10, fn, args) TAPS_CASE(11, fn, args) TAPS_CASE(12, fn, args)              \
+    TAPS_CASE(13, fn, args) TAPS_CASE(14, fn, args) TAPS_CASE(15, fn, args)              \
+    TAPS_CASE(16, fn, args)                                                              \
+    default:                                                                             \
+      break;                                                                             \
+  }
+static_assert(kMaxTaps == 16, "TAPS_DISPATCH lists 1 .. 16 taps");
+
+__global__ void __launch_bounds__(kLevelThreads, 3)
 level_planes_kernel(const float* __restrict__ img, float* __restrict__ img_stack,
                     float* __restrict__ blur_stack, const int* __restrict__ first,
                     const float* __restrict__ wts, const LevelTable t) {
-  __shared__ float tmp[kSrc][kMaxSpan + 1];   // row pass of the resize
-  __shared__ float L[kSrc][kSrc + 1];         // level pixels with the blur halo
-  __shared__ float V[kTile][kSrc + 1];        // vertical blur
-  __shared__ float B[kTile][kTile + 1];       // both blurs
+  __shared__ float L[kLH][kLPitch];              // level pixels, halo rows and columns reflected
+  __shared__ float V[kTileH][kLPitch];           // the vertical blur
+  __shared__ float S[kLevelWarps * kMaxSpan];    // the warps' row buffers, then both blurs
+  float(*Bs)[kBPitch] = reinterpret_cast<float(*)[kBPitch]>(S);
 
   int pi = 0;
   for (int i = 1; i < t.n; ++i) {
@@ -107,83 +196,88 @@ level_planes_kernel(const float* __restrict__ img, float* __restrict__ img_stack
   }
   const LevelPlane pl = t.p[pi];
   const int local = blockIdx.x - pl.tile0;
-  const int ty0 = (local / pl.tiles_x) * kTile;
-  const int tx0 = (local % pl.tiles_x) * kTile;
-  const int Hp = pl.H + 2 * t.pad, Wp = pl.W + 2 * t.pad;
-  // level pixels of the tile (edge clamping) and of its blur halo
-  const int sy0 = clampi(ty0 - t.pad, 0, pl.H - 1);
-  const int sy1 = clampi(min(ty0 + kTile, Hp) - 1 - t.pad, 0, pl.H - 1);
-  const int sx0 = clampi(tx0 - t.pad, 0, pl.W - 1);
-  const int sx1 = clampi(min(tx0 + kTile, Wp) - 1 - t.pad, 0, pl.W - 1);
-  const int ly0 = max(0, sy0 - kHalo), ly1 = min(pl.H - 1, sy1 + kHalo);
-  const int lx0 = max(0, sx0 - kHalo), lx1 = min(pl.W - 1, sx1 + kHalo);
-  const int nly = ly1 - ly0 + 1, nlx = lx1 - lx0 + 1;
-  const int tid = threadIdx.x;
+  const int ty = local / pl.tiles_x, tx = local - ty * pl.tiles_x;
+  const int sy0 = ty * kTileH, sx0 = tx * kTileW;
+  const int nsy = min(kTileH, pl.H - sy0), nsx = min(kTileW, pl.W - sx0);
+  const int nly = nsy + 2 * kHalo, nlx = nsx + 2 * kHalo;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* src = img + static_cast<size_t>(pl.img) * t.in_H * t.in_W;
 
   if (!pl.resize) {
-    for (int i = tid; i < nly * nlx; i += kLevelThreads) {
-      const int y = i / nlx, x = i - (i / nlx) * nlx;
-      L[y][x] = src[static_cast<size_t>(ly0 + y) * t.in_W + lx0 + x];
+    for (int i = warp; i < nly; i += kLevelWarps) {
+      const float* row = src + static_cast<size_t>(reflect101(sy0 - kHalo + i, pl.H)) * t.in_W;
+      for (int j = lane; j < nlx; j += 32) L[i][j] = row[reflect101(sx0 - kHalo + j, pl.W)];
     }
   } else {
-    // row pass over the image columns the tile's output columns read
-    const int c0 = first[pl.fc + lx0];
-    const int nc = first[pl.fc + lx1] + pl.tc - c0;
-    for (int i = tid; i < nly * nc; i += kLevelThreads) {
-      const int y = i / nc, c = i - (i / nc) * nc;
-      const int r0 = first[pl.fr + ly0 + y];
-      const float* w = wts + pl.wr + (ly0 + y) * pl.tr;
-      const float* col = src + static_cast<size_t>(r0) * t.in_W + c0 + c;
-      float acc = __fmul_rn(w[0], col[0]);
-      for (int k = 1; k < pl.tr; ++k) {
-        acc = __fadd_rn(acc, __fmul_rn(w[k], col[static_cast<size_t>(k) * t.in_W]));
-      }
-      tmp[y][c] = acc;
+    // a warp a level row: the vertical pass over the image columns the
+    // tile's columns read, into the warp's buffer, then the horizontal pass
+    float* buf = S + warp * kMaxSpan;
+    const int* fcol = first + pl.fc;
+    const int lxa = max(0, sx0 - kHalo), lxb = min(pl.W - 1, sx0 + nsx - 1 + kHalo);
+    const int c0 = fcol[lxa];
+    const int nc = fcol[lxb] + pl.tc - c0;
+    for (int i = warp; i < nly; i += kLevelWarps) {
+      const int ly = reflect101(sy0 - kHalo + i, pl.H);
+      const float* w = wts + pl.wr + ly * pl.tr;
+      const float* col = src + static_cast<size_t>(first[pl.fr + ly]) * t.in_W + c0;
+      TAPS_DISPATCH(pl.tr, vertical_row, (buf, w, col, t.in_W, nc, lane));
+      __syncwarp();
+      TAPS_DISPATCH(pl.tc, horizontal_row, (L[i], buf, wts + pl.wc, fcol, c0, sx0, pl.W, nlx, lane));
+      __syncwarp();
     }
-    __syncthreads();
-    for (int i = tid; i < nly * nlx; i += kLevelThreads) {
-      const int y = i / nlx, x = i - (i / nlx) * nlx;
-      const int j0 = first[pl.fc + lx0 + x] - c0;
-      const float* w = wts + pl.wc + (lx0 + x) * pl.tc;
-      float acc = __fmul_rn(w[0], tmp[y][j0]);
-      for (int k = 1; k < pl.tc; ++k) acc = __fadd_rn(acc, __fmul_rn(w[k], tmp[y][j0 + k]));
-      L[y][x] = acc;
+  }
+  float g[7];
+#pragma unroll
+  for (int k = 0; k < 7; ++k) g[k] = t.gk[k];
+  __syncthreads();
+  // vertical blur: a run of kRun rows of one column a thread
+  for (int item = threadIdx.x; item < (kTileH / kRun) * kLW; item += kLevelThreads) {
+    const int rb = item / kLW, j = item - rb * kLW;
+    const int r0 = rb * kRun;
+    if (r0 >= nsy || j >= nlx) continue;
+    float x[kRun + 6];
+#pragma unroll
+    for (int q = 0; q < kRun + 6; ++q) x[q] = L[r0 + q][j];
+#pragma unroll
+    for (int q = 0; q < kRun; ++q) {
+      float acc = __fmul_rn(x[q], g[0]);
+#pragma unroll
+      for (int k = 1; k < 7; ++k) acc = __fadd_rn(acc, __fmul_rn(x[q + k], g[k]));
+      V[r0 + q][j] = acc;
     }
   }
   __syncthreads();
-  // vertical blur of the tile's rows over the halo's columns
-  const int nsy = sy1 - sy0 + 1, nsx = sx1 - sx0 + 1;
-  for (int i = tid; i < nsy * nlx; i += kLevelThreads) {
-    const int y = i / nlx, x = i - (i / nlx) * nlx;
-    const int ly = sy0 + y;
-    float acc = __fmul_rn(L[reflect101(ly - 3, pl.H) - ly0][x], t.gk[0]);
-    for (int k = 1; k < 7; ++k) {
-      acc = __fadd_rn(acc, __fmul_rn(L[reflect101(ly - 3 + k, pl.H) - ly0][x], t.gk[k]));
+  // horizontal blur: a lane a row, a run of kRun columns a warp and step
+  for (int run = warp; run < kTileW / kRun; run += kLevelWarps) {
+    const int x0 = run * kRun;
+    if (lane >= nsy || x0 >= nsx) continue;
+    float x[kRun + 6];
+#pragma unroll
+    for (int q = 0; q < kRun + 6; ++q) x[q] = V[lane][x0 + q];
+#pragma unroll
+    for (int q = 0; q < kRun; ++q) {
+      float acc = __fmul_rn(x[q], g[0]);
+#pragma unroll
+      for (int k = 1; k < 7; ++k) acc = __fadd_rn(acc, __fmul_rn(x[q + k], g[k]));
+      Bs[lane][x0 + q] = acc;
     }
-    V[y][x] = acc;
   }
   __syncthreads();
-  for (int i = tid; i < nsy * nsx; i += kLevelThreads) {
-    const int y = i / nsx, x = i - (i / nsx) * nsx;
-    const int lx = sx0 + x;
-    float acc = __fmul_rn(V[y][reflect101(lx - 3, pl.W) - lx0], t.gk[0]);
-    for (int k = 1; k < 7; ++k) {
-      acc = __fadd_rn(acc, __fmul_rn(V[y][reflect101(lx - 3 + k, pl.W) - lx0], t.gk[k]));
+  // the tile's part of the padded region: the tile, and on the plane's
+  // edge the border beside it (each pixel its clamped level pixel)
+  const int pad = t.pad;
+  const int ry0 = sy0 == 0 ? 0 : sy0 + pad;
+  const int ry1 = sy0 + nsy == pl.H ? pl.H + 2 * pad : sy0 + nsy + pad;
+  const int rx0 = sx0 == 0 ? 0 : sx0 + pad;
+  const int rx1 = sx0 + nsx == pl.W ? pl.W + 2 * pad : sx0 + nsx + pad;
+  for (int py = ry0 + warp; py < ry1; py += kLevelWarps) {
+    const int ly = clampi(py - pad, sy0, sy0 + nsy - 1) - sy0;
+    const size_t o = static_cast<size_t>(pl.out_off) + static_cast<size_t>(py) * t.stride;
+    for (int px = rx0 + lane; px < rx1; px += 32) {
+      const int lx = clampi(px - pad, sx0, sx0 + nsx - 1) - sx0;
+      img_stack[o + px] = L[ly + kHalo][lx + kHalo];
+      blur_stack[o + px] = Bs[ly][lx];
     }
-    B[y][x] = acc;
-  }
-  __syncthreads();
-  // the tile of the padded region, each pixel its clamped level pixel
-  const int ny = min(kTile, Hp - ty0), nx = min(kTile, Wp - tx0);
-  for (int i = tid; i < ny * nx; i += kLevelThreads) {
-    const int y = i / nx, x = i - (i / nx) * nx;
-    const int sy = clampi(ty0 + y - t.pad, 0, pl.H - 1);
-    const int sx = clampi(tx0 + x - t.pad, 0, pl.W - 1);
-    const size_t o = static_cast<size_t>(pl.out_off) + static_cast<size_t>(ty0 + y) * t.stride
-                     + tx0 + x;
-    img_stack[o] = L[sy - ly0][sx - lx0];
-    blur_stack[o] = B[sy - sy0][sx - sx0];
   }
 }
 
@@ -192,8 +286,10 @@ level_planes_kernel(const float* __restrict__ img, float* __restrict__ img_stack
 // ---------------------------------------------------------------------------
 
 constexpr int kCell = 16;
-constexpr int kMaxCand = 4096;
+constexpr int kCellWarps = 8;                       // cells a block of the cell pass
 constexpr int kSelectThreads = 1024;
+constexpr int kSelectSmem = 192 * 1024;             // dynamic shared memory of a plane's block
+constexpr unsigned long long kNoKey = ~0ull;        // a slot that keeps no candidate
 
 struct SelectPlane {
   int in_off;     // offset (floats) of the plane's pixel (0, 0) in the score stack
@@ -205,108 +301,190 @@ struct SelectPlane {
   int out_off;    // first output slot
   int lvl;
   float scale;    // scale ** lvl, rounded to float32
+  int cell0;      // first cell of the plane in the cell pass's grid
+  int key0;       // first key of the plane in the scratch
 };
 
 struct SelectTable {
   SelectPlane p[kMaxPlanes];
   int n;
   int stride;     // row stride of the score stack
+  int cells;      // cells of all planes
+  int k_max;      // the largest k
 };
 
-__global__ void __launch_bounds__(kSelectThreads)
-select_grid_kernel(const float* __restrict__ scores, int* __restrict__ rows,
-                   int* __restrict__ cols, float* __restrict__ out_score,
-                   int* __restrict__ level, float* __restrict__ scale, const SelectTable t) {
-  __shared__ unsigned long long key[kMaxCand];
-  __shared__ unsigned char pix[kMaxCand];
-  __shared__ int n_pos;
-  const SelectPlane pl = t.p[blockIdx.x];
+// (1) a warp a cell: its top m keys and pixels at the cell's own slots
+__global__ void __launch_bounds__(32 * kCellWarps)
+select_cells_kernel(const float* __restrict__ scores, unsigned long long* __restrict__ keys,
+                    unsigned char* __restrict__ pix, const SelectTable t) {
+  const int lane = threadIdx.x & 31;
+  const int g = blockIdx.x * kCellWarps + (threadIdx.x >> 5);
+  if (g >= t.cells) return;   // the whole warp
+  int pi = 0;
+  for (int i = 1; i < t.n; ++i) {
+    if (g >= t.p[i].cell0) pi = i;
+  }
+  const SelectPlane pl = t.p[pi];
+  const int cell = g - pl.cell0;
   const float* sc = scores + pl.in_off;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) n_pos = 0;
-  __syncthreads();
-
-  for (int cell = warp; cell < pl.n_cells; cell += kSelectThreads / 32) {
-    const int cy = cell / pl.cells_x, cx = cell - (cell / pl.cells_x) * pl.cells_x;
-    float v[8];
+  const int cy = cell / pl.cells_x, cx = cell - cy * pl.cells_x;
+  float v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int q = lane + 32 * j;
+    const int y = cy * kCell + (q >> 4), x = cx * kCell + (q & 15);
+    v[j] = (y < pl.H && x < pl.W) ? sc[static_cast<size_t>(y) * t.stride + x] : -INFINITY;
+  }
+  unsigned long long* kc = keys + pl.key0 + static_cast<size_t>(cell) * pl.m;
+  unsigned char* pc = pix + pl.key0 + static_cast<size_t>(cell) * pl.m;
+  unsigned picked = 0;
+  int slot = 0;
+  for (; slot < pl.m; ++slot) {
+    // the lane's largest unpicked value, ties to its lower index
+    float bv = -INFINITY;
+    int bq = 1 << 30;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int q = lane + 32 * j;
-      const int y = cy * kCell + (q >> 4), x = cx * kCell + (q & 15);
-      v[j] = (y < pl.H && x < pl.W) ? sc[static_cast<size_t>(y) * t.stride + x] : -INFINITY;
+      if (!(picked & (1u << j)) && (v[j] > bv || bq == (1 << 30))) {
+        bv = v[j];
+        bq = lane + 32 * j;
+      }
     }
-    unsigned picked = 0;
-    for (int slot = 0; slot < pl.m; ++slot) {
-      // the lane's largest unpicked value, ties to its lower index
-      float bv = -INFINITY;
-      int bq = 1 << 30;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (!(picked & (1u << j)) && (v[j] > bv || bq == (1 << 30))) {
-          bv = v[j];
-          bq = lane + 32 * j;
-        }
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+      const int oq = __shfl_xor_sync(0xffffffffu, bq, off);
+      if (ov > bv || (ov == bv && oq < bq)) {
+        bv = ov;
+        bq = oq;
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oq = __shfl_xor_sync(0xffffffffu, bq, off);
-        if (ov > bv || (ov == bv && oq < bq)) {
-          bv = ov;
-          bq = oq;
-        }
-      }
-      // the rest of the cell cannot be emitted once its best is not > 0
-      if (!(bv > 0.0f)) break;
-      if ((bq & 31) == lane) picked |= 1u << (bq >> 5);
-      if (lane == 0 && bv < INFINITY) {
-        const int cand = cell * pl.m + slot;
-        const float rank = slot == 0 ? __fadd_rn(bv, 1e6f) : bv;
-        const int at = atomicAdd(&n_pos, 1);
-        key[at] = (static_cast<unsigned long long>(~__float_as_uint(rank)) << 32)
-                  | static_cast<unsigned>(cand);
-        pix[cand] = static_cast<unsigned char>(bq);
-      }
+    }
+    // the rest of the cell cannot be emitted once its best is not > 0
+    if (!(bv > 0.0f)) break;
+    if ((bq & 31) == lane) picked |= 1u << (bq >> 5);
+    if (lane == 0) {
+      const float rank = slot == 0 ? __fadd_rn(bv, 1e6f) : bv;
+      kc[slot] = bv < INFINITY
+                     ? (static_cast<unsigned long long>(~__float_as_uint(rank)) << 32)
+                           | static_cast<unsigned>(cell * pl.m + slot)
+                     : kNoKey;
+      pc[slot] = static_cast<unsigned char>(bq);
     }
   }
+  for (int s = slot + lane; s < pl.m; s += 32) kc[s] = kNoKey;
+}
+
+// (2) a block a plane: the first k keys in order
+__global__ void __launch_bounds__(kSelectThreads)
+select_top_kernel(const float* __restrict__ scores,
+                  const unsigned long long* __restrict__ keys,
+                  const unsigned char* __restrict__ pix, int* __restrict__ rows,
+                  int* __restrict__ cols, float* __restrict__ out_score,
+                  int* __restrict__ level, float* __restrict__ scale, const SelectTable t,
+                  int cache_n) {
+  extern __shared__ unsigned long long smem[];   // [k_max] selected keys, [cache_n] keys
+  __shared__ int hist[2][256];
+  __shared__ int s_pos, s_sel, s_digit, s_rank, s_count;
+  const SelectPlane pl = t.p[blockIdx.x];
+  if (pl.k == 0) return;   // the whole block
+  unsigned long long* sel = smem;
+  unsigned long long* cache = smem + t.k_max;
+  const unsigned long long* gk = keys + pl.key0;
+  const int n = pl.n_cells * pl.m;
+  const int nc = min(n, cache_n);
+  const int tid = threadIdx.x;
+  if (tid == 0) s_pos = s_sel = 0;
+  for (int i = tid; i < 512; i += kSelectThreads) hist[i >> 8][i & 255] = 0;
   __syncthreads();
-  const int n = n_pos;
-  int size = 1;
-  while (size < n) size <<= 1;
-  for (int i = n + threadIdx.x; i < size; i += kSelectThreads) key[i] = ~0ull;
+  int pos = 0;
+  for (int i = tid; i < n; i += kSelectThreads) {
+    const unsigned long long key = gk[i];
+    if (i < nc) cache[i] = key;
+    pos += key != kNoKey;
+  }
+  pos = __reduce_add_sync(0xffffffffu, pos);
+  if ((tid & 31) == 0 && pos) atomicAdd(&s_pos, pos);
   __syncthreads();
-  // bitonic sort, ascending: rank descending, then candidate index ascending
-  for (int k = 2; k <= size; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < size; i += kSelectThreads) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const unsigned long long a = key[i], b = key[ixj];
-          const bool up = (i & k) == 0;
-          if ((a > b) == up) {
-            key[i] = b;
-            key[ixj] = a;
+  const int k = pl.k;
+  const bool all = s_pos <= k;   // every kept candidate is selected
+  unsigned long long prefix = 0, mask = 0;
+  if (!all) {
+    // radix select of the key of rank k - 1: the bits above 32 (the rank),
+    // then those of the candidate index that a key of this plane can set
+    int rank = k - 1;
+    const int cb = n > 1 ? 32 - __clz(n - 1) : 0;
+    int par = 0;
+    for (int s = 56; s >= 0; s -= 8) {
+      if (s < 32 && s >= cb) continue;
+      int* h = hist[par];
+      if (tid < 256) hist[par ^ 1][tid] = 0;
+      for (int i = tid; i < n; i += kSelectThreads) {
+        const unsigned long long key = i < nc ? cache[i] : gk[i];
+        if ((key & mask) == prefix) atomicAdd(&h[(key >> s) & 255], 1);
+      }
+      __syncthreads();
+      if (tid < 32) {   // lane l scans bins 8 l .. 8 l + 7
+        int c[8], sum = 0;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          c[q] = h[8 * tid + q];
+          sum += c[q];
+        }
+        int incl = sum;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int u = __shfl_up_sync(0xffffffffu, incl, o);
+          if (tid >= o) incl += u;
+        }
+        int before = incl - sum;
+        if (before <= rank && rank < incl) {
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            if (before <= rank && rank < before + c[q]) {
+              s_digit = 8 * tid + q;
+              s_rank = rank - before;
+              s_count = c[q];
+            }
+            before += c[q];
           }
         }
       }
       __syncthreads();
+      prefix |= static_cast<unsigned long long>(s_digit) << s;
+      mask |= 255ull << s;
+      rank = s_rank;
+      par ^= 1;
+      if (s_count == rank + 1) break;   // the whole group is selected
     }
   }
-  for (int i = threadIdx.x; i < pl.k; i += kSelectThreads) {
-    int r = 0, c = 0;
-    float s = 0.0f;
-    if (i < n) {
-      const int cand = static_cast<int>(key[i] & 0xffffffffu);
-      const int cell = cand / pl.m;
-      const int q = pix[cand];
-      r = (cell / pl.cells_x) * kCell + (q >> 4);
-      c = (cell - (cell / pl.cells_x) * pl.cells_x) * kCell + (q & 15);
-      s = sc[static_cast<size_t>(r) * t.stride + c];
-    }
+  for (int i = tid; i < n; i += kSelectThreads) {
+    const unsigned long long key = i < nc ? cache[i] : gk[i];
+    if (all ? key != kNoKey : (key & mask) <= prefix) sel[atomicAdd(&s_sel, 1)] = key;
+  }
+  __syncthreads();
+  const int ns = s_sel;   // min(k, kept candidates); their order in sel is the schedule's
+  for (int i = tid; i < ns; i += kSelectThreads) {
+    const unsigned long long key = sel[i];
+    int r = 0;
+#pragma unroll 8
+    for (int j = 0; j < ns; ++j) r += sel[j] < key;
+    const int cand = static_cast<int>(key & 0xffffffffu);
+    const int cell = cand / pl.m;
+    const int q = pix[pl.key0 + cand];
+    const int cy = cell / pl.cells_x;
+    const int y = cy * kCell + (q >> 4), x = (cell - cy * pl.cells_x) * kCell + (q & 15);
+    const int o = pl.out_off + r;
+    rows[o] = y;
+    cols[o] = x;
+    out_score[o] = scores[pl.in_off + static_cast<size_t>(y) * t.stride + x];
+  }
+  for (int i = tid; i < k; i += kSelectThreads) {
     const int o = pl.out_off + i;
-    rows[o] = r;
-    cols[o] = c;
-    out_score[o] = s;
+    if (i >= ns) {
+      rows[o] = 0;
+      cols[o] = 0;
+      out_score[o] = 0.0f;
+    }
     level[o] = pl.lvl;
     scale[o] = pl.scale;
   }
@@ -385,8 +563,10 @@ describe_kernel(const float* __restrict__ img_stack, const float* __restrict__ b
 // Pyramid and blur planes. img: float32 [B, in_H, in_W]; img_stack,
 // blur_stack: float32 stacks with row stride `stride`; first, wts: the
 // resize tap tables on the device; planes: host array of n x 13 ints (the
-// fields of LevelPlane in order); gk: 7 floats. Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for a table the kernel does not take.
+// fields of LevelPlane in order; tiles of kTileH x kTileW level pixels,
+// each resized tile's columns reading at most kMaxSpan image columns: the
+// wrapper checks); gk: 7 floats. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a table the kernel does not take.
 extern "C" int tc2li_orb_level_planes(const float* img, float* img_stack, float* blur_stack,
                                       const int* first, const float* wts, const int* planes,
                                       int n, int pad, int in_H, int in_W, int stride,
@@ -399,10 +579,11 @@ extern "C" int tc2li_orb_level_planes(const float* img, float* img_stack, float*
     LevelPlane& p = t.p[i];
     p = LevelPlane{r[0], r[1], r[2], r[3], r[4], r[5], r[6], r[7], r[8], r[9], r[10], r[11], r[12]};
     if (p.H < 4 || p.W < 4 || p.tr < 1 || p.tc < 1 || p.tr > kMaxTaps || p.tc > kMaxTaps ||
-        p.tile0 != tiles) {
+        p.tile0 != tiles ||
+        p.tiles_x != (p.W + kTileW - 1) / kTileW) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    tiles += p.tiles_x * ((p.H + 2 * pad + kTile - 1) / kTile);
+    tiles += p.tiles_x * ((p.H + kTileH - 1) / kTileH);
   }
   t.n = n;
   t.pad = pad;
@@ -415,17 +596,20 @@ extern "C" int tc2li_orb_level_planes(const float* img, float* img_stack, float*
   return static_cast<int>(cudaGetLastError());
 }
 
-// Grid top-k of every plane. scores: float32 stack with row stride
-// `stride`; planes: host array of n x 10 values (the fields of SelectPlane
-// in order, the last the float32 bits of the scale); outputs of the total
-// slot count. One block a plane.
-extern "C" int tc2li_orb_select_grid(const float* scores, int* rows, int* cols,
-                                     float* out_score, int* level, float* scale,
+// Grid top-k of every plane, in two launches. scores: float32 stack with
+// row stride `stride`; planes: host array of n x 12 values (the fields of
+// SelectPlane in order, the scale as its float32 bits); keys, pix: scratch
+// of 8 and 1 bytes for each of the planes' candidates (sum of n_cells x m);
+// outputs of the total slot count. The largest k a plane must fit the
+// shared memory of its block with room to spare (k at most kSelectSmem / 16).
+extern "C" int tc2li_orb_select_grid(const float* scores, void* keys, void* pix, int* rows,
+                                     int* cols, float* out_score, int* level, float* scale,
                                      const int* planes, int n, int stride, void* stream) {
   if (n < 1 || n > kMaxPlanes) return static_cast<int>(cudaErrorInvalidValue);
   SelectTable t;
+  int cells = 0, n_keys = 0, n_max = 0, k_max = 0;
   for (int i = 0; i < n; ++i) {
-    const int* r = planes + 10 * i;
+    const int* r = planes + 12 * i;
     SelectPlane& p = t.p[i];
     p.in_off = r[0];
     p.H = r[1];
@@ -441,15 +625,35 @@ extern "C" int tc2li_orb_select_grid(const float* scores, int* rows, int* cols,
     static_assert(sizeof(s) == sizeof(bits), "float32 bits");
     __builtin_memcpy(&s, &bits, sizeof(s));
     p.scale = s;
-    if (p.m < 1 || p.m > 8 * 32 || static_cast<long long>(p.n_cells) * p.m > kMaxCand ||
-        p.k < 0) {
+    p.cell0 = r[10];
+    p.key0 = r[11];
+    if (p.m < 1 || p.m > kCell * kCell || p.k < 0 || p.n_cells < 1 || p.cell0 != cells ||
+        p.key0 != n_keys || 8LL * p.k > kSelectSmem / 2) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
+    cells += p.n_cells;
+    n_keys += p.n_cells * p.m;
+    n_max = p.n_cells * p.m > n_max ? p.n_cells * p.m : n_max;
+    k_max = p.k > k_max ? p.k : k_max;
   }
   t.n = n;
   t.stride = stride;
-  select_grid_kernel<<<n, kSelectThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      scores, rows, cols, out_score, level, scale, t);
+  t.cells = cells;
+  t.k_max = k_max;
+  const int room = kSelectSmem / 8 - k_max;
+  const int cache_n = n_max < room ? n_max : room;
+  const int smem = 8 * (k_max + cache_n);
+  int rc = static_cast<int>(cudaFuncSetAttribute(
+      select_top_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  if (rc != 0) return rc;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* kp = static_cast<unsigned long long*>(keys);
+  auto* pp = static_cast<unsigned char*>(pix);
+  select_cells_kernel<<<(cells + kCellWarps - 1) / kCellWarps, 32 * kCellWarps, 0, st>>>(
+      scores, kp, pp, t);
+  if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
+  select_top_kernel<<<n, kSelectThreads, smem, st>>>(scores, kp, pp, rows, cols, out_score,
+                                                     level, scale, t, cache_n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,10 +21,14 @@ order) depends only on the observation table, ``valid_lm`` and
 ``fixed_pose``; the wrapper builds it once a call with a few tensor ops on
 the device. Sums, 3x3 inverses and elimination run in float64 (the global
 BA's 64 poses are too ill-conditioned for float32 sums in another order
-than the plain version's). With ``extra_fn`` the
-wrapper evaluates it at the entry poses before the launches and at the exit
-poses after them, and reverts the update on the device where the true total
-cost rose, as the plain version does. Windows of more than 67 poses exceed
+than the plain version's), and so do the costs that decide whether a step
+is accepted, each observation's term evaluated in float64 from the float32
+state: near convergence a float32 evaluation is noisier than the cost
+changes it decides, and the kernel then takes the decisions of the plain
+version run in float64, not those of its float32 rounding. With
+``extra_fn`` the wrapper evaluates it at the entry poses before the launches
+and at the exit poses after them, and reverts the update on the device where
+the true total cost rose, as the plain version does. Windows of more than 67 poses exceed
 the solve's shared memory: their launch is refused and raises.
 
 ``local_ba_lm`` launches the kernels (CUDA tensors only);
@@ -111,13 +115,16 @@ def pair_table(pose_idx, valid, valid_lm, fixed_pose) -> PairTable:
 
 
 def local_ba_plain(cam: cam_mod.Pinhole, T_cw0, X_w0, obs, fixed_pose, valid_lm,
-                   iters: int = 10, extra_fn: Callable | None = None):
+                   iters: int = 10, extra_fn: Callable | None = None,
+                   trace: list | None = None):
     """LocalBundleAdjustment core with a dense reduced camera system.
 
     ``extra_fn(T_cw) -> (H [6P, 6P], g [6P], cost)`` injects dense cross-pose
     terms (the BALM eigen-factor); like the reference it is linearised once
     at the entry poses, and the whole update is reverted if the true total
-    cost at the exit poses is higher than at entry."""
+    cost at the exit poses is higher than at entry. A ``trace`` list gets,
+    for each iteration, a float64 tensor [4]: the candidate's cost, the cost
+    after the decision, ``lam`` and 1 where the step was accepted."""
     _assemble_visual, inv3x3, precond_solve, BAResult = (
         lm_mod._assemble_visual, lm_mod.inv3x3, lm_mod.precond_solve, lm_mod.BAResult)
     P = T_cw0.shape[0]
@@ -196,6 +203,9 @@ def local_ba_plain(cam: cam_mod.Pinhole, T_cw0, X_w0, obs, fixed_pose, valid_lm,
         T_cw = torch.where(accept, T_new, T_cw)
         X_w = torch.where(accept, X_new, X_w)
         xi = torch.where(accept, xi_new, xi)
+        if trace is not None:
+            trace.append(torch.stack([cost_new, torch.where(accept, cost_new, cost), lam,
+                                      accept.to(dt)]).double())
         lam = torch.where(accept, lam * 0.5, lam * 4.0)
         cost = torch.where(accept, cost_new, cost)
 
@@ -220,9 +230,12 @@ def _check(name, x, shape, dtypes, dev):
 
 
 def local_ba_lm(cam: cam_mod.Pinhole, T_cw0, X_w0, obs, fixed_pose, valid_lm,
-                iters: int = 10, extra_fn: Callable | None = None):
+                iters: int = 10, extra_fn: Callable | None = None,
+                trace: torch.Tensor | None = None):
     """Launch ``csrc/local_ba.cu`` on the current stream: what
-    ``local_ba_plain`` computes, in ``launches_per_call(iters)`` launches."""
+    ``local_ba_plain`` computes, in ``launches_per_call(iters)`` launches.
+    A float64 ``trace`` [iters, 4] on the device gets what ``local_ba_plain``
+    lists in its ``trace``."""
     global launches
     if not isinstance(cam, cam_mod.Pinhole):
         raise ValueError(f"local_ba_lm takes a Pinhole camera, got {type(cam).__name__}")
@@ -239,6 +252,10 @@ def local_ba_lm(cam: cam_mod.Pinhole, T_cw0, X_w0, obs, fixed_pose, valid_lm,
         _check(name, x, shape, dts, dev)
     if not 1 <= K <= 32 or P < 1 or iters < 0:
         raise ValueError(f"local_ba_lm: K {K} (1 to 32), P {P}, iters {iters}")
+    if trace is not None:
+        _check("trace", trace, (iters, 4), (torch.float64,), dev)
+        if not trace.is_contiguous():
+            raise ValueError("local_ba_lm: trace must be contiguous")
     D = 6 * P
     He = ge = ce = None
     if extra_fn is not None:
@@ -267,7 +284,7 @@ def local_ba_lm(cam: cam_mod.Pinhole, T_cw0, X_w0, obs, fixed_pose, valid_lm,
         part.data_ptr(), L, K, P, tb.n_chunks, CHUNK, MAX_CHUNKS, cam.fx, cam.fy, cam.cx, cam.cy,
         cam.bf,
         int(iters), scratch.data_ptr(),
-        T_out.data_ptr(), X_out.data_ptr(), scal.data_ptr(), stream), "local_ba_lm")
+        T_out.data_ptr(), X_out.data_ptr(), scal.data_ptr(), ptr(trace), stream), "local_ba_lm")
     launches += launches_per_call(iters)
     T_cw, X_w, cost = T_out, X_out, scal[0]
     if extra_fn is not None:

@@ -9,8 +9,9 @@ what bounds it on the H100):
   edge-padded stack writes (``:427-433``) of every level of one or two
   images, in one launch. Plain version: ``level_planes_plain``.
 - ``orb_select_grid``: ``select_topk_grid`` (``:204``) of every plane and
-  the concatenation of the levels, in one launch. Plain version:
-  ``select_grid_plain``.
+  the concatenation of the levels, in two launches (the cell pass over the
+  cells of every plane, then a block a plane for its first k). Plain
+  version: ``select_grid_plain``.
 - ``orb_describe``: ``compute_orientation_stacked`` and
   ``compute_descriptors_stacked`` (``:369``, ``:377``) of every keypoint of
   one or two images, in one launch. Plain version: ``describe_plain``.
@@ -41,16 +42,16 @@ from . import build
 
 HALF_PATCH = 15
 MAX_PLANES = 32      # kMaxPlanes of csrc/orb.cu
-MAX_SPAN = 192       # kMaxSpan: image columns a tile's resize reads
-MAX_TAPS = 16        # kMaxTaps
-MAX_CANDIDATES = 4096   # kMaxCand: candidates of one plane's grid top-k
+TILE_H, TILE_W = 32, 64   # kTileH, kTileW: level pixels a block of orb_level_planes
+HALO = 3             # kHalo: the blur's radius
+MAX_SPAN = 320       # kMaxSpan: image columns a tile's resize reads
+MAX_TAPS = 16        # kMaxTaps: taps an output of the resize
 CELL = 16            # the grid top-k's cell side
-_TILE = 32
-_HALO = 3
+MAX_LEVEL_K = 12288  # kSelectSmem / 16: keypoints of one level orb_select_grid orders
 
 # kernel launches (plain-version calls excluded)
 level_launches = 0      # orb_level_planes
-select_launches = 0     # orb_select_grid
+select_launches = 0     # orb_select_grid (two a call)
 describe_launches = 0   # orb_describe
 
 
@@ -382,6 +383,31 @@ class _LevelTable:
         self.first, self.wts, self.shapes = first, wts, shapes
 
 
+def level_tiles(Hl: int, Wl: int, pad: int):
+    """The tiles of ``orb_level_planes`` on one Hl x Wl level, in the
+    kernel's order (row by row): ``(sy0, sy1, sx0, sx1), (ry0, ry1, rx0,
+    rx1)``, the tile's level pixels ``[sy0, sy1) x [sx0, sx1)`` and the part
+    of the padded plane it writes, ``[ry0, ry1) x [rx0, rx1)``: the tile
+    shifted by ``pad``, stretched to the padded plane's edge where the tile
+    lies on the level's."""
+    out = []
+    for sy0 in range(0, Hl, TILE_H):
+        sy1 = min(sy0 + TILE_H, Hl)
+        for sx0 in range(0, Wl, TILE_W):
+            sx1 = min(sx0 + TILE_W, Wl)
+            out.append(((sy0, sy1, sx0, sx1),
+                        (0 if sy0 == 0 else sy0 + pad, sy1 + (2 * pad if sy1 == Hl else pad),
+                         0 if sx0 == 0 else sx0 + pad, sx1 + (2 * pad if sx1 == Wl else pad))))
+    return out
+
+
+def tile_span(first_col: np.ndarray, taps: int, Wl: int, sx0: int, sx1: int) -> int:
+    """Image columns the resize of a tile's level columns ``[sx0, sx1)`` and
+    their blur halo reads (the kernel's row buffer holds ``MAX_SPAN``)."""
+    lxa, lxb = max(0, sx0 - HALO), min(Wl - 1, sx1 - 1 + HALO)
+    return int(first_col[lxb] + taps - first_col[lxa])
+
+
 @functools.lru_cache(maxsize=16)
 def _level_table(B: int, H: int, W: int, n_levels: int, scale: float,
                  device: torch.device) -> _LevelTable:
@@ -390,6 +416,9 @@ def _level_table(B: int, H: int, W: int, n_levels: int, scale: float,
     n_first = n_wts = 0
     for lvl in range(n_levels):
         Hl, Wl = (H, W) if lvl == 0 else level_shape(H, W, scale, lvl)
+        if min(Hl, Wl) < 4:
+            raise ValueError(f"orb_level_planes: level {lvl} is {Hl} x {Wl}; the blur "
+                             f"takes planes of at least 4 x 4")
         if lvl == 0:
             per_level.append((Hl, Wl, 0, 0, 0, 0, 0, 1, 1))
             continue
@@ -399,8 +428,8 @@ def _level_table(B: int, H: int, W: int, n_levels: int, scale: float,
         if max(tr, tc) > MAX_TAPS:
             raise ValueError(f"orb_level_planes: level {lvl} reads {max(tr, tc)} taps an "
                              f"output; the kernel takes at most {MAX_TAPS}")
-        n_src = _TILE + 2 * _HALO
-        span = int((fc[np.minimum(np.arange(Wl) + n_src - 1, Wl - 1)] + tc - fc).max())
+        span = max(tile_span(fc, tc, Wl, sx0, sx1)
+                   for (_, _, sx0, sx1), _ in level_tiles(min(Hl, TILE_H), Wl, PAD))
         if span > MAX_SPAN:
             raise ValueError(f"orb_level_planes: a tile of level {lvl} reads {span} image "
                              f"columns; the kernel takes at most {MAX_SPAN}")
@@ -409,17 +438,18 @@ def _level_table(B: int, H: int, W: int, n_levels: int, scale: float,
         wts += [wr.reshape(-1), wc.reshape(-1)]
         n_first += Hl + Wl
         n_wts += wr.size + wc.size
-    rows, shapes, tile0 = [], [], 0
-    for b in range(B):
-        for lvl, (Hl, Wl, resize, fr0, wr0, fc0, wc0, tr, tc) in enumerate(per_level):
-            if min(Hl, Wl) < 4:
-                raise ValueError(f"orb_level_planes: level {lvl} is {Hl} x {Wl}; the blur "
-                                 f"takes planes of at least 4 x 4")
-            tiles_x = -(-(Wl + 2 * PAD) // _TILE)
+    # the planes in the grid's order, the top level first: a tile's resize
+    # reads more image pixels the higher its level, so the longest blocks
+    # start first and the short level-0 copies fill the card's tail
+    rows, tile0 = [], 0
+    for lvl in reversed(range(n_levels)):
+        Hl, Wl, resize, fr0, wr0, fc0, wc0, tr, tc = per_level[lvl]
+        for b in range(B):
+            tiles_x = -(-Wl // TILE_W)
             rows += [b, Hl, Wl, resize, fr0, wr0, fc0, wc0, tr, tc,
                      (b * n_levels + lvl) * Hs * Ws, tile0, tiles_x]
-            tile0 += tiles_x * -(-(Hl + 2 * PAD) // _TILE)
-            shapes.append((Hl, Wl))
+            tile0 += tiles_x * -(-Hl // TILE_H)
+    shapes = [per_level[lvl][:2] for b in range(B) for lvl in range(n_levels)]
     cat = lambda xs, dt: np.concatenate(xs).astype(dt) if xs else np.zeros(1, dt)
     return _LevelTable(rows, torch.as_tensor(cat(first, np.int32)).to(device),
                        torch.as_tensor(cat(wts, np.float32)).to(device), tuple(shapes))
@@ -427,8 +457,9 @@ def _level_table(B: int, H: int, W: int, n_levels: int, scale: float,
 
 def orb_level_planes(imgs: torch.Tensor, n_levels: int, scale: float):
     """Launch ``orb_level_planes`` on the current stream: what
-    ``level_planes_plain`` computes, in one launch. The stacks are not
-    filled outside each plane's padded region."""
+    ``level_planes_plain`` computes, in one launch (a block a tile of
+    ``level_tiles``). The stacks are not filled outside each plane's padded
+    region."""
     global level_launches
     dev = _require_cuda("orb_level_planes", imgs)
     if imgs.ndim != 3 or imgs.dtype != torch.float32:
@@ -456,35 +487,41 @@ def orb_level_planes(imgs: torch.Tensor, n_levels: int, scale: float):
 
 
 class _SelectTable:
-    def __init__(self, rows: list[int], n: int, k_total: int):
+    def __init__(self, rows: list[int], n: int, k_total: int, n_keys: int):
         self.rows = (ctypes.c_int * len(rows))(*rows)
-        self.n, self.k_total = n, k_total
+        self.n, self.k_total, self.n_keys = n, k_total, n_keys
 
 
 @functools.lru_cache(maxsize=16)
 def _select_table(shapes, per_level, scale: float, H: int, W: int) -> _SelectTable:
     n_levels = len(per_level)
     k_total = sum(per_level)
-    rows = []
+    if max(per_level) > MAX_LEVEL_K:
+        raise ValueError(f"orb_select_grid: {max(per_level)} keypoints a level; the kernel "
+                         f"orders at most {MAX_LEVEL_K}")
+    rows, cell0, key0 = [], 0, 0
     for p, (Hl, Wl) in enumerate(shapes):
         b, lvl = divmod(p, n_levels)
         cells_x = -(-Wl // CELL)
         n_cells = cells_x * -(-Hl // CELL)
         k = per_level[lvl]
         m = cell_candidates(n_cells, k)
-        if n_cells * m > MAX_CANDIDATES or m > CELL * CELL:
-            raise ValueError(f"orb_select_grid: plane {p} ({Hl} x {Wl}, k {k}) has "
-                             f"{n_cells} cells of {m} candidates; the kernel takes at most "
-                             f"{MAX_CANDIDATES} candidates a plane")
+        if m > CELL * CELL:
+            raise ValueError(f"orb_select_grid: plane {p} ({Hl} x {Wl}) needs {m} candidates "
+                             f"a cell for {k} keypoints; a cell has {CELL * CELL} pixels")
         s_bits = int(np.array([scale ** lvl], np.float32).view(np.int32)[0])
         rows += [p * H * W, Hl, Wl, cells_x, n_cells, m, k,
-                 b * k_total + sum(per_level[:lvl]), lvl, s_bits]
-    return _SelectTable(rows, len(shapes), k_total)
+                 b * k_total + sum(per_level[:lvl]), lvl, s_bits, cell0, key0]
+        cell0 += n_cells
+        key0 += n_cells * m
+    if key0 >= 2 ** 31:
+        raise ValueError("orb_select_grid: the candidates exceed the kernel's int32 offsets")
+    return _SelectTable(rows, len(shapes), k_total, key0)
 
 
 def orb_select_grid(scores: torch.Tensor, shapes, per_level, scale: float):
     """Launch ``orb_select_grid`` on the current stream: what
-    ``select_grid_plain`` computes, in one launch."""
+    ``select_grid_plain`` computes, in two launches (both counted)."""
     global select_launches
     dev = _require_cuda("orb_select_grid", scores)
     shapes = tuple((int(h), int(w)) for h, w in shapes)
@@ -508,12 +545,14 @@ def orb_select_grid(scores: torch.Tensor, shapes, per_level, scale: float):
     level = torch.empty_like(rows)
     sel = torch.empty((B, t.k_total), dtype=torch.float32, device=dev)
     lvl_scale = torch.empty_like(sel)
+    scratch = torch.empty(9 * t.n_keys, dtype=torch.uint8, device=dev)   # keys, then pixels
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(lib.tc2li_orb_select_grid(
-        scores.data_ptr(), rows.data_ptr(), cols.data_ptr(), sel.data_ptr(), level.data_ptr(),
+        scores.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 8 * t.n_keys,
+        rows.data_ptr(), cols.data_ptr(), sel.data_ptr(), level.data_ptr(),
         lvl_scale.data_ptr(), t.rows, t.n, W, stream), "orb_select_grid")
-    select_launches += 1
+    select_launches += 2
     return rows, cols, sel, level, lvl_scale
 
 

@@ -14,6 +14,8 @@ versions is the order of their sums and the shape of their solves. So:
 - the solve over the free poses only (compacted; Gauss-Jordan elimination
   with the first-largest pivot, in one block up to 48 rows and on the
   cluster beyond) against ``lm.precond_solve`` on the full system in float64;
+- the costs the window BA's accept test compares, evaluated in float64
+  from the float32 state, against the plain version run in float64;
 - the pose-only LM with the kernel's order of sums (rows in eight shares,
   one a block of the cluster, strided over its 512 threads, a warp
   reduce-scatter, the warps then the blocks in order) and its warp's 6x6
@@ -277,6 +279,58 @@ def test_free_pose_solve_matches_precond_solve(case, fixed_at):
     assert ref.dtype == F64 and np.all(ref[~free6] == 0.0)
     np.testing.assert_allclose(x, ref[free6], rtol=0, atol=1e-9 * np.abs(ref).max())
     assert P == (64 if case == "global_p64" else 12 if case == "twelve_poses" else 6)
+
+
+# ---------------------------------------------------------------------------
+# the window BA's costs: float64 from the float32 state
+# ---------------------------------------------------------------------------
+
+def _kernel_cost(p, cam):
+    """The visual cost as ``landmark_cost`` evaluates it: each observation
+    in float64 from the float32 poses, landmarks and observations (the
+    Huber weight and the depth gate included), the landmark's observations
+    in order, then the landmarks (the kernel adds blocks of 128 in order)."""
+    T = p["T0"].astype(F64)[np.clip(p["pose_idx"], 0, p["T0"].shape[0] - 1)]   # [L, K, 4, 4]
+    X = p["X0"].astype(F64)
+    xc = np.einsum("lkij,lj->lki", T[..., :3, :3], X) + T[..., :3, 3]
+    z = np.where(np.abs(xc[..., 2]) < 1e-9, 1e-9, xc[..., 2])
+    u = F64(cam.fx) * xc[..., 0] / z + F64(cam.cx)
+    v = F64(cam.fy) * xc[..., 1] / z + F64(cam.cy)
+    uv = p["uv"].astype(F64)
+    st = p["stereo"]
+    r2 = np.where(st, (u - F64(cam.bf) / z) - uv[..., 2], 0.0)
+    rr = (u - uv[..., 0]) ** 2 + (v - uv[..., 1]) ** 2 + r2 ** 2
+    is2 = p["inv_sigma2"].astype(F64)
+    chi2 = is2 * rr
+    thr = np.where(st, F64(F32(tfac.CHI2_STEREO)), F64(F32(tfac.CHI2_MONO)))
+    hub = np.where(chi2 <= thr, 1.0, np.sqrt(thr / np.maximum(chi2, 1e-12)))
+    active = p["valid"] & (xc[..., 2] > 0.05)
+    per_lm = (is2 * hub * active * rr).sum(axis=1)
+    blocks = [per_lm[b:b + 128].sum() for b in range(0, per_lm.size, 128)]
+    return float(np.sum(blocks))
+
+
+@pytest.mark.parametrize("case", chip_smoke.BA_CASES)
+def test_cost_in_float64_matches_reference(case):
+    """The kernel's costs (the entry's, each candidate's) are evaluated in
+    float64: the emulation equals the plain version's visual cost run in
+    float64 (``lm.local_ba``'s ``total_cost``, no step taken) to 1e-12
+    relative, where a float32 evaluation is ~1e-6 relative off, the size of
+    the cost changes that decide the last iterations on a BALM window
+    (NaN where a masked landmark is NaN, in all three)."""
+    p = chip_smoke.ba_problem(np.random.default_rng(3), case)
+    cam = tcam.Pinhole.create(*chip_smoke.BA_CAM[:4], bf=chip_smoke.BA_CAM[4],
+                              width=chip_smoke.BA_CAM[5], height=chip_smoke.BA_CAM[6])
+    a, _ = chip_smoke.ba_torch(torch, {k: v for k, v in p.items() if k != "points"}, "cpu")
+    a64, _ = chip_smoke.ba_float64(torch, a, {})
+    ref64 = float(klba.local_ba_plain(*a64, iters=0).cost)
+    ref32 = float(klba.local_ba_plain(*a, iters=0).cost)
+    got = _kernel_cost(p, cam)
+    if case == "masked_nan":
+        assert np.isnan(got) and np.isnan(ref64) and np.isnan(ref32)
+        return
+    assert abs(got - ref64) <= 1e-12 * abs(ref64), (got, ref64)
+    assert abs(ref32 - ref64) > 1e-9 * abs(ref64)
 
 
 # ---------------------------------------------------------------------------

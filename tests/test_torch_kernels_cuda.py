@@ -615,7 +615,7 @@ def test_build_clusters_and_voxel_downsample_same_bits(cuda):
     assert _same_bits(d1, d2) and int(d1[1].sum()) > 1000
 
 
-ORB_SHAPES = [(376, 1241), (64, 64), (101, 203)]
+ORB_SHAPES = [(376, 1241), (720, 1280), (1080, 1920), (64, 64), (101, 203)]
 
 
 def _orb_images(shape, n):
@@ -654,7 +654,9 @@ def _orb_scores(cuda, shape, n_images):
 @pytest.mark.parametrize("n_images", [1, 2])
 def test_orb_select_grid_matches_plain(cuda, shape, n_images):
     """The grid top-k of every plane equal to the plain version's, also on
-    tie-heavy scores; the same bits on a second call; one launch."""
+    tie-heavy scores; the same bits on a second call; two launches a call
+    (the cell pass, then the selection). At 1280x720 and 1920x1080 level 0
+    holds 7,200 and 16,320 candidates."""
     _, _, shapes, _, scores = _orb_scores(cuda, shape, n_images)
     per = orb.features_per_level(2000 if shape[0] > 300 else 500, 8, 1.2)
     ties = torch.round(scores / 16)
@@ -664,7 +666,7 @@ def test_orb_select_grid_matches_plain(cuda, shape, n_images):
         again = korb.orb_select_grid(s, shapes, per, 1.2)
         ref = korb.select_grid_plain(s, shapes, per, 1.2)
         torch.cuda.synchronize()
-        assert korb.select_launches - before == 2
+        assert korb.select_launches - before == 4
         assert _same_bits(got, ref) and _same_bits(got, again)
         assert int((got[2] > 0).sum()) > 0
 
@@ -688,6 +690,39 @@ def test_orb_describe_matches_plain(cuda, shape, n_images):
     assert torch.equal(desc, ref_desc)
 
 
+def test_system_tracks_a_1280x720_pair_on_cuda(cuda):
+    """A 1280x720 stereo camera at the default 2,000 features: level 0 holds
+    7,200 grid candidates. Four frames are built and tracked on the card,
+    two grid top-k launches a frame, and frame 0's grid top-k equal to its
+    plain version."""
+    import dataclasses
+    from tc2li_slam_torch.io import synthetic as syn
+    from tc2li_slam_torch.slam import config as tcfg, system as tsys
+    rig = syn.CameraRig(fx=720.0, fy=720.0, cx=640.0, cy=360.0, baseline=0.537, width=1280,
+                        height=720)
+    frames, _, _ = syn.generate_sequence(
+        n_frames=4, cam=rig, seed=0, n_scan=1 << 15,
+        world=syn.make_world(np.random.default_rng(0), n_surf=300_000),
+        traj=syn.Trajectory(w_body=(0, 0, 0.03), v_world=(1.5, 0.1, 0.0)))
+    cfg = chip_smoke.kitti_config(tcfg, syn, cam=rig)
+    imgs = torch.stack([torch.as_tensor(np.clip(x, 0, 255).astype(np.float32)).to(cuda)
+                        for x in (frames[0].img_l, frames[0].img_r)])
+    st, _, shapes, pad = orb.level_stacks(list(imgs), 8, 1.2)
+    scores = fast.detect_planes(st, shapes, pad)
+    per = orb.features_per_level(2000, 8, 1.2)
+    assert _same_bits(korb.orb_select_grid(scores, shapes, per, 1.2),
+                      korb.select_grid_plain(scores, shapes, per, 1.2))
+    s = tsys.System(cfg, cuda)
+    before = korb.select_launches
+    for fr in frames:
+        s.track(fr.img_l, fr.img_r, fr.t, fr.scan, fr.scan_valid)
+        assert s.state == tsys.TrackingState.OK
+    assert korb.select_launches - before == 2 * len(frames)
+    est = s.trajectory_world_from_cam()
+    gt = np.stack([fr.T_wb_gt @ syn.body_from_cam() for fr in frames])
+    assert np.all(np.isfinite(est)) and syn.ate_rmse(est, gt) < 0.15
+
+
 def test_orb_kernels_refuse_what_they_do_not_take(cuda):
     imgs = _orb_images((64, 64), 2).to(cuda)
     with pytest.raises(ValueError):                     # float64 images
@@ -702,7 +737,7 @@ def test_orb_kernels_refuse_what_they_do_not_take(cuda):
     per = orb.features_per_level(500, 8, 1.2)
     with pytest.raises(ValueError):                     # shapes of another plane count
         korb.orb_select_grid(scores, shapes[:-1], per, 1.2)
-    with pytest.raises(ValueError):                     # more candidates than the kernel holds
+    with pytest.raises(ValueError):                     # more candidates a cell than pixels
         korb.orb_select_grid(scores[:1], shapes[:1], [5000], 1.2)
     rows, cols, sel, level, _ = korb.orb_select_grid(scores, shapes, per, 1.2)
     with pytest.raises(ValueError):                     # int64 rows

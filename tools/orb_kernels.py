@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Device time of the ORB kernels of ``csrc/orb.cu`` on one card, for one
+or several checkouts in turns.
+
+    python3 tools/orb_kernels.py [--tree DIR ...] [--out DIR]
+
+Renders frame 0 of ``chip_smoke.py``'s KITTI-shaped sequence (a 1241x376
+stereo pair of the synthetic world) once, then for each tree (default: this
+checkout; ``--tree A --tree B --tree B --tree A`` compares two trees in
+turns on one card) imports that tree's ``tc2li_slam_torch`` in a child
+process, builds its kernels and runs this checkout's
+``chip_smoke.orb_kernel_rows`` on the pair: each kernel against its plain
+version (bit for bit), device ms behind a device backlog beside its bound,
+the plain version's ms and the library call's; then ``orb_hd_rows`` on the
+pair resampled to 1280x720 and 1920x1080 (a tree whose kernels refuse that
+size is reported so); and the device ms of each kernel name a call on the
+KITTI pair (``chip_smoke.kernel_split``), ``orb_level_planes`` on the first
+1, 2, 4, 6 and 8 levels of one and of two images, and the bound of the eager
+``stereo.subpixel_refine`` on 2,000 keypoints (``chip_smoke.subpixel_bound``).
+Prints one JSON object a tree,
+with the card's name and power limit, and writes them to ``--out``."""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def render_pair(path: Path) -> None:
+    """Frame 0's stereo pair of chip_smoke.py's sequence, uint8 [2, H, W]."""
+    import numpy as np
+    sys.path.insert(0, str(ROOT))
+    from tc2li_slam_torch.io import synthetic as syn
+    world = syn.make_world(np.random.default_rng(0), n_surf=300_000)
+    traj = syn.Trajectory(w_body=(0, 0, 0.03), v_world=(1.5, 0.1, 0.0))
+    T_wb = syn.trajectory_poses(traj, 1)[0]
+    l, r = syn.render_stereo(syn.World(planes=world.planes, surf=None), syn.KITTI_LIKE, T_wb)
+    np.save(path, np.stack([np.clip(l, 0, 255), np.clip(r, 0, 255)]).astype(np.uint8))
+
+
+def measure(tree: Path, pair_path: Path) -> dict:
+    sys.path.insert(0, str(tree))
+    import numpy as np
+    import torch
+
+    # this checkout's chip_smoke (its helpers), the tree's package
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    import tc2li_slam_torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    dev = torch.device("cuda")
+    pair = [torch.as_tensor(x).to(dev).to(torch.float32) for x in np.load(pair_path)]
+    log = []
+    out = {"tree": str(Path(tc2li_slam_torch.__file__).resolve().parents[1]),
+           "card": chip_smoke.nvidia_smi_line(),
+           "kitti": chip_smoke.orb_kernel_rows(torch, pair, log=log.append, hd_size=None)}
+    # device ms a call by kernel name (the grid top-k's two launches apart)
+    from tc2li_slam_torch.ops import orb
+    from tc2li_slam_torch.ops.kernels import fast, orb as korb
+    imgs = torch.stack(pair)
+    st, _, shapes = korb.orb_level_planes(imgs, 8, 1.2)
+    scores = fast.detect_planes(st, shapes, korb.PAD)
+    per = orb.features_per_level(2000, 8, 1.2)
+    out["split"] = {
+        "orb_level_planes": chip_smoke.kernel_split(
+            torch, lambda: korb.orb_level_planes(imgs, 8, 1.2), 20),
+        "orb_select_grid": chip_smoke.kernel_split(
+            torch, lambda: korb.orb_select_grid(scores, shapes, per, 1.2), 20)}
+    for H, W in ((720, 1280), (1080, 1920)):
+        try:
+            out[f"{W}x{H}"] = chip_smoke.orb_hd_rows(torch, pair, (H, W), log=log.append)
+        except ValueError as e:
+            out[f"{W}x{H}"] = {"refused": str(e)}
+    # orb_level_planes by image and level count: where the launch's time goes
+    out["level_planes_by_levels"] = {
+        f"{B} image(s), {nl} level(s)": chip_smoke.cuda_ms(
+            torch, lambda x=imgs[:B].contiguous(), nl=nl: korb.orb_level_planes(x, nl, 1.2), 50,
+            True)
+        for B in (1, 2) for nl in (1, 2, 4, 6, 8)}
+    out["subpixel_refine_bound_2000"] = chip_smoke.subpixel_bound(2000)
+    out["log"] = log
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", action="append", default=None,
+                    help="a checkout whose tc2li_slam_torch to time (repeatable)")
+    ap.add_argument("--out", default=str(ROOT / "build" / "orb_kernels"))
+    ap.add_argument("--child", nargs=2, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        print(json.dumps(measure(Path(args.child[0]).resolve(), Path(args.child[1]))),
+              flush=True)
+        return 0
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    pair_path = out / "pair.npy"
+    render_pair(pair_path)
+    for i, tree in enumerate(args.tree or [str(ROOT)]):
+        res = subprocess.run([sys.executable, __file__, "--child", tree, str(pair_path)],
+                             capture_output=True, text=True, timeout=1200)
+        if res.returncode != 0:
+            print(res.stdout[-4000:], res.stderr[-8000:], file=sys.stderr)
+            return 1
+        r = json.loads(res.stdout.strip().splitlines()[-1])
+        (out / f"orb_{i}.json").write_text(json.dumps(r, indent=1))
+        print(json.dumps(r), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
