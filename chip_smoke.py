@@ -18,13 +18,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against ground truth (< 0.5 m), and that the launch counts equal what
    the run's own counts imply (one frame build per frame: the pyramid and
    blur planes, the FAST pair, the grid top-k and orientation with rBRIEF,
-   one launch each, the grid top-k two; a stereo match per
+   one launch each, the grid top-k two, the stereo half's prep, refinement
+   and gate (``csrc/stereo.cu``) three; a stereo match per
    frame, a tracking match per tracked frame, one match per fuse pass; one
    pose-only LM per tracked frame); prints ``track_step``'s stage ms a
    frame and ``local_ba``'s by pass. In this and every later phase that
    counts launches the pose-only LM kernel must have launched once per
    ``track_frame`` and once per ``pnp_ransac`` call of the phase's run (both
    counted where the port calls them), and at least once; the BALM
+   clusters once per local-BA or LVI-BA pass with the BALM term (its
+   ``build_clusters`` call; ``n_ba_balm``, ``n_lvi_ba_balm``, the mesh
+   passes of 4g); the BALM
    quadratic twice per local-BA pass with the BALM term (``n_ba_balm``; 2 x
    iterations on the mesh path of 4g), once per LVI-BA pass with it
    (``n_lvi_ba_balm``); the window BA's kernels ``launches_per_call(iters)``
@@ -123,7 +127,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    with ``torch.profiler``), the BALM quadratic
    on phase 3's last clusters (H and g to 1e-3 of their largest entry, the
    cost to 1e-3 relative, the same bits on a second call) and with every
-   voxel invalid (exactly 0);
+   voxel invalid (exactly 0); the stereo half of the frame build
+   (``stereo_refine``) on phase 3's last pair, on its every-keypoint-ok
+   case (the reference's median gate fires) and on keypoints at the image
+   borders, bit-equal to the plain chain (u_r, ok, depth, uvr), the same bits
+   twice, no host sync, its three launches' device ms by kernel
+   (``torch.profiler``) beside the bound and the plain chain after the
+   match; the BALM clusters (``balm_clusters``) on the windows of phase 3's
+   and 4e's last ``build_clusters`` calls and on six planar keyframes:
+   N, mean, Pc and center bit-equal to the plain version, the planar flags
+   equal but within 1e-5 of the threshold in float64
+   (``clusters_agree``), the same bits twice, no host sync, device ms;
 6. one JSON line of kernel rows, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 """
@@ -147,11 +161,12 @@ LOOP_PERIOD = 126   # frames per revolution: 2 pi / omega * fps
 LOOP_DRIFT = (45, 75)                       # frames of the injected gauge ramp
 LOOP_DRIFT_XI = (0.8, 0.0, 0.5, 0.0, 0.22, 0.0)   # its total, an se3 tangent
 ATE_BOUND_M = 0.5
-# the kernels of one frame build (ops/orb.extract_images) and their launches:
-# one each, the grid top-k two (its cell pass, then its selection)
-ORB_LAUNCHES = {"orb_level_planes": 1, "fast_score_planes": 1, "fast_nms_planes": 1,
-                "orb_select_grid": 2, "orb_describe": 1}
-ORB_KERNELS = tuple(ORB_LAUNCHES)
+# the kernels of one frame build and their launches: ORB (ops/orb.extract_images)
+# one each, the grid top-k two (its cell pass, then its selection); the stereo
+# half three (csrc/stereo.cu: prep, refine, gate; the match is match_best2's)
+FRAME_LAUNCHES = {"orb_level_planes": 1, "fast_score_planes": 1, "fast_nms_planes": 1,
+                  "orb_select_grid": 2, "orb_describe": 1, "stereo_refine": 3}
+FRAME_KERNELS = tuple(FRAME_LAUNCHES)
 RECOVER_BOUND_M = 0.3
 
 # Published peaks of one H100 SXM: device memory, float32 outside the tensor
@@ -292,6 +307,13 @@ def same(torch, got, ref) -> bool:
     return all((g is None and r is None) or
                (g is not None and r is not None and g.dtype == r.dtype and torch.equal(g, r))
                for g, r in zip(got, ref))
+
+
+def bit_equal(torch, got, ref) -> bool:
+    """Tuples of tensors with the same dtype and bits (float32 compared as
+    int32: -0.0 is not 0.0, a NaN equals the same NaN)."""
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    return all(g.dtype == r.dtype and torch.equal(bits(g), bits(r)) for g, r in zip(got, ref))
 
 
 def inject_drift(torch, lie, slam, W):
@@ -992,9 +1014,16 @@ def ply_vertices(path) -> int:
     raise RuntimeError(f"{path}: no vertex count")
 
 
+def is_sync_warning(message) -> bool:
+    """A host sync reported under ``set_sync_debug_mode("warn")``, not the
+    notice PyTorch gives once a process that the mode is a prototype."""
+    text = str(message).lower()
+    return "synchroniz" in text and "prototype" not in text
+
+
 def n_syncs(caught) -> int:
     """Host syncs among warnings caught under ``set_sync_debug_mode("warn")``."""
-    return sum("synchroniz" in str(w.message).lower() for w in caught)
+    return sum(is_sync_warning(w.message) for w in caught)
 
 
 def syncs_of(torch, fn) -> int:
@@ -1103,14 +1132,165 @@ def orb_select_bound(torch, korb, scores, shapes, per, n_levels, K):
     return bound(4 * sum(h * w for h, w in shapes) + 20 * K, ops), n_pos
 
 
-def subpixel_bound(n: int):
-    """The least time of ``ops/stereo.subpixel_refine`` on n keypoints: each
-    keypoint's 11 x 11 left patch and 11 x 21 right strip read once (uint8
-    pixels), its coordinates and flag in (13 bytes), u_r and the flag out (5);
-    per keypoint 121 subtractions to centre the patch, then for each of the 11
-    offsets 121 each to centre, subtract, take the absolute value and add,
-    the arg-min and the parabola (~20)."""
-    return bound(n * (121 + 231 + 13 + 5), n * (121 + 11 * 4 * 121 + 20))
+def subpixel_bound(n: int, m: int = 0):
+    """The least time of the stereo half of a frame build after the match
+    (``ops/kernels/stereo.stereo_refine``'s three launches) on n left and m
+    right keypoints: each keypoint's 11 x 11 left patch and 11 x 21 right
+    strip read once (uint8 pixels), its coordinates, flag and the match's
+    index, best and second in (29 bytes), a right keypoint's level, the
+    matcher's packed column best and the band (16 bytes) in and out; u_r, the
+    flag, the depth and (u, v, u_r) out (25); per keypoint 121 subtractions to
+    centre the patch, then for each of the 11 offsets 121 each to centre,
+    subtract, take the absolute value and add, the matcher's tail, the
+    arg-min, the parabola and the depth (~30)."""
+    return bound(n * (121 + 231 + 29 + 25) + 16 * m, n * (121 + 11 * 4 * 121 + 30))
+
+
+STEREO_CASES = ("frame", "all_ok", "borders")
+
+
+def stereo_case(rng, case: str, img_l, img_r, kl: dict, kr: dict, shift: int = 8):
+    """Inputs of the stereo half of a frame build, ``STEREO_CASES``, as numpy:
+    ``(img_l, img_r, kl, kr)``, uint8 [H, W] images and keypoints as dicts of
+    ``xy`` [N, 2] float32, ``level`` [N] int32, ``desc`` [N, 8] int32 and
+    ``valid`` [N] bool. ``frame``: the pair and its ORB keypoints as given.
+    ``all_ok``: the valid left keypoints of distinct descriptors away from the
+    border, matched by copies of themselves ``shift`` px to the left on a
+    right image that is the left one shifted and noised by up to 3 grey
+    levels, with the strip of every 20th overwritten by noise: every
+    keypoint is ok before the SAD gate, so the reference's median is finite
+    and the gate rejects the overwritten ones. ``borders``: 48 keypoints of
+    distinct random descriptors on and next to the image borders (half
+    pixels included, where rounding half to even matters) at disparities of
+    0.5 to 12 px, some of whose strip centres fall outside the image."""
+    import numpy as np
+    H, W = img_l.shape
+    if case == "frame":
+        return img_l, img_r, kl, kr
+    if case == "all_ok":
+        xy, N = kl["xy"], kl["xy"].shape[0]
+        inside = (kl["valid"] & (xy[:, 0] >= 20) & (xy[:, 0] < W - 20) & (xy[:, 1] >= 8)
+                  & (xy[:, 1] < H - 8))
+        _, first, counts = np.unique(kl["desc"], axis=0, return_index=True, return_counts=True)
+        unique = np.zeros(N, bool)
+        unique[first[counts == 1]] = True
+        sel = np.nonzero(inside & unique)[0]
+        left = {k: v[sel] for k, v in kl.items()}
+        left["valid"] = np.ones(sel.size, bool)
+        right = dict(left, xy=(left["xy"] - np.array([shift, 0], np.float32)).astype(np.float32))
+        shifted = np.concatenate([img_l[:, shift:], np.repeat(img_l[:, -1:], shift, 1)], 1)
+        noisy = shifted.astype(np.int32) + rng.integers(-3, 4, shifted.shape)
+        for x, y in np.rint(right["xy"][::20]).astype(int):
+            noisy[max(y - 6, 0):y + 7, max(x - 12, 0):x + 13] = rng.integers(0, 256, (13, 25))[
+                :min(y + 7, H) - max(y - 6, 0), :min(x + 13, W) - max(x - 12, 0)]
+        return img_l, np.clip(noisy, 0, 255).astype(np.uint8), left, right
+    if case == "borders":
+        ys = np.array([0.0, 0.4, 0.5, 1.5, 2.5, H / 2, H - 2.5, H - 1.5, H - 1.0, H - 0.5])
+        xs = np.array([0.0, 0.5, 1.5, 4.5, 9.5, 10.5, 12.5, W / 2, W - 6.5, W - 1.5, W - 1.0,
+                       W - 0.5])
+        n = 48
+        xy = np.stack([rng.choice(xs, n), rng.choice(ys, n)], 1).astype(np.float32)
+        d = rng.choice(np.array([0.5, 3.0, 10.0, 12.0], np.float32), n)
+        desc = rng.integers(-2 ** 31, 2 ** 31, (n, 8)).astype(np.int32)
+        left = dict(xy=xy, level=np.zeros(n, np.int32), desc=desc, valid=np.ones(n, bool))
+        right = dict(left, xy=np.stack([xy[:, 0] - d, xy[:, 1]], 1).astype(np.float32))
+        return img_l, img_r, left, right
+    raise ValueError(case)
+
+
+def stereo_keypoints(torch, orb_mod, d: dict, dev):
+    """An ``orb.Keypoints`` of the numpy dict ``d`` (``stereo_case``) on ``dev``."""
+    up = lambda x: torch.as_tensor(x).to(dev)
+    xy = up(d["xy"])
+    zero = torch.zeros(xy.shape[0], dtype=torch.float32, device=dev)
+    return orb_mod.Keypoints(xy=xy, xy_level=xy, level=up(d["level"]), angle=zero, score=zero,
+                             desc=up(d["desc"]), valid=up(d["valid"]))
+
+
+CLUSTER_CASES = ("full_width", "overflow", "no_valid_point", "no_kf_pads")
+
+
+def cluster_case(rng, case: str, W: int = 6, M: int = 2048):
+    """Inputs of ``balm.build_clusters`` (1 m voxels, 512 slots, 15 points),
+    ``CLUSTER_CASES``, as numpy ``(points [W, M, 3], valid [W, M], T_wl)``:
+    ``full_width``: a window of W keyframes of M points on three planes
+    (``planar_window``); ``overflow``: the same points spread over a 60 m box
+    (more occupied voxels than slots); ``no_valid_point``: every point invalid;
+    ``no_kf_pads``: the last two keyframes ``NO_KF`` padding (identity
+    poses, no valid point)."""
+    import numpy as np
+    pl, valid, T_wl, _ = planar_window(rng, W, M)
+    if case == "overflow":
+        pl = (pl * 10.0).astype(np.float32)
+    if case == "no_valid_point":
+        valid[:] = False
+    if case == "no_kf_pads":
+        valid[W - 2:] = False
+        T_wl[W - 2:] = np.eye(4, dtype=np.float32)
+    return pl, valid, T_wl
+
+
+def stereo_pair(torch, syn, orb_mod, dev, size=None):
+    """Frame 0 of a synthetic KITTI-shaped sequence (1241x376, or resampled to
+    ``size`` (H, W) and rounded to grey levels) as uint8 images on ``dev`` and
+    the numpy keypoint dicts of its 2000-feature, 8-level ORB:
+    ``(img_l, img_r, kl, kr)``, ``stereo_case``'s arguments."""
+    import numpy as np
+    import torch.nn.functional as F
+    world = syn.make_world(np.random.default_rng(0), n_surf=20_000)
+    fr = syn.generate_sequence(n_frames=1, cam=syn.KITTI_LIKE, seed=0, n_scan=256,
+                               world=world)[0][0]
+    imgs = [torch.as_tensor(np.clip(x, 0, 255).astype(np.float32)).to(dev)
+            for x in (fr.img_l, fr.img_r)]
+    if size is not None:
+        imgs = list(F.interpolate(torch.stack(imgs)[:, None], size=size, mode="bilinear",
+                                  antialias=True)[:, 0].round().clamp(0, 255))
+    imgs = [x.to(torch.uint8) for x in imgs]
+    kps = orb_mod.extract_images(imgs, 2000, 8)
+    as_np = lambda k: {f: getattr(k, f).cpu().numpy() for f in ("xy", "level", "desc", "valid")}
+    return imgs[0].cpu().numpy(), imgs[1].cpu().numpy(), as_np(kps[0]), as_np(kps[1])
+
+
+def clusters_agree(torch, got, ref, T_wl, ratios=(1.0 / 36.0, 1.0 / 25.0), tol=1e-5):
+    """``(agree, how)`` of two ``VoxelClusters``: bit-equal; or N, mean, Pc and
+    center bit-equal and every slot whose planar flag differs with
+    lambda0 / (ratio lambda1), re-derived in float64 from the slot's
+    clusters and ``T_wl``, within ``tol`` of 1 for the root or the child
+    ratio (the float32 plane test rounds there)."""
+    import numpy as np
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    eq = [torch.equal(bits(a), bits(b)) for a, b in zip(got, ref)]
+    if all(eq):
+        return True, "bit-equal"
+    if not all(eq[:4]):
+        names = ("N", "mean", "Pc", "center")
+        return False, "differ in " + ", ".join(k for k, e in zip(names, eq) if not e)
+    c = [x.detach().cpu().numpy().astype(np.float64) for x in ref[:4]]
+    T = T_wl.detach().cpu().numpy().astype(np.float64)
+    R, t = T[:, :3, :3], T[:, :3, 3]
+    m_w = np.einsum("wij,vwj->vwi", R, c[1]) + (t[None] - c[3][:, None])
+    P = (np.einsum("wij,vwjk,wlk->vwil", R, c[2], R)
+         + c[0][..., None, None] * np.einsum("vwi,vwj->vwij", m_w, m_w)).sum(1)
+    n = np.maximum(c[0].sum(1), 1.0)
+    mu = (c[0][..., None] * m_w).sum(1) / n[:, None]
+    cov = P / n[:, None, None] - np.einsum("vi,vj->vij", mu, mu) + 1e-9 * np.eye(3)
+    lam = np.linalg.eigvalsh(cov)
+    flip = np.nonzero((got.valid != ref.valid).cpu().numpy())[0]
+    margin = [min(abs(lam[v, 0] / (r * max(lam[v, 1], 1e-9)) - 1.0) for r in ratios) for v in flip]
+    if max(margin) <= tol:
+        return True, f"flags differ at {flip.tolist()} within {tol} of the threshold"
+    return False, f"flags differ at {flip.tolist()}, {max(margin):.2e} from the threshold"
+
+
+def clusters_bound(W: int, M: int, V: int, n_valid: int):
+    """The least time of ``balm_clusters``: the points (LiDAR and world,
+    12 + 12 bytes), a flag, the poses and the clusters written once ((1 + 3
+    + 9) W + 4 floats and a flag a slot); per valid point the key (~12
+    operations), its share of two 31-bit radix sorts (2 x 8 passes x ~6) and
+    of the two passes' sums (3 + 9 products and adds, twice), per slot the
+    plane test (~200 per cell)."""
+    return bound(W * M * 25 + 64 * W + V * (4 * (13 * W + 3) + 1),
+                 n_valid * (12 + 96 + 2 * 30) + 2 * V * 200 * W)
 
 
 def orb_interp_ms(torch, imgs, shapes, n_levels):
@@ -1492,7 +1672,7 @@ def dist_phase(torch, dev, cfg, frames, gt, ref, backend: str = "nccl", log=prin
             if cuda and (max(syncs[1:]) > 2 or np.mean(syncs[1:]) > 1.2):
                 raise RuntimeError(f"System(mesh): host syncs by frame {syncs}")
             n = len(frames)
-            if cuda and any(counts[k] != n * ORB_LAUNCHES[k] for k in ORB_KERNELS):
+            if cuda and any(counts[k] != n * FRAME_LAUNCHES[k] for k in FRAME_KERNELS):
                 raise RuntimeError(f"System(mesh): launches {counts} for {n} frames")
         finally:
             dist.destroy_process_group()
@@ -1511,9 +1691,10 @@ def main() -> int:
 
     from tc2li_slam_torch.geom import camera as cam_mod, lie, triangulate as tri_geom
     from tc2li_slam_torch.io import synthetic as syn
-    from tc2li_slam_torch.ops import bow, orb
-    from tc2li_slam_torch.ops.kernels import (balm as kbalm, build, fast, hamming,
-                                              local_ba as klba, match, orb as korb, pose_lm)
+    from tc2li_slam_torch.ops import bow, orb, stereo
+    from tc2li_slam_torch.ops.kernels import (balm as kbalm, build, clusters as kcl, fast,
+                                              hamming, local_ba as klba, match, orb as korb,
+                                              pose_lm, stereo as kst)
     from tc2li_slam_torch.slam import (config as cfg_mod, culling, lio, local_mapping,
                                        relocalization, system as sys_mod, tracking,
                                        triangulation)
@@ -1606,6 +1787,12 @@ def main() -> int:
             ba_inputs["global"] = (a, kw)
         return local_ba(*a, **kw)
 
+    build_clusters = balm_mod.build_clusters
+
+    def build_clusters_spy(*a, **kw):
+        ba_inputs["clusters"] = (a, kw)
+        return build_clusters(*a, **kw)
+
     def quadratic_spy(c, T_wl):
         ba_inputs["quadratic"] = (c, T_wl)
         ba_inputs.setdefault("valid_voxels", []).append(c.valid.sum())   # (read later)
@@ -1615,11 +1802,12 @@ def main() -> int:
     sys_mod.System._global_ba = global_ba_spy
     lm_mod.local_ba = local_ba_spy
     balm_mod.quadratic = quadratic_spy
+    balm_mod.build_clusters = build_clusters_spy
 
     def reset_counts():
         fast.score_launches = fast.nms_launches = hamming.launches = match.launches = 0
         pose_lm.launches = calls["track_frame"] = calls["pnp_ransac"] = 0
-        kbalm.launches = klba.launches = 0
+        kbalm.launches = klba.launches = kst.launches = kcl.launches = 0
         korb.level_launches = korb.select_launches = korb.describe_launches = 0
         ba_calls.update(dict.fromkeys(ba_calls, 0))
         ba_inputs["valid_voxels"] = []
@@ -1632,17 +1820,22 @@ def main() -> int:
                 "hamming_matrix": hamming.launches, "match_best2": match.launches,
                 "pose_only_lm": pose_lm.launches, "calls:track_frame": calls["track_frame"],
                 "calls:pnp_ransac": calls["pnp_ransac"], "balm_quadratic": kbalm.launches,
+                "stereo_refine": kst.launches, "balm_clusters": kcl.launches,
                 "local_ba_lm": klba.launches, "calls:run_local_ba": ba_calls["run_local_ba"],
                 "calls:global_ba": ba_calls["global_ba"],
                 "implied:local_ba_lm": ba_calls["implied"]}
 
     def ba_fault(counts, n_balm, n_lvi_balm=0, mesh_iters=0):
-        """None if balm_quadratic launched twice a local-BA pass with the BALM
-        term (2 x iters on the mesh path) and once an LVI-BA pass with it, and
+        """None if balm_clusters launched once a local-BA or LVI-BA pass with
+        the BALM term (its build_clusters call), balm_quadratic twice a local-BA
+        pass with it (2 x iters on the mesh path) and once an LVI-BA pass, and
         local_ba_lm launches_per_call(iters) times a run_local_ba call off
         the mesh."""
         want = n_balm * (2 * mesh_iters if mesh_iters else 2) + n_lvi_balm
         faults = []
+        if counts["balm_clusters"] != n_balm + n_lvi_balm:
+            faults.append(f"balm_clusters launched {counts['balm_clusters']} times for "
+                          f"{n_balm + n_lvi_balm} passes with the BALM term (one a pass)")
         if counts["balm_quadratic"] != want:
             faults.append(f"balm_quadratic launched {counts['balm_quadratic']} times for "
                           f"{n_balm} BALM local-BA passes and {n_lvi_balm} LVI-BA passes with "
@@ -1720,6 +1913,7 @@ def main() -> int:
     track_case = pose_inputs[4]        # the slice's last frame
     balm_case3 = ba_inputs.get("balm")   # the slice's last BALM local-BA pass
     quad_case3 = ba_inputs.get("quadratic")
+    clusters_case3 = ba_inputs.get("clusters")   # the slice's last build_clusters call
     print(f"valid voxels of the BALM quadratics of the slice, call by call: "
           f"{[int(v) for v in ba_inputs['valid_voxels']]} of "
           f"{cfg.lidar.balm_max_voxels} slots ({cfg.lidar.kf_points} points a LiDAR keyframe, "
@@ -1736,9 +1930,9 @@ def main() -> int:
         return fail("voxel map is empty")
     if not np.all(np.isfinite(est)):
         return fail("non-finite poses")
-    expected = {**{k: N_FRAMES * v for k, v in ORB_LAUNCHES.items()}, "hamming_matrix": 0, "match_best2": N_FRAMES + (N_FRAMES - 1) + n_fuse,
+    expected = {**{k: N_FRAMES * v for k, v in FRAME_LAUNCHES.items()}, "hamming_matrix": 0, "match_best2": N_FRAMES + (N_FRAMES - 1) + n_fuse,
                 "pose_only_lm": N_FRAMES - 1, "calls:track_frame": N_FRAMES - 1,
-                "calls:pnp_ransac": 0, "balm_quadratic": 2 * n_balm3,
+                "calls:pnp_ransac": 0, "balm_quadratic": 2 * n_balm3, "balm_clusters": n_balm3,
                 "local_ba_lm": klba.launches_per_call(cfg.tracking.ba_iters) * n_ba3,
                 "calls:run_local_ba": n_ba3, "calls:global_ba": 0,
                 "implied:local_ba_lm": klba.launches_per_call(cfg.tracking.ba_iters) * n_ba3}
@@ -1748,7 +1942,7 @@ def main() -> int:
                     f"{n_fuse} fuse passes; two BALM quadratics and one local_ba_lm call a "
                     f"mapping pass, {n_ba3} passes; recoveries {slam.n_recover}, "
                     f"relocalizations {slam.n_reloc})")
-    if n_balm3 < 1 or balm_case3 is None or quad_case3 is None:
+    if n_balm3 < 1 or balm_case3 is None or quad_case3 is None or clusters_case3 is None:
         return fail("no local BA pass with the BALM term went through the kernels")
     if n_fuse < 1:
         return fail("no fuse pass ran")
@@ -1816,7 +2010,7 @@ def main() -> int:
         get = modes.get
         window_lo = n_tracked + d["n_recover"] + d["n_fuse"]
         faults = []
-        if any(counts[k] != n_built * ORB_LAUNCHES[k] for k in ORB_KERNELS) \
+        if any(counts[k] != n_built * FRAME_LAUNCHES[k] for k in FRAME_KERNELS) \
                 or counts["hamming_matrix"]:
             faults.append(f"{n_built} frames built")
         if sum(modes.values()) != counts["match_best2"]:
@@ -2145,11 +2339,13 @@ def main() -> int:
     if fault or after["n_recover"] != before["n_recover"]:
         return fail(f"IMU mode: {fault or 'a frame went through recovery'}")
     pose_launches["4e"] = counts_e["pose_only_lm"]
-    imu_launches = {**{k: counts_e[k] for k in ORB_KERNELS},
+    clusters_case4e = ba_inputs.get("clusters")   # the IMU run's last LVI-BA window
+    imu_launches = {**{k: counts_e[k] for k in FRAME_KERNELS},
                     "pose_only_lm": counts_e["pose_only_lm"],
                     "match_best2": modes_e.get("stereo+mutual", 0) + modes_e.get("window", 0),
                     "match_best2/epipolar": modes_e.get("dense+mutual", 0),
                     "balm_quadratic": counts_e["balm_quadratic"],
+                    "balm_clusters": counts_e["balm_clusters"],
                     "local_ba_lm": counts_e["local_ba_lm"]}
     for name, n_launched in imu_launches.items():
         if n_launched < 1:
@@ -2201,7 +2397,7 @@ def main() -> int:
           f"frames {LOOP_PERIOD}..{N_LOOP - 1} {1e3 * (N_LOOP - LOOP_PERIOD) / sum(lp['frame_ms'][LOOP_PERIOD:]):.3f}; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; kernel "
           f"launches {counts_f}", flush=True)
-    if any(counts_f[k] != N_LOOP * ORB_LAUNCHES[k] for k in ORB_KERNELS) \
+    if any(counts_f[k] != N_LOOP * FRAME_LAUNCHES[k] for k in FRAME_KERNELS) \
             or counts_f["hamming_matrix"] \
             or modes_f.get("stereo+mutual", 0) != N_LOOP:
         return fail(f"loop closing: launches {counts_f} by shape {modes_f} for {N_LOOP} frames")
@@ -2698,12 +2894,96 @@ def main() -> int:
         source="tc2li_slam_torch/csrc/balm.cu", replaces="tc2li_slam_tpu/solver/balm.py:303",
         max_abs_err=quad_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_q[0], bound_by=b_q[1])
 
+    # the stereo half of the frame build on phase 3's last frame pair, its
+    # every-keypoint-ok case (the median gate fires) and a border case
+    il3, ir3 = (torch.as_tensor(im).to(dev) for im in imgs[N_FRAMES - 1])
+    kl3, kr3 = orb.extract_images([il3, ir3], cfg.orb.n_features, cfg.orb.n_levels)
+    as_np = lambda k: {f: getattr(k, f).cpu().numpy() for f in ("xy", "level", "desc", "valid")}
+    pair3 = (il3.cpu().numpy(), ir3.cpu().numpy(), as_np(kl3), as_np(kr3))
+    st_args = {}
+    for case in STEREO_CASES:
+        il, ir, kl, kr = stereo_case(np.random.default_rng(1), case, *pair3)
+        a = (torch.as_tensor(il).to(dev), torch.as_tensor(ir).to(dev),
+             stereo_keypoints(torch, orb, kl, dev), stereo_keypoints(torch, orb, kr, dev),
+             slam.scale_factors, slam.cam.bf, slam.cam.baseline)
+        got, again = kst.stereo_refine(*a), kst.stereo_refine(*a)
+        ref = kst.stereo_refine_plain(*a)
+        torch.cuda.synchronize()
+        print(f"{tag} stereo_refine {case}: N {kl['xy'].shape[0]}, {int(ref.ok.sum())} ok, "
+              f"{int((ref.depth > 0).sum())} with depth; bit-equal to the plain chain "
+              f"{bit_equal(torch, got, ref)}, the same bits on a second call "
+              f"{bit_equal(torch, got, again)}", flush=True)
+        if not bit_equal(torch, got, ref) or not bit_equal(torch, got, again):
+            return fail(f"stereo_refine disagrees with its plain chain or itself ({case})")
+        st_args[case] = a
+    a = st_args["frame"]
+    N_, M_ = a[2].xy.shape[0], a[3].xy.shape[0]
+    n_sync = syncs_of(torch, lambda: kst.stereo_refine(*a))
+    split = kernel_split(torch, lambda: kst.stereo_refine(*a), 10)
+    own = ("prep_kernel", "refine_kernel", "gate_kernel")
+    ms_k = sum(split[k]["ms_a_call"] for k in own if k in split)
+    ms_call = cuda_ms(torch, lambda: kst.stereo_refine(*a), 50, True)
+    _, disp, ok = stereo.match_stereo(a[2].xy, a[2].level, a[2].desc, a[2].valid, a[3].xy,
+                                      a[3].level, a[3].desc, a[3].valid, a[4], a[5], a[6])
+    ms_p = cuda_ms(torch, lambda: kst.refine_plain(a[0], a[1], a[2].xy, disp, ok, a[5]), 5)
+    ms_route_p = cuda_ms(torch, lambda: kst.stereo_refine_plain(*a), 5)
+    b_st = subpixel_bound(N_, M_)
+    print(f"{tag} stereo_refine, phase 3's last pair (N {N_}, M {M_}): its three launches "
+          f"{ms_k:.4f} ms on the device (" + ", ".join(
+              f"{k} {split[k]['ms_a_call']:.4f}" for k in own if k in split)
+          + f"), bound {b_st[0]:.6f} ms ({b_st[1]}), the plain chain after the match "
+          f"{ms_p:.4f} ms; the whole stereo half (prep, match, refine, gate) {ms_call:.4f} ms "
+          f"behind a backlog, the parent's eager route with its match launch {ms_route_p:.4f} "
+          f"ms; host syncs in a call {n_sync}", flush=True)
+    if n_sync:
+        return fail(f"stereo_refine made {n_sync} host syncs")
+    rows["stereo_refine"] = dict(
+        source="tc2li_slam_torch/csrc/stereo.cu", replaces="tc2li_slam_tpu/ops/stereo.py:62",
+        max_abs_err=0.0, ms=ms_k, plain_ms=ms_p, bound_ms=b_st[0], bound_by=b_st[1])
+
+    # the BALM clusters on the windows of phase 3's and 4e's last calls and
+    # on the planar window above
+    cl_cases = [("phase 3's last window", clusters_case3), ("4e's last window", clusters_case4e),
+                ("6 keyframes on three planes", ((up(pl), up(pv), up(T_wl)), dict(
+                    voxel_size=cfg.lidar.balm_voxel, max_voxels=cfg.lidar.balm_max_voxels,
+                    min_points=cfg.lidar.balm_min_points)))]
+    for name, (a, kw) in cl_cases:
+        got, again = kcl.balm_clusters(*a, **kw), kcl.balm_clusters(*a, **kw)
+        ref = balm_mod.build_clusters_plain(*a, **kw)
+        torch.cuda.synchronize()
+        agree, how = clusters_agree(torch, got, ref, a[2])
+        W_, M_ = a[0].shape[:2]
+        V_ = got.N.shape[0]
+        n_valid = int(a[1].sum())
+        n_sync = syncs_of(torch, lambda: kcl.balm_clusters(*a, **kw))
+        split = kernel_split(torch, lambda: kcl.balm_clusters(*a, **kw), 5)
+        ms_k = split["clusters_kernel"]["ms_a_call"]
+        ms_call = cuda_ms(torch, lambda: kcl.balm_clusters(*a, **kw), 20, True)
+        ms_p = cuda_ms(torch, lambda: balm_mod.build_clusters_plain(*a, **kw), 3)
+        b_cl = clusters_bound(W_, M_, V_, n_valid)
+        print(f"{tag} balm_clusters {name} (W {W_}, M {M_}, {n_valid} valid points, V {V_}): "
+              f"{int(ref.valid.sum())} planar voxels, {int((ref.N.sum(1) > 0).sum())} slots "
+              f"filled; {how} to the plain version, the same bits on a second call "
+              f"{bit_equal(torch, got, again)}; kernel {ms_k:.4f} ms on the device, the call "
+              f"with its three tensor ops {ms_call:.4f} ms behind a backlog, bound "
+              f"{b_cl[0]:.6f} ms ({b_cl[1]}), plain {ms_p:.4f} ms; host syncs in a call "
+              f"{n_sync}; device launches a call {sum(v['launches_a_call'] for v in split.values()):g}",
+              flush=True)
+        if not agree or not bit_equal(torch, got, again) or n_sync:
+            return fail(f"balm_clusters on {name}: {how}; host syncs {n_sync}")
+        if name == "4e's last window":
+            rows["balm_clusters"] = dict(
+                source="tc2li_slam_torch/csrc/clusters.cu",
+                replaces="tc2li_slam_tpu/solver/balm.py:110", max_abs_err=0.0, ms=ms_k,
+                plain_ms=ms_p, bound_ms=b_cl[0], bound_by=b_cl[1])
+
     # --- 6. result -------------------------------------------------------------
     kernels = []
     for name in ("orb_level_planes", "fast_score_planes", "fast_nms_planes", "orb_select_grid",
-                 "orb_describe", "hamming_matrix", "match_best2",
+                 "orb_describe", "stereo_refine", "hamming_matrix", "match_best2",
                  "match_best2/epipolar", "match_best2/global", "match_best2/reloc",
-                 "match_best2/loop", "pose_only_lm", "balm_quadratic", "local_ba_lm"):
+                 "match_best2/loop", "pose_only_lm", "balm_clusters", "balm_quadratic",
+                 "local_ba_lm"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": r["source"],
                         "replaces": r["replaces"], "launches": launches[name],

@@ -125,6 +125,14 @@ def library() -> ctypes.CDLL:
         lib.tc2li_orb_select_grid.restype = i
         lib.tc2li_orb_describe.argtypes = [vp] * 8 + [i] * 7 + [vp, vp]
         lib.tc2li_orb_describe.restype = i
+        lib.tc2li_stereo_prep.argtypes = [vp, vp, i, i, vp, vp, vp]
+        lib.tc2li_stereo_prep.restype = i
+        lib.tc2li_stereo_refine.argtypes = [vp, vp, i, i, i] + [vp] * 7 + [i, f] + [vp] * 6
+        lib.tc2li_stereo_refine.restype = i
+        lib.tc2li_clusters_scratch.argtypes = [i, i, i]
+        lib.tc2li_clusters_scratch.restype = ctypes.c_longlong
+        lib.tc2li_balm_clusters.argtypes = [vp] * 6 + [i] * 4 + [f] * 3 + [vp] * 6 + [vp]
+        lib.tc2li_balm_clusters.restype = i
         lib.tc2li_error_string.argtypes = [i]
         lib.tc2li_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,0 +1,79 @@
+"""The BALM voxel clusters: one hand-written CUDA kernel + its plain version.
+
+Replaces ``tc2li_slam_tpu/solver/balm.py:build_clusters`` (line 110, with
+``_cluster_pass`` :62 and ``_plane_test`` :101), jit-compiled there. Eager
+PyTorch (``solver/balm.build_clusters_plain``) runs it as hundreds of device
+events a call: three sorts, the fixed-order scatter-adds of
+``tensors.sum_rows``, the plane tests' einsums.
+
+``balm_clusters`` runs the three tensor ops both routes share
+(``solver/balm.world_points``: the world points, the sum and the count of
+the valid ones), then ``csrc/clusters.cu`` in one launch: the keys, two
+stable sorts, the cell and voxel sums in the plain version's order, the
+plane tests, the child keys and the compaction. Bound on the H100: latency
+(the serial sorts and runs; see the source). N, mean, Pc and center are
+bit-equal to the plain version on the card; the planar flags may differ
+only where lambda0 / (ratio lambda1) rounds across 1. Any W, M and
+``max_voxels``: the scratch is sized by the call.
+
+``solver/balm.build_clusters`` sends CUDA tensors here and CPU tensors to
+``build_clusters_plain``; any other device raises. There is no other route.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...solver import balm as balm_mod
+from . import build
+
+launches = 0   # kernel launches by balm_clusters (plain-version calls excluded)
+
+
+def balm_clusters(points, valid, T_wl, voxel_size: float = 1.0, max_voxels: int = 512,
+                  min_points: int = 15, plane_ratio: float = 1.0 / 36.0,
+                  child_ratio: float = 1.0 / 25.0):
+    """Launch ``csrc/clusters.cu`` on the current stream: what
+    ``build_clusters_plain`` computes, without a host sync."""
+    global launches
+    dev = points.device
+    for x in (points, valid, T_wl):
+        if x.device.type != "cuda" or x.device != dev:
+            raise ValueError(f"balm_clusters: every tensor must lie on one CUDA device, got "
+                             f"{x.device} beside {dev}")
+    if points.ndim != 3 or points.shape[2] != 3 or points.dtype != torch.float32:
+        raise ValueError(f"balm_clusters: points must be float32 [W, M, 3], got {points.dtype} "
+                         f"{tuple(points.shape)}")
+    W, M, _ = points.shape
+    if tuple(valid.shape) != (W, M) or valid.dtype != torch.bool:
+        raise ValueError(f"balm_clusters: valid must be bool [{W}, {M}], got {valid.dtype} "
+                         f"{tuple(valid.shape)}")
+    if tuple(T_wl.shape) != (W, 4, 4) or T_wl.dtype != torch.float32:
+        raise ValueError(f"balm_clusters: T_wl must be float32 [{W}, 4, 4], got {T_wl.dtype} "
+                         f"{tuple(T_wl.shape)}")
+    V = int(max_voxels)
+    if V < 1 or W * M > (2 ** 31 - 1) // 16:
+        raise ValueError(f"balm_clusters: max_voxels {V} must be >= 1 and W M {W * M} below "
+                         f"{(2 ** 31 - 1) // 16}")
+    pw, val, wsum, wcount = balm_mod.world_points(points, valid, T_wl)
+    pts_l, pw, T = points.contiguous(), pw.contiguous(), T_wl.contiguous()
+    val = val.contiguous().view(torch.uint8)
+    lib = build.library()
+    scratch = torch.empty(int(lib.tc2li_clusters_scratch(W * M, V, W)), dtype=torch.uint8,
+                          device=dev)
+    N = torch.empty((V, W), dtype=torch.float32, device=dev)
+    mean = torch.empty((V, W, 3), dtype=torch.float32, device=dev)
+    Pc = torch.empty((V, W, 3, 3), dtype=torch.float32, device=dev)
+    center = torch.empty((V, 3), dtype=torch.float32, device=dev)
+    flags = torch.empty(V, dtype=torch.uint8, device=dev)
+    # the multiplier PyTorch's division by a Python scalar uses on the card
+    inv_voxel = float(np.float32(1.0) / np.float32(voxel_size))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(lib.tc2li_balm_clusters(
+        pts_l.data_ptr(), pw.data_ptr(), val.data_ptr(), wsum.data_ptr(), wcount.data_ptr(),
+        T.data_ptr(), W, M, V, int(min_points), inv_voxel, float(plane_ratio),
+        float(child_ratio), scratch.data_ptr(), N.data_ptr(), mean.data_ptr(), Pc.data_ptr(),
+        center.data_ptr(), flags.data_ptr(), stream), "balm_clusters")
+    launches += 1
+    return balm_mod.VoxelClusters(N, mean, Pc, center, flags.view(torch.bool))

@@ -201,9 +201,20 @@ def _match_best2_chunked(one, d1, d2, valid1, valid2, mask, mutual: bool):
     return idx, best, second, torch.cat(backs) if mutual else None
 
 
-def _match_best2_cuda(d1, d2, valid1, valid2, mask, mutual: bool, chunk: bool = False):
+def match_best2_packed(d1, d2, valid1, valid2, mask, colbest):
+    """``match_best2(..., mutual=True)`` on CUDA tensors into ``colbest``,
+    an int64 [M] buffer already filled with ``BIG << 32`` (by
+    ``csrc/stereo.cu``'s prep launch, say): returns ``(idx, best, second,
+    colbest)`` with ``colbest`` as the kernel leaves it, each column's
+    ``best << 32 | first row`` (``back`` is its low 32 bits). One launch."""
+    return _match_best2_cuda(d1, d2, valid1, valid2, mask, True, colbest=colbest)
+
+
+def _match_best2_cuda(d1, d2, valid1, valid2, mask, mutual: bool, chunk: bool = False,
+                      colbest=None):
     """Launch ``csrc/match.cu`` on the current stream; ``chunk`` says that
-    side 2 is one column chunk of a larger one (for the launch counts)."""
+    side 2 is one column chunk of a larger one (for the launch counts);
+    ``colbest`` is a filled buffer for ``match_best2_packed``."""
     global launches
     N, M = d1.shape[0], d2.shape[0]
     dev = d1.device
@@ -232,10 +243,14 @@ def _match_best2_cuda(d1, d2, valid1, valid2, mask, mutual: bool, chunk: bool = 
     idx = torch.empty(N, dtype=torch.int64, device=dev)
     best = torch.empty(N, dtype=i32, device=dev)
     second = torch.empty(N, dtype=i32, device=dev)
-    colbest = (torch.full((M,), BIG << 32, dtype=torch.int64, device=dev)
-               if mutual else None)
+    unpack = mutual and colbest is None   # back = the low 32 bits of a buffer made here
+    if colbest is not None and (tuple(colbest.shape) != (M,) or colbest.dtype != torch.int64
+                                or not colbest.is_contiguous() or colbest.device != dev):
+        raise ValueError(f"match_best2: colbest must be a contiguous int64 [{M}] on {dev}")
+    if unpack:
+        colbest = torch.full((M,), BIG << 32, dtype=torch.int64, device=dev)
     if N == 0:
-        return idx, best, second, None if colbest is None else colbest & 0xFFFFFFFF
+        return idx, best, second, colbest & 0xFFFFFFFF if unpack else colbest
     lib = build.library()
     if M == 0 or M > lib.tc2li_match_max_columns(mode):
         raise ValueError(f"match_best2: M={M} columns do not fit one block's shared "
@@ -254,4 +269,4 @@ def _match_best2_cuda(d1, d2, valid1, valid2, mask, mutual: bool, chunk: bool = 
     launches += 1
     key = mode_key(mask, mutual, chunk)
     launches_by_mode[key] = launches_by_mode.get(key, 0) + 1
-    return idx, best, second, None if colbest is None else colbest & 0xFFFFFFFF
+    return idx, best, second, colbest & 0xFFFFFFFF if unpack else colbest

@@ -1,5 +1,10 @@
 """Batched stereo keypoint matching with subpixel refinement
-(port of ``tc2li_slam_tpu/ops/stereo.py``, Frame::ComputeStereoMatches)."""
+(port of ``tc2li_slam_tpu/ops/stereo.py``, Frame::ComputeStereoMatches).
+
+``match_and_refine`` is the frame build's entry: CUDA tensors go to the
+kernels of ``ops/kernels/stereo.py`` (the match, then ``csrc/stereo.cu``),
+CPU tensors to its plain chain of ``match_stereo`` and ``subpixel_refine``
+below; any other device raises."""
 
 from __future__ import annotations
 
@@ -8,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from . import matching
+from .kernels import stereo as stereo_kernel
 from .kernels.match import StereoMask
 
 SAD_W = 5      # half window (11x11 patches)
@@ -35,6 +41,8 @@ def median_nan(x: torch.Tensor) -> torch.Tensor:
     """``jnp.median`` of a 1-D tensor: NaN if any entry is NaN, the mean of
     the two middle values for an even count."""
     n = x.shape[0]
+    if n == 0:
+        return x.new_full((), float("nan"))
     s = torch.sort(x).values
     lo, hi = s[(n - 1) // 2], s[n // 2]
     med = (lo + hi) * 0.5
@@ -88,3 +96,14 @@ def subpixel_refine(img_l, img_r, kpl_uv, ur0, valid):
     thr = 2.1 * torch.nan_to_num(med, nan=float("inf"))
     ok = ok & (best_sad <= thr)
     return ur, ok
+
+
+def match_and_refine(img_l, img_r, kl, kr, scale_factors, bf: float, min_z: float):
+    """Stereo match, subpixel refinement and depth of the left keypoints
+    ``kl`` against ``kr`` (``orb.Keypoints``) on the level-0 images:
+    ``StereoResult(ur, ok, depth, uvr)`` of ``ops/kernels/stereo.py``."""
+    if kl.xy.device.type == "cuda":
+        return stereo_kernel.stereo_refine(img_l, img_r, kl, kr, scale_factors, bf, min_z)
+    if kl.xy.device.type == "cpu":
+        return stereo_kernel.stereo_refine_plain(img_l, img_r, kl, kr, scale_factors, bf, min_z)
+    raise ValueError(f"match_and_refine: unsupported device {kl.xy.device}")

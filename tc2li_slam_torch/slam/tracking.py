@@ -35,17 +35,8 @@ def build_frame(img_l, img_r, cam: cam_mod.Pinhole, scale_factors,
                 n_features: int = 1024, n_levels: int = 8) -> Frame:
     """ORB extract L/R + stereo match + subpixel refine (Frame ctor)."""
     kl, kr = orb.extract_images([img_l, img_r], n_features=n_features, n_levels=n_levels)
-    idx, disp, ok = stereo.match_stereo(
-        kl.xy, kl.level, kl.desc, kl.valid, kr.xy, kr.level, kr.desc, kr.valid,
-        scale_factors, cam.bf, cam.baseline)
-    ur0 = kl.xy[:, 0] - disp
-    ur_ref, ok2 = stereo.subpixel_refine(img_l.to(torch.float32), img_r.to(torch.float32),
-                                         kl.xy, ur0, ok)
-    disparity = kl.xy[:, 0] - ur_ref
-    has_depth = ok & ok2 & (disparity > 0.1)
-    depth = torch.where(has_depth, cam.bf / torch.clamp(disparity, min=0.1), 0.0)
-    uvr = torch.cat([kl.xy, torch.where(has_depth, ur_ref, -1.0)[:, None]], dim=-1)
-    return Frame(xy=kl.xy, uvr=uvr, depth=depth, level=kl.level, angle=kl.angle,
+    st = stereo.match_and_refine(img_l, img_r, kl, kr, scale_factors, cam.bf, cam.baseline)
+    return Frame(xy=kl.xy, uvr=st.uvr, depth=st.depth, level=kl.level, angle=kl.angle,
                  desc=kl.desc, valid=kl.valid)
 
 

@@ -9,6 +9,8 @@ in the reference) through the closed-form ``smallest_eigval_sym3``: on the
 card one hand-written kernel, on the CPU ``torch.func``
 (``ops/kernels/balm.py``). Padded voxels get a fixed well-separated
 spectrum so no repeated eigenvalue reaches the derivatives.
+``build_clusters`` is one kernel on the card too (``ops/kernels/clusters.py``),
+``build_clusters_plain`` on the CPU.
 """
 
 from __future__ import annotations
@@ -18,9 +20,9 @@ from typing import NamedTuple
 import torch
 
 from ..geom import lie
-from ..ops.kernels import balm as balm_kernel
+from ..ops.kernels import balm as balm_kernel, clusters as clusters_kernel
 from ..ops.plane_fit import smallest_eigval_sym3, smallest_two_eigvals_sym3
-from ..tensors import sum_rows
+from ..tensors import count, sum_rows
 
 BIG_KEY = torch.iinfo(torch.int32).max
 
@@ -76,21 +78,43 @@ def _plane_test(N, mean, Pc, centers, T_wl, min_points, ratio):
     return planar, n_tot
 
 
+def world_points(points, valid, T_wl):
+    """The tensor ops both routes of ``build_clusters`` share, so that both
+    voxelise the same bits: the world points [W M, 3], the flat flags, and
+    the sum [3] and count [] (int32) of the valid world points, whose
+    quotient is the grid's centre."""
+    pts = lie.se3_apply(T_wl, points).reshape(-1, 3)
+    val = valid.reshape(-1)
+    return pts, val, torch.sum(torch.where(val[:, None], pts, 0.0), dim=0), count(val)
+
+
 def build_clusters(points, valid, T_wl, voxel_size: float = 1.0, max_voxels: int = 512,
                    min_points: int = 15, plane_ratio: float = 1.0 / 36.0,
                    child_ratio: float = 1.0 / 25.0) -> VoxelClusters:
     """cut_voxel + the adaptive two-level plane harvest: planar 1 m roots,
     and planar half-size children of big non-planar roots, compacted to
-    ``max_voxels`` slots (planar roots first)."""
+    ``max_voxels`` slots (planar roots first).
+
+    CUDA tensors go to the one-launch kernel (``ops/kernels/clusters.py``),
+    CPU tensors to ``build_clusters_plain``; any other device raises."""
+    args = (points, valid, T_wl, voxel_size, max_voxels, min_points, plane_ratio, child_ratio)
+    if points.device.type == "cuda":
+        return clusters_kernel.balm_clusters(*args)
+    if points.device.type == "cpu":
+        return build_clusters_plain(*args)
+    raise ValueError(f"build_clusters: unsupported device {points.device}")
+
+
+def build_clusters_plain(points, valid, T_wl, voxel_size: float = 1.0, max_voxels: int = 512,
+                         min_points: int = 15, plane_ratio: float = 1.0 / 36.0,
+                         child_ratio: float = 1.0 / 25.0) -> VoxelClusters:
+    """``build_clusters`` in tensor ops: the plain version of the kernel."""
     W, M, _ = points.shape
     dev = points.device
-    p_w = lie.se3_apply(T_wl, points)                     # [W, M, 3]
-    pts = p_w.reshape(-1, 3)
+    pts, val, wsum, wcount = world_points(points, valid, T_wl)
     pts_l = points.reshape(-1, 3)
-    val = valid.reshape(-1)
     kf = torch.arange(W, dtype=torch.int32, device=dev).repeat_interleave(M)
-    center = (torch.sum(torch.where(val[:, None], pts, 0.0), dim=0)
-              / torch.clamp(torch.sum(val.to(torch.int32)), min=1))
+    center = wsum / torch.clamp(wcount, min=1)
     rel_f = (pts - center) / voxel_size
     rel = torch.floor(rel_f).to(torch.int32) + 256
     in_grid = torch.all((rel >= 0) & (rel < 512), dim=-1) & val

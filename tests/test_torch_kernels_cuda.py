@@ -744,3 +744,174 @@ def test_orb_kernels_refuse_what_they_do_not_take(cuda):
         korb.orb_describe(st, bl, rows.long(), cols, level, 8, pad)
     with pytest.raises(ValueError):                     # a pad short of the pattern
         korb.orb_describe(st, bl, rows, cols, level, 8, 10)
+
+
+# --- the stereo half of the frame build (csrc/stereo.cu) -----------------------
+
+STEREO_BF = float(np.float32(718.856) * np.float32(0.537))
+STEREO_BASE = float(np.float32(0.537))
+_STEREO_PAIRS = {}
+
+
+def _stereo_inputs(cuda, case, size=None):
+    from tc2li_slam_torch.io import synthetic as syn
+    if size not in _STEREO_PAIRS:
+        _STEREO_PAIRS[size] = chip_smoke.stereo_pair(torch, syn, orb, cuda, size)
+    il, ir, kl, kr = chip_smoke.stereo_case(np.random.default_rng(1), case, *_STEREO_PAIRS[size])
+    up = lambda x: torch.as_tensor(x).to(cuda)
+    kp = lambda d: chip_smoke.stereo_keypoints(torch, orb, d, cuda)
+    sf = up((1.2 ** np.arange(8)).astype(np.float32))
+    return up(il), up(ir), kp(kl), kp(kr), sf
+
+
+def _stereo_check(cuda, il, ir, kl, kr, sf):
+    """The kernel bit-equal to its plain version, the same bits on a second
+    call, and this module's launches."""
+    from tc2li_slam_torch.ops.kernels import stereo as kst
+    args = (il, ir, kl, kr, sf, STEREO_BF, STEREO_BASE)
+    before = kst.launches
+    got = kst.stereo_refine(*args)
+    again = kst.stereo_refine(*args)
+    ref = kst.stereo_refine_plain(*args)
+    torch.cuda.synchronize()
+    N, M = kl.xy.shape[0], kr.xy.shape[0]
+    assert kst.launches - before == 2 * kst.launches_per_call(N, M)
+    assert _same_bits(got, ref), [f for f, a, b in zip(got._fields, got, ref) if not torch.equal(a, b)]
+    assert _same_bits(got, again)
+    return got
+
+
+@pytest.mark.parametrize("case", chip_smoke.STEREO_CASES)
+def test_stereo_refine_matches_plain(cuda, case):
+    got = _stereo_check(cuda, *_stereo_inputs(cuda, case))
+    N = got.ok.shape[0]
+    assert 0 < int(got.ok.sum()) < N
+
+
+def test_stereo_refine_1280x720(cuda):
+    got = _stereo_check(cuda, *_stereo_inputs(cuda, "frame", (720, 1280)))
+    assert int(got.ok.sum()) > 300
+
+
+def test_stereo_refine_float_images(cuda):
+    il, ir, kl, kr, sf = _stereo_inputs(cuda, "frame")
+    _stereo_check(cuda, il.float(), ir.float(), kl, kr, sf)
+
+
+@pytest.mark.parametrize("N", [0, 1, 2000])
+def test_stereo_refine_sizes(cuda, N):
+    """No keypoint, one, and 2000 (more than the gate block's 1024 threads)."""
+    il, ir, kl, kr, sf = _stereo_inputs(cuda, "frame")
+    kl = kl._replace(**{f: getattr(kl, f)[:N] for f in kl._fields})
+    got = _stereo_check(cuda, il, ir, kl, kr, sf)
+    assert got.uvr.shape == (N, 3)
+
+
+def _sync_sites(fn):
+    """The lines of the stack (innermost last) at each host sync ``fn()`` makes."""
+    import traceback
+    import warnings
+    sites = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+
+        def record(message, *a, **kw):
+            if chip_smoke.is_sync_warning(message):
+                sites.append([f"{f.filename}:{f.lineno} {f.line}"
+                              for f in traceback.extract_stack()[-8:-1]])
+            else:
+                shown(message, *a, **kw)
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            warnings.showwarning = shown
+    torch.cuda.synchronize()
+    return sites
+
+
+def test_stereo_refine_no_host_sync(cuda):
+    from tc2li_slam_torch.ops.kernels import stereo as kst
+    il, ir, kl, kr, sf = _stereo_inputs(cuda, "frame")
+    kst.stereo_refine(il, ir, kl, kr, sf, STEREO_BF, STEREO_BASE)
+    torch.cuda.synchronize()
+    sites = _sync_sites(lambda: kst.stereo_refine(il, ir, kl, kr, sf, STEREO_BF, STEREO_BASE))
+    assert not sites, sites
+
+
+def test_stereo_refine_refuses_what_it_does_not_take(cuda):
+    from tc2li_slam_torch.ops.kernels import stereo as kst
+    il, ir, kl, kr, sf = _stereo_inputs(cuda, "frame")
+    with pytest.raises(ValueError):                     # a CPU image
+        kst.stereo_refine(il.cpu(), ir, kl, kr, sf, STEREO_BF, STEREO_BASE)
+    with pytest.raises(ValueError):                     # int64 levels
+        kst.stereo_refine(il, ir, kl._replace(level=kl.level.long()), kr, sf, STEREO_BF,
+                          STEREO_BASE)
+    with pytest.raises(ValueError):                     # images of two shapes
+        kst.stereo_refine(il, ir[:, :-1], kl, kr, sf, STEREO_BF, STEREO_BASE)
+
+
+# --- the BALM voxel clusters (csrc/clusters.cu) --------------------------------
+
+def _cluster_inputs(cuda, case, W=6, M=2048):
+    up = lambda x: torch.as_tensor(x).to(cuda)
+    if case in chip_smoke.BALM_CASES:
+        b = chip_smoke.balm_case(np.random.default_rng(4), case)
+        return up(b["points"]), up(b["valid"]), up(b["T_build"]), 256
+    pl, valid, T_wl = chip_smoke.cluster_case(np.random.default_rng(3), case, W, M)
+    return up(pl), up(valid), up(T_wl), 512
+
+
+def _cluster_check(cuda, pts, valid, T, V):
+    from tc2li_slam_torch.ops.kernels import clusters as kcl
+    kw = dict(voxel_size=1.0, max_voxels=V, min_points=15)
+    before = kcl.launches
+    got = kcl.balm_clusters(pts, valid, T, **kw)
+    again = kcl.balm_clusters(pts, valid, T, **kw)
+    ref = balm.build_clusters_plain(pts, valid, T, **kw)
+    torch.cuda.synchronize()
+    assert kcl.launches - before == 2
+    agree, how = chip_smoke.clusters_agree(torch, got, ref, T)
+    assert agree, how
+    assert _same_bits(got, again)
+    return got
+
+
+@pytest.mark.parametrize("case", chip_smoke.CLUSTER_CASES + chip_smoke.BALM_CASES)
+def test_balm_clusters_matches_plain(cuda, case):
+    got = _cluster_check(cuda, *_cluster_inputs(cuda, case))
+    if case == "no_valid_point":
+        assert not got.valid.any() and not got.N.any()
+    elif case != "overflow":
+        assert int(got.valid.sum()) > 20
+
+
+@pytest.mark.parametrize("W,M,V", [(1, 1, 1), (2, 300, 8), (6, 20000, 512), (12, 4096, 64),
+                                   (6, 2048, 4096), (3, 40000, 2)])
+def test_balm_clusters_sizes(cuda, W, M, V):
+    pts, valid, T, _ = _cluster_inputs(cuda, "full_width", W, M)
+    _cluster_check(cuda, pts, valid, T, V)
+
+
+def test_balm_clusters_no_host_sync(cuda):
+    from tc2li_slam_torch.ops.kernels import clusters as kcl
+    pts, valid, T, V = _cluster_inputs(cuda, "full_width")
+    kcl.balm_clusters(pts, valid, T, max_voxels=V)
+    torch.cuda.synchronize()
+    for fn in (kcl.balm_clusters, balm.build_clusters):
+        sites = _sync_sites(lambda: fn(pts, valid, T, max_voxels=V))
+        assert not sites, sites
+
+
+def test_balm_clusters_refuses_what_it_does_not_take(cuda):
+    from tc2li_slam_torch.ops.kernels import clusters as kcl
+    pts, valid, T, V = _cluster_inputs(cuda, "full_width")
+    with pytest.raises(ValueError):                     # CPU flags
+        kcl.balm_clusters(pts, valid.cpu(), T)
+    with pytest.raises(ValueError):                     # float64 points
+        kcl.balm_clusters(pts.double(), valid, T)
+    with pytest.raises(ValueError):                     # no slot
+        kcl.balm_clusters(pts, valid, T, max_voxels=0)

@@ -30,7 +30,10 @@ device ms and launches a frame of each kernel of ``csrc/local_ba.cu``
 way (``orb_split``): ``build_frame`` and its parts ``orb:level_stacks`` (the
 pyramid and blur planes), ``orb:detect`` (the FAST pair), ``orb:select``
 (the grid top-k), ``orb:describe`` (orientation and rBRIEF),
-``stereo:match`` and ``stereo:subpixel``, each with host ms, device ms (the
+``stereo:match`` and ``stereo:subpixel`` (a checkout from before the stereo
+kernel; on the card the current one calls neither) and
+``stereo:match+refine`` (``ops/stereo.match_and_refine``: the match and
+``csrc/stereo.cu``), each with host ms, device ms (the
 kernels, copies and fills whose launch lies in the range, linked by the
 profiler's correlation ids) and device events a frame. ``--tree DIR`` runs
 the package of another checkout (an unpacked parent, say) under this
@@ -183,7 +186,8 @@ def main() -> int:
                  ("orb:describe", ((orb, "compute_orientation_stacked"),
                                    (orb, "compute_descriptors_stacked"), (orb, "describe"))),
                  ("stereo:match", ((stereo, "match_stereo"),)),
-                 ("stereo:subpixel", ((stereo, "subpixel_refine"),)))
+                 ("stereo:subpixel", ((stereo, "subpixel_refine"),)),
+                 ("stereo:match+refine", ((stereo, "match_and_refine"),)))
     for rname, attrs in ORB_PARTS:
         for mod, name in attrs:
             if hasattr(mod, name):
@@ -209,7 +213,7 @@ def main() -> int:
         def showwarning(message, *a, **kw):
             # where in the port the host waited: the innermost frame of the
             # package on the stack when the sync warning fired
-            if "synchroniz" in str(message).lower():
+            if chip_smoke.is_sync_warning(message):
                 inner = [f for f in traceback.extract_stack() if "tc2li_slam_torch" in f.filename]
                 if inner:
                     f = inner[-1]
@@ -227,12 +231,11 @@ def main() -> int:
                 torch.cuda.set_sync_debug_mode("default")
                 torch.cuda.synchronize()
                 frame_ms.append(1e3 * (time.perf_counter() - t0))
-                frame_syncs.append(sum("synchroniz" in str(w.message).lower()
-                                       for w in caught[n_warned:]))
+                frame_syncs.append(chip_smoke.n_syncs(caught[n_warned:]))
                 frame_kf.append(slam.n_kf_host > n_kf)
             t_win = time.perf_counter() - t_win0
     syncs = [str(w.message).splitlines()[0] for w in caught
-             if "synchroniz" in str(w.message).lower()]
+             if chip_smoke.is_sync_warning(w.message)]
     trace = out / "slice_trace.json"
     prof.export_chrome_trace(str(trace))
     with open(trace, "rb") as src, gzip.open(f"{trace}.gz", "wb") as dst:
