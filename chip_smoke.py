@@ -1293,6 +1293,50 @@ def clusters_bound(W: int, M: int, V: int, n_valid: int):
                  n_valid * (12 + 96 + 2 * 30) + 2 * V * 200 * W)
 
 
+def save_balm_windows(path, cl_cases, quad_cases):
+    """The BALM pass's inputs of this run, for ``tools/balm_kernels.py``:
+    ``cl_cases`` ``[(name, ((points, valid, T_wl), kw))]`` of
+    ``balm_clusters``, ``quad_cases`` ``[(name, clusters, T)]`` of
+    ``balm_quadratic``, as one ``.npz``."""
+    import numpy as np
+    z = {"cluster_names": np.array([name for name, _ in cl_cases]),
+         "quad_names": np.array([name for name, _, _ in quad_cases])}
+    for i, (_, (a, kw)) in enumerate(cl_cases):
+        for k, x in zip(("points", "valid", "T_wl"), a):
+            z[f"c{i}_{k}"] = x.cpu().numpy()
+        z[f"c{i}_kw"] = np.array([kw["voxel_size"], kw["max_voxels"], kw["min_points"]],
+                                 np.float64)
+    for i, (_, c, T) in enumerate(quad_cases):
+        for f, x in zip(c._fields, c):
+            z[f"q{i}_{f}"] = x.cpu().numpy()
+        z[f"q{i}_T"] = T.cpu().numpy()
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **z)
+
+
+def balm_phase_split(root, build):
+    """``tools/balm_kernels.py``'s ``PhaseSplit`` of this checkout: its two
+    BALM sources rebuilt with clock stamps (into ``build/balm_kernels``),
+    called as ``split(torch, "clusters" or "balm", fn)``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("balm_kernels",
+                                                  root / "tools" / "balm_kernels.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.PhaseSplit(root, root / "build" / "balm_kernels", build)
+
+
+def phase_text(phases: dict, ms: float) -> str:
+    """A stamped call's phases as ms of ``ms`` by their share of its cycles,
+    and its laps as cycles a lap."""
+    rows = [(k, v) for k, v in phases.items() if isinstance(v, dict)]
+    parts = [f"{k} {v['share'] * ms:.4f} ms ({100 * v['share']:.0f}%)" for k, v in rows
+             if "share" in v]
+    parts += [f"{k} {v['cycles a lap']:.0f} cycles x {v['laps']}" for k, v in rows
+              if "laps" in v]
+    return "; ".join(parts)
+
+
 def orb_interp_ms(torch, imgs, shapes, n_levels):
     """``F.interpolate(..., "bilinear", antialias=True)`` of every level but
     0 of the images, one call a level (no blur): the library's yardstick."""
@@ -2854,6 +2898,10 @@ def main() -> int:
                   ("every voxel invalid", c3._replace(valid=torch.zeros_like(c3.valid)), T3),
                   ("6 keyframes on three planes", c_pl, up(T_pert))]
     quad_err = 0.0
+    t0 = time.perf_counter()
+    split_of = balm_phase_split(root, build)
+    print(f"the BALM sources rebuilt with clock stamps in {time.perf_counter() - t0:.1f} s "
+          f"(tools/balm_kernels.py)", flush=True)
     for name, c, T in quad_cases:
         got = kbalm.balm_quadratic(c, T)
         again = kbalm.balm_quadratic(c, T)
@@ -2886,9 +2934,14 @@ def main() -> int:
         b_q = bound(V_ * W_ * 52 + 13 * V_ + 64 * W_ + 4 * D_ * D_ + 4 * D_ + 4,
                     n_vox * (BALM_OPS_JET + BALM_OPS_ROW * D_ + BALM_OPS_POSE_TERM * 9 * W_
                              + BALM_OPS_ENTRY * D_ * D_))
+        q_split = kernel_split(torch, lambda: kbalm.balm_quadratic(c, T), 10)
+        q_phases = split_of(torch, "balm", lambda: kbalm.balm_quadratic(c, T))
         print(f"{tag} balm_quadratic {name}, V {V_}, W {W_}, {n_vox} valid voxels: kernel "
               f"{ms_k:.4f} ms on the device, bound {b_q[0]:.6f} ms ({b_q[1]}), plain "
-              f"{ms_p:.4f} ms", flush=True)
+              f"{ms_p:.4f} ms; device launches a call "
+              f"{sum(v['launches_a_call'] for v in q_split.values()):g} ("
+              + ", ".join(f"{k} {v['ms_a_call']:.4f} ms" for k, v in q_split.items())
+              + f"); phases of the stamped build: {phase_text(q_phases, ms_k)}", flush=True)
     # the row: the planar window (the main path's shapes, V 512 and W 6)
     rows["balm_quadratic"] = dict(
         source="tc2li_slam_torch/csrc/balm.cu", replaces="tc2li_slam_tpu/solver/balm.py:303",
@@ -2947,6 +3000,7 @@ def main() -> int:
                 ("6 keyframes on three planes", ((up(pl), up(pv), up(T_wl)), dict(
                     voxel_size=cfg.lidar.balm_voxel, max_voxels=cfg.lidar.balm_max_voxels,
                     min_points=cfg.lidar.balm_min_points)))]
+    save_balm_windows(root / "build" / "balm_windows.npz", cl_cases, quad_cases[::2])
     for name, (a, kw) in cl_cases:
         got, again = kcl.balm_clusters(*a, **kw), kcl.balm_clusters(*a, **kw)
         ref = balm_mod.build_clusters_plain(*a, **kw)
@@ -2961,14 +3015,15 @@ def main() -> int:
         ms_call = cuda_ms(torch, lambda: kcl.balm_clusters(*a, **kw), 20, True)
         ms_p = cuda_ms(torch, lambda: balm_mod.build_clusters_plain(*a, **kw), 3)
         b_cl = clusters_bound(W_, M_, V_, n_valid)
+        cl_phases = split_of(torch, "clusters", lambda: kcl.balm_clusters(*a, **kw))
         print(f"{tag} balm_clusters {name} (W {W_}, M {M_}, {n_valid} valid points, V {V_}): "
               f"{int(ref.valid.sum())} planar voxels, {int((ref.N.sum(1) > 0).sum())} slots "
               f"filled; {how} to the plain version, the same bits on a second call "
               f"{bit_equal(torch, got, again)}; kernel {ms_k:.4f} ms on the device, the call "
               f"with its three tensor ops {ms_call:.4f} ms behind a backlog, bound "
               f"{b_cl[0]:.6f} ms ({b_cl[1]}), plain {ms_p:.4f} ms; host syncs in a call "
-              f"{n_sync}; device launches a call {sum(v['launches_a_call'] for v in split.values()):g}",
-              flush=True)
+              f"{n_sync}; device launches a call {sum(v['launches_a_call'] for v in split.values()):g}"
+              f"; phases of the stamped build: {phase_text(cl_phases, ms_k)}", flush=True)
         if not agree or not bit_equal(torch, got, again) or n_sync:
             return fail(f"balm_clusters on {name}: {how}; host syncs {n_sync}")
         if name == "4e's last window":

@@ -9,11 +9,15 @@ takes two a pass.
 
 Bound on the H100: latency. At V = 512 voxels and W = 6 poses a call reads
 160 KB and does ~2.5 M float operations; the kernel (``csrc/balm.cu``)
-writes the derivatives in closed form, takes the eigenvalue's gradient and
-Hessian by second-order forward-mode arithmetic on one thread a voxel, and
-sums the voxels' terms in a fixed order, so the same inputs give the same
-bits. Against ``jax.hessian`` the chain agrees to ~1e-5 of the largest entry in
-float32 (the chain emulated in numpy in ``tests/test_torch_local_ba.py``).
+writes the derivatives in closed form and takes the eigenvalue's gradient
+and Hessian by second-order forward-mode arithmetic, in two launches: a
+block a chunk of ``CHUNK`` voxel slots (all at once) computes its valid
+voxels' factors and the chunk's partial sums of (H, g, cost), then each
+block adds 32 entries' partial sums over ``GROUPS`` runs of chunks, the runs
+in order, so the same inputs give the same bits.
+Against ``jax.hessian`` the chain agrees to ~1e-5 of the largest entry in
+float32 (the chain emulated in numpy in ``tests/test_torch_local_ba.py``,
+its order of sums in ``tests/test_torch_balm_emulation.py``).
 
 ``balm_quadratic`` launches the kernel (CUDA tensors only);
 ``solver.balm.quadratic`` sends CUDA tensors there and CPU tensors to
@@ -28,9 +32,10 @@ from torch.func import grad_and_value, hessian
 from ...solver import balm as balm_mod
 from . import build
 
-launches = 0   # kernel launches by balm_quadratic (plain-version calls excluded)
+launches = 0   # balm_quadratic calls, two device launches each (plain-version calls excluded)
 MAX_WINDOW = 16   # csrc/balm.cu kMaxW
-_counters: dict[torch.device, torch.Tensor] = {}   # the kernel's block counter, left at 0
+CHUNK = 4         # csrc/balm.cu kChunk: the voxel slots a partial sum adds, in slot order
+GROUPS = 32       # ... kGroups: the runs of chunks an entry's sum adds, each in order
 
 
 def quadratic_plain(c, T_wl):
@@ -45,7 +50,7 @@ def quadratic_plain(c, T_wl):
 
 def balm_quadratic(c, T_wl):
     """Launch ``csrc/balm.cu`` on the current stream: what ``quadratic_plain``
-    computes, in one launch."""
+    computes, in two launches."""
     global launches
     V, W = c.N.shape
     dev = T_wl.device
@@ -65,22 +70,24 @@ def balm_quadratic(c, T_wl):
     if tuple(c.valid.shape) != (V,) or c.valid.dtype != torch.bool:
         raise ValueError(f"balm_quadratic: valid must be bool [{V}], got {c.valid.dtype} "
                          f"{tuple(c.valid.shape)}")
-    lib = build.library()
-    N, mean, Pc, center, T = (x.contiguous() for x in (c.N, c.mean, c.Pc, c.center, T_wl))
-    valid = c.valid.contiguous().view(torch.uint8)
+    contig = lambda x: x if x.is_contiguous() else x.contiguous()
+    N, mean, Pc, center, T = (contig(x) for x in (c.N, c.mean, c.Pc, c.center, T_wl))
     D = 6 * W
-    partial = torch.empty((lib.tc2li_balm_blocks(V), D * D + D + 1), dtype=torch.float32,
-                          device=dev)
-    counter = _counters.get(dev)
-    if counter is None:
-        counter = _counters[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
-    H = torch.empty((D, D), dtype=torch.float32, device=dev)
-    g = torch.empty(D, dtype=torch.float32, device=dev)
-    cost = torch.empty((), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(lib.tc2li_balm_quadratic(
-        N.data_ptr(), mean.data_ptr(), Pc.data_ptr(), center.data_ptr(), valid.data_ptr(),
-        T.data_ptr(), V, W, partial.data_ptr(), counter.data_ptr(), H.data_ptr(), g.data_ptr(),
-        cost.data_ptr(), stream), "balm_quadratic")
+    # one allocation: the chunks' partial sums, then H, g and the cost
+    S = scratch_floats(V, W)
+    partial, H, g, cost = torch.empty(S + D * D + D + 1, dtype=torch.float32,
+                                      device=dev).split([S, D * D, D, 1])
+    build.check(build.library().tc2li_balm_quadratic(
+        N.data_ptr(), mean.data_ptr(), Pc.data_ptr(), center.data_ptr(),
+        contig(c.valid).view(torch.uint8).data_ptr(), T.data_ptr(), V, W, partial.data_ptr(),
+        H.data_ptr(), g.data_ptr(), cost.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+        "balm_quadratic")
     launches += 1
-    return balm_mod.BalmQuad(H, g, cost)
+    return balm_mod.BalmQuad(H.view(D, D), g, cost.view(()))
+
+
+def scratch_floats(V: int, W: int) -> int:
+    """Floats of ``csrc/balm.cu``'s scratch: the partial sums of (H, g, cost)
+    of each chunk of ``CHUNK`` voxel slots."""
+    D = 6 * W
+    return -(-V // CHUNK) * (D * D + D + 1)

@@ -111,9 +111,9 @@ def library() -> ctypes.CDLL:
         lib.tc2li_match_best2.restype = i
         lib.tc2li_pose_only_lm.argtypes = [vp] * 6 + [i] + [f] * 5 + [i, i] + [vp] * 5
         lib.tc2li_pose_only_lm.restype = i
-        lib.tc2li_balm_blocks.argtypes = [i]
-        lib.tc2li_balm_blocks.restype = i
-        lib.tc2li_balm_quadratic.argtypes = [vp] * 6 + [i, i] + [vp] * 6
+        lib.tc2li_balm_scratch.argtypes = [i, i]
+        lib.tc2li_balm_scratch.restype = ctypes.c_longlong
+        lib.tc2li_balm_quadratic.argtypes = [vp] * 6 + [i, i] + [vp] * 5
         lib.tc2li_balm_quadratic.restype = i
         lib.tc2li_local_ba_scratch.argtypes = [i, i, i]
         lib.tc2li_local_ba_scratch.restype = ctypes.c_longlong

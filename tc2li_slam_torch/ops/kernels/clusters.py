@@ -8,13 +8,15 @@ events a call: three sorts, the fixed-order scatter-adds of
 
 ``balm_clusters`` runs the three tensor ops both routes share
 (``solver/balm.world_points``: the world points, the sum and the count of
-the valid ones), then ``csrc/clusters.cu`` in one launch: the keys, two
-stable sorts, the cell and voxel sums in the plain version's order, the
-plane tests, the child keys and the compaction. Bound on the H100: latency
-(the serial sorts and runs; see the source). N, mean, Pc and center are
-bit-equal to the plain version on the card; the planar flags may differ
-only where lambda0 / (ratio lambda1) rounds across 1. Any W, M and
-``max_voxels``: the scratch is sized by the call.
+the valid ones), then ``csrc/clusters.cu`` in one launch of one thread-block
+cluster (16 blocks of 1024 threads; 8 where 16 do not fit): the keys, two
+stable sorts by counting passes over the cluster, the cell and voxel sums in
+the plain version's order (a warp a voxel), the plane tests, the child keys
+and the compaction. Bound on the H100: latency (the sorts' passes and the
+longest voxel's run; see the source). N, mean, Pc and center are bit-equal
+to the plain version on the card; the planar flags may differ only where
+lambda0 / (ratio lambda1) rounds across 1. Any W, M and ``max_voxels``: the
+scratch is sized by the call, in the same allocation as the outputs.
 
 ``solver/balm.build_clusters`` sends CUDA tensors here and CPU tensors to
 ``build_clusters_plain``; any other device raises. There is no other route.
@@ -56,24 +58,31 @@ def balm_clusters(points, valid, T_wl, voxel_size: float = 1.0, max_voxels: int 
     if V < 1 or W * M > (2 ** 31 - 1) // 16:
         raise ValueError(f"balm_clusters: max_voxels {V} must be >= 1 and W M {W * M} below "
                          f"{(2 ** 31 - 1) // 16}")
-    pw, val, wsum, wcount = balm_mod.world_points(points, valid, T_wl)
-    pts_l, pw, T = points.contiguous(), pw.contiguous(), T_wl.contiguous()
-    val = val.contiguous().view(torch.uint8)
-    lib = build.library()
-    scratch = torch.empty(int(lib.tc2li_clusters_scratch(W * M, V, W)), dtype=torch.uint8,
-                          device=dev)
-    N = torch.empty((V, W), dtype=torch.float32, device=dev)
-    mean = torch.empty((V, W, 3), dtype=torch.float32, device=dev)
-    Pc = torch.empty((V, W, 3, 3), dtype=torch.float32, device=dev)
-    center = torch.empty((V, 3), dtype=torch.float32, device=dev)
-    flags = torch.empty(V, dtype=torch.uint8, device=dev)
+    contig = lambda x: x if x.is_contiguous() else x.contiguous()
+    pw, val, wsum, wcount = (contig(x) for x in balm_mod.world_points(points, valid, T_wl))
+    pts_l, T = contig(points), contig(T_wl)
+    # one allocation: the scratch (16-byte aligned at the start), then the outputs
+    VW, sb = V * W, scratch_bytes(W * M, V, W) // 4
+    scratch, N, mean, Pc, center, flags = torch.empty(
+        sb + 13 * VW + 3 * V + (V + 3) // 4, dtype=torch.float32, device=dev).split(
+        [sb, VW, 3 * VW, 9 * VW, 3 * V, (V + 3) // 4])
+    flags = flags.view(torch.uint8)[:V]
     # the multiplier PyTorch's division by a Python scalar uses on the card
     inv_voxel = float(np.float32(1.0) / np.float32(voxel_size))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(lib.tc2li_balm_clusters(
-        pts_l.data_ptr(), pw.data_ptr(), val.data_ptr(), wsum.data_ptr(), wcount.data_ptr(),
-        T.data_ptr(), W, M, V, int(min_points), inv_voxel, float(plane_ratio),
-        float(child_ratio), scratch.data_ptr(), N.data_ptr(), mean.data_ptr(), Pc.data_ptr(),
-        center.data_ptr(), flags.data_ptr(), stream), "balm_clusters")
+    build.check(build.library().tc2li_balm_clusters(
+        pts_l.data_ptr(), pw.data_ptr(), val.view(torch.uint8).data_ptr(), wsum.data_ptr(),
+        wcount.data_ptr(), T.data_ptr(), W, M, V, int(min_points), inv_voxel,
+        float(plane_ratio), float(child_ratio), scratch.data_ptr(), N.data_ptr(),
+        mean.data_ptr(), Pc.data_ptr(), center.data_ptr(), flags.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "balm_clusters")
     launches += 1
-    return balm_mod.VoxelClusters(N, mean, Pc, center, flags.view(torch.bool))
+    return balm_mod.VoxelClusters(N.view(V, W), mean.view(V, W, 3), Pc.view(V, W, 3, 3),
+                                  center.view(V, 3), flags.view(torch.bool))
+
+
+def scratch_bytes(P: int, V: int, W: int) -> int:
+    """Bytes of ``csrc/clusters.cu``'s scratch for P points, V slots and W
+    keyframes (its ``layout``: each array from a 16-byte boundary)."""
+    sizes = (4 * P,) * 4 + (12 * P,) * 2 + (4 * P,) * 2 + (
+        4 * (V + 1), 8 * V * W, 24 * V * W, 72 * V * W, 24 * V, 8 * V, 4 * V, 4 * V)
+    return sum((b + 15) & ~15 for b in sizes)

@@ -452,6 +452,35 @@ def test_balm_quadratic_full_width(cuda):
     assert max(e) <= 1e-3, e
 
 
+@pytest.mark.parametrize("W,n_valid", [(6, 1), (16, None)])
+def test_balm_quadratic_one_voxel_and_the_widest_window(cuda, W, n_valid):
+    """One valid voxel of 512 slots; a window of 16 poses (``MAX_WINDOW``):
+    the plain version's H, g and cost, the same bits twice, two device
+    launches a call, no host sync."""
+    pl, valid, T_wl, T_pert = chip_smoke.planar_window(np.random.default_rng(7), W, 3000)
+    t = lambda a: torch.as_tensor(a).to(cuda)
+    c = balm.build_clusters(t(pl), t(valid), t(T_wl), voxel_size=1.0, max_voxels=512,
+                            min_points=15)
+    if n_valid is not None:
+        keep = torch.zeros_like(c.valid)
+        keep[int(torch.nonzero(c.valid)[0])] = True
+        c = c._replace(valid=keep)
+    assert int(c.valid.sum()) == (n_valid or int(c.valid.sum())) and int(c.valid.sum()) > 0
+    T = t(T_pert)
+    got = kbalm.balm_quadratic(c, T)
+    again = kbalm.balm_quadratic(c, T)
+    ref = kbalm.quadratic_plain(c, T)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    e = _quad_agree(got, ref)
+    assert max(e) <= 1e-3, e
+    sites = _sync_sites(lambda: kbalm.balm_quadratic(c, T))
+    assert not sites, sites
+    split = chip_smoke.kernel_split(torch, lambda: kbalm.balm_quadratic(c, T), 10)
+    assert {k: round(v["launches_a_call"]) for k, v in split.items()} == {
+        "voxel_kernel": 1, "sum_kernel": 1}, split
+
+
 def test_balm_quadratic_refuses_what_it_does_not_take(cuda):
     b = chip_smoke.balm_case(np.random.default_rng(4), "planar")
     c = _clusters(b, cuda)
@@ -866,6 +895,9 @@ def _cluster_inputs(cuda, case, W=6, M=2048):
 
 
 def _cluster_check(cuda, pts, valid, T, V):
+    """The kernel against the plain version, the same bits twice, one launch
+    of its own a call (and none else than the three tensor ops'), no host
+    sync."""
     from tc2li_slam_torch.ops.kernels import clusters as kcl
     kw = dict(voxel_size=1.0, max_voxels=V, min_points=15)
     before = kcl.launches
@@ -877,6 +909,10 @@ def _cluster_check(cuda, pts, valid, T, V):
     agree, how = chip_smoke.clusters_agree(torch, got, ref, T)
     assert agree, how
     assert _same_bits(got, again)
+    sites = _sync_sites(lambda: kcl.balm_clusters(pts, valid, T, **kw))
+    assert not sites, sites
+    split = chip_smoke.kernel_split(torch, lambda: kcl.balm_clusters(pts, valid, T, **kw), 10)
+    assert round(split["clusters_kernel"]["launches_a_call"]) == 1, split
     return got
 
 
@@ -889,11 +925,28 @@ def test_balm_clusters_matches_plain(cuda, case):
         assert int(got.valid.sum()) > 20
 
 
-@pytest.mark.parametrize("W,M,V", [(1, 1, 1), (2, 300, 8), (6, 20000, 512), (12, 4096, 64),
-                                   (6, 2048, 4096), (3, 40000, 2)])
+@pytest.mark.parametrize("W,M,V", [(1, 1, 1), (1, 2048, 1), (2, 300, 8), (6, 20000, 512),
+                                   (12, 4096, 64), (6, 2048, 4096), (3, 40000, 2),
+                                   (6, 40000, 512)])
 def test_balm_clusters_sizes(cuda, W, M, V):
+    """W 1 with one slot; six planar keyframes of 20,000 points (the main
+    path's width at a dense cloud); 240,000 points, past the 232,000 whose
+    sort keys and indices (16 bytes a point) 16 SMs' shared memory would
+    hold (the kernel keeps them in device memory at every size); more slots
+    than voxels; two slots."""
     pts, valid, T, _ = _cluster_inputs(cuda, "full_width", W, M)
     _cluster_check(cuda, pts, valid, T, V)
+
+
+def test_balm_scratch_sizes_match_the_sources(cuda):
+    """The wrappers size the kernels' scratch in Python; the sources' own
+    layouts agree."""
+    from tc2li_slam_torch.ops.kernels import build, clusters as kcl
+    lib = build.library()
+    for P, V, W in ((1, 1, 1), (12288, 512, 6), (240000, 512, 6), (8192, 4096, 12)):
+        assert kcl.scratch_bytes(P, V, W) == lib.tc2li_clusters_scratch(P, V, W)
+    for V, W in ((1, 1), (512, 6), (256, 16), (7, 3)):
+        assert kbalm.scratch_floats(V, W) == lib.tc2li_balm_scratch(V, W)
 
 
 def test_balm_clusters_no_host_sync(cuda):

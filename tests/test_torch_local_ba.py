@@ -187,10 +187,12 @@ def _hat(v):
                      np.stack([-v[..., 1], v[..., 0], z], -1)], -2)
 
 
-def balm_chain_f32(N, mean, Pc, center, valid, T):
-    """(H, g, cost) by the kernel's chain: the closed-form first and second
-    derivatives of the covariance in the 6W right tangents, the jet of
-    lambda_min in the covariance's six entries, chained and weighted."""
+def balm_terms_f32(N, mean, Pc, center, valid, T):
+    """Each voxel's unweighted terms by the kernel's chain, float32: H_v
+    [V, 6W, 6W], g_v [V, 6W], lambda_min [V], and its weight valid * N_tot
+    [V]: the closed-form first and second derivatives of the covariance in
+    the 6W right tangents, the jet of lambda_min in the covariance's six
+    entries, chained."""
     N, mean, Pc, center, T = (np.asarray(a, F) for a in (N, mean, Pc, center, T))
     V, W = N.shape
     R, tr = T[:, :3, :3], T[:, :3, 3]
@@ -242,9 +244,13 @@ def balm_chain_f32(N, mean, Pc, center, valid, T):
                 X = U[w, i] @ Q[:, w] @ U[w, j].T + 0.5 * (U[w, i] @ U[w, j] + U[w, j] @ U[w, i]) @ Q[:, w]
                 blk[:, 3 + i, 3 + j] += 2 * np.einsum("vab,vab->v", Lam, X) / n
         H[:, 6 * w:6 * w + 6, 6 * w:6 * w + 6] += blk
-    wv = valid.astype(F) * n_tot
-    return (np.einsum("v,vpq->pq", wv, H), np.einsum("v,vp->p", wv, np.einsum(
-        "vk,vpk->vp", f, dC6)), np.sum(wv * lam.v))
+    return H, np.einsum("vk,vpk->vp", f, dC6), lam.v, valid.astype(F) * n_tot
+
+
+def balm_chain_f32(N, mean, Pc, center, valid, T):
+    """(H, g, cost) by the kernel's chain (``balm_terms_f32``), weighted."""
+    H, g, lam, wv = balm_terms_f32(N, mean, Pc, center, valid, T)
+    return np.einsum("v,vpq->pq", wv, H), np.einsum("v,vp->p", wv, g), np.sum(wv * lam)
 
 
 @pytest.mark.parametrize("case", ("planar", "padded_poses"))
