@@ -60,8 +60,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    0.2, the staged visual-inertial initialization, at least one LVI-BA pass
    with the BALM term, at least three frames refined by the pose-inertial
    optimizers, an IMU factor at every keyframe but the first, no bad-IMU
-   flag, finite poses, the same ATE limit, and the three kernels' launch
-   counts against what the run implies; then a forced bad-IMU event (a
+   flag, finite poses, the same ATE limit, and the kernels' launch counts
+   against what the run implies: ``imu_preintegrate`` once an
+   ``estimation.imu.integrate`` call, ``pose_inertial_lm`` once a frame
+   refined (``n_vi_refine_kf + n_vi_refine_frame``); ``vi_refine``'s ms a
+   frame; then a forced bad-IMU event (a
    window with non-finite samples): ``lio_scan_step`` returns ``bad`` with
    the filter and the voxel map as they were, and through ``track`` the
    inertial stack is re-armed at that frame's sync and initialises again on
@@ -119,6 +122,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (poses to 1e-4, costs to 1e-3 relative, inlier flags equal but where a
    row's chi2, re-derived in float64, sits at its threshold; times behind a
    device backlog beside the plain version's, and a pass's share); the
+   pose-inertial LM (``pose_inertial_lm``) at 15 and 30 free dims on 4e's
+   last call of each form, on it with nothing valid and with a masked NaN
+   row, and on ``vi_problem``'s frames at O 3 and 60 (T_wb and vel to 1e-4,
+   bg 1e-5, ba 1e-4, the next prior's H 1e-3 of its largest entry, the cost
+   1e-3, or else no farther from the plain version run in float64; inlier
+   flags equal but at a gate; the same bits on a second call; no host sync);
+   the preintegration (``imu_preintegrate``) on 4e's last and longest
+   windows and at N 1, 10 and 1024 with padded slots, against the plain
+   version run in float64 (1e-4 of each output's largest entry, or 4x the
+   float32 plain version's own distance); the
    window BA's kernels on the inputs of phase 3's last local-BA pass with
    the BALM term, of 4f's global BA (64 poses) and on phase 3's pass with
    no valid landmark (poses to 1e-4, landmarks to 1e-3 m, cost to 1e-4
@@ -205,6 +218,39 @@ BALM_OPS_JET = 3000
 BALM_OPS_ROW = 130
 BALM_OPS_POSE_TERM = 150
 BALM_OPS_ENTRY = 20
+# float64 outside the tensor cores: 34 TFLOP/s (NVIDIA's data sheet, H100
+# SXM), a fused multiply-add counted as two
+PEAK_F64_S = 34e12 / 2
+# IMU preintegration (csrc/imu_preint.cu), float32 operations a sample, a
+# fused multiply-add counted as one (as PEAK_SIMPLE_S): A C9 and (A C9) A^T
+# (729 each), B N (54) and (B N) B^T (486), their sum (81), the chain's
+# 3x3 products, Jacobians and vectors (~250), the sample's own rotation and
+# right Jacobian (~150); bytes a sample: gyro, acc, dt
+IMU_OPS_SAMPLE = 729 + 729 + 54 + 486 + 81 + 250 + 150
+IMU_BYTES_SAMPLE = 28
+# pose-inertial LM (csrc/pose_inertial.cu), float64 operations, a fused
+# multiply-add counted as one (as PEAK_F64_S, and as POSE_OPS_ROW):
+# - a row a pass: the two transforms (24), the projection and residual
+#   (14), the projection's derivative (8) and its product with R_cb (27),
+#   the 3x6 Jacobian (18), chi2, the gates, the Huber weight and w (10),
+#   the cost (1), w J (18) and the 21 + 6 sums (81);
+# - a pass's assembly by free dims: the IMU factor's residual and J1, J2
+#   (~470), its cost (~100), I J2 (1,215) and J2^T I J2 (2,025), g and the
+#   walk (~190); at 30 also the prior's terms (~160), I J1 (1,215), Jp^T Hw
+#   (3,375), Hw rp (225), J1^T I J1, J1^T I J2 and (Jp^T Hw) Jp (7,650), g1
+#   (~375) and the prior's cost (240);
+# - a step's solve: the preconditioned system (2 n^2), its Cholesky (n^3/6
+#   and n (n - 1) / 2 divisions), the two triangular solves (n^2) and the
+#   update through se3_exp (~150 a state);
+# - at 30 once a call, the Schur complement: a 15x15 Cholesky, 15 solves
+#   and H12^T X (~8,000);
+# bytes a row: X, uvr, inv_sigma2, two flags in, an inlier flag out
+VI_OPS_ROW = 24 + 14 + 8 + 27 + 18 + 10 + 1 + 18 + 81
+VI_OPS_ASSEMBLE = {15: 4_000, 30: 17_200}
+VI_OPS_STEP = {15: 1_650, 30: 8_250}
+VI_OPS_SCHUR = {15: 0, 30: 8_000}
+VI_BYTES_ROW = 12 + 12 + 4 + 2 + 1
+VI_BYTES_FIXED = 4 * (16 * 4 + 9 * 4 + 225 + 1 + 66 + 225 + 5) + 4 * 252 + 4
 
 
 def fail(msg: str) -> int:
@@ -669,6 +715,402 @@ def ba_outside(torch, got, ref, ref64, pose_tol: float = 1e-4, lm_tol: float = 1
                      "max_vs_float64": float(dg.max()) if dg.numel() else 0.0,
                      "plain_vs_float64": float(dr.max()) if dr.numel() else 0.0}
     return out
+
+
+VI_CALIB = (1e-4, 1e-3, 1e-6, 1e-5)   # 4e's ImuConfig: gyro, acc noise; their walks
+VI_GRAVITY = (0.0, 0.0, -9.81)
+
+
+def _so3_np(w):
+    import numpy as np
+    th = np.linalg.norm(w)
+    W = np.array([[0.0, -w[2], w[1]], [w[2], 0.0, -w[0]], [-w[1], w[0], 0.0]])
+    if th < 1e-12:
+        return np.eye(3) + W
+    return np.eye(3) + np.sin(th) / th * W + (1.0 - np.cos(th)) / th ** 2 * W @ W
+
+
+def vi_problem(rng, n: int = 2000, nf: int = 30, case: str = "full", n_imu: int = 20):
+    """Inputs of the pose-inertial optimizers (numpy, from ``rng``): the
+    KITTI-shaped camera, a body-from-camera extrinsic with a rotation, an
+    IMU window of ``n_imu`` samples at 100 Hz (gyro and accelerometer with
+    small biases, 4e's noise figures in ``VI_CALIB``) from the anchor's
+    state, and ``n`` matched rows at the frame: 70% stereo, noise and
+    ``inv_sigma2`` from 8 pyramid levels, 5% of them moved so that their chi2
+    at the true state sits within 0.8-1.25 of the gate, 5% outliers of 20-50
+    px, 3% masked. ``nf`` 15: the last-keyframe form (a fixed anchor); 30: the
+    last-frame form (prev ~1 cm and ~0.1 degree off, a prior on it of
+    pose-like information). The frame's initial state is ~5 cm, ~0.6 degrees
+    and ~0.1 m/s off. Cases: ``full``; ``nothing_valid``; ``masked_nan`` (a
+    masked row whose point is NaN); ``prior_off`` (the prior's weight 0);
+    ``padded_imu`` (every third IMU slot padding, dt 0). Returns a dict of
+    numpy arrays and host numbers."""
+    import numpy as np
+    from tc2li_slam_torch.io.synthetic import KITTI_LIKE as rig
+
+    def se3(R, t):
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, t
+        return T
+
+    def perturb(T, rot, trans):
+        return T @ se3(_so3_np(rng.normal(0, rot, 3)), rng.normal(0, trans, 3))
+
+    fx, fy, cx, cy, bf = rig.fx, rig.fy, rig.cx, rig.cy, rig.fx * rig.baseline
+    g = np.asarray(VI_GRAVITY)
+    T_bc = se3(np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+               @ _so3_np(np.array([0.01, -0.02, 0.005])), np.array([0.2, 0.01, 0.1]))
+    T_cb = np.linalg.inv(T_bc)
+    # the IMU: a constant body rate and world acceleration from the anchor
+    R1 = _so3_np(rng.normal(0, 0.3, 3))
+    T1 = se3(R1, rng.normal(0, 2.0, 3))
+    v1 = np.array([1.5, 0.1, 0.0]) + rng.normal(0, 0.1, 3)
+    w_b = rng.normal(0, 0.05, 3)
+    a_w = rng.normal(0, 0.3, 3)
+    bg_t, ba_t = rng.normal(0, 2e-4, 3), rng.normal(0, 2e-3, 3)
+    dt = 0.01
+    t_all = dt * n_imu
+    gyro = np.zeros((n_imu, 3))
+    acc = np.zeros((n_imu, 3))
+    dts = np.full(n_imu, dt)
+    for k in range(n_imu):
+        Rk = R1 @ _so3_np(w_b * dt * k)
+        gyro[k] = w_b + bg_t + rng.normal(0, VI_CALIB[0], 3)
+        acc[k] = Rk.T @ (a_w - g) + ba_t + rng.normal(0, VI_CALIB[1], 3)
+    if case == "padded_imu":
+        dts[::3] = 0.0
+        gyro[::3], acc[::3] = 7.0, -3.0   # (what a padded slot holds does not matter)
+        t_all = dt * int((dts > 0).sum())
+    T2 = se3(R1 @ _so3_np(w_b * t_all), T1[:3, 3] + v1 * t_all + 0.5 * a_w * t_all ** 2)
+    v2 = v1 + a_w * t_all
+    # the rows, seen from the frame's true camera
+    T_wc = T2 @ T_bc
+    z = rng.uniform(4.0, 40.0, n)
+    u, v = rng.uniform(0, rig.width, n), rng.uniform(0, rig.height, n)
+    Xc = np.stack([(u - cx) / fx * z, (v - cy) / fy * z, z], -1)
+    X = Xc @ T_wc[:3, :3].T + T_wc[:3, 3]
+    level = rng.integers(0, 8, n)
+    sig = 1.2 ** level
+    uvr = np.stack([u, v, u - bf / z], -1) + rng.normal(0, 0.5, (n, 3)) * sig[:, None]
+    stereo = rng.random(n) < 0.7
+    uvr[~stereo, 2] = -1.0
+    inv_s2 = 1.0 / sig ** 2
+    gate = rng.random(n) < 0.05
+    d = rng.normal(0, 1, (n, 3))
+    d[~stereo, 2] = 0.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    thr = np.where(stereo, 7.815, 5.991)
+    uvr[gate] = np.stack([u, v, np.where(stereo, u - bf / z, -1.0)], -1)[gate] + (
+        d * (np.sqrt(thr * rng.uniform(0.8, 1.25, n) / inv_s2))[:, None])[gate]
+    out = ~gate & (rng.random(n) < 0.05)
+    uvr[out, :2] += d[out, :2] * rng.uniform(20.0, 50.0, (int(out.sum()), 1))
+    valid = rng.random(n) >= 0.03
+    if case == "nothing_valid":
+        valid[:] = False
+    if case == "masked_nan":
+        valid[0] = False
+        X[0] = np.nan
+    f32 = lambda a: np.asarray(a, np.float32)
+
+    def state(T, vel, bg, ba):
+        return dict(T_wb=f32(T), vel=f32(vel), bg=f32(bg), ba=f32(ba))
+
+    z3 = np.zeros(3)
+    p = dict(cam=(fx, fy, cx, cy, bf), T_cb=f32(T_cb), gravity=f32(g), calib=VI_CALIB,
+             gyro=f32(gyro), acc=f32(acc), dts=f32(dts), nf=nf,
+             state0=state(perturb(T2, 0.01, 0.05), v2 + rng.normal(0, 0.1, 3), z3, z3),
+             X=f32(X), uvr=f32(uvr), inv_s2=f32(inv_s2), stereo=stereo, valid=valid)
+    if nf == 15:
+        p["anchor"] = state(T1, v1, z3, z3)
+    else:
+        p["anchor"] = state(perturb(T1, 0.002, 0.01), v1 + rng.normal(0, 0.02, 3), z3, z3)
+        A = rng.normal(0, 1, (15, 15))
+        info = np.concatenate([np.full(6, 1e4), np.full(3, 1e3), np.full(3, 1e8),
+                               np.full(3, 1e5)])
+        H = np.sqrt(info)[:, None] * (np.eye(15) + 0.3 * A @ A.T / 15) * np.sqrt(info)[None]
+        p["prior"] = dict(state=state(T1, v1, z3, z3), H=f32(H),
+                          weight=f32(0.0 if case == "prior_off" else 1.0))
+    return p
+
+
+def _vi_cast(torch, x, dtype):
+    """A tensor, or a NamedTuple (or tuple) of them, with every float tensor
+    cast to ``dtype``."""
+    if isinstance(x, tuple):
+        parts = (_vi_cast(torch, a, dtype) for a in x)
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x
+
+
+def vi_args(torch, p, dev, dtype=None):
+    """The optimizer's arguments for ``vi_problem``'s ``p`` on ``dev``: the
+    preintegration by ``estimation.imu.integrate`` on ``dev`` (the kernel on
+    the card), then the covariance floor and the random-walk information as
+    ``System._vi_frame_refine`` forms them. With ``dtype`` (float64) every
+    float tensor is cast after that, the same inputs in another type.
+    Returns (function name, positional arguments)."""
+    from tc2li_slam_torch.estimation import imu
+    from tc2li_slam_torch.geom import camera as cam_mod
+    from tc2li_slam_torch.slam import imu_mode
+    from tc2li_slam_torch.solver import pose_inertial as pi
+    up = lambda a: torch.as_tensor(a).to(dev)
+    cal = imu.ImuCalib.create(*p["calib"], device=dev)
+    z3 = torch.zeros(3, device=dev)
+    st = lambda d: pi.FrameVIState(*(up(d[k]) for k in ("T_wb", "vel", "bg", "ba")))
+    anchor = st(p["anchor"])
+    pre = imu.integrate(cal, up(p["gyro"]), up(p["acc"]), up(p["dts"]), z3, z3)
+    C = pre.C.clone()
+    C[:9, :9] = imu_mode.floor_cov9(pre.C[:9, :9])
+    pre = pre._replace(C=C)
+    dt_c = torch.clamp(pre.dt, min=1e-3)
+    info_bg = 1.0 / (cal.sigma_gw ** 2 * dt_c)
+    info_ba = 1.0 / (cal.sigma_aw ** 2 * dt_c)
+    tree = (lambda x: x) if dtype is None else (lambda x: _vi_cast(torch, x, dtype))
+
+    cam = cam_mod.Pinhole.create(*p["cam"])
+    rows = (up(p["X"]), up(p["uvr"]), up(p["inv_s2"]), up(p["stereo"]), up(p["valid"]),
+            info_bg, info_ba)
+    head = (cam, up(p["T_cb"]), st(p["state0"]), anchor)
+    if p["nf"] == 15:
+        return "optimize_last_kf", tree(head + (pre, up(p["gravity"])) + rows)
+    pr = p["prior"]
+    prior = pi.FramePrior(st(pr["state"]), up(pr["H"]), up(pr["weight"]))
+    return "optimize_last_frame", tree(head + (prior, pre, up(p["gravity"])) + rows)
+
+
+def diag_scale(torch, M):
+    """sqrt(|M_ii M_jj|) of a square matrix (float64, on the CPU): a
+    difference of information or covariance matrices divided by it is
+    D^-1/2 (A - B) D^-1/2 with D = diag(M), each entry against the scale of
+    its own two variables. A diagonal entry that is NaN or 0 (a frame whose
+    rows' sums are NaN) counts as the largest finite entry of its row (and
+    at least 1e-30)."""
+    M = M.detach().double().cpu().abs()
+    dg = M.diagonal().nan_to_num(0.0)
+    dg = torch.where(dg > 0, dg, M.nan_to_num(0.0, 0.0, 0.0).amax(1)).clamp(min=1e-30)
+    return torch.sqrt(dg[:, None] * dg[None, :])
+
+
+def vi_agreement(torch, args, got, ref, ref64=None) -> dict:
+    """How two ``PoseInertialResult``s on the same arguments agree: the
+    largest difference of T_wb, vel, bg and ba, of the next prior's H after
+    diagonal scaling (``diag_scale`` of ``ref64``'s H, or ``ref``'s), and of
+    the cost relative; the inlier
+    flags that differ (``flips``) and of them those at a gate (their chi2,
+    re-derived in float64 at either state, within 1e-3 relative of its
+    threshold or on both sides of it, or their depth so at 0.05). With
+    ``ref64`` (the plain version run in float64), ``outside`` lists the
+    quantities beyond the tolerances of ``VI_TOL`` that are also farther
+    from ``ref64`` than ``ref`` is (the rule of ``ba_outside``)."""
+    import numpy as np
+    cam, T_cb = args[0], args[1]
+    X, uvr, s2, st = (np.asarray(a.detach().cpu(), np.float64) for a in args[-7:-3])
+    st = st.astype(bool)
+    thr = np.where(st, 7.815, 5.991)
+    Tcb = np.asarray(T_cb.detach().cpu(), np.float64)
+
+    def gates(T_wb):
+        T = np.linalg.inv(np.asarray(T_wb.detach().cpu(), np.float64))
+        Xc = (X @ T[:3, :3].T + T[:3, 3]) @ Tcb[:3, :3].T + Tcb[:3, 3]
+        zz = np.where(np.abs(Xc[:, 2]) < 1e-9, 1e-9, Xc[:, 2])
+        u = cam.fx * Xc[:, 0] / zz + cam.cx
+        r = np.stack([u - uvr[:, 0], cam.fy * Xc[:, 1] / zz + cam.cy - uvr[:, 1],
+                      np.where(st, u - cam.bf / zz - uvr[:, 2], 0.0)], -1)
+        return s2 * np.sum(r * r, -1), Xc[:, 2]
+
+    with np.errstate(invalid="ignore", over="ignore"):
+        (c1, z1), (c2, z2) = gates(got.state.T_wb), gates(ref.state.T_wb)
+        near = ((np.minimum(np.abs(c1 - thr), np.abs(c2 - thr)) <= 1e-3 * thr)
+                | ((c1 - thr) * (c2 - thr) <= 0)
+                | (np.minimum(np.abs(z1 - 0.05), np.abs(z2 - 0.05)) <= 5e-5)
+                | ((z1 - 0.05) * (z2 - 0.05) <= 0))
+    flips = np.asarray((got.inliers.cpu() != ref.inliers.cpu()))
+
+    def quantities(r):
+        return {"T_wb": r.state.T_wb, "vel": r.state.vel, "bg": r.state.bg, "ba": r.state.ba,
+                "H": r.prior.H, "cost": r.cost}
+
+    h_scale = diag_scale(torch, (ref if ref64 is None else ref64).prior.H)
+
+    def dist(a, b, key):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        d = torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(a), (a - b).abs())
+        if key == "H":
+            d = d / h_scale
+        d = float(d.max()) if d.numel() else 0.0
+        if key == "cost":   # relative (a cost below 1: absolute)
+            d /= max(float(b.abs().nan_to_num(0.0).max()), 1.0)
+        return d if d == d else float("inf")
+
+    qg, qr = quantities(got), quantities(ref)
+    out = {k: dist(qg[k], qr[k], k) for k in qg}
+    out.update(flips=int(flips.sum()), near=int((flips & near).sum()),
+               n_inliers=(int(got.n_inliers), int(ref.n_inliers)))
+    if ref64 is not None:
+        q64 = quantities(ref64)
+        out["outside"] = [k for k, tol in VI_TOL.items()
+                          if out[k] > tol and dist(qg[k], q64[k], k) > dist(qr[k], q64[k], k)]
+    return out
+
+
+# the tolerances of the pose-inertial kernel against its plain version: the
+# state, the next prior's H (diagonally scaled: ``diag_scale``), the cost
+# (relative, absolute below 1)
+VI_TOL = {"T_wb": 1e-4, "vel": 1e-4, "bg": 1e-5, "ba": 1e-4, "H": 1e-3, "cost": 1e-3}
+
+
+def imu_distance(torch, field, a, ref) -> float:
+    """The largest difference of one ``Preintegrated`` output ``field`` from
+    ``ref``: the covariance C diagonally scaled (``diag_scale`` of ``ref``,
+    so the walk block and C9's rotation block are held to their own scale),
+    any other output over its largest entry."""
+    a, ref = a.detach().double().cpu(), ref.detach().double().cpu()
+    d = (a - ref).abs()
+    if field == "C":
+        return float((d / diag_scale(torch, ref)).max())
+    return float(d.max()) / max(float(ref.abs().max()), 1e-30) if d.numel() else 0.0
+
+
+def vi_phase(torch, dev, vi_inputs, rng, log=print, sync=lambda: None, timer=None) -> dict:
+    """Phase 5, the IMU mode's two kernels against their plain versions on
+    ``dev``, through the dispatchers a user calls (``estimation.imu.integrate``,
+    ``solver.pose_inertial.optimize_last_kf`` / ``optimize_last_frame``):
+    ``vi_inputs`` holds 4e's saved arguments (the last call of each form,
+    ``integrate:last`` and ``integrate:longest``). ``timer(fn, reps) -> ms``
+    times a call on the device (none: the times are not taken). Returns the
+    two kernel rows; raises RuntimeError where a check fails."""
+    import numpy as np
+
+    from tc2li_slam_torch.estimation import imu as imu_mod
+    from tc2li_slam_torch.ops.kernels import imu_preint as kimu, pose_inertial as kpi
+    from tc2li_slam_torch.solver import pose_inertial as pi_mod
+
+    rows = {}
+    timer = timer or (lambda fn, reps: float("nan"))
+    saved = dict(vi_inputs)   # (the calls below pass through the run's spies)
+    # the pose-inertial LM: 4e's last call of each form (its inputs as
+    # System passed them), the same with nothing valid and with a masked NaN
+    # row, and vi_problem's frames at O 3 and 60
+    vi_cases = []
+    for name, nf in (("optimize_last_kf", 15), ("optimize_last_frame", 30)):
+        if name not in saved:
+            raise RuntimeError(f"IMU mode: System never called {name}")
+        a = saved[name]
+        X_nan = a[-7].clone()
+        X_nan[0] = float("nan")
+        masked = a[-3].clone()
+        masked[0] = False
+        vi_cases += [(f"4e's last {name}", name, a),
+                     (f"4e's last {name}, nothing valid", name,
+                      a[:-3] + (torch.zeros_like(a[-3]),) + a[-2:]),
+                     (f"4e's last {name}, a masked NaN row", name,
+                      a[:-7] + (X_nan,) + a[-6:-3] + (masked,) + a[-2:])]
+        for O in (3, 60):
+            vi_cases.append((f"vi_problem O {O} ({nf} dims)", name,
+                             vi_args(torch, vi_problem(np.random.default_rng(O), O, nf), dev)[1]))
+    vi_err = 0.0
+    for label, name, a in vi_cases:
+        got, again = getattr(pi_mod, name)(*a), getattr(pi_mod, name)(*a)
+        ref = getattr(kpi, name + "_plain")(*a)
+        a64 = _vi_cast(torch, a, torch.float64)
+        ref64 = getattr(kpi, name + "_plain")(*a64)
+        sync()
+        agr = vi_agreement(torch, a, got, ref, ref64)
+        twice = bit_equal(torch, [got.state.T_wb, got.state.vel, got.prior.H, got.cost,
+                                  got.inliers, got.n_inliers],
+                          [again.state.T_wb, again.state.vel, again.prior.H, again.cost,
+                           again.inliers, again.n_inliers])
+        log(f"pose_inertial_lm {label} (O {a[-7].shape[0]}, {int(a[-3].sum())} valid): "
+            + ", ".join(f"{k} {v:.2e}" for k, v in agr.items() if isinstance(v, float))
+            + f"; inliers {agr['n_inliers']}, flags that differ {agr['flips']}, of which at a "
+            f"gate {agr['near']}; beyond tolerance and farther from float64 than the plain "
+            f"version {agr['outside']}; the same bits on a second call {twice}")
+        if agr["outside"] or agr["flips"] != agr["near"] or not twice:
+            raise RuntimeError(f"pose_inertial_lm disagrees with its plain version on {label}: "
+                               f"{agr}, the same bits twice {twice}")
+        if "NaN" in label and (not bool(torch.isnan(got.cost))
+                               or not torch.equal(got.state.T_wb, a[2].T_wb)):
+            raise RuntimeError(f"pose_inertial_lm on {label}: the cost is not NaN or the state "
+                               f"moved")
+        vi_err = max(vi_err, agr["T_wb"])
+    n_sync = syncs_of(torch, lambda: pi_mod.optimize_last_frame(*saved["optimize_last_frame"]))
+    log(f"pose_inertial_lm: {n_sync} host syncs in a call")
+    if n_sync:
+        raise RuntimeError(f"pose_inertial_lm synchronised the host {n_sync} times in a call")
+    for name, nf in (("optimize_last_kf", 15), ("optimize_last_frame", 30)):
+        a = saved[name]
+        O = a[-7].shape[0]
+        n_step = 2 * 6
+        n_eval = n_step + 2 + 1   # a pass a step, a round's first, the last
+        ms_k = timer(lambda: getattr(pi_mod, name)(*a), 30)
+        ms_p = timer(lambda: getattr(kpi, name + "_plain")(*a), 3)
+        b_v = bound(VI_BYTES_FIXED + VI_BYTES_ROW * O, 0.0)
+        t_ops = 1e3 * (n_eval * (VI_OPS_ROW * O + VI_OPS_ASSEMBLE[nf])
+                       + n_step * VI_OPS_STEP[nf] + VI_OPS_SCHUR[nf]) / PEAK_F64_S
+        b_v = (t_ops, "operations") if t_ops > b_v[0] else b_v
+        log(f"pose_inertial_lm, 4e's last {name} ({nf} free dims, O {O}, {n_eval} "
+            f"evaluations): kernel {ms_k:.4f} ms on the device, bound {b_v[0]:.6f} ms "
+            f"({b_v[1]}, float64), plain {ms_p:.4f} ms")
+        if nf == 30:
+            rows["pose_inertial_lm"] = dict(
+                source="tc2li_slam_torch/csrc/pose_inertial.cu",
+                replaces="tc2li_slam_tpu/solver/pose_inertial.py:205", max_abs_err=vi_err,
+                ms=ms_k, plain_ms=ms_p, bound_ms=b_v[0], bound_by=b_v[1], library_ms=None)
+    # the preintegration: 4e's last and longest windows, and N 1, 10 and 1024
+    # with padded slots
+    imu_cases = [("4e's last window", saved["integrate:last"]),
+                 ("4e's longest window", saved["integrate:longest"])]
+    cal_e = saved["integrate:last"][0]
+    for N in (1, 10, 1024):
+        g_ = torch.as_tensor(rng.normal(0, 0.1, (N, 3)), dtype=torch.float32, device=dev)
+        a_ = torch.as_tensor(rng.normal(0, 1, (N, 3)) + [0.0, 0.0, 9.81], dtype=torch.float32,
+                             device=dev)
+        d_ = torch.as_tensor(np.where(np.arange(N) % 7 == 3, 0.0, 0.01), dtype=torch.float32,
+                             device=dev)
+        imu_cases.append((f"N {N}, every seventh slot padding", (
+            cal_e, g_, a_, d_, torch.full((3,), 1e-3, device=dev),
+            torch.full((3,), -0.02, device=dev))))
+    imu_err = 0.0
+    for label, a in imu_cases:
+        got, again = imu_mod.integrate(*a), imu_mod.integrate(*a)
+        ref = kimu.integrate_plain(*a)
+        ref64 = kimu.integrate_plain(a[0], *(x.double() for x in a[1:]))
+        sync()
+        worst = {}
+        for f in ("dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa", "C", "dt"):
+            g64, r32, r64 = (getattr(r, f).double() for r in (got, ref, ref64))
+            worst[f] = (imu_distance(torch, f, g64, r64), imu_distance(torch, f, r32, r64),
+                        float((g64 - r32).abs().max()))
+        # float32 sums in another order than ATen's, judged against float64: no
+        # farther from it than 1e-4 (imu_distance), nor more than 4x the float32
+        # plain version's own distance where that is larger
+        bad = [f for f, (dk, dp, _) in worst.items() if dk > max(1e-4, 4.0 * dp)]
+        twice = bit_equal(torch, got[:10], again[:10])
+        N = a[1].shape[0]
+        log(f"imu_preintegrate {label} (N {N}, {int((a[3] > 0).sum())} live): relative "
+            f"to float64 kernel / plain "
+            + ", ".join(f"{f} {dk:.1e}/{dp:.1e}" for f, (dk, dp, _) in worst.items())
+            + f"; the same bits on a second call {twice}")
+        if bad or not twice:
+            raise RuntimeError(f"imu_preintegrate on {label}: {bad} outside, same bits {twice}")
+        imu_err = max(imu_err, max(w[2] for w in worst.values()))
+    n_sync = syncs_of(torch, lambda: imu_mod.integrate(*saved["integrate:longest"]))
+    if n_sync:
+        raise RuntimeError(f"imu_preintegrate synchronised the host {n_sync} times in a call")
+    for label, a in imu_cases[:2] + imu_cases[-1:]:
+        N = a[1].shape[0]
+        ms_k = timer(lambda: imu_mod.integrate(*a), 50)
+        ms_p = timer(lambda: kimu.integrate_plain(*a), 3)
+        b_i = bound(IMU_BYTES_SAMPLE * N + 24 + 4 * kimu.OUT_FLOATS, IMU_OPS_SAMPLE * N)
+        log(f"imu_preintegrate {label} (N {N}): kernel {ms_k:.4f} ms on the device, "
+            f"{1e3 * ms_k / max(N, 1):.3f} us a sample, bound {b_i[0]:.6f} ms ({b_i[1]}), "
+            f"plain {ms_p:.4f} ms; host syncs in a call {n_sync}")
+        if label == imu_cases[0][0]:
+            rows["imu_preintegrate"] = dict(
+                source="tc2li_slam_torch/csrc/imu_preint.cu",
+                replaces="tc2li_slam_tpu/estimation/imu.py:83", max_abs_err=imu_err, ms=ms_k,
+                plain_ms=ms_p, bound_ms=b_i[0], bound_by=b_i[1], library_ms=None)
+    return rows
 
 
 def scan_rings(n_rings: int, n_points: int, seed: int = 0):
@@ -1733,16 +2175,19 @@ def main() -> int:
     sys.path.insert(0, str(root))
     import numpy as np
 
+    from tc2li_slam_torch.estimation import imu as imu_mod
     from tc2li_slam_torch.geom import camera as cam_mod, lie, triangulate as tri_geom
     from tc2li_slam_torch.io import synthetic as syn
     from tc2li_slam_torch.ops import bow, orb, stereo
     from tc2li_slam_torch.ops.kernels import (balm as kbalm, build, clusters as kcl, fast,
-                                              hamming, local_ba as klba, match, orb as korb,
+                                              hamming, imu_preint as kimu, local_ba as klba,
+                                              match, orb as korb, pose_inertial as kpi,
                                               pose_lm, stereo as kst)
     from tc2li_slam_torch.slam import (config as cfg_mod, culling, lio, local_mapping,
                                        relocalization, system as sys_mod, tracking,
                                        triangulation)
-    from tc2li_slam_torch.solver import balm as balm_mod, lm as lm_mod, pnp as pnp_mod
+    from tc2li_slam_torch.solver import (balm as balm_mod, lm as lm_mod, pnp as pnp_mod,
+                                         pose_inertial as pi_mod)
 
     t_script = time.perf_counter()
     dev = torch.device("cuda")
@@ -1842,6 +2287,29 @@ def main() -> int:
         ba_inputs.setdefault("valid_voxels", []).append(c.valid.sum())   # (read later)
         return quadratic(c, T_wl)
 
+    # what the run implies of the IMU mode's two kernels: imu_preintegrate
+    # once an estimation.imu.integrate call (System._integrate), and
+    # pose_inertial_lm once a refined frame (System's n_vi_refine_kf and
+    # n_vi_refine_frame); and the inputs of the last call of each form and
+    # of the longest and the last preintegration, for phase 5
+    vi_calls = {"integrate": 0}
+    vi_inputs = {}
+    integrate = imu_mod.integrate
+
+    def integrate_spy(*a, **kw):
+        vi_calls["integrate"] += 1
+        vi_inputs["integrate:last"] = a
+        if a[1].shape[0] >= vi_inputs.get("integrate:longest", a)[1].shape[0]:
+            vi_inputs["integrate:longest"] = a
+        return integrate(*a, **kw)
+
+    imu_mod.integrate = integrate_spy
+    for name in ("optimize_last_kf", "optimize_last_frame"):
+        def vi_spy(*a, _fn=getattr(pi_mod, name), _name=name, **kw):
+            vi_inputs[_name] = a
+            return _fn(*a, **kw)
+        setattr(pi_mod, name, vi_spy)
+
     local_mapping.run_local_ba = run_local_ba_spy
     sys_mod.System._global_ba = global_ba_spy
     lm_mod.local_ba = local_ba_spy
@@ -1852,6 +2320,7 @@ def main() -> int:
         fast.score_launches = fast.nms_launches = hamming.launches = match.launches = 0
         pose_lm.launches = calls["track_frame"] = calls["pnp_ransac"] = 0
         kbalm.launches = klba.launches = kst.launches = kcl.launches = 0
+        kimu.launches = kpi.launches = vi_calls["integrate"] = 0
         korb.level_launches = korb.select_launches = korb.describe_launches = 0
         ba_calls.update(dict.fromkeys(ba_calls, 0))
         ba_inputs["valid_voxels"] = []
@@ -1867,7 +2336,9 @@ def main() -> int:
                 "stereo_refine": kst.launches, "balm_clusters": kcl.launches,
                 "local_ba_lm": klba.launches, "calls:run_local_ba": ba_calls["run_local_ba"],
                 "calls:global_ba": ba_calls["global_ba"],
-                "implied:local_ba_lm": ba_calls["implied"]}
+                "implied:local_ba_lm": ba_calls["implied"],
+                "imu_preintegrate": kimu.launches, "pose_inertial_lm": kpi.launches,
+                "calls:integrate": vi_calls["integrate"]}
 
     def ba_fault(counts, n_balm, n_lvi_balm=0, mesh_iters=0):
         """None if balm_clusters launched once a local-BA or LVI-BA pass with
@@ -1979,7 +2450,8 @@ def main() -> int:
                 "calls:pnp_ransac": 0, "balm_quadratic": 2 * n_balm3, "balm_clusters": n_balm3,
                 "local_ba_lm": klba.launches_per_call(cfg.tracking.ba_iters) * n_ba3,
                 "calls:run_local_ba": n_ba3, "calls:global_ba": 0,
-                "implied:local_ba_lm": klba.launches_per_call(cfg.tracking.ba_iters) * n_ba3}
+                "implied:local_ba_lm": klba.launches_per_call(cfg.tracking.ba_iters) * n_ba3,
+                "imu_preintegrate": 0, "pose_inertial_lm": 0, "calls:integrate": 0}
     if launches != expected or slam.n_recover or slam.n_reloc:
         return fail(f"launches {launches} != {expected} (one detection per frame; a stereo "
                     f"match per frame, a tracking match and a pose-only LM per tracked frame, "
@@ -2382,6 +2854,20 @@ def main() -> int:
     fault = cross_check(counts_e, modes_e, N_IMU, N_IMU - 1, before, after, 0)
     if fault or after["n_recover"] != before["n_recover"]:
         return fail(f"IMU mode: {fault or 'a frame went through recovery'}")
+    n_refined = slam3.n_vi_refine_kf + slam3.n_vi_refine_frame
+    print(f"{tag} IMU mode: imu_preintegrate launched {counts_e['imu_preintegrate']} times for "
+          f"{counts_e['calls:integrate']} integrate calls, pose_inertial_lm "
+          f"{counts_e['pose_inertial_lm']} times for {n_refined} refined frames; vi_refine "
+          f"{1e3 * stats3['vi_refine']['total_s'] / n_steady3:.3f} ms a frame (frames "
+          f"{N_IMU_WARM}..{N_IMU - 1})", flush=True)
+    if counts_e["pose_inertial_lm"] != n_refined:
+        return fail(f"IMU mode: pose_inertial_lm launched {counts_e['pose_inertial_lm']} times "
+                    f"for {n_refined} refined frames")
+    if counts_e["imu_preintegrate"] != counts_e["calls:integrate"]:
+        return fail(f"IMU mode: imu_preintegrate launched {counts_e['imu_preintegrate']} times "
+                    f"for {counts_e['calls:integrate']} integrate calls")
+    launches["imu_preintegrate"] = counts_e["imu_preintegrate"]
+    launches["pose_inertial_lm"] = counts_e["pose_inertial_lm"]
     pose_launches["4e"] = counts_e["pose_only_lm"]
     clusters_case4e = ba_inputs.get("clusters")   # the IMU run's last LVI-BA window
     imu_launches = {**{k: counts_e[k] for k in FRAME_KERNELS},
@@ -2390,7 +2876,9 @@ def main() -> int:
                     "match_best2/epipolar": modes_e.get("dense+mutual", 0),
                     "balm_quadratic": counts_e["balm_quadratic"],
                     "balm_clusters": counts_e["balm_clusters"],
-                    "local_ba_lm": counts_e["local_ba_lm"]}
+                    "local_ba_lm": counts_e["local_ba_lm"],
+                    "imu_preintegrate": counts_e["imu_preintegrate"],
+                    "pose_inertial_lm": counts_e["pose_inertial_lm"]}
     for name, n_launched in imu_launches.items():
         if n_launched < 1:
             return fail(f"IMU mode: {name} was launched no time")
@@ -2811,6 +3299,14 @@ def main() -> int:
                 replaces="tc2li_slam_tpu/solver/lm.py:92", max_abs_err=pose_err, ms=ms_k,
                 plain_ms=ms_p, bound_ms=b_p[0], bound_by=b_p[1])
 
+    try:
+        rows.update(vi_phase(torch, dev, vi_inputs, rng, log=lambda m: print(f"{tag} {m}",
+                                                                                flush=True),
+                             sync=torch.cuda.synchronize,
+                             timer=lambda fn, reps: cuda_ms(torch, fn, reps, True)))
+    except RuntimeError as e:
+        return fail(str(e))
+
     # window BA: phase 3's last local-BA pass with the BALM term (its inputs as
     # System passed them), 4f's global BA (64 poses), and phase 3's pass with
     # no valid landmark; the BALM quadratic on phase 3's last clusters and on
@@ -3038,7 +3534,7 @@ def main() -> int:
                  "orb_describe", "stereo_refine", "hamming_matrix", "match_best2",
                  "match_best2/epipolar", "match_best2/global", "match_best2/reloc",
                  "match_best2/loop", "pose_only_lm", "balm_clusters", "balm_quadratic",
-                 "local_ba_lm"):
+                 "local_ba_lm", "imu_preintegrate", "pose_inertial_lm"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": r["source"],
                         "replaces": r["replaces"], "launches": launches[name],

@@ -7,11 +7,11 @@ the residual layout of ``EdgeInertial``) and the five bias Jacobians (JRg,
 JVg, JVa, JPg, JPa) used for first-order bias correction without
 re-integration.
 
-The reference integrates a padded window in one ``lax.scan``; here the loop
-is a Python loop of small device ops, one pass per sample given. A sample
-with ``dt <= 0`` is an exact no-op (its inputs are zeroed first, and every
-update term carries a factor ``dt``), so a caller that knows on the host
-which samples are real passes only those and saves the launches.
+The reference integrates a padded window in one ``lax.scan``; here the
+window is one hand-written kernel on the card (``ops/kernels/imu_preint.py``)
+and a Python loop of small ops, one pass per sample, on the CPU. A sample
+with ``dt <= 0`` is an exact no-op on both routes (its inputs are zeroed
+first, and every update term carries a factor ``dt``).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ..geom import lie
+from ..ops.kernels import imu_preint
 from ..tensors import axis_vector
 
 GRAVITY = 9.81
@@ -76,67 +77,14 @@ def integrate(calib: ImuCalib, gyro, acc, dts, bg, ba) -> Preintegrated:
     body rates, acc [N, 3] specific force, dts [N] (<= 0 for padding), at
     the linearization biases bg, ba [3].
 
-    Covariance propagation is the discrete A/B form of Forster et al. on
-    (dR, dV, dP); the bias random-walk block accumulates on its own."""
-    dtype, dev = gyro.dtype, gyro.device
-    Ng2, Na2 = calib.sigma_g ** 2, calib.sigma_a ** 2
-    Ngw2, Naw2 = calib.sigma_gw ** 2, calib.sigma_aw ** 2
-    active = dts > 0
-    dts = torch.where(active, dts, 0.0)
-    # a padded sample integrates at the bias itself: w_ub = a_ub = 0
-    w_ub_all = torch.where(active[:, None], gyro - bg, 0.0)
-    a_ub_all = torch.where(active[:, None], acc - ba, 0.0)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    walk = torch.cat([torch.full((3,), Ngw2, dtype=dtype, device=dev),
-                      torch.full((3,), Naw2, dtype=dtype, device=dev)])
-    noise = torch.cat([torch.full((3,), Ng2, dtype=dtype, device=dev),
-                       torch.full((3,), Na2, dtype=dtype, device=dev)])
-    Nga_all = noise[None, :] / torch.clamp(dts, min=1e-9)[:, None]     # [N, 6]
-    dRi_all = lie.so3_exp(w_ub_all * dts[:, None])                     # [N, 3, 3]
-    Jr_all = lie.so3_right_jacobian(w_ub_all * dts[:, None])
-    a_hat_all = lie.hat(a_ub_all)
-
-    p = identity_preintegrated(dtype, dev)
-    dR, dV, dP = p.dR, p.dV, p.dP
-    JRg, JVg, JVa, JPg, JPa = p.JRg, p.JVg, p.JVa, p.JPg, p.JPa
-    C9 = torch.zeros((9, 9), dtype=dtype, device=dev)
-    for i in range(gyro.shape[0]):
-        dt = dts[i]
-        dt2 = dt * dt
-        a_ub, dRi, Jr = a_ub_all[i], dRi_all[i], Jr_all[i]
-        Ra = dR @ a_ub
-        Rah = dR @ a_hat_all[i]
-        # position and velocity first, with the current dR; then the bias
-        # Jacobians, all before the rotation update (the reference's order)
-        dP = dP + dV * dt + 0.5 * Ra * dt2
-        dV = dV + Ra * dt
-        JPa = JPa - 0.5 * dR * dt2
-        JPg = JPg + JVg * dt - 0.5 * Rah @ JRg * dt2
-        JVa = JVa - dR * dt
-        JVg = JVg - Rah @ JRg * dt
-
-        # covariance: x = (dR, dV, dP); A [9, 9], B [9, 6] with noise (g, a)
-        A = torch.zeros((9, 9), dtype=dtype, device=dev)
-        A[0:3, 0:3] = dRi.T
-        A[3:6, 0:3] = -Rah * dt
-        A[3:6, 3:6] = eye3
-        A[6:9, 0:3] = -0.5 * Rah * dt2
-        A[6:9, 3:6] = eye3 * dt
-        A[6:9, 6:9] = eye3
-        B = torch.zeros((9, 6), dtype=dtype, device=dev)
-        B[0:3, 0:3] = Jr * dt
-        B[3:6, 3:6] = dR * dt
-        B[6:9, 3:6] = 0.5 * dR * dt2
-        C9 = A @ C9 @ A.T + (B * Nga_all[i][None, :]) @ B.T
-
-        JRg = dRi.T @ JRg - Jr * dt
-        dR = dR @ dRi
-
-    t_total = torch.sum(dts)
-    C = torch.zeros((15, 15), dtype=dtype, device=dev)
-    C[:9, :9] = C9
-    C[9:15, 9:15] = torch.diag(walk * t_total)
-    return Preintegrated(dR, dV, dP, C, JRg, JVg, JVa, JPg, JPa, t_total, bg, ba)
+    CUDA tensors go to the one-launch kernel (``ops/kernels/imu_preint.py``),
+    CPU tensors to its plain version; any other device raises."""
+    args = (calib, gyro, acc, dts, bg, ba)
+    if gyro.device.type == "cuda":
+        return imu_preint.imu_preintegrate(*args)
+    if gyro.device.type == "cpu":
+        return imu_preint.integrate_plain(*args)
+    raise ValueError(f"integrate: unsupported device {gyro.device}")
 
 
 # --- bias-corrected getters (GetDeltaRotation / Velocity / Position) ---

@@ -133,6 +133,11 @@ def library() -> ctypes.CDLL:
         lib.tc2li_clusters_scratch.restype = ctypes.c_longlong
         lib.tc2li_balm_clusters.argtypes = [vp] * 6 + [i] * 4 + [f] * 3 + [vp] * 6 + [vp]
         lib.tc2li_balm_clusters.restype = i
+        lib.tc2li_imu_preintegrate.argtypes = [vp] * 5 + [i] + [f] * 4 + [vp, vp]
+        lib.tc2li_imu_preintegrate.restype = i
+        lib.tc2li_pose_inertial_lm.argtypes = ([ctypes.POINTER(ctypes.c_uint64)] + [i] * 3
+                                               + [f] * 5 + [i, i] + [vp] * 4)
+        lib.tc2li_pose_inertial_lm.restype = i
         lib.tc2li_error_string.argtypes = [i]
         lib.tc2li_error_string.restype = ctypes.c_char_p
         _lib = lib

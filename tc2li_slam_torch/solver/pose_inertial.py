@@ -19,8 +19,9 @@ update ``T_wb <- T_wb exp(xi)`` (the convention of ``solver/inertial_ba``).
   next prior.
 
 Both return the frame's information matrix at the solution, the next
-frame's ``FramePrior``. The loops are Python loops of fixed length;
-accept/reject stays on the device.
+frame's ``FramePrior``. On the card each call is one hand-written kernel
+(``ops/kernels/pose_inertial.py``); on the CPU the plain version's loops
+are Python loops of fixed length. Accept/reject stays on the device.
 """
 
 from __future__ import annotations
@@ -31,10 +32,9 @@ import torch
 
 from ..estimation import imu as imu_est
 from ..geom import camera as cam_mod, lie
-from ..tensors import count
+from ..ops.kernels import pose_inertial as kpi
 from . import factors
 from .inertial_ba import BA_, BG, D, POSE, VEL, body_reprojection, reorder_pose
-from .lm import precond_solve
 
 
 class FrameVIState(NamedTuple):
@@ -168,36 +168,17 @@ def optimize_last_kf(cam: cam_mod.Pinhole, T_cb, state0: FrameVIState, kf_state:
                      info_bg, info_ba, rounds: int = 2, iters: int = 6) -> PoseInertialResult:
     """PoseInertialOptimizationLastKeyFrame: ``kf_state`` is the fixed
     anchor, ``pre`` the keyframe -> frame preintegration, X_w [O, 3] the
-    matched landmarks with observations uvr [O, 3]."""
-    dt_, dev = X_w.dtype, X_w.device
-    eyeD = torch.eye(D, dtype=dt_, device=dev)
-    C9_inv = _pre_info(pre)
+    matched landmarks with observations uvr [O, 3].
 
-    def quad(s, gate):
-        Hv, gv, cv, inl = _visual_terms(cam, T_cb, s, X_w, uvr, inv_sigma2, stereo, valid, gate)
-        _, _, H22, _, g2, ci = _imu_pair_terms(kf_state, s, pre, C9_inv, gravity,
-                                               info_bg, info_ba)
-        Hv, gv = _pad_pose(Hv, gv)
-        return H22 + Hv, g2 + gv, cv + ci, inl
-
-    s = state0
-    cost = torch.zeros((), dtype=dt_, device=dev)
-    for rnd in range(rounds):
-        gate = rnd > 0
-        lam = torch.full((), 1e-2, dtype=dt_, device=dev)
-        cost = quad(s, gate)[2]
-        for _ in range(iters):
-            H, g, _, _ = quad(s, gate)
-            Haug = H + lam * torch.diag(torch.diagonal(H)) + 1e-6 * eyeD
-            s_new = _apply(s, -precond_solve(Haug, g))
-            cost_new = quad(s_new, gate)[2]
-            accept = cost_new < cost
-            s = _select(accept, s_new, s)
-            lam = torch.where(accept, lam * 0.5, lam * 4.0)
-            cost = torch.where(accept, cost_new, cost)
-    H, _, _, inl = quad(s, True)
-    prior = FramePrior(state=s, H=H, weight=torch.ones((), dtype=dt_, device=dev))
-    return PoseInertialResult(s, prior, count(inl), inl, cost)
+    CUDA tensors go to the one-launch kernel (``ops/kernels/pose_inertial.py``,
+    15 free dims), CPU tensors to its plain version; any other device raises."""
+    args = (cam, T_cb, state0, kf_state, pre, gravity, X_w, uvr, inv_sigma2, stereo, valid,
+            info_bg, info_ba)
+    if X_w.device.type == "cuda":
+        return kpi.pose_inertial_lm(cam, T_cb, state0, kf_state, None, *args[4:], rounds, iters)
+    if X_w.device.type == "cpu":
+        return kpi.optimize_last_kf_plain(*args, rounds, iters)
+    raise ValueError(f"optimize_last_kf: unsupported device {X_w.device}")
 
 
 def optimize_last_frame(cam: cam_mod.Pinhole, T_cb, state0: FrameVIState,
@@ -207,44 +188,14 @@ def optimize_last_frame(cam: cam_mod.Pinhole, T_cb, state0: FrameVIState,
                         iters: int = 6) -> PoseInertialResult:
     """PoseInertialOptimizationLastFrame: joint 30-dim solve over
     [prev | cur] with the prior on prev, then prev is Schur-marginalized
-    out of the final Hessian to form the next frame's prior."""
-    dt_, dev = X_w.dtype, X_w.device
-    eye2D = torch.eye(2 * D, dtype=dt_, device=dev)
-    C9_inv = _pre_info(pre)
+    out of the final Hessian to form the next frame's prior.
 
-    def quad(sp, sc, gate):
-        Hv, gv, cv, inl = _visual_terms(cam, T_cb, sc, X_w, uvr, inv_sigma2, stereo, valid, gate)
-        H11, H12, H22, g1, g2, ci = _imu_pair_terms(sp, sc, pre, C9_inv, gravity,
-                                                    info_bg, info_ba)
-        Hp, gp, cp = _prior_terms(sp, prev_prior)
-        Hv, gv = _pad_pose(Hv, gv)
-        return H11 + Hp, H12, H22 + Hv, g1 + gp, g2 + gv, cv + ci + cp, inl
-
-    sp, sc = prev_state, state0
-    cost = torch.zeros((), dtype=dt_, device=dev)
-    for rnd in range(rounds):
-        gate = rnd > 0
-        lam = torch.full((), 1e-2, dtype=dt_, device=dev)
-        cost = quad(sp, sc, gate)[5]
-        for _ in range(iters):
-            H11, H12, H22, g1, g2, _, _ = quad(sp, sc, gate)
-            H = torch.cat([torch.cat([H11, H12], dim=1), torch.cat([H12.T, H22], dim=1)], dim=0)
-            g = torch.cat([g1, g2])
-            Haug = H + lam * torch.diag(torch.diagonal(H)) + 1e-6 * eye2D
-            dx = -precond_solve(Haug, g)
-            sp_n = _apply(sp, dx[:D])
-            sc_n = _apply(sc, dx[D:])
-            cost_new = quad(sp_n, sc_n, gate)[5]
-            accept = cost_new < cost
-            sp = _select(accept, sp_n, sp)
-            sc = _select(accept, sc_n, sc)
-            lam = torch.where(accept, lam * 0.5, lam * 4.0)
-            cost = torch.where(accept, cost_new, cost)
-
-    # marginalize prev out of the joint Hessian: H* = H22 - H21 H11^-1 H12
-    H11, H12, H22, _, _, _, inl = quad(sp, sc, True)
-    H11_r = H11 + 1e-6 * torch.eye(D, dtype=dt_, device=dev)
-    Hm = H22 - H12.T @ torch.linalg.solve_ex(H11_r, H12, check_errors=False)[0]
-    prior = FramePrior(state=sc, H=0.5 * (Hm + Hm.T),
-                       weight=torch.ones((), dtype=dt_, device=dev))
-    return PoseInertialResult(sc, prior, count(inl), inl, cost)
+    CUDA tensors go to the one-launch kernel (``ops/kernels/pose_inertial.py``,
+    30 free dims), CPU tensors to its plain version; any other device raises."""
+    args = (cam, T_cb, state0, prev_state, prev_prior, pre, gravity, X_w, uvr, inv_sigma2,
+            stereo, valid, info_bg, info_ba)
+    if X_w.device.type == "cuda":
+        return kpi.pose_inertial_lm(*args, rounds, iters)
+    if X_w.device.type == "cpu":
+        return kpi.optimize_last_frame_plain(*args, rounds, iters)
+    raise ValueError(f"optimize_last_frame: unsupported device {X_w.device}")

@@ -10,7 +10,16 @@ in float32 in another order than its plain version: poses to 1e-4, costs to
 kernels: ``local_ba_lm`` to 1e-4 in pose, 1e-3 m in landmarks and 1e-4 in
 cost, relative (as the CPU tests against the JAX package);
 ``balm_quadratic`` H and g to 1e-3 of their largest entry, the cost to 1e-3
-relative.
+relative. The IMU mode's two kernels run in other types or orders than
+their plain versions: ``pose_inertial_lm`` (float64) to
+``chip_smoke.VI_TOL`` (T_wb and vel 1e-4, bg 1e-5, ba 1e-4, the next
+prior's H 1e-3 after diagonal scaling, the cost 1e-3) or else no farther
+from the plain version run in float64 than the float32 plain version is,
+inlier flags equal but at a gate; ``imu_preintegrate`` (float32 sums in
+another order than ATen's) within 1e-4 of the plain version run in float64
+(``chip_smoke.imu_distance``: the covariance diagonally scaled, any other
+output over its largest entry), or 4x the float32 plain version's own
+distance.
 """
 
 import numpy as np
@@ -21,8 +30,9 @@ import chip_smoke
 from tc2li_slam_torch.geom import camera as cam_mod
 from tc2li_slam_torch.ops import matching, orb, stereo
 from tc2li_slam_torch.ops.kernels import balm as kbalm, fast, hamming, local_ba as klba, match, pose_lm
-from tc2li_slam_torch.ops.kernels import orb as korb
-from tc2li_slam_torch.solver import balm, lm
+from tc2li_slam_torch.ops.kernels import imu_preint as kimu, orb as korb, pose_inertial as kpi
+from tc2li_slam_torch.estimation import imu as timu
+from tc2li_slam_torch.solver import balm, lm, pose_inertial as tpi
 
 pytestmark = pytest.mark.gpu
 
@@ -968,3 +978,108 @@ def test_balm_clusters_refuses_what_it_does_not_take(cuda):
         kcl.balm_clusters(pts.double(), valid, T)
     with pytest.raises(ValueError):                     # no slot
         kcl.balm_clusters(pts, valid, T, max_voxels=0)
+
+
+# --- the IMU mode's refinement: imu_preintegrate and pose_inertial_lm ---
+
+def _vi_results_bits(r):
+    return [r.state.T_wb, r.state.vel, r.state.bg, r.state.ba, r.prior.H, r.cost, r.inliers,
+            r.n_inliers]
+
+
+@pytest.mark.parametrize("nf", [15, 30])
+@pytest.mark.parametrize("O,case", [(3, "full"), (60, "full"), (2000, "full"),
+                                    (2000, "nothing_valid"), (2000, "masked_nan"),
+                                    (2000, "prior_off"), (2000, "padded_imu")])
+def test_pose_inertial_lm_matches_plain(cuda, nf, O, case):
+    p = chip_smoke.vi_problem(np.random.default_rng(O), O, nf, case)
+    name, args = chip_smoke.vi_args(torch, p, cuda)
+    before = kpi.launches
+    got = getattr(tpi, name)(*args)          # CUDA tensors -> the kernel
+    again = getattr(tpi, name)(*args)
+    assert kpi.launches - before == 2
+    ref = getattr(kpi, name + "_plain")(*args)
+    ref64 = getattr(kpi, name + "_plain")(*chip_smoke._vi_cast(torch, args, torch.float64))
+    torch.cuda.synchronize()
+    agr = chip_smoke.vi_agreement(torch, args, got, ref, ref64)
+    assert not agr["outside"] and agr["flips"] == agr["near"], agr
+    assert chip_smoke.bit_equal(torch, _vi_results_bits(got), _vi_results_bits(again))
+    assert got.n_inliers.dtype == torch.int32 and got.n_inliers.device.type == "cuda"
+    if case == "masked_nan":
+        assert torch.isnan(got.cost) and torch.equal(got.state.T_wb, args[2].T_wb)
+    if case == "nothing_valid":
+        assert int(got.n_inliers) == 0 and not bool(got.inliers.any())
+
+
+def test_pose_inertial_lm_no_host_sync(cuda):
+    for nf in (15, 30):
+        p = chip_smoke.vi_problem(np.random.default_rng(4), 2000, nf)
+        name, args = chip_smoke.vi_args(torch, p, cuda)
+        getattr(tpi, name)(*args)
+        torch.cuda.synchronize()
+        sites = _sync_sites(lambda: getattr(tpi, name)(*args))
+        assert not sites, sites
+
+
+def test_pose_inertial_lm_refuses_what_it_does_not_take(cuda):
+    p = chip_smoke.vi_problem(np.random.default_rng(4), 60, 30)
+    _, args = chip_smoke.vi_args(torch, p, cuda)
+    lm_args = (*args[:4], args[4], *args[5:])
+    with pytest.raises(ValueError, match="float32"):
+        kpi.pose_inertial_lm(*chip_smoke._vi_cast(torch, lm_args, torch.float64))
+    with pytest.raises(ValueError, match="CUDA"):
+        kpi.pose_inertial_lm(*lm_args[:6], lm_args[6].cpu(), *lm_args[7:])
+
+
+def _imu_window(cuda, N, seed=0):
+    rng = np.random.default_rng(seed)
+    up = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(cuda)
+    return (timu.ImuCalib.create(*chip_smoke.VI_CALIB, device=cuda),
+            up(rng.normal(0, 0.2, (N, 3))), up(rng.normal(0, 1, (N, 3)) + [0.0, 0.0, 9.81]),
+            up(np.where(np.arange(N) % 7 == 3, 0.0, 0.01)), up([1e-3, -2e-3, 5e-4]),
+            up([0.02, -0.01, 0.03]))
+
+
+@pytest.mark.parametrize("N", [0, 1, 10, 1024])
+def test_imu_preintegrate_matches_plain(cuda, N):
+    a = _imu_window(cuda, N)
+    before = kimu.launches
+    got, again = timu.integrate(*a), timu.integrate(*a)   # CUDA tensors -> the kernel
+    assert kimu.launches - before == 2
+    ref = kimu.integrate_plain(*a)
+    ref64 = kimu.integrate_plain(a[0], *(x.double() for x in a[1:]))
+    torch.cuda.synchronize()
+    for f in timu.Preintegrated._fields[:10]:
+        g, r, r64 = (getattr(x, f) for x in (got, ref, ref64))
+        dk = chip_smoke.imu_distance(torch, f, g, r64)
+        dp = chip_smoke.imu_distance(torch, f, r, r64)
+        assert dk <= max(1e-4, 4.0 * dp), (f, dk, dp)
+    assert chip_smoke.bit_equal(torch, got[:10], again[:10])
+
+
+def test_imu_preintegrate_padding_is_a_no_op(cuda):
+    a = _imu_window(cuda, 40)
+    live = a[3] > 0
+    got = timu.integrate(*a)
+    alone = timu.integrate(a[0], a[1][live], a[2][live], a[3][live], a[4], a[5])
+    torch.cuda.synchronize()
+    for f in ("dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa"):
+        assert torch.equal(getattr(got, f), getattr(alone, f)), f
+    assert torch.equal(got.C[:9, :9], alone.C[:9, :9])
+
+
+def test_imu_preintegrate_no_host_sync(cuda):
+    a = _imu_window(cuda, 100)
+    timu.integrate(*a)
+    torch.cuda.synchronize()
+    sites = _sync_sites(lambda: timu.integrate(*a))
+    assert not sites, sites
+
+
+def test_imu_preintegrate_refuses_what_it_does_not_take(cuda):
+    a = _imu_window(cuda, 10)
+    with pytest.raises(ValueError, match="float32"):
+        kimu.imu_preintegrate(a[0], a[1].double(), *a[2:])
+    with pytest.raises(ValueError, match="CUDA"):
+        kimu.imu_preintegrate(a[0], a[1], a[2].cpu(), *a[3:])
+

@@ -21,7 +21,11 @@ closing on (``loop_closing=True``, ``loop_min_kf=1``, triangulation on, the
 vocabulary of ``--voc``) on this straight path, where no loop closes: every
 keyframe past the first two runs the candidate ladder on the device, whose
 device events are counted a call, and the run fails above 1.2 host syncs a
-frame (the candidates must ride in the frame's one transfer). In every mode
+frame (the candidates must ride in the frame's one transfer). With ``--imu``
+the ``vi_refine`` stage is split into its preintegration
+(``estimation/imu.integrate``) and its optimizer
+(``solver/pose_inertial.optimize_last_kf`` / ``optimize_last_frame``), each
+counted inside the stage only. In every mode
 the window BA's parts are named ranges too (``balm.build_clusters``,
 ``balm.quadratic``, ``lm.local_ba``, the last holding the quadratic's calls):
 calls, host ms and device events a call of each (``ba_split``), and the
@@ -105,11 +109,12 @@ def main() -> int:
     if args.tree:
         sys.path.insert(0, str(Path(args.tree).resolve()))
     import tc2li_slam_torch
+    from tc2li_slam_torch.estimation import imu as imu_est
     from tc2li_slam_torch.io import synthetic as syn
     from tc2li_slam_torch.ops import bow, orb, stereo
     from tc2li_slam_torch.ops.kernels import fast, match
     from tc2li_slam_torch.slam import config as cfg_mod, system as sys_mod, tracking
-    from tc2li_slam_torch.solver import balm as balm_mod, lm as lm_mod
+    from tc2li_slam_torch.solver import balm as balm_mod, lm as lm_mod, pose_inertial as pi_mod
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -166,6 +171,16 @@ def main() -> int:
                 return detect(*a, **kw)
         sys_mod.loop_closing.detect_candidates_device = ranged_detect
 
+    # vi_refine's two parts, as module attributes System calls: the
+    # preintegration (also called outside the stage, at a keyframe and for
+    # dead reckoning: counted inside the stage only) and the optimizers
+    VI_PARTS = ((("integrate", imu_est), ("optimize_last_kf", pi_mod),
+                 ("optimize_last_frame", pi_mod)) if args.imu else ())
+    for name, mod in VI_PARTS:
+        def ranged_vi(*a, _fn=getattr(mod, name), _name=name, **kw):
+            with record_function(f"vi:{_name}"):
+                return _fn(*a, **kw)
+        setattr(mod, name, ranged_vi)
     # the window BA's parts, as module attributes the mapping pass calls
     BA_PARTS = (("build_clusters", balm_mod), ("quadratic", balm_mod), ("local_ba", lm_mod))
     for name, mod in BA_PARTS:
@@ -277,8 +292,12 @@ def main() -> int:
     for _, us in dev_by_launch:
         dev_cum.append(dev_cum[-1] + us)
 
-    def range_events(rname):
+    def range_events(rname, within=None):
         spans = [(e.time_range.start, e.time_range.end) for e in cpu_events if e.name == rname]
+        if within is not None:   # only the spans that start inside one of that range's
+            outer = [(e.time_range.start, e.time_range.end) for e in cpu_events
+                     if e.name == within]
+            spans = [(a, b) for a, b in spans if any(c <= a <= d for c, d in outer)]
         n_in = sum(bisect.bisect_right(launches, b) - bisect.bisect_left(launches, a)
                    for a, b in spans)
         dev_in = sum(dev_cum[bisect.bisect_right(dev_starts, b)]
@@ -290,6 +309,9 @@ def main() -> int:
                 "host_ms_per_call": sum(b - a for a, b in spans) / 1e3 / max(len(spans), 1)}
 
     stage_events = {name: range_events(f"stage:{name}") for name in STAGES}
+    for name, _ in VI_PARTS:
+        stage_events[f"_vi_frame_refine/{name}"] = range_events(
+            f"vi:{name}", within="stage:_vi_frame_refine")
     ba_split = {name: range_events(f"ba:{name}") for name, _ in BA_PARTS}
     orb_split = {rname: range_events(rname) for rname, _ in ORB_PARTS}
     orb_split["device events linked to their launch"] = f"{n_linked} of {n_dev}"
