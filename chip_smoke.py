@@ -222,11 +222,13 @@ BALM_OPS_ENTRY = 20
 # SXM), a fused multiply-add counted as two
 PEAK_F64_S = 34e12 / 2
 # IMU preintegration (csrc/imu_preint.cu), float32 operations a sample, a
-# fused multiply-add counted as one (as PEAK_SIMPLE_S): A C9 and (A C9) A^T
-# (729 each), B N (54) and (B N) B^T (486), their sum (81), the chain's
-# 3x3 products, Jacobians and vectors (~250), the sample's own rotation and
-# right Jacobian (~150); bytes a sample: gyro, acc, dt
-IMU_OPS_SAMPLE = 729 + 729 + 54 + 486 + 81 + 250 + 150
+# fused multiply-add counted as one (as PEAK_SIMPLE_S): A C9 on A's block
+# structure (9 3x3 products, 243) and C9's six upper blocks of (A C9) A^T
+# (162), their block sums (~90), (B N) B^T's four non-zero blocks (216), the
+# chain's 3x3 products, Jacobians and vectors (~250), the sample's own
+# rotation and right Jacobian (~150); the chunks' joins add < 1% at N 60;
+# bytes a sample: gyro, acc, dt
+IMU_OPS_SAMPLE = 243 + 162 + 90 + 216 + 250 + 150
 IMU_BYTES_SAMPLE = 28
 # pose-inertial LM (csrc/pose_inertial.cu), float64 operations, a fused
 # multiply-add counted as one (as PEAK_F64_S, and as POSE_OPS_ROW):
@@ -234,21 +236,22 @@ IMU_BYTES_SAMPLE = 28
 #   (14), the projection's derivative (8) and its product with R_cb (27),
 #   the 3x6 Jacobian (18), chi2, the gates, the Huber weight and w (10),
 #   the cost (1), w J (18) and the 21 + 6 sums (81);
-# - a pass's assembly by free dims: the IMU factor's residual and J1, J2
-#   (~470), its cost (~100), I J2 (1,215) and J2^T I J2 (2,025), g and the
-#   walk (~190); at 30 also the prior's terms (~160), I J1 (1,215), Jp^T Hw
-#   (3,375), Hw rp (225), J1^T I J1, J1^T I J2 and (Jp^T Hw) Jp (7,650), g1
-#   (~375) and the prior's cost (240);
-# - a step's solve: the preconditioned system (2 n^2), its Cholesky (n^3/6
-#   and n (n - 1) / 2 divisions), the two triangular solves (n^2) and the
-#   update through se3_exp (~150 a state);
-# - at 30 once a call, the Schur complement: a 15x15 Cholesky, 15 solves
-#   and H12^T X (~8,000);
+# - a pass's assembly by free dims, over the Jacobians' non-zero rows and
+#   the symmetric blocks' upper triangles: the IMU factor's residual and
+#   intermediates (~470), J1's and J2's entries (~250), I r (81), I J2
+#   (648), J2^T I J2 (468), g2 and the costs (~100); at 30 also the prior's
+#   terms (~160), Hw rp (225), I J1 (486), Jp^T Hw (405), J1^T I J1 and
+#   (Jp^T Hw) Jp (720), J1^T I J2 (810), g1 and the prior's cost (~90);
+# - a step's solve: the scaled system's lower triangle (n (n + 1)), its
+#   Cholesky (n^3 / 6 and n divisions), the two triangular solves (n^2) and
+#   the update through se3_exp (~150 a state);
+# - at 30 once a call, the Schur complement: a 15x15 Cholesky, 15 column
+#   solves and H12^T X's upper triangle (~5,700);
 # bytes a row: X, uvr, inv_sigma2, two flags in, an inlier flag out
 VI_OPS_ROW = 24 + 14 + 8 + 27 + 18 + 10 + 1 + 18 + 81
-VI_OPS_ASSEMBLE = {15: 4_000, 30: 17_200}
-VI_OPS_STEP = {15: 1_650, 30: 8_250}
-VI_OPS_SCHUR = {15: 0, 30: 8_000}
+VI_OPS_ASSEMBLE = {15: 2_000, 30: 4_900}
+VI_OPS_STEP = {15: 1_200, 30: 6_700}
+VI_OPS_SCHUR = {15: 0, 30: 5_700}
 VI_BYTES_ROW = 12 + 12 + 4 + 2 + 1
 VI_BYTES_FIXED = 4 * (16 * 4 + 9 * 4 + 225 + 1 + 66 + 225 + 5) + 4 * 252 + 4
 
@@ -295,9 +298,12 @@ def cuda_ms(torch, fn, reps: int, backlog: bool = False) -> float:
 def kernel_split(torch, fn, calls: int) -> dict:
     """Device ms a call of each kernel name that ``fn`` launches, from a
     ``torch.profiler`` trace of ``calls`` calls after one warm-up: {name:
-    {"launches_a_call", "ms_a_call"}}, the largest first. Names are cut to
-    the function's (``build_kernel`` for ``(anonymous namespace)::
-    build_kernel(...)``)."""
+    {"launches_a_call", "ms_a_call", "ms_a_launch"}}, the largest first.
+    Names are cut to the function's (``build_kernel`` for ``(anonymous
+    namespace)::build_kernel(...)``). The trace can miss a launch of a
+    cluster kernel (``clusters_kernel``, PERF.md section 7), so a count of
+    launches comes from the kernels' own counters, and the time of a
+    one-launch kernel from ``ms_a_launch``."""
     import re
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -314,7 +320,8 @@ def kernel_split(torch, fn, calls: int) -> dict:
         k = m.group(1) if m else e.name
         n, us = per.get(k, (0, 0.0))
         per[k] = (n + 1, us + e.time_range.elapsed_us())
-    return {k: {"launches_a_call": n / calls, "ms_a_call": us / 1e3 / calls}
+    return {k: {"launches_a_call": n / calls, "ms_a_call": us / 1e3 / calls,
+                "ms_a_launch": us / 1e3 / n}
             for k, (n, us) in sorted(per.items(), key=lambda kv: -kv[1][1])}
 
 
@@ -1056,18 +1063,24 @@ def vi_phase(torch, dev, vi_inputs, rng, log=print, sync=lambda: None, timer=Non
                 source="tc2li_slam_torch/csrc/pose_inertial.cu",
                 replaces="tc2li_slam_tpu/solver/pose_inertial.py:205", max_abs_err=vi_err,
                 ms=ms_k, plain_ms=ms_p, bound_ms=b_v[0], bound_by=b_v[1], library_ms=None)
-    # the preintegration: 4e's last and longest windows, and N 1, 10 and 1024
-    # with padded slots
+    # the preintegration: 4e's last and longest windows; N 1, 10 and 1024 (the
+    # IMU ring's size) with padded slots; a chunk's edges (9 live samples: two
+    # chunks of 8 and 1; 513: the first window at 9 a chunk); N 1000; a window
+    # of padding only
     imu_cases = [("4e's last window", saved["integrate:last"]),
                  ("4e's longest window", saved["integrate:longest"])]
     cal_e = saved["integrate:last"][0]
-    for N in (1, 10, 1024):
+    for N, pad, what in ((1, 7, "every seventh slot padding"),
+                         (10, 7, "every seventh slot padding"),
+                         (1024, 7, "every seventh slot padding"),
+                         (9, 0, "two chunks, 8 and 1"), (513, 0, "9 samples a chunk"),
+                         (1000, 0, "no padding"), (60, 1, "every slot padding")):
         g_ = torch.as_tensor(rng.normal(0, 0.1, (N, 3)), dtype=torch.float32, device=dev)
         a_ = torch.as_tensor(rng.normal(0, 1, (N, 3)) + [0.0, 0.0, 9.81], dtype=torch.float32,
                              device=dev)
-        d_ = torch.as_tensor(np.where(np.arange(N) % 7 == 3, 0.0, 0.01), dtype=torch.float32,
-                             device=dev)
-        imu_cases.append((f"N {N}, every seventh slot padding", (
+        padded = np.arange(N) % 7 == 3 if pad == 7 else np.full(N, pad == 1)
+        d_ = torch.as_tensor(np.where(padded, 0.0, 0.01), dtype=torch.float32, device=dev)
+        imu_cases.append((f"N {N}, {what}", (
             cal_e, g_, a_, d_, torch.full((3,), 1e-3, device=dev),
             torch.full((3,), -0.02, device=dev))))
     imu_err = 0.0
@@ -1093,11 +1106,19 @@ def vi_phase(torch, dev, vi_inputs, rng, log=print, sync=lambda: None, timer=Non
             + f"; the same bits on a second call {twice}")
         if bad or not twice:
             raise RuntimeError(f"imu_preintegrate on {label}: {bad} outside, same bits {twice}")
+        if "every slot padding" in label and not (
+                torch.equal(got.dR, torch.eye(3, device=dev)) and not bool(got.C.any())
+                and float(got.dt) == 0.0):
+            raise RuntimeError(f"imu_preintegrate on {label}: not the identity map")
         imu_err = max(imu_err, max(w[2] for w in worst.values()))
     n_sync = syncs_of(torch, lambda: imu_mod.integrate(*saved["integrate:longest"]))
     if n_sync:
         raise RuntimeError(f"imu_preintegrate synchronised the host {n_sync} times in a call")
-    for label, a in imu_cases[:2] + imu_cases[-1:]:
+    # timed by label (a case added above times nothing; a label renamed fails
+    # here): the kernels line's row is 4e's last window
+    timed = ("4e's last window", "4e's longest window", "N 1024, every seventh slot padding")
+    for label in timed:
+        a = dict(imu_cases)[label]
         N = a[1].shape[0]
         ms_k = timer(lambda: imu_mod.integrate(*a), 50)
         ms_p = timer(lambda: kimu.integrate_plain(*a), 3)
@@ -1105,7 +1126,7 @@ def vi_phase(torch, dev, vi_inputs, rng, log=print, sync=lambda: None, timer=Non
         log(f"imu_preintegrate {label} (N {N}): kernel {ms_k:.4f} ms on the device, "
             f"{1e3 * ms_k / max(N, 1):.3f} us a sample, bound {b_i[0]:.6f} ms ({b_i[1]}), "
             f"plain {ms_p:.4f} ms; host syncs in a call {n_sync}")
-        if label == imu_cases[0][0]:
+        if label == timed[0]:
             rows["imu_preintegrate"] = dict(
                 source="tc2li_slam_torch/csrc/imu_preint.cu",
                 replaces="tc2li_slam_tpu/estimation/imu.py:83", max_abs_err=imu_err, ms=ms_k,
@@ -3506,8 +3527,12 @@ def main() -> int:
         V_ = got.N.shape[0]
         n_valid = int(a[1].sum())
         n_sync = syncs_of(torch, lambda: kcl.balm_clusters(*a, **kw))
+        runs, n0 = kcl.device_runs(), kcl.launches
         split = kernel_split(torch, lambda: kcl.balm_clusters(*a, **kw), 5)
-        ms_k = split["clusters_kernel"]["ms_a_call"]
+        if kcl.device_runs() - runs != 6 or kcl.launches - n0 != 6:
+            return fail(f"balm_clusters on {name}: {kcl.device_runs() - runs} launches ran to "
+                        f"their end of {kcl.launches - n0} enqueued, 6 calls")
+        ms_k = split["clusters_kernel"]["ms_a_launch"]
         ms_call = cuda_ms(torch, lambda: kcl.balm_clusters(*a, **kw), 20, True)
         ms_p = cuda_ms(torch, lambda: balm_mod.build_clusters_plain(*a, **kw), 3)
         b_cl = clusters_bound(W_, M_, V_, n_valid)

@@ -733,6 +733,11 @@ __device__ void key_box(const Params& a, const Scratch& s, const float* ctr, int
   for (int c = 0; c < 6; ++c) box[c] = cbox[c];
 }
 
+// the launches of clusters_kernel that ran to their end, counted on the
+// device (tc2li_clusters_ran): a launch count that does not rest on the
+// profiler's record of cluster launches
+__device__ unsigned long long clusters_ran = 0;
+
 __global__ void __launch_bounds__(kT, 1) clusters_kernel(Params a, Scratch s) {
   extern __shared__ int smem[];
   int* hist = smem;                                                  // [kWarps][kMaxDigits]
@@ -829,6 +834,9 @@ __global__ void __launch_bounds__(kT, 1) clusters_kernel(Params a, Scratch s) {
     if (lane == 0) a.valid[pos] = static_cast<uint8_t>(__ldcg(s.planar + j));
   }
   TC2LI_STAMP(23);
+  // one a launch that ran to its end (launches on one stream run one at a
+  // time, so a plain increment by one thread is exact)
+  if (cl.block_rank() == 0 && threadIdx.x == 0) ++clusters_ran;
 }
 
 // blocks of the cluster: 16 where the card schedules a cluster of 16, else 8
@@ -864,6 +872,12 @@ int cluster_blocks() {
 }
 
 }  // namespace
+
+// the device's count of clusters_kernel launches that ran to their end, into
+// *out (a synchronous copy: call it after the launches' stream has drained)
+extern "C" int tc2li_clusters_ran(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, clusters_ran, sizeof(*out)));
+}
 
 // bytes of scratch a call takes (see tc2li_balm_clusters)
 extern "C" long long tc2li_clusters_scratch(int P, int V, int W) {

@@ -36,7 +36,8 @@
 // Bound on the H100: latency. A call over 2,000 rows reads 60 KB and does
 // ~6 M float64 operations, a multiply-add counted as one (under a
 // microsecond of either); its 2 (1 + 6) + 1 evaluations are serial, each a
-// reduction over the rows and a dense solve.
+// reduction over the rows and a dense solve, and between the reductions
+// the work is a few thousand operations on dependent steps.
 // Design: a cluster of 8 blocks of 256 threads, an eighth of the rows each
 // (read from device memory, cached). A pass evaluates every row at the
 // candidate pose, a thread its block's rows tid, tid + 256, ..., and
@@ -44,11 +45,24 @@
 // with sum k), warp 0 adds the warps in order and writes the block's sums
 // into every block's slot (distributed shared memory); after one cluster
 // barrier every block's warp 0 adds the 8 slots in block order, so all
-// blocks hold the same sums. Warp 0 of every block then takes the same
-// step: lane 0 the residuals and Jacobians of the IMU and prior factors,
-// the lanes the products J^T I J (entries spread over the lanes), the
-// Cholesky factor (a row a lane), the two triangular solves (shuffles) and
-// lane 0 the update. The pass at the candidate gives its cost and, if it is
+// blocks hold the same sums and take the same step, with no broadcast. What
+// lies between two passes runs on the whole block, phases split by block
+// barriers:
+// - the IMU factor's and the prior's shared intermediates (the corrected
+//   preintegration, Exp, Log and Jr^-1 of the residual rotations), on three
+//   threads of warps 1 to 3 while the pass's rows are summed; then the
+//   entries of J1, J2 (9x15) and Jp (15x15) and the residuals' products
+//   I r, Hw rp, a thread an entry;
+// - the products I J1, I J2, Jp^T Hw over the Jacobians' non-zero rows,
+//   then H22, H11 + Jp^T Hw Jp on their upper triangles (mirrored) and H12,
+//   the gradient as J^T (I r), the cost;
+// - the step: the Jacobi-scaled lower triangle of Haug, its right-looking
+//   Cholesky (see factor: an entry of a column pair's trailing update a
+//   thread, one block barrier a pair), the two triangular solves on warp 0 by shuffles
+//   with the pivots' inverses, and prev's and cur's se3_exp updates on two
+//   threads side by side.
+// C9's Gauss-Jordan runs on warp 0 while the other warps sum the first
+// pass's rows. The pass at the candidate gives its cost and, if it is
 // accepted, the next step's H and g: one pass an iteration. No atomics and
 // no host sync: the same bits on every call.
 
@@ -57,6 +71,14 @@
 #include <stdint.h>
 
 #include "common.cuh"
+
+#ifdef TC2LI_LAPS   // clock laps of a phase split (laps.cuh, tools/vi_kernels.py)
+#define TC2LI_LAP_TAG pose_inertial
+#include "laps.cuh"
+#else
+#define TC2LI_LAP_START
+#define TC2LI_LAP(k)
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -72,6 +94,7 @@ constexpr int kCost = kH + 6;   // after g
 constexpr int kCount = 32;      // a slot's inlier count
 constexpr double kEps = 5e-3;   // geom/lie.py _EPS
 constexpr double kPi = 3.14159265358979323846;
+constexpr unsigned kFull = 0xffffffffu;
 
 // device pointers of the inputs, in the order of tc2li_pose_inertial_lm's
 // table
@@ -102,19 +125,27 @@ template <int NF>
 struct Work {
   double H[2][NF * NF];   // assembled at the accepted state and at the candidate
   double g[2][NF];
-  double A[NF * NF];      // the damped, preconditioned system and its factor
-  double d[NF];           // the preconditioner
+  double A[NF * (NF | 1)];   // the damped, scaled system's lower triangle and its
+                            // factor, rows kLd(NF) apart
+  double dinv[NF];        // the Jacobi scaling 1 / d
+  double linv[NF];        // the factor's inverse pivots 1 / L_cc
+  double rpiv[NF];        // the factor's 1 / a_cc of each pivot
+  unsigned short trail[2][435];   // the factor's trailing entries (i << 8 | j), columns
+                                  // from the last, for 15 rows (the 15-dim step, the
+                                  // 30-dim Schur step) and 30
+  double dx[30];          // the step
   double J1[135], J2[135], IJ1[135], IJ2[135];   // [9, 15], I = C9^-1
-  double r[9];
+  double r[9], Ir[9];     // the IMU residual and I r
+  double rw[6];           // the bias random walk's residuals
   double info[81];
   double aug[9 * 18];     // [C9 | I] for the inverse
   double Hw[225], Jp[225], PH[225];   // the prior's H * weight, its Jacobian, Jp^T Hw
   double rp[15], Hr[15];
-  double rw[6];           // the bias random walk's residuals
-  double dx[30];          // the step
+  double R1[9], R2[9], eR[9], iJ[9], Rdv[3], Rdp[3];   // the IMU factor's intermediates
+  double Mp[9], iJp[9];   // the prior's
   double Xs[225];         // H11^-1 H12 (Schur)
   double vis[32];         // the pass's sums, in block order
-  double cost_if;         // the evaluation's IMU (and prior) cost
+  double cost_eval;       // the evaluation's cost
   double slot[2][kBlocks][33];   // each block's sums by pass parity (33: the count)
   double part[kWarps][33];
   double pose[12];        // the pass's T_bw, top rows
@@ -127,19 +158,13 @@ struct Work {
   int n_act;
 };
 
+// geom/lie.py's sin(x) / x with its Taylor branch below kEps (the series'
+// divisions by constants as products with their reciprocals; the branches
+// are taken, not both computed and selected: these chains run on one thread)
 __device__ __forceinline__ double sinc_d(double x) {
   const double x2 = x * x;
-  return fabs(x) < kEps ? 1.0 - x2 / 6.0 + x2 * x2 / 120.0 : sin(x) / x;
-}
-
-__device__ __forceinline__ double cosc_d(double x) {
-  const double x2 = x * x;
-  return fabs(x) < kEps ? 0.5 - x2 / 24.0 + x2 * x2 / 720.0 : (1.0 - cos(x)) / (x * x);
-}
-
-__device__ __forceinline__ double sinc3_d(double x) {
-  const double x2 = x * x;
-  return fabs(x) < kEps ? 1.0 / 6.0 - x2 / 120.0 + x2 * x2 / 5040.0 : (x - sin(x)) / (x * x * x);
+  if (fabs(x) < kEps) return 1.0 - x2 * (1.0 / 6.0) + x2 * x2 * (1.0 / 120.0);
+  return sin(x) / x;
 }
 
 __device__ __forceinline__ void hat_d(const double v[3], double W[9]) {
@@ -180,7 +205,20 @@ __device__ void so3_exp_d(const double w[3], double R[9], double* V) {
   double W[9], W2[9];
   hat_d(w, W);
   mm(W, W, W2);
-  const double sa = sinc_d(th), ca = cosc_d(th), s3 = sinc3_d(th);
+  const double t2 = th * th;
+  double sa, ca, s3;   // sin(th) / th, (1 - cos th) / th^2, (th - sin th) / th^3
+  if (fabs(th) < kEps) {
+    sa = 1.0 - t2 * (1.0 / 6.0) + t2 * t2 * (1.0 / 120.0);
+    ca = 0.5 - t2 * (1.0 / 24.0) + t2 * t2 * (1.0 / 720.0);
+    s3 = 1.0 / 6.0 - t2 * (1.0 / 120.0) + t2 * t2 * (1.0 / 5040.0);
+  } else {
+    double sn, cs;
+    sincos(th, &sn, &cs);
+    const double it2 = 1.0 / t2;
+    sa = sn / th;
+    ca = (1.0 - cs) * it2;
+    s3 = (th - sn) * (it2 / th);
+  }
   for (int e = 0; e < 9; ++e) {
     const double I = (e % 4 == 0) ? 1.0 : 0.0;
     R[e] = (I + sa * W[e]) + ca * W2[e];
@@ -229,8 +267,14 @@ __device__ void jr_inv_d(const double w[3], double J[9]) {
   hat_d(v, W);
   mm(W, W, W2);
   const double t2 = th * th;
-  const double cot = th < kEps ? 1.0 / 12.0 + t2 / 720.0 + t2 * t2 / 30240.0
-                               : 1.0 / (th * th) - sin(th) / (2.0 * th * (1.0 - cos(th)));
+  double cot;
+  if (th < kEps) {
+    cot = 1.0 / 12.0 + t2 * (1.0 / 720.0) + t2 * t2 * (1.0 / 30240.0);
+  } else {
+    double sn, cs;
+    sincos(th, &sn, &cs);
+    cot = 1.0 / t2 - sn / (2.0 * th * (1.0 - cs));
+  }
   for (int e = 0; e < 9; ++e) {
     const double I = (e % 4 == 0) ? 1.0 : 0.0;
     J[e] = (I - 0.5 * W[e]) + cot * W2[e];
@@ -262,12 +306,21 @@ __device__ __forceinline__ void rot_of(const State& s, double R[9], double p[3])
   }
 }
 
+__device__ __forceinline__ double hat_at(const double v[3], int i, int j) {
+  // hat(v)[i][j]
+  if (i == j) return 0.0;
+  const int k = 3 - i - j;   // the third index
+  const double s = ((i + 1) % 3 == j) ? -1.0 : 1.0;
+  return s * v[k];
+}
+
 // The IMU pair factor (anchor a -> frame s; solver/factors.py imu_residual
-// and _imu_pair_terms): r [9], J1 and J2 [9, 15] in the state order (rho,
-// phi, v, bg, ba), and the random walk's residuals. Lane 0 only.
+// and _imu_pair_terms): the residual r [9], the random walk's residuals and
+// the intermediates J1 and J2 are made of, in two parts on two threads:
+// `rot` the rotation's chain (Exp of the bias correction, the residual
+// rotation, its Log and Jr^-1), else the velocity's and position's rows.
 template <int NF>
-__device__ void imu_rows(Work<NF>& wk, const State& a, const State& s, double rbg[3],
-                         double rba[3]) {
+__device__ void imu_pre(Work<NF>& wk, const State& a, const State& s, bool rot) {
   const Pre& q = wk.pre;
   double R1[9], p1[3], R2[9], p2[3];
   rot_of(a, R1, p1);
@@ -276,13 +329,30 @@ __device__ void imu_rows(Work<NF>& wk, const State& a, const State& s, double rb
   for (int k = 0; k < 3; ++k) {
     dbg[k] = s.bg[k] - q.bg[k];
     dba[k] = s.ba[k] - q.ba[k];
-    rbg[k] = s.bg[k] - a.bg[k];
-    rba[k] = s.ba[k] - a.ba[k];
   }
-  double Eb[9], dRc[9];
-  mv(q.JRg, dbg, tmp);
-  so3_exp_d(tmp, Eb, nullptr);
-  mm(q.dR, Eb, dRc);
+  if (rot) {
+    double Eb[9], dRc[9];
+    mv(q.JRg, dbg, tmp);
+    so3_exp_d(tmp, Eb, nullptr);
+    mm(q.dR, Eb, dRc);
+    // eR = dR_c^T R1^T R2
+    double M1[9], eR[9], er[3];
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j)
+        M1[3 * i + j] = dRc[i] * R1[3 * j] + dRc[3 + i] * R1[3 * j + 1] + dRc[6 + i] * R1[3 * j + 2];
+    mm(M1, R2, eR);
+    so3_log_d(eR, er);
+    double iJ[9];
+    jr_inv_d(er, iJ);
+    for (int k = 0; k < 3; ++k) wk.r[k] = er[k];
+    for (int e = 0; e < 9; ++e) {
+      wk.R1[e] = R1[e];
+      wk.R2[e] = R2[e];
+      wk.eR[e] = eR[e];
+      wk.iJ[e] = iJ[e];
+    }
+    return;
+  }
   double dVc[3], dPc[3];
   mv(q.JVg, dbg, tmp);
   mv(q.JVa, dba, tmp2);
@@ -290,15 +360,8 @@ __device__ void imu_rows(Work<NF>& wk, const State& a, const State& s, double rb
   mv(q.JPg, dbg, tmp);
   mv(q.JPa, dba, tmp2);
   for (int k = 0; k < 3; ++k) dPc[k] = (q.dP[k] + tmp[k]) + tmp2[k];
-  // eR = dR_c^T R1^T R2
-  double M1[9], eR[9], er[3];
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j)
-      M1[3 * i + j] = dRc[i] * R1[3 * j] + dRc[3 + i] * R1[3 * j + 1] + dRc[6 + i] * R1[3 * j + 2];
-  mm(M1, R2, eR);
-  so3_log_d(eR, er);
   const double dt = q.dt;
-  double dvw[3], dpw[3], ev[3], ep[3], Rdv[3], Rdp[3];
+  double dvw[3], dpw[3], Rdv[3], Rdp[3];
   for (int k = 0; k < 3; ++k) {
     dvw[k] = (s.v[k] - a.v[k]) - wk.grav[k] * dt;
     dpw[k] = ((p2[k] - p1[k]) - a.v[k] * dt) - (0.5 * wk.grav[k] * dt) * dt;
@@ -306,54 +369,19 @@ __device__ void imu_rows(Work<NF>& wk, const State& a, const State& s, double rb
   mtv(R1, dvw, Rdv);
   mtv(R1, dpw, Rdp);
   for (int k = 0; k < 3; ++k) {
-    ev[k] = Rdv[k] - dVc[k];
-    ep[k] = Rdp[k] - dPc[k];
-    wk.r[k] = er[k];
-    wk.r[3 + k] = ev[k];
-    wk.r[6 + k] = ep[k];
-  }
-  double iJ[9];
-  jr_inv_d(er, iJ);
-  for (int e = 0; e < 135; ++e) wk.J1[e] = wk.J2[e] = 0.0;
-  double R21[9], A1[9], hv[9], hp[9], R12[9], Bg[9], M2[9];
-  mtm(R2, R1, R21);
-  mm(iJ, R21, A1);
-  hat_d(Rdv, hv);
-  hat_d(Rdp, hp);
-  mtm(R1, R2, R12);
-  // (-invJr) eR^T JRg
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j)
-      M2[3 * i + j] = -iJ[3 * i] * eR[3 * j] - iJ[3 * i + 1] * eR[3 * j + 1] -
-                      iJ[3 * i + 2] * eR[3 * j + 2];
-  mm(M2, q.JRg, Bg);
-  for (int i = 0; i < 3; ++i) {
-    for (int j = 0; j < 3; ++j) {
-      const double I = i == j ? 1.0 : 0.0;
-      // J1: rho1 (ep: -I), phi1 (er, ev, ep), v1 (ev, ep)
-      wk.J1[15 * (6 + i) + j] = -I;
-      wk.J1[15 * i + 3 + j] = -A1[3 * i + j];
-      wk.J1[15 * (3 + i) + 3 + j] = hv[3 * i + j];
-      wk.J1[15 * (6 + i) + 3 + j] = hp[3 * i + j];
-      wk.J1[15 * (3 + i) + 6 + j] = -R1[3 * j + i];
-      wk.J1[15 * (6 + i) + 6 + j] = -R1[3 * j + i] * dt;
-      // J2: rho2 (ep), phi2 (er), v2 (ev), bg (er, ev, ep), ba (ev, ep)
-      wk.J2[15 * (6 + i) + j] = R12[3 * i + j];
-      wk.J2[15 * i + 3 + j] = iJ[3 * i + j];
-      wk.J2[15 * (3 + i) + 6 + j] = R1[3 * j + i];
-      wk.J2[15 * i + 9 + j] = Bg[3 * i + j];
-      wk.J2[15 * (3 + i) + 9 + j] = -q.JVg[3 * i + j];
-      wk.J2[15 * (6 + i) + 9 + j] = -q.JPg[3 * i + j];
-      wk.J2[15 * (3 + i) + 12 + j] = -q.JVa[3 * i + j];
-      wk.J2[15 * (6 + i) + 12 + j] = -q.JPa[3 * i + j];
-    }
+    wk.r[3 + k] = Rdv[k] - dVc[k];
+    wk.r[6 + k] = Rdp[k] - dPc[k];
+    wk.Rdv[k] = Rdv[k];
+    wk.Rdp[k] = Rdp[k];
+    wk.rw[k] = s.bg[k] - a.bg[k];
+    wk.rw[3 + k] = s.ba[k] - a.ba[k];
   }
 }
 
-// The prior on prev (EdgePriorPoseImu, _prior_terms): rp [15], Jp [15, 15].
-// Lane 0 only.
+// The prior on prev (EdgePriorPoseImu, _prior_terms): rp [15] and the
+// blocks of Jp. One thread.
 template <int NF>
-__device__ void prior_rows(Work<NF>& wk, const State& s) {
+__device__ void prior_pre(Work<NF>& wk, const State& s) {
   double R[9], p[3], Rl[9], pl[3];
   rot_of(s, R, p);
   rot_of(wk.prior, Rl, pl);
@@ -370,205 +398,399 @@ __device__ void prior_rows(Work<NF>& wk, const State& s) {
     wk.rp[9 + k] = s.bg[k] - wk.prior.bg[k];
     wk.rp[12 + k] = s.ba[k] - wk.prior.ba[k];
   }
-  for (int e = 0; e < 225; ++e) {
-    const int i = e / 15, j = e % 15;
-    double v = (i == j && i >= 6) ? 1.0 : 0.0;
-    if (i < 3 && j >= 3 && j < 6) v = iJ[3 * i + j - 3];
-    if (i >= 3 && i < 6 && j < 3) v = M[3 * (i - 3) + j];
-    wk.Jp[e] = v;
+  for (int e = 0; e < 9; ++e) {
+    wk.Mp[e] = M[e];
+    wk.iJp[e] = iJ[e];
   }
+}
+
+// entry (i, j) of J1 [9, 15] (rows er, ev, ep; columns rho1, phi1, v1, bg1,
+// ba1): rho1 (ep: -I), phi1 (er: -Jr^-1 R2^T R1, ev: hat(R1^T dv), ep:
+// hat(R1^T dp)), v1 (ev: -R1^T, ep: -R1^T dt)
+template <int NF>
+__device__ double j1_entry(const Work<NF>& wk, int i, int j) {
+  const int bi = i / 3, ii = i % 3, bj = j / 3, jj = j % 3;
+  if (bj == 0) return bi == 2 && ii == jj ? -1.0 : 0.0;
+  if (bj == 1) {
+    if (bi == 1) return hat_at(wk.Rdv, ii, jj);
+    if (bi == 2) return hat_at(wk.Rdp, ii, jj);
+    double a = 0.0;   // (Jr^-1 (R2^T R1))[ii][jj]
+    for (int k = 0; k < 3; ++k) {
+      const double r21 = (wk.R2[k] * wk.R1[jj] + wk.R2[3 + k] * wk.R1[3 + jj]) +
+                         wk.R2[6 + k] * wk.R1[6 + jj];
+      a += wk.iJ[3 * ii + k] * r21;
+    }
+    return -a;
+  }
+  if (bj == 2) {
+    if (bi == 1) return -wk.R1[3 * jj + ii];
+    if (bi == 2) return -wk.R1[3 * jj + ii] * wk.pre.dt;
+  }
+  return 0.0;
+}
+
+// entry (i, j) of J2 [9, 15]: rho2 (ep: R1^T R2), phi2 (er: Jr^-1), v2 (ev:
+// R1^T), bg (er: -Jr^-1 eR^T JRg, ev: -JVg, ep: -JPg), ba (ev: -JVa, ep:
+// -JPa)
+template <int NF>
+__device__ double j2_entry(const Work<NF>& wk, int i, int j) {
+  const int bi = i / 3, ii = i % 3, bj = j / 3, jj = j % 3;
+  const Pre& q = wk.pre;
+  switch (bj) {
+    case 0:
+      return bi == 2 ? (wk.R1[ii] * wk.R2[jj] + wk.R1[3 + ii] * wk.R2[3 + jj]) +
+                           wk.R1[6 + ii] * wk.R2[6 + jj]
+                     : 0.0;
+    case 1: return bi == 0 ? wk.iJ[3 * ii + jj] : 0.0;
+    case 2: return bi == 1 ? wk.R1[3 * jj + ii] : 0.0;
+    case 3: {
+      if (bi == 1) return -q.JVg[3 * ii + jj];
+      if (bi == 2) return -q.JPg[3 * ii + jj];
+      double a = 0.0;   // ((-Jr^-1 eR^T) JRg)[ii][jj]
+      for (int k = 0; k < 3; ++k) {
+        const double m2 = (-wk.iJ[3 * ii] * wk.eR[3 * k] - wk.iJ[3 * ii + 1] * wk.eR[3 * k + 1]) -
+                          wk.iJ[3 * ii + 2] * wk.eR[3 * k + 2];
+        a += m2 * q.JRg[3 * k + jj];
+      }
+      return a;
+    }
+    default:
+      if (bi == 1) return -q.JVa[3 * ii + jj];
+      if (bi == 2) return -q.JPa[3 * ii + jj];
+      return 0.0;
+  }
+}
+
+// entry (i, j) of the prior's Jacobian Jp [15, 15]: Jr^-1 in (phi, phi)'s
+// place of the log, R_l^T R in (p, phi)'s... as _prior_terms: rows (er, ep,
+// v, bg, ba), columns (rho, phi, v, bg, ba)
+template <int NF>
+__device__ double jp_entry(const Work<NF>& wk, int i, int j) {
+  if (i < 3 && j >= 3 && j < 6) return wk.iJp[3 * i + j - 3];
+  if (i >= 3 && i < 6 && j < 3) return wk.Mp[3 * (i - 3) + j];
+  return i == j && i >= 6 ? 1.0 : 0.0;
+}
+
+// the rows [lo, hi) of J1 and J2 that can be non-zero in column block b
+__device__ __forceinline__ void j1_rows(int b, int& lo, int& hi) {
+  lo = b == 0 ? 6 : (b == 2 ? 3 : 0);
+  hi = b <= 2 ? 9 : 0;
+}
+__device__ __forceinline__ void j2_rows(int b, int& lo, int& hi) {
+  lo = b == 0 ? 6 : (b == 2 || b == 4 ? 3 : 0);
+  hi = b == 1 ? 3 : (b == 2 ? 6 : 9);
+}
+// ... and of Jp in column j
+__device__ __forceinline__ void jp_rows(int j, int& lo, int& hi) {
+  lo = j < 3 ? 3 : (j < 6 ? 0 : j);
+  hi = j < 3 ? 6 : (j < 6 ? 3 : j + 1);
+}
+
+// (p, q) of entry e of a lower triangle stored row by row: p >= q
+__device__ __forceinline__ void lower_of(int e, int& p, int& q) {
+  int r = static_cast<int>((sqrtf(8.f * e + 1.f) - 1.f) * 0.5f);
+  if ((r + 1) * (r + 2) / 2 <= e) ++r;
+  if (r * (r + 1) / 2 > e) --r;
+  p = r;
+  q = e - r * (r + 1) / 2;
+}
+
+// (i, j) of entry e of the upper triangle of a 15x15 stored row by row
+__device__ __forceinline__ void upper15_of(int e, int& i, int& j) {
+  i = 0;
+  while (e >= 15 - i) {
+    e -= 15 - i;
+    ++i;
+  }
+  j = i + e;
 }
 
 // index of the upper-triangle entry (j, k), j <= k, of the 6x6 pose block
 __device__ __forceinline__ int tri6(int j, int k) { return j * 6 - j * (j - 1) / 2 + (k - j); }
 
-// The quadratic at the state (sp, sc) from the pass's sums in wk.vis: H, g
-// into the buffers and the cost (returned on every lane). Warp 0.
+// The quadratic at the pass's state from its sums in wk.vis and the IMU and
+// prior terms' intermediates (imu_pre, prior_pre, computed during the pass):
+// H, g into the buffers and the cost into wk.cost_eval (returned). The whole
+// block; ends on a barrier.
 template <int NF>
-__device__ double assemble(Work<NF>& wk, const State& sp, const State& sc, double* H, double* g) {
-  const int lane = threadIdx.x & 31;
+__device__ double assemble(Work<NF>& wk, double* H, double* g) {
   constexpr bool kPrev = NF == 30;
   constexpr int o2 = NF - 15;   // the frame's offset
-  if (lane == 0) {
-    double rbg[3], rba[3];
-    imu_rows(wk, sp, sc, rbg, rba);
-    // r I r + info_bg |rbg|^2 + info_ba |rba|^2
-    double ci = 0.0;
-    for (int j = 0; j < 9; ++j) {
-      double ri = 0.0;
-      for (int i = 0; i < 9; ++i) ri += wk.r[i] * wk.info[9 * i + j];
-      ci += ri * wk.r[j];
-    }
-    ci = (ci + wk.info_bg * (rbg[0] * rbg[0] + rbg[1] * rbg[1] + rbg[2] * rbg[2])) +
-         wk.info_ba * (rba[0] * rba[0] + rba[1] * rba[1] + rba[2] * rba[2]);
-    for (int k = 0; k < 3; ++k) {
-      wk.rw[k] = rbg[k];
-      wk.rw[3 + k] = rba[k];
-    }
-    wk.cost_if = ci;
-    if (kPrev) prior_rows(wk, sp);
-  }
-  __syncwarp();
-  // I J1, I J2; Jp^T Hw and Hw rp
-  for (int e = lane; e < 135; e += 32) {
-    const int i = e / 15, j = e % 15;
-    double a = 0.0, b = 0.0;
-    for (int k = 0; k < 9; ++k) {
-      a += wk.info[9 * i + k] * wk.J1[15 * k + j];
-      b += wk.info[9 * i + k] * wk.J2[15 * k + j];
-    }
-    wk.IJ1[e] = a;
-    wk.IJ2[e] = b;
-  }
-  if (kPrev) {
-    for (int e = lane; e < 225; e += 32) {
-      const int i = e / 15, j = e % 15;
+  const int tid = threadIdx.x;
+  // the Jacobians' entries (J1 at 30 free dims only); I r and Hw rp
+  for (int e = tid + (kPrev ? 0 : 135); e < 519; e += kThreads) {
+    if (e < 135) {
+      wk.J1[e] = j1_entry(wk, e / 15, e % 15);
+    } else if (e < 270) {
+      wk.J2[e - 135] = j2_entry(wk, (e - 135) / 15, (e - 135) % 15);
+    } else if (e < 279) {
+      const int i = e - 270;
       double a = 0.0;
-      for (int k = 0; k < 15; ++k) a += wk.Jp[15 * k + i] * wk.Hw[15 * k + j];
-      wk.PH[e] = a;
-    }
-    if (lane < 15) {
+      for (int k = 0; k < 9; ++k) a += wk.info[9 * i + k] * wk.r[k];
+      wk.Ir[i] = a;
+    } else if (!kPrev) {
+      break;
+    } else if (e < 294) {
+      const int i = e - 279;
       double a = 0.0;
-      for (int k = 0; k < 15; ++k) a += wk.Hw[15 * lane + k] * wk.rp[k];
-      wk.Hr[lane] = a;
+      for (int k = 0; k < 15; ++k) a += wk.Hw[15 * i + k] * wk.rp[k];
+      wk.Hr[i] = a;
+    } else {
+      const int f = e - 294;
+      wk.Jp[f] = jp_entry(wk, f / 15, f % 15);
     }
   }
-  __syncwarp();
-  // H22 = J2^T I J2 + diag(0, info_bg, info_ba) + the pose block of the rows
-  for (int e = lane; e < 225; e += 32) {
-    const int i = e / 15, j = e % 15;
-    double a = 0.0;
-    for (int k = 0; k < 9; ++k) a += wk.J2[15 * k + i] * wk.IJ2[15 * k + j];
-    if (i == j && i >= 9) a += i < 12 ? wk.info_bg : wk.info_ba;
-    if (i < 6 && j < 6) a += wk.vis[i <= j ? tri6(i, j) : tri6(j, i)];
-    H[NF * (o2 + i) + o2 + j] = a;
+  __syncthreads();
+  TC2LI_LAP(4);
+  // I J1, I J2 over the Jacobians' non-zero rows; Jp^T Hw
+  for (int e = tid; e < (kPrev ? 495 : 135); e += kThreads) {
+    if (e < 135 || (kPrev && e < 270)) {
+      const bool two = !kPrev || e < 135;
+      const int f = kPrev ? (e < 135 ? e : e - 135) : e;
+      const int i = f / 15, j = f % 15;
+      int lo, hi;
+      const double* J = two ? wk.J2 : wk.J1;
+      if (two) j2_rows(j / 3, lo, hi); else j1_rows(j / 3, lo, hi);
+      double a = 0.0;
+      for (int k = lo; k < hi; ++k) a += wk.info[9 * i + k] * J[15 * k + j];
+      (two ? wk.IJ2 : wk.IJ1)[f] = a;
+    } else {
+      const int f = e - 270, i = f / 15, j = f % 15;
+      int lo, hi;
+      jp_rows(i, lo, hi);
+      double a = 0.0;
+      for (int k = lo; k < hi; ++k) a += wk.Jp[15 * k + i] * wk.Hw[15 * k + j];
+      wk.PH[f] = a;
+    }
   }
-  if (kPrev) {
-    // H11 = J1^T I J1 + Jp^T Hw Jp; H12 = J1^T I J2 (and its transpose)
-    for (int e = lane; e < 225; e += 32) {
-      const int i = e / 15, j = e % 15;
-      double a = 0.0, b = 0.0, c = 0.0;
-      for (int k = 0; k < 9; ++k) {
-        a += wk.J1[15 * k + i] * wk.IJ1[15 * k + j];
-        c += wk.J1[15 * k + i] * wk.IJ2[15 * k + j];
+  __syncthreads();
+  // H22, H11 on their upper triangles (mirrored), H12 and its transpose, g,
+  // the cost
+  constexpr int kItems = kPrev ? 496 : 136;
+  for (int e = tid; e < kItems; e += kThreads) {
+    if (e < 120) {   // H22 = J2^T I J2 + diag(0, info_bg, info_ba) + the pose block of the rows
+      int i, j, lo, hi;
+      upper15_of(e, i, j);
+      j2_rows(i / 3, lo, hi);
+      double a = 0.0;
+      for (int k = lo; k < hi; ++k) a += wk.J2[15 * k + i] * wk.IJ2[15 * k + j];
+      if (i == j && i >= 9) a += i < 12 ? wk.info_bg : wk.info_ba;
+      if (j < 6) a += wk.vis[tri6(i, j)];
+      H[NF * (o2 + i) + o2 + j] = a;
+      H[NF * (o2 + j) + o2 + i] = a;
+    } else if (e < 135) {   // g2 = J2^T (I r) + the walk + the rows'
+      const int i = e - 120;
+      int lo, hi;
+      j2_rows(i / 3, lo, hi);
+      double b = 0.0;
+      for (int k = lo; k < hi; ++k) b += wk.J2[15 * k + i] * wk.Ir[k];
+      if (i >= 9) b += (i < 12 ? wk.info_bg : wk.info_ba) * wk.rw[i - 9];
+      if (i < 6) b += wk.vis[kH + i];
+      g[o2 + i] = b;
+    } else if (e == 135) {   // r I r + the walk + the rows' (+ rp Hw rp)
+      double ci = 0.0;
+      for (int k = 0; k < 9; ++k) ci += wk.r[k] * wk.Ir[k];
+      const double* rw = wk.rw;
+      ci = (ci + wk.info_bg * (rw[0] * rw[0] + rw[1] * rw[1] + rw[2] * rw[2])) +
+           wk.info_ba * (rw[3] * rw[3] + rw[4] * rw[4] + rw[5] * rw[5]);
+      double cost = wk.vis[kCost] + ci;
+      if (kPrev) {
+        double cp = 0.0;
+        for (int k = 0; k < 15; ++k) cp += wk.rp[k] * wk.Hr[k];
+        cost = cost + cp;
       }
-      for (int k = 0; k < 15; ++k) b += wk.PH[15 * i + k] * wk.Jp[15 * k + j];
+      wk.cost_eval = cost;
+    } else if (e < 256) {   // H11 = J1^T I J1 + (Jp^T Hw) Jp, upper
+      int i, j, lo, hi;
+      upper15_of(e - 136, i, j);
+      j1_rows(i / 3, lo, hi);
+      double a = 0.0, b = 0.0;
+      for (int k = lo; k < hi; ++k) a += wk.J1[15 * k + i] * wk.IJ1[15 * k + j];
+      jp_rows(j, lo, hi);
+      for (int k = lo; k < hi; ++k) b += wk.PH[15 * i + k] * wk.Jp[15 * k + j];
       H[NF * i + j] = a + b;
+      H[NF * j + i] = a + b;
+    } else if (e < 271) {   // g1 = J1^T (I r) + Jp^T (Hw rp)
+      const int i = e - 256;
+      int lo, hi;
+      j1_rows(i / 3, lo, hi);
+      double b = 0.0, bp = 0.0;
+      for (int k = lo; k < hi; ++k) b += wk.J1[15 * k + i] * wk.Ir[k];
+      jp_rows(i, lo, hi);
+      for (int k = lo; k < hi; ++k) bp += wk.Jp[15 * k + i] * wk.Hr[k];
+      g[i] = b + bp;
+    } else {   // H12 = J1^T I J2, and H21
+      const int f = e - 271, i = f / 15, j = f % 15;
+      int lo, hi;
+      j1_rows(i / 3, lo, hi);
+      double c = 0.0;
+      for (int k = lo; k < hi; ++k) c += wk.J1[15 * k + i] * wk.IJ2[15 * k + j];
       H[NF * i + 15 + j] = c;
       H[NF * (15 + j) + i] = c;
     }
   }
-  if (lane < 15) {
-    const int i = lane;
-    double b2 = 0.0;
-    for (int k = 0; k < 9; ++k) b2 += wk.IJ2[15 * k + i] * wk.r[k];
-    if (i >= 9) b2 += (i < 12 ? wk.info_bg : wk.info_ba) * wk.rw[i - 9];
-    if (i < 6) b2 += wk.vis[kH + i];
-    g[o2 + i] = b2;
-    if (kPrev) {
-      double b1 = 0.0, bp = 0.0;
-      for (int k = 0; k < 9; ++k) b1 += wk.IJ1[15 * k + i] * wk.r[k];
-      for (int k = 0; k < 15; ++k) bp += wk.Jp[15 * k + i] * wk.Hr[k];
-      g[i] = b1 + bp;
-    }
+  __syncthreads();
+  TC2LI_LAP(5);
+  return wk.cost_eval;
+}
+
+// rows of the factored matrix are kLd(N) doubles apart: odd, so a column's
+// entries fall in different shared-memory banks
+__host__ __device__ constexpr int kLd(int n) { return n | 1; }
+
+// the trailing entries (i, j), 1 <= j <= i < N, columns from the last, rows
+// in order within one: column c's update is the first (N - 1 - c) (N - c) / 2
+__device__ __forceinline__ unsigned short trail_entry(int N, int k) {
+  int p, q;
+  lower_of(k, p, q);
+  const int j = N - 1 - p;
+  return static_cast<unsigned short>(((j + q) << 8) | j);
+}
+
+// In-place Cholesky of the lower triangle of the N x N matrix A (rows
+// kLd(N) apart): L below the diagonal, the inverse pivots 1 / L_cc in linv
+// (A's diagonal keeps the pivots before their root). Right-looking, column
+// by column: column c's trailing update a_ij -= a_ic (a_jc / a_cc) for
+// i >= j > c, the reciprocal taken once (rpiv), then every column scaled by
+// its pivot's inverse root, two columns a block barrier. Each thread takes
+// entries (i, j), j > c + 1, of the pair (c, c + 1)'s trailing update and
+// forms column c + 1's a_i,c+1 - a_ic (a_c+1,c / a_cc) itself; column c + 1
+// is written in the next pair's phase (nothing reads it then), and one
+// thread updates the next pair's 2x2 block (which it reads, so no other
+// thread writes it in the phase) and forms its two pivots' reciprocals. (A
+// row a lane of warp 0 in registers, the columns' entries by shuffles, is
+// as fast at 15 rows and slower at 30: PERF.md.) The whole block; ends on a
+// barrier.
+template <int N>
+__device__ void factor(double* A, double* linv, double* rpiv, const unsigned short* trail) {
+  constexpr int LD = kLd(N);
+  const int tid = threadIdx.x;
+  constexpr int kLead = kThreads - 1;   // the thread that forms the next pivots
+  // (i, j) after column c's update, and column c + 1's entry of row i
+  auto after1 = [&](int i, int j, int c) {
+    return A[LD * i + j] - A[LD * i + c] * (A[LD * j + c] * rpiv[c]);
+  };
+  if (tid == 0) {
+    rpiv[0] = 1.0 / A[0];
+    if (N > 1) rpiv[1] = 1.0 / after1(1, 1, 0);
   }
-  double cost = 0.0;
-  if (lane == 0) {
-    cost = wk.vis[kCost] + wk.cost_if;
-    if (kPrev) {
-      double cp = 0.0;
-      for (int j = 0; j < 15; ++j) {
-        double a = 0.0;
-        for (int i = 0; i < 15; ++i) a += wk.rp[i] * wk.Hw[15 * i + j];
-        cp += a * wk.rp[j];
+  __syncthreads();
+  for (int c = 0; c < N; c += 2) {
+    const int m = c + 2 < N ? (N - 2 - c) * (N - 1 - c) / 2 : 0;   // entries j > c + 1
+    if (tid == kLead) {   // the next pair's 2x2 block, its pivots and reciprocals
+      if (c + 2 < N) {
+        const int n2 = c + 3 < N ? 3 : 1;
+        const int ij[3][2] = {{c + 2, c + 2}, {c + 3, c + 2}, {c + 3, c + 3}};
+        double v[3];
+        for (int e = 0; e < n2; ++e) {
+          const int i = ij[e][0], j = ij[e][1];
+          const double ti = after1(i, c + 1, c), tj = after1(j, c + 1, c);
+          v[e] = after1(i, j, c) - ti * (tj * rpiv[c + 1]);
+        }
+        for (int e = 0; e < n2; ++e) A[LD * ij[e][0] + ij[e][1]] = v[e];
+        rpiv[c + 2] = 1.0 / v[0];
+        if (c + 3 < N) rpiv[c + 3] = 1.0 / (v[2] - v[1] * (v[1] * rpiv[c + 2]));
       }
-      cost = cost + cp;
+    } else {
+      for (int k = tid; k < m; k += kLead) {
+        const int i = trail[k] >> 8, j = trail[k] & 255;
+        if (i <= c + 3) continue;   // the next pair's 2x2 block: the lead thread's
+        const double ti = after1(i, c + 1, c), tj = after1(j, c + 1, c);
+        A[LD * i + j] = after1(i, j, c) - ti * (tj * rpiv[c + 1]);
+      }
+      // the previous pair's second column, now that nothing reads it
+      if (c >= 2 && tid < N - (c - 1)) {
+        const int i = c - 1 + tid;
+        A[LD * i + c - 1] = after1(i, c - 1, c - 2);
+      }
     }
+    __syncthreads();
   }
-  __syncwarp();
-  return __shfl_sync(0xffffffffu, cost, 0);
+  // the last pair's second column (of N even): its one entry, the pivot
+  if (N % 2 == 0 && tid == 0) A[LD * (N - 1) + N - 1] = after1(N - 1, N - 1, N - 2);
+  __syncthreads();
+  if (tid < N) linv[tid] = 1.0 / sqrt(A[LD * tid + tid]);
+  __syncthreads();
+  for (int e = tid; e < N * (N - 1) / 2; e += kThreads) {
+    int p, q;
+    lower_of(e, p, q);
+    A[LD * (p + 1) + q] *= linv[q];
+  }
+  __syncthreads();
 }
 
-// In-place Cholesky A = L L^T of the leading n x n of A (stride lda), L in
-// the lower triangle (its diagonal included); a row a lane. Warp 0.
-__device__ void cholesky(double* A, int lda, int n) {
+// L L^T x = b from factor's output; lane i holds b_i (i < N) on entry and
+// x_i on return. Warp 0.
+template <int N>
+__device__ double chol_solve(const double* A, const double* linv, double b) {
+  constexpr int LD = kLd(N);
   const int lane = threadIdx.x & 31;
-  for (int c = 0; c < n; ++c) {
-    __syncwarp();
-    const double piv = sqrt(A[lda * c + c]);
-    if (lane > c && lane < n) A[lda * lane + c] /= piv;
-    __syncwarp();
-    if (lane == c) A[lda * c + c] = piv;
-    if (lane > c && lane < n) {
-      const double l = A[lda * lane + c];
-      for (int k = c + 1; k <= lane; ++k) A[lda * lane + k] -= l * A[lda * k + c];
-    }
-  }
-  __syncwarp();
-}
-
-// L L^T x = b, lane i holding b_i (i < n) on entry and x_i on return
-__device__ double chol_solve(const double* A, int lda, int n, double b) {
-  const int lane = threadIdx.x & 31;
-  for (int c = 0; c < n; ++c) {
-    const double y = __shfl_sync(0xffffffffu, b, c) / A[lda * c + c];
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    const double y = __shfl_sync(kFull, b, c) * linv[c];
     if (lane == c) b = y;
-    if (lane > c && lane < n) b -= A[lda * lane + c] * y;
+    if (lane > c && lane < N) b -= A[LD * lane + c] * y;
   }
-  for (int c = n - 1; c >= 0; --c) {
-    const double x = __shfl_sync(0xffffffffu, b, c) / A[lda * c + c];
+#pragma unroll
+  for (int c = N - 1; c >= 0; --c) {
+    const double x = __shfl_sync(kFull, b, c) * linv[c];
     if (lane == c) b = x;
-    if (lane < c) b -= A[lda * c + lane] * x;
+    if (lane < c) b -= A[LD * c + lane] * x;
   }
   return b;
 }
 
-// The step from (H, g) at lam: dx = -(Hn^-1 (g / d)) / d with Haug = H +
+// the pass's pose: T_bw = T_wb^-1 of the frame state, top rows
+__device__ __forceinline__ void pose_row(const State& s, double* pose, int i) {
+  for (int j = 0; j < 3; ++j) pose[4 * i + j] = s.T[4 * j + i];
+  pose[4 * i + 3] = -(s.T[i] * s.T[3] + s.T[4 + i] * s.T[7] + s.T[8 + i] * s.T[11]);
+}
+
+// The step from (H, g) at lam: dx = -((Hn^-1 (g / d)) / d) with Haug = H +
 // lam diag(H) + 1e-6 I and Hn = Haug / (d d^T), d = sqrt(|diag Haug|);
-// the candidate into wk.st[1]. Warp 0.
+// the candidate into wk.st[1] and its pose into wk.pose. The whole block;
+// ends on a barrier.
 template <int NF>
 __device__ void lm_step(Work<NF>& wk, const double* H, const double* g, double lam) {
-  const int lane = threadIdx.x & 31;
-  if (lane < NF) {
-    const double h = H[NF * lane + lane];
+  const int tid = threadIdx.x;
+  if (tid < NF) {
+    const double h = H[NF * tid + tid];
     const double ha = (h + lam * h) + 1e-6;
     const double a = fabs(ha);
-    wk.d[lane] = sqrt(a < 1e-12 ? 1e-12 : a);
+    wk.dinv[tid] = 1.0 / sqrt(a < 1e-12 ? 1e-12 : a);
   }
-  __syncwarp();
-  if (lane < NF) {
-    const int i = lane;
-    for (int j = 0; j < NF; ++j) {
-      double h = H[NF * i + j];
-      if (i == j) h = (h + lam * h) + 1e-6;
-      wk.A[NF * i + j] = h / (wk.d[i] * wk.d[j]);
-    }
+  __syncthreads();
+  for (int e = tid; e < NF * (NF + 1) / 2; e += kThreads) {
+    int i, j;
+    lower_of(e, i, j);
+    double h = H[NF * i + j];
+    if (i == j) h = (h + lam * h) + 1e-6;
+    const double a = (h * wk.dinv[i]) * wk.dinv[j];
+    wk.A[kLd(NF) * i + j] = a;
   }
-  cholesky(wk.A, NF, NF);
-  const double b = lane < NF ? g[lane] / wk.d[lane] : 0.0;
-  const double x = chol_solve(wk.A, NF, NF, b);
-  if (lane < NF) wk.dx[lane] = -(x / wk.d[lane]);
-  __syncwarp();
-  if (lane == 0) {
+  __syncthreads();
+  factor<NF>(wk.A, wk.linv, wk.rpiv, wk.trail[NF == 30]);
+  TC2LI_LAP(6);
+  if (tid < 32) {
+    const double b = tid < NF ? g[tid] * wk.dinv[tid] : 0.0;
+    const double x = chol_solve<NF>(wk.A, wk.linv, b);
+    if (tid < NF) wk.dx[tid] = -(x * wk.dinv[tid]);
+  }
+  __syncthreads();
+  // prev's update (30) and cur's with its pose, side by side
+  if (tid == 0) {
     if (NF == 30) {
       apply_d(wk.st[0][0], wk.dx, wk.st[1][0]);
     } else {
       wk.st[1][0] = wk.st[0][0];
     }
+  }
+  if (tid == 32) {
     apply_d(wk.st[0][1], wk.dx + NF - 15, wk.st[1][1]);
+    for (int i = 0; i < 3; ++i) pose_row(wk.st[1][1], wk.pose, i);
   }
-  __syncwarp();
-}
-
-// the pass's pose: T_bw = T_wb^-1 of the frame state, top rows
-template <int NF>
-__device__ void set_pose(Work<NF>& wk, const State& s) {
-  const int lane = threadIdx.x & 31;
-  if (lane < 3) {
-    const int i = lane;   // row i of R^T and -(R^T t)_i
-    for (int j = 0; j < 3; ++j) wk.pose[4 * i + j] = s.T[4 * j + i];
-    wk.pose[4 * i + 3] = -(s.T[i] * s.T[3] + s.T[4 + i] * s.T[7] + s.T[8 + i] * s.T[11]);
-  }
+  __syncthreads();
+  TC2LI_LAP(7);
 }
 
 // one step of the reduce-scatter (pose_lm.cu), in float64
@@ -644,6 +866,84 @@ __device__ __forceinline__ bool add_row(const Work<NF>& wk, const In& in, const 
   return inl;
 }
 
+// the call's constants, in float64, a thread an entry
+template <int NF>
+__device__ void load_constants(Work<NF>& wk, const In& in) {
+  Pre& q = wk.pre;
+  struct Seg {
+    const float* src;
+    double* dst;
+    int n;
+  };
+  const Seg seg[] = {
+      {in.T_cb, wk.tcb, 12}, {in.dR, q.dR, 9}, {in.JRg, q.JRg, 9}, {in.JVg, q.JVg, 9},
+      {in.JVa, q.JVa, 9}, {in.JPg, q.JPg, 9}, {in.JPa, q.JPa, 9}, {in.dV, q.dV, 3},
+      {in.dP, q.dP, 3}, {in.bgl, q.bg, 3}, {in.bal, q.ba, 3}, {in.grav, wk.grav, 3},
+      {in.dt, &q.dt, 1}, {in.info_bg, &wk.info_bg, 1}, {in.info_ba, &wk.info_ba, 1},
+      {in.s0_T, wk.st[0][1].T, 16}, {in.s0_v, wk.st[0][1].v, 3}, {in.s0_bg, wk.st[0][1].bg, 3},
+      {in.s0_ba, wk.st[0][1].ba, 3}, {in.an_T, wk.st[0][0].T, 16}, {in.an_v, wk.st[0][0].v, 3},
+      {in.an_bg, wk.st[0][0].bg, 3}, {in.an_ba, wk.st[0][0].ba, 3},
+      {in.pr_T, wk.prior.T, NF == 30 ? 16 : 0}, {in.pr_v, wk.prior.v, NF == 30 ? 3 : 0},
+      {in.pr_bg, wk.prior.bg, NF == 30 ? 3 : 0}, {in.pr_ba, wk.prior.ba, NF == 30 ? 3 : 0}};
+  int e = threadIdx.x;
+  for (const Seg& s : seg) {
+    if (e < s.n) {
+      s.dst[e] = s.src[e];
+      break;
+    }
+    e -= s.n;
+  }
+  for (int k = threadIdx.x; k < 435; k += kThreads) {
+    wk.trail[1][k] = trail_entry(30, k);
+    if (k < 105) wk.trail[0][k] = trail_entry(15, k);
+  }
+  if (NF == 30) {
+    const double pw = in.pr_w[0];
+    for (int f = threadIdx.x; f < 225; f += kThreads)
+      wk.Hw[f] = static_cast<double>(in.pr_H[f]) * pw;
+  }
+}
+
+// C9^-1: [C9 + 1e-10 I | I], then Gauss-Jordan with the first largest pivot,
+// a column of [C9 | I] a lane. Warp 0.
+template <int NF>
+__device__ void c9_inverse(Work<NF>& wk, const In& in) {
+  const int lane = threadIdx.x & 31;
+  for (int e = lane; e < 162; e += 32) {
+    const int i = e / 18, j = e % 18;
+    wk.aug[e] = j < 9 ? static_cast<double>(in.C[15 * i + j]) + (i == j ? 1e-10 : 0.0)
+                      : (j - 9 == i ? 1.0 : 0.0);
+  }
+  __syncwarp();
+  for (int c = 0; c < 9; ++c) {
+    int p = c;
+    double best = fabs(wk.aug[18 * c + c]);
+    for (int rr = c + 1; rr < 9; ++rr) {
+      if (fabs(wk.aug[18 * rr + c]) > best) {
+        best = fabs(wk.aug[18 * rr + c]);
+        p = rr;
+      }
+    }
+    double f[9];
+    for (int rr = 0; rr < 9; ++rr) f[rr] = wk.aug[18 * rr + c];
+    const double fp = f[p], fc = f[c];
+    f[p] = fc;
+    f[c] = fp;
+    __syncwarp();
+    if (lane < 18) {   // column `lane`: swap, scale, eliminate
+      const int j = lane;
+      const double vc = wk.aug[18 * c + j], vp = wk.aug[18 * p + j];
+      const double piv = vp / fp;
+      wk.aug[18 * p + j] = vc;
+      wk.aug[18 * c + j] = piv;
+      for (int rr = 0; rr < 9; ++rr)
+        if (rr != c) wk.aug[18 * rr + j] -= f[rr] * piv;
+    }
+    __syncwarp();
+  }
+  for (int e = lane; e < 81; e += 32) wk.info[e] = wk.aug[18 * (e / 9) + 9 + e % 9];
+}
+
 template <int NF>
 __global__ void __launch_bounds__(kThreads, 1)
 pose_inertial_kernel(const In in, int O, const Cam cam, int rounds, int iters,
@@ -657,91 +957,25 @@ pose_inertial_kernel(const In in, int O, const Cam cam, int rounds, int iters,
   const bool w0 = warp == 0;
   const int per = (O + kBlocks - 1) / kBlocks;
   const int r0 = min(rank * per, O), nr = min(per, O - r0);
+  TC2LI_LAP_START
 
-  // the call's constants, in float64
-  if (w0) {
-    for (int e = lane; e < 12; e += 32) wk.tcb[e] = in.T_cb[e];
-    if (lane == 0) {
-      Pre& q = wk.pre;
-      for (int k = 0; k < 9; ++k) {
-        q.dR[k] = in.dR[k];
-        q.JRg[k] = in.JRg[k];
-        q.JVg[k] = in.JVg[k];
-        q.JVa[k] = in.JVa[k];
-        q.JPg[k] = in.JPg[k];
-        q.JPa[k] = in.JPa[k];
-      }
-      for (int k = 0; k < 3; ++k) {
-        q.dV[k] = in.dV[k];
-        q.dP[k] = in.dP[k];
-        q.bg[k] = in.bgl[k];
-        q.ba[k] = in.bal[k];
-        wk.grav[k] = in.grav[k];
-      }
-      q.dt = in.dt[0];
-      wk.info_bg = in.info_bg[0];
-      wk.info_ba = in.info_ba[0];
-      State* init[3] = {&wk.st[0][1], &wk.st[0][0], &wk.prior};
-      const float* Ts[3] = {in.s0_T, in.an_T, in.pr_T};
-      const float* vs[3] = {in.s0_v, in.an_v, in.pr_v};
-      const float* gs[3] = {in.s0_bg, in.an_bg, in.pr_bg};
-      const float* as[3] = {in.s0_ba, in.an_ba, in.pr_ba};
-      for (int m = 0; m < (NF == 30 ? 3 : 2); ++m) {
-        for (int k = 0; k < 16; ++k) init[m]->T[k] = Ts[m][k];
-        for (int k = 0; k < 3; ++k) {
-          init[m]->v[k] = vs[m][k];
-          init[m]->bg[k] = gs[m][k];
-          init[m]->ba[k] = as[m][k];
-        }
-      }
-    }
-    if (NF == 30) {
-      const double pw = in.pr_w[0];
-      for (int e = lane; e < 225; e += 32) wk.Hw[e] = static_cast<double>(in.pr_H[e]) * pw;
-    }
-    // [C9 + 1e-10 I | I], then Gauss-Jordan with the first largest pivot
-    for (int e = lane; e < 162; e += 32) {
-      const int i = e / 18, j = e % 18;
-      wk.aug[e] = j < 9 ? static_cast<double>(in.C[15 * i + j]) + (i == j ? 1e-10 : 0.0)
-                        : (j - 9 == i ? 1.0 : 0.0);
-    }
-    __syncwarp();
-    for (int c = 0; c < 9; ++c) {
-      int p = c;
-      double best = fabs(wk.aug[18 * c + c]);
-      for (int rr = c + 1; rr < 9; ++rr) {
-        if (fabs(wk.aug[18 * rr + c]) > best) {
-          best = fabs(wk.aug[18 * rr + c]);
-          p = rr;
-        }
-      }
-      double f[9];
-      for (int rr = 0; rr < 9; ++rr) f[rr] = wk.aug[18 * rr + c];
-      const double fp = f[p], fc = f[c];
-      f[p] = fc;
-      f[c] = fp;
-      __syncwarp();
-      if (lane < 18) {   // column `lane`: swap, scale, eliminate
-        const int j = lane;
-        const double vc = wk.aug[18 * c + j], vp = wk.aug[18 * p + j];
-        const double piv = vp / fp;
-        wk.aug[18 * p + j] = vc;
-        wk.aug[18 * c + j] = piv;
-        for (int rr = 0; rr < 9; ++rr)
-          if (rr != c) wk.aug[18 * rr + j] -= f[rr] * piv;
-      }
-      __syncwarp();
-    }
-    for (int e = lane; e < 81; e += 32) wk.info[e] = wk.aug[18 * (e / 9) + 9 + e % 9];
-  }
+  load_constants(wk, in);
   __syncthreads();
-  cluster.sync();   // every block runs before any writes into another
+  if (tid < 3) pose_row(wk.st[0][1], wk.pose, tid);
+  cluster.sync();   // the constants and the pose are in place; every block runs
+  TC2LI_LAP(0);
+  if (w0) c9_inverse(wk, in);   // (info is first read in assemble, after the pass)
+  TC2LI_LAP(1);
 
   int par = 0;
   // a pass over this block's rows at wk.pose, then the blocks' sums in
   // block order into every block's wk.vis (warp 0); `flags` writes the
-  // inlier flags and counts them
-  auto all_pass = [&](bool gate, bool flags) {
+  // inlier flags and counts them. The IMU factor's two parts and the
+  // prior's one-thread chains at (sp, sc) run beside the rows, on warps 1, 3
+  // and 2.
+  auto all_pass = [&](bool gate, bool flags, const State& sp, const State& sc) {
+    if (tid == 32 || tid == 96) imu_pre(wk, sp, sc, tid == 32);
+    if (NF == 30 && tid == 64) prior_pre(wk, sp);
     double acc[32];
 #pragma unroll
     for (int k = 0; k < 32; ++k) acc[k] = 0.0;
@@ -760,10 +994,11 @@ pose_inertial_kernel(const In in, int O, const Cam cam, int rounds, int iters,
     scatter_step<1>(acc, lane);
     wk.part[warp][lane] = acc[0];
     if (flags) {
-      cnt = __reduce_add_sync(0xffffffffu, cnt);
+      cnt = __reduce_add_sync(kFull, cnt);
       if (lane == 0) wk.part_n[warp] = cnt;
     }
     __syncthreads();
+    TC2LI_LAP(2);
     if (w0) {
       double s = 0.0;
       for (int w = 0; w < kWarps; ++w) s += wk.part[w][lane];
@@ -784,8 +1019,8 @@ pose_inertial_kernel(const In in, int O, const Cam cam, int rounds, int iters,
       }
       wk.vis[lane] = tot;
       if (lane == 0) wk.n_act = static_cast<int>(cn);
-      __syncwarp();
     }
+    TC2LI_LAP(3);
     par ^= 1;
   };
 
@@ -793,81 +1028,81 @@ pose_inertial_kernel(const In in, int O, const Cam cam, int rounds, int iters,
   double cost = 0.0, lam = 1e-2;
   for (int rnd = 0; rnd < rounds; ++rnd) {
     const bool gate = rnd > 0;
-    if (w0) set_pose(wk, wk.st[0][1]);
-    __syncthreads();
-    all_pass(gate, false);
-    if (w0) {
-      cost = assemble(wk, wk.st[0][0], wk.st[0][1], wk.H[cur], wk.g[cur]);
-      lam = 1e-2;
+    if (rnd > 0) {
+      if (tid < 3) pose_row(wk.st[0][1], wk.pose, tid);
+      __syncthreads();
     }
+    all_pass(gate, false, wk.st[0][0], wk.st[0][1]);
+    cost = assemble(wk, wk.H[cur], wk.g[cur]);
+    lam = 1e-2;
     for (int it = 0; it < iters; ++it) {
-      if (w0) {
-        lm_step(wk, wk.H[cur], wk.g[cur], lam);
-        set_pose(wk, wk.st[1][1]);
+      lm_step(wk, wk.H[cur], wk.g[cur], lam);
+      all_pass(gate, false, wk.st[1][0], wk.st[1][1]);
+      const double c_new = assemble(wk, wk.H[cur ^ 1], wk.g[cur ^ 1]);
+      if (c_new < cost) {   // NaN rejects
+        double* dst = wk.st[0][0].T;   // st[0][0..1] <- st[1][0..1]
+        const double* src = wk.st[1][0].T;
+        constexpr int kN = 2 * sizeof(State) / sizeof(double);
+        if (tid < kN) dst[tid] = src[tid];
+        cur ^= 1;
+        cost = c_new;
+        lam *= 0.5;
+      } else {
+        lam *= 4.0;
       }
       __syncthreads();
-      all_pass(gate, false);
-      if (w0) {
-        const double c_new = assemble(wk, wk.st[1][0], wk.st[1][1], wk.H[cur ^ 1], wk.g[cur ^ 1]);
-        if (c_new < cost) {   // NaN rejects
-          if (lane == 0) {
-            wk.st[0][0] = wk.st[1][0];
-            wk.st[0][1] = wk.st[1][1];
-          }
-          cur ^= 1;
-          cost = c_new;
-          lam *= 0.5;
-        } else {
-          lam *= 4.0;
-        }
-        __syncwarp();
-      }
     }
   }
   // the last evaluation, gated: H and the inlier flags
-  if (w0) set_pose(wk, wk.st[0][1]);
+  if (tid < 3) pose_row(wk.st[0][1], wk.pose, tid);
   __syncthreads();
-  all_pass(true, true);
-  if (!w0 || rank != 0) return;
+  all_pass(true, true, wk.st[0][0], wk.st[0][1]);
+  if (rank != 0) return;
   double* H = wk.H[cur];
-  assemble(wk, wk.st[0][0], wk.st[0][1], H, wk.g[cur]);
+  cost = assemble(wk, H, wk.g[cur]);
   if (NF == 30) {
-    // H* = H22 - H12^T (H11 + 1e-6 I)^-1 H12, symmetrized
-    for (int e = lane; e < 225; e += 32) {
-      const int i = e / 15, j = e % 15;
-      wk.A[15 * i + j] = H[NF * i + j] + (i == j ? 1e-6 : 0.0);
+    // H* = H22 - H12^T (H11 + 1e-6 I)^-1 H12, its upper triangle mirrored
+    for (int e = tid; e < 120; e += kThreads) {
+      int i, j;
+      lower_of(e, i, j);
+      const double a = H[NF * i + j] + (i == j ? 1e-6 : 0.0);
+      wk.A[15 * i + j] = a;
     }
-    cholesky(wk.A, 15, 15);
-    if (lane < 15) {   // column `lane` of H11^-1 H12
+    __syncthreads();
+    factor<15>(wk.A, wk.linv, wk.rpiv, wk.trail[0]);
+    if (tid < 15) {   // column `tid` of H11^-1 H12
       double y[15];
+#pragma unroll
       for (int c = 0; c < 15; ++c) {
-        double b = H[NF * c + 15 + lane];
+        double b = H[NF * c + 15 + tid];
+#pragma unroll
         for (int k = 0; k < c; ++k) b -= wk.A[15 * c + k] * y[k];
-        y[c] = b / wk.A[15 * c + c];
+        y[c] = b * wk.linv[c];
       }
+#pragma unroll
       for (int c = 14; c >= 0; --c) {
         double b = y[c];
+#pragma unroll
         for (int k = c + 1; k < 15; ++k) b -= wk.A[15 * k + c] * y[k];
-        y[c] = b / wk.A[15 * c + c];
+        y[c] = b * wk.linv[c];
       }
-      for (int c = 0; c < 15; ++c) wk.Xs[15 * c + lane] = y[c];
+#pragma unroll
+      for (int c = 0; c < 15; ++c) wk.Xs[15 * c + tid] = y[c];
     }
-    __syncwarp();
-    for (int e = lane; e < 225; e += 32) {
-      const int i = e / 15, j = e % 15;
+    __syncthreads();
+    for (int e = tid; e < 120; e += kThreads) {
+      int i, j;
+      upper15_of(e, i, j);
       double a = 0.0;
       for (int k = 0; k < 15; ++k) a += H[NF * k + 15 + i] * wk.Xs[15 * k + j];
-      wk.PH[e] = H[NF * (15 + i) + 15 + j] - a;
-    }
-    __syncwarp();
-    for (int e = lane; e < 225; e += 32) {
-      const int i = e / 15, j = e % 15;
-      out[25 + e] = static_cast<float>(0.5 * (wk.PH[e] + wk.PH[15 * j + i]));
+      const float v = static_cast<float>(H[NF * (15 + i) + 15 + j] - a);
+      out[25 + 15 * i + j] = v;
+      out[25 + 15 * j + i] = v;
     }
   } else {
-    for (int e = lane; e < 225; e += 32) out[25 + e] = static_cast<float>(H[e]);
+    for (int e = tid; e < 225; e += kThreads) out[25 + e] = static_cast<float>(H[e]);
   }
-  if (lane == 0) {
+  if (tid == 0) {
     const State& s = wk.st[0][1];
     for (int k = 0; k < 16; ++k) out[k] = static_cast<float>(s.T[k]);
     for (int k = 0; k < 3; ++k) {
@@ -879,6 +1114,7 @@ pose_inertial_kernel(const In in, int O, const Cam cam, int rounds, int iters,
     out[251] = 1.f;
     *n_inliers = wk.n_act;
   }
+  TC2LI_LAP(8);
 }
 
 template <int NF>

@@ -6,10 +6,17 @@ plain C interface, loaded with ``ctypes``. The library
 lands in ``build/tc2li_kernels/`` at the root of the checkout, keyed by a
 hash of the sources and the headers they share (``csrc/*.cuh``), so a fresh
 checkout builds it once and an edited source or header rebuilds. Nothing here runs at import time.
+
+``variant(flags)`` builds the same sources with extra ``nvcc`` flags (for
+example ``-DTC2LI_LAPS``, the clock laps of ``csrc/laps.cuh``) into a library
+of its own, and ``routed_to(lib)`` sends the wrappers' launches to it inside
+a ``with`` block: a measuring tool's build is the main build with those
+flags, nothing else.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -42,21 +49,22 @@ def headers() -> list[Path]:
     return sorted(CSRC.glob("*.cuh"))
 
 
-def library_path() -> Path:
+def library_path(flags: tuple[str, ...] = ()) -> Path:
     h = hashlib.sha256()
     for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(ARCH_FLAGS).encode())
+    h.update(" ".join(ARCH_FLAGS + list(flags)).encode())
     return BUILD_DIR / f"libtc2li_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library if it is not there yet; returns its path.
+def build(flags: tuple[str, ...] = ()) -> Path:
+    """Compile the library (with extra ``nvcc`` ``flags``, a library of its
+    own) if it is not there yet; returns its path.
 
     One ``nvcc -c`` per source, all started together, then one link."""
     global ptxas_log
-    out = library_path()
+    out = library_path(flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -68,7 +76,7 @@ def build() -> Path:
         for src in sources():
             obj = os.path.join(tmp, src.stem + ".o")
             cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
-                   "-Xptxas=-v", "-o", obj, str(src)]
+                   "-Xptxas=-v", *flags, "-o", obj, str(src)]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         logs = []
@@ -89,7 +97,8 @@ def build() -> Path:
             raise RuntimeError(
                 f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
         os.replace(lib, out)
-        ptxas_log = "".join(logs)
+        if not flags:
+            ptxas_log = "".join(logs)
     return out
 
 
@@ -97,51 +106,76 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tc2li_fast_score_planes.argtypes = [vp, vp, vp, vp, i, i, i, i, f, f, i, vp]
-        lib.tc2li_fast_score_planes.restype = i
-        lib.tc2li_fast_nms_planes.argtypes = [vp, vp, vp, vp, i, i, f, f, i, i, vp]
-        lib.tc2li_fast_nms_planes.restype = i
-        lib.tc2li_hamming.argtypes = [vp, vp, vp, i, i, vp]
-        lib.tc2li_hamming.restype = i
-        lib.tc2li_match_max_columns.argtypes = [i]
-        lib.tc2li_match_max_columns.restype = i
-        lib.tc2li_match_best2.argtypes = [i, i] + [vp] * 11 + [i, i, f] + [vp] * 4 + [i, i, vp]
-        lib.tc2li_match_best2.restype = i
-        lib.tc2li_pose_only_lm.argtypes = [vp] * 6 + [i] + [f] * 5 + [i, i] + [vp] * 5
-        lib.tc2li_pose_only_lm.restype = i
-        lib.tc2li_balm_scratch.argtypes = [i, i]
-        lib.tc2li_balm_scratch.restype = ctypes.c_longlong
-        lib.tc2li_balm_quadratic.argtypes = [vp] * 6 + [i, i] + [vp] * 5
-        lib.tc2li_balm_quadratic.restype = i
-        lib.tc2li_local_ba_scratch.argtypes = [i, i, i]
-        lib.tc2li_local_ba_scratch.restype = ctypes.c_longlong
-        lib.tc2li_local_ba_lm.argtypes = [vp] * 16 + [i] * 6 + [f] * 5 + [i] + [vp] * 6
-        lib.tc2li_local_ba_lm.restype = i
-        lib.tc2li_orb_level_planes.argtypes = [vp] * 6 + [i] * 5 + [vp, vp]
-        lib.tc2li_orb_level_planes.restype = i
-        lib.tc2li_orb_select_grid.argtypes = [vp] * 9 + [i, i, vp]
-        lib.tc2li_orb_select_grid.restype = i
-        lib.tc2li_orb_describe.argtypes = [vp] * 8 + [i] * 7 + [vp, vp]
-        lib.tc2li_orb_describe.restype = i
-        lib.tc2li_stereo_prep.argtypes = [vp, vp, i, i, vp, vp, vp]
-        lib.tc2li_stereo_prep.restype = i
-        lib.tc2li_stereo_refine.argtypes = [vp, vp, i, i, i] + [vp] * 7 + [i, f] + [vp] * 6
-        lib.tc2li_stereo_refine.restype = i
-        lib.tc2li_clusters_scratch.argtypes = [i, i, i]
-        lib.tc2li_clusters_scratch.restype = ctypes.c_longlong
-        lib.tc2li_balm_clusters.argtypes = [vp] * 6 + [i] * 4 + [f] * 3 + [vp] * 6 + [vp]
-        lib.tc2li_balm_clusters.restype = i
-        lib.tc2li_imu_preintegrate.argtypes = [vp] * 5 + [i] + [f] * 4 + [vp, vp]
-        lib.tc2li_imu_preintegrate.restype = i
-        lib.tc2li_pose_inertial_lm.argtypes = ([ctypes.POINTER(ctypes.c_uint64)] + [i] * 3
-                                               + [f] * 5 + [i, i] + [vp] * 4)
-        lib.tc2li_pose_inertial_lm.restype = i
-        lib.tc2li_error_string.argtypes = [i]
-        lib.tc2li_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = _load(build())
     return _lib
+
+
+def variant(*flags: str) -> ctypes.CDLL:
+    """The library built with extra ``nvcc`` flags, loaded beside the main
+    one (built on first call)."""
+    return _load(build(tuple(flags)))
+
+
+@contextlib.contextmanager
+def routed_to(lib: ctypes.CDLL):
+    """The wrappers launch through ``lib`` (a ``variant``) inside the block."""
+    global _lib
+    main = library()
+    _lib = lib
+    try:
+        yield lib
+    finally:
+        _lib = main
+
+
+def _load(path: Path) -> ctypes.CDLL:
+    """The library at ``path`` with its C functions' signatures."""
+    lib = ctypes.CDLL(str(path))
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tc2li_fast_score_planes.argtypes = [vp, vp, vp, vp, i, i, i, i, f, f, i, vp]
+    lib.tc2li_fast_score_planes.restype = i
+    lib.tc2li_fast_nms_planes.argtypes = [vp, vp, vp, vp, i, i, f, f, i, i, vp]
+    lib.tc2li_fast_nms_planes.restype = i
+    lib.tc2li_hamming.argtypes = [vp, vp, vp, i, i, vp]
+    lib.tc2li_hamming.restype = i
+    lib.tc2li_match_max_columns.argtypes = [i]
+    lib.tc2li_match_max_columns.restype = i
+    lib.tc2li_match_best2.argtypes = [i, i] + [vp] * 11 + [i, i, f] + [vp] * 4 + [i, i, vp]
+    lib.tc2li_match_best2.restype = i
+    lib.tc2li_pose_only_lm.argtypes = [vp] * 6 + [i] + [f] * 5 + [i, i] + [vp] * 5
+    lib.tc2li_pose_only_lm.restype = i
+    lib.tc2li_balm_scratch.argtypes = [i, i]
+    lib.tc2li_balm_scratch.restype = ctypes.c_longlong
+    lib.tc2li_balm_quadratic.argtypes = [vp] * 6 + [i, i] + [vp] * 5
+    lib.tc2li_balm_quadratic.restype = i
+    lib.tc2li_local_ba_scratch.argtypes = [i, i, i]
+    lib.tc2li_local_ba_scratch.restype = ctypes.c_longlong
+    lib.tc2li_local_ba_lm.argtypes = [vp] * 16 + [i] * 6 + [f] * 5 + [i] + [vp] * 6
+    lib.tc2li_local_ba_lm.restype = i
+    lib.tc2li_orb_level_planes.argtypes = [vp] * 6 + [i] * 5 + [vp, vp]
+    lib.tc2li_orb_level_planes.restype = i
+    lib.tc2li_orb_select_grid.argtypes = [vp] * 9 + [i, i, vp]
+    lib.tc2li_orb_select_grid.restype = i
+    lib.tc2li_orb_describe.argtypes = [vp] * 8 + [i] * 7 + [vp, vp]
+    lib.tc2li_orb_describe.restype = i
+    lib.tc2li_stereo_prep.argtypes = [vp, vp, i, i, vp, vp, vp]
+    lib.tc2li_stereo_prep.restype = i
+    lib.tc2li_stereo_refine.argtypes = [vp, vp, i, i, i] + [vp] * 7 + [i, f] + [vp] * 6
+    lib.tc2li_stereo_refine.restype = i
+    lib.tc2li_clusters_scratch.argtypes = [i, i, i]
+    lib.tc2li_clusters_scratch.restype = ctypes.c_longlong
+    lib.tc2li_balm_clusters.argtypes = [vp] * 6 + [i] * 4 + [f] * 3 + [vp] * 6 + [vp]
+    lib.tc2li_balm_clusters.restype = i
+    lib.tc2li_clusters_ran.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.tc2li_clusters_ran.restype = i
+    lib.tc2li_imu_preintegrate.argtypes = [vp] * 5 + [i] + [f] * 4 + [vp, vp]
+    lib.tc2li_imu_preintegrate.restype = i
+    lib.tc2li_pose_inertial_lm.argtypes = ([ctypes.POINTER(ctypes.c_uint64)] + [i] * 3
+                                           + [f] * 5 + [i, i] + [vp] * 4)
+    lib.tc2li_pose_inertial_lm.restype = i
+    lib.tc2li_error_string.argtypes = [i]
+    lib.tc2li_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(rc: int, what: str) -> None:

@@ -80,6 +80,19 @@ def balm_clusters(points, valid, T_wl, voxel_size: float = 1.0, max_voxels: int 
                                   center.view(V, 3), flags.view(torch.bool))
 
 
+def device_runs() -> int:
+    """Launches of ``csrc/clusters.cu``'s kernel that ran to their end in this
+    process, as the kernel counts them on the device (synchronises the
+    device first). Beside ``launches``, the wrapper's count of launches
+    enqueued, it shows that each launch ran, without the profiler, whose
+    record has missed some of these cluster launches."""
+    import ctypes
+    torch.cuda.synchronize()
+    n = ctypes.c_ulonglong(0)
+    build.check(build.library().tc2li_clusters_ran(ctypes.byref(n)), "tc2li_clusters_ran")
+    return int(n.value)
+
+
 def scratch_bytes(P: int, V: int, W: int) -> int:
     """Bytes of ``csrc/clusters.cu``'s scratch for P points, V slots and W
     keyframes (its ``layout``: each array from a 16-byte boundary)."""

@@ -5,16 +5,19 @@ TPU runs as one jit-compiled ``lax.scan`` over the window's samples (:169).
 Written as eager PyTorch (``integrate_plain``) a sample costs ~40 small ops,
 each a launch: ~670 device events a preintegration on the IMU mode's frames.
 
-Bound on the H100: latency. A sample reads 28 bytes and costs ~2,500 float
-operations (a fused multiply-add counted as one; the two 9x9 products of
-the covariance are 1,458 of them); the chain over samples is serial. ``csrc/imu_preint.cu`` runs a
-window in one launch of one block: the samples' rotations, right Jacobians
-and noise terms in parallel, a chunk of 256 at a time, then the chain on one
-warp (the covariance's 81 entries three a lane). Its float32 sums run in
-another order than ATen's 3x3 and 9x9 products, so it agrees with the plain
-version to float32 rounding, not to the bit; it is judged against the plain
-version run in float64. A padded sample (``dts <= 0``) is an exact no-op on
-both routes. Any N: the chain walks the chunks in order.
+Bound on the H100: latency. A sample reads 28 bytes and costs ~1,100 float
+operations (a fused multiply-add counted as one; A C9 A^T on A's block
+structure); the plain version's chain over samples is serial.
+``csrc/imu_preint.cu`` runs a window in one launch of a cluster of up to 8
+blocks: the live samples compacted, cut into chunks of ``max(8, ceil(n /
+64))``, each chunk integrated from the identity by one warp in its own
+frame, the chunks joined in a fixed tree (the chunk's transition has a
+sample's block form; the later chunk moved into the earlier one's frame;
+the reference's JPa, which lacks ORB-SLAM3's ``+ JVa dt``, kept). Its
+float32 sums run in another order than the plain version's, so it agrees
+with it to float32 rounding, not to the bit; it is judged against the
+plain version run in float64. A padded sample (``dts <= 0``) is left out
+before the chunks are cut, so padding changes no bit of the result; any N.
 
 ``estimation/imu.integrate`` sends CUDA tensors to ``imu_preintegrate`` and
 CPU tensors to ``integrate_plain``; any other device raises. There is no

@@ -13,8 +13,9 @@ Bound on the H100: latency. A call over 2,000 rows reads 60 KB and does
 reduction over the rows and a 15- or 30-dim solve. ``csrc/pose_inertial.cu``
 runs a call in one launch of a cluster of 8 blocks: the rows an eighth a
 block, their sums exchanged through distributed shared memory, and the IMU
-factor, the prior, the Cholesky solve and the accept test on one warp of
-every block, all in float64 from the float32 inputs (the IMU information is
+factor, the prior, the products (upper triangles, the Jacobians' non-zero
+rows), the Cholesky factor (right-looking, an entry a thread) and the accept
+test on the whole of every block, all in float64 from the float32 inputs (the IMU information is
 O(1e6) beside the visual O(1); near convergence a float32 cost is noisier
 than the changes the accept test decides). It therefore agrees with the
 plain version run in float64 more closely than the float32 plain version

@@ -55,13 +55,45 @@ import torch
 
 from ..estimation import esekf, imu as imu_est
 from ..geom import camera as cam_mod, lie
-from ..ops import bow, plane_fit, pointcloud, voxel_map
-from ..ops.kernels import local_ba as local_ba_kernel
+from ..ops import bow, orb as orb_mod, plane_fit, pointcloud, voxel_map
+from ..ops.kernels import balm as balm_kernel, local_ba as local_ba_kernel, orb as orb_kernel
 from ..solver import balm as balm_mod, inertial_ba, inertial_init, pose_inertial as pi_mod
 from ..tensors import axis_vector, count, to_device
 from . import (atlas as atlas_mod, config as cfg_mod, culling, imu_mode, lio, local_mapping,
                loop_closing, mapstate, profiling, relocalization, tracking, trajectory,
                triangulation)
+
+
+def check_kernel_limits(cfg: cfg_mod.SystemConfig) -> None:
+    """Raise ValueError for a setting the card's kernels do not take (the
+    CPU takes any): called by ``System`` on a CUDA device before anything is
+    allocated, so a run fails at construction and not at the first frame or
+    keyframe that reaches the kernel."""
+    t, lc, o = cfg.tracking, cfg.lidar, cfg.orb
+    if t.local_window > local_ba_kernel.MAX_POSES:
+        raise ValueError(
+            f"tracking.local_window {t.local_window}: the window BA's kernel "
+            f"(local_ba_lm) takes at most {local_ba_kernel.MAX_POSES} poses on the card")
+    # the BALM window of a local BA or an LVI-BA pass (local_mapping.run_local_ba,
+    # System._run_lvi_ba): the last min(balm_window, window) keyframes
+    bw = min(lc.balm_window, t.local_window)
+    if lc.enabled and lc.w_lba > 0 and bw > balm_kernel.MAX_WINDOW:
+        raise ValueError(
+            f"lidar.balm_window {lc.balm_window} with tracking.local_window "
+            f"{t.local_window}: the BALM kernel (balm_quadratic) takes at most "
+            f"{balm_kernel.MAX_WINDOW} LiDAR poses on the card")
+    # a stereo pair's pyramids are one stack of 2 x n_levels planes
+    if 2 * o.n_levels > orb_kernel.MAX_PLANES:
+        raise ValueError(
+            f"orb.n_levels {o.n_levels}: the ORB kernels take at most "
+            f"{orb_kernel.MAX_PLANES} planes on the card, {orb_kernel.MAX_PLANES // 2} levels "
+            f"of a stereo pair")
+    per_level = orb_mod.features_per_level(o.n_features, o.n_levels, o.scale_factor)
+    if max(per_level) > orb_kernel.MAX_LEVEL_K:
+        raise ValueError(
+            f"orb.n_features {o.n_features} over {o.n_levels} levels: {max(per_level)} "
+            f"keypoints a level; the grid top-k (orb_select_grid) orders at most "
+            f"{orb_kernel.MAX_LEVEL_K} a level on the card")
 
 
 class TrackingState:
@@ -94,10 +126,8 @@ class System:
         self.mesh = mesh
         self.device = torch.device(device)
         dev = self.device
-        if dev.type == "cuda" and cfg.tracking.local_window > local_ba_kernel.MAX_POSES:
-            raise ValueError(
-                f"tracking.local_window {cfg.tracking.local_window}: the window BA's kernel "
-                f"(local_ba_lm) takes at most {local_ba_kernel.MAX_POSES} poses on the card")
+        if dev.type == "cuda":
+            check_kernel_limits(cfg)
         self.voc = None if voc is None else voc.to(dev)
         c = cfg.camera
         self.cam = cam_mod.Pinhole.create(c.fx, c.fy, c.cx, c.cy, bf=c.bf,

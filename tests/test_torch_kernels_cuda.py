@@ -921,8 +921,12 @@ def _cluster_check(cuda, pts, valid, T, V):
     assert _same_bits(got, again)
     sites = _sync_sites(lambda: kcl.balm_clusters(pts, valid, T, **kw))
     assert not sites, sites
+    # one launch a call, each run to its end: the wrapper's count of launches
+    # enqueued and the kernel's own count of launches that ran, on the device
+    # (torch.profiler's record can miss a launch of this cluster kernel)
+    runs, n0 = kcl.device_runs(), kcl.launches
     split = chip_smoke.kernel_split(torch, lambda: kcl.balm_clusters(pts, valid, T, **kw), 10)
-    assert round(split["clusters_kernel"]["launches_a_call"]) == 1, split
+    assert kcl.launches - n0 == 11 and kcl.device_runs() - runs == 11, split
     return got
 
 
@@ -1011,6 +1015,19 @@ def test_pose_inertial_lm_matches_plain(cuda, nf, O, case):
         assert int(got.n_inliers) == 0 and not bool(got.inliers.any())
 
 
+@pytest.mark.parametrize("nf", [15, 30])
+def test_pose_inertial_lm_one_launch_a_call(cuda, nf):
+    """One launch a call by the wrapper's count, and no other kernel in a
+    profile of the calls (the profile's record can miss a cluster launch, so
+    it counts none)."""
+    p = chip_smoke.vi_problem(np.random.default_rng(5), 2000, nf)
+    name, args = chip_smoke.vi_args(torch, p, cuda)
+    n0 = kpi.launches
+    split = chip_smoke.kernel_split(torch, lambda: getattr(tpi, name)(*args), 10)
+    assert kpi.launches - n0 == 11
+    assert set(split) <= {"pose_inertial_kernel"}, split
+
+
 def test_pose_inertial_lm_no_host_sync(cuda):
     for nf in (15, 30):
         p = chip_smoke.vi_problem(np.random.default_rng(4), 2000, nf)
@@ -1040,8 +1057,11 @@ def _imu_window(cuda, N, seed=0):
             up([0.02, -0.01, 0.03]))
 
 
-@pytest.mark.parametrize("N", [0, 1, 10, 1024])
+@pytest.mark.parametrize("N", [0, 1, 9, 10, 60, 513, 1000, 1024])
 def test_imu_preintegrate_matches_plain(cuda, N):
+    """Sizes across the kernel's layout (every seventh slot padding): one
+    chunk; 8 live samples and 1 (two chunks); 4e's window length; 513 slots
+    (440 live, 55 chunks of 8 over 7 blocks); 1000 and 1024 (8 blocks)."""
     a = _imu_window(cuda, N)
     before = kimu.launches
     got, again = timu.integrate(*a), timu.integrate(*a)   # CUDA tensors -> the kernel
@@ -1057,15 +1077,46 @@ def test_imu_preintegrate_matches_plain(cuda, N):
     assert chip_smoke.bit_equal(torch, got[:10], again[:10])
 
 
-def test_imu_preintegrate_padding_is_a_no_op(cuda):
+@pytest.mark.parametrize("N,spread", [(40, False), (1024, True)])
+def test_imu_preintegrate_padding_is_a_no_op(cuda, N, spread):
+    """Padded slots leave the map's bits as they are: a 40-slot window
+    against its live samples alone; and those samples spread over a 1024-slot
+    window of padding (a launch of 8 blocks against one of 1)."""
     a = _imu_window(cuda, 40)
     live = a[3] > 0
+    if spread:
+        at = torch.as_tensor(np.sort(np.random.default_rng(2).choice(N, 40, replace=False)))
+        a = (a[0], *(torch.zeros((N,) + x.shape[1:], device=cuda).index_copy_(0, at.to(cuda), x)
+                     for x in a[1:4]), a[4], a[5])
     got = timu.integrate(*a)
-    alone = timu.integrate(a[0], a[1][live], a[2][live], a[3][live], a[4], a[5])
+    alone = timu.integrate(a[0], a[1][a[3] > 0], a[2][a[3] > 0], a[3][a[3] > 0], a[4], a[5])
     torch.cuda.synchronize()
+    assert int((a[3] > 0).sum()) == int(live.sum())
     for f in ("dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa"):
         assert torch.equal(getattr(got, f), getattr(alone, f)), f
     assert torch.equal(got.C[:9, :9], alone.C[:9, :9])
+
+
+@pytest.mark.parametrize("N", [1, 60, 1024])
+def test_imu_preintegrate_all_padding_is_the_identity(cuda, N):
+    a = _imu_window(cuda, N)
+    a = (*a[:3], torch.zeros_like(a[3]), *a[4:])
+    got, again = timu.integrate(*a), timu.integrate(*a)
+    torch.cuda.synchronize()
+    assert torch.equal(got.dR, torch.eye(3, device=cuda)) and float(got.dt) == 0.0
+    assert not any(bool(getattr(got, f).any())
+                   for f in ("dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa", "C"))
+    assert chip_smoke.bit_equal(torch, got[:10], again[:10])
+
+
+@pytest.mark.parametrize("N", [60, 1024])
+def test_imu_preintegrate_one_launch_a_call(cuda, N):
+    """As test_pose_inertial_lm_one_launch_a_call."""
+    a = _imu_window(cuda, N)
+    n0 = kimu.launches
+    split = chip_smoke.kernel_split(torch, lambda: timu.integrate(*a), 10)
+    assert kimu.launches - n0 == 11
+    assert set(split) <= {"imu_preint_kernel"}, split
 
 
 def test_imu_preintegrate_no_host_sync(cuda):

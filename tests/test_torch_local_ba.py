@@ -312,3 +312,26 @@ def test_system_refuses_a_window_over_the_kernel_limit(window):
     if window > klba.MAX_POSES:
         with pytest.raises(ValueError, match="at most 67 poses"):
             tsys.System(cfg, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("balm_window,window,lidar", [(16, 20, True), (17, 16, True),
+                                                      (17, 17, True), (30, 20, True),
+                                                      (30, 20, False)])
+def test_system_refuses_a_balm_window_over_the_kernel_limit(balm_window, window, lidar):
+    """A BALM pass takes the last min(balm_window, window) keyframes, and
+    ``balm_quadratic`` at most 16 LiDAR poses: on the card ``System`` refuses
+    more at construction (without LiDAR no BALM pass runs); on the CPU it
+    takes any."""
+    import dataclasses
+    from tc2li_slam_torch.slam import config as tcfg, system as tsys
+    from torch_parity import small_config
+    cfg = small_config(tcfg, lidar=lidar)
+    cfg = dataclasses.replace(
+        cfg, tracking=dataclasses.replace(cfg.tracking, local_window=window),
+        lidar=dataclasses.replace(cfg.lidar, balm_window=balm_window))
+    assert tsys.System(cfg, "cpu").cfg.lidar.balm_window == balm_window
+    if lidar and min(balm_window, window) > kbalm.MAX_WINDOW:
+        with pytest.raises(ValueError, match="at most 16 LiDAR poses"):
+            tsys.System(cfg, torch.device("cuda"))
+    else:
+        tsys.check_kernel_limits(cfg)

@@ -229,3 +229,48 @@ def test_dispatch_by_device():
                       torch.zeros((3, 102, 118), device="meta"), z, z, z, 3)
     with pytest.raises(ValueError, match="CUDA"):
         korb.orb_level_planes(img[None], 3, 1.2)
+
+
+def _system_config(**orb):
+    import dataclasses
+    from tc2li_slam_torch.slam import config as tcfg
+    from torch_parity import small_config
+    cfg = small_config(tcfg)
+    return dataclasses.replace(cfg, orb=dataclasses.replace(cfg.orb, **orb))
+
+
+@pytest.mark.parametrize("n_levels", [16, 17])
+def test_system_refuses_more_levels_than_the_kernels_take(n_levels):
+    """A stereo pair's pyramids are one stack of 2 x n_levels planes, and the
+    ORB kernels take at most 32: on the card ``System`` refuses more levels at
+    construction; on the CPU it takes any."""
+    from tc2li_slam_torch.slam import system as tsys
+    cfg = _system_config(n_levels=n_levels)
+    assert tsys.System(cfg, "cpu").cfg.orb.n_levels == n_levels
+    if 2 * n_levels > korb.MAX_PLANES:
+        with pytest.raises(ValueError, match="at most 32 planes"):
+            tsys.System(cfg, torch.device("cuda"))
+    else:
+        tsys.check_kernel_limits(cfg)
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_system_refuses_a_level_over_the_grid_top_k_limit(extra):
+    """``orb_select_grid`` orders at most 12,288 keypoints a level: the
+    features at which the first of 4 levels gets exactly that many build on
+    the card, one more level-0 keypoint is refused at construction; the CPU
+    takes both."""
+    from tc2li_slam_torch.slam import system as tsys
+    n_feat = next(f for f in range(30000, 50000)
+                  if torb.features_per_level(f, 4, 1.2)[0] == korb.MAX_LEVEL_K)
+    while torb.features_per_level(n_feat + 1, 4, 1.2)[0] == korb.MAX_LEVEL_K:
+        n_feat += 1
+    n_feat += extra
+    assert max(torb.features_per_level(n_feat, 4, 1.2)) == korb.MAX_LEVEL_K + extra
+    cfg = _system_config(n_features=n_feat)
+    assert tsys.System(cfg, "cpu").cfg.orb.n_features == n_feat
+    if extra:
+        with pytest.raises(ValueError, match="orders at most 12288"):
+            tsys.System(cfg, torch.device("cuda"))
+    else:
+        tsys.check_kernel_limits(cfg)

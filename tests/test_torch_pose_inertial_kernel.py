@@ -6,11 +6,12 @@ JAX package.
 
 The kernels cannot run here. What they do differently from their plain
 versions is the order of their sums, their types and the shape of their
-solves, so:
+solves, so (the kernels' present shapes, chunked preintegration and the
+whole-block assembly and factor, are in ``test_torch_vi_emulation.py``):
 
-- ``imu_preintegrate``: the chain over samples in float64 with the
-  covariance as M = A C9, then M A^T and (B N) B^T added (the kernel's
-  order), against ``estimation.imu.integrate`` of the JAX package;
+- ``imu_preintegrate``: the sequential chain over samples in float64 with
+  the covariance as M = A C9, then M A^T and (B N) B^T added, against
+  ``estimation.imu.integrate`` of the JAX package;
 - ``pose_inertial_lm``: every evaluation in float64, the rows' sums in the
   kernel's order (an eighth of the rows a block of the cluster, strided
   over its 256 threads, a warp reduce-scatter, the warps then the blocks in
@@ -234,7 +235,7 @@ def test_prior_weight_zero_is_the_empty_prior():
 # ---------------------------------------------------------------------------
 
 def _integrate_emulated(cal, g, a, d, bg, ba):
-    """csrc/imu_preint.cu's chain in float64."""
+    """The sequential chain in float64 (the plain version's order)."""
     g, a, d, bg, ba = (np.asarray(x, F64) for x in (g, a, d, bg, ba))
     act = d > 0
     dt_all = np.where(act, d, 0.0)
@@ -331,7 +332,7 @@ def _row_sums(cam, T_cb, T_wb, X, uvr, s2, st, va, gate):
 
 
 def _cholesky(A):
-    """The kernel's right-looking factor, column by column (rows on lanes)."""
+    """A right-looking factor, column by column, pivots scaled first."""
     A = A.copy()
     nn = A.shape[0]
     for c in range(nn):
@@ -355,7 +356,8 @@ def _chol_solve(L, b):
 
 
 def _pose_inertial_emulated(nf, args):
-    """csrc/pose_inertial.cu's LM in float64 from the float32 arguments."""
+    """The LM's order of evaluations and steps in float64 from the float32
+    arguments, the assembly through the JAX-shaped factor terms."""
     a64 = chip_smoke._vi_cast(torch, args, torch.float64)
     if nf == 15:
         cam, T_cb, s0, anchor, pre, grav, X, uvr, s2, st, va, ibg, iba = a64
