@@ -63,8 +63,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    flag, finite poses, the same ATE limit, and the kernels' launch counts
    against what the run implies: ``imu_preintegrate`` once an
    ``estimation.imu.integrate`` call, ``pose_inertial_lm`` once a frame
-   refined (``n_vi_refine_kf + n_vi_refine_frame``); ``vi_refine``'s ms a
-   frame; then a forced bad-IMU event (a
+   refined (``n_vi_refine_kf + n_vi_refine_frame``), the scan step's
+   ``esekf_predict`` once, ``lio_rows`` max_iters + 2 and ``esekf_step``
+   max_iters + 1 times a ``lio_scan_step`` call; ``vi_refine``'s and
+   ``lio``'s ms a frame; then a forced bad-IMU event (a
    window with non-finite samples): ``lio_scan_step`` returns ``bad`` with
    the filter and the voxel map as they were, and through ``track`` the
    inertial stack is re-armed at that frame's sync and initialises again on
@@ -131,7 +133,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the preintegration (``imu_preintegrate``) on 4e's last and longest
    windows and at N 1, 10 and 1024 with padded slots, against the plain
    version run in float64 (1e-4 of each output's largest entry, or 4x the
-   float32 plain version's own distance); the
+   float32 plain version's own distance); the scan step's three kernels
+   (``lio_phase``) on 4e's last scan step, the same at ``work_cap`` 32768,
+   with the extrinsic estimated, against an empty map and with a
+   non-finite IMU sample: ``esekf_predict`` and the neighbour sets of
+   ``lio_rows`` against the plain versions, the rows' normal equations and
+   the whole update against the plain version or else no farther from its
+   float64 run, every ``esekf_step`` launch against ``esekf.map_step`` /
+   ``posterior_covariance`` in float64 on the kernel's own sums
+   (``LIO_TOL``), the same bits twice, no host sync in a scan step; the
    window BA's kernels on the inputs of phase 3's last local-BA pass with
    the BALM term, of 4f's global BA (64 poses) and on phase 3's pass with
    no valid landmark (poses to 1e-4, landmarks to 1e-3 m, cost to 1e-4
@@ -1132,6 +1142,300 @@ def vi_phase(torch, dev, vi_inputs, rng, log=print, sync=lambda: None, timer=Non
                 replaces="tc2li_slam_tpu/estimation/imu.py:83", max_abs_err=imu_err, ms=ms_k,
                 plain_ms=ms_p, bound_ms=b_i[0], bound_by=b_i[1], library_ms=None)
     return rows
+
+
+# the LiDAR-inertial scan step's kernels (ops/kernels/lio.py): their bounds'
+# operation counts, float32 (rows, prediction) and float64 (the step)
+LIO_PREDICT_OPS_SAMPLE = 2 * 48 * 23 + 60 + 250   # F P and (F P) F^T a row block each,
+#   the noise blocks, the sample's Exp / Jr / state chain
+LIO_PREDICT_BYTES_SAMPLE = 28 + 48                 # gyro, acc, dt in; R, p out
+LIO_ROWS_OPS_POINT = 25 * 19 + 125 * 10 + 5 * 40   # float32: the searches, the
+#   candidates, the top-5
+LIO_ROWS_OPS64_POINT = 300 + 80                    # float64: the plane fit, the row and its
+#   products
+LIO_STEP_OPS = {"step": 23 * 23 * 12 + 23 ** 3 // 3 + 2 * 23 * 23 + 600,
+                "first": 2 * 23 ** 3, "final": 2 * 23 ** 3 + 23 * 23 * 8}
+# the kernels against their plain versions: the prediction's state and P
+# (diagonally scaled), the rows' normal equations (N diagonally scaled, v
+# over its largest entry) and neighbour sets, the float64 step's iterate and
+# P against the plain step run in float64, the scan step's end state and P
+# (the CPU test's tolerances: state 1e-3, P rtol 2e-2, n_effective within 3)
+LIO_TOL = {"predict_state": 1e-4, "predict_P": 1e-4, "rows": 1e-4, "nbr_equal": 0.999,
+           "step_state": 1e-6, "step_P": 1e-5, "state": 1e-3, "P_rtol": 2e-2, "n_eff": 3}
+
+
+def lio_problem(torch, dev, seed: int = 0, n_scan: int = 1 << 15, cap: int = 1 << 19):
+    """A scan step's arguments (``lio.lio_scan_step``'s, the voxel map and
+    the filter first) at the IMU mode's widths: ``io/synthetic``'s street
+    world, a pool of ``cap`` slots (voxel 0.5 m) holding the downsampled scan
+    at t = 0 placed at the true pose, the filter there with its velocity, the
+    scan at t = 0.1 (``n_scan`` points, per-point times) and its IMU window
+    (100 Hz, 16 slots), the System's LioConfig (``max_iters`` 3,
+    ``work_cap`` 8192)."""
+    import numpy as np
+
+    from tc2li_slam_torch.estimation import esekf
+    from tc2li_slam_torch.io import synthetic as syn
+    from tc2li_slam_torch.ops import pointcloud, voxel_map
+    from tc2li_slam_torch.slam import lio
+
+    rng = np.random.default_rng(seed)
+    world = syn.make_world(rng, n_surf=300_000)
+    traj = syn.Trajectory(w_body=(0, 0, 0.03), v_world=(1.5, 0.1, 0.0))
+    up = lambda a, dt_=torch.float32: torch.as_tensor(np.asarray(a)).to(dev, dt_)
+    T0, T1 = syn.trajectory_poses(traj, 2)
+    scan0, v0 = syn.lidar_scan(world, T0, rng, n_max=n_scan)
+    pw0 = scan0 @ T0[:3, :3].T.astype(np.float32) + T0[:3, 3].astype(np.float32)
+    ds, dsv = pointcloud.voxel_downsample(up(pw0), up(v0, torch.bool), 0.5)
+    m = voxel_map.insert(voxel_map.create(cap, 0.5, device=dev), ds, dsv)
+    x = esekf.init_state(device=dev)._replace(pos=up(T0[:3, 3]), R=up(T0[:3, :3]),
+                                              vel=up(traj.v))
+    filt = esekf.Filter(x, esekf.init_filter(device=dev).P)
+    scan1, v1 = syn.lidar_scan(world, T1, rng, n_max=n_scan)
+    gyro, acc, dts, trel = syn.imu_window(traj, 0.0, 0.1, n_max=16)
+    cfg = lio.LioConfig(scan_voxel=0.5, map_voxel=0.5, max_iters=3, blind=2.0, work_cap=8192)
+    noise = esekf.NoiseCfg.create(*VI_CALIB)
+    return (filt, m, up(scan1), up(np.full(n_scan, 0.1, np.float32)), up(v1, torch.bool),
+            up(gyro), up(acc), up(dts), up(trel), noise, cfg)
+
+
+def lio_state64(torch, x):
+    """A State with float64 fields."""
+    return type(x)(*[t.double() for t in x])
+
+
+def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> dict:
+    """Phase 5, the scan step's three kernels against their plain versions
+    on ``dev`` (a CUDA device): ``cases`` is [(label, lio_scan_step's
+    arguments)]. For each: ``esekf_predict`` against ``predict_plain``;
+    ``lio_rows`` at the prediction against ``rows_plain`` (neighbour sets,
+    the normal equations; or else no farther from ``rows_plain`` run in
+    float64 than it); each ``esekf_step`` launch against ``esekf.map_step``
+    / ``posterior_covariance`` run in float64 on the kernel's own sums and
+    iterate; the whole update against ``scan_update_plain`` (``LIO_TOL``);
+    the same bits on a second call; no host sync in a scan step. The first
+    case is timed (``timer(fn, reps) -> ms``). Returns the three kernel
+    rows; raises RuntimeError where a check fails."""
+    import numpy as np
+
+    from tc2li_slam_torch.estimation import esekf
+    from tc2li_slam_torch.ops.kernels import lio as klio
+    from tc2li_slam_torch.slam import lio
+
+    timer = timer or (lambda fn, reps: float("nan"))
+    rows, err = {}, {"esekf_predict": 0.0, "lio_rows": 0.0, "esekf_step": 0.0}
+
+    def dmax(a, b, scale=None):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        d = torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(a), (a - b).abs())
+        if scale is not None:
+            d = d / scale
+        d = float(d.max()) if d.numel() else 0.0
+        return d if d == d else float("inf")
+
+    def vdist(a, b, r):
+        # |v_i| <= sqrt(N_ii sum z^2): v over that scale (of the rows ``r``)
+        sc = torch.sqrt(torch.clamp(r.N.diagonal().double().cpu() * float(r.zz), min=1e-30))
+        return dmax(a, b, sc)
+
+    def finite_dmax(a, b, scale=None):
+        # where both are finite; and inf where one is finite and the other not
+        # everywhere (a NaN spreads further through dense products than
+        # through F's blocks)
+        fa, fb = bool(torch.isfinite(a).all()), bool(torch.isfinite(b).all())
+        if fa != fb:
+            return float("inf")
+        both = (torch.isfinite(a) & torch.isfinite(b)).cpu()
+        return dmax(a.cpu()[both], b.cpu()[both], None if scale is None else scale[both])
+
+    for ci, (label, args) in enumerate(cases):
+        filt0, m, scan, t_pts, sv, gyro, acc, dts, trel, noise, cfg = args
+        k = cfg.max_iters
+        # the prediction
+        fk, Rk, pk = klio.esekf_predict(filt0, gyro, acc, dts, noise)
+        fp, Rp, pp = klio.predict_plain(filt0, gyro, acc, dts, noise)
+        sync()
+        d_pred = {"state": max(finite_dmax(a, b) for a, b in zip(fk.x, fp.x)),
+                  "P": finite_dmax(fk.P, fp.P, diag_scale(torch, fp.P)),
+                  "traj": max(dmax(Rk, Rp), dmax(pk, pp))}
+        pts, pv = lio.scan_points(fk, scan, t_pts, sv, trel, Rk, pk, cfg)
+        M = pts.shape[0]
+        # the rows at the prediction
+        w = klio.LioWork(filt0, fk, m, pts, pv, cfg)
+        slots = torch.empty((M, 5), dtype=torch.int32, device=dev)
+        w.rows(0, slots)
+        Nk, vk, ck = w.sums()
+        r32 = klio.rows_plain(m, pts, pv, fk.x, cfg, with_slots=True)
+        r64 = klio.rows_plain(m.replace(points=m.points.double()), pts.double(), pv,
+                              lio_state64(torch, fk.x), cfg)
+        sync()
+        live = (pv & torch.all(torch.isfinite(pts), -1)).cpu()
+        same_nb = torch.all(torch.sort(slots.long().cpu(), -1)[0]
+                            == torch.sort(r32.slots.cpu(), -1)[0], -1)
+        nb_frac = float(same_nb[live].double().mean()) if bool(live.any()) else 1.0
+        sc = diag_scale(torch, r64.N)
+        d_rows = {"N": dmax(Nk, r32.N, sc), "v": vdist(vk, r32.v, r64),
+                  "N64": dmax(Nk, r64.N, sc), "v64": vdist(vk, r64.v, r64),
+                  "plain N64": dmax(r32.N, r64.N, sc), "plain v64": vdist(r32.v, r64.v, r64)}
+        rows_out = [key for key in ("N", "v") if d_rows[key] > LIO_TOL["rows"]
+                    and d_rows[key + "64"] > d_rows["plain " + key + "64"]]
+        counts = (int(ck), int(r32.n_ok), int(r64.n_ok))
+        # each step launch against the float64 plain step on its own sums
+        r_inv = 1.0 / cfg.meas_cov
+        x0_64 = lio_state64(torch, fk.x)
+        P0i = esekf.prior_information(fk.P.double())
+        x64, conv = x0_64, torch.zeros((), dtype=torch.bool, device=dev)
+        iters = torch.zeros((), dtype=torch.int32, device=dev)
+        d_step = 0.0
+        for i in range(k):
+            if i:
+                w.rows(i)
+            N, v, _ = w.sums()
+            w.step(i)
+            x64, conv, iters = esekf.map_step(*lio_full(torch, N, v, r_inv), x64, x0_64, P0i,
+                                              conv, iters)
+            d_step = max(d_step, dmax(w.iterate(), klio.state_vector(x64)))
+            x64 = klio.state_of(w.iterate().clone())   # the next launch starts from the kernel's
+        w.rows(k)
+        N, v, _ = w.sums()
+        w.step(k, final=True)
+        x64r = klio.state_of(w.iterate().float().double())   # the state as written
+        P64 = esekf.posterior_covariance(lio_full(torch, N, v, r_inv)[0], x64r, x0_64, P0i)
+        res = w.result()
+        f_fin, bad64 = klio.guard(filt0, esekf.Filter(klio.state_of(w.iterate().float()),
+                                                      P64.float()))
+        sync()
+        d_fin = dmax(res.filt.P, f_fin.P, diag_scale(torch, P64)) if not bool(res.bad) else \
+            (0.0 if torch.equal(res.filt.P, filt0.P) else float("inf"))
+        # the whole update against the plain version, twice
+        got = klio.scan_update(filt0, fk, m, pts, pv, cfg)
+        again = klio.scan_update(filt0, fk, m, pts, pv, cfg)
+        ref = klio.scan_update_plain(filt0, fk, m, pts, pv, cfg)
+        f64 = lambda f: esekf.Filter(lio_state64(torch, f.x), f.P.double())
+        ref64 = klio.scan_update_plain(f64(filt0), f64(fk), m.replace(points=m.points.double()),
+                                       pts.double(), pv, cfg)
+        sync()
+        d_state = max(dmax(a, b) for a, b in zip(got.filt.x, ref.filt.x))
+        Pg, Pr = got.filt.P.double().cpu(), ref.filt.P.double().cpu()
+        p_out = bool(((Pg - Pr).abs() > LIO_TOL["P_rtol"] * Pr.abs() + 1e-8).any())
+        # else no farther from the plain version run in float64 than it is
+        sc64 = diag_scale(torch, ref64.filt.P)
+        d_P64 = (dmax(got.filt.P, ref64.filt.P, sc64), dmax(ref.filt.P, ref64.filt.P, sc64))
+        p_out = p_out and d_P64[0] > d_P64[1]
+        twice = bit_equal(torch, [got.filt.P, *got.filt.x, got.points_world, got.n_iters,
+                                  got.n_effective, got.bad],
+                          [again.filt.P, *again.filt.x, again.points_world, again.n_iters,
+                           again.n_effective, again.bad])
+        whole = dict(n_iters=(int(got.n_iters), int(ref.n_iters)), bad=(bool(got.bad),
+                     bool(ref.bad)), n_eff=(int(got.n_effective), int(ref.n_effective)))
+        log(f"lio {label} (M {M}, {int(pv.sum())} valid, map {int(m.count)} points, "
+            f"{w.ncols} columns, max_iters {k}): esekf_predict state "
+            f"{d_pred['state']:.2e}, P {d_pred['P']:.2e} (scaled), trajectory "
+            f"{d_pred['traj']:.2e}; lio_rows neighbour sets equal {nb_frac:.5f}, "
+            + ", ".join(f"{key} {val:.2e}" for key, val in d_rows.items())
+            + f", inliers kernel / plain / float64 {counts}; esekf_step iterate against "
+            f"the float64 plain step {d_step:.2e}, final P {d_fin:.2e} (scaled), bad "
+            f"{bool(res.bad)} / {bool(bad64)}; the update against the plain version: state "
+            f"{d_state:.2e}, P outside rtol {LIO_TOL['P_rtol']} and farther from float64 {p_out} "
+            f"(scaled from float64: kernel {d_P64[0]:.2e}, plain {d_P64[1]:.2e}), {whole}; the same "
+            f"bits on a second call {twice}")
+        faults = []
+        if d_pred["state"] > LIO_TOL["predict_state"] or d_pred["P"] > LIO_TOL["predict_P"] \
+                or d_pred["traj"] > LIO_TOL["predict_state"]:
+            faults.append("esekf_predict")
+        if nb_frac < LIO_TOL["nbr_equal"] or rows_out:
+            faults.append(f"lio_rows {rows_out}")
+        if d_step > LIO_TOL["step_state"] or d_fin > LIO_TOL["step_P"] \
+                or bool(res.bad) != bool(bad64):
+            faults.append("esekf_step")
+        if d_state > LIO_TOL["state"] or p_out or whole["n_iters"][0] != whole["n_iters"][1] \
+                or whole["bad"][0] != whole["bad"][1] \
+                or abs(whole["n_eff"][0] - whole["n_eff"][1]) > LIO_TOL["n_eff"] or not twice:
+            faults.append("the update")
+        if "bad" in label and not (bool(got.bad) and torch.equal(got.filt.P, filt0.P)
+                                   and all(torch.equal(a, b) for a, b in
+                                           zip(got.filt.x, filt0.x))):
+            faults.append("the bad-IMU revert")
+        if faults:
+            raise RuntimeError(f"lio kernels disagree with their plain versions on {label}: "
+                               f"{faults}")
+        err["esekf_predict"] = max(err["esekf_predict"], d_pred["state"])
+        err["lio_rows"] = max(err["lio_rows"], d_rows["N"])
+        err["esekf_step"] = max(err["esekf_step"], d_step)
+        if ci:
+            continue
+        n_sync = syncs_of(torch, lambda: lio.lio_scan_step(*args))
+        log(f"lio: {n_sync} host syncs in a scan step")
+        if n_sync:
+            raise RuntimeError(f"lio_scan_step synchronised the host {n_sync} times")
+        # times: the first case, behind a backlog
+        n_live = int((dts > 0).sum())
+        N_s = gyro.shape[0]
+        ms_k = timer(lambda: klio.esekf_predict(filt0, gyro, acc, dts, noise), 50)
+        ms_p = timer(lambda: klio.predict_plain(filt0, gyro, acc, dts, noise), 3)
+        b_p = bound(2 * 4 * klio.PACKED_FLOATS + LIO_PREDICT_BYTES_SAMPLE * N_s,
+                    LIO_PREDICT_OPS_SAMPLE * n_live)
+        rows["esekf_predict"] = dict(
+            source="tc2li_slam_torch/csrc/lio.cu",
+            replaces="tc2li_slam_tpu/estimation/esekf.py:192", ms=ms_k, plain_ms=ms_p,
+            bound_ms=b_p[0], bound_by=b_p[1], library_ms=None)
+        ms_k = timer(lambda: w.rows(1), 30)
+        ms_p = timer(lambda: klio.rows_plain(m, pts, pv, fk.x, cfg), 3)
+        # the points and the occupied part of the pool read once; the live
+        # points' operations at the float32 and float64 rates
+        b_r = bound(M * 13 + 4 * 36 + int(m.count) * 16 + w.blocks * w.entries * 8)
+        n_pts = int((pv & torch.all(torch.isfinite(pts), -1)).sum())
+        t_ops = 1e3 * n_pts * (LIO_ROWS_OPS_POINT / PEAK_SIMPLE_S
+                               + LIO_ROWS_OPS64_POINT / PEAK_F64_S)
+        b_r = (t_ops, "operations") if t_ops > b_r[0] else b_r
+        rows["lio_rows"] = dict(
+            source="tc2li_slam_torch/csrc/lio.cu", replaces="tc2li_slam_tpu/slam/lio.py:46",
+            ms=ms_k, plain_ms=ms_p, bound_ms=b_r[0], bound_by=b_r[1], library_ms=None)
+
+        def steps():
+            for i in range(k):
+                w.step(i)
+            w.step(k, final=True)
+
+        ms_k = timer(steps, 30) / (k + 1)
+        N, v, _ = w.sums()
+        Nf, vf = (t.float() for t in lio_full(torch, N, v, r_inv))
+        P0f = esekf.prior_information(fk.P)
+        cf, itf = torch.zeros((), dtype=torch.bool, device=dev), torch.zeros(
+            (), dtype=torch.int32, device=dev)
+        ms_p = timer(lambda: esekf.map_step(Nf, vf, fk.x, fk.x, P0f, cf, itf), 3)
+        t_ops = 1e3 * (k * LIO_STEP_OPS["step"] + LIO_STEP_OPS["first"]
+                       + LIO_STEP_OPS["final"]) / (k + 1) / PEAK_F64_S
+        b_s = bound(w.blocks * w.entries * 8 + 2 * 4 * klio.PACKED_FLOATS + 2 * 8 * 567)
+        b_s = (t_ops, "operations") if t_ops > b_s[0] else b_s
+        rows["esekf_step"] = dict(
+            source="tc2li_slam_torch/csrc/lio.cu",
+            replaces="tc2li_slam_tpu/estimation/esekf.py:266", ms=ms_k, plain_ms=ms_p,
+            bound_ms=b_s[0], bound_by=b_s[1], library_ms=None)
+        ms_u = timer(lambda: klio.scan_update(filt0, fk, m, pts, pv, cfg), 20)
+        ms_up = timer(lambda: klio.scan_update_plain(filt0, fk, m, pts, pv, cfg), 3)
+        log(f"lio {label}: esekf_predict {rows['esekf_predict']['ms']:.4f} ms on the device "
+            f"(N {N_s}, {n_live} live), bound {b_p[0]:.6f} ({b_p[1]}), plain "
+            f"{rows['esekf_predict']['plain_ms']:.4f}; lio_rows {rows['lio_rows']['ms']:.4f} "
+            f"(M {M}, {w.blocks} blocks), bound {b_r[0]:.6f} ({b_r[1]}), plain "
+            f"{rows['lio_rows']['plain_ms']:.4f}; esekf_step {ms_k:.4f} a launch (the mean of "
+            f"a scan step's {k + 1}), bound {b_s[0]:.6f} ({b_s[1]}, float64), plain step "
+            f"{ms_p:.4f}; the update's {2 * k + 3} launches {ms_u:.4f}, its plain version "
+            f"{ms_up:.4f}")
+    for name in rows:
+        rows[name]["max_abs_err"] = err[name]
+    return rows
+
+
+def lio_full(torch, N, v, r_inv):
+    """The 23-dim H^T R^-1 H and H^T R^-1 z of the rows' sums over their
+    first nc columns."""
+    nc = N.shape[0]
+    Nf = torch.zeros((23, 23), dtype=N.dtype, device=N.device)
+    vf = torch.zeros(23, dtype=N.dtype, device=N.device)
+    Nf[:nc, :nc] = N * r_inv
+    vf[:nc] = v * r_inv
+    return Nf, vf
 
 
 def scan_rings(n_rings: int, n_points: int, seed: int = 0):
@@ -2201,9 +2505,9 @@ def main() -> int:
     from tc2li_slam_torch.io import synthetic as syn
     from tc2li_slam_torch.ops import bow, orb, stereo
     from tc2li_slam_torch.ops.kernels import (balm as kbalm, build, clusters as kcl, fast,
-                                              hamming, imu_preint as kimu, local_ba as klba,
-                                              match, orb as korb, pose_inertial as kpi,
-                                              pose_lm, stereo as kst)
+                                              hamming, imu_preint as kimu, lio as klio,
+                                              local_ba as klba, match, orb as korb,
+                                              pose_inertial as kpi, pose_lm, stereo as kst)
     from tc2li_slam_torch.slam import (config as cfg_mod, culling, lio, local_mapping,
                                        relocalization, system as sys_mod, tracking,
                                        triangulation)
@@ -2325,6 +2629,18 @@ def main() -> int:
         return integrate(*a, **kw)
 
     imu_mod.integrate = integrate_spy
+    # ... and of the scan step's three kernels: launches_per_scan(max_iters)
+    # a lio_scan_step call, and its last call's arguments, for phase 5
+    lio_calls = {"lio_scan_step": 0}
+    lio_inputs = {}
+    lio_scan_step = lio.lio_scan_step
+
+    def lio_spy(*a, **kw):
+        lio_calls["lio_scan_step"] += 1
+        lio_inputs["last"] = a
+        return lio_scan_step(*a, **kw)
+
+    lio.lio_scan_step = lio_spy
     for name in ("optimize_last_kf", "optimize_last_frame"):
         def vi_spy(*a, _fn=getattr(pi_mod, name), _name=name, **kw):
             vi_inputs[_name] = a
@@ -2342,6 +2658,8 @@ def main() -> int:
         pose_lm.launches = calls["track_frame"] = calls["pnp_ransac"] = 0
         kbalm.launches = klba.launches = kst.launches = kcl.launches = 0
         kimu.launches = kpi.launches = vi_calls["integrate"] = 0
+        klio.predict_launches = klio.rows_launches = klio.step_launches = 0
+        lio_calls["lio_scan_step"] = 0
         korb.level_launches = korb.select_launches = korb.describe_launches = 0
         ba_calls.update(dict.fromkeys(ba_calls, 0))
         ba_inputs["valid_voxels"] = []
@@ -2359,7 +2677,9 @@ def main() -> int:
                 "calls:global_ba": ba_calls["global_ba"],
                 "implied:local_ba_lm": ba_calls["implied"],
                 "imu_preintegrate": kimu.launches, "pose_inertial_lm": kpi.launches,
-                "calls:integrate": vi_calls["integrate"]}
+                "calls:integrate": vi_calls["integrate"],
+                "esekf_predict": klio.predict_launches, "lio_rows": klio.rows_launches,
+                "esekf_step": klio.step_launches, "calls:lio_scan_step": lio_calls["lio_scan_step"]}
 
     def ba_fault(counts, n_balm, n_lvi_balm=0, mesh_iters=0):
         """None if balm_clusters launched once a local-BA or LVI-BA pass with
@@ -2472,7 +2792,8 @@ def main() -> int:
                 "local_ba_lm": klba.launches_per_call(cfg.tracking.ba_iters) * n_ba3,
                 "calls:run_local_ba": n_ba3, "calls:global_ba": 0,
                 "implied:local_ba_lm": klba.launches_per_call(cfg.tracking.ba_iters) * n_ba3,
-                "imu_preintegrate": 0, "pose_inertial_lm": 0, "calls:integrate": 0}
+                "imu_preintegrate": 0, "pose_inertial_lm": 0, "calls:integrate": 0,
+                "esekf_predict": 0, "lio_rows": 0, "esekf_step": 0, "calls:lio_scan_step": 0}
     if launches != expected or slam.n_recover or slam.n_reloc:
         return fail(f"launches {launches} != {expected} (one detection per frame; a stereo "
                     f"match per frame, a tracking match and a pose-only LM per tracked frame, "
@@ -2832,6 +3153,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     counts_e, modes_e = read_counts(), dict(match.launches_by_mode)
+    lio_case4e = lio_inputs.get("last")   # the IMU run's last scan step (before the bad event)
     after = snap(slam3)
     peak3_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     stats3 = slam3.timers.stats()
@@ -2887,8 +3209,21 @@ def main() -> int:
     if counts_e["imu_preintegrate"] != counts_e["calls:integrate"]:
         return fail(f"IMU mode: imu_preintegrate launched {counts_e['imu_preintegrate']} times "
                     f"for {counts_e['calls:integrate']} integrate calls")
+    n_scans = counts_e["calls:lio_scan_step"]
+    want_lio = {name: n * n_scans
+                for name, n in klio.launches_per_scan(cfg3.lidar.max_iters).items()}
+    print(f"{tag} IMU mode: {n_scans} scan steps (max_iters {cfg3.lidar.max_iters}): "
+          + ", ".join(f"{name} launched {counts_e[name]} times (implied {n})"
+                      for name, n in want_lio.items())
+          + f"; lio {1e3 * stats3['lio']['total_s'] / n_steady3:.3f} ms a frame (frames "
+          f"{N_IMU_WARM}..{N_IMU - 1})", flush=True)
+    if n_scans < N_IMU - 1 or any(counts_e[name] != n for name, n in want_lio.items()):
+        return fail(f"IMU mode: the scan step's kernels launched "
+                    f"{[counts_e[name] for name in want_lio]} times for {n_scans} scan steps, "
+                    f"implied {list(want_lio.values())}")
     launches["imu_preintegrate"] = counts_e["imu_preintegrate"]
     launches["pose_inertial_lm"] = counts_e["pose_inertial_lm"]
+    launches.update({name: counts_e[name] for name in want_lio})
     pose_launches["4e"] = counts_e["pose_only_lm"]
     clusters_case4e = ba_inputs.get("clusters")   # the IMU run's last LVI-BA window
     imu_launches = {**{k: counts_e[k] for k in FRAME_KERNELS},
@@ -2899,7 +3234,8 @@ def main() -> int:
                     "balm_clusters": counts_e["balm_clusters"],
                     "local_ba_lm": counts_e["local_ba_lm"],
                     "imu_preintegrate": counts_e["imu_preintegrate"],
-                    "pose_inertial_lm": counts_e["pose_inertial_lm"]}
+                    "pose_inertial_lm": counts_e["pose_inertial_lm"],
+                    **{name: counts_e[name] for name in want_lio}}
     for name, n_launched in imu_launches.items():
         if n_launched < 1:
             return fail(f"IMU mode: {name} was launched no time")
@@ -3327,6 +3663,29 @@ def main() -> int:
                              timer=lambda fn, reps: cuda_ms(torch, fn, reps, True)))
     except RuntimeError as e:
         return fail(str(e))
+    # the scan step's kernels: 4e's last scan step, the same at work_cap
+    # 32768 (LioConfig's default, the whole downsampled scan), with the
+    # extrinsic estimated, against an empty map and with a non-finite IMU
+    # sample (the revert)
+    la = lio_case4e
+    acc_nan = la[6].clone()
+    acc_nan[2] = float("nan")
+    empty = la[1].replace(keys=torch.full_like(la[1].keys, torch.iinfo(torch.int32).max),
+                          count=torch.zeros_like(la[1].count))
+    lio_cases = [("4e's last scan step", la),
+                 ("4e's last scan step, work_cap 32768", la[:10] + (la[10]._replace(
+                     work_cap=1 << 15),)),
+                 ("4e's last scan step, estimate_extrinsic", la[:10] + (la[10]._replace(
+                     estimate_extrinsic=True),)),
+                 ("4e's last scan step, an empty map", la[:1] + (empty,) + la[2:]),
+                 ("4e's last scan step, bad IMU", la[:6] + (acc_nan,) + la[7:])]
+    try:
+        rows.update(lio_phase(torch, dev, lio_cases, log=lambda m: print(f"{tag} {m}",
+                                                                          flush=True),
+                              sync=torch.cuda.synchronize,
+                              timer=lambda fn, reps: cuda_ms(torch, fn, reps, True)))
+    except RuntimeError as e:
+        return fail(str(e))
 
     # window BA: phase 3's last local-BA pass with the BALM term (its inputs as
     # System passed them), 4f's global BA (64 poses), and phase 3's pass with
@@ -3559,7 +3918,8 @@ def main() -> int:
                  "orb_describe", "stereo_refine", "hamming_matrix", "match_best2",
                  "match_best2/epipolar", "match_best2/global", "match_best2/reloc",
                  "match_best2/loop", "pose_only_lm", "balm_clusters", "balm_quadratic",
-                 "local_ba_lm", "imu_preintegrate", "pose_inertial_lm"):
+                 "local_ba_lm", "imu_preintegrate", "pose_inertial_lm", "esekf_predict",
+                 "lio_rows", "esekf_step"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": r["source"],
                         "replaces": r["replaces"], "launches": launches[name],

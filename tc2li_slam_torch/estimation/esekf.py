@@ -6,13 +6,16 @@ position, orientation, LiDAR-IMU extrinsic rotation and translation,
 velocity, gyro bias, accel bias, gravity, with a 23-dim error state (gravity
 has the 2-dof S^2 tangent of MTK's ``S2`` type).
 
-- ``predict`` is a Python loop over the IMU samples given (a sample with
-  ``dt <= 0`` is an exact no-op); each step records the pose for scan
-  undistortion.
+- ``predict`` sends CUDA tensors to the one-launch kernel
+  ``ops/kernels/lio.esekf_predict`` and CPU tensors to its plain version, a
+  Python loop over the IMU samples given (a sample with ``dt <= 0`` is an
+  exact no-op); each step records the pose for scan undistortion.
 - ``update_iterated`` is a fixed count of Gauss-Newton/MAP steps
   ``(H^T H / r + L^T P^-1 L) d = -(H^T z / r + L^T P^-1 (x_i - x_0))`` with a
   convergence mask kept on the device; the measurement closure is
-  re-evaluated at each iterate.
+  re-evaluated at each iterate (``map_step``, ``posterior_covariance``: a
+  step and the final covariance from the normal equations, which the scan
+  step's kernels also hold themselves against).
 - ``transport_jacobian`` is L = d((x + d) - x0)/dd in closed blocks:
   identity on the Euclidean blocks, the inverse right Jacobian on the SO(3)
   blocks, and the 2x2 S^2 transport by forward-mode differentiation of this
@@ -29,6 +32,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..geom import lie
+from ..ops.kernels import lio as klio
 from ..tensors import axis_vector, matvec
 
 ERR_DIM = 23
@@ -184,61 +188,52 @@ class NoiseCfg(NamedTuple):
 def predict(f: Filter, gyro, acc, dts, noise: NoiseCfg):
     """Propagate through an IMU window gyro [N, 3], acc [N, 3], dts [N]
     (<= 0 = padding), per sample. Returns (filter, body_R_traj [N, 3, 3],
-    body_p_traj [N, 3]): the pose after each sample, for scan undistortion."""
-    dtype, dev = gyro.dtype, gyro.device
-    x, P = f.x, f.P
-    active = dts > 0
-    dts = torch.where(active, dts, 0.0)
-    # bg, ba and grav do not change inside predict: the per-sample rotation
-    # increments, their Jacobians and the gravity tangent are batched
-    phi = torch.where(active[:, None], gyro - x.bg, 0.0) * dts[:, None]
-    dRi_all = lie.so3_exp(phi)
-    Jr_all = lie.so3_right_jacobian(phi)
-    a_ub_all = torch.where(active[:, None], acc - x.ba, 0.0)
-    a_hat_all = lie.hat(a_ub_all)
-    gB = -lie.hat(x.grav) @ s2_basis(x.grav)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    eyeE = torch.eye(ERR_DIM, dtype=dtype, device=dev)
-    q = torch.cat([torch.full((3,), v ** 2, dtype=dtype, device=dev)
-                   for v in (noise.gyr, noise.acc, noise.bg_rw, noise.ba_rw)])
+    body_p_traj [N, 3]): the pose after each sample, for scan undistortion.
 
-    pos, R, vel = x.pos, x.R, x.vel
-    R_traj, p_traj = [], []
-    for i in range(gyro.shape[0]):
-        dt = dts[i]
-        dRi, Jr = dRi_all[i], Jr_all[i]
-        acc_w = R @ a_ub_all[i] + x.grav
-
-        F = eyeE.clone()
-        F[POS, VEL] = eye3 * dt
-        F[ROT, ROT] = dRi.T
-        F[ROT, BG] = -Jr * dt
-        F[VEL, ROT] = -R @ a_hat_all[i] * dt
-        F[VEL, BA] = -R * dt
-        F[VEL, GRAV] = gB * dt
-        Fw = torch.zeros((ERR_DIM, 12), dtype=dtype, device=dev)
-        Fw[ROT, 0:3] = -Jr * dt
-        Fw[VEL, 3:6] = -R * dt
-        Fw[BG, 6:9] = eye3 * dt
-        Fw[BA, 9:12] = eye3 * dt
-        P = F @ P @ F.T + (Fw * q[None, :]) @ Fw.T
-
-        pos = pos + vel * dt + 0.5 * acc_w * dt * dt
-        vel = vel + acc_w * dt
-        R = R @ dRi
-        R_traj.append(R)
-        p_traj.append(pos)
-
-    x = x._replace(pos=pos, R=R, vel=vel)
-    if not R_traj:
-        return Filter(x, P), torch.zeros((0, 3, 3), dtype=dtype, device=dev), \
-            torch.zeros((0, 3), dtype=dtype, device=dev)
-    return Filter(x, P), torch.stack(R_traj), torch.stack(p_traj)
+    CUDA tensors go to the one-launch kernel (``ops/kernels/lio.py``
+    ``esekf_predict``), CPU tensors to its plain version; any other device
+    raises."""
+    if gyro.device.type == "cuda":
+        return klio.esekf_predict(f, gyro, acc, dts, noise)
+    if gyro.device.type == "cpu":
+        return klio.predict_plain(f, gyro, acc, dts, noise)
+    raise ValueError(f"predict: unsupported device {gyro.device}")
 
 
 # ---------------------------------------------------------------------------
 # Iterated update
 # ---------------------------------------------------------------------------
+
+def prior_information(P0: torch.Tensor) -> torch.Tensor:
+    """P0^-1 of the iterated update's prior term, with a 1e-9 ridge."""
+    eye = torch.eye(ERR_DIM, dtype=P0.dtype, device=P0.device)
+    return torch.linalg.inv_ex(P0 + 1e-9 * eye, check_errors=False)[0]
+
+
+def map_step(HtH, Htz, x_i: State, x0: State, P0_inv, converged, iters, eps: float = 1e-3):
+    """One Gauss-Newton/MAP step of the iterated update from the normal
+    equations at the iterate (HtH = H^T R^-1 H, Htz = H^T R^-1 z): returns
+    (the next iterate, converged, iterations). A converged iterate stays."""
+    dx0 = boxminus(x_i, x0)
+    # the prior term ||x - x0||^2 linearized in the tangent at the iterate
+    # is ||dx0 + L d||^2
+    Lj = transport_jacobian(x_i, x0)
+    LtP = Lj.T @ P0_inv
+    A = HtH + LtP @ Lj
+    b = -(Htz + LtP @ dx0)
+    delta = torch.linalg.solve_ex(A, b[:, None], check_errors=False)[0][:, 0]
+    step_ok = ~converged
+    x_next = boxplus(x_i, torch.where(step_ok, delta, 0.0))
+    return (x_next, converged | (torch.max(torch.abs(delta)) < eps),
+            iters + step_ok.to(torch.int32))
+
+
+def posterior_covariance(HtH, x_i: State, x0: State, P0_inv) -> torch.Tensor:
+    """P = (H^T R^-1 H + L^T P0^-1 L)^-1 in the tangent at x_i, symmetrised."""
+    Lf = transport_jacobian(x_i, x0)
+    P_new = torch.linalg.inv_ex(HtH + Lf.T @ P0_inv @ Lf, check_errors=False)[0]
+    return 0.5 * (P_new + P_new.T)
+
 
 def update_iterated(f: Filter, h_fn: Callable, meas_noise: float, max_iters: int = 4,
                     eps: float = 1e-3):
@@ -247,9 +242,8 @@ def update_iterated(f: Filter, h_fn: Callable, meas_noise: float, max_iters: int
     (fresh kNN + plane fit each iteration). Returns the updated filter and
     the number of iterations used (a device int32)."""
     x0, P0 = f.x, f.P
-    dtype, dev = P0.dtype, P0.device
-    eye = torch.eye(ERR_DIM, dtype=dtype, device=dev)
-    P0_inv = torch.linalg.inv_ex(P0 + 1e-9 * eye, check_errors=False)[0]
+    dev = P0.device
+    P0_inv = prior_information(P0)
     r_inv = 1.0 / meas_noise
 
     x_i = x0
@@ -258,28 +252,13 @@ def update_iterated(f: Filter, h_fn: Callable, meas_noise: float, max_iters: int
     for _ in range(max_iters):
         z, H, valid = h_fn(x_i)
         Hw = H * (valid.to(z.dtype) * r_inv)[:, None]
-        HtH = H.T @ Hw
-        Htz = Hw.T @ z
-        dx0 = boxminus(x_i, x0)
-        # the prior term ||x - x0||^2 linearized in the tangent at the
-        # iterate is ||dx0 + L d||^2
-        Lj = transport_jacobian(x_i, x0)
-        LtP = Lj.T @ P0_inv
-        A = HtH + LtP @ Lj
-        b = -(Htz + LtP @ dx0)
-        delta = torch.linalg.solve_ex(A, b[:, None], check_errors=False)[0][:, 0]
-        step_ok = ~converged
-        x_i = boxplus(x_i, torch.where(step_ok, delta, 0.0))
-        converged = converged | (torch.max(torch.abs(delta)) < eps)
-        iters = iters + step_ok.to(torch.int32)
+        x_i, converged, iters = map_step(H.T @ Hw, Hw.T @ z, x_i, x0, P0_inv, converged, iters,
+                                         eps)
 
-    # covariance in the tangent at the converged state:
-    # P = (H^T R^-1 H + L^T P0^-1 L)^-1
+    # covariance in the tangent at the converged state
     z, H, valid = h_fn(x_i)
     HtH = H.T @ (H * (valid.to(z.dtype) * r_inv)[:, None])
-    Lf = transport_jacobian(x_i, x0)
-    P_new = torch.linalg.inv_ex(HtH + Lf.T @ P0_inv @ Lf, check_errors=False)[0]
-    return Filter(x_i, 0.5 * (P_new + P_new.T)), iters
+    return Filter(x_i, posterior_covariance(HtH, x_i, x0, P0_inv)), iters
 
 
 # ---------------------------------------------------------------------------

@@ -173,6 +173,17 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.tc2li_pose_inertial_lm.argtypes = ([ctypes.POINTER(ctypes.c_uint64)] + [i] * 3
                                            + [f] * 5 + [i, i] + [vp] * 4)
     lib.tc2li_pose_inertial_lm.restype = i
+    d = ctypes.c_double
+    lib.tc2li_lio_rows_blocks.argtypes = [i]
+    lib.tc2li_lio_rows_blocks.restype = i
+    lib.tc2li_lio_work_doubles.argtypes = []
+    lib.tc2li_lio_work_doubles.restype = i
+    lib.tc2li_esekf_predict.argtypes = [vp] * 4 + [i] + [f] * 4 + [vp] * 4
+    lib.tc2li_esekf_predict.restype = i
+    lib.tc2li_lio_rows.argtypes = [vp] * 3 + [i] + [vp] * 3 + [i, f, f, i, i] + [vp] * 5
+    lib.tc2li_lio_rows.restype = i
+    lib.tc2li_esekf_step.argtypes = [vp, i, i, d, d, vp, vp, i, i] + [vp] * 6
+    lib.tc2li_esekf_step.restype = i
     lib.tc2li_error_string.argtypes = [i]
     lib.tc2li_error_string.restype = ctypes.c_char_p
     return lib

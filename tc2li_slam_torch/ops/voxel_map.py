@@ -97,12 +97,14 @@ def _column_offsets(radius: int, device) -> torch.Tensor:
     return torch.stack([ox.reshape(-1), oy.reshape(-1)], dim=-1)
 
 
-def knn(m: VoxelMap, queries: torch.Tensor, k: int = 5, radius: int = 1):
+def knn(m: VoxelMap, queries: torch.Tensor, k: int = 5, radius: int = 1,
+        with_slots: bool = False):
     """k nearest stored points per query from the (2r+1)^3 voxel
     neighbourhood: one binary search per voxel column (a fixed-(x, y)
     column is contiguous in key space), a fixed candidate run per column,
     then top-k by distance. Returns (dists [Q, k] ascending,
-    points [Q, k, 3], valid [Q, k])."""
+    points [Q, k, 3], valid [Q, k]), and with ``with_slots`` the pool slot
+    of each neighbour (-1 where not valid) [Q, k]."""
     Q = queries.shape[0]
     W = 2 * radius + 1
     dev = queries.device
@@ -130,6 +132,8 @@ def knn(m: VoxelMap, queries: torch.Tensor, k: int = 5, radius: int = 1):
     dists = torch.sqrt(torch.clamp(d2_s, min=0.0))
     sel_pts = torch.gather(cand_pts, 1, sel[..., None].expand(Q, k, 3))
     sel_valid = torch.gather(cand_valid, 1, sel)
+    if with_slots:
+        return dists, sel_pts, sel_valid, torch.where(sel_valid, torch.gather(cand_pos, 1, sel), -1)
     return dists, sel_pts, sel_valid
 
 

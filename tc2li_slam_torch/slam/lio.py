@@ -25,6 +25,7 @@ import torch
 from ..estimation import esekf, undistort as undist
 from ..geom import lie
 from ..ops import plane_fit, pointcloud, voxel_map
+from ..ops.kernels import lio as klio
 from ..tensors import count
 
 
@@ -40,39 +41,43 @@ class LioConfig(NamedTuple):
     work_cap: int = 1 << 15
 
 
-def make_h_fn(m: voxel_map.VoxelMap, points_l, valid, cfg: LioConfig):
-    """The measurement closure of the iterated update. ``points_l`` [M, 3]
-    are undistorted, downsampled points in the LiDAR frame at scan end; the
-    closure re-evaluates kNN + plane fit at the state it is given."""
-    norm_p = torch.linalg.norm(points_l, dim=-1)
-    gate_den = torch.sqrt(torch.clamp(norm_p, min=1e-6))
+def iterated_update(filt0: esekf.Filter, filt: esekf.Filter, m: voxel_map.VoxelMap, points_l,
+                    valid, cfg: LioConfig) -> klio.ScanUpdate:
+    """The scan step's iterated point-to-plane update of the prediction
+    ``filt`` against the voxel map, the divergence guard back to ``filt0``
+    and the inliers at the result. CUDA tensors go to the kernels
+    (``ops/kernels/lio.py`` ``scan_update``: 2 max_iters + 3 launches), CPU
+    tensors to their plain version; any other device raises."""
+    args = (filt0, filt, m, points_l, valid, cfg)
+    if points_l.device.type == "cuda":
+        return klio.scan_update(*args)
+    if points_l.device.type == "cpu":
+        return klio.scan_update_plain(*args)
+    raise ValueError(f"iterated_update: unsupported device {points_l.device}")
 
-    def h_fn(x: esekf.State):
-        p_b = points_l @ x.R_LI.T + x.t_LI          # body frame
-        p_w = p_b @ x.R.T + x.pos                   # world frame
-        dists, nbrs, nb_valid = voxel_map.knn(m, p_w, k=5, radius=2)
-        normals, d, plane_ok = plane_fit.fit_planes(nbrs, nb_valid, cfg.plane_thresh)
-        pd = plane_fit.point_to_plane(p_w, normals, d)
-        # FAST-LIO inlier gate: s = 1 - 0.9 |pd| / sqrt(|p_l|)
-        s = 1.0 - 0.9 * torch.abs(pd) / gate_den
-        ok = valid & plane_ok & (s > 0.9) & (dists[:, 0] < 5.0)
 
-        # d pd / d rot (right perturbation on R): n^T d(R Exp(d) p_b)/dd
-        Rn = normals @ x.R                           # = R^T n, row convention
-        z3 = torch.zeros_like(normals)
-        if cfg.estimate_extrinsic:
-            ext = [torch.linalg.cross(points_l, Rn @ x.R_LI), Rn]
-        else:
-            ext = [z3, z3]
-        H = torch.cat([normals, torch.linalg.cross(p_b, Rn)] + ext
-                      + [z3, z3, z3, z3[:, :2]], dim=-1)
-        # masked rows are set to zero, so no non-finite value leaks through 0 * x
-        z = torch.where(ok, pd, 0.0)
-        z = torch.where(torch.isfinite(z), z, 0.0)
-        H = torch.where(ok[:, None] & torch.isfinite(H), H, 0.0)
-        return z, H, ok
-
-    return h_fn
+def scan_points(filt: esekf.Filter, scan_l, t_points, scan_valid, t_samples, R_traj, p_traj,
+                cfg: LioConfig):
+    """The update's points: the raw scan carried to the LiDAR frame at scan
+    end along the predicted trajectory, preprocessed and voxel-downsampled;
+    (points [M, 3], valid [M])."""
+    # 2. motion-compensate the points to scan end
+    pts_end = undist.undistort(scan_l, t_points, t_samples, R_traj, p_traj,
+                               filt.x.R_LI, filt.x.t_LI)
+    # 3. preprocess + voxel downsample in the LiDAR frame. The downsample
+    # compacts valid voxels to the front in key order, which is spatial
+    # order, so the work_cap subset is strided over the whole valid range: a
+    # prefix would keep one region of the scan and bias the update.
+    keep = pointcloud.preprocess(pts_end, scan_valid, blind=cfg.blind)
+    pts_ds, ds_valid = pointcloud.voxel_downsample(pts_end, keep, cfg.scan_voxel)
+    if pts_ds.shape[0] > cfg.work_cap:
+        n = count(ds_valid)
+        step = torch.clamp(n, min=cfg.work_cap).to(torch.float32) / cfg.work_cap
+        pos = torch.arange(cfg.work_cap, device=pts_ds.device).to(torch.float32) * step
+        idx = torch.clamp(pos.to(torch.int32), max=pts_ds.shape[0] - 1)
+        pts_ds = pts_ds[idx.long()]
+        ds_valid = idx < n
+    return pts_ds, ds_valid
 
 
 class ScanResult(NamedTuple):
@@ -99,40 +104,17 @@ def lio_scan_step(filt: esekf.Filter, m: voxel_map.VoxelMap, scan_l, t_points, s
     filt0 = filt
     # 1. propagate through the scan's IMU samples
     filt, R_traj, p_traj = esekf.predict(filt, gyro, acc, dts, noise)
-    # 2. motion-compensate the points to scan end
-    pts_end = undist.undistort(scan_l, t_points, t_samples, R_traj, p_traj,
-                               filt.x.R_LI, filt.x.t_LI)
-    # 3. preprocess + voxel downsample in the LiDAR frame. The downsample
-    # compacts valid voxels to the front in key order, which is spatial
-    # order, so the work_cap subset is strided over the whole valid range: a
-    # prefix would keep one region of the scan and bias the update.
-    keep = pointcloud.preprocess(pts_end, scan_valid, blind=cfg.blind)
-    pts_ds, ds_valid = pointcloud.voxel_downsample(pts_end, keep, cfg.scan_voxel)
-    if pts_ds.shape[0] > cfg.work_cap:
-        n = count(ds_valid)
-        step = torch.clamp(n, min=cfg.work_cap).to(torch.float32) / cfg.work_cap
-        pos = torch.arange(cfg.work_cap, device=pts_ds.device).to(torch.float32) * step
-        idx = torch.clamp(pos.to(torch.int32), max=pts_ds.shape[0] - 1)
-        pts_ds = pts_ds[idx.long()]
-        ds_valid = idx < n
-    # 4. iterated point-to-plane update
-    h_fn = make_h_fn(m, pts_ds, ds_valid, cfg)
-    filt, n_iters = esekf.update_iterated(filt, h_fn, cfg.meas_cov, max_iters=cfg.max_iters)
-    # 5. divergence guard: back to the filter before the scan on a bad state
-    stx = filt.x
-    flat = torch.cat([stx.pos, stx.vel, stx.bg, stx.ba, stx.grav, stx.R.reshape(-1),
-                      filt.P.reshape(-1)])
-    bad = ~torch.all(torch.isfinite(flat)) | (torch.sum(stx.vel * stx.vel) > 60.0 ** 2)
-    filt = esekf.Filter(
-        esekf.State(*[torch.where(bad, a, b) for a, b in zip(filt0.x, filt.x)]),
-        torch.where(bad, filt0.P, filt.P))
+    # 2.-3. the scan at its end, downsampled
+    pts_ds, ds_valid = scan_points(filt, scan_l, t_points, scan_valid, t_samples, R_traj,
+                                   p_traj, cfg)
+    # 4. iterated point-to-plane update, 5. divergence guard: back to the
+    # filter before the scan on a bad state
+    upd = iterated_update(filt0, filt, m, pts_ds, ds_valid, cfg)
     # 6. map insert at the converged pose
-    p_b = pts_ds @ filt.x.R_LI.T + filt.x.t_LI
-    p_w = p_b @ filt.x.R.T + filt.x.pos
-    _, _, ok = h_fn(filt.x)
     if map_insert:
-        m = voxel_map.insert(m, p_w, ds_valid & ~bad)
-    return ScanResult(filt, m, p_w, ds_valid, n_iters, count(ok), bad)
+        m = voxel_map.insert(m, upd.points_world, ds_valid & ~upd.bad)
+    return ScanResult(upd.filt, m, upd.points_world, ds_valid, upd.n_iters, upd.n_effective,
+                      upd.bad)
 
 
 def camera_scan_stage(scan, scan_valid, T_cw, T_cl, blind: float, map_voxel: float,

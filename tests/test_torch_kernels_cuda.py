@@ -19,7 +19,14 @@ inlier flags equal but at a gate; ``imu_preintegrate`` (float32 sums in
 another order than ATen's) within 1e-4 of the plain version run in float64
 (``chip_smoke.imu_distance``: the covariance diagonally scaled, any other
 output over its largest entry), or 4x the float32 plain version's own
-distance.
+distance. The scan step's three kernels (``chip_smoke.lio_phase``,
+``LIO_TOL``): the prediction to 1e-4 (state; P diagonally scaled), the
+neighbour sets 99.9% equal, the rows' normal equations (float64 plane fits)
+to 1e-4 after diagonal scaling or else no farther from the plain version
+run in float64, each step launch to 1e-6 of ``esekf.map_step`` in float64
+on its own sums, the update to 1e-3 in state and rtol 2e-2 in P (or else
+no farther from float64), ``n_iters`` and ``bad`` equal, ``n_effective``
+within 3.
 """
 
 import numpy as np
@@ -1134,3 +1141,95 @@ def test_imu_preintegrate_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         kimu.imu_preintegrate(a[0], a[1], a[2].cpu(), *a[3:])
 
+
+
+# --- the LiDAR-inertial scan step (ops/kernels/lio.py) ---------------------------
+
+def _lio_case(cuda, case):
+    """chip_smoke.lio_problem's scan step, and its variants of phase 5."""
+    a = chip_smoke.lio_problem(torch, cuda)
+    if case == "work_cap":
+        return a[:10] + (a[10]._replace(work_cap=1 << 15),)
+    if case == "extrinsic":
+        return a[:10] + (a[10]._replace(estimate_extrinsic=True),)
+    if case == "empty_map":
+        m = a[1].replace(keys=torch.full_like(a[1].keys, torch.iinfo(torch.int32).max),
+                         count=torch.zeros_like(a[1].count))
+        return a[:1] + (m,) + a[2:]
+    if case == "bad_imu":
+        acc = a[6].clone()
+        acc[2] = float("nan")
+        return a[:6] + (acc,) + a[7:]
+    return a
+
+
+@pytest.mark.parametrize("case", ["full", "work_cap", "extrinsic", "empty_map", "bad_imu"])
+def test_lio_kernels_match_plain(cuda, case):
+    """``chip_smoke.lio_phase``: each of the three kernels against its plain
+    version (``chip_smoke.LIO_TOL``; the step against the plain step run in
+    float64 on its own sums), the whole update against ``scan_update_plain``,
+    the same bits on a second call, no host sync in a scan step."""
+    rows = chip_smoke.lio_phase(torch, cuda, [(case, _lio_case(cuda, case))])
+    assert set(rows) == {"esekf_predict", "lio_rows", "esekf_step"}
+
+
+@pytest.mark.parametrize("max_iters", [1, 3, 4])
+def test_lio_scan_step_launches(cuda, max_iters):
+    """A scan step launches esekf_predict once, lio_rows k + 2 and esekf_step
+    k + 1 times, counted by the wrappers."""
+    from tc2li_slam_torch.ops.kernels import lio as klio
+    from tc2li_slam_torch.slam import lio
+    a = _lio_case(cuda, "full")
+    a = a[:10] + (a[10]._replace(max_iters=max_iters),)
+    n0 = (klio.predict_launches, klio.rows_launches, klio.step_launches)
+    res = lio.lio_scan_step(*a)
+    torch.cuda.synchronize()
+    n1 = (klio.predict_launches, klio.rows_launches, klio.step_launches)
+    want = klio.launches_per_scan(max_iters)
+    assert tuple(b - c for b, c in zip(n1, n0)) == (
+        want["esekf_predict"], want["lio_rows"], want["esekf_step"])
+    assert not bool(res.bad) and 0 < int(res.n_iters) <= max_iters
+
+
+def test_lio_predict_padding_is_a_no_op(cuda):
+    """Padded slots (dt <= 0) between live samples change no bit of the
+    prediction; their trajectory rows repeat the pose before them."""
+    from tc2li_slam_torch.estimation import esekf
+    a = _lio_case(cuda, "full")
+    filt, gyro, acc, dts, noise = a[0], a[5], a[6], a[7], a[9]
+    live = dts > 0
+    n = int(live.sum())
+    pad = torch.zeros(2 * n, dtype=torch.bool, device=cuda)
+    pad[1::2] = True
+    g2 = torch.zeros((2 * n, 3), device=cuda)
+    a2 = torch.full((2 * n, 3), float("nan"), device=cuda)
+    d2 = torch.full((2 * n,), -1.0, device=cuda)
+    g2[~pad], a2[~pad], d2[~pad] = gyro[live], acc[live], dts[live]
+    f1, R1, p1 = esekf.predict(filt, gyro[live], acc[live], dts[live], noise)
+    f2, R2, p2 = esekf.predict(filt, g2, a2, d2, noise)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(f1.x, f2.x)) and torch.equal(f1.P, f2.P)
+    assert torch.equal(R2[~pad], R1) and torch.equal(p2[~pad], p1)
+    assert torch.equal(R2[pad], R1) and torch.equal(p2[pad], p1)
+
+
+def test_lio_scan_step_no_host_sync(cuda):
+    from tc2li_slam_torch.slam import lio
+    a = _lio_case(cuda, "full")
+    lio.lio_scan_step(*a)
+    torch.cuda.synchronize()
+    sites = _sync_sites(lambda: lio.lio_scan_step(*a))
+    assert not sites, sites
+
+
+def test_lio_kernels_refuse_what_they_do_not_take(cuda):
+    from tc2li_slam_torch.ops.kernels import lio as klio
+    a = _lio_case(cuda, "full")
+    filt, m, gyro, acc, dts, noise = a[0], a[1], a[5], a[6], a[7], a[9]
+    with pytest.raises(ValueError, match="float32"):
+        klio.esekf_predict(filt, gyro.double(), acc, dts, noise)
+    with pytest.raises(ValueError, match="CUDA"):
+        klio.esekf_predict(filt, gyro, acc, dts.cpu(), noise)
+    pts = torch.zeros((10, 3), device=cuda)
+    with pytest.raises(ValueError, match="bool"):
+        klio.LioWork(filt, filt, m, pts, torch.ones(10, device=cuda), a[10])

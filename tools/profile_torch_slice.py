@@ -25,7 +25,11 @@ frame (the candidates must ride in the frame's one transfer). With ``--imu``
 the ``vi_refine`` stage is split into its preintegration
 (``estimation/imu.integrate``) and its optimizer
 (``solver/pose_inertial.optimize_last_kf`` / ``optimize_last_frame``), each
-counted inside the stage only. In every mode
+counted inside the stage only, and the ``lio`` stage into contiguous
+segments (``lio:predict``, ``lio:undistort``, ``lio:downsample`` from
+``pointcloud.preprocess`` with the ``work_cap`` subset, ``lio:update`` from
+the update's entry to the map insert, ``lio:insert``, ``lio:recenter``),
+the same on a tree from before the scan step's kernels. In every mode
 the window BA's parts are named ranges too (``balm.build_clusters``,
 ``balm.quadratic``, ``lm.local_ba``, the last holding the quadratic's calls):
 calls, host ms and device events a call of each (``ba_split``), and the
@@ -109,11 +113,13 @@ def main() -> int:
     if args.tree:
         sys.path.insert(0, str(Path(args.tree).resolve()))
     import tc2li_slam_torch
-    from tc2li_slam_torch.estimation import imu as imu_est
+    from tc2li_slam_torch.estimation import esekf as esekf_mod, imu as imu_est, \
+        undistort as undist_mod
     from tc2li_slam_torch.io import synthetic as syn
-    from tc2li_slam_torch.ops import bow, orb, stereo
+    from tc2li_slam_torch.ops import bow, orb, pointcloud as pc_mod, stereo, voxel_map as vm_mod
     from tc2li_slam_torch.ops.kernels import fast, match
-    from tc2li_slam_torch.slam import config as cfg_mod, system as sys_mod, tracking
+    from tc2li_slam_torch.slam import config as cfg_mod, lio as lio_mod, system as sys_mod, \
+        tracking
     from tc2li_slam_torch.solver import balm as balm_mod, lm as lm_mod, pose_inertial as pi_mod
 
     out = Path(args.out)
@@ -121,9 +127,11 @@ def main() -> int:
     smi = chip_smoke.nvidia_smi_line()
     rng = np.random.default_rng(0)
     world = syn.make_world(rng, n_surf=300_000)
+    traj = syn.Trajectory(w_body=(0, 0, 0.03), v_world=(1.5, 0.1, 0.0))
     frames, _, _ = syn.generate_sequence(
         n_frames=args.frames, cam=syn.KITTI_LIKE, seed=0, n_scan=1 << 17, world=world,
-        traj=syn.Trajectory(w_body=(0, 0, 0.03), v_world=(1.5, 0.1, 0.0)))
+        traj=traj, stereo_pairs=chip_smoke.render_pairs(
+            syn.KITTI_LIKE, world, syn.trajectory_poses(traj, args.frames)))
     scans = [np.where(fr.scan_valid[:, None], fr.scan, 0.0)[::4].astype(np.float32)
              for fr in frames]
     cfg = chip_smoke.kitti_config(cfg_mod, syn, triangulate=args.triangulate or args.imu)
@@ -152,14 +160,6 @@ def main() -> int:
                               scan_times=fr.scan_times[::4])
         return slam.track(fr.img_l, fr.img_r, fr.t, sc)
 
-    # the two IMU-mode stages as named ranges in the trace, so that the
-    # launches the host makes inside them can be counted
-    STAGES = ("_lio_step", "_vi_frame_refine") if args.imu else ()
-    for name in STAGES:
-        def ranged(*a, _fn=getattr(slam, name), _name=name, **kw):
-            with record_function(f"stage:{_name}"):
-                return _fn(*a, **kw)
-        setattr(slam, name, ranged)
     if args.loop:
         # the detection is a function of the loop-closing module that System
         # calls at a keyframe: the same kind of named range around it
@@ -181,6 +181,65 @@ def main() -> int:
             with record_function(f"vi:{_name}"):
                 return _fn(*a, **kw)
         setattr(mod, name, ranged_vi)
+    # the lio stage's parts, each a contiguous segment of the scan step: a
+    # named range opened where its first module attribute is called and
+    # closed where the next segment opens or the stage ends. ``downsample``
+    # runs from ``pointcloud.preprocess`` to the update (the voxel
+    # downsample and the strided ``work_cap`` subset); ``update`` from the
+    # update's entry (``lio.iterated_update``, or ``lio.make_h_fn`` in a tree
+    # without it) to ``voxel_map.insert`` (the guard and the last evaluation
+    # included). Counted inside ``stage:_lio_step`` only.
+    class LioSegments:
+        active, name, rf = False, None, None
+
+        def start(self, name):
+            if not self.active or self.name == name:
+                return
+            self.close()
+            self.name, self.rf = name, record_function(f"lio:{name}")
+            self.rf.__enter__()
+
+        def close(self):
+            if self.rf is not None:
+                self.rf.__exit__(None, None, None)
+            self.name, self.rf = None, None
+
+    seg = LioSegments()
+    LIO_PARTS = ()
+    if args.imu:
+        update_entry = "iterated_update" if hasattr(lio_mod, "iterated_update") else "make_h_fn"
+        LIO_PARTS = (("predict", esekf_mod, "predict", True),
+                     ("undistort", undist_mod, "undistort", True),
+                     ("downsample", pc_mod, "preprocess", False),
+                     ("update", lio_mod, update_entry, False),
+                     ("insert", vm_mod, "insert", True),
+                     ("recenter", lio_mod, "maybe_recenter", True))
+        lio_step = slam._lio_step
+
+        def lio_stage(*a, **kw):
+            seg.active = True
+            try:
+                return lio_step(*a, **kw)
+            finally:
+                seg.close()
+                seg.active = False
+        slam._lio_step = lio_stage
+    for rname, mod, name, closes in LIO_PARTS:
+        def ranged_lio(*a, _fn=getattr(mod, name), _rname=rname, _closes=closes, **kw):
+            seg.start(_rname)
+            out = _fn(*a, **kw)
+            if _closes:
+                seg.close()
+            return out
+        setattr(mod, name, ranged_lio)
+    # the two IMU-mode stages as named ranges in the trace, so that the
+    # launches the host makes inside them can be counted
+    STAGES = ("_lio_step", "_vi_frame_refine") if args.imu else ()
+    for name in STAGES:
+        def ranged(*a, _fn=getattr(slam, name), _name=name, **kw):
+            with record_function(f"stage:{_name}"):
+                return _fn(*a, **kw)
+        setattr(slam, name, ranged)
     # the window BA's parts, as module attributes the mapping pass calls
     BA_PARTS = (("build_clusters", balm_mod), ("quadratic", balm_mod), ("local_ba", lm_mod))
     for name, mod in BA_PARTS:
@@ -258,7 +317,7 @@ def main() -> int:
     trace.unlink()
 
     events = prof.key_averages()
-    RANGE_PREFIXES = ("stage:", "ba:", "orb:", "stereo:", "build_frame")
+    RANGE_PREFIXES = ("stage:", "ba:", "orb:", "stereo:", "build_frame", "lio:", "vi:")
     dev_us = 0.0
     n_kernels = 0
     for e in prof.events():
@@ -309,6 +368,9 @@ def main() -> int:
                 "host_ms_per_call": sum(b - a for a, b in spans) / 1e3 / max(len(spans), 1)}
 
     stage_events = {name: range_events(f"stage:{name}") for name in STAGES}
+    for rname, *_ in LIO_PARTS:
+        stage_events[f"_lio_step/{rname}"] = range_events(f"lio:{rname}",
+                                                          within="stage:_lio_step")
     for name, _ in VI_PARTS:
         stage_events[f"_vi_frame_refine/{name}"] = range_events(
             f"vi:{name}", within="stage:_vi_frame_refine")
