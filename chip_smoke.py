@@ -64,8 +64,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against what the run implies: ``imu_preintegrate`` once an
    ``estimation.imu.integrate`` call, ``pose_inertial_lm`` once a frame
    refined (``n_vi_refine_kf + n_vi_refine_frame``), the scan step's
-   ``esekf_predict`` once, ``lio_rows`` max_iters + 2 and ``esekf_step``
-   max_iters + 1 times a ``lio_scan_step`` call; ``vi_refine``'s and
+   ``esekf_predict`` and ``lio_fences`` once, ``lio_rows`` max_iters + 2 and
+   ``esekf_step`` max_iters + 1 times a ``lio_scan_step`` call; ``vi_refine``'s and
    ``lio``'s ms a frame; then a forced bad-IMU event (a
    window with non-finite samples): ``lio_scan_step`` returns ``bad`` with
    the filter and the voxel map as they were, and through ``track`` the
@@ -133,11 +133,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the preintegration (``imu_preintegrate``) on 4e's last and longest
    windows and at N 1, 10 and 1024 with padded slots, against the plain
    version run in float64 (1e-4 of each output's largest entry, or 4x the
-   float32 plain version's own distance); the scan step's three kernels
+   float32 plain version's own distance); the scan step's four kernels
    (``lio_phase``) on 4e's last scan step, the same at ``work_cap`` 32768,
    with the extrinsic estimated, against an empty map and with a
-   non-finite IMU sample: ``esekf_predict`` and the neighbour sets of
-   ``lio_rows`` against the plain versions, the rows' normal equations and
+   non-finite IMU sample: ``esekf_predict``, the fence table of
+   ``lio_fences`` (equal) and the neighbour sets of ``lio_rows`` against the
+   plain versions, the rows' normal equations and
    the whole update against the plain version or else no farther from its
    float64 run, every ``esekf_step`` launch against ``esekf.map_step`` /
    ``posterior_covariance`` in float64 on the kernel's own sums
@@ -1205,7 +1206,7 @@ def lio_state64(torch, x):
 
 
 def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> dict:
-    """Phase 5, the scan step's three kernels against their plain versions
+    """Phase 5, the scan step's four kernels against their plain versions
     on ``dev`` (a CUDA device): ``cases`` is [(label, lio_scan_step's
     arguments)]. For each: ``esekf_predict`` against ``predict_plain``;
     ``lio_rows`` at the prediction against ``rows_plain`` (neighbour sets,
@@ -1223,7 +1224,7 @@ def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> di
     from tc2li_slam_torch.slam import lio
 
     timer = timer or (lambda fn, reps: float("nan"))
-    rows, err = {}, {"esekf_predict": 0.0, "lio_rows": 0.0, "esekf_step": 0.0}
+    rows, err = {}, {"esekf_predict": 0.0, "lio_fences": 0.0, "lio_rows": 0.0, "esekf_step": 0.0}
 
     def dmax(a, b, scale=None):
         a, b = a.detach().double().cpu(), b.detach().double().cpu()
@@ -1263,7 +1264,9 @@ def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> di
         # the rows at the prediction
         w = klio.LioWork(filt0, fk, m, pts, pv, cfg)
         slots = torch.empty((M, 5), dtype=torch.int32, device=dev)
+        w.fences()
         w.rows(0, slots)
+        d_fence = dmax(w.fence_table, klio.fences_plain(m.keys, w.lg))
         Nk, vk, ck = w.sums()
         r32 = klio.rows_plain(m, pts, pv, fk.x, cfg, with_slots=True)
         r64 = klio.rows_plain(m.replace(points=m.points.double()), pts.double(), pv,
@@ -1329,7 +1332,8 @@ def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> di
         whole = dict(n_iters=(int(got.n_iters), int(ref.n_iters)), bad=(bool(got.bad),
                      bool(ref.bad)), n_eff=(int(got.n_effective), int(ref.n_effective)))
         log(f"lio {label} (M {M}, {int(pv.sum())} valid, map {int(m.count)} points, "
-            f"{w.ncols} columns, max_iters {k}): esekf_predict state "
+            f"{w.ncols} columns, max_iters {k}): lio_fences against the plain version "
+            f"{d_fence:g} ({w.n_fences} fences, stride 2^{w.lg}); esekf_predict state "
             f"{d_pred['state']:.2e}, P {d_pred['P']:.2e} (scaled), trajectory "
             f"{d_pred['traj']:.2e}; lio_rows neighbour sets equal {nb_frac:.5f}, "
             + ", ".join(f"{key} {val:.2e}" for key, val in d_rows.items())
@@ -1343,6 +1347,8 @@ def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> di
         if d_pred["state"] > LIO_TOL["predict_state"] or d_pred["P"] > LIO_TOL["predict_P"] \
                 or d_pred["traj"] > LIO_TOL["predict_state"]:
             faults.append("esekf_predict")
+        if d_fence != 0.0:
+            faults.append("lio_fences")
         if nb_frac < LIO_TOL["nbr_equal"] or rows_out:
             faults.append(f"lio_rows {rows_out}")
         if d_step > LIO_TOL["step_state"] or d_fin > LIO_TOL["step_P"] \
@@ -1360,6 +1366,7 @@ def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> di
             raise RuntimeError(f"lio kernels disagree with their plain versions on {label}: "
                                f"{faults}")
         err["esekf_predict"] = max(err["esekf_predict"], d_pred["state"])
+        err["lio_fences"] = max(err["lio_fences"], d_fence)
         err["lio_rows"] = max(err["lio_rows"], d_rows["N"])
         err["esekf_step"] = max(err["esekf_step"], d_step)
         if ci:
@@ -1379,6 +1386,13 @@ def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> di
             source="tc2li_slam_torch/csrc/lio.cu",
             replaces="tc2li_slam_tpu/estimation/esekf.py:192", ms=ms_k, plain_ms=ms_p,
             bound_ms=b_p[0], bound_by=b_p[1], library_ms=None)
+        ms_f = timer(w.fences, 50)
+        ms_fp = timer(lambda: klio.fences_plain(m.keys, w.lg), 20)
+        # the keys at the fences read, the table and its count written
+        b_f = bound(4 * w.n_fences + 4 * (w.n_fences + 1))
+        rows["lio_fences"] = dict(
+            source="tc2li_slam_torch/csrc/lio.cu", replaces="tc2li_slam_tpu/ops/voxel_map.py:154",
+            ms=ms_f, plain_ms=ms_fp, bound_ms=b_f[0], bound_by=b_f[1], library_ms=None)
         ms_k = timer(lambda: w.rows(1), 30)
         ms_p = timer(lambda: klio.rows_plain(m, pts, pv, fk.x, cfg), 3)
         # the points and the occupied part of the pool read once; the live
@@ -1398,6 +1412,12 @@ def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> di
             w.step(k, final=True)
 
         ms_k = timer(steps, 30) / (k + 1)
+        # the three kinds apart: the first starts from the prediction and
+        # inverts P0, the final one inverts the posterior information and
+        # runs the guard
+        ms_kinds = {"first_ms": timer(lambda: w.step(0), 30),
+                    "middle_ms": timer(lambda: w.step(1), 30),
+                    "final_ms": timer(lambda: w.step(k, final=True), 30)}
         N, v, _ = w.sums()
         Nf, vf = (t.float() for t in lio_full(torch, N, v, r_inv))
         P0f = esekf.prior_information(fk.P)
@@ -1411,16 +1431,19 @@ def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> di
         rows["esekf_step"] = dict(
             source="tc2li_slam_torch/csrc/lio.cu",
             replaces="tc2li_slam_tpu/estimation/esekf.py:266", ms=ms_k, plain_ms=ms_p,
-            bound_ms=b_s[0], bound_by=b_s[1], library_ms=None)
+            bound_ms=b_s[0], bound_by=b_s[1], library_ms=None, **ms_kinds)
         ms_u = timer(lambda: klio.scan_update(filt0, fk, m, pts, pv, cfg), 20)
         ms_up = timer(lambda: klio.scan_update_plain(filt0, fk, m, pts, pv, cfg), 3)
-        log(f"lio {label}: esekf_predict {rows['esekf_predict']['ms']:.4f} ms on the device "
+        log(f"lio {label}: lio_fences {ms_f:.4f} ms on the device, bound {b_f[0]:.6f} "
+            f"({b_f[1]}), plain {ms_fp:.4f}; esekf_predict {rows['esekf_predict']['ms']:.4f} ms on the device "
             f"(N {N_s}, {n_live} live), bound {b_p[0]:.6f} ({b_p[1]}), plain "
             f"{rows['esekf_predict']['plain_ms']:.4f}; lio_rows {rows['lio_rows']['ms']:.4f} "
             f"(M {M}, {w.blocks} blocks), bound {b_r[0]:.6f} ({b_r[1]}), plain "
             f"{rows['lio_rows']['plain_ms']:.4f}; esekf_step {ms_k:.4f} a launch (the mean of "
-            f"a scan step's {k + 1}), bound {b_s[0]:.6f} ({b_s[1]}, float64), plain step "
-            f"{ms_p:.4f}; the update's {2 * k + 3} launches {ms_u:.4f}, its plain version "
+            f"a scan step's {k + 1}; first / middle / final "
+            + " / ".join(f"{v:.4f}" for v in ms_kinds.values())
+            + f"), bound {b_s[0]:.6f} ({b_s[1]}, float64), plain step "
+            f"{ms_p:.4f}; the update's {2 * k + 4} launches {ms_u:.4f}, its plain version "
             f"{ms_up:.4f}")
     for name in rows:
         rows[name]["max_abs_err"] = err[name]
@@ -2629,7 +2652,7 @@ def main() -> int:
         return integrate(*a, **kw)
 
     imu_mod.integrate = integrate_spy
-    # ... and of the scan step's three kernels: launches_per_scan(max_iters)
+    # ... and of the scan step's four kernels: launches_per_scan(max_iters)
     # a lio_scan_step call, and its last call's arguments, for phase 5
     lio_calls = {"lio_scan_step": 0}
     lio_inputs = {}
@@ -2658,7 +2681,8 @@ def main() -> int:
         pose_lm.launches = calls["track_frame"] = calls["pnp_ransac"] = 0
         kbalm.launches = klba.launches = kst.launches = kcl.launches = 0
         kimu.launches = kpi.launches = vi_calls["integrate"] = 0
-        klio.predict_launches = klio.rows_launches = klio.step_launches = 0
+        klio.predict_launches = klio.fence_launches = klio.rows_launches = 0
+        klio.step_launches = 0
         lio_calls["lio_scan_step"] = 0
         korb.level_launches = korb.select_launches = korb.describe_launches = 0
         ba_calls.update(dict.fromkeys(ba_calls, 0))
@@ -2678,8 +2702,9 @@ def main() -> int:
                 "implied:local_ba_lm": ba_calls["implied"],
                 "imu_preintegrate": kimu.launches, "pose_inertial_lm": kpi.launches,
                 "calls:integrate": vi_calls["integrate"],
-                "esekf_predict": klio.predict_launches, "lio_rows": klio.rows_launches,
-                "esekf_step": klio.step_launches, "calls:lio_scan_step": lio_calls["lio_scan_step"]}
+                "esekf_predict": klio.predict_launches, "lio_fences": klio.fence_launches,
+                "lio_rows": klio.rows_launches, "esekf_step": klio.step_launches,
+                "calls:lio_scan_step": lio_calls["lio_scan_step"]}
 
     def ba_fault(counts, n_balm, n_lvi_balm=0, mesh_iters=0):
         """None if balm_clusters launched once a local-BA or LVI-BA pass with
@@ -2793,7 +2818,8 @@ def main() -> int:
                 "calls:run_local_ba": n_ba3, "calls:global_ba": 0,
                 "implied:local_ba_lm": klba.launches_per_call(cfg.tracking.ba_iters) * n_ba3,
                 "imu_preintegrate": 0, "pose_inertial_lm": 0, "calls:integrate": 0,
-                "esekf_predict": 0, "lio_rows": 0, "esekf_step": 0, "calls:lio_scan_step": 0}
+                "esekf_predict": 0, "lio_fences": 0, "lio_rows": 0, "esekf_step": 0,
+                "calls:lio_scan_step": 0}
     if launches != expected or slam.n_recover or slam.n_reloc:
         return fail(f"launches {launches} != {expected} (one detection per frame; a stereo "
                     f"match per frame, a tracking match and a pose-only LM per tracked frame, "
@@ -3919,14 +3945,15 @@ def main() -> int:
                  "match_best2/epipolar", "match_best2/global", "match_best2/reloc",
                  "match_best2/loop", "pose_only_lm", "balm_clusters", "balm_quadratic",
                  "local_ba_lm", "imu_preintegrate", "pose_inertial_lm", "esekf_predict",
-                 "lio_rows", "esekf_step"):
+                 "lio_fences", "lio_rows", "esekf_step"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": r["source"],
                         "replaces": r["replaces"], "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-                        "launches_imu_mode": imu_launches.get(name, 0)})
+                        "launches_imu_mode": imu_launches.get(name, 0),
+                        **{k: r[k] for k in ("first_ms", "middle_ms", "final_ms") if k in r}})
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

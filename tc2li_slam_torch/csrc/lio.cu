@@ -1,23 +1,33 @@
 // The LiDAR-inertial scan step of the IMU mode (FAST-LIO2's per-scan
-// iterated ESEKF update): three kernels.
+// iterated ESEKF update): four kernels.
 //
 // Replaces, in tc2li_slam_tpu, what the TPU runs inside the one jit of
 // slam/lio.py:99 (lio_scan_step):
 // - predict_kernel: estimation/esekf.py:192 (predict, its lax.scan :257);
-// - rows_kernel: slam/lio.py:46 (make_h_fn, the measurement of an iterate)
-//   with ops/voxel_map.py:154 (knn, radius 2) and ops/plane_fit.py:90
-//   (fit_planes), and the normal-equation products of update_iterated;
+// - fence_kernel and rows_kernel: slam/lio.py:46 (make_h_fn, the measurement
+//   of an iterate) with ops/voxel_map.py:154 (knn, radius 2; its
+//   searchsorted) and ops/plane_fit.py:90 (fit_planes), and the
+//   normal-equation products of update_iterated;
 // - step_kernel: estimation/esekf.py:266 (update_iterated, its lax.scan
 //   :308) after the products, and the divergence guard of lio_scan_step.
 // Eager PyTorch ran a scan step as ~5,000 small ops, each a launch.
 //
 // What they compute is the plain versions' (ops/kernels/lio.py:
-// predict_plain, make_h_fn, scan_update_plain); a scan step at max_iters k
-// is 1 + (k + 2) + (k + 1) launches:
-//   predict; rows(x_0), step, ..., rows(x_{k-1}), step; rows(x_k), final;
-//   rows(guarded x, last)
+// predict_plain, fences_plain, make_h_fn, scan_update_plain); a scan step
+// at max_iters k is 1 + 1 + (k + 2) + (k + 1) launches:
+//   predict; fences; rows(x_0), step, ..., rows(x_{k-1}), step; rows(x_k),
+//   final; rows(guarded x, last)
 // with the filter state packed as 36 float32 (pos, R, R_LI, t_LI, vel, bg,
-// ba, grav) followed by P [23, 23].
+// ba, grav) followed by P [23, 23]. The fence, rows and step launches are
+// programmatic dependents of the launch before them: their blocks start
+// while it ends. The rule they keep: each kernel runs griddepcontrol.wait
+// before it reads anything and before it triggers its dependents. The wait
+// orders a kernel after its immediate primary only; that primary completes
+// only after its own wait, so waits chain the order back to every older
+// launch. A read before the wait, or a trigger before it, lets a launch read
+// the fence table or the iterate before an older launch has written them
+// (on the card: a garbage fence count, and shared memory indexed out of
+// bounds, in a chain of bad-IMU scan steps).
 //
 // predict_kernel, one block: the serial chain over the window's samples, a
 // sample with dt <= 0 skipped (an exact no-op at any launch size). Thread 0
@@ -26,48 +36,76 @@
 // structure (identity plus the blocks: a row of F P reads at most 9
 // entries), P in shared memory, float32 as both packages are.
 //
-// rows_kernel, a warp a query point: its state from device memory, p_b and
-// p_w; the 25 voxel columns of radius 2 on lanes 0..24, each a binary
-// search of the sorted int32 pool keys and the fixed run of 5 candidates,
-// validated by the key range as knn does; the 5 nearest by (d^2, candidate
-// index), which is the order of a stable sort, by five warp-wide argmins
-// (float32, as the plain version, so the neighbour sets are its own but
-// where a query lies within an ulp of a voxel face); then, in float64 from
-// the float32 neighbours, the closed-form plane fit of plane_fit.fit_planes,
-// the gate s > 0.9 and dists[0] < 5, and the row (6 non-zero columns, 12
-// with the extrinsic). A fit whose 5 points are near collinear has its
-// normal decided by rounding in float32: float32 fits differ there from
-// each other and from float64 by ~1e-3 of the normal equations' scale.
-// Each lane keeps up to three entries of sum h h^T (upper triangle), sum h z
-// and the inlier count in float64, over its warp's queries in order; the
-// block adds its warps in order and writes its partial sums. No atomics in
-// a sum: the same bits on every call. The last evaluation (at the guarded
-// state) writes p_w and counts its inliers (integer atomicAdd, exact in any
-// order) instead.
+// fence_kernel, once a scan step (the pool does not change inside it): every
+// 32nd pool key (more apart above 2^19 slots: the table stays within 64 KB)
+// and the number of fences below the first kEmpty one.
 //
-// step_kernel, one block: adds the blocks' partials in a fixed order; at the
-// first launch forms P0^-1 = (P0 + 1e-9 I)^-1 (Gauss-Jordan, partial
-// pivoting) and keeps it in device memory with the iterate; then boxminus,
-// the transport Jacobian in closed blocks (the inverse right Jacobians of
-// the two SO(3) blocks; the 2x2 S2 block by forward-mode dual numbers
+// rows_kernel: 256 blocks of 8 warps at most, a function of M alone; block
+// b takes batches b, b + G, ... of 32 queries, so every sum's order is
+// fixed. Each block copies the fences below kEmpty to shared memory. A
+// warp searches 4 queries of a batch at once, a lane a voxel column of
+// radius 2 (25 of them): the query's p_b and p_w; lower_bound of the
+// column's first key as a branchless search of the fences in shared memory
+// and then of the fence's bucket of 32 keys in L2 (its first probe brings
+// the bucket's line, the others hit L1), equal to lower_bound over the
+// whole pool for any key; the fixed run of 5 candidates, validated by the
+// key range as knn does; the 5 nearest by (d^2, candidate index), the order
+// of a stable sort, as 64-bit keys: each lane sorts its 5 by a network of 9
+// exchanges, then five warp-wide minima of the lanes' heads (float32, as the
+// plain version, so the neighbour sets are its own but where a query lies
+// within an ulp of a voxel face); the neighbours' slots and points to
+// shared memory. Then warp 0 takes the batch, a lane a query: in float64
+// from the float32 neighbours, the closed-form plane fit of
+// plane_fit.fit_planes, the gate s > 0.9 and dists[0] < 5, and the row (6
+// non-zero columns, 12 with the extrinsic), the arithmetic of the form
+// before (a fit of near-collinear points has its normal decided by
+// rounding: float32 fits differ there from each other and from float64 by
+// ~1e-3 of the normal equations' scale). Its lanes keep up to three entries
+// each of sum h h^T (upper triangle), sum h z and the inlier count in
+// float64, over the block's queries in order, and write the block's
+// partial sums entry-major [E, G]. No atomics in a sum: the same bits on
+// every call. The last evaluation (at the guarded state) writes p_w and
+// counts its inliers (integer atomicAdd, exact in any order) instead.
+//
+// step_kernel, one block of 8 warps. First, side by side: the blocks'
+// partials added in a fixed order (a warp an entry, its lanes over the
+// blocks, coalesced) on five warps; the tangent terms at the iterate on
+// the other three (boxminus: the inverse right Jacobians of the two SO(3)
+// blocks on two warps; the 2x2 S2 block by forward-mode dual numbers
 // through s2_boxplus / s2_boxminus, Taylor branch included, as jacfwd
-// differentiates it), A = H^T H / r + L^T P0^-1 L, b, a Cholesky solve, and
-// boxplus under the convergence mask. The final launch forms
-// P = (H^T H / r + L^T P0^-1 L)^-1 symmetrised, runs the bad-state test
-// (non-finite, or |v| > 60 m/s) and writes the filter, or the one from
-// before the scan. float64 from the float32 inputs (H^T H / r ~1e7 beside
-// P0^-1's 1e5); the iterate is kept in float64 between launches and rounded
-// for the rows.
+// differentiates it, on a third). The first launch also inverts P0 + 1e-9 I
+// on warps 0-3 (Gauss-Jordan, partial pivoting by a warp argmax that keeps
+// a serial scan's pivots, rows left in place and their positions swapped)
+// while warps 4-7 add the partials, and keeps P0^-1 in device memory for
+// the later launches. Then A = H^T H / r + L^T P0^-1 L and b on the block;
+// on warp 0 the Cholesky factor in registers (a column's entries broadcast
+// through shared memory) and both triangular solves column by column across
+// the lanes; boxplus under the convergence mask, its three rotations on
+// three warps. The final launch forms P = (H^T H / r + L^T P0^-1 L)^-1
+// symmetrised (the same Gauss-Jordan on the block) in the tangent of the
+// state as written, runs the bad-state test (non-finite, or |v| > 60 m/s)
+// and writes the filter, or the one from before the scan. float64 from the
+// float32 inputs (H^T H / r ~1e7 beside P0^-1's 1e5); the iterate is kept
+// in float64 between launches and rounded for the rows.
 //
 // Bound on the H100: latency. A scan step at 8,192 points reads ~2.5 MB of
-// keys and points an evaluation (binary searches: 25 x 19 dependent loads a
-// query, L2-resident) and does ~1e7 float32 operations; the steps are a few
-// 1e5 float64 operations on dependent phases of one block. Design: a warp a
-// query keeps every lane's search in flight at once, 8 queries a block,
-// up to 1024 blocks; the steps are single blocks between the evaluations.
+// keys and points an evaluation and does ~1e7 float32 operations; the steps
+// are a few 1e5 float64 operations on dependent phases of one block. What
+// the design does about it: a search of few dependent loads (the fences in
+// shared memory, one bucket in L2), 4 queries in flight a warp and two
+// blocks an SM; a fit a lane; the step's terms that need no sums beside
+// its reduction; no one-thread phase in the step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifdef TC2LI_LAPS   // clock laps of a phase split (laps.cuh, tools/lio_kernels.py)
+#define TC2LI_LAP_TAG lio
+#include "laps.cuh"
+#else
+#define TC2LI_LAP_START
+#define TC2LI_LAP(k)
+#endif
 
 namespace {
 
@@ -76,15 +114,17 @@ constexpr int kState = 36;
 constexpr int kPacked = kState + kErr * kErr;   // 565
 constexpr int kPos = 0, kR = 3, kRLI = 12, kTLI = 21, kVel = 24, kBg = 27, kBa = 30, kGrav = 33;
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsMaxBlocks = 1024;
 constexpr int kNb = 5;            // neighbours
 constexpr int kCols = 25;         // voxel columns of radius 2
 constexpr int kRun = 5;           // candidates a column
 constexpr int kGridSize = 1024;   // voxels a grid axis
 constexpr int kEmpty = 0x7fffffff;
 constexpr int kMaxEntries = 96;   // >= n_entries(12) = 91
-constexpr int kWork = kErr * kErr + kState + 2;   // P0^-1, the iterate, converged, iterations
+// the step's state in device memory: P0^-1, the iterate, converged,
+// iterations
+constexpr int kWorkIter = kErr * kErr, kWorkConv = kWorkIter + kState;
+constexpr int kWork = kWorkConv + 2;
+constexpr int kTangent = kErr + 9 + 9 + 4;   // the tangent terms: dx0, Lr, Le, Lg
 constexpr double kEps = 5e-3;     // geom/lie.py _EPS
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -454,34 +494,196 @@ predict_kernel(const float* __restrict__ xin, const float* __restrict__ gyro,
   if (tid < kState) xout[tid] = s[tid];
 }
 
+
+// ---------------------------------------------------------------------------
+// the step's terms that need no sums: P0^-1 and the tangent terms
+// ---------------------------------------------------------------------------
+
+constexpr int kAug = 2 * kErr + 1;   // a Gauss-Jordan row's stride in doubles
+// the threads of a Gauss-Jordan (the first warps of the block, named
+// barrier 1): 128 at the step's first launch (beside the reduction and the
+// tangent chains), the whole block at the final launch
+template <int NT>
+__device__ __forceinline__ void gj_sync() { asm volatile("bar.sync 1, %0;" ::"n"(NT) : "memory"); }
+
+// The inverse of the row-major 23 x 23 Mx (shared) into out (shared), on
+// the first NT threads: Gauss-Jordan with partial pivoting, [Mx | I] in shared memory
+// (aug, a row every kAug doubles; prow and piv its pivot row and lane). A
+// row's place in the elimination order is its position, swapped with the
+// pivot's where a serial elimination swaps the rows. For each column c,
+// warp 0 finds the pivot, the row at position >= c with the largest |a_c|
+// and the lowest position on ties (as a serial scan that replaces only on a
+// larger value: a NaN at position c keeps it, a NaN elsewhere never wins),
+// and copies its row; then the NT threads update the columns right of c:
+// the pivot row scaled by the pivot's inverse, every other row less its a_c
+// times that. Columns left of the pivot are never read again and are not
+// updated.
+template <int NT>
+__device__ void block_gauss_jordan(const double* Mx, double* out, double* aug, double* prow,
+                                   int* piv_s) {
+  constexpr int KK = NT / kErr;                      // threads a row
+  constexpr int NE = (2 * kErr - 1 + KK - 1) / KK;   // columns a thread, at most
+  const int tid = threadIdx.x, lane = tid & 31;
+  const bool row = lane < kErr;
+  for (int e = tid; e < kErr * kErr; e += NT) {
+    const int r = e / kErr, k = e % kErr;
+    aug[r * kAug + k] = Mx[e];
+    aug[r * kAug + kErr + k] = r == k ? 1.0 : 0.0;
+  }
+  int pos = lane;   // warp 0: the position of row `lane`
+  const int r = tid / KK, kk = tid % KK;   // row r, columns c + 1 + kk + KK i
+  gj_sync<NT>();
+  for (int c = 0; c < kErr; ++c) {
+    if (tid < 32) {
+      // |a_c| as its bits (ordered as the values), a NaN at position c as
+      // +inf and elsewhere as 0 (it never wins over position c's key); the
+      // largest key, then the lowest position holding it
+      const bool cand = row && pos >= c;
+      unsigned long long key = 0;
+      if (cand) {
+        const double v = fabs(aug[lane * kAug + c]);
+        key = isnan(v) ? (pos == c ? 0x7ff0000000000000ull : 0ull)
+                       : static_cast<unsigned long long>(__double_as_longlong(v));
+      }
+      // the largest key by its two halves (warp reductions)
+      const unsigned hi = static_cast<unsigned>(key >> 32), lo = static_cast<unsigned>(key);
+      const unsigned hmax = __reduce_max_sync(kFull, hi);
+      const unsigned lmax = __reduce_max_sync(kFull, hi == hmax ? lo : 0u);
+      const bool tie = cand && hi == hmax && lo == lmax;
+      const int p = __reduce_min_sync(kFull, tie ? pos : 64);
+      const int piv = __ffs(__ballot_sync(kFull, row && pos == p)) - 1;
+      if (row && pos == c) pos = p;
+      if (lane == piv) pos = c;
+      for (int k = c + lane; k < 2 * kErr; k += 32) prow[k] = aug[piv * kAug + k];
+      if (lane == 0) *piv_s = piv;
+    }
+    gj_sync<NT>();
+    if (r < kErr) {
+      const double inv = __drcp_rn(prow[c]);   // 1 / p, rounded as the division
+      double* ar = aug + r * kAug;
+      const bool is_piv = r == *piv_s;
+      const double f = is_piv ? 0.0 : ar[c];
+      double pv[NE], av[NE];   // this thread's columns: loads, then stores
+#pragma unroll
+      for (int i = 0; i < NE; ++i) {
+        const int k = c + 1 + kk + KK * i;
+        pv[i] = k < 2 * kErr ? prow[k] : 0.0;
+        av[i] = k < 2 * kErr ? ar[k] : 0.0;
+      }
+#pragma unroll
+      for (int i = 0; i < NE; ++i) {
+        const int k = c + 1 + kk + KK * i;
+        if (k < 2 * kErr) ar[k] = is_piv ? pv[i] * inv : av[i] - f * (pv[i] * inv);
+      }
+    }
+    gj_sync<NT>();
+  }
+  if (tid < kErr)
+    for (int k = 0; k < kErr; ++k) out[pos * kErr + k] = aug[tid * kAug + kErr + k];
+  gj_sync<NT>();
+}
+
+// boxminus(x, x0) into t[0, 23) and the transport Jacobian's blocks Lr, Le,
+// Lg into t[23, 45), on warps 5, 6 and 7 side by side
+// (one lane each, the differences on warp 5)
+__device__ void tangent_terms(const double* x, const double* x0, double* t, int warp, int lane) {
+  double* dx0 = t;
+  if (warp == 5 && lane >= 1 && lane <= 15) {
+    const int v = (lane - 1) / 3, k = (lane - 1) % 3;
+    const int o[5] = {kPos, kTLI, kVel, kBg, kBa}, e[5] = {0, 9, 12, 15, 18};
+    dx0[e[v] + k] = x[o[v] + k] - x0[o[v] + k];
+  }
+  if ((warp == 5 || warp == 6) && lane == 0) {
+    const int o = warp == 5 ? kR : kRLI;
+    double D[9], w[3];
+    mul3tn(x0 + o, x + o, D);
+    so3_log(D, w);
+    so3_right_jacobian_inv(w, t + (warp == 5 ? kErr : kErr + 9));
+    for (int k = 0; k < 3; ++k) dx0[(warp == 5 ? 3 : 6) + k] = w[k];
+  } else if (warp == 7 && lane == 0) {
+    // d/dd [(g + d) - g0] at d = 0: g + d = Exp(B(g) d) g moves g by
+    // B_k x g along d_k
+    const double* g = x + kGrav;
+    double B[6], dg[2][3], dout[2][2], out[2];
+    s2_basis(g, B);
+    for (int k = 0; k < 2; ++k) {
+      const double bk[3] = {B[k], B[2 + k], B[4 + k]};
+      cross3(bk, g, dg[k]);
+    }
+    s2_boxminus(g, x0 + kGrav, out, dg, dout);
+    dx0[21] = out[0];
+    dx0[22] = out[1];
+    for (int r = 0; r < 2; ++r)
+      for (int k = 0; k < 2; ++k) t[kErr + 18 + 2 * r + k] = dout[r][k];
+  }
+}
+
 // ---------------------------------------------------------------------------
 // rows: kNN, plane fit, gate and the normal equations of one evaluation
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ int lower_bound(const int* __restrict__ keys, int n, int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(keys + mid) < key) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
+constexpr int kRowsThreads = 256;
+constexpr int kRowsWarps = kRowsThreads / 32;
+constexpr int kQWarp = 4;                     // queries a warp searches in a batch, all at once
+constexpr int kBatch = kRowsWarps * kQWarp;   // 32: a lane of warp 0 each in the fit
+constexpr int kRowsMaxBlocks = 256;           // two blocks an SM, a few SMs left for the step
+constexpr int kFenceLog2 = 5;                 // a fence every 32 keys, or more where the pool is
+constexpr int kMaxFences = 16384;             // larger than 2^19 slots: 64 KB of shared memory
+constexpr int kHz = 14;                       // h (12), z and ok of a query
+constexpr unsigned long long kNoCand = ~0ull;
 
-// (d2, c) before (d2', c'): the order of a stable sort of d2 by candidate
-// index, a NaN after every number
-__device__ __forceinline__ bool before(float d, int c, float d2, int c2) {
-  const bool na = isnan(d), nb = isnan(d2);
-  if (na != nb) return nb;
-  if (!na && d != d2) return d < d2;
-  return c < c2;
-}
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+__device__ __forceinline__ void pdl_trigger() { asm volatile("griddepcontrol.launch_dependents;"); }
 
-__device__ __forceinline__ double pick(const double (&h)[12], int a) {
-  double r = 0.0;
+// lower_bound(keys[0, cap), key) of a warp's kQWarp keys side by side: the
+// fence (the u fences below the first kEmpty one, in shared memory, F[j] =
+// keys[j << lg]) by a branchless search whose iterations depend on u alone,
+// then inside the fence's bucket of 2^lg keys by the same search over L2
+// (the first probe brings the bucket's 128 bytes; the others hit L1; a
+// slot at or past cap reads as kEmpty). Equal to lower_bound for any int32
+// key: keys[(j - 1) << lg] < key <= keys[j << lg].
+__device__ __forceinline__ void lower_bound2(const int* F, int u, const int* __restrict__ keys,
+                                             int cap, int lg, const int (&key)[kQWarp],
+                                             int (&pos)[kQWarp]) {
+  int base[kQWarp];
 #pragma unroll
-  for (int k = 0; k < 12; ++k) r = k == a ? h[k] : r;
-  return r;
+  for (int t = 0; t < kQWarp; ++t) base[t] = 0;
+  if (u > 0) {
+    for (int n = u; n > 1;) {
+      const int half = n >> 1;
+#pragma unroll
+      for (int t = 0; t < kQWarp; ++t) base[t] = F[base[t] + half] < key[t] ? base[t] + half : base[t];
+      n -= half;
+    }
+#pragma unroll
+    for (int t = 0; t < kQWarp; ++t) base[t] += F[base[t]] < key[t];
+  }
+  // base = j; the answer is 0 for j = 0, else in ((j - 1) 2^lg, j 2^lg]
+#pragma unroll
+  for (int t = 0; t < kQWarp; ++t) {
+    pos[t] = base[t];
+    base[t] = base[t] > 0 ? (base[t] - 1) << lg : 0;
+  }
+  for (int n = 1 << lg; n > 1;) {
+    const int half = n >> 1;
+#pragma unroll
+    for (int t = 0; t < kQWarp; ++t) {
+      const int i = base[t] + half;
+      const int k = pos[t] > 0 && i < cap ? __ldg(keys + i) : kEmpty;
+      base[t] = pos[t] > 0 && k < key[t] ? i : base[t];
+    }
+    n -= half;
+  }
+#pragma unroll
+  for (int t = 0; t < kQWarp; ++t)
+    pos[t] = pos[t] > 0 ? base[t] + (__ldg(keys + base[t]) < key[t]) : 0;
+}
+
+// (d2, candidate index) as one key whose integer order is that of a stable
+// sort of d2 by candidate index, a NaN after every number
+__device__ __forceinline__ unsigned long long cand_key(float d2, int c) {
+  const unsigned b = isnan(d2) ? 0x7fc00000u : (d2 == 0.f ? 0u : __float_as_uint(d2));
+  return (static_cast<unsigned long long>(b) << 32) | static_cast<unsigned>(c);
 }
 
 // plane_fit.smallest_eigvec_sym3 of the symmetric A (6 entries: 00 01 02 11 12 22)
@@ -535,26 +737,62 @@ struct MapIn {
   float vs;
 };
 
-__global__ void __launch_bounds__(kThreads)
+// the fence table of the pool keys: F[j] = keys[j << lg] for j < nf =
+// ceil(cap / 2^lg), and at F[nf] the number of fences below the first
+// kEmpty one (exactly one thread writes it: the keys ascend)
+__global__ void __launch_bounds__(256)
+fence_kernel(const int* __restrict__ keys, int cap, int lg, int nf, int* __restrict__ F) {
+  pdl_wait();
+  pdl_trigger();
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= nf) return;
+  const int f = __ldg(keys + (static_cast<size_t>(j) << lg));
+  F[j] = f;
+  if (f != kEmpty && (j + 1 == nf || __ldg(keys + (static_cast<size_t>(j + 1) << lg)) == kEmpty))
+    F[nf] = j + 1;
+  if (j == 0 && f == kEmpty) F[nf] = 0;
+}
+
+// a batch's queries as the search leaves them for the fit
+struct RowsSmem {
+  float st[kState + 3];          // the state, the map's origin
+  float pw[kBatch][3], pb[kBatch][3], l[kBatch][3];
+  float d0[kBatch];              // the nearest neighbour's d^2
+  int slot[kBatch][kNb];         // pool slots of the valid neighbours, -1 elsewhere
+  float nb[kBatch][kNb][3];      // their points
+  int live[kBatch];
+  double hz[kBatch][kHz];        // warp 0: each lane's h, z and ok
+};
+
+__global__ void __launch_bounds__(kRowsThreads, 2)
 rows_kernel(const float* __restrict__ x, const float* __restrict__ pl,
-            const uint8_t* __restrict__ valid, int M, MapIn m, float thr, int ncols, int last,
-            double* __restrict__ partials, float* __restrict__ pw, int* __restrict__ n_eff,
+            const uint8_t* __restrict__ valid, int M, MapIn m, const int* __restrict__ fences,
+            int nf, int lg, float thr, int ncols, int last, double* __restrict__ partials, float* __restrict__ pw, int* __restrict__ n_eff,
             int* __restrict__ nbr) {
-  __shared__ float st[kState + 3];
-  __shared__ double red[kWarps][kMaxEntries];
-  __shared__ int wcount[kWarps];
+  extern __shared__ int fence_s[];   // the fences below the first kEmpty one [nf]
+  __shared__ RowsSmem s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid < kState) st[tid] = x[tid];
-  if (tid < 3) st[kState + tid] = m.origin[tid];
+  TC2LI_LAP_START
+  // launched as a programmatic dependent of the kernel before it: the blocks
+  // start while it ends and read nothing before its writes are done
+  pdl_wait();
+  pdl_trigger();
+  const int G = gridDim.x;
+  const int u = fences[nf];
+  for (int j = tid; j < u; j += kRowsThreads) fence_s[j] = fences[j];
+  if (tid < kState) s.st[tid] = x[tid];
+  if (tid < 3) s.st[kState + tid] = m.origin[tid];
   __syncthreads();
-  const float* pos = st + kPos;
-  const float* R = st + kR;
-  const float* RLI = st + kRLI;
-  const float* tLI = st + kTLI;
-  const float* org = st + kState;
+  TC2LI_LAP(8);
+  const float* pos = s.st + kPos;
+  const float* R = s.st + kR;
+  const float* RLI = s.st + kRLI;
+  const float* tLI = s.st + kTLI;
+  const float* org = s.st + kState;
   const int E = n_entries(ncols);
   const int T = ncols * (ncols + 1) / 2;
-  // this lane's entries: (a, b) of sum h_a h_b, (a, -1) of sum h_a z, (-1, -1) the count
+  // warp 0's lanes keep up to three entries each: (a, b) of sum h_a h_b,
+  // (a, -1) of sum h_a z, (-1, -1) the count
   int ea[3], eb[3];
   double acc[3] = {0.0, 0.0, 0.0};
 #pragma unroll
@@ -580,203 +818,294 @@ rows_kernel(const float* __restrict__ x, const float* __restrict__ pl,
   }
   int count = 0;
   const int col_ox = lane / 5 - 2, col_oy = lane % 5 - 2;
-  const int nw = gridDim.x * kWarps;
-  for (int qi = blockIdx.x * kWarps + warp; qi < M; qi += nw) {
-    const float l0 = pl[3 * qi], l1 = pl[3 * qi + 1], l2 = pl[3 * qi + 2];
-    float pb[3], pwq[3];
-    for (int i = 0; i < 3; ++i)
-      pb[i] = l0 * RLI[3 * i] + l1 * RLI[3 * i + 1] + l2 * RLI[3 * i + 2] + tLI[i];
-    for (int i = 0; i < 3; ++i)
-      pwq[i] = pb[0] * R[3 * i] + pb[1] * R[3 * i + 1] + pb[2] * R[3 * i + 2] + pos[i];
-    if (last && lane < 3) pw[3 * qi + lane] = pwq[lane];
-    const bool live = valid[qi] != 0 && isfinite(pwq[0]) && isfinite(pwq[1]) && isfinite(pwq[2]);
-    if (!live) {   // (warp-uniform) ok is false: the row is zero
-      if (nbr != nullptr && lane < kNb) nbr[kNb * qi + lane] = -1;
-      continue;
-    }
-    // the query's voxel; a value far outside the grid is clamped where it
-    // stays outside
-    int qv[3];
-    for (int i = 0; i < 3; ++i) {
-      float t = floorf(__fdiv_rn(__fsub_rn(pwq[i], org[i]), m.vs));
-      t = t < -4.f ? -4.f : (t > float(kGridSize + 4) ? float(kGridSize + 4) : t);
-      qv[i] = static_cast<int>(t);
-    }
-    const int zlo = min(max(qv[2] - 2, 0), kGridSize - 1);
-    const int zhi = min(max(qv[2] + 2, 0), kGridSize - 1);
-    const int cx = qv[0] + col_ox, cy = qv[1] + col_oy;
-    const bool in_grid = lane < kCols && cx >= 0 && cx < kGridSize && cy >= 0 && cy < kGridSize;
-    const int key_lo = (cx << 20) | (cy << 10) | zlo;
-    const int key_hi = key_lo + (zhi - zlo);
-    const int pos0 = in_grid ? lower_bound(m.keys, m.cap, key_lo) : 0;
-    float d2[kRun];
-    unsigned vmask = 0;
+  // block b takes batches b, b + G, ... of kBatch queries: the order of
+  // every sum depends on M alone
+  for (int b0 = blockIdx.x * kBatch; b0 < M; b0 += G * kBatch) {
+    // (1) the search: warp w the batch's queries w kQWarp .. + kQWarp, all
+    // at once, a lane a voxel column
+    int key_lo[kQWarp], key_hi[kQWarp], pos0[kQWarp];
+    bool live[kQWarp], ing[kQWarp];
+    float pwq[kQWarp][3];
 #pragma unroll
-    for (int r = 0; r < kRun; ++r) {
-      d2[r] = __int_as_float(0x7f800000);   // +inf
-      if (in_grid) {
-        const int c = min(pos0 + r, m.cap - 1);
-        const int k = __ldg(m.keys + c);
-        if (k >= key_lo && k <= key_hi && k != kEmpty) {
-          vmask |= 1u << r;
-          const float dx = __fsub_rn(__ldg(m.pts + 3 * c), pwq[0]);
-          const float dy = __fsub_rn(__ldg(m.pts + 3 * c + 1), pwq[1]);
-          const float dz = __fsub_rn(__ldg(m.pts + 3 * c + 2), pwq[2]);
-          d2[r] = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+    for (int t = 0; t < kQWarp; ++t) {
+      const int j = warp * kQWarp + t, qi = b0 + j;
+      live[t] = false;
+      ing[t] = false;
+      key_lo[t] = 0;
+      key_hi[t] = -1;
+      pwq[t][0] = pwq[t][1] = pwq[t][2] = 0.f;
+      if (qi < M) {
+        const float l0 = pl[3 * qi], l1 = pl[3 * qi + 1], l2 = pl[3 * qi + 2];
+        float pb[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          pb[i] = l0 * RLI[3 * i] + l1 * RLI[3 * i + 1] + l2 * RLI[3 * i + 2] + tLI[i];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          pwq[t][i] = pb[0] * R[3 * i] + pb[1] * R[3 * i + 1] + pb[2] * R[3 * i + 2] + pos[i];
+        const float mine = lane == 0 ? pwq[t][0] : (lane == 1 ? pwq[t][1] : pwq[t][2]);
+        if (lane < 3) {
+          if (last) pw[3 * qi + lane] = mine;
+          s.pw[j][lane] = mine;
+          s.pb[j][lane] = lane == 0 ? pb[0] : (lane == 1 ? pb[1] : pb[2]);
+          s.l[j][lane] = lane == 0 ? l0 : (lane == 1 ? l1 : l2);
+        }
+        live[t] = valid[qi] != 0 && isfinite(pwq[t][0]) && isfinite(pwq[t][1])
+                  && isfinite(pwq[t][2]);
+      }
+      if (live[t]) {
+        // the query's voxel; a value far outside the grid is clamped where
+        // it stays outside
+        int qv[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          float tt = floorf(__fdiv_rn(__fsub_rn(pwq[t][i], org[i]), m.vs));
+          tt = tt < -4.f ? -4.f : (tt > float(kGridSize + 4) ? float(kGridSize + 4) : tt);
+          qv[i] = static_cast<int>(tt);
+        }
+        const int zlo = min(max(qv[2] - 2, 0), kGridSize - 1);
+        const int zhi = min(max(qv[2] + 2, 0), kGridSize - 1);
+        const int cx = qv[0] + col_ox, cy = qv[1] + col_oy;
+        ing[t] = lane < kCols && cx >= 0 && cx < kGridSize && cy >= 0 && cy < kGridSize;
+        if (ing[t]) {
+          key_lo[t] = (cx << 20) | (cy << 10) | zlo;
+          key_hi[t] = key_lo[t] + (zhi - zlo);
         }
       }
     }
-    // the 5 nearest by (d2, candidate index lane * 5 + r)
-    unsigned taken = 0;
-    float sd[kNb];
-    bool sv[kNb];
-    int slot[kNb];
+    // lower_bound(keys, key_lo): the fence in shared memory, then its bucket
+    lower_bound2(fence_s, u, m.keys, m.cap, lg, key_lo, pos0);
+    TC2LI_LAP(9);
+    // the fixed run of 5 candidates a column, validated by the key range
+    float d2[kQWarp][kRun];
+    unsigned vmask[kQWarp];
 #pragma unroll
-    for (int k = 0; k < kNb; ++k) {
-      float bd = __int_as_float(0x7f800000);
-      int bc = 0x7fffffff;
-      if (lane < kCols) {
+    for (int t = 0; t < kQWarp; ++t) {
+      vmask[t] = 0;
 #pragma unroll
-        for (int r = 0; r < kRun; ++r)
-          if (!((taken >> r) & 1u) && before(d2[r], lane * kRun + r, bd, bc)) {
-            bd = d2[r];
-            bc = lane * kRun + r;
-          }
+      for (int r = 0; r < kRun; ++r) {
+        const int c = min(pos0[t] + r, m.cap - 1);
+        const int k = ing[t] ? __ldg(m.keys + c) : kEmpty;
+        if (ing[t] && k >= key_lo[t] && k <= key_hi[t] && k != kEmpty) vmask[t] |= 1u << r;
       }
+    }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float od = __shfl_xor_sync(kFull, bd, off);
-        const int oc = __shfl_xor_sync(kFull, bc, off);
-        if (before(od, oc, bd, bc)) {
-          bd = od;
-          bc = oc;
+    for (int t = 0; t < kQWarp; ++t) {
+#pragma unroll
+      for (int r = 0; r < kRun; ++r) {
+        d2[t][r] = __int_as_float(0x7f800000);   // +inf
+        if ((vmask[t] >> r) & 1u) {
+          const int c = min(pos0[t] + r, m.cap - 1);
+          const float dx = __fsub_rn(__ldg(m.pts + 3 * c), pwq[t][0]);
+          const float dy = __fsub_rn(__ldg(m.pts + 3 * c + 1), pwq[t][1]);
+          const float dz = __fsub_rn(__ldg(m.pts + 3 * c + 2), pwq[t][2]);
+          d2[t][r] = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
         }
       }
-      const int owner = bc / kRun, rr = bc % kRun;
-      if (lane == owner) taken |= 1u << rr;
-      const int p0 = __shfl_sync(kFull, pos0, owner);
-      const unsigned om = __shfl_sync(kFull, vmask, owner);
-      sd[k] = bd;
-      sv[k] = (om >> rr) & 1u;
-      slot[k] = min(p0 + rr, m.cap - 1);
     }
-    if (nbr != nullptr && lane < kNb) {
-      int v = -1;
+    TC2LI_LAP(10);
+    // the 5 nearest by (d2, candidate index lane * 5 + r), the warp's
+    // queries side by side: each lane sorts its 5 candidates' keys once;
+    // then five warp-wide minima of the lanes' heads, the winner's head
+    // moving on; lane k of the first five takes the k-th winner
+    unsigned long long win[kQWarp];
+    float d0[kQWarp];
 #pragma unroll
-      for (int k = 0; k < kNb; ++k)
-        if (k == lane) v = sv[k] ? slot[k] : -1;
-      nbr[kNb * qi + lane] = v;
-    }
-    // plane_fit.fit_planes over the 5 (an invalid neighbour weighs 0), the
-    // gate and the row in float64 from the float32 neighbours
-    double nb[kNb][3];
-    double cnt = 0.0;
-    int nvalid = 0;
+    for (int t = 0; t < kQWarp; ++t) {
+      unsigned long long ck[kRun];
 #pragma unroll
-    for (int k = 0; k < kNb; ++k) {
-      for (int j = 0; j < 3; ++j) nb[k][j] = sv[k] ? double(__ldg(m.pts + 3 * slot[k] + j)) : 0.0;
-      cnt += sv[k] ? 1.0 : 0.0;
-      nvalid += sv[k];
-    }
-    cnt = cnt < 1.0 ? 1.0 : cnt;
-    double mu[3], cen[kNb][3];
-    for (int j = 0; j < 3; ++j) {
-      double sum = 0.0;
+      for (int r = 0; r < kRun; ++r) ck[r] = lane < kCols ? cand_key(d2[t][r], lane * kRun + r) : kNoCand;
+      // a sorting network of 5 (9 exchanges)
+      const int net[9][2] = {{0, 1}, {3, 4}, {2, 4}, {2, 3}, {0, 3}, {0, 2}, {1, 4}, {1, 3}, {1, 2}};
 #pragma unroll
-      for (int k = 0; k < kNb; ++k) sum += nb[k][j] * (sv[k] ? 1.0 : 0.0);
-      mu[j] = sum / cnt;
-    }
+      for (int e = 0; e < 9; ++e) {
+        const unsigned long long x0 = ck[net[e][0]], x1 = ck[net[e][1]];
+        ck[net[e][0]] = x0 < x1 ? x0 : x1;
+        ck[net[e][1]] = x0 < x1 ? x1 : x0;
+      }
+      win[t] = kNoCand;
 #pragma unroll
-    for (int k = 0; k < kNb; ++k)
-      for (int j = 0; j < 3; ++j) cen[k][j] = (nb[k][j] - mu[j]) * (sv[k] ? 1.0 : 0.0);
-    double A6[6];
-    const int ii[6] = {0, 0, 0, 1, 1, 2}, jj[6] = {0, 1, 2, 1, 2, 2};
+      for (int k = 0; k < kNb; ++k) {
+        // the smallest head by its two halves (warp reductions): d2's bits,
+        // then the candidate index among the heads that tie on them
+        const unsigned hi = static_cast<unsigned>(ck[0] >> 32);
+        const unsigned hmin = __reduce_min_sync(kFull, hi);
+        const unsigned lmin = __reduce_min_sync(kFull, hi == hmin ? static_cast<unsigned>(ck[0])
+                                                                  : 0xffffffffu);
+        const unsigned long long best = (static_cast<unsigned long long>(hmin) << 32) | lmin;
+        if (best == ck[0]) {   // this lane's head won: the next one moves up
 #pragma unroll
-    for (int e = 0; e < 6; ++e) {
-      double sum = 0.0;
-#pragma unroll
-      for (int k = 0; k < kNb; ++k) sum += cen[k][ii[e]] * cen[k][jj[e]];
-      A6[e] = sum / cnt + ((ii[e] == jj[e]) ? 1e-12 : 0.0);
-    }
-    double nrm[3];
-    smallest_eigvec(A6, nrm);
-    double d = -(nrm[0] * mu[0] + nrm[1] * mu[1] + nrm[2] * mu[2]);
-    const bool finite = isfinite(nrm[0]) && isfinite(nrm[1]) && isfinite(nrm[2]) && isfinite(d);
-    if (!finite) {
-      nrm[0] = nrm[1] = nrm[2] = 0.0;
-      d = 0.0;
-    }
-    bool plane_ok = finite && nvalid >= 3;
-#pragma unroll
-    for (int k = 0; k < kNb; ++k) {
-      const double res = fabs(nb[k][0] * nrm[0] + nb[k][1] * nrm[1] + nb[k][2] * nrm[2] + d);
-      if (sv[k] && !(res < double(thr))) plane_ok = false;
-    }
-    const double pd = double(pwq[0]) * nrm[0] + double(pwq[1]) * nrm[1]
-                      + double(pwq[2]) * nrm[2] + d;
-    const double lq[3] = {l0, l1, l2};
-    const double np = sqrt(lq[0] * lq[0] + lq[1] * lq[1] + lq[2] * lq[2]);
-    const double gate = sqrt(np < 1e-6 ? 1e-6 : np);
-    const double sgate = 1.0 - 0.9 * fabs(pd) / gate;
-    const float dist0 = sqrtf(sd[0] < 0.f ? 0.f : sd[0]);
-    const bool ok = plane_ok && sgate > 0.9 && dist0 < 5.f;
-    if (!ok) continue;
-    // the row: n, p_b x R^T n, [p_l x R_LI^T R^T n, R^T n]
-    double h[12];
-    double Rn[3], RLn[3], cr[3];
-    const double pbd[3] = {pb[0], pb[1], pb[2]};
-    for (int j = 0; j < 3; ++j)
-      Rn[j] = nrm[0] * double(R[j]) + nrm[1] * double(R[3 + j]) + nrm[2] * double(R[6 + j]);
-    cross3(pbd, Rn, cr);
-    for (int j = 0; j < 3; ++j) {
-      h[j] = nrm[j];
-      h[3 + j] = cr[j];
-      h[6 + j] = 0.0;
-      h[9 + j] = 0.0;
-    }
-    if (ncols == 12) {
-      for (int j = 0; j < 3; ++j)
-        RLn[j] = Rn[0] * double(RLI[j]) + Rn[1] * double(RLI[3 + j]) + Rn[2] * double(RLI[6 + j]);
-      cross3(lq, RLn, cr);
-      for (int j = 0; j < 3; ++j) {
-        h[6 + j] = cr[j];
-        h[9 + j] = Rn[j];
+          for (int r = 0; r < kRun - 1; ++r) ck[r] = ck[r + 1];
+          ck[kRun - 1] = kNoCand;
+        }
+        if (lane == k) win[t] = best;
+        if (k == 0) d0[t] = __uint_as_float(static_cast<unsigned>(best >> 32));
       }
     }
+    int sl[kQWarp];
 #pragma unroll
-    for (int j = 0; j < 12; ++j) h[j] = isfinite(h[j]) ? h[j] : 0.0;
-    const double z = isfinite(pd) ? pd : 0.0;
-    ++count;
-    if (last) continue;
-#pragma unroll
-    for (int t = 0; t < 3; ++t) {
-      if (ea[t] == -2) continue;
-      double term;
-      if (ea[t] == -1) term = 1.0;
-      else if (eb[t] == -1) term = pick(h, ea[t]) * z;
-      else term = pick(h, ea[t]) * pick(h, eb[t]);
-      acc[t] += term;
+    for (int t = 0; t < kQWarp; ++t) {
+      const int bc = lane < kNb ? static_cast<int>(win[t] & 0xffffffffu) : 0;
+      const int owner = bc / kRun, rr = bc - owner * kRun;
+      const int p0 = __shfl_sync(kFull, pos0[t], owner);
+      const unsigned om = __shfl_sync(kFull, vmask[t], owner);
+      sl[t] = live[t] && ((om >> rr) & 1u) ? min(p0 + rr, m.cap - 1) : -1;
     }
-  }
-  if (last) {
-    if (lane == 0) wcount[warp] = count;
+    // lanes 0..4 take a neighbour each: its slot and its point for the fit
+#pragma unroll
+    for (int t = 0; t < kQWarp; ++t) {
+      const int j = warp * kQWarp + t, qi = b0 + j;
+      if (lane < kNb) {
+        const int v = sl[t];
+        s.slot[j][lane] = v;
+        if (v >= 0)
+#pragma unroll
+          for (int i = 0; i < 3; ++i) s.nb[j][lane][i] = __ldg(m.pts + 3 * v + i);
+        if (nbr != nullptr && qi < M) nbr[kNb * qi + lane] = v;
+      }
+      if (lane == 0) {
+        s.d0[j] = d0[t];
+        s.live[j] = live[t];
+      }
+    }
+    TC2LI_LAP(11);
     __syncthreads();
-    if (tid == 0) {
-      int c = 0;
-      for (int w = 0; w < kWarps; ++w) c += wcount[w];
-      if (c) atomicAdd(n_eff, c);
+    TC2LI_LAP(15);
+    // (2) warp 0: plane_fit.fit_planes over the 5 (an invalid neighbour
+    // weighs 0), the gate and the row of query `lane`, in float64 from the
+    // float32 neighbours; then the ordered sums over the batch
+    if (warp == 0) {
+      const int j = lane, qi = b0 + j;
+      bool ok = false;
+      double h[12], z = 0.0;
+#pragma unroll
+      for (int k = 0; k < 12; ++k) h[k] = 0.0;
+      if (qi < M && s.live[j]) {
+        bool sv[kNb];
+        int slot[kNb];
+        double nb[kNb][3];
+        double cnt = 0.0;
+        int nvalid = 0;
+#pragma unroll
+        for (int k = 0; k < kNb; ++k) {
+          slot[k] = s.slot[j][k];
+          sv[k] = slot[k] >= 0;
+#pragma unroll
+          for (int i = 0; i < 3; ++i) nb[k][i] = sv[k] ? double(s.nb[j][k][i]) : 0.0;
+          cnt += sv[k] ? 1.0 : 0.0;
+          nvalid += sv[k];
+        }
+        cnt = cnt < 1.0 ? 1.0 : cnt;
+        double mu[3], cen[kNb][3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          double sum = 0.0;
+#pragma unroll
+          for (int k = 0; k < kNb; ++k) sum += nb[k][i] * (sv[k] ? 1.0 : 0.0);
+          mu[i] = sum / cnt;
+        }
+#pragma unroll
+        for (int k = 0; k < kNb; ++k)
+#pragma unroll
+          for (int i = 0; i < 3; ++i) cen[k][i] = (nb[k][i] - mu[i]) * (sv[k] ? 1.0 : 0.0);
+        double A6[6];
+        const int ii[6] = {0, 0, 0, 1, 1, 2}, jj[6] = {0, 1, 2, 1, 2, 2};
+#pragma unroll
+        for (int e = 0; e < 6; ++e) {
+          double sum = 0.0;
+#pragma unroll
+          for (int k = 0; k < kNb; ++k) sum += cen[k][ii[e]] * cen[k][jj[e]];
+          A6[e] = sum / cnt + ((ii[e] == jj[e]) ? 1e-12 : 0.0);
+        }
+        double nrm[3];
+        smallest_eigvec(A6, nrm);
+        double d = -(nrm[0] * mu[0] + nrm[1] * mu[1] + nrm[2] * mu[2]);
+        const bool finite = isfinite(nrm[0]) && isfinite(nrm[1]) && isfinite(nrm[2]) && isfinite(d);
+        if (!finite) {
+          nrm[0] = nrm[1] = nrm[2] = 0.0;
+          d = 0.0;
+        }
+        bool plane_ok = finite && nvalid >= 3;
+#pragma unroll
+        for (int k = 0; k < kNb; ++k) {
+          const double res = fabs(nb[k][0] * nrm[0] + nb[k][1] * nrm[1] + nb[k][2] * nrm[2] + d);
+          if (sv[k] && !(res < double(thr))) plane_ok = false;
+        }
+        const float* pwq = s.pw[j];
+        const double pd = double(pwq[0]) * nrm[0] + double(pwq[1]) * nrm[1]
+                          + double(pwq[2]) * nrm[2] + d;
+        const double lq[3] = {s.l[j][0], s.l[j][1], s.l[j][2]};
+        const double np = sqrt(lq[0] * lq[0] + lq[1] * lq[1] + lq[2] * lq[2]);
+        const double gate = sqrt(np < 1e-6 ? 1e-6 : np);
+        const double sgate = 1.0 - 0.9 * fabs(pd) / gate;
+        const float sd0 = s.d0[j];
+        const float dist0 = sqrtf(sd0 < 0.f ? 0.f : sd0);
+        ok = plane_ok && sgate > 0.9 && dist0 < 5.f;
+        if (ok && !last) {
+          // the row: n, p_b x R^T n, [p_l x R_LI^T R^T n, R^T n]
+          double Rn[3], RLn[3], cr[3];
+          const double pbd[3] = {s.pb[j][0], s.pb[j][1], s.pb[j][2]};
+#pragma unroll
+          for (int i = 0; i < 3; ++i)
+            Rn[i] = nrm[0] * double(R[i]) + nrm[1] * double(R[3 + i]) + nrm[2] * double(R[6 + i]);
+          cross3(pbd, Rn, cr);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            h[i] = nrm[i];
+            h[3 + i] = cr[i];
+          }
+          if (ncols == 12) {
+#pragma unroll
+            for (int i = 0; i < 3; ++i)
+              RLn[i] = Rn[0] * double(RLI[i]) + Rn[1] * double(RLI[3 + i])
+                       + Rn[2] * double(RLI[6 + i]);
+            cross3(lq, RLn, cr);
+#pragma unroll
+            for (int i = 0; i < 3; ++i) {
+              h[6 + i] = cr[i];
+              h[9 + i] = Rn[i];
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < 12; ++k) h[k] = isfinite(h[k]) ? h[k] : 0.0;
+          z = isfinite(pd) ? pd : 0.0;
+        }
+      }
+      count += ok;
+      TC2LI_LAP(12);
+      if (!last) {
+#pragma unroll
+        for (int k = 0; k < 12; ++k) s.hz[j][k] = h[k];
+        s.hz[j][12] = z;
+        s.hz[j][13] = ok ? 1.0 : 0.0;
+        __syncwarp();
+        // each entry over the batch's queries in order: a query that is no
+        // inlier has h, z and ok 0 and adds an exact 0 (the sums start at
+        // +0 and are never -0)
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          if (ea[t] == -2) continue;
+          const int ia = ea[t] == -1 ? 13 : ea[t], ib = ea[t] == -1 ? 13 : (eb[t] == -1 ? 12 : eb[t]);
+#pragma unroll 8
+          for (int q = 0; q < kBatch; ++q) acc[t] += s.hz[q][ia] * s.hz[q][ib];
+        }
+        __syncwarp();
+      }
+      TC2LI_LAP(13);
     }
+    __syncthreads();
+  }
+  if (warp != 0) return;
+  if (last) {
+    const int c = __reduce_add_sync(kFull, count);
+    if (lane == 0 && c) atomicAdd(n_eff, c);
     return;
   }
+  // the block's partial sums, entry-major [E, G]
 #pragma unroll
   for (int t = 0; t < 3; ++t)
-    if (lane + 32 * t < E) red[warp][lane + 32 * t] = acc[t];
-  __syncthreads();
-  if (tid < E) {
-    double sum = 0.0;
-    for (int w = 0; w < kWarps; ++w) sum += red[w][tid];
-    partials[static_cast<size_t>(blockIdx.x) * E + tid] = sum;
-  }
+    if (lane + 32 * t < E) partials[static_cast<size_t>(lane + 32 * t) * G + blockIdx.x] = acc[t];
+  TC2LI_LAP(14);
 }
 
 // ---------------------------------------------------------------------------
@@ -786,14 +1115,18 @@ rows_kernel(const float* __restrict__ x, const float* __restrict__ pl,
 struct StepSmem {
   double sums[kMaxEntries];
   double Pinv[kErr * kErr];
-  double A[kErr * kErr];
-  double Tm[kErr * kErr];        // P0^-1 L
-  double aug[kErr * 2 * kErr];   // Gauss-Jordan [M | I]
-  double col[kErr];
-  double x[kState], x0[kState];
-  double Lr[9], Le[9], Lg[4];    // the transport Jacobian's blocks
-  double dx0[kErr], w[kErr], b[kErr], delta[kErr];
-  int piv;
+  double A[kErr * kErr];         // N / r + L^T P0^-1 L (P0 + 1e-9 I at the first launch);
+                                 // then its Cholesky factor's rows
+  double Tm[kErr * kErr];        // P0^-1 L; the final inverse
+  double aug[kErr * kAug];       // the Gauss-Jordan's [M | I]
+  double prow[2 * kErr];         // its pivot row
+  double bc[kErr];               // a column of the Cholesky, broadcast on warp 0
+  double x[kState], x0[kState];   // the iterate, the prediction
+  double t[kTangent];            // boxminus(x, x0), then the transport Jacobian's blocks
+                                 // Lr, Le, Lg (tangent_terms)
+  double w[kErr], b[kErr], delta[kErr];
+  double conv, iters;
+  int now, piv;
 };
 
 // block index of an error-state coordinate: its first coordinate and size
@@ -809,89 +1142,10 @@ __device__ __forceinline__ void block_of(int i, int& first, int& size) {
 
 // L_ai of the block-diagonal transport Jacobian (a, i in one block)
 __device__ __forceinline__ double L_at(const StepSmem& s, int a, int i) {
-  if (a >= 3 && a < 6) return s.Lr[3 * (a - 3) + (i - 3)];
-  if (a >= 6 && a < 9) return s.Le[3 * (a - 6) + (i - 6)];
-  if (a >= 21) return s.Lg[2 * (a - 21) + (i - 21)];
+  if (a >= 3 && a < 6) return s.t[kErr + 3 * (a - 3) + (i - 3)];
+  if (a >= 6 && a < 9) return s.t[kErr + 9 + 3 * (a - 6) + (i - 6)];
+  if (a >= 21) return s.t[kErr + 18 + 2 * (a - 21) + (i - 21)];
   return a == i ? 1.0 : 0.0;
-}
-
-// the inverse of M (row-major n x n in s.aug's left half on entry; the
-// inverse lands in out), Gauss-Jordan with partial pivoting on the block
-__device__ void gauss_jordan_inverse(StepSmem& s, double* out) {
-  const int n = kErr, w = 2 * kErr, tid = threadIdx.x;
-  for (int c = 0; c < n; ++c) {
-    if (tid == 0) {
-      int p = c;
-      double best = fabs(s.aug[c * w + c]);
-      for (int r = c + 1; r < n; ++r) {
-        const double v = fabs(s.aug[r * w + c]);
-        if (v > best) {
-          best = v;
-          p = r;
-        }
-      }
-      s.piv = p;
-    }
-    __syncthreads();
-    const int p = s.piv;
-    if (p != c)
-      for (int k = tid; k < w; k += kThreads) {
-        const double t = s.aug[c * w + k];
-        s.aug[c * w + k] = s.aug[p * w + k];
-        s.aug[p * w + k] = t;
-      }
-    __syncthreads();
-    const double inv = 1.0 / s.aug[c * w + c];
-    __syncthreads();
-    for (int k = tid; k < w; k += kThreads) s.aug[c * w + k] *= inv;
-    for (int r = tid; r < n; r += kThreads) s.col[r] = s.aug[r * w + c];
-    __syncthreads();
-    for (int e = tid; e < n * w; e += kThreads) {
-      const int r = e / w, k = e % w;
-      if (r != c) s.aug[e] -= s.col[r] * s.aug[c * w + k];
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < n * n; e += kThreads) out[e] = s.aug[(e / n) * w + n + e % n];
-  __syncthreads();
-}
-
-// boxminus(x, x0) into s.dx0 and the transport Jacobian's blocks: three
-// threads of three warps side by side
-__device__ void tangent_terms(StepSmem& s) {
-  const int tid = threadIdx.x;
-  if (tid == 0 || tid == 32) {
-    const int o = tid == 0 ? kR : kRLI;
-    double D[9], w[3];
-    mul3tn(s.x0 + o, s.x + o, D);
-    so3_log(D, w);
-    so3_right_jacobian_inv(w, tid == 0 ? s.Lr : s.Le);
-    for (int k = 0; k < 3; ++k) s.dx0[(tid == 0 ? 3 : 6) + k] = w[k];
-  } else if (tid == 64) {
-    // d/dd [(g + d) - g0] at d = 0: g + d = Exp(B(g) d) g moves g by
-    // B_k x g along d_k
-    const double* g = s.x + kGrav;
-    double B[6], dg[2][3], dout[2][2], out[2];
-    s2_basis(g, B);
-    for (int k = 0; k < 2; ++k) {
-      const double bk[3] = {B[k], B[2 + k], B[4 + k]};
-      cross3(bk, g, dg[k]);
-    }
-    s2_boxminus(g, s.x0 + kGrav, out, dg, dout);
-    s.dx0[21] = out[0];
-    s.dx0[22] = out[1];
-    for (int r = 0; r < 2; ++r)
-      for (int k = 0; k < 2; ++k) s.Lg[2 * r + k] = dout[r][k];
-  } else if (tid == 96) {
-    for (int k = 0; k < 3; ++k) {
-      s.dx0[k] = s.x[kPos + k] - s.x0[kPos + k];
-      s.dx0[9 + k] = s.x[kTLI + k] - s.x0[kTLI + k];
-      s.dx0[12 + k] = s.x[kVel + k] - s.x0[kVel + k];
-      s.dx0[15 + k] = s.x[kBg + k] - s.x0[kBg + k];
-      s.dx0[18 + k] = s.x[kBa + k] - s.x0[kBa + k];
-    }
-  }
-  __syncthreads();
 }
 
 // s.A = N / r + L^T P0^-1 L (N: the reduced sums over the first ncols
@@ -909,7 +1163,7 @@ __device__ void assemble(StepSmem& s, int ncols, double r_inv, bool rhs) {
   if (rhs)
     for (int a = tid; a < kErr; a += kThreads) {
       double v = 0.0;
-      for (int b = 0; b < kErr; ++b) v += s.Pinv[a * kErr + b] * s.dx0[b];
+      for (int b = 0; b < kErr; ++b) v += s.Pinv[a * kErr + b] * s.t[b];
       s.w[a] = v;
     }
   __syncthreads();
@@ -938,140 +1192,182 @@ __device__ void assemble(StepSmem& s, int ncols, double r_inv, bool rhs) {
   __syncthreads();
 }
 
+// warp 0: the Cholesky factor of s.A (lower triangle, right-looking, the
+// column of each step broadcast through shared memory) and the two
+// triangular solves of s.b, column-oriented across the lanes, into s.delta;
+// returns whether every |delta_i| < eps (a NaN never converges)
+__device__ bool warp_cholesky_solve(StepSmem& s, double eps) {
+  const int lane = threadIdx.x & 31;
+  const bool row = lane < kErr;
+  double a[kErr];
+#pragma unroll
+  for (int k = 0; k < kErr; ++k) a[k] = row ? s.A[lane * kErr + k] : 0.0;
+  double inv_own = 0.0;   // 1 / L_ii on lane i
+#pragma unroll
+  for (int c = 0; c < kErr; ++c) {
+    const double dcc = sqrt(__shfl_sync(kFull, a[c], c));
+    const double inv = __drcp_rn(dcc);
+    if (lane == c) {
+      a[c] = dcc;
+      inv_own = inv;
+    } else if (row && lane > c) {
+      a[c] *= inv;
+      s.bc[lane] = a[c];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = c + 1; j < kErr; ++j)
+      if (row && lane >= j) a[j] -= a[c] * s.bc[j];
+    __syncwarp();
+  }
+  TC2LI_LAP(34);
+  // L's rows to shared memory (the backward solve reads its columns)
+  if (row)
+#pragma unroll
+    for (int k = 0; k < kErr; ++k) s.A[lane * kErr + k] = a[k];
+  __syncwarp();
+  // L y = b: y_j = v_j / L_jj on lane j, then v_i -= L_ij y_j below it
+  double v = row ? s.b[lane] : 0.0;
+#pragma unroll
+  for (int j = 0; j < kErr; ++j) {
+    const double yj = __shfl_sync(kFull, v * inv_own, j);
+    if (lane == j) v = yj;
+    else if (row && lane > j) v -= a[j] * yj;
+  }
+  // L^T delta = y, from the last row up
+#pragma unroll
+  for (int j = kErr - 1; j >= 0; --j) {
+    const double dj = __shfl_sync(kFull, v * inv_own, j);
+    if (lane == j) v = dj;
+    else if (lane < j) v -= s.A[j * kErr + lane] * dj;
+  }
+  if (row) s.delta[lane] = v;
+  return __all_sync(kFull, !row || fabs(v) < eps);
+}
+
 __global__ void __launch_bounds__(kThreads)
 step_kernel(const double* __restrict__ partials, int blocks, int ncols, double r_inv, double eps,
             const float* __restrict__ xp, const float* __restrict__ x0p, int first, int final_,
-            double* __restrict__ work, float* __restrict__ x_next, float* __restrict__ out,
-            int* __restrict__ ints, uint8_t* __restrict__ bad) {
+            double* __restrict__ work, float* __restrict__ x_next,
+            float* __restrict__ out, int* __restrict__ ints, uint8_t* __restrict__ bad) {
   __shared__ StepSmem s;
-  __shared__ double conv, iters;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int E = n_entries(ncols);
-  // the blocks' partial sums in a fixed order: a warp an entry at a time,
-  // lane l adds blocks l, l + 32, ... in four interleaved accumulators
-  // (added in order), then the lanes by a fixed xor tree
-  if (tid < kState) s.x0[tid] = double(xp[tid]);
-  {
-    const int lane = tid & 31, warp = tid >> 5;
-    for (int e = warp; e < E; e += kWarps) {
-      double a4[4] = {0.0, 0.0, 0.0, 0.0};
-      int b = lane;
-      for (; b + 96 < blocks; b += 128) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) a4[u] += partials[static_cast<size_t>(b + 32 * u) * E + e];
-      }
-      for (int u = 0; b < blocks; b += 32, ++u) a4[u] += partials[static_cast<size_t>(b) * E + e];
-      double sum = (a4[0] + a4[1]) + (a4[2] + a4[3]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
-      if (lane == 0) s.sums[e] = sum;
-    }
+  TC2LI_LAP_START
+  // launched as a programmatic dependent of the rows launch: the block starts
+  // while that launch ends and reads nothing before its writes are done
+  pdl_wait();
+  pdl_trigger();
+  if (tid < kState) {
+    // the final covariance is taken in the tangent of the state as it is
+    // written (float32): S2's basis B(g) changes where the smallest |g_i|
+    // changes hands, which rounding can decide near an axis
+    double v = first ? double(xp[tid]) : work[kWorkIter + tid];
+    s.x[tid] = final_ ? double(float(v)) : v;
+    s.x0[tid] = double(xp[tid]);
   }
-  if (first) {
-    // P0^-1 = (P0 + 1e-9 I)^-1; the iterate starts at the prediction
-    for (int e = tid; e < kErr * kErr; e += kThreads) {
-      const int r = e / kErr, c = e % kErr;
-      s.aug[r * 2 * kErr + c] = double(xp[kState + e]) + (r == c ? 1e-9 : 0.0);
-      s.aug[r * 2 * kErr + kErr + c] = r == c ? 1.0 : 0.0;
-    }
-    if (tid < kState) s.x[tid] = s.x0[tid];
-    if (tid == 0) {
-      conv = 0.0;
-      iters = 0.0;
-    }
-    __syncthreads();
-    gauss_jordan_inverse(s, s.Pinv);
-    for (int e = tid; e < kErr * kErr; e += kThreads) work[e] = s.Pinv[e];
-  } else {
-    for (int e = tid; e < kErr * kErr; e += kThreads) s.Pinv[e] = work[e];
-    if (tid < kState) s.x[tid] = work[kErr * kErr + tid];
-    if (tid == 0) {
-      conv = work[kErr * kErr + kState];
-      iters = work[kErr * kErr + kState + 1];
-    }
+  if (tid == 0) {
+    s.conv = first ? 0.0 : work[kWorkConv];
+    s.iters = first ? 0.0 : work[kWorkConv + 1];
   }
-  // the final covariance is taken in the tangent of the state as it is
-  // written (float32): S2's basis B(g) changes where the smallest |g_i|
-  // changes hands, which rounding can decide near an axis
-  if (final_ && tid < kState) s.x[tid] = double(float(s.x[tid]));
+  // P0 + 1e-9 I at the first launch; P0^-1 from it at the later ones
+  for (int e = tid; e < kErr * kErr; e += kThreads) {
+    if (first) s.A[e] = double(xp[kState + e]) + (e / kErr == e % kErr ? 1e-9 : 0.0);
+    else s.Pinv[e] = work[e];
+  }
   __syncthreads();
-  tangent_terms(s);
+  if (first && warp < 4) {
+    // P0^-1 on warps 0-3, beside the reduction and the tangent chains
+    block_gauss_jordan<128>(s.A, s.Pinv, s.aug, s.prow, &s.piv);
+  } else {
+    // the blocks' partial sums in a fixed order on nw warps (4-7 at the
+    // first launch, else 0-4): a warp an entry at a time, lane l adds
+    // blocks l, l + 32, ... in four interleaved accumulators (added in
+    // order), then the lanes by a fixed xor tree; which warp takes an entry
+    // changes no bit of it
+    const int w0 = first ? 4 : 0, nw = first ? 4 : 5, wi = warp - w0;
+    if (wi >= 0 && wi < nw) {
+      for (int e0 = wi; e0 < E; e0 += 2 * nw) {
+        double a4[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {   // two entries' loads in flight
+          const int e = min(e0 + h * nw, E - 1);
+          const double* pe = partials + static_cast<size_t>(e) * blocks;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) a4[h][u] = 0.0;
+          int b = lane;
+          for (; b + 96 < blocks; b += 128) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) a4[h][u] += pe[b + 32 * u];
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (b + 32 * u < blocks) a4[h][u] += pe[b + 32 * u];
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          double sum = (a4[h][0] + a4[h][1]) + (a4[h][2] + a4[h][3]);
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
+          if (lane == 0 && e0 + h * nw < E) s.sums[e0 + h * nw] = sum;
+        }
+      }
+    }
+    // the tangent terms at this iterate on warps 5-7 (after their share of
+    // the reduction at the first launch)
+    tangent_terms(s.x, s.x0, s.t, warp, lane);
+  }
+  __syncthreads();
+  if (first)
+    for (int e = tid; e < kErr * kErr; e += kThreads) work[e] = s.Pinv[e];
+  TC2LI_LAP(32);
   if (!final_) {
     assemble(s, ncols, r_inv, true);
-    // Cholesky of A's lower triangle, right-looking, a column a pass
-    for (int c = 0; c < kErr; ++c) {
-      if (tid == 0) s.A[c * kErr + c] = sqrt(s.A[c * kErr + c]);
-      __syncthreads();
-      const double inv = 1.0 / s.A[c * kErr + c];
-      for (int i = c + 1 + tid; i < kErr; i += kThreads) s.A[i * kErr + c] *= inv;
-      __syncthreads();
-      const int m = kErr - 1 - c;
-      for (int e = tid; e < m * m; e += kThreads) {
-        const int i = c + 1 + e / m, j = c + 1 + e % m;
-        if (j <= i) s.A[i * kErr + j] -= s.A[i * kErr + c] * s.A[j * kErr + c];
-      }
-      __syncthreads();
+    TC2LI_LAP(33);
+    if (warp == 0) {
+      const bool now = warp_cholesky_solve(s, eps);
+      if (lane == 0) s.now = now;
     }
-    if (tid == 0) {
-      double y[kErr];
-      for (int i = 0; i < kErr; ++i) {
-        double v = s.b[i];
-        for (int j = 0; j < i; ++j) v -= s.A[i * kErr + j] * y[j];
-        y[i] = v / s.A[i * kErr + i];
-      }
-      for (int i = kErr - 1; i >= 0; --i) {
-        double v = y[i];
-        for (int j = i + 1; j < kErr; ++j) v -= s.A[j * kErr + i] * s.delta[j];
-        s.delta[i] = v / s.A[i * kErr + i];
-      }
-      // boxplus under the convergence mask; converged on max |delta| < eps (a
-      // NaN never converges)
-      const bool step_ok = conv == 0.0;
-      bool now = true;
-      for (int i = 0; i < kErr; ++i) now = now && fabs(s.delta[i]) < eps;
-      if (step_ok) {
-        const double* d = s.delta;
-        double* x = s.x;
-        double E3[9], Rn[9], g[3];
-        for (int k = 0; k < 3; ++k) {
-          x[kPos + k] += d[k];
-          x[kTLI + k] += d[9 + k];
-          x[kVel + k] += d[12 + k];
-          x[kBg + k] += d[15 + k];
-          x[kBa + k] += d[18 + k];
-        }
-        so3_exp(d + 3, E3);
-        mul3(x + kR, E3, Rn);
-        for (int e = 0; e < 9; ++e) x[kR + e] = Rn[e];
-        so3_exp(d + 6, E3);
-        mul3(x + kRLI, E3, Rn);
-        for (int e = 0; e < 9; ++e) x[kRLI + e] = Rn[e];
+    __syncthreads();
+    TC2LI_LAP(35);
+    // boxplus under the convergence mask, its three rotations on three warps
+    if (s.conv == 0.0) {
+      const double* d = s.delta;
+      double* x = s.x;
+      if ((warp == 0 || warp == 1) && lane == 0) {
+        const int o = warp == 0 ? kR : kRLI;
+        double E3[9], Rn[9];
+        so3_exp(d + (warp == 0 ? 3 : 6), E3);
+        mul3(x + o, E3, Rn);
+        for (int e = 0; e < 9; ++e) x[o + e] = Rn[e];
+      } else if (warp == 2 && lane == 0) {
+        double g[3];
         s2_boxplus(x + kGrav, d + 21, g);
         for (int k = 0; k < 3; ++k) x[kGrav + k] = g[k];
-        iters += 1.0;
+      } else if (warp == 3 && lane < 15) {
+        const int v = lane / 3, k = lane % 3;
+        const int o[5] = {kPos, kTLI, kVel, kBg, kBa}, e[5] = {0, 9, 12, 15, 18};
+        x[o[v] + k] += d[e[v] + k];
       }
-      if (now) conv = 1.0;
     }
     __syncthreads();
     if (tid < kState) {
-      work[kErr * kErr + tid] = s.x[tid];
+      work[kWorkIter + tid] = s.x[tid];
       x_next[tid] = float(s.x[tid]);
     }
     if (tid == 0) {
-      work[kErr * kErr + kState] = conv;
-      work[kErr * kErr + kState + 1] = iters;
+      work[kWorkConv] = s.now ? 1.0 : s.conv;
+      work[kWorkConv + 1] = s.conv == 0.0 ? s.iters + 1.0 : s.iters;
     }
+    TC2LI_LAP(36);
     return;
   }
   // the final covariance in the tangent at the converged state
   assemble(s, ncols, r_inv, false);
-  for (int e = tid; e < kErr * kErr; e += kThreads) {
-    const int r = e / kErr, c = e % kErr;
-    s.aug[r * 2 * kErr + c] = s.A[e];
-    s.aug[r * 2 * kErr + kErr + c] = r == c ? 1.0 : 0.0;
-  }
+  TC2LI_LAP(33);
+  block_gauss_jordan<kThreads>(s.A, s.Tm, s.aug, s.prow, &s.piv);
   __syncthreads();
-  gauss_jordan_inverse(s, s.Tm);
+  TC2LI_LAP(37);
   // float32 state and P; the guard on them: non-finite, or |v| > 60 m/s
   __shared__ float P32[kErr * kErr], x32[kState];
   __shared__ int nonfinite;
@@ -1095,19 +1391,62 @@ step_kernel(const double* __restrict__ partials, int blocks, int ncols, double r
   for (int e = tid; e < kPacked; e += kThreads)
     out[e] = is_bad ? x0p[e] : (e < kState ? x32[e] : P32[e - kState]);
   if (tid == 0) {
-    ints[0] = static_cast<int>(iters);
+    ints[0] = static_cast<int>(s.iters);
     ints[1] = 0;   // the last evaluation's inlier count adds into it
     bad[0] = is_bad;
   }
+  TC2LI_LAP(38);
+}
+
+// programmatic dependent launch on `stream`
+template <typename... Params, typename... Args>
+cudaError_t launch_pdl(void (*kernel)(Params...), int grid, int threads, int smem,
+                       void* stream, Args... args) {
+  cudaLaunchAttribute at;
+  at.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  at.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &at;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
 }  // namespace
 
 extern "C" int tc2li_lio_rows_blocks(int M) {
-  return max(1, min(kRowsMaxBlocks, (M + kWarps - 1) / kWarps));
+  return max(1, min(kRowsMaxBlocks, (M + kBatch - 1) / kBatch));
 }
 
 extern "C" int tc2li_lio_work_doubles() { return kWork; }
+
+// log2 of the fence stride for a pool of cap slots: 5, or more where the
+// table would outgrow kMaxFences
+extern "C" int tc2li_lio_fence_log2(int cap) {
+  int lg = kFenceLog2;
+  while (((static_cast<long long>(cap) + (1ll << lg) - 1) >> lg) > kMaxFences) ++lg;
+  return lg;
+}
+
+// registers, local (spill) bytes, static shared bytes and the largest block
+// of the scan step's kernels: which 0 predict, 1 rows, 2 step, 3 fences
+extern "C" int tc2li_lio_func_attrs(int which, int* out) {
+  cudaFuncAttributes a;
+  const void* fns[4] = {reinterpret_cast<const void*>(predict_kernel),
+                        reinterpret_cast<const void*>(rows_kernel),
+                        reinterpret_cast<const void*>(step_kernel),
+                        reinterpret_cast<const void*>(fence_kernel)};
+  if (which < 0 || which > 3) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncGetAttributes(&a, fns[which]);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = a.maxThreadsPerBlock;
+  return static_cast<int>(e);
+}
 
 extern "C" int tc2li_esekf_predict(const float* xin, const float* gyro, const float* acc,
                                    const float* dts, int N, float qg, float qa, float qbg,
@@ -1120,24 +1459,44 @@ extern "C" int tc2li_esekf_predict(const float* xin, const float* gyro, const fl
   return static_cast<int>(cudaGetLastError());
 }
 
+// fences: int32 [ceil(cap / 2^lg) + 1]
+extern "C" int tc2li_lio_fences(const int* keys, int cap, int lg, int* fences, void* stream) {
+  if (cap < 1 || lg != tc2li_lio_fence_log2(cap)) return static_cast<int>(cudaErrorInvalidValue);
+  const int nf = static_cast<int>((static_cast<long long>(cap) + (1ll << lg) - 1) >> lg);
+  const cudaError_t e = launch_pdl(fence_kernel, (nf + 255) / 256, 256, 0, stream, keys, cap, lg,
+                                   nf, fences);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int tc2li_lio_rows(const float* x, const float* pl, const uint8_t* valid, int M,
                               const int* keys, const float* mpts, const float* origin, int cap,
-                              float vs, float thr, int ncols, int last, double* partials,
-                              float* pw, int* n_eff, int* nbr, void* stream) {
-  if (M < 0 || cap < 1 || (ncols != 6 && ncols != 12))
+                              const int* fences, int lg, float vs, float thr, int ncols,
+                              int last, double* partials, float* pw, int* n_eff, int* nbr,
+                              void* stream) {
+  if (M < 0 || cap < 1 || (ncols != 6 && ncols != 12) || lg != tc2li_lio_fence_log2(cap))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int nf = static_cast<int>((static_cast<long long>(cap) + (1ll << lg) - 1) >> lg);
+  // the fence table in dynamic shared memory, up to 64 KB (set on every
+  // call: the attribute belongs to the current device)
+  cudaError_t e = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kMaxFences * 4);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const MapIn m{keys, mpts, origin, cap, vs};
-  rows_kernel<<<tc2li_lio_rows_blocks(M), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, pl, valid, M, m, thr, ncols, last, partials, pw, n_eff, nbr);
+  e = launch_pdl(rows_kernel, tc2li_lio_rows_blocks(M), kRowsThreads, nf * 4, stream, x, pl,
+                 valid, M, m, fences, nf, lg, thr, ncols, last, partials, pw, n_eff, nbr);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int tc2li_esekf_step(const double* partials, int blocks, int ncols, double r_inv,
                                 double eps, const float* xp, const float* x0p, int first,
-                                int final_, double* work, float* x_next, float* out, int* ints,
-                                uint8_t* bad, void* stream) {
+                                int final_, double* work, float* x_next, float* out,
+                                int* ints, uint8_t* bad, void* stream) {
   if (blocks < 1 || (ncols != 6 && ncols != 12)) return static_cast<int>(cudaErrorInvalidValue);
-  step_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      partials, blocks, ncols, r_inv, eps, xp, x0p, first, final_, work, x_next, out, ints, bad);
+  const cudaError_t e = launch_pdl(step_kernel, 1, kThreads, 0, stream, partials, blocks, ncols,
+                                   r_inv, eps, xp, x0p, first, final_, work, x_next, out,
+                                   ints, bad);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""The LiDAR-inertial scan step of the IMU mode: three hand-written CUDA
+"""The LiDAR-inertial scan step of the IMU mode: four hand-written CUDA
 kernels + their plain versions.
 
 Replaces, in ``tc2li_slam_tpu``, what the TPU runs inside the one jit of
@@ -11,20 +11,27 @@ its ``lax.scan`` :308) with the divergence guard. Written as eager PyTorch
 ~5,000 small ops, each a launch, on every frame of the IMU mode.
 
 Bound on the H100: latency (``csrc/lio.cu`` says how). A scan step at
-``max_iters`` k is 1 + (k + 2) + (k + 1) launches on the current stream and
-no host sync:
+``max_iters`` k is ``launches_per_scan(k)`` = 1 + 1 + (k + 2) + (k + 1)
+launches on the current stream and no host sync:
 
 - ``esekf_predict`` (``predict_launches``): the window's serial chain on one
   block, P <- F P F^T + Fw Q Fw^T from F's block structure; a sample with
   ``dt <= 0`` is skipped, an exact no-op at any launch size.
+- ``lio_fences`` (``fence_launches``): the pool keys' fence table, every
+  32nd key, once a scan step (``fences_plain``).
 - ``lio_rows`` (``rows_launches``): one evaluation of the measurement at an
-  iterate's state in device memory, a warp a point: kNN of radius 2 in the
-  voxel pool, the 5-point plane fit, the gate and the row; each block's
-  float64 sums of h h^T (the 6, or 12 with the extrinsic, non-zero columns),
-  h z and the inlier count. The last evaluation, at the guarded state,
-  writes p_w and counts the inliers.
+  iterate's state in device memory: kNN of radius 2 in the voxel pool (a
+  warp 4 points, a lane a voxel column, the key search through the fence
+  table), then the 5-point plane fit, the gate and the row a lane a point;
+  each block's float64 sums of h h^T (the 6, or 12 with the extrinsic,
+  non-zero columns), h z and the inlier count over its batches of 32 points
+  in a fixed order, entry-major [E, blocks]. The last evaluation, at the
+  guarded state, writes p_w and counts the inliers.
 - ``esekf_step`` (``step_launches``): a MAP step from the blocks' sums, or
-  the final covariance with the guard, on one block in float64.
+  the final covariance (Gauss-Jordan on the block) with the guard, on one
+  block in float64: the sums' reduction beside the tangent terms at the
+  iterate (and, at the first launch, P0^-1 by Gauss-Jordan on four warps),
+  the assembly, the Cholesky solve on one warp, boxplus.
 
 The prediction and the neighbour search are float32, as the plain
 versions; the plane fit, the gate, the rows' sums and the step are float64
@@ -53,6 +60,7 @@ from ...tensors import count
 from . import build
 
 predict_launches = 0   # kernel launches by esekf_predict (plain-version calls excluded)
+fence_launches = 0     # ... by lio_fences
 rows_launches = 0      # ... by lio_rows
 step_launches = 0      # ... by esekf_step
 STATE_FLOATS = 36      # pos, R, R_LI, t_LI, vel, bg, ba, grav
@@ -64,7 +72,8 @@ _SHAPES = (("pos", (3,)), ("R", (3, 3)), ("R_LI", (3, 3)), ("t_LI", (3,)), ("vel
 
 def launches_per_scan(max_iters: int) -> dict:
     """The kernels' launches a scan step at ``max_iters``."""
-    return {"esekf_predict": 1, "lio_rows": max_iters + 2, "esekf_step": max_iters + 1}
+    return {"esekf_predict": 1, "lio_fences": 1, "lio_rows": max_iters + 2,
+            "esekf_step": max_iters + 1}
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +200,14 @@ def rows_plain(m: voxel_map.VoxelMap, points_l, valid, x: esekf.State, cfg,
                 slots[0] if slots else None)
 
 
+def fences_plain(keys: torch.Tensor, lg: int) -> torch.Tensor:
+    """What ``lio_fences`` writes for the sorted pool keys [cap]: every
+    2^lg-th key, then the number of them below the first kEmpty one (int32
+    [ceil(cap / 2^lg) + 1])."""
+    f = keys[::1 << lg]
+    return torch.cat([f, count(f != voxel_map.EMPTY_KEY).reshape(1).to(torch.int32)])
+
+
 def guard(filt0: esekf.Filter, filt: esekf.Filter):
     """The divergence guard: (filter, bad), the filter from before the scan
     where the update's state or P is not finite or |v| > 60 m/s."""
@@ -305,10 +322,13 @@ def esekf_predict(f: esekf.Filter, gyro, acc, dts, noise: esekf.NoiseCfg):
 
 class LioWork:
     """The device buffers of one scan step's update and its launches, in
-    the order ``scan_update`` makes them: ``rows(0)``, ``step(0)``, ...,
-    ``rows(k - 1)``, ``step(k - 1)``; ``rows(k)``, ``step(k, final=True)``;
-    ``rows_last()``. ``filt0`` is the filter before the scan (the guard's
-    fallback), ``filt`` the prediction; ``points_l`` [M, 3], ``valid`` [M]."""
+    the order ``scan_update`` makes them: ``fences()``, ``rows(0)``,
+    ``step(0)``, ..., ``rows(k - 1)``, ``step(k - 1)``; ``rows(k)``,
+    ``step(k, final=True)``; ``rows_last()``. ``filt0`` is the filter before the scan
+    (the guard's fallback), ``filt`` the prediction; ``points_l`` [M, 3],
+    ``valid`` [M]. The fence, rows and step launches are programmatic
+    dependents of the launch before them on the stream: their blocks start
+    while it ends and read nothing before its writes are done."""
 
     def __init__(self, filt0: esekf.Filter, filt: esekf.Filter, m: voxel_map.VoxelMap,
                  points_l, valid, cfg):
@@ -331,8 +351,13 @@ class LioWork:
         self.entries = self.ncols * (self.ncols + 1) // 2 + self.ncols + 1
         self.lib = build.library()
         self.blocks = self.lib.tc2li_lio_rows_blocks(M)
+        self.lg = self.lib.tc2li_lio_fence_log2(m.capacity)
+        self.n_fences = -(-m.capacity // (1 << self.lg))
         f32, f64 = torch.float32, torch.float64
-        self.partials = torch.empty(self.blocks * self.entries, dtype=f64, device=dev)
+        # the fence table: every 2^lg-th pool key, then the count below kEmpty
+        self.fence_table = torch.empty(self.n_fences + 1, dtype=torch.int32, device=dev)
+        self.fenced = False
+        self.partials = torch.empty(self.entries * self.blocks, dtype=f64, device=dev)   # [E, B]
         self.work = torch.empty(self.lib.tc2li_lio_work_doubles(), dtype=f64, device=dev)
         self.xs = torch.empty((max(cfg.max_iters, 1), STATE_FLOATS), dtype=f32, device=dev)
         self.out = torch.empty(PACKED_FLOATS, dtype=f32, device=dev)
@@ -345,8 +370,20 @@ class LioWork:
         """The float32 state an evaluation at iterate i reads."""
         return self.xp if i == 0 else self.xs[i - 1]
 
+    def fences(self) -> None:
+        """The pool keys' fence table (the pool does not change inside a
+        scan step)."""
+        global fence_launches
+        build.check(self.lib.tc2li_lio_fences(
+            self.keys.data_ptr(), self.m.capacity, self.lg, self.fence_table.data_ptr(),
+            self.stream), "lio_fences")
+        fence_launches += 1
+        self.fenced = True
+
     def _rows(self, x: torch.Tensor, last: bool, slots) -> None:
         global rows_launches
+        if not self.fenced:
+            raise RuntimeError("lio_rows: the fence table is not built (call fences() first)")
         nbr = 0
         if slots is not None:
             _check("lio_rows slots", slots, (self.M, 5), torch.int32, self.dev)
@@ -354,9 +391,9 @@ class LioWork:
         build.check(self.lib.tc2li_lio_rows(
             x.data_ptr(), self.pl.data_ptr(), self.valid.data_ptr(), self.M,
             self.keys.data_ptr(), self.mpts.data_ptr(), self.m.origin.data_ptr(),
-            self.m.capacity, self.m.voxel_size, self.cfg.plane_thresh, self.ncols, int(last),
-            self.partials.data_ptr(), self.pw.data_ptr(), self.ints[1:].data_ptr(), nbr,
-            self.stream), "lio_rows")
+            self.m.capacity, self.fence_table.data_ptr(), self.lg, self.m.voxel_size,
+            self.cfg.plane_thresh, self.ncols, int(last), self.partials.data_ptr(),
+            self.pw.data_ptr(), self.ints[1:].data_ptr(), nbr, self.stream), "lio_rows")
         rows_launches += 1
 
     def rows(self, i: int, slots=None) -> None:
@@ -370,7 +407,8 @@ class LioWork:
 
     def step(self, i: int, final: bool = False) -> None:
         """The MAP step from iterate i (``final``: the covariance at it and
-        the guard)."""
+        the guard), after ``rows(i)``; ``step(0)`` keeps P0^-1 for the
+        later ones."""
         global step_launches
         nxt = self.xs[min(i, self.xs.shape[0] - 1)]
         build.check(self.lib.tc2li_esekf_step(
@@ -384,7 +422,7 @@ class LioWork:
         """The blocks' partial sums added (float64, in torch): N [nc, nc], v
         [nc], the inlier count; for checks beside the plain versions."""
         nc, T = self.ncols, self.ncols * (self.ncols + 1) // 2
-        s = self.partials.view(self.blocks, self.entries).sum(0)
+        s = self.partials.view(self.entries, self.blocks).sum(1)
         iu = torch.triu_indices(nc, nc, device=self.dev)
         N = torch.zeros((nc, nc), dtype=torch.float64, device=self.dev)
         N[iu[0], iu[1]] = s[:T]
@@ -404,9 +442,10 @@ class LioWork:
 def scan_update(filt0: esekf.Filter, filt: esekf.Filter, m: voxel_map.VoxelMap, points_l,
                 valid, cfg) -> ScanUpdate:
     """Launch ``csrc/lio.cu``'s update on the current stream: what
-    ``scan_update_plain`` computes, in 2 max_iters + 3 launches and without
+    ``scan_update_plain`` computes, in 2 max_iters + 4 launches and without
     a host sync."""
     w = LioWork(filt0, filt, m, points_l, valid, cfg)
+    w.fences()
     for i in range(cfg.max_iters):
         w.rows(i)
         w.step(i)

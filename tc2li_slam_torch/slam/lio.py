@@ -46,7 +46,7 @@ def iterated_update(filt0: esekf.Filter, filt: esekf.Filter, m: voxel_map.VoxelM
     """The scan step's iterated point-to-plane update of the prediction
     ``filt`` against the voxel map, the divergence guard back to ``filt0``
     and the inliers at the result. CUDA tensors go to the kernels
-    (``ops/kernels/lio.py`` ``scan_update``: 2 max_iters + 3 launches), CPU
+    (``ops/kernels/lio.py`` ``scan_update``: 2 max_iters + 4 launches), CPU
     tensors to their plain version; any other device raises."""
     args = (filt0, filt, m, points_l, valid, cfg)
     if points_l.device.type == "cuda":

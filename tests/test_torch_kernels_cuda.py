@@ -19,7 +19,7 @@ inlier flags equal but at a gate; ``imu_preintegrate`` (float32 sums in
 another order than ATen's) within 1e-4 of the plain version run in float64
 (``chip_smoke.imu_distance``: the covariance diagonally scaled, any other
 output over its largest entry), or 4x the float32 plain version's own
-distance. The scan step's three kernels (``chip_smoke.lio_phase``,
+distance. The scan step's four kernels (``chip_smoke.lio_phase``,
 ``LIO_TOL``): the prediction to 1e-4 (state; P diagonally scaled), the
 neighbour sets 99.9% equal, the rows' normal equations (float64 plane fits)
 to 1e-4 after diagonal scaling or else no farther from the plain version
@@ -1165,29 +1165,103 @@ def _lio_case(cuda, case):
 
 @pytest.mark.parametrize("case", ["full", "work_cap", "extrinsic", "empty_map", "bad_imu"])
 def test_lio_kernels_match_plain(cuda, case):
-    """``chip_smoke.lio_phase``: each of the three kernels against its plain
+    """``chip_smoke.lio_phase``: each of the four kernels against its plain
     version (``chip_smoke.LIO_TOL``; the step against the plain step run in
     float64 on its own sums), the whole update against ``scan_update_plain``,
     the same bits on a second call, no host sync in a scan step."""
     rows = chip_smoke.lio_phase(torch, cuda, [(case, _lio_case(cuda, case))])
-    assert set(rows) == {"esekf_predict", "lio_rows", "esekf_step"}
+    assert set(rows) == {"esekf_predict", "lio_fences", "lio_rows", "esekf_step"}
+
+
+@pytest.mark.parametrize("case", ["M 8192", "M 32768", "M 0", "M 1", "M 1000", "near-full pool",
+                                  "12 columns", "full 2^19 pool", "pool above 2^19"])
+def test_lio_rows_cases(cuda, case):
+    """``lio_rows`` (with its fence table) on ``chip_smoke.lio_problem``'s scan
+    at the prediction: the same bits on a second call, the fence table equal
+    to ``fences_plain``, the neighbour sets 99.9% equal to ``rows_plain``'s,
+    the inliers within 3 of the float64 plain version's and N within 1e-4
+    of it after diagonal scaling (or no farther than the float32 plain
+    version). M 0, 1 and 1000 take the first points; the near-full pool has
+    11,850 slots (not a multiple of the fence stride) for ~11,800 points.
+    The full pools fill every slot with a block of voxels 20-60 m below the
+    scan, whose keys interleave with the scan's: 2^19 slots (the largest
+    fence table, 64 KB of shared memory a block) and 2^19 + 1,000 (a fence
+    every 64 keys, the capacity no multiple of it)."""
+    from tc2li_slam_torch.ops import voxel_map
+    from tc2li_slam_torch.ops.kernels import lio as klio
+    from tc2li_slam_torch.slam import lio
+    cap = {"near-full pool": 11_850, "pool above 2^19": (1 << 19) + 1000}.get(case, 1 << 19)
+    filt0, m, scan, t_pts, sv, gyro, acc, dts, trel, noise, cfg = chip_smoke.lio_problem(
+        torch, cuda, cap=cap)
+    if case in ("full 2^19 pool", "pool above 2^19"):
+        q = voxel_map.voxel_indices(m, filt0.x.pos[None])[0]
+        g, gz = torch.arange(-41, 41, device=cuda), torch.arange(-120, -40, device=cuda)
+        ii = torch.stack(torch.meshgrid(g, g, gz, indexing="ij"), -1).reshape(-1, 3)
+        fill = m.origin + (q + ii + 0.5).float() * m.voxel_size
+        m = voxel_map.insert(m, fill, torch.ones(fill.shape[0], dtype=torch.bool, device=cuda))
+        assert int(m.count) == cap
+    cfg = cfg._replace(work_cap=1 << 15 if case == "M 32768" else cfg.work_cap,
+                       estimate_extrinsic=case == "12 columns")
+    fk, Rk, pk = klio.esekf_predict(filt0, gyro, acc, dts, noise)
+    pts, pv = lio.scan_points(fk, scan, t_pts, sv, trel, Rk, pk, cfg)
+    n = {"M 0": 0, "M 1": 1, "M 1000": 1000}.get(case)
+    if n is not None:
+        pts, pv = pts[:n].contiguous(), pv[:n].contiguous()
+    M = pts.shape[0]
+    outs = []
+    for _ in range(2):
+        w = klio.LioWork(filt0, fk, m, pts, pv, cfg)
+        slots = torch.empty((M, 5), dtype=torch.int32, device=cuda)
+        w.fences()
+        w.rows(0, slots)
+        outs.append((w.partials.clone(), slots, w.fence_table.clone()))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*outs)), "not the same bits twice"
+    assert torch.equal(outs[0][2], klio.fences_plain(m.keys, w.lg))
+    if case == "near-full pool":
+        assert int(m.count) > 0.99 * cap and cap % (1 << w.lg)
+    if case in ("full 2^19 pool", "pool above 2^19"):
+        assert w.lg == (5 if cap == 1 << 19 else 6)
+        assert int(w.fence_table[-1]) == w.n_fences   # no fence reads kEmpty
+    N, v, c = w.sums()
+    if M == 0:   # (the plain version's knn takes no empty input)
+        assert int(c) == 0 and not bool(N.any()) and not bool(v.any())
+        return
+    r32 = klio.rows_plain(m, pts, pv, fk.x, cfg, with_slots=True)
+    r64 = klio.rows_plain(m.replace(points=m.points.double()), pts.double(), pv,
+                          chip_smoke.lio_state64(torch, fk.x), cfg)
+    live = (pv & torch.all(torch.isfinite(pts), -1)).cpu()
+    same = torch.all(torch.sort(slots.long().cpu(), -1)[0] == torch.sort(r32.slots.cpu(), -1)[0], -1)
+    assert M == 0 or float(same[live].double().mean()) >= chip_smoke.LIO_TOL["nbr_equal"]
+    assert abs(int(c) - int(r64.n_ok)) <= chip_smoke.LIO_TOL["n_eff"]
+    if int(r64.n_ok) == 0:
+        assert int(c) == 0 and not bool(N.any()) and not bool(v.any())
+        return
+    sc = chip_smoke.diag_scale(torch, r64.N)
+    d = float(((N - r64.N).abs().cpu() / sc).max())
+    d32 = float(((r32.N.double() - r64.N).abs().cpu() / sc).max())
+    assert d <= max(chip_smoke.LIO_TOL["rows"], d32), (d, d32)
 
 
 @pytest.mark.parametrize("max_iters", [1, 3, 4])
 def test_lio_scan_step_launches(cuda, max_iters):
-    """A scan step launches esekf_predict once, lio_rows k + 2 and esekf_step
-    k + 1 times, counted by the wrappers."""
+    """A scan step launches esekf_predict and lio_fences once, lio_rows k + 2
+    and esekf_step k + 1 times, counted by the wrappers: one launch more
+    than the predict, evaluations and steps' 1 + (k + 2) + (k + 1)."""
     from tc2li_slam_torch.ops.kernels import lio as klio
     from tc2li_slam_torch.slam import lio
     a = _lio_case(cuda, "full")
     a = a[:10] + (a[10]._replace(max_iters=max_iters),)
-    n0 = (klio.predict_launches, klio.rows_launches, klio.step_launches)
+    counts = lambda: (klio.predict_launches, klio.fence_launches, klio.rows_launches,
+                      klio.step_launches)
+    n0 = counts()
     res = lio.lio_scan_step(*a)
     torch.cuda.synchronize()
-    n1 = (klio.predict_launches, klio.rows_launches, klio.step_launches)
+    n1 = counts()
     want = klio.launches_per_scan(max_iters)
     assert tuple(b - c for b, c in zip(n1, n0)) == (
-        want["esekf_predict"], want["lio_rows"], want["esekf_step"])
+        want["esekf_predict"], want["lio_fences"], want["lio_rows"], want["esekf_step"])
+    assert sum(want.values()) == 1 + (max_iters + 2) + (max_iters + 1) + 1
     assert not bool(res.bad) and 0 < int(res.n_iters) <= max_iters
 
 
@@ -1233,3 +1307,6 @@ def test_lio_kernels_refuse_what_they_do_not_take(cuda):
     pts = torch.zeros((10, 3), device=cuda)
     with pytest.raises(ValueError, match="bool"):
         klio.LioWork(filt, filt, m, pts, torch.ones(10, device=cuda), a[10])
+    w = klio.LioWork(filt, filt, m, pts, torch.ones(10, dtype=torch.bool, device=cuda), a[10])
+    with pytest.raises(RuntimeError, match="fence"):
+        w.rows(0)

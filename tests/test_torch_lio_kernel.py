@@ -5,14 +5,20 @@ kernels' structure against the JAX ``lio_scan_step``, on the same numpy
 inputs (``test_torch_esekf.lio_fixture``'s planar world).
 
 The emulation repeats what the kernels do in their order: the prediction
-from F's blocks; the candidate order of the 25 voxel columns, the 5 nearest
-by (d^2, candidate index) in float32 and the plane fit, gate and row in
-float64; each block's partial sums (a warp a query, the warps in order)
-and the step's fixed-order reduction of them (four interleaved
-accumulators a lane, a xor tree over the lanes); P0^-1 by Gauss-Jordan
-with partial pivoting, the transport Jacobian's closed blocks with the S2
-block by forward-mode dual numbers, the Cholesky step, the final inverse
-and the guard. Tolerances against the JAX package are
+from F's blocks; the fence table of the pool keys (every 32nd key) and the
+search of a fence, then of its bucket, which equals ``searchsorted``; the
+candidate order of the 25 voxel columns, the 5 nearest by (d^2, candidate
+index) as 64-bit keys in float32 and the plane fit, gate and row in float64,
+a lane a query; each block's partial sums over its batches of 32 queries in
+the grid's static order (block b takes batches b, b + G, ..., G a function
+of M alone), entry-major [E, G], and the step's fixed-order reduction of
+them (four interleaved accumulators a lane, a xor tree over the lanes);
+P0^-1 by Gauss-Jordan with partial pivoting (rows keep their places,
+their positions swap; the pivot by a warp argmax that takes the lowest
+position on ties), the transport Jacobian's closed blocks with the
+S2 block by forward-mode dual numbers, the Cholesky step with both
+triangular solves column by column (by the diagonal's inverses), the final
+inverse and the guard. Tolerances against the JAX package are
 ``test_torch_esekf.test_lio_scan_step``'s: state 1e-3, P rtol 2e-2,
 ``n_iters`` equal, ``n_effective`` within 3. The rows' normal equations
 against the JAX closure: N after diagonal scaling and v over sqrt(N_ii sum
@@ -305,8 +311,69 @@ def _n_entries(nc):
     return nc * (nc + 1) // 2 + nc + 1
 
 
+BATCH, MAX_BLOCKS, MAX_FENCES = 32, 256, 16384   # csrc/lio.cu kBatch, kRowsMaxBlocks, kMaxFences
+
+
+def emu_rows_blocks(M):
+    """``tc2li_lio_rows_blocks``: a function of M alone."""
+    return max(1, min(MAX_BLOCKS, -(-M // BATCH)))
+
+
+def emu_fence_log2(cap):
+    lg = 5
+    while -(-cap // (1 << lg)) > MAX_FENCES:
+        lg += 1
+    return lg
+
+
+def emu_fences(keys):
+    """``fence_kernel``: (F = every 2^lg-th key, u = the fences below the
+    first kEmpty one, lg); u as the kernel's one writing thread finds it."""
+    cap = keys.shape[0]
+    lg = emu_fence_log2(cap)
+    F = keys[::1 << lg]
+    nf = F.shape[0]
+    u = 0
+    for jj in range(nf):
+        if F[jj] != EMPTY and (jj + 1 == nf or F[jj + 1] == EMPTY):
+            u = jj + 1
+    return F, u, lg
+
+
+def emu_lower_bound(keys, fences, key):
+    """The kernel's lower_bound: a branchless search of the u fences (the
+    same iterations for every key), then the keys below ``key`` in the
+    fence's bucket of 2^lg keys."""
+    F, u, lg = fences
+    key = np.asarray(key, np.int64)
+    cap = keys.shape[0]
+    j = np.zeros(key.shape, np.int64)
+    if u:
+        base = np.zeros(key.shape, np.int64)
+        n = u
+        while n > 1:
+            half = n >> 1
+            base = np.where(F[base + half] < key, base + half, base)
+            n -= half
+        j = base + (F[base] < key)
+    b = np.maximum(j - 1, 0) << lg
+    idx = b[..., None] + np.arange(1 << lg)
+    below = (idx < cap) & (keys[np.minimum(idx, cap - 1)] < key[..., None])
+    return np.where(j > 0, b + below.sum(-1), 0)
+
+
+def emu_nearest5(d2):
+    """The 5 warp-wide minima of the candidates' 64-bit keys (d^2's bits,
+    0 for -0 and one NaN after every number, then the candidate index):
+    the candidate indices [M, 5] in order."""
+    bits = np.where(np.isnan(d2), np.uint32(0x7fc00000),
+                    np.where(d2 == 0, np.uint32(0), d2.astype(np.float32).view(np.uint32)))
+    key = (bits.astype(np.uint64) << np.uint64(32)) | np.arange(d2.shape[-1], dtype=np.uint64)
+    return np.sort(key, -1)[:, :5].astype(np.uint64) & np.uint64(0xffffffff)
+
+
 def emu_rows(keys, mpts, origin, vs, pl, valid, x32, thr, nc, last=False):
-    """``rows_kernel``: the blocks' partial sums [B, E] (or, ``last``, p_w
+    """``rows_kernel``: the blocks' partial sums [E, B] (or, ``last``, p_w
     and the inliers), the neighbours' slots [M, 5]."""
     f32 = np.float32
     pl = pl.astype(f32)
@@ -326,7 +393,7 @@ def emu_rows(keys, mpts, origin, vs, pl, valid, x32, thr, nc, last=False):
     in_grid = (cx >= 0) & (cx < 1024) & (cy >= 0) & (cy < 1024)
     key_lo = (cx << 20) | (cy << 10) | zlo
     key_hi = key_lo + (zhi - zlo)
-    pos0 = np.searchsorted(keys, np.where(in_grid, key_lo, 0))
+    pos0 = emu_lower_bound(keys, emu_fences(keys), np.where(in_grid, key_lo, 0))
     slot = np.minimum(pos0[..., None] + np.arange(5), cap - 1).reshape(M, 125)
     kk = keys[slot]
     cv = (np.repeat(in_grid, 5, -1) & (kk >= np.repeat(key_lo, 5, -1))
@@ -334,7 +401,7 @@ def emu_rows(keys, mpts, origin, vs, pl, valid, x32, thr, nc, last=False):
     dd = (mpts[slot] - pw[:, None]).astype(f32)
     d2 = ((dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1]) + dd[..., 2] * dd[..., 2])
     d2 = np.where(cv, d2, np.inf).astype(f32)
-    sel = np.argsort(d2, -1, kind="stable")[:, :5]          # (d2, candidate index)
+    sel = emu_nearest5(d2).astype(np.int64)                # (d2, candidate index)
     sv = np.take_along_axis(cv, sel, -1) & live[:, None]
     sslot = np.take_along_axis(slot, sel, -1)
     slots = np.where(sv, sslot, -1)
@@ -382,21 +449,23 @@ def emu_rows(keys, mpts, origin, vs, pl, valid, x32, thr, nc, last=False):
     iu = np.triu_indices(nc)
     terms = np.concatenate([(H[:, :, None] * H[:, None, :])[:, iu[0], iu[1]], H * z[:, None],
                             ok[:, None].astype(np.float64)], -1)        # [M, E]
-    B = max(1, min(1024, (M + 7) // 8))
-    nw = 8 * B
-    warp = np.zeros((nw, terms.shape[1]))
-    for k in range(0, M, nw):                     # a warp's queries in order
-        rows = terms[k:k + nw]
-        warp[:rows.shape[0]] += rows
-    part = np.zeros((B, terms.shape[1]))
-    for wi in range(8):                           # the block's warps in order
-        part += warp[wi::8]
+    B = emu_rows_blocks(M)
+    part = np.zeros((terms.shape[1], B))
+    for b in range(B):                            # warp 0's lanes, an entry each
+        acc = np.zeros(terms.shape[1])
+        for b0 in range(b * BATCH, M, B * BATCH):     # the block's batches in order
+            for q in range(b0, min(b0 + BATCH, M)):   # a batch's inliers in order
+                if ok[q]:
+                    acc = acc + terms[q]
+        part[:, b] = acc
     return part, slots
 
 
 def emu_reduce(part):
-    """``step_kernel``'s sum of the blocks' partials: lane l adds blocks l,
-    l + 32, ... in four interleaved accumulators, then a xor tree."""
+    """``step_kernel``'s sum of the blocks' entry-major partials [E, B]:
+    lane l adds blocks l, l + 32, ... in four interleaved accumulators, then
+    a xor tree."""
+    part = part.T
     B, E = part.shape
     lanes = np.zeros((32, E))
     for lane in range(32):
@@ -417,18 +486,49 @@ def emu_reduce(part):
     return lanes[0]
 
 
+def emu_pivot(col, pos, c):
+    """The pivot search of ``block_gauss_jordan``: lanes hold |a_c| of their
+    row at position ``pos`` as its bits (ordered as the values), a NaN at
+    position c as +inf and elsewhere as 0; a xor tree of maxima over 32
+    lanes, then the lowest position among the candidates (positions >= c)
+    holding the maximum. Returns the pivot's position."""
+    n = col.shape[0]
+    with np.errstate(invalid="ignore"):
+        a = np.abs(np.asarray(col, np.float64))
+    bits = a.view(np.uint64)
+    key = np.where(np.isnan(a), np.where(pos == c, np.uint64(0x7ff0000000000000), np.uint64(0)),
+                   bits)
+    cand = pos >= c
+    lanes = np.zeros(32, np.uint64)
+    lanes[:n] = np.where(cand, key, np.uint64(0))
+    for off in (16, 8, 4, 2, 1):
+        lanes = np.maximum(lanes, lanes[np.arange(32) ^ off])
+    assert np.all(lanes == lanes[0])
+    return int(np.min(np.where(cand & (key == lanes[0]), pos, 64)))
+
+
 def emu_gauss_jordan(M):
+    """``block_gauss_jordan``: row r stays in place, its position swaps with
+    the pivot's; the pivot row's copy is scaled by its inverse in every
+    update."""
     n = M.shape[0]
     a = np.concatenate([M, np.eye(n)], 1)
+    pos = np.arange(n)
     for c in range(n):
-        p = c + int(np.argmax(np.abs(a[c:, c])))
-        a[[c, p]] = a[[p, c]]
-        a[c] *= 1.0 / a[c, c]
-        col = a[:, c].copy()
+        p = emu_pivot(a[:, c], pos, c)
+        piv = int(np.nonzero(pos == p)[0][0])
+        pos[pos == c] = p
+        pos[piv] = c
+        bc = a[piv].copy()
+        inv = 1.0 / bc[c]
         for r in range(n):
-            if r != c:
-                a[r] -= col[r] * a[c]
-    return a[:, n:]
+            if r == piv:
+                a[r, c + 1:] *= inv
+            else:
+                a[r, c + 1:] -= a[r, c] * (bc[c + 1:] * inv)
+    out = np.zeros((n, n))
+    out[pos] = a[:, n:]
+    return out
 
 
 def emu_tangent(x, x0):
@@ -476,17 +576,21 @@ def emu_step(part, nc, r_inv, x, x0, Pinv, conv, iters, eps=1e-3):
     A = N + L.T @ Pinv @ L
     b = -(v + L.T @ (Pinv @ dx0))
     Lc = np.tril(A).copy()                        # Cholesky, a column a pass
+    inv = np.zeros(ERR)
     for c in range(ERR):
         Lc[c, c] = math.sqrt(Lc[c, c])
-        Lc[c + 1:, c] /= Lc[c, c]
+        inv[c] = 1.0 / Lc[c, c]
+        Lc[c + 1:, c] *= inv[c]
         for i in range(c + 1, ERR):
             Lc[i, c + 1:i + 1] -= Lc[i, c] * Lc[c + 1:i + 1, c]
-    y = np.zeros(ERR)
-    for i in range(ERR):
-        y[i] = (b[i] - Lc[i, :i] @ y[:i]) / Lc[i, i]
-    delta = np.zeros(ERR)
-    for i in reversed(range(ERR)):
-        delta[i] = (y[i] - Lc[i + 1:, i] @ delta[i + 1:]) / Lc[i, i]
+    v = b.copy()                                  # L y = b, a column a step
+    for j in range(ERR):
+        v[j] *= inv[j]
+        v[j + 1:] -= Lc[j + 1:, j] * v[j]
+    for j in reversed(range(ERR)):                # L^T delta = y, from the last row up
+        v[j] *= inv[j]
+        v[:j] -= Lc[j, :j] * v[j]
+    delta = v
     if not conv:
         x = emu_boxplus(x, delta)
         iters += 1
@@ -608,7 +712,7 @@ def test_emulated_step_matches_float64_map_step(rng, case):
     np.testing.assert_allclose(L, n(tesekf.transport_jacobian(xb, xa)), atol=1e-9)
     Hm = rng.normal(size=(40, 6))
     part = np.concatenate([(Hm.T @ Hm)[np.triu_indices(6)], Hm.T @ rng.normal(0, 0.01, 40),
-                           [40.0]])[None]
+                           [40.0]])[:, None]   # one block's entry-major partials
     P0 = np.diag(rng.uniform(1e-5, 1e-3, 23))
     Pinv = emu_gauss_jordan(P0 + 1e-9 * np.eye(23))
     got, conv, iters = emu_step(part, 6, 1e3, vb, va, Pinv, False, 0)
@@ -618,3 +722,104 @@ def test_emulated_step_matches_float64_map_step(rng, case):
                                   torch.tensor(0, dtype=torch.int32))
     np.testing.assert_allclose(got, n(klio.state_vector(ref)), atol=1e-9)
     assert iters == int(rit) == 1
+
+
+# --- the two-level key search and the warp's pivot choice -------------------------------
+
+def _pool(case, rng):
+    """Sorted int32 pool keys with kEmpty padding, and the probe keys."""
+    if case == "duplicates across a fence":
+        real = np.sort(np.repeat(rng.integers(0, 1 << 30, 150), 7)[:1000])
+        real[28:40] = real[28]                     # a run over the fence at 32
+        real[60:200] = real[60]                    # longer than a bucket
+        cap = 1 << 12
+    elif case == "kEmpty padding":
+        real, cap = np.sort(rng.integers(0, 1 << 30, 333)), 1 << 12
+    elif case == "below the first and above the last":
+        real, cap = np.sort(rng.integers(1 << 20, 1 << 29, 64 * 5)), 64 * 5
+    elif case == "capacity not a multiple of the stride":
+        real, cap = np.sort(rng.integers(0, 1 << 30, 1001)), 1013
+    elif case == "a full pool":
+        real, cap = np.sort(rng.integers(0, 1 << 30, 1 << 12)), 1 << 12
+    elif case == "a fence stride above 32":
+        real, cap = np.sort(rng.integers(0, 1 << 30, 40_000)), MAX_FENCES * 32 + 5
+    else:                                          # an empty pool
+        real, cap = np.zeros(0, np.int64), 1 << 12
+    keys = np.full(cap, EMPTY, np.int64)
+    keys[:real.shape[0]] = real
+    probes = np.concatenate([
+        keys[rng.integers(0, cap, 200)], keys[rng.integers(0, cap, 200)] + 1,
+        keys[rng.integers(0, cap, 200)] - 1, rng.integers(0, 1 << 30, 200),
+        [np.iinfo(np.int32).min, -1, 0, 1, EMPTY - 1, EMPTY, (1 << 30) - 1],
+        [keys[0] - 1, keys[0], keys[min(real.shape[0], cap) - 1] + 1]])
+    return keys.astype(np.int32).astype(np.int64), np.clip(probes, np.iinfo(np.int32).min, EMPTY)
+
+
+@pytest.mark.parametrize("case", ["duplicates across a fence", "kEmpty padding",
+                                  "below the first and above the last",
+                                  "capacity not a multiple of the stride", "a full pool",
+                                  "a fence stride above 32", "an empty pool"])
+def test_fence_search_equals_searchsorted(case):
+    """``rows_kernel``'s lower_bound (the fence table, then one bucket)
+    against ``torch.searchsorted`` on the same keys, for every probe."""
+    keys, probes = _pool(case, np.random.default_rng(3))
+    fences = emu_fences(keys)
+    got = emu_lower_bound(keys, fences, probes)
+    want = torch.searchsorted(torch.as_tensor(keys), torch.as_tensor(probes)).numpy()
+    np.testing.assert_array_equal(got, want)
+    F, u, lg = fences
+    assert F.shape[0] <= MAX_FENCES and F.shape[0] == -(-keys.shape[0] // (1 << lg))
+    assert u == int((F != EMPTY).sum()) and (lg > 5) == (case == "a fence stride above 32")
+
+
+def _serial_pivot(col, c):
+    """The serial pivot search of a one-thread Gauss-Jordan: rows c..n-1 in
+    order, replaced only on a larger |value|."""
+    p, best = c, abs(col[c])
+    for r in range(c + 1, col.shape[0]):
+        if abs(col[r]) > best:
+            best, p = abs(col[r]), r
+    return p
+
+
+@pytest.mark.parametrize("case", ["tied rows", "tied with position c", "a NaN at position c",
+                                  "a NaN below", "infinite entries", "random"])
+def test_warp_argmax_pivot_matches_serial_scan(case, rng):
+    """The warp argmax picks the serial scan's pivot: the lowest row on ties,
+    a NaN at position c keeps it, a NaN elsewhere never wins."""
+    for c in (0, 5, 21, 22):
+        col = rng.normal(size=23)
+        if case == "tied rows":
+            col[c + 1:] = 2.0
+            col[c] = 1.0
+            col[-1] = -2.0
+        elif case == "tied with position c":
+            col[c:] = -3.0
+        elif case == "a NaN at position c":
+            col[c] = np.nan
+            col[-1] = 1e9
+        elif case == "a NaN below":
+            col[c + 1:] = np.nan
+            col[c] = 0.0
+        elif case == "infinite entries":
+            col[c:] = [np.inf if k % 2 else -np.inf for k in range(23 - c)]
+        # positions are the serial elimination's row order: the identity here
+        assert emu_pivot(col, np.arange(23), c) == _serial_pivot(col, c)
+        # the same rows on other lanes: the choice follows positions, not lanes
+        perm = rng.permutation(23)                 # row r on lane perm[r], at position r
+        lanes, pos = np.empty(23), np.empty(23, np.int64)
+        lanes[perm], pos[perm] = col, np.arange(23)
+        assert emu_pivot(lanes, pos, c) == _serial_pivot(col, c)
+
+
+@pytest.mark.parametrize("n_tied", [0, 4])
+def test_emulated_gauss_jordan_is_the_inverse(rng, n_tied):
+    """The warp Gauss-Jordan (positions swapped, not rows) inverts P0 + 1e-9
+    I and a general matrix with tied pivot candidates to 1e-12."""
+    X = rng.normal(size=(23, 23))
+    P = X @ X.T * 1e-4 + 1e-9 * np.eye(23)
+    Mg = rng.normal(size=(23, 23))
+    Mg[:n_tied, 0] = 5.0
+    for Mx in (P, Mg):
+        inv = emu_gauss_jordan(Mx)
+        np.testing.assert_allclose(inv @ Mx, np.eye(23), atol=1e-12 * np.abs(Mx).max() * np.abs(inv).max())
