@@ -114,7 +114,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the fused matcher in its three mask modes on the slice's own data (the
    last frame's stereo pair at 2000x2000; the landmark pool against a
    keyframe's features at 32768x2000), on a full pool, on a dense worst
-   case and on edge rows, and in the three call shapes of 4a-4d on that
+   case and on edge rows, on the window mode's grid edge cases
+   (``window_case``), and in the three call shapes of 4a-4d on that
    run's data (a keyframe pair under its epipolar mask, the pool against a
    frame, a frame against one column chunk of the pool and against all of
    it), and in the call shape of 4f (two keyframes' 2000 features, no mask,
@@ -136,7 +137,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    float32 plain version's own distance); the scan step's four kernels
    (``lio_phase``) on 4e's last scan step, the same at ``work_cap`` 32768,
    with the extrinsic estimated, against an empty map and with a
-   non-finite IMU sample: ``esekf_predict``, the fence table of
+   non-finite IMU sample: ``esekf_predict`` (also at 10, 20 and 40 live
+   samples and 40 in 1,024 slots, ``predict_window``), the fence table of
    ``lio_fences`` (equal) and the neighbour sets of ``lio_rows`` against the
    plain versions, the rows' normal equations and
    the whole update against the plain version or else no farther from its
@@ -1200,6 +1202,104 @@ def lio_problem(torch, dev, seed: int = 0, n_scan: int = 1 << 15, cap: int = 1 <
             up(gyro), up(acc), up(dts), up(trel), noise, cfg)
 
 
+def predict_window(torch, n_live: int, slots: int = 0, seed: int = 0):
+    """An IMU window for ``esekf_predict`` on the CPU: (gyro [N, 3], acc [N,
+    3], dts [N]) float32, ``n_live`` samples at 100 Hz (seeded) and, with
+    ``slots`` > n_live, N = slots with a live sample every slots // n_live
+    slots from the third and padding between (dt 0, NaN acc) and after."""
+    g = torch.Generator().manual_seed(seed)
+    gyro = 0.3 * torch.randn((n_live, 3), generator=g)
+    acc = torch.randn((n_live, 3), generator=g) + torch.tensor([0.0, 0.0, 9.81])
+    dts = torch.full((n_live,), 0.01)
+    if slots <= n_live:
+        return gyro, acc, dts
+    at = 3 + (slots // n_live) * torch.arange(n_live)
+    out = (torch.zeros((slots, 3)), torch.full((slots, 3), float("nan")), torch.zeros(slots))
+    for t, src in zip(out, (gyro, acc, dts)):
+        t[at] = src
+    return out
+
+
+# the window mode's grid edge cases (csrc/match.cu window_grid_kernel)
+WINDOW_CASES = ("border", "outside", "non-finite", "tie across cells", "cluster")
+
+
+def window_case(rng, N: int, M: int, case: str | None = None, base: float = 15.0,
+                width: float = 1241.0, height: float = 376.0) -> dict:
+    """A window match's inputs as numpy arrays (descriptors uint32):
+    keypoints over a width x height image, rows projected near them with
+    ORB-SLAM3's window radius base x 1.2^level, 20% of rows and 10% of
+    columns invalid; and one of ``WINDOW_CASES``: windows across the image
+    border and outside it; columns far outside the image (their cells wrap
+    onto the image's) or off the grid (invalid, or at a non-finite
+    position), and rows near them; NaN and infinite row
+    positions and radii, radii 0 and below, and huge finite ones; a tie
+    across two cells where the lower column lies in the cell walked later
+    (rows 0-4, columns 3 and 7); 40 columns in one 16-px cell (rows 0-49
+    near them)."""
+    import numpy as np
+    d2 = rng.integers(0, 1 << 32, (M, 8), dtype=np.uint64).astype(np.uint32)
+    src = rng.integers(0, M, N)
+    d1 = d2[src].copy()
+    d1[:, 0] ^= rng.integers(0, 1 << 12, N).astype(np.uint32)
+    uv2 = np.stack([rng.uniform(0, width, M), rng.uniform(0, height, M)], -1).astype(np.float32)
+    uv1 = (uv2[src] + rng.normal(0, 4, (N, 2))).astype(np.float32)
+    lvl2 = rng.integers(0, 8, M).astype(np.int32)
+    lvl1 = np.clip(lvl2[src] + rng.integers(-2, 3, N), 0, 7).astype(np.int32)
+    c = dict(d1=d1, d2=d2, uv1=uv1, uv2=uv2, lvl1=lvl1, lvl2=lvl2,
+             radius=(base * 1.2 ** lvl1).astype(np.float32),
+             valid1=rng.random(N) > 0.2, valid2=rng.random(M) > 0.1)
+    if case == "border":
+        k = N // 4
+        c["uv1"][:k, 0] = rng.uniform(-40, 20, k)
+        c["uv1"][k:2 * k, 1] = rng.uniform(350, 420, k)
+        c["uv1"][2 * k:2 * k + 8] = [[-500, -500], [2000, 200], [600, -90], [600, 900],
+                                     [-5, -5], [1250, 380], [0, 0], [1241, 376]]
+    elif case == "outside":
+        c["uv2"][:6] = [[-5000, 10], [1e6, 200], [600, -3e4], [30, 1e7],
+                        [np.inf, 100], [np.nan, 100]]
+        c["valid2"][:6] = True
+        c["uv2"][6:9] = [[-1e9, -1e9], [np.nan, np.nan], [3e38, -3e38]]
+        c["valid2"][6:9] = False
+        c["uv1"][:4] = [[-5000, 10], [1e6, 200], [600, -3e4], [30, 1e7]]
+        c["radius"][:4] = 50.0
+        c["valid1"][:4] = True
+    elif case == "non-finite":
+        vals = [(np.nan, 100, 20), (100, np.nan, 20), (np.inf, 100, 20), (100, -np.inf, 20),
+                (100, 100, np.nan), (100, 100, np.inf), (100, 100, 0), (100, 100, -3),
+                (np.inf, np.inf, np.inf), (1e9, 100, 1e9 - 100), (3e38, 0, 3e38),
+                (-3e38, 10, np.inf)]
+        for i, (u, v, r) in enumerate(vals):
+            c["uv1"][i], c["radius"][i], c["valid1"][i] = (u, v), r, True
+    elif case == "tie across cells":
+        c["d2"][7] = c["d2"][3]
+        c["uv2"][3], c["uv2"][7] = (430.0, 150.0), (400.0, 100.0)
+        c["uv2"][0], c["uv2"][1] = (0.0, 0.0), (width, height)
+        c["lvl2"][[3, 7]] = 2
+        c["valid2"][[0, 1, 3, 7]] = True
+        c["d1"][:5] = c["d2"][3]
+        c["uv1"][:5] = (415.0, 125.0)
+        c["radius"][:5] = 40.0
+        c["lvl1"][:5] = 2
+        c["valid1"][:5] = True
+    elif case == "cluster":
+        c["uv2"][:40] = rng.uniform(608.5, 623.5, (40, 2)).astype(np.float32)
+        c["valid2"][:40] = True
+        c["uv1"][:50] = c["uv2"][np.arange(50) % 40] + rng.normal(0, 2, (50, 2)).astype(np.float32)
+        c["valid1"][:50] = True
+    return c
+
+
+def window_args(torch, match, c: dict, dev, lo: int = -1, hi: int = 1):
+    """``match_best2``'s (d1, d2, valid1, valid2, WindowMask) on ``dev`` for a
+    ``window_case``."""
+    import numpy as np
+    up = lambda a: torch.as_tensor(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+    u = {k: up(v) for k, v in c.items()}
+    return (u["d1"], u["d2"], u["valid1"], u["valid2"],
+            match.WindowMask(u["uv1"], u["radius"], u["lvl1"], u["uv2"], u["lvl2"], lo, hi))
+
+
 def lio_state64(torch, x):
     """A State with float64 fields."""
     return type(x)(*[t.double() for t in x])
@@ -1386,6 +1486,22 @@ def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> di
             source="tc2li_slam_torch/csrc/lio.cu",
             replaces="tc2li_slam_tpu/estimation/esekf.py:192", ms=ms_k, plain_ms=ms_p,
             bound_ms=b_p[0], bound_by=b_p[1], library_ms=None)
+        # the prediction at 10, 20 and 40 live samples and in 1,024 slots
+        by_window = {}
+        for n_w, slots in ((10, 0), (20, 0), (40, 0), (40, 1024)):
+            gw, aw, dw = (t.to(dev) for t in predict_window(torch, n_w, slots))
+            fk_w, Rk_w, pk_w = klio.esekf_predict(filt0, gw, aw, dw, noise)
+            fp_w, Rp_w, pp_w = klio.predict_plain(filt0, gw, aw, dw, noise)
+            d_s = max(finite_dmax(a, b) for a, b in zip(list(fk_w.x) + [Rk_w, pk_w],
+                                                        list(fp_w.x) + [Rp_w, pp_w]))
+            d_P = finite_dmax(fk_w.P, fp_w.P, diag_scale(torch, fp_w.P))
+            label_w = f"{n_w} live" + (f" in {slots} slots" if slots else "")
+            if d_s > LIO_TOL["predict_state"] or d_P > LIO_TOL["predict_P"]:
+                raise RuntimeError(f"esekf_predict at {label_w}: state {d_s:.2e}, P {d_P:.2e} "
+                                   f"from predict_plain")
+            by_window[label_w] = timer(lambda: klio.esekf_predict(filt0, gw, aw, dw, noise), 50)
+        log("lio: esekf_predict ms on the device by window (within LIO_TOL of predict_plain): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in by_window.items()))
         ms_f = timer(w.fences, 50)
         ms_fp = timer(lambda: klio.fences_plain(m.keys, w.lg), 20)
         # the keys at the fences read, the table and its count written
@@ -2116,6 +2232,29 @@ def balm_phase_split(root, build):
     return mod.PhaseSplit(root, root / "build" / "balm_kernels", build)
 
 
+def save_match_cases(torch, path, cases: dict) -> None:
+    """``cases`` ({name: match_best2's arguments: d1, d2, valid1, valid2, a
+    WindowMask or StereoMask, mutual}) to ``path``, on the CPU, for
+    ``load_match_cases`` (``tools/match_kernels.py``)."""
+    out = {name: {"d1": d1.cpu(), "d2": d2.cpu(), "valid1": v1.cpu(), "valid2": v2.cpu(),
+                  "kind": type(mask).__name__, "mutual": bool(mutual),
+                  "mask": {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                           for k, v in mask._asdict().items()}}
+           for name, (d1, d2, v1, v2, mask, mutual) in cases.items()}
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    torch.save(out, path)
+
+
+def load_match_cases(torch, match, path, dev) -> dict:
+    """What ``save_match_cases`` wrote, on ``dev``: {name: (d1, d2, valid1,
+    valid2, mask, mutual)}."""
+    kinds = {"WindowMask": match.WindowMask, "StereoMask": match.StereoMask}
+    up = lambda v: v.to(dev) if isinstance(v, torch.Tensor) else v
+    return {name: (up(c["d1"]), up(c["d2"]), up(c["valid1"]), up(c["valid2"]),
+                   kinds[c["kind"]](**{k: up(v) for k, v in c["mask"].items()}), c["mutual"])
+            for name, c in torch.load(path).items()}
+
+
 def phase_text(phases: dict, ms: float) -> str:
     """A stamped call's phases as ms of ``ms`` by their share of its cycles,
     and its laps as cycles a lap."""
@@ -2759,7 +2898,7 @@ def main() -> int:
             lm_at_tri = (slam.map.n_lm, slam.n_kf_host)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = read_counts()
+    launches, modes3 = read_counts(), dict(match.launches_by_mode)
     n_fuse, n_ba3, n_balm3 = slam.n_fuse, slam.n_ba, slam.n_ba_balm
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     stats = slam.timers.stats()
@@ -2826,6 +2965,13 @@ def main() -> int:
                     f"{n_fuse} fuse passes; two BALM quadratics and one local_ba_lm call a "
                     f"mapping pass, {n_ba3} passes; recoveries {slam.n_recover}, "
                     f"relocalizations {slam.n_reloc})")
+    if modes3 != {"stereo+mutual": N_FRAMES, "window": N_FRAMES - 1 + n_fuse}:
+        return fail(f"match_best2 launches by call shape {modes3}: a stereo match per frame, "
+                    f"a window per tracked frame and per fuse pass")
+    # the matcher's row in the result is its window shape; the stereo shape
+    # (one a frame build, through stereo_refine) has a row of its own
+    launches["match_best2"] = modes3["window"]
+    launches["match_best2/stereo"] = modes3["stereo+mutual"]
     if n_balm3 < 1 or balm_case3 is None or quad_case3 is None or clusters_case3 is None:
         return fail("no local BA pass with the BALM term went through the kernels")
     if n_fuse < 1:
@@ -3254,7 +3400,8 @@ def main() -> int:
     clusters_case4e = ba_inputs.get("clusters")   # the IMU run's last LVI-BA window
     imu_launches = {**{k: counts_e[k] for k in FRAME_KERNELS},
                     "pose_only_lm": counts_e["pose_only_lm"],
-                    "match_best2": modes_e.get("stereo+mutual", 0) + modes_e.get("window", 0),
+                    "match_best2": modes_e.get("window", 0),
+                    "match_best2/stereo": modes_e.get("stereo+mutual", 0),
                     "match_best2/epipolar": modes_e.get("dense+mutual", 0),
                     "balm_quadratic": counts_e["balm_quadratic"],
                     "balm_clusters": counts_e["balm_clusters"],
@@ -3454,7 +3601,11 @@ def main() -> int:
 
     # matching: cases on the slice's own data, a full pool, a dense worst
     # case, and edge rows
+    match_inputs = {}   # the window and stereo cases, for tools/match_kernels.py
+
     def match_case(name, d1, d2, v1, v2, mask, mutual, reps_plain=3):
+        if isinstance(mask, (match.WindowMask, match.StereoMask)):
+            match_inputs[name] = (d1, d2, v1, v2, mask, mutual)
         got = match.match_best2(d1, d2, v1, v2, mask, mutual)
         ref = match.match_best2_plain(d1, d2, v1, v2, mask, mutual)
         torch.cuda.synchronize()
@@ -3464,17 +3615,24 @@ def main() -> int:
         full = v1[:, None] & v2[None, :]
         if mask is not None:
             full = full & (mask if isinstance(mask, torch.Tensor) else mask.dense())
-        admitted, valid_rows = int(full.sum()), int(v1.sum())
+        admitted, valid_rows, valid_cols = int(full.sum()), int(v1.sum()), int(v2.sum())
         del full
         ms_k = cuda_ms(torch, lambda: match.match_best2(d1, d2, v1, v2, mask, mutual), 50, True)
         ms_h = cuda_ms(torch, lambda: match.match_best2(d1, d2, v1, v2, mask, mutual), 50)
         ms_p = cuda_ms(torch, lambda: match.match_best2_plain(d1, d2, v1, v2, mask, mutual),
                        reps_plain)
+        # the least work any route must do: every row's and column's valid
+        # flag, a valid one's descriptor and mask inputs, the outputs; the
+        # tests of the pairs a mask admits (a window's cells, a stereo band
+        # in v prune the rest) or, for a dense mask, its entries of valid
+        # pairs; a distance for each admitted pair
         per_row = {match.WindowMask: 16, match.StereoMask: 12}.get(type(mask), 0)
         per_col = {match.WindowMask: 12, match.StereoMask: 16}.get(type(mask), 0)
-        n_bytes = (N * (33 + per_row) + M * (33 + per_col) + 16 * N + (8 * M if mutual else 0)
-                   + (N * M if isinstance(mask, torch.Tensor) else 0))
-        b = bound(n_bytes, 8 * valid_rows * M + 10 * admitted, 8 * admitted)
+        dense = isinstance(mask, torch.Tensor)
+        tested = valid_rows * valid_cols if dense else admitted
+        n_bytes = (N * 17 + valid_rows * (32 + per_row) + M + valid_cols * (32 + per_col)
+                   + (8 * M if mutual else 0) + (tested if dense else 0))
+        b = bound(n_bytes, 8 * tested + 10 * admitted, 8 * admitted)
         print(f"{tag} match_best2 {name} {N}x{M}{' mutual' if mutual else ''}: exact; "
               f"valid rows {valid_rows}, admitted pairs {admitted}; kernel {ms_k:.4f} ms on the "
               f"device ({ms_h:.4f} ms a call enqueued one at a time), bound "
@@ -3487,8 +3645,9 @@ def main() -> int:
                                      torch.as_tensor(imgs[-1][1]).to(dev)], 2000, 8)
         band = 2.0 * slam.scale_factors[kr.level.long()]
         max_d = float(np.float32(slam.cam.bf) / np.float32(slam.cam.baseline))
-        match_case("stereo, last frame", kl.desc, kr.desc, kl.valid, kr.valid,
-                   match.StereoMask(kl.xy, kl.level, kr.xy, kr.level, band, max_d), True)
+        rows["match_best2/stereo"] = match_case(
+            "stereo, last frame", kl.desc, kr.desc, kl.valid, kr.valid,
+            match.StereoMask(kl.xy, kl.level, kr.xy, kr.level, band, max_d), True)
         # ... and the landmark pool projected into the reference keyframe
         kf = kf_slice
         Xc = lie.se3_apply(m.kf_T_cw[kf], m.lm_pos)
@@ -3548,6 +3707,17 @@ def main() -> int:
                        match.StereoMask(uv1, lvl1, uv2, lvl2, 2.0 + radius[:M] / 8, 25.0), mutual)
             match_case("edge rows, dense", d1, d2, v1, v2,
                        torch.rand((N, M), generator=g, device=dev) > 0.6, mutual)
+        # the window mode's grid walk on its edge cases (window_case), bit-equal
+        for case in WINDOW_CASES:
+            c_w = window_case(np.random.default_rng(WINDOW_CASES.index(case)), 300, 517, case)
+            a_w = window_args(torch, match, c_w, dev)
+            for mutual in (False, True):
+                if not same(torch, match.match_best2(*a_w, mutual),
+                            match.match_best2_plain(*a_w, mutual)):
+                    raise RuntimeError(f"match_best2 disagrees with its plain version: window "
+                                       f"grid case {case}{', mutual' if mutual else ''}")
+        print(f"{tag} match_best2 window grid cases {', '.join(WINDOW_CASES)} (300x517, with "
+              f"and without the mutual test): exact", flush=True)
         idx, best, second, _ = match.match_best2(
             d1, d2, v1, v2, match.WindowMask(uv1, radius, lvl1, uv2, lvl2))
         edge = (int(idx[5]), int(best[5]), int(second[5]), int(idx[7]), int(best[7]),
@@ -3591,8 +3761,9 @@ def main() -> int:
             m4.kf_feat_valid[c4["cand"]] & (m4.kf_feat_lm[c4["cand"]] != -1), None, True)
     except RuntimeError as e:
         return fail(str(e))
-    for name in ("match_best2", "match_best2/epipolar", "match_best2/global",
-                 "match_best2/reloc", "match_best2/loop"):
+    save_match_cases(torch, root / "build" / "match_cases.pt", match_inputs)
+    for name in ("match_best2", "match_best2/stereo", "match_best2/epipolar",
+                 "match_best2/global", "match_best2/reloc", "match_best2/loop"):
         rows[name].update(source="tc2li_slam_torch/csrc/match.cu",
                           replaces="tc2li_slam_tpu/ops/matching.py:62", max_abs_err=0.0)
 
@@ -3942,7 +4113,7 @@ def main() -> int:
     kernels = []
     for name in ("orb_level_planes", "fast_score_planes", "fast_nms_planes", "orb_select_grid",
                  "orb_describe", "stereo_refine", "hamming_matrix", "match_best2",
-                 "match_best2/epipolar", "match_best2/global", "match_best2/reloc",
+                 "match_best2/stereo", "match_best2/epipolar", "match_best2/global", "match_best2/reloc",
                  "match_best2/loop", "pose_only_lm", "balm_clusters", "balm_quadratic",
                  "local_ba_lm", "imu_preintegrate", "pose_inertial_lm", "esekf_predict",
                  "lio_fences", "lio_rows", "esekf_step"):

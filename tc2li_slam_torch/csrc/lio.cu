@@ -29,12 +29,23 @@
 // (on the card: a garbage fence count, and shared memory indexed out of
 // bounds, in a chain of bad-IMU scan steps).
 //
-// predict_kernel, one block: the serial chain over the window's samples, a
-// sample with dt <= 0 skipped (an exact no-op at any launch size). Thread 0
-// computes a sample's rotation increment, its Jacobian and F's six blocks;
-// then P <- F P F^T + Fw Q Fw^T on the whole block from F's block
-// structure (identity plus the blocks: a row of F P reads at most 9
-// entries), P in shared memory, float32 as both packages are.
+// predict_kernel, two warps, the window in rounds of 32 slots, a sample
+// with dt <= 0 skipped (an exact no-op at any launch size). Warp 1: (a) a
+// lane a sample computes what needs no chain (phi = (gyro - bg) dt, dRi,
+// Jr, a = acc - ba; bg and ba do not change inside predict); (b) lanes
+// 0-8 run the chain of R, p and v over the round's live samples in
+// registers, a lane an entry of the 3 x 3 products (R's rows by
+// shuffles), and publish each sample's two blocks of F that read R
+// (-R hat(a) dt, -R dt) by a counter in shared memory; every lane writes
+// its slot's pose.
+// Warp 0, meanwhile: P <- F P F^T + Fw Q Fw^T for each published sample
+// (it waits on the counter with a back-off of 8 to 64 ns), a lane a
+// column of P in registers: the rows of G = F P that differ from
+// P's (POS, ROT, VEL: 9 of 23) on the lane's column, to shared memory (two
+// buffers, one __syncwarp a sample); then P_new = G F^T, symmetric: a
+// column outside those rows is G's, a column c inside them is row c of
+// P_new, G's row c outside them and F's rows applied to G's row c inside.
+// One block barrier a round. float32, as both packages are.
 //
 // fence_kernel, once a scan step (the pool does not change inside it): every
 // 32nd pool key (more apart above 2^19 slots: the table stays within 64 KB)
@@ -94,7 +105,9 @@
 // the design does about it: a search of few dependent loads (the fences in
 // shared memory, one bucket in L2), 4 queries in flight a warp and two
 // blocks an SM; a fit a lane; the step's terms that need no sums beside
-// its reduction; no one-thread phase in the step.
+// its reduction; no one-thread phase in the step; in the prediction only
+// the chain of R, p and v on one lane, the rest a lane a sample or a
+// column and no block barrier.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -370,128 +383,331 @@ struct Noise {
   float g, a, bg, ba;   // variances of the gyro, accel, and their walks
 };
 
-// F's blocks of one sample (esekf.predict): F = I but for
-// F[POS, VEL] = I dt, F[ROT, ROT] = dRi^T, F[ROT, BG] = -Jr dt,
-// F[VEL, ROT] = -R hat(a) dt, F[VEL, BA] = -R dt, F[VEL, GRAV] = gB dt; and
-// Fw's: Fw[ROT] = -Jr dt, Fw[VEL] = -R dt, Fw[BG] = Fw[BA] = I dt
-struct Blocks {
+// esekf.predict's F = I but for F[POS, VEL] = I dt, F[ROT, ROT] = dRi^T,
+// F[ROT, BG] = -Jr dt, F[VEL, ROT] = -R hat(a) dt, F[VEL, BA] = -R dt,
+// F[VEL, GRAV] = gB dt; Fw's blocks: Fw[ROT] = -Jr dt, Fw[VEL] = -R dt,
+// Fw[BG] = Fw[BA] = I dt. Only F's rows A = POS, ROT, VEL (0-5, 12-14)
+// differ from the identity's.
+constexpr int kRound = 32;     // samples a round: a lane a sample
+constexpr int kRowsA = 9;      // F's rows A
+__host__ __device__ constexpr int row_a(int a) { return a < 6 ? a : a + 6; }
+
+// the per-sample terms of a round (a lane a sample), then the chain's; a
+// 3 x 3 block takes 12 floats, three 16-byte words
+struct __align__(16) PredictRound {
+  float dri[kRound][12];   // dRi
+  float frbg[kRound][12];  // F[ROT, BG] = -Jr dt
+  float fvr[kRound][12];   // F[VEL, ROT] = -R hat(a) dt, R before the sample
+  float fvba[kRound][12];  // F[VEL, BA] = -R dt
+  float acc[kRound][3];    // a = acc - ba
+  float dt[kRound];
+  float pose[kRound + 1][12];   // R and p before the round, then after each live sample
+  unsigned lives;          // the round's live slots
+};
+
+// a 3 x 3 block to and from its 12 floats of shared memory
+__device__ __forceinline__ void put9(float* dst, const float* v) {
+  float4* d = reinterpret_cast<float4*>(dst);
+  d[0] = make_float4(v[0], v[1], v[2], v[3]);
+  d[1] = make_float4(v[4], v[5], v[6], v[7]);
+  d[2] = make_float4(v[8], 0.f, 0.f, 0.f);
+}
+
+__device__ __forceinline__ void get9(const float* src, float* v) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  const float4 a = s4[0], b = s4[1], c = s4[2];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  v[8] = c.x;
+}
+
+// a shared int written with release and read with acquire semantics at
+// block scope: the reads after an acquire that sees a release's value see
+// what preceded the release (the writer's own writes, and those ordered
+// before it by a barrier)
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.cta.shared.b32 [%0], %1;"
+               :
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared.b32 %0, [%1];"
+               : "=r"(v)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p)))
+               : "memory");
+  return v;
+}
+
+// F's blocks of one sample in registers (broadcast reads)
+struct FBlocks {
   float Frr[9], Frbg[9], Fvr[9], Fvba[9], Fvg[6], dt;
 };
 
 // row i of F applied to the column col(k), k over the error state
 template <typename Col>
-__device__ __forceinline__ float apply_F(const Blocks& b, int i, Col col) {
+__device__ __forceinline__ float apply_F(const FBlocks& b, int i, Col col) {
   if (i < 3) return col(i) + b.dt * col(12 + i);
   if (i < 6) {
     const int a = i - 3;
     return b.Frr[3 * a] * col(3) + b.Frr[3 * a + 1] * col(4) + b.Frr[3 * a + 2] * col(5)
            + b.Frbg[3 * a] * col(15) + b.Frbg[3 * a + 1] * col(16) + b.Frbg[3 * a + 2] * col(17);
   }
-  if (i >= 12 && i < 15) {
-    const int a = i - 12;
-    return col(i) + b.Fvr[3 * a] * col(3) + b.Fvr[3 * a + 1] * col(4) + b.Fvr[3 * a + 2] * col(5)
-           + b.Fvba[3 * a] * col(18) + b.Fvba[3 * a + 1] * col(19) + b.Fvba[3 * a + 2] * col(20)
-           + b.Fvg[2 * a] * col(21) + b.Fvg[2 * a + 1] * col(22);
-  }
-  return col(i);
+  const int a = i - 12;
+  return col(i) + b.Fvr[3 * a] * col(3) + b.Fvr[3 * a + 1] * col(4) + b.Fvr[3 * a + 2] * col(5)
+         + b.Fvba[3 * a] * col(18) + b.Fvba[3 * a + 1] * col(19) + b.Fvba[3 * a + 2] * col(20)
+         + b.Fvg[2 * a] * col(21) + b.Fvg[2 * a + 1] * col(22);
 }
 
-// (Fw Q Fw^T)_ij: -Jr dt and -R dt are Frbg and Fvba
-__device__ __forceinline__ float process_noise(const Blocks& b, const Noise& q, int i, int j) {
-  if (i >= 3 && i < 6 && j >= 3 && j < 6) {
-    const int a = i - 3, c = j - 3;
-    return (b.Frbg[3 * a] * q.g) * b.Frbg[3 * c] + (b.Frbg[3 * a + 1] * q.g) * b.Frbg[3 * c + 1]
-           + (b.Frbg[3 * a + 2] * q.g) * b.Frbg[3 * c + 2];
-  }
-  if (i >= 12 && i < 15 && j >= 12 && j < 15) {
-    const int a = i - 12, c = j - 12;
-    return (b.Fvba[3 * a] * q.a) * b.Fvba[3 * c] + (b.Fvba[3 * a + 1] * q.a) * b.Fvba[3 * c + 1]
-           + (b.Fvba[3 * a + 2] * q.a) * b.Fvba[3 * c + 2];
-  }
-  if (i == j && i >= 15 && i < 18) return (b.dt * q.bg) * b.dt;
-  if (i == j && i >= 18 && i < 21) return (b.dt * q.ba) * b.dt;
-  return 0.f;
+// (Fw Q Fw^T)_ij for i, j both in ROT or both in VEL, from the rows wi, wj
+// of -Jr dt or -R dt (Frbg, Fvba)
+__device__ __forceinline__ float block_noise(const float* wi, float q, const float (&wj)[3]) {
+  return (wi[0] * q) * wj[0] + (wi[1] * q) * wj[1] + (wi[2] * q) * wj[2];
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Two warps. Warp 1, the chain: a round's per-sample terms a lane a
+// sample, then on lanes 0-8 the chain over the round's live samples, each
+// published to warp 0 by a counter in shared memory, then every slot's pose.
+// Warp 0, P: a lane a column of P in registers, each live sample's update
+// as soon as the chain has published it. A barrier a round hands the
+// round's terms over; the rounds' shared memory alternates between two
+// buffers, so warp 1 fills the next round's while warp 0 reads this one's.
+__global__ void __launch_bounds__(64)
 predict_kernel(const float* __restrict__ xin, const float* __restrict__ gyro,
                const float* __restrict__ acc, const float* __restrict__ dts, int N, Noise q,
                float* __restrict__ xout, float* __restrict__ R_traj, float* __restrict__ p_traj) {
-  __shared__ float P[kErr * kErr], G[kErr * kErr];
+  __shared__ PredictRound rds[2];
+  __shared__ __align__(16) float ga[2][kRowsA][32];   // G = F P's rows A, a column a lane (two buffers)
   __shared__ float s[kState];
-  __shared__ float gB[6];
-  __shared__ Blocks blk;
-  __shared__ int live;
-  const int tid = threadIdx.x;
-  for (int e = tid; e < kErr * kErr; e += kThreads) P[e] = xin[kState + e];
-  if (tid < kState) s[tid] = xin[tid];
-  __syncthreads();
-  if (tid == 0) {
-    // gB = -hat(grav) s2_basis(grav); grav does not change inside predict
+  __shared__ int chained;               // live samples the chain has published
+  const int lane = threadIdx.x & 31;
+  const bool chain_warp = threadIdx.x >= 32;
+  TC2LI_LAP_START
+  if (chain_warp) {
+    for (int e = lane; e < kState; e += 32) s[e] = xin[e];
+    if (lane == 0) chained = 0;
+  }
+  // warp 0: lane c < 23 keeps column c of P in registers (lanes 23-31 a
+  // copy of 22, written nowhere), and gB = -hat(grav) s2_basis(grav)
+  const int c = lane < kErr ? lane : kErr - 1;
+  float p[kErr], gB[6];
+  if (!chain_warp) {
+#pragma unroll
+    for (int r = 0; r < kErr; ++r) p[r] = xin[kState + r * kErr + c];
     float B[6], H[9];
-    s2_basis(s + kGrav, B);
-    hat3(s + kGrav, H);
+    s2_basis(xin + kGrav, B);
+    hat3(xin + kGrav, H);
+#pragma unroll
     for (int a = 0; a < 3; ++a)
+#pragma unroll
       for (int m = 0; m < 2; ++m)
         gB[2 * a + m] = (-H[3 * a]) * B[m] + (-H[3 * a + 1]) * B[2 + m] + (-H[3 * a + 2]) * B[4 + m];
   }
-  for (int i = 0; i < N; ++i) {
-    if (tid == 0) {
-      const float dt = dts[i];
-      live = dt > 0.f;
-      if (dt > 0.f) {
-        float phi[3], a[3], dRi[9], Jr[9], Ha[9], RHa[9], aw[3], Rn[9];
-        const float* R = s + kR;
+  // warp 1, the chain: lane e < 9 holds R's entry e (row e / 3, column
+  // e % 3), lane k < 3 p's and v's entry k; and the next round's samples,
+  // loaded a round ahead
+  float Re = 0.f, pk = 0.f, vk = 0.f, nd = 0.f, ng[3], na[3];
+  int n_chained = 0;
+  if (chain_warp) {
+    if (lane < N) {
+      nd = dts[lane];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        ng[k] = gyro[3 * lane + k];
+        na[k] = acc[3 * lane + k];
+      }
+    }
+    __syncwarp();
+    if (lane < 9) Re = s[kR + lane];
+    if (lane < 3) {
+      pk = s[kPos + lane];
+      vk = s[kVel + lane];
+    }
+  }
+  TC2LI_LAP(46);
+  int n_live = 0;   // warp 0: live samples updated so far
+  int gbuf = 0;
+  for (int i0 = 0, rnd = 0; i0 < N; i0 += kRound, ++rnd) {
+    PredictRound& rd = rds[rnd & 1];
+    const int i = i0 + lane;
+    if (chain_warp) {
+      // (a) a sample's terms that need no chain, a lane a sample
+      const float dt = nd;
+      float w[3], ac[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        w[k] = ng[k];
+        ac[k] = na[k];
+      }
+      nd = 0.f;
+      if (i + kRound < N) {
+        nd = dts[i + kRound];
+#pragma unroll
         for (int k = 0; k < 3; ++k) {
-          phi[k] = (gyro[3 * i + k] - s[kBg + k]) * dt;
-          a[k] = acc[3 * i + k] - s[kBa + k];
+          ng[k] = gyro[3 * (i + kRound) + k];
+          na[k] = acc[3 * (i + kRound) + k];
+        }
+      }
+      const bool live = dt > 0.f;
+      if (live) {
+        float phi[3], dRi[9], Jr[9];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          phi[k] = (w[k] - s[kBg + k]) * dt;
+          rd.acc[lane][k] = ac[k] - s[kBa + k];
         }
         so3_exp(phi, dRi);
         so3_right_jacobian(phi, Jr);
-        matvec3(R, a, aw);
-        hat3(a, Ha);
-        mul3(R, Ha, RHa);
-        for (int r = 0; r < 3; ++r) {
-          aw[r] = aw[r] + s[kGrav + r];
-          for (int c = 0; c < 3; ++c) {
-            blk.Frr[3 * r + c] = dRi[3 * c + r];
-            blk.Frbg[3 * r + c] = -Jr[3 * r + c] * dt;
-            blk.Fvr[3 * r + c] = -RHa[3 * r + c] * dt;
-            blk.Fvba[3 * r + c] = -R[3 * r + c] * dt;
-          }
-          blk.Fvg[2 * r] = gB[2 * r] * dt;
-          blk.Fvg[2 * r + 1] = gB[2 * r + 1] * dt;
-        }
-        blk.dt = dt;
-        for (int r = 0; r < 3; ++r) {
-          s[kPos + r] = s[kPos + r] + s[kVel + r] * dt + 0.5f * aw[r] * dt * dt;
-          s[kVel + r] = s[kVel + r] + aw[r] * dt;
-        }
-        mul3(R, dRi, Rn);
-        for (int e = 0; e < 9; ++e) s[kR + e] = Rn[e];
+#pragma unroll
+        for (int e = 0; e < 9; ++e) Jr[e] = -Jr[e] * dt;
+        put9(rd.dri[lane], dRi);
+        put9(rd.frbg[lane], Jr);
+        rd.dt[lane] = dt;
       }
-      for (int e = 0; e < 9; ++e) R_traj[9 * i + e] = s[kR + e];
-      for (int r = 0; r < 3; ++r) p_traj[3 * i + r] = s[kPos + r];
+      const unsigned lives = __ballot_sync(kFull, live);
+      if (lane == 0) rd.lives = lives;
     }
-    __syncthreads();
-    const bool act = live;
-    if (!act) {
-      __syncthreads();   // (thread 0 writes live again next)
+    __syncthreads();   // the round's terms, for both warps
+    TC2LI_LAP(47);
+    const unsigned lives = rd.lives;
+    if (chain_warp) {
+      // (b) the chain on lanes 0-8, a lane an entry of the 3 x 3 products
+      // (each entry in mul3's and matvec3's order): R, p and v, F's two
+      // blocks that read R and the pose after each live sample, published
+      // one by one
+      if (lane < 9) {
+        constexpr unsigned kChain = 0x1ffu;
+        const int er = lane / 3, ec = lane - 3 * er;   // this lane's entry of a 3 x 3
+        rd.pose[0][lane] = Re;
+        if (lane < 3) rd.pose[0][9 + lane] = pk;
+        for (unsigned m = lives; m; m &= m - 1) {
+          const int j = __ffs(m) - 1;
+          const float dtj = rd.dt[j];
+          const float a0 = rd.acc[j][0], a1 = rd.acc[j][1], a2 = rd.acc[j][2];
+          // row er of R, and for lanes 0-2 row k = lane (a v's row)
+          const float r0 = __shfl_sync(kChain, Re, 3 * er), r1 = __shfl_sync(kChain, Re, 3 * er + 1),
+                      r2 = __shfl_sync(kChain, Re, 3 * er + 2);
+          const int kr = lane < 3 ? lane : 0;
+          const float k0 = __shfl_sync(kChain, Re, 3 * kr), k1 = __shfl_sync(kChain, Re, 3 * kr + 1),
+                      k2 = __shfl_sync(kChain, Re, 3 * kr + 2);
+          // column ec of hat(a)
+          const float h0 = ec == 0 ? 0.f : (ec == 1 ? -a2 : a1);
+          const float h1 = ec == 0 ? a2 : (ec == 1 ? 0.f : -a0);
+          const float h2 = ec == 0 ? -a1 : (ec == 1 ? a0 : 0.f);
+          rd.fvr[j][lane] = -(r0 * h0 + r1 * h1 + r2 * h2) * dtj;
+          rd.fvba[j][lane] = -Re * dtj;
+          __syncwarp(kChain);   // (orders the nine lanes' writes before lane 0's release)
+          if (lane == 0) store_release(&chained, ++n_chained);   // sample j's blocks, to warp 0
+          if (lane < 3) {
+            const float aw = (k0 * a0 + k1 * a1 + k2 * a2) + s[kGrav + lane];
+            pk = pk + vk * dtj + 0.5f * aw * dtj * dtj;
+            vk = vk + aw * dtj;
+            rd.pose[j + 1][9 + lane] = pk;
+          }
+          const float* dRi = rd.dri[j];
+          Re = r0 * dRi[ec] + r1 * dRi[3 + ec] + r2 * dRi[6 + ec];
+          rd.pose[j + 1][lane] = Re;
+        }
+      }
+      __syncwarp();
+      // every slot's pose: after the last live sample at or before it
+      if (i < N) {
+        const unsigned upto = lives & (0xffffffffu >> (31 - lane));
+        const int k = upto ? 32 - __clz(upto) : 0;
+#pragma unroll
+        for (int e = 0; e < 9; ++e) R_traj[9 * i + e] = rd.pose[k][e];
+#pragma unroll
+        for (int r = 0; r < 3; ++r) p_traj[3 * i + r] = rd.pose[k][9 + r];
+      }
       continue;
     }
-    for (int e = tid; e < kErr * kErr; e += kThreads) {
-      const int r = e / kErr, c = e % kErr;
-      G[e] = apply_F(blk, r, [&](int k) { return P[k * kErr + c]; });
+    // (c) warp 0: P <- F P F^T + Fw Q Fw^T a live sample at a time
+    for (unsigned m = lives; m; m &= m - 1, ++n_live) {
+      const int j = __ffs(m) - 1;
+      // (a back-off: the spin's loads leave shared memory to the chain)
+      for (int ns = 8; load_acquire(&chained) <= n_live; ns = ns < 64 ? 2 * ns : ns) {
+        __nanosleep(ns);
+      }
+      TC2LI_LAP(51);
+      FBlocks b;
+      b.dt = rd.dt[j];
+      float dRi[9];
+      get9(rd.dri[j], dRi);
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int cc = 0; cc < 3; ++cc) b.Frr[3 * r + cc] = dRi[3 * cc + r];
+      get9(rd.frbg[j], b.Frbg);
+      get9(rd.fvr[j], b.Fvr);
+      get9(rd.fvba[j], b.Fvba);
+#pragma unroll
+      for (int e = 0; e < 6; ++e) b.Fvg[e] = gB[e] * b.dt;
+      // G = F P on this column: its rows A, to shared memory
+      float g[kRowsA];
+#pragma unroll
+      for (int a = 0; a < kRowsA; ++a) {
+        g[a] = apply_F(b, row_a(a), [&](int k) { return p[k]; });
+        ga[gbuf][a][lane] = g[a];
+      }
+      __syncwarp();
+      TC2LI_LAP(52);
+      // P_new = G F^T, symmetric. A column c outside A is G's own (F's row
+      // c is e_c). A column c in A is row c of P_new: outside A G's row c,
+      // in A F's rows applied to G's row c.
+      if (c < 6 || (c >= 12 && c < 15)) {
+        const int ac = c < 6 ? c : c - 6;
+        float Gc[24];
+        const float4* row = reinterpret_cast<const float4*>(ga[gbuf][ac]);
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          const float4 v4 = row[k];
+          Gc[4 * k] = v4.x, Gc[4 * k + 1] = v4.y, Gc[4 * k + 2] = v4.z, Gc[4 * k + 3] = v4.w;
+        }
+        // this column's row of -Jr dt or -R dt, for the noise
+        const float* w = c >= 3 && c < 6 ? rd.frbg[j] + 3 * (c - 3)
+                                         : rd.fvba[j] + 3 * (c >= 12 ? c - 12 : 0);
+        const float wc[3] = {w[0], w[1], w[2]};
+#pragma unroll
+        for (int r = 0; r < kErr; ++r) {
+          if (r >= 6 && (r < 12 || r >= 15)) p[r] = Gc[r];
+        }
+#pragma unroll
+        for (int a = 0; a < kRowsA; ++a) {
+          const int r = row_a(a);
+          float v = apply_F(b, r, [&](int k) { return Gc[k]; });
+          if (a >= 3 && a < 6 && c >= 3 && c < 6) v += block_noise(b.Frbg + 3 * (a - 3), q.g, wc);
+          if (a >= 6 && c >= 12) v += block_noise(b.Fvba + 3 * (a - 6), q.a, wc);
+          p[r] = v;
+        }
+      } else {
+#pragma unroll
+        for (int a = 0; a < kRowsA; ++a) p[row_a(a)] = g[a];
+#pragma unroll
+        for (int r = 15; r < 21; ++r) {
+          if (r == c) p[r] += r < 18 ? (b.dt * q.bg) * b.dt : (b.dt * q.ba) * b.dt;
+        }
+      }
+      gbuf ^= 1;
+      TC2LI_LAP(53);
     }
-    __syncthreads();
-    for (int e = tid; e < kErr * kErr; e += kThreads) {
-      const int r = e / kErr, c = e % kErr;
-      P[e] = apply_F(blk, c, [&](int k) { return G[r * kErr + k]; }) + process_noise(blk, q, r, c);
-    }
-    __syncthreads();
   }
-  for (int e = tid; e < kErr * kErr; e += kThreads) xout[kState + e] = P[e];
-  if (tid < kState) xout[tid] = s[tid];
+  if (!chain_warp) {
+    if (lane < kErr) {
+#pragma unroll
+      for (int r = 0; r < kErr; ++r) xout[kState + r * kErr + lane] = p[r];
+    }
+  } else {
+    if (lane < 9) s[kR + lane] = Re;
+    if (lane < 3) {
+      s[kPos + lane] = pk;
+      s[kVel + lane] = vk;
+    }
+    __syncwarp();
+    for (int e = lane; e < kState; e += 32) xout[e] = s[e];
+  }
+  TC2LI_LAP(50);
 }
 
 
@@ -1454,7 +1670,7 @@ extern "C" int tc2li_esekf_predict(const float* xin, const float* gyro, const fl
                                    void* stream) {
   if (N < 0) return static_cast<int>(cudaErrorInvalidValue);
   const Noise q{qg, qa, qbg, qba};
-  predict_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  predict_kernel<<<1, 64, 0, static_cast<cudaStream_t>(stream)>>>(
       xin, gyro, acc, dts, N, q, xout, R_traj, p_traj);
   return static_cast<int>(cudaGetLastError());
 }

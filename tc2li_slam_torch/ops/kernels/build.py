@@ -140,6 +140,8 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.tc2li_hamming.restype = i
     lib.tc2li_match_max_columns.argtypes = [i]
     lib.tc2li_match_max_columns.restype = i
+    lib.tc2li_match_func_attrs.argtypes = [i, vp]
+    lib.tc2li_match_func_attrs.restype = i
     lib.tc2li_match_best2.argtypes = [i, i] + [vp] * 11 + [i, i, f] + [vp] * 4 + [i, i, vp]
     lib.tc2li_match_best2.restype = i
     lib.tc2li_pose_only_lm.argtypes = [vp] * 6 + [i] + [f] * 5 + [i, i] + [vp] * 5

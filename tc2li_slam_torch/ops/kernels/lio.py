@@ -14,9 +14,12 @@ Bound on the H100: latency (``csrc/lio.cu`` says how). A scan step at
 ``max_iters`` k is ``launches_per_scan(k)`` = 1 + 1 + (k + 2) + (k + 1)
 launches on the current stream and no host sync:
 
-- ``esekf_predict`` (``predict_launches``): the window's serial chain on one
-  block, P <- F P F^T + Fw Q Fw^T from F's block structure; a sample with
-  ``dt <= 0`` is skipped, an exact no-op at any launch size.
+- ``esekf_predict`` (``predict_launches``): two warps, the window in rounds
+  of 32 slots: a sample's terms a lane a sample and the chain of R, p and v
+  on nine lanes of one warp (a lane an entry of the 3 x 3 products);
+  P <- F P F^T + Fw Q Fw^T from F's block structure on the other, a lane a
+  column of P, each sample as soon as the chain has reached it; a sample
+  with ``dt <= 0`` is skipped, an exact no-op at any launch size.
 - ``lio_fences`` (``fence_launches``): the pool keys' fence table, every
   32nd key, once a scan step (``fences_plain``).
 - ``lio_rows`` (``rows_launches``): one evaluation of the measurement at an

@@ -7,13 +7,16 @@ PyTorch fuses nothing, so the 32768 x 2000 tracking match moved ~5 GB
 through device memory around a 0.15 ms matrix kernel.
 
 Bound on the H100: operations that depend on the data — a mask test of ~8
-simple operations per (valid row, column) pair, 8 XOR + 8 popcounts per
-admitted pair; the inputs are ~1.7 MB. The kernel (``csrc/match.cu``) keeps
-all of side 2 in one block's shared memory, gives a warp four rows, tests
-the mask first, computes a distance only for admitted pairs, and writes per
-row the first column of the minimum, the minimum and the minimum over the
-other columns; for the mutual test also, per column, the first row of the
-column's minimum. [N, M] never reaches device memory.
+simple operations per tested (valid row, column) pair, 8 XOR + 8 popcounts
+per admitted pair; the inputs are ~1.7 MB. The kernels (``csrc/match.cu``)
+test the mask first, compute a distance only for admitted pairs, and write
+per row the first column of the minimum, the minimum and the minimum over
+the other columns; for the mutual test also, per column, the first row of
+the column's minimum. [N, M] never reaches device memory. In the window
+mode each block lists side 2's columns by 16-px cell in shared memory and
+a row tests only the columns of the cells its window overlaps; the
+stereo and dense modes keep all of side 2 in one block's shared memory and
+a warp tests four rows against every column.
 
 The pair mask is one of:
 
@@ -24,7 +27,8 @@ The pair mask is one of:
 - a dense bool [N, M], or ``None`` (the public ``match_descriptors``);
 
 each ANDed with ``valid1[n] & valid2[m]``. Side 2 must fit one block's shared
-memory (``DENSE_MAX_COLUMNS`` in the dense mode). A dense or unmasked match
+memory (13,440 columns in the window mode, 4,842 in the stereo mode,
+``DENSE_MAX_COLUMNS`` in the dense mode). A dense or unmasked match
 against more columns (a frame against the landmark pool, in relocalization)
 is matched one column chunk at a time and the per-row pairs merged, which is
 exact: the earlier chunk wins a tie, so the first column of the minimum stays
@@ -257,6 +261,9 @@ def _match_best2_cuda(d1, d2, valid1, valid2, mask, mutual: bool, chunk: bool = 
                          f"memory (1..{lib.tc2li_match_max_columns(mode)})")
     a, b = d1.contiguous(), d2.contiguous()
     v1, v2 = valid1.contiguous(), valid2.contiguous()
+    if mode == 0:   # the window kernel reads 16-byte descriptor words and 8-byte positions
+        a, b = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (a, b))
+        uv1, uv2 = (x if x.data_ptr() % 8 == 0 else x.clone() for x in (uv1, uv2))
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptr(x):

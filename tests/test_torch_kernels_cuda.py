@@ -185,10 +185,13 @@ def test_match_best2_all_invalid_and_limits(cuda):
     assert bool((best == match.BIG).all()) and bool((second == match.BIG).all())
     wide = torch.zeros((8000, 8), dtype=torch.int32, device=cuda)
     ones = torch.ones(8000, dtype=torch.bool, device=cuda)
+    wider = 14000                          # above the window mode's 13,440 columns
     with pytest.raises(ValueError):        # side 2 does not fit shared memory
-        match.match_best2(c["d1"], wide, c["valid1"], ones, match.WindowMask(
-            c["uv1"], c["radius"], c["lvl1"], torch.zeros((8000, 2), device=cuda),
-            torch.zeros(8000, dtype=torch.int32, device=cuda)))
+        match.match_best2(c["d1"], torch.zeros((wider, 8), dtype=torch.int32, device=cuda),
+                          c["valid1"], torch.ones(wider, dtype=torch.bool, device=cuda),
+                          match.WindowMask(c["uv1"], c["radius"], c["lvl1"],
+                                           torch.zeros((wider, 2), device=cuda),
+                                           torch.zeros(wider, dtype=torch.int32, device=cuda)))
     before = match.launches                # the dense mode takes it in two chunks
     _same(match.match_best2(c["d1"], wide, c["valid1"], ones, None, True),
           match.match_best2_plain(c["d1"], wide, c["valid1"], ones, None, True))
@@ -248,6 +251,52 @@ def test_match_best2_frame_against_pool_shape(cuda, n_seen):
     assert match.launches - before[0] == -(-32768 // match.DENSE_MAX_COLUMNS) == 6
     assert match.launches_by_mode["none+mutual+chunk"] - before[1] == 6
     _same(got, match.match_best2_plain(c["d1"], c["d2"], c["valid1"], seen, None, True))
+
+
+# --- match_best2's window mode: the column grid (csrc/match.cu window_grid_kernel) ---
+
+def _window_check(args, mutual):
+    """One launch a call in the window shape, the same bits twice, bit-equal
+    to the plain version."""
+    key = "window+mutual" if mutual else "window"
+    before = match.launches, match.launches_by_mode.get(key, 0)
+    got = match.match_best2(*args, mutual)
+    again = match.match_best2(*args, mutual)
+    torch.cuda.synchronize()
+    assert match.launches - before[0] == 2 and match.launches_by_mode[key] - before[1] == 2
+    _same(got, again)
+    _same(got, match.match_best2_plain(*args, mutual))
+    return got
+
+
+@pytest.mark.parametrize("case", chip_smoke.WINDOW_CASES)
+@pytest.mark.parametrize("mutual", [False, True])
+def test_match_window_grid_edge_cases(cuda, case, mutual):
+    """``chip_smoke.window_case``'s edge cases of the grid walk: windows
+    across the image border, columns that stretch the grid or stay off it,
+    non-finite and huge positions and radii, a tie across two cells."""
+    rng = np.random.default_rng(chip_smoke.WINDOW_CASES.index(case))
+    c = chip_smoke.window_case(rng, 300, 517, case)
+    idx, best, _, _ = _window_check(chip_smoke.window_args(torch, match, c, cuda), mutual)
+    if case == "tie across cells":
+        assert idx[:5].tolist() == [3] * 5 and best[:5].tolist() == [0] * 5
+
+
+@pytest.mark.parametrize("N,M,base,lo,hi", [
+    (32768, 2000, 15.0, -1, 1),     # a full pool against a keyframe
+    (32768, 2000, 3.0, -1, 1),      # the fuse pass's narrow windows
+    (4099, 4480, 15.0, -1, 1),      # the most columns whose descriptors shared memory holds
+    (4099, 4481, 15.0, -1, 1),      # ... and one more: the descriptors from L2
+    (700, 13440, 30.0, 0, 3),       # the window mode's column limit
+    (1, 1, 15.0, -1, 1), (33, 2001, 15.0, -8, 8), (1003, 517, 100.0, 0, 0)])
+def test_match_window_grid_sizes(cuda, N, M, base, lo, hi):
+    from tc2li_slam_torch.ops.kernels import build
+    assert build.library().tc2li_match_max_columns(0) == 13440
+    rng = np.random.default_rng(N + M)
+    c = chip_smoke.window_case(rng, N, M, base=base)
+    if N == 32768:
+        c["valid1"][:] = True
+    _window_check(chip_smoke.window_args(torch, match, c, cuda, lo, hi), False)
 
 
 def test_matchers_on_cuda_match_cpu(cuda):
@@ -1285,6 +1334,44 @@ def test_lio_predict_padding_is_a_no_op(cuda):
     assert all(torch.equal(x, y) for x, y in zip(f1.x, f2.x)) and torch.equal(f1.P, f2.P)
     assert torch.equal(R2[~pad], R1) and torch.equal(p2[~pad], p1)
     assert torch.equal(R2[pad], R1) and torch.equal(p2[pad], p1)
+
+
+@pytest.mark.parametrize("n_live,slots", [(1, 0), (10, 0), (40, 0), (1, 1024), (40, 1024)])
+def test_lio_predict_matches_plain_window_sizes(cuda, n_live, slots):
+    """``esekf_predict`` against ``predict_plain`` (``chip_smoke.LIO_TOL``:
+    state and trajectory 1e-4, P diagonally scaled 1e-4) on
+    ``chip_smoke.predict_window``'s windows, one launch a call, the same
+    bits twice; in 1,024 slots the same bits as the live samples alone."""
+    from tc2li_slam_torch.estimation import esekf
+    from tc2li_slam_torch.ops.kernels import lio as klio
+    x = esekf.init_state(device=cuda)
+    x = x._replace(vel=torch.tensor([1.5, 0.1, 0.0], device=cuda),
+                   bg=torch.tensor([1e-3, -2e-3, 5e-4], device=cuda),
+                   ba=torch.tensor([0.02, -0.01, 0.03], device=cuda))
+    filt = esekf.Filter(x, esekf.init_filter(device=cuda).P)
+    noise = esekf.NoiseCfg.create(*chip_smoke.VI_CALIB)
+    gyro, acc, dts = (t.to(cuda) for t in chip_smoke.predict_window(torch, n_live, slots))
+    n0 = klio.predict_launches
+    fk, Rk, pk = klio.esekf_predict(filt, gyro, acc, dts, noise)
+    again = klio.esekf_predict(filt, gyro, acc, dts, noise)
+    fp, Rp, pp = klio.predict_plain(filt, gyro, acc, dts, noise)
+    torch.cuda.synchronize()
+    assert klio.predict_launches - n0 == 2
+    assert all(torch.equal(a, b) for a, b in zip(list(fk.x) + [fk.P, Rk, pk],
+                                                 list(again[0].x) + [again[0].P, *again[1:]]))
+    tol = chip_smoke.LIO_TOL
+    d = max(float((a - b).abs().max()) for a, b in zip(list(fk.x) + [Rk, pk],
+                                                       list(fp.x) + [Rp, pp]))
+    assert d <= tol["predict_state"], d
+    dP = float(((fk.P - fp.P).double().abs().cpu() / chip_smoke.diag_scale(torch, fp.P)).max())
+    assert dP <= tol["predict_P"], dP
+    if slots:
+        g1, a1, d1 = (t.to(cuda) for t in chip_smoke.predict_window(torch, n_live))
+        f1, R1, p1 = klio.esekf_predict(filt, g1, a1, d1, noise)
+        torch.cuda.synchronize()
+        live = dts > 0
+        assert all(torch.equal(a, b) for a, b in zip(f1.x, fk.x)) and torch.equal(f1.P, fk.P)
+        assert torch.equal(Rk[live], R1) and torch.equal(pk[live], p1)
 
 
 def test_lio_scan_step_no_host_sync(cuda):

@@ -265,46 +265,130 @@ def _blocks(i):
     return (21, 2) if i >= 21 else ((i // 3) * 3, 3)
 
 
-def emu_predict(xin, gyro, acc, dts, q):
-    """``predict_kernel``: the chain over the live samples, P from F's blocks."""
-    s, P = xin[:STATE].copy(), xin[STATE:].reshape(ERR, ERR).copy()
-    grav = s[GRAV:GRAV + 3]
-    gB = -_hat(grav) @ _s2_basis(grav)
+ROWS_A = [0, 1, 2, 3, 4, 5, 12, 13, 14]   # F's rows that differ from the identity's
+ROWS_B = [r for r in range(ERR) if r not in ROWS_A]
+
+
+def emu_predict(xin, gyro, acc, dts, q, dtype=np.float64):
+    """``predict_kernel`` in ``dtype``: each live sample's terms (phi, dRi,
+    Jr, a) apart from the chain, the chain of R, p and v, and P a column at
+    a time: G = F P's rows A on every column, then P_new = G F^T, symmetric:
+    a column outside A is G's own, a column c in A is P_new's row c, G's
+    row c outside A and F's rows A applied to G's row c inside."""
+    f = lambda a: np.asarray(a, dtype)
+    s, P = f(xin[:STATE]).copy(), f(xin[STATE:]).reshape(ERR, ERR).copy()
+    grav, bg, ba = s[GRAV:GRAV + 3], s[BG:BG + 3], s[BA:BA + 3]
+    gB = f(-_hat(grav) @ _s2_basis(grav))
+    dts = f(dts)
+    live = dts > 0
+    # (a) a sample's terms that need no chain
+    terms = {i: (f(_exp(f((f(gyro[i]) - bg) * dts[i]))), f(_jr(f((f(gyro[i]) - bg) * dts[i]))),
+                 f(f(acc[i]) - ba)) for i in np.nonzero(live)[0]}
     R_traj, p_traj = [], []
-    for w_, a_, dt in zip(gyro, acc, dts):
-        if dt > 0:
+    for i, dt in enumerate(dts):
+        if live[i]:
+            dRi, Jr, a = terms[i]
             R = s[ROT:ROT + 9].reshape(3, 3).copy()
-            phi = (w_ - s[BG:BG + 3]) * dt
-            a = a_ - s[BA:BA + 3]
-            dRi, Jr = _exp(phi), _jr(phi)
+            # (b) the chain and F's blocks that read R
             aw = R @ a + grav
-            F = np.eye(ERR)
-            F[0:3, 12:15] = np.eye(3) * dt
+            F = np.eye(ERR, dtype=dtype)
+            F[0:3, 12:15] = np.eye(3, dtype=dtype) * dt
             F[3:6, 3:6] = dRi.T
             F[3:6, 15:18] = -Jr * dt
-            F[12:15, 3:6] = -R @ _hat(a) * dt
+            F[12:15, 3:6] = -(R @ _hat(a).astype(dtype)) * dt
             F[12:15, 18:21] = -R * dt
             F[12:15, 21:23] = gB * dt
-            G = np.zeros((ERR, ERR))
-            for r in range(ERR):   # a row of F P reads F's non-zero columns only
-                nz = np.nonzero(F[r])[0]
-                G[r] = F[r, nz] @ P[nz]
-            Pn = np.zeros((ERR, ERR))
-            for c in range(ERR):
-                nz = np.nonzero(F[c])[0]
-                Pn[:, c] = G[:, nz] @ F[c, nz]
+            # (c) G's rows A, then P_new column by column
+            GA = F[ROWS_A] @ P                              # [9, 23]
+            Pn = P.copy()
+            Pn[ROWS_A] = GA                                 # the columns outside A
+            Pn[np.ix_(ROWS_B, ROWS_A)] = GA[:, ROWS_B].T    # rows outside A of a column in A
+            Pn[np.ix_(ROWS_A, ROWS_A)] = (GA @ F[ROWS_A].T).T   # entry (r, c): F[r] . G[c]
             Wr, Wv = -Jr * dt, -R * dt
             Pn[3:6, 3:6] += (Wr * q[0]) @ Wr.T
             Pn[12:15, 12:15] += (Wv * q[1]) @ Wv.T
-            Pn[15:18, 15:18] += np.eye(3) * dt * q[2] * dt
-            Pn[18:21, 18:21] += np.eye(3) * dt * q[3] * dt
+            Pn[15:18, 15:18] += np.eye(3, dtype=dtype) * (dt * q[2] * dt)
+            Pn[18:21, 18:21] += np.eye(3, dtype=dtype) * (dt * q[3] * dt)
             P = Pn
-            s[POS:POS + 3] = s[POS:POS + 3] + s[VEL:VEL + 3] * dt + 0.5 * aw * dt * dt
+            s[POS:POS + 3] = s[POS:POS + 3] + s[VEL:VEL + 3] * dt + dtype(0.5) * aw * dt * dt
             s[VEL:VEL + 3] = s[VEL:VEL + 3] + aw * dt
             s[ROT:ROT + 9] = (R @ dRi).reshape(-1)
         R_traj.append(s[ROT:ROT + 9].reshape(3, 3).copy())
         p_traj.append(s[POS:POS + 3].copy())
-    return np.concatenate([s, P.reshape(-1)]), np.array(R_traj), np.array(p_traj)
+    return (np.concatenate([s, P.reshape(-1)]), np.array(R_traj, dtype).reshape(-1, 3, 3),
+            np.array(p_traj, dtype).reshape(-1, 3))
+
+
+def _predict_window(rng, n_live, padded):
+    """A filter and an IMU window of n_live samples at 100 Hz; ``padded``
+    puts padding slots (dt 0, NaN acc) before, between and after them."""
+    f = tesekf.Filter(random_state(rng, 0.2), tesekf.init_filter().P)
+    gyro = rng.normal(0, 0.4, (n_live, 3)).astype(np.float32)
+    acc = (rng.normal(0, 1.0, (n_live, 3)) + [0, 0, 9.81]).astype(np.float32)
+    dts = np.full(n_live, 0.01, np.float32)
+    if padded:
+        slots = 3 * n_live + 5
+        at = 1 + 3 * np.arange(n_live)
+        g2, a2, d2 = (np.zeros((slots, 3), np.float32), np.full((slots, 3), np.nan, np.float32),
+                      np.zeros(slots, np.float32))
+        g2[at], a2[at], d2[at] = gyro, acc, dts
+        d2[at[-1] + 1] = -0.01
+        gyro, acc, dts = g2, a2, d2
+    x0p = np.concatenate([n(klio.state_vector(f.x)), n(f.P).reshape(-1)]).astype(np.float32)
+    return f, x0p, gyro, acc, dts
+
+
+def _split(xp):
+    return xp[:STATE], xp[STATE:].reshape(ERR, ERR)
+
+
+def _jax_state_vector(x):
+    return np.concatenate([np.asarray(getattr(x, k)).reshape(-1) for k in tesekf.State._fields])
+
+
+@pytest.mark.parametrize("n_live,padded", [(1, False), (10, False), (40, False), (1, True),
+                                           (10, True), (40, True)])
+def test_emulated_predict_matches_jax(n_live, padded):
+    """The kernel's order against the JAX ``predict``: in float64 (the JAX
+    package under x64, the noise in float64) to 1e-10, and in float32 to
+    ``chip_smoke.LIO_TOL`` (state and trajectory 1e-4, P after diagonal
+    scaling 1e-4). Padded slots repeat the pose before them."""
+    import jax
+    import jax.numpy as jnp
+
+    import chip_smoke
+    rng = np.random.default_rng(100 * n_live + padded)
+    f, x0p, gyro, acc, dts = _predict_window(rng, n_live, padded)
+    noise = NOISE
+    tol = chip_smoke.LIO_TOL
+    for dtype in (np.float64, np.float32):
+        q = [dtype(v) ** 2 for v in noise]
+        xp, R_traj, p_traj = emu_predict(x0p, gyro, acc, dts, q, dtype)
+        s, P = _split(xp)
+        if dtype == np.float64:
+            with jax.enable_x64(True):
+                jf = jesekf.Filter(jesekf.State(**{k: jnp.asarray(np.asarray(v, np.float64)) for k, v
+                                                   in interop.filter_to_numpy(f)["x"].items()}),
+                                   jnp.asarray(np.asarray(n(f.P), np.float64)))
+                rf, rR, rp = jesekf.predict(jf, *(jnp.asarray(np.asarray(a, np.float64))
+                                                 for a in (gyro, acc, dts)),
+                                            jesekf.NoiseCfg(*[jnp.float64(v) for v in noise]))
+                assert rf.P.dtype == jnp.float64
+            atol_s, atol_p = 1e-10, 1e-10
+        else:
+            rf, rR, rp = jesekf.predict(to_jax_filter(f), j(gyro), j(acc), j(dts),
+                                        jesekf.NoiseCfg.create(*noise))
+            atol_s, atol_p = tol["predict_state"], tol["predict_P"]
+        rs, rP = _jax_state_vector(rf.x), np.asarray(rf.P, np.float64)
+        np.testing.assert_allclose(s, rs, rtol=0, atol=atol_s)
+        np.testing.assert_allclose(R_traj, np.asarray(rR), rtol=0, atol=atol_s)
+        np.testing.assert_allclose(p_traj, np.asarray(rp), rtol=0, atol=atol_s)
+        dg = np.sqrt(np.maximum(np.abs(np.diag(rP)), 1e-30))
+        assert np.abs((np.asarray(P, np.float64) - rP) / (dg[:, None] * dg[None, :])).max() \
+            < atol_p, dtype
+    if padded:   # a padded slot repeats the pose before it, in the emulation as in the kernel
+        live = np.nonzero(dts > 0)[0]
+        assert np.array_equal(R_traj[live[0] + 1], R_traj[live[0]])
 
 
 def _n_entries(nc):

@@ -2,7 +2,7 @@
 """Where IMU mode's scan-step update spends its time, on one CUDA card, for
 one or several checkouts in turns.
 
-    python3 tools/lio_kernels.py [--tree DIR ...] [--out DIR]
+    python3 tools/lio_kernels.py [--tree DIR ...] [--out DIR] [--predict-only] [--calls N]
 
 For each tree (default: this checkout; ``--tree A --tree B --tree B --tree
 A`` compares two in turns on one card) a child process imports that tree's
@@ -14,19 +14,26 @@ prediction:
   with 6 and 12 columns (``estimate_extrinsic``): device ms a launch behind
   a device backlog (``chip_smoke.cuda_ms``), and where the tree has it the
   fence table's launch (``LioWork.fences``) apart;
+- ``esekf_predict`` on ``lio_problem``'s filter at 1, 10, 20 and 40 live
+  samples and at 40 live samples spread over 1,024 slots, the rest padding
+  (``chip_smoke.predict_window``): device ms a call behind a backlog,
+  and the slope in us a live sample between 10 and 40; and at 10, 20 and
+  40 live samples the spread of ``--calls`` single calls (``call_times``:
+  median, p99, largest, and the calls over twice the median);
 - ``esekf_step``'s first launch (from the prediction; it inverts P0), a
   middle one and the final one (it inverts the posterior information and
   runs the guard), each timed apart behind a backlog (steps back to back),
   and the whole update (``scan_update``);
-- where the tree builds a lapped library (``build.variant("-DTC2LI_LAPS")``:
-  ``csrc/laps.cuh``, empty in the main build), the phase split: cycles a
-  launch by phase on thread 0 of block 0, and each phase's share;
+- the phase split through the lapped library (``build.variant(
+  "-DTC2LI_LAPS")``: ``csrc/laps.cuh``, empty in the main build): cycles a
+  launch by phase on thread 0 of block 0, and each phase's share (none for
+  a kernel without laps);
 - each kernel's registers, local (spill) bytes and static shared memory
   (``cudaFuncGetAttributes`` through ``tc2li_lio_func_attrs``), and the
   spill stores ``ptxas`` reported for the build.
 
-Prints one JSON object a tree, with the card's name and power limit, and
-writes them to ``--out``.
+``--predict-only`` measures ``esekf_predict`` alone. Prints one JSON object
+a tree, with the card's name and power limit, and writes them to ``--out``.
 """
 
 from __future__ import annotations
@@ -43,9 +50,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 # the lap slots of csrc/lio.cu: the two-level form (rows 8-15, step 32-38),
 # and the older one-level form (a binary search of the pool a lane, a warp
-# a query) as it was lapped for its split (rows 0-6, step 16-25). A tree of
-# the one-level form may lack the fence launch, the attribute query and
-# the laps: the tool times what a tree has.
+# a query) as it was lapped for its split (rows 0-6, step 16-25)
 LAPS = {"rows": {0: "state load", 1: "search of the 25 columns", 2: "candidate loads",
                  3: "5 warp argmins", 4: "float64 fit, gate and row", 5: "per-lane sums",
                  6: "block's write",
@@ -61,7 +66,12 @@ LAPS = {"rows": {0: "state load", 1: "search of the 25 columns", 2: "candidate l
                      "(first: P0^-1)",
                  33: "assemble", 34: "Cholesky (warp 0)", 35: "solves (warp 0)",
                  36: "boxplus and output", 37: "Gauss-Jordan (final, the block)",
-                 38: "guard and output"}}
+                 38: "guard and output"},
+        # esekf_predict, on warp 0 (P's; the chain's warp 1 runs beside it)
+        "predict": {46: "P load and gB (warp 0)",
+                    47: "a round's barrier (warp 1's per-sample terms)",
+                    51: "P: waiting for the chain", 52: "P: F's blocks and G's rows A",
+                    53: "P: the new columns", 50: "output"}}
 N_SLOTS = 64   # laps.cuh kLapSlots
 KERNELS = ("predict_kernel", "rows_kernel", "step_kernel", "fence_kernel")
 
@@ -82,7 +92,32 @@ def ptxas_spills(log: str) -> dict:
     return out
 
 
-def measure(tree: Path) -> dict:
+def call_times(torch, fn, calls: int) -> dict:
+    """The device ms of each of ``calls`` calls of ``fn``, back to back
+    behind a device backlog: an event after each call, the gaps between
+    them. ``backlog held``: the backlog had not ended when the host had
+    enqueued the last call, so no gap holds host time."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(calls + 1)]
+    a = torch.empty((4096, 4096), device="cuda").normal_()
+    torch.cuda.synchronize()
+    for _ in range(40):   # ~0.1 s of matrix products
+        a @ a
+    ev[0].record()
+    for e in ev[1:]:
+        fn()
+        e.record()
+    held = not ev[0].query()
+    ev[-1].synchronize()
+    t = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(calls))
+    med = t[calls // 2]
+    return {"calls": calls, "backlog held": held, "median ms": med,
+            "p99 ms": t[min(calls - 1, (99 * calls) // 100)], "max ms": t[-1],
+            "min ms": t[0], "over twice the median": sum(x > 2 * med for x in t)}
+
+
+def measure(tree: Path, predict_only: bool = False, calls: int = 200) -> dict:
     sys.path.insert(0, str(tree))
     import torch
 
@@ -99,24 +134,18 @@ def measure(tree: Path) -> dict:
     dev = torch.device("cuda")
     res = {"tree": str(Path(tc2li_slam_torch.__file__).resolve().parents[1]),
            "card": cs.nvidia_smi_line(), "lio_rows": {}, "esekf_step": {}, "attributes": {}}
-    csrc = Path(tc2li_slam_torch.__file__).resolve().parent / "csrc"
-    lapped = (build.variant("-DTC2LI_LAPS")
-              if hasattr(build, "variant") and "TC2LI_LAP" in (csrc / "lio.cu").read_text()
-              else None)
-    spills = ptxas_spills(getattr(build, "ptxas_log", ""))
-    for i, name in enumerate(("predict_kernel", "rows_kernel", "step_kernel", "fence_kernel")):
+    lapped = build.variant("-DTC2LI_LAPS")
+    spills = ptxas_spills(build.ptxas_log)
+    for i, name in enumerate(KERNELS):
         row = dict(spills.get(name, {}))
-        if hasattr(lib, "tc2li_lio_func_attrs"):
-            lib.tc2li_lio_func_attrs.argtypes = [ctypes.c_int, ctypes.c_void_p]
-            a = (ctypes.c_int * 4)()
-            if lib.tc2li_lio_func_attrs(i, a) == 0:
-                row.update(registers=a[0], local_bytes=a[1], static_shared_bytes=a[2],
-                           max_threads=a[3])
-        if row:
-            res["attributes"][name] = row
+        a = (ctypes.c_int * 4)()
+        if lib.tc2li_lio_func_attrs(i, a) == 0:
+            row.update(registers=a[0], local_bytes=a[1], static_shared_bytes=a[2],
+                       max_threads=a[3])
+        res["attributes"][name] = row
     ms = lambda fn, reps: cs.cuda_ms(torch, fn, reps, True)
 
-    def laps(fn, prep=lambda: None):
+    def laps(fn, prep=lambda: None, names=None):
         """cycles a call of ``fn`` by phase through the lapped library"""
         buf = (ctypes.c_longlong * (2 * N_SLOTS))()
         prep()
@@ -126,7 +155,7 @@ def measure(tree: Path) -> dict:
         fn()
         torch.cuda.synchronize()
         lapped.tc2li_laps_read_lio(buf)
-        names = {**LAPS["rows"], **LAPS["step"]}
+        names = names or {**LAPS["rows"], **LAPS["step"]}
         tot = sum(buf[k] for k in names if buf[N_SLOTS + k])
         return {"total cycles": tot, **{
             v: {"cycles": buf[k], "laps": buf[N_SLOTS + k], "share": buf[k] / max(tot, 1)}
@@ -134,6 +163,24 @@ def measure(tree: Path) -> dict:
 
     a = cs.lio_problem(torch, dev)
     filt0, m, scan, t_pts, sv, gyro, acc, dts, trel, noise, cfg0 = a
+    res["esekf_predict"] = {}
+    windows = {f"{n} live": cs.predict_window(torch, n) for n in (1, 10, 20, 40)}
+    windows["40 live in 1,024 slots"] = cs.predict_window(torch, 40, 1024)
+    for label, window in windows.items():
+        gw, aw, dw = (t.to(dev) for t in window)
+        call = lambda: klio.esekf_predict(filt0, gw, aw, dw, noise)
+        row = {"slots": dw.shape[0], "live": int((dw > 0).sum()), "ms a call": ms(call, 50)}
+        if label in ("10 live", "20 live", "40 live"):
+            row["single calls"] = call_times(torch, call, calls)
+        with build.routed_to(lapped):
+            row["phases"] = laps(call, names=LAPS["predict"])
+        res["esekf_predict"][label] = row
+        print(f"esekf_predict {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
+    p = res["esekf_predict"]
+    res["esekf_predict"]["us a live sample, 10 to 40"] = (
+        1e3 * (p["40 live"]["ms a call"] - p["10 live"]["ms a call"]) / 30)
+    if predict_only:
+        return res
     fk, Rk, pk = klio.esekf_predict(filt0, gyro, acc, dts, noise)
     for cap in (8192, 32768):
         for ext in (False, True):
@@ -142,8 +189,7 @@ def measure(tree: Path) -> dict:
 
             def work():
                 w = klio.LioWork(filt0, fk, m, pts, pv, cfg)
-                if hasattr(w, "fences"):
-                    w.fences()
+                w.fences()
                 w.rows(0)
                 w.step(0)
                 return w
@@ -151,9 +197,8 @@ def measure(tree: Path) -> dict:
             w = work()
             k = cfg.max_iters
             row = {"M": pts.shape[0], "ncols": w.ncols, "blocks": w.blocks,
-                   "ms a launch": ms(lambda: w.rows(1), 50)}
-            if hasattr(w, "fences"):
-                row["fence ms a launch"] = ms(w.fences, 50)
+                   "ms a launch": ms(lambda: w.rows(1), 50),
+                   "fence ms a launch": ms(w.fences, 50)}
             srow = {}
             if cap == 8192 or ext:
                 srow = {"first ms": ms(lambda: w.step(0), 50),
@@ -161,14 +206,13 @@ def measure(tree: Path) -> dict:
                         "final ms": ms(lambda: w.step(k, final=True), 50),
                         "update ms (whole scan_update)": ms(
                             lambda: klio.scan_update(filt0, fk, m, pts, pv, cfg), 20)}
-            if lapped is not None:
-                with build.routed_to(lapped):
-                    wl = work()
-                    row["phases"] = laps(lambda: wl.rows(1))
-                    if srow:
-                        srow["phases first"] = laps(lambda: wl.step(0))
-                        srow["phases middle"] = laps(lambda: wl.step(1), lambda: wl.step(0))
-                        srow["phases final"] = laps(lambda: wl.step(k, final=True))
+            with build.routed_to(lapped):
+                wl = work()
+                row["phases"] = laps(lambda: wl.rows(1))
+                if srow:
+                    srow["phases first"] = laps(lambda: wl.step(0))
+                    srow["phases middle"] = laps(lambda: wl.step(1), lambda: wl.step(0))
+                    srow["phases final"] = laps(lambda: wl.step(k, final=True))
             label = f"M {pts.shape[0]}, {w.ncols} columns"
             res["lio_rows"][label] = row
             if srow:
@@ -183,15 +227,22 @@ def main() -> int:
     ap.add_argument("--tree", action="append", default=None,
                     help="a checkout whose tc2li_slam_torch to time (repeatable)")
     ap.add_argument("--out", default=str(ROOT / "build" / "lio_kernels"))
+    ap.add_argument("--predict-only", action="store_true",
+                    help="time esekf_predict alone")
+    ap.add_argument("--calls", type=int, default=200,
+                    help="single calls of esekf_predict timed for their spread")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     if args.child:
-        print(json.dumps(measure(Path(args.child).resolve())), flush=True)
+        print(json.dumps(measure(Path(args.child).resolve(), args.predict_only, args.calls)),
+              flush=True)
         return 0
     for i, tree in enumerate(args.tree or [str(ROOT)]):
-        res = subprocess.run([sys.executable, __file__, "--out", str(out), "--child", tree],
+        res = subprocess.run([sys.executable, __file__, "--out", str(out), "--child", tree,
+                              "--calls", str(args.calls)]
+                             + (["--predict-only"] if args.predict_only else []),
                              capture_output=True, text=True, timeout=1200)
         if res.returncode != 0:
             print(res.stdout[-4000:], res.stderr[-8000:], file=sys.stderr)

@@ -1,0 +1,171 @@
+#!/usr/bin/env python3
+"""Where ``match_best2`` (``csrc/match.cu``) spends its time on its window
+and stereo call shapes, on one CUDA card, for one or several checkouts in
+turns.
+
+    python3 tools/match_kernels.py [--cases PATH] [--tree DIR ...] [--out DIR] [--times-only]
+
+The cases are ``chip_smoke.py``'s own window and stereo matches, which it
+writes to ``build/match_cases.pt`` (``chip_smoke.save_match_cases``): the
+last frame's stereo pair, the landmark pool projected into a keyframe, a
+full pool of 32,768 valid landmarks, and the edge rows (1,003 x 517, with
+and without the mutual test). Copy the file into ``proof/`` to reuse it in
+a later chip call without running ``chip_smoke.py`` first.
+
+For each tree (default: this checkout; ``--tree A --tree B --tree B --tree
+A`` compares two in turns on one card) a child process imports that tree's
+``tc2li_slam_torch``, builds its kernels and, on each case:
+
+- holds the kernel's outputs equal to ``match_best2_plain``'s, bit for bit;
+- counts the launches of a call (the wrapper's ``launches``), the valid
+  rows and the admitted pairs;
+- times a call behind a device backlog (``chip_smoke.cuda_ms``), device ms;
+- the phase split through the lapped library (``build.variant(
+  "-DTC2LI_LAPS")``, ``csrc/laps.cuh``): cycles a call by phase on thread 0
+  of block 0, each phase's share.
+
+It also reports each matcher kernel's registers, local (spill) bytes and
+static shared memory (``cudaFuncGetAttributes`` through
+``tc2li_match_func_attrs``), and the registers and spill stores ``ptxas``
+reported where this process built the library. ``--times-only`` leaves out
+the lapped build and the attributes (a checkout from before ``match.cu``
+had laps has neither). Prints one JSON object a tree, with the card's name
+and power limit, and writes them to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+# the lap slots of csrc/match.cu: the staged kernel (stereo and dense modes,
+# side 2 in shared memory; 0-1) and the window mode's column grid (3, 5, 6)
+LAPS = {0: "stage side 2", 1: "rows of warp 0 (every column)",
+        3: "columns and descriptors to shared memory, cells cleared",
+        5: "columns to their cells' lists", 6: "rows of warp 0 (their cells)"}
+N_SLOTS = 64   # laps.cuh kLapSlots
+
+
+def ptxas_kernels(log: str) -> dict:
+    """{matcher kernel: {ptxas_registers, spill_store_bytes}} from nvcc's
+    -Xptxas=-v log (the entries whose mangled name holds ``match``)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1) if "match" in m.group(1) else None
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and cur:
+            out.setdefault(cur, {})["spill_store_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out.setdefault(cur, {})["ptxas_registers"] = int(m.group(1))
+    return out
+
+
+def measure(tree: Path, cases_path: Path, times_only: bool = False) -> dict:
+    sys.path.insert(0, str(tree))
+    import torch
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import tc2li_slam_torch
+    from tc2li_slam_torch.ops.kernels import build, match
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    lib = build.library()
+    dev = torch.device("cuda")
+    res = {"tree": str(Path(tc2li_slam_torch.__file__).resolve().parents[1]),
+           "card": cs.nvidia_smi_line(), "cases": {},
+           "ptxas": ptxas_kernels(build.ptxas_log), "attributes": {}}
+    lapped = None
+    if not times_only:
+        for which, name in enumerate(("window", "window mutual", "stereo mutual",
+                                      "dense mutual")):
+            a = (ctypes.c_int * 4)()
+            if lib.tc2li_match_func_attrs(which, a) == 0:
+                res["attributes"][name] = dict(registers=a[0], local_bytes=a[1],
+                                               static_shared_bytes=a[2], max_threads=a[3])
+        lapped = build.variant("-DTC2LI_LAPS")
+
+    def laps(fn):
+        """cycles a call of ``fn`` by phase through the lapped library"""
+        buf = (ctypes.c_longlong * (2 * N_SLOTS))()
+        with build.routed_to(lapped):
+            fn()
+            torch.cuda.synchronize()
+            lapped.tc2li_laps_reset_match()
+            fn()
+            torch.cuda.synchronize()
+            lapped.tc2li_laps_read_match(buf)
+        tot = sum(buf[k] for k in LAPS if buf[N_SLOTS + k])
+        return {"total cycles": tot, **{
+            v: {"cycles": buf[k], "laps": buf[N_SLOTS + k], "share": buf[k] / max(tot, 1)}
+            for k, v in LAPS.items() if buf[N_SLOTS + k]}}
+
+    for name, (d1, d2, v1, v2, mask, mutual) in cs.load_match_cases(
+            torch, match, cases_path, dev).items():
+        call = lambda: match.match_best2(d1, d2, v1, v2, mask, mutual)
+        n0 = match.launches
+        got = call()
+        n_launch = match.launches - n0
+        ref = match.match_best2_plain(d1, d2, v1, v2, mask, mutual)
+        torch.cuda.synchronize()
+        full = v1[:, None] & v2[None, :] & mask.dense()
+        row = {"N": d1.shape[0], "M": d2.shape[0], "mask": type(mask).__name__,
+               "mutual": mutual, "valid rows": int(v1.sum()), "admitted pairs": int(full.sum()),
+               "bit-equal to plain": cs.same(torch, got, ref), "launches a call": n_launch,
+               "ms a call": cs.cuda_ms(torch, call, 50, True)}
+        del full
+        if lapped is not None:
+            row["phases"] = laps(call)
+        res["cases"][name] = row
+        print(f"{name}: {json.dumps(row)}", file=sys.stderr, flush=True)
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cases", default=str(ROOT / "build" / "match_cases.pt"),
+                    help="the cases chip_smoke.py wrote (chip_smoke.save_match_cases)")
+    ap.add_argument("--tree", action="append", default=None,
+                    help="a checkout whose tc2li_slam_torch to time (repeatable)")
+    ap.add_argument("--out", default=str(ROOT / "build" / "match_kernels"))
+    ap.add_argument("--times-only", action="store_true",
+                    help="no lapped build and no attributes")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    cases = Path(args.cases).resolve()
+    if args.child:
+        print(json.dumps(measure(Path(args.child).resolve(), cases, args.times_only)),
+              flush=True)
+        return 0
+    if not cases.exists():
+        print(f"no cases at {cases}: run chip_smoke.py first", file=sys.stderr)
+        return 1
+    for i, tree in enumerate(args.tree or [str(ROOT)]):
+        res = subprocess.run([sys.executable, __file__, "--cases", str(cases), "--out", str(out),
+                              "--child", tree] + (["--times-only"] if args.times_only else []),
+                             capture_output=True, text=True, timeout=1200)
+        if res.returncode != 0:
+            print(res.stdout[-4000:], res.stderr[-8000:], file=sys.stderr)
+            return 1
+        r = json.loads(res.stdout.strip().splitlines()[-1])
+        (out / f"match_{i}.json").write_text(json.dumps(r, indent=1))
+        print(json.dumps(r), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
