@@ -1290,6 +1290,109 @@ def window_case(rng, N: int, M: int, case: str | None = None, base: float = 15.0
     return c
 
 
+# the stereo mode's row-bin edge cases (csrc/match.cu match_best2_bins_kernel)
+STEREO_BIN_CASES = ("bin edges", "band equality", "one bin", "levels 0-7", "non-finite band",
+                    "non-finite position", "invalid", "odd sizes", "full width",
+                    "level gate", "far levels")
+STEREO_MAX_COLUMNS = 5120   # tc2li_match_max_columns(1)
+
+
+def stereo_bins_case(rng, case: str, N: int = 600, M: int = 700) -> dict:
+    """A stereo match's inputs as numpy arrays (descriptors int32) on a
+    1241 x 376 image: right keypoints with ORB-SLAM3's band 2 x 1.2^level,
+    left keypoints 3 px left to 60 px right of a source column with a row
+    offset of up to 1.2 bands, descriptors a few bits off the source's,
+    5% of rows and columns invalid, ``max_d`` 718.856 (bf / baseline), the
+    level gate -1..1; and one of ``STEREO_BIN_CASES``: right rows at a bin
+    edge (bins of 0.5 px over the extent 0..376) and one ulp either side,
+    left rows at exactly a band from them and one ulp beyond; left rows at
+    a band's distance in float32 from their source; every right keypoint on
+    one row; levels 0-7 at 2,000 x 2,000; bands NaN, +-inf, -0, negative,
+    with rows far from the infinite ones and at non-finite v; non-finite u
+    and v on both sides (some of the columns with an infinite band); a
+    third of rows and a quarter of columns invalid; 1,003 x 517; 2,000 x
+    ``STEREO_MAX_COLUMNS``; a level gate 0..2; levels outside 0..31 with a
+    gate of -2000..2000. Keys: d1, d2, valid1, valid2, uv1, uv2, lvl1, lvl2,
+    band, max_d, lo, hi."""
+    import numpy as np
+    f32 = np.float32
+    N, M = {"odd sizes": (1003, 517), "full width": (2000, STEREO_MAX_COLUMNS),
+            "levels 0-7": (2000, 2000)}.get(case, (N, M))
+    sf = (1.2 ** np.arange(8)).astype(f32)
+    lvl2 = rng.choice(8, M, p=0.2 * 0.8 ** np.arange(8) / (1 - 0.8 ** 8)).astype(np.int32)
+    uv2 = np.stack([rng.uniform(0, 1241, M), rng.uniform(0, 376, M)], 1).astype(f32)
+    d2 = rng.integers(-2 ** 31, 2 ** 31, (M, 8)).astype(np.int32)
+    src = rng.integers(0, M, N)
+    d1 = d2[src] ^ rng.integers(0, 1 << 5, (N, 8)).astype(np.int32)
+    lvl1 = np.clip(lvl2[src] + rng.integers(-1, 2, N), 0, 7).astype(np.int32)
+    band = (f32(2.0) * sf[lvl2]).astype(f32)
+    off = np.stack([rng.uniform(-3, 60, N), rng.uniform(-1.2, 1.2, N) * band[src]], 1)
+    uv1 = (uv2[src] + off).astype(f32)
+    c = dict(d1=d1, d2=d2, valid1=rng.random(N) > 0.05, valid2=rng.random(M) > 0.05,
+             uv1=uv1, uv2=uv2, lvl1=lvl1, lvl2=lvl2, band=band, max_d=718.856, lo=-1, hi=1)
+    up, down = lambda x: np.nextafter(f32(x), f32(np.inf)), lambda x: np.nextafter(f32(x), f32(-np.inf))
+    if case == "bin edges":
+        c["uv2"][:2, 1] = (0.0, 376.0)   # the extent: scale 2, bins of 0.5 px
+        c["valid2"][:2] = True
+        edges = [f32(v) for e in (100.0, 100.5, 200.25, 201.0) for v in (down(e), e, up(e))]
+        k = len(edges)
+        c["uv2"][2:2 + k, 1] = edges
+        c["lvl2"][2:2 + k] = 0
+        c["band"][2:2 + k] = 2.0
+        c["valid2"][2:2 + k] = True
+        rows = [(j, v1) for j, e in enumerate(edges)
+                for v1 in (f32(e - f32(2.0)), f32(e + f32(2.0)), down(f32(e - f32(2.0))),
+                           up(f32(e + f32(2.0))), e)]
+        for i, (j, v1) in enumerate(rows):
+            c["uv1"][i] = (c["uv2"][2 + j, 0] + 5.0, v1)
+            c["lvl1"][i], c["valid1"][i], c["d1"][i] = 0, True, c["d2"][2 + j]
+    elif case == "band equality":
+        sign = np.where(rng.random(N) < 0.5, f32(-1.0), f32(1.0))
+        c["uv1"][:, 1] = (c["uv2"][src, 1] + sign * c["band"][src]).astype(f32)
+        c["uv1"][::3, 1] = np.nextafter(c["uv1"][::3, 1], f32(np.inf) * sign[::3])
+    elif case == "one bin":
+        c["uv2"][:, 1] = 187.25
+        c["uv1"][:, 1] = (187.25 + rng.uniform(-3, 3, N)).astype(f32)
+    elif case == "non-finite band":
+        for k, b in enumerate((np.nan, np.inf, -np.inf, -0.0, -1.0, 0.0)):
+            c["band"][k::7] = b
+        c["uv1"][:40, 1] = rng.uniform(-1e4, 1e4, 40).astype(f32)   # far from their sources
+        c["uv1"][40:44, 1] = (np.nan, np.inf, -np.inf, 3e38)
+        c["valid1"][:44] = True
+    elif case == "non-finite position":
+        bad = (np.nan, np.inf, -np.inf, 3e38, -3e38)
+        for k, b in enumerate(bad):
+            c["uv1"][k::11, 0] = b
+            c["uv1"][5 + k::11, 1] = b
+            c["uv2"][k::13, 0] = b
+            c["uv2"][6 + k::13, 1] = b
+        c["band"][::5] = np.inf
+        c["max_d"] = float(np.inf)
+    elif case == "invalid":
+        c["valid1"][::3] = False
+        c["valid2"][::4] = False
+    elif case == "level gate":
+        c["lo"], c["hi"] = 0, 2
+    elif case == "far levels":
+        far = np.array([40, -5, 1000, 31, 32, -2 ** 31, 2 ** 31 - 1], np.int32)
+        c["lvl2"][:M // 2] = rng.choice(far, M // 2)
+        c["lvl1"][:N // 2] = c["lvl2"][src[:N // 2]]
+        c["band"][:M // 2] = rng.uniform(0.5, 9.0, M // 2).astype(f32)
+        c["lo"], c["hi"] = -2000, 2000
+    c["max_d"] = float(np.float32(c["max_d"]))
+    return c
+
+
+def stereo_bins_args(torch, match, c: dict, dev):
+    """``match_best2``'s (d1, d2, valid1, valid2, StereoMask) on ``dev`` for a
+    ``stereo_bins_case``."""
+    u = {k: torch.as_tensor(c[k]).to(dev) for k in
+         ("d1", "d2", "valid1", "valid2", "uv1", "uv2", "lvl1", "lvl2", "band")}
+    return (u["d1"], u["d2"], u["valid1"], u["valid2"],
+            match.StereoMask(u["uv1"], u["lvl1"], u["uv2"], u["lvl2"], u["band"], c["max_d"],
+                             c["lo"], c["hi"]))
+
+
 def window_args(torch, match, c: dict, dev, lo: int = -1, hi: int = 1):
     """``match_best2``'s (d1, d2, valid1, valid2, WindowMask) on ``dev`` for a
     ``window_case``."""
@@ -2004,6 +2107,44 @@ def orb_select_check(torch, korb, scores, shapes, per, scale):
     return sel, err
 
 
+def nms_row(torch, imgs, calls: int = 20) -> dict:
+    """``fast_nms_planes`` on the two passes' stacks of ``imgs`` (float32
+    [B, H, W] on the card) as the frame build makes them
+    (``orb_level_planes``, 8 levels, then ``fast_score_planes``): bit-equal
+    to ``nms_planes_plain`` and the same bits on a second call, one launch a
+    call; device ms behind a backlog and by kernel name
+    (``kernel_split``), the bound (pass 1's scores and the flags read once,
+    the map written once, a compare or two a pixel), the plain version's
+    ms. Raises RuntimeError on a disagreement."""
+    from tc2li_slam_torch.ops.kernels import fast, orb as korb
+    ini_th, min_th, cell = 20.0, 7.0, 35
+    st, _, shapes = korb.orb_level_planes(imgs, 8, 1.2)
+    gated, flags = fast.score_planes(st, shapes, korb.PAD, ini_th, min_th, cell)
+    n0 = fast.nms_launches
+    got = fast.nms_planes(gated, flags, shapes, ini_th, min_th, cell)
+    again = fast.nms_planes(gated, flags, shapes, ini_th, min_th, cell)
+    n_launch = (fast.nms_launches - n0) / 2
+    ref = fast.nms_planes_plain(gated, flags, shapes, ini_th, min_th, cell)
+    torch.cuda.synchronize()
+    bits = lambda x, p, h, w: x[p, :h, :w].contiguous().view(torch.int32)
+    for p, (h, w) in enumerate(shapes):
+        if not (torch.equal(bits(got, p, h, w), bits(ref, p, h, w))
+                and torch.equal(bits(got, p, h, w), bits(again, p, h, w))):
+            raise RuntimeError(f"fast_nms_planes disagrees with its plain version or itself on "
+                               f"plane {p} {(h, w)} of {tuple(imgs.shape)}")
+    n_pix = sum(h * w for h, w in shapes)
+    b = bound(8 * n_pix + 4 * flags.numel(), 3 * n_pix)
+    call = lambda: fast.nms_planes(gated, flags, shapes, ini_th, min_th, cell)
+    split = kernel_split(torch, call, calls)
+    return dict(ms=cuda_ms(torch, call, 50, True),
+                plain_ms=cuda_ms(torch, lambda: fast.nms_planes_plain(
+                    gated, flags, shapes, ini_th, min_th, cell), 3),
+                bound_ms=b[0], bound_by=b[1], max_abs_err=0.0, launches_a_call=n_launch,
+                pixels=n_pix, corners=sum(int((ref[p, :h, :w] > 0).sum())
+                                          for p, (h, w) in enumerate(shapes)),
+                split={k: v["ms_a_launch"] for k, v in split.items()})
+
+
 def orb_level_bound(korb, shapes, B, H, W, n_levels):
     """The least time of ``orb_level_planes``: the images read once, both
     stacks' padded regions written once; the resize's taps and the blur's 28
@@ -2134,6 +2275,34 @@ def cluster_case(rng, case: str, W: int = 6, M: int = 2048):
         valid[W - 2:] = False
         T_wl[W - 2:] = np.eye(4, dtype=np.float32)
     return pl, valid, T_wl
+
+
+def plateau_image(H: int = 150, W: int = 203):
+    """A float32 [H, W] image of flat plateaus for the FAST passes: small
+    blocks on a black ground, each of whose pixels scores the block's grey
+    level (its radius-3 circle leaves the block), so equal scores touch.
+    Around the 35-px cell edges at x = 35 and 70 and y = 35 and 70: weak
+    blocks (grey 15, above min_th 7 and below ini_th 20) across an edge
+    between a cell with a strong block (its flag up) and one without, so
+    the weak plateau survives on one side only; a strong block (30) across
+    an edge between two flagged cells, so both halves tie and survive; two
+    touching blocks of 40 and 50. Plain 0..255 grey levels."""
+    import numpy as np
+    img = np.zeros((H, W), np.float32)
+    blocks = [
+        (20, 20, 2, 2, 100.0),   # strong: cell (0, 0) flagged
+        (25, 33, 2, 4, 15.0),    # weak across x = 35: cell (0, 0) flagged, (0, 1) not
+        (33, 50, 4, 2, 15.0),    # weak across y = 35: cell (0, 1) not flagged, (1, 1) flagged
+        (50, 50, 2, 2, 90.0),    # strong: cell (1, 1) flagged
+        (45, 68, 2, 4, 30.0),    # strong across x = 70: cells (1, 1) and (1, 2) flagged
+        (60, 90, 2, 2, 60.0),    # strong: cell (1, 2) flagged
+        (100, 30, 2, 2, 40.0),   # two touching blocks of 40 and 50
+        (100, 32, 2, 2, 50.0),
+        (68, 120, 4, 3, 15.0),   # weak across y = 70: cells (1, 3) and (2, 3) not flagged
+    ]
+    for y, x, h, w, g in blocks:
+        img[y:y + h, x:x + w] = g
+    return img
 
 
 def stereo_pair(torch, syn, orb_mod, dev, size=None):
@@ -3558,22 +3727,26 @@ def main() -> int:
         dn = -torch.stack([torch.maximum(a, b) for a, b in pairs]).amin(0)
         n_full += int((torch.maximum(up, dn) > min(ini_th, min_th)).sum())
     ms_score = cuda_ms(torch, lambda: fast.score_planes(stack, shapes, pad, ini_th, min_th, cell), 50, True)
-    ms_nms = cuda_ms(torch, lambda: fast.nms_planes(gated, flags, shapes, ini_th, min_th, cell), 50, True)
     ms_fused = cuda_ms(torch, lambda: fast.detect_planes(stack, shapes, pad, ini_th, min_th, cell), 50, True)
     ms_fused_host = cuda_ms(torch, lambda: fast.detect_planes(stack, shapes, pad, ini_th, min_th, cell), 50)
     ms_score_p = cuda_ms(torch, lambda: fast.score_planes_plain(stack, shapes, pad, ini_th, min_th, cell), 5)
-    ms_nms_p = cuda_ms(torch, lambda: fast.nms_planes_plain(gated, flags, shapes, ini_th, min_th, cell), 5)
     planes = [stack[p, pad:pad + h, pad:pad + w].contiguous() for p, (h, w) in enumerate(shapes)]
     ms_level = cuda_ms(torch, lambda: [fast.gate_nms_plain(fast.fast_score_raw(pl), ini_th, min_th, cell)
                                        for pl in planes], 20)
     ms_raw = cuda_ms(torch, lambda: [fast.fast_score_raw(pl) for pl in planes], 20, True)
     b_score = bound(8 * n_pix + 4 * flags.numel(),
                     FAST_OPS_REJECT * (n_int - n_full) + FAST_OPS_FULL * n_full)
-    b_nms = bound(8 * n_pix + 4 * flags.numel(), 3 * n_pix)
+    # the NMS pass on the frame build's own stacks (orb_level_planes) of the
+    # pair, bit-equal and the same bits twice
+    try:
+        nms = nms_row(torch, torch.stack([f_l, f_r]))
+    except RuntimeError as e:
+        return fail(str(e))
     print(f"{tag} FAST detection, 16 planes (8 levels of two 1241x376 images, {n_pix} pixels, "
           f"{n_full} past the compass test): fast_score_planes {ms_score:.4f} ms (bound "
           f"{b_score[0]:.4f} ms, {b_score[1]}; plain {ms_score_p:.4f} ms), fast_nms_planes "
-          f"{ms_nms:.4f} ms (bound {b_nms[0]:.4f} ms, {b_nms[1]}; plain {ms_nms_p:.4f} ms), both "
+          f"{nms['ms']:.4f} ms (bound {nms['bound_ms']:.4f} ms, {nms['bound_by']}; plain "
+          f"{nms['plain_ms']:.4f} ms), both "
           f"passes {ms_fused:.4f} ms on the device, {ms_fused_host:.4f} ms a call when the host "
           f"enqueues one at a time; per-level route (16 one-plane launches + eager gates and "
           f"NMS) {ms_level:.4f} ms, its 16 launches alone {ms_raw:.4f} ms", flush=True)
@@ -3583,7 +3756,7 @@ def main() -> int:
         bound_by=b_score[1])
     rows["fast_nms_planes"] = dict(
         source="tc2li_slam_torch/csrc/fast.cu", replaces="tc2li_slam_tpu/ops/orb.py:182",
-        max_abs_err=nms_err, ms=ms_nms, plain_ms=ms_nms_p, bound_ms=b_nms[0], bound_by=b_nms[1])
+        max_abs_err=nms_err, **{k: nms[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
 
     # the rest of the frame build: the three ORB kernels on frame 0's real
     # images, and no host sync in one whole build_frame
@@ -3718,6 +3891,20 @@ def main() -> int:
                                        f"grid case {case}{', mutual' if mutual else ''}")
         print(f"{tag} match_best2 window grid cases {', '.join(WINDOW_CASES)} (300x517, with "
               f"and without the mutual test): exact", flush=True)
+        # the stereo mode's row bins on their edge cases (stereo_bins_case),
+        # bit-equal and the same bits on a second call
+        for case in STEREO_BIN_CASES:
+            c_s = stereo_bins_case(np.random.default_rng(20 + STEREO_BIN_CASES.index(case)), case)
+            a_s = stereo_bins_args(torch, match, c_s, dev)
+            for mutual in (False, True):
+                got_s = match.match_best2(*a_s, mutual)
+                if not (same(torch, got_s, match.match_best2_plain(*a_s, mutual))
+                        and same(torch, got_s, match.match_best2(*a_s, mutual))):
+                    raise RuntimeError(f"match_best2 disagrees with its plain version or "
+                                       f"itself: stereo bins case {case}"
+                                       f"{', mutual' if mutual else ''}")
+        print(f"{tag} match_best2 stereo bins cases {', '.join(STEREO_BIN_CASES)} (with and "
+              f"without the mutual test): exact, the same bits twice", flush=True)
         idx, best, second, _ = match.match_best2(
             d1, d2, v1, v2, match.WindowMask(uv1, radius, lvl1, uv2, lvl2))
         edge = (int(idx[5]), int(best[5]), int(second[5]), int(idx[7]), int(best[7]),
@@ -4047,6 +4234,7 @@ def main() -> int:
     n_sync = syncs_of(torch, lambda: kst.stereo_refine(*a))
     split = kernel_split(torch, lambda: kst.stereo_refine(*a), 10)
     own = ("prep_kernel", "refine_kernel", "gate_kernel")
+    matcher = ("match_best2_stereo_kernel",)
     ms_k = sum(split[k]["ms_a_call"] for k in own if k in split)
     ms_call = cuda_ms(torch, lambda: kst.stereo_refine(*a), 50, True)
     _, disp, ok = stereo.match_stereo(a[2].xy, a[2].level, a[2].desc, a[2].valid, a[3].xy,
@@ -4058,9 +4246,11 @@ def main() -> int:
           f"{ms_k:.4f} ms on the device (" + ", ".join(
               f"{k} {split[k]['ms_a_call']:.4f}" for k in own if k in split)
           + f"), bound {b_st[0]:.6f} ms ({b_st[1]}), the plain chain after the match "
-          f"{ms_p:.4f} ms; the whole stereo half (prep, match, refine, gate) {ms_call:.4f} ms "
-          f"behind a backlog, the parent's eager route with its match launch {ms_route_p:.4f} "
-          f"ms; host syncs in a call {n_sync}", flush=True)
+          f"{ms_p:.4f} ms; the whole stereo half (prep, the match, refine, "
+          f"gate; {sum(v['launches_a_call'] for v in split.values()):g} device launches: "
+          + ", ".join(f"{k} {split[k]['ms_a_call']:.4f}" for k in matcher if k in split)
+          + f") {ms_call:.4f} ms behind a backlog, the parent's eager route with its match "
+          f"launch {ms_route_p:.4f} ms; host syncs in a call {n_sync}", flush=True)
     if n_sync:
         return fail(f"stereo_refine made {n_sync} host syncs")
     rows["stereo_refine"] = dict(

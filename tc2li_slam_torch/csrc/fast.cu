@@ -36,15 +36,36 @@
 //   min(ini_th, min_th) and raises one flag per cell that holds a pixel
 //   above ini_th. Pass 2 (fast_nms_planes) picks the threshold per pixel by
 //   its cell's flag, suppresses non-maxima over the 3x3 neighbourhood (only
-//   a surviving pixel looks at its neighbours, and at a neighbour's flag
-//   only where the neighbour's stored score is larger) and applies the
-//   margin. Cell indices are a multiply and a shift, not a division.
+//   a surviving pixel looks at its neighbours) and applies the margin. Cell
+//   indices are a multiply and a shift, not a division.
+// - Pass 2 is a stencil bound by bytes: pass 1's scores read once and the
+//   map written once, 8 bytes a pixel (both images' 16 KITTI planes: 23 MB,
+//   6.9 us at 3.35 TB/s). Its blocks take 120 x 32 pixel tiles (~800 for
+//   both images, against ~2,800 32 x 32 tiles) and find their plane by a
+//   binary search of the table, which stays in the parameter space
+//   (__grid_constant__). A warp stages a row of the tile with its one-pixel
+//   halo, a lane an aligned 16-byte chunk of the flat stack: a plane row
+//   starts anywhere modulo 4 floats (1,241 px rows), so a row is staged
+//   from its first aligned chunk with its offset kept, its partial end
+//   chunks read by 4-byte loads. Each thread issues its five rows' loads
+//   before it uses any; the block loads the tile's cell flags, thresholds
+//   each staged pixel once by its cell's flag into shared memory, and the
+//   suppression reads shared memory only. Each output row is stored as
+//   aligned 16-byte chunks with 4-byte stores at its two partial ends.
 //
 // Every operation is a subtraction, a comparison or a min/max, so the
 // result is bit-equal to the plain PyTorch version.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#ifdef TC2LI_LAPS   // clock laps of a phase split (laps.cuh, tools/orb_kernels.py)
+#define TC2LI_LAP_TAG fast
+#include "laps.cuh"
+#else
+#define TC2LI_LAP_START
+#define TC2LI_LAP(k)
+#endif
 
 namespace {
 
@@ -238,46 +259,157 @@ fast_score_raw_kernel(const float* __restrict__ in, float* __restrict__ out,
 }
 
 // Pass 2: per-cell threshold choice, 3x3 non-maximum suppression, margin.
-// `g` is pass 1's output and shares the output stack's layout. margin >= 1,
-// so a pixel inside the margin has all 8 neighbours inside its plane. A
-// neighbour only matters if its gated score exceeds the centre's, so its
-// cell flag is read only where its stored score does.
-__global__ void __launch_bounds__(kBX * kBY)
+// `g` is pass 1's output and shares the output stack's layout (in_off ==
+// out_off); offsets fit an int (the host checks). margin >= 1,
+// so a pixel inside the margin has all 8 neighbours inside its plane and
+// inside the tile's halo.
+constexpr int kNX = 120;                 // tile: 120 x 32 pixels
+constexpr int kNY = 32;
+constexpr int kNThreads = 256;           // 8 warps
+constexpr int kNWarps = kNThreads / 32;
+constexpr int kNRows = kNY + 2;          // staged rows, halo included
+constexpr int kNChunks = 32;             // a staged row: 32 aligned chunks of 4 floats
+constexpr int kNRowFloats = 4 * kNChunks;
+constexpr int kNStage = (kNRows + kNWarps - 1) / kNWarps;   // rows a warp stages
+static_assert((kNX + 2 + 3 + 3) / 4 <= kNChunks, "a staged row spans at most 32 chunks");
+
+// The last plane whose first tile is at or before `tile`.
+__device__ __forceinline__ int plane_of(const PlaneTable& t, int tile) {
+  int lo = 0, hi = t.n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.p[mid].tile0 <= tile) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kNThreads)
 fast_nms_planes_kernel(const float* __restrict__ g, const int* __restrict__ flags,
-                       float* __restrict__ out, const PlaneTable t, int stride,
-                       float ini_th, float min_th, unsigned long long magic,
-                       int margin) {
-  const Tile tl = locate(t);
-  const Plane& pl = tl.pl;
-  const int x = tl.x0 + threadIdx.x;
-  if (x >= pl.W) return;
-  const float* gb = g + pl.out_off;
+                       float* __restrict__ out, const __grid_constant__ PlaneTable t,
+                       int stride, float ini_th, float min_th,
+                       unsigned long long magic, int margin) {
+  extern __shared__ float4 nsm[];
+  float* srow = reinterpret_cast<float*>(nsm);   // [kNRows][kNRowFloats], thresholded
+  int* sflag = reinterpret_cast<int*>(srow + kNRows * kNRowFloats);   // the tile's cells
+  __shared__ int scx[kNRowFloats + 3];   // the cell column of staged column u - 3
+  __shared__ int scy[kNRows];            // the cell row of staged row r
+  TC2LI_LAP_START
+  const Plane& pl = t.p[plane_of(t, blockIdx.x)];
+  const int local = blockIdx.x - pl.tile0;
+  const int ty = local / pl.tiles_x;
+  const int x0 = (local - ty * pl.tiles_x) * kNX, y0 = ty * kNY;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the staged area, clipped to the plane: rows ya..yb, columns xa..xb; a
+  // staged row r (y = y0 - 1 + r) starts at the aligned chunk that holds
+  // (y, xa), so its pixel x sits at xa + q - shift(y) for q in 0..127
+  const int ya = max(y0 - 1, 0), yb = min(y0 + kNY, pl.H - 1);
+  const int xa = max(x0 - 1, 0), xb = min(x0 + kNX, pl.W - 1);
+  const int cy0 = cell_of(ya, magic), cx0 = cell_of(xa, magic);
+  const int ncx = cell_of(xb, magic) - cx0 + 1;
+  const int n_cells = (cell_of(yb, magic) - cy0 + 1) * ncx;
+  const int base = pl.in_off;
+  auto row_at = [&](int y) { return base + y * stride; };
+  auto shift = [&](int y) { return (row_at(y) + xa) & 3; };
+
+  // 1. loads, all issued before any is used: a warp a row, a lane a chunk;
+  // the tile's cell flags and the staged columns' and rows' cells
+  float4 v[kNStage];
 #pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const int y = tl.y0 + threadIdx.y + k * kBY;
-    if (y >= pl.H) break;
-    float res = 0.0f;
-    if (y >= margin && y < pl.H - margin && x >= margin && x < pl.W - margin) {
-      const float v = gb[(size_t)y * stride + x];
-      if (v > 0.0f && v > (flags[flag_index(pl, y, x, magic)] ? ini_th : min_th)) {
-        bool is_max = true;
+  for (int k = 0; k < kNStage; ++k) {
+    const int y = y0 - 1 + warp + k * kNWarps;
+    v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (y >= ya && y <= yb) {
+      const int rb = row_at(y);
+      const int c = ((rb + xa) >> 2) + lane;      // this lane's chunk
+      if (4 * c <= rb + xb) {
+        if (4 * c >= rb + xa && 4 * c + 3 <= rb + xb) {
+          v[k] = reinterpret_cast<const float4*>(g)[c];
+        } else {   // a partial end chunk: its floats inside the row's staged span
+          float e[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int dy = -1; dy <= 1; ++dy) {
-#pragma unroll
-          for (int dx = -1; dx <= 1; ++dx) {
-            if (dy == 0 && dx == 0) continue;
-            const float vn = gb[(size_t)(y + dy) * stride + x + dx];
-            if (vn > v
-                && vn > (flags[flag_index(pl, y + dy, x + dx, magic)] ? ini_th : min_th)) {
-              is_max = false;
-            }
+          for (int j = 0; j < 4; ++j) {
+            const int i = 4 * c + j;
+            if (i >= rb + xa && i <= rb + xb) e[j] = g[i];
           }
+          v[k] = make_float4(e[0], e[1], e[2], e[3]);
         }
-        if (is_max) res = v;
       }
     }
-    out[pl.out_off + (size_t)y * stride + x] = res;
   }
+  for (int i = threadIdx.x; i < n_cells; i += kNThreads) {
+    sflag[i] = flags[pl.cell_off + (cy0 + i / ncx) * pl.cells_x + cx0 + i % ncx];
+  }
+  if (threadIdx.x < kNRowFloats + 3) {
+    const int x = min(max(xa + static_cast<int>(threadIdx.x) - 3, xa), xb);
+    scx[threadIdx.x] = cell_of(x, magic) - cx0;
+  } else if (threadIdx.x - (kNRowFloats + 3) < kNRows) {
+    const int r = threadIdx.x - (kNRowFloats + 3);
+    scy[r] = cell_of(min(max(y0 - 1 + r, ya), yb), magic) - cy0;
+  }
+  __syncthreads();
+  TC2LI_LAP(0);
+
+  // 2. each staged pixel thresholded by its cell's flag, to shared memory
+#pragma unroll
+  for (int k = 0; k < kNStage; ++k) {
+    const int r = warp + k * kNWarps;
+    if (r < kNRows) {
+      const int sh = shift(y0 - 1 + r);
+      float e[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (e[j] > 0.f) {   // (0 below any threshold; unstaged floats are 0)
+          const int f = sflag[scy[r] * ncx + scx[4 * lane + j - sh + 3]];
+          e[j] = e[j] > (f ? ini_th : min_th) ? e[j] : 0.f;
+        }
+      }
+      reinterpret_cast<float4*>(srow + r * kNRowFloats)[lane] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+  }
+  __syncthreads();
+  TC2LI_LAP(1);
+
+  // 3. each output row: a warp a row, a lane an aligned chunk of 4 pixels,
+  // its centres one 16-byte read of the staged row; a pixel above 0 looks
+  // at its 8 neighbours (ties survive)
+  const int x_end = min(x0 + kNX, pl.W);
+  for (int ly = warp; ly < kNY; ly += kNWarps) {
+    const int y = y0 + ly;
+    if (y >= pl.H) break;
+    const int rb = row_at(y);
+    const int o0 = rb + x0, o1 = rb + x_end;    // the row's outputs [o0, o1)
+    const int c = (o0 >> 2) + lane;
+    if (4 * c >= o1) continue;
+    const int r = ly + 1;
+    const float4 ctr = reinterpret_cast<const float4*>(srow + r * kNRowFloats)[c - ((rb + xa) >> 2)];
+    const float cs[4] = {ctr.x, ctr.y, ctr.z, ctr.w};
+    const bool inner_y = y >= margin && y < pl.H - margin;
+    float res[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int x = 4 * c + j - rb;
+      res[j] = 0.f;
+      const float s = cs[j];
+      if (s > 0.f && inner_y && x >= x0 && x < x_end && x >= margin && x < pl.W - margin) {
+        // neighbour (y + dy, x + dx) at row r + dy, column x + dx - xa + shift(y + dy)
+        const float* up = srow + (r - 1) * kNRowFloats + x - xa + shift(y - 1);
+        const float* mid = srow + r * kNRowFloats + x - xa + shift(y);
+        const float* dn = srow + (r + 1) * kNRowFloats + x - xa + shift(y + 1);
+        const float m = fmaxf(fmaxf(fmaxf(up[-1], up[0]), fmaxf(up[1], mid[-1])),
+                              fmaxf(fmaxf(mid[1], dn[-1]), fmaxf(dn[0], dn[1])));
+        res[j] = m > s ? 0.f : s;
+      }
+    }
+    if (4 * c >= o0 && 4 * c + 4 <= o1) {
+      reinterpret_cast<float4*>(out)[c] = make_float4(res[0], res[1], res[2], res[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (4 * c + j >= o0 && 4 * c + j < o1) out[4 * c + j] = res[j];
+      }
+    }
+  }
+  TC2LI_LAP(2);
 }
 
 // Fills `t` from `n` rows of 8 ints (the fields of Plane in order) and
@@ -327,17 +459,35 @@ extern "C" int tc2li_fast_score_planes(const float* in, float* out, int* flags,
 }
 
 // Pass 2 over the same table: g (pass 1's output) -> out, both with the
-// output stack's layout and row stride.
+// output stack's layout and row stride, both 16-byte aligned (the tiles'
+// fields of the table are not read: the pass tiles the planes its own way).
 extern "C" int tc2li_fast_nms_planes(const float* g, const int* flags, float* out,
                                      const int* planes, int n, int stride,
                                      float ini_th, float min_th, int cell, int margin,
                                      void* stream) {
   PlaneTable t;
-  const int tiles = load_table(planes, n, &t);
-  if (tiles <= 0 || cell < 1 || cell > kMaxDim || margin < 1) {
+  if (load_table(planes, n, &t) <= 0 || cell < 1 || cell > kMaxDim || margin < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  fast_nms_planes_kernel<<<tiles, dim3(kBX, kBY), 0, static_cast<cudaStream_t>(stream)>>>(
+  // this pass's own tiling of the planes; their extent in the stack must
+  // fit the kernel's int offsets
+  int tiles = 0;
+  for (int i = 0; i < n; ++i) {
+    Plane& pl = t.p[i];
+    if (pl.in_off != pl.out_off || pl.in_off < 0) return static_cast<int>(cudaErrorInvalidValue);
+    pl.tile0 = tiles;
+    pl.tiles_x = (pl.W + kNX - 1) / kNX;
+    tiles += pl.tiles_x * ((pl.H + kNY - 1) / kNY);
+    if (pl.in_off + static_cast<long long>(pl.H - 1) * stride + pl.W >= (1LL << 31)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  // shared memory: the staged rows, then the flags of the cells a tile's
+  // staged area meets (34.6 KB at most, at cell 1: under the 48 KB default)
+  const int cells = ((kNRows + cell - 1) / cell + 1) * ((kNX + 2 + cell - 1) / cell + 1);
+  const int smem = static_cast<int>(sizeof(float)) * kNRows * kNRowFloats
+                   + static_cast<int>(sizeof(int)) * cells;
+  fast_nms_planes_kernel<<<tiles, kNThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       g, flags, out, t, stride, ini_th, min_th, cell_magic(cell), margin);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,7 @@
 // Bound on the H100: operations, and they depend on the data. Inputs are
 // ~1.7 MB at 32768 x 2000 (0.5 us). Every tested (valid row, column) pair
 // costs a mask test of ~8 simple operations; only a pair that passes it
-// costs the 8 XOR + 8 __popc of a distance. Two kernels:
+// costs the 8 XOR + 8 __popc of a distance. Three kernels:
 //
 // window_grid_kernel (the window mode, SearchByProjection: the tracking and
 // fuse matches of every frame). A window of 15 px x 1.2^level in a
@@ -48,18 +48,56 @@
 // - The results are minima over unique keys, so the visit order changes no
 //   bit; the mutual test's per-column atomicMin is order-free as below.
 //
-// match_best2_kernel (the stereo and dense modes): all of side 2
-// (descriptors word-major, so a warp's lanes hit distinct banks; u, v,
-// level and band, or validity) is staged once per block in dynamic shared
-// memory, 48 or 36 bytes a column. A grid of at most one 32-warp block per
-// SM walks groups of 4 rows. A warp owns a group: the rows' positions sit
-// in registers, their descriptors in a 128-byte slot of shared memory that
-// the warp fills with one load, the lanes stride the columns, and each
-// column's data is read from shared memory once for the 4 rows. An invalid
-// column carries u = NaN, so it fails the disparity comparison at no extra
-// cost.
+// match_best2_stereo_kernel (the stereo mode, match_stereo's mask: the
+// frame build's match of every frame). The mask's band gate |v1 - v2| <=
+// band[m] (2 x 1.2^level px) admits ~4% of the columns in a 376-row image,
+// so a row that tests every column does ~96% of its work on columns it
+// cannot admit. One launch of 512-thread blocks, a warp a row (N = 2,000:
+// 125 blocks, one an SM):
+// - Each block sorts side 2's columns that a row can admit by their band
+//   into row bins in its shared memory, after it has issued its rows'
+//   loads. A column whose v and band are finite (band >= 0) is binned by
+//   bin(v) = clamp(floor((v - vmin) x scale), 0, 1023), scale a power of
+//   two over the binned columns' v extent (the extent and the largest band
+//   reduced over each warp before one shared atomic): counts by shared
+//   atomics, an exclusive scan, a scatter into a CSR layout (u, v, band,
+//   level and the column, 20 bytes). A column whose band is +inf can meet a
+//   row at any v (|v1 - v2| <= inf holds but for a NaN difference): it goes
+//   to a list after the bins that every valid row walks. Any other column
+//   (invalid, band NaN or below 0, v not finite at a finite band) admits
+//   nothing. The reach of every row is the largest band of a binned column.
+// - A row visits the bins that [v1 - reach - e, v1 + reach + e] overlaps,
+//   e = 2^-20 (|v1| + reach): e exceeds the rounding of v1 -+ reach and of
+//   the comparison, so every binned column that |v1 - v2| <= band admits
+//   lies between the bounds, and bin() is monotone (a subtraction, a
+//   scaling by a positive power of two, a floor and a clamp), so its bin
+//   lies in the range. Consecutive bins are one contiguous range of the CSR
+//   layout: a row walks [start[b0], start[b1 + 1]) and the +inf list, a
+//   lane every 32nd column in batches of 4 (the admitted columns'
+//   descriptors loaded before any key: a load after an atomicMin is not
+//   hoisted above it), and tests each with the plain chain's comparisons. A
+//   row whose v1 is not finite can meet no binned column and walks the
+//   list alone. The rounding of the bounds and bins is pinned (__fsub_rn,
+//   __fmul_rn) so that tests/test_torch_stereo_bins_emulation.py repeats it.
+// - Why each block builds: the build is a chain of latencies (loads, four
+//   barriers, shared atomics; ~8k of block 0's ~10.6k lapped cycles), not
+//   of work. On an NVIDIA H100 80GB HBM3 at 700 W, 2,000 x 2,000: as a
+//   launch of its own (one 1,024-thread block, the rows its programmatic
+//   dependent) it held 5.6 us of an 18.2 us call, the rows waiting on it
+//   and on a second launch; shared by the 8 blocks of a cluster through
+//   distributed shared memory, the call took 29.8 us; built by every block
+//   beside its rows' loads, 11.4 us a call (the kernel 6.2 us, the rest the
+//   column-best fill and the launch), the walk in local shared memory.
 //
-// Both: the mask is tested first, XOR/__popc runs only on admitted pairs.
+// match_best2_kernel (the dense mode): all of side 2 (descriptors
+// word-major, so a warp's lanes hit distinct banks, and validity) is staged
+// once per block in dynamic shared memory, 36 bytes a column. A grid of at
+// most one 32-warp block per SM walks groups of 4 rows. A warp owns a group:
+// the rows' descriptors sit in a 128-byte slot of shared memory that the
+// warp fills with one load, the lanes stride the columns, and each column's
+// data is read from shared memory once for the 4 rows.
+//
+// All: the mask is tested first, XOR/__popc runs only on admitted pairs.
 // Each lane keeps its two smallest keys (distance << 16 | column) per row;
 // keys are unique per column, so the smallest is the first column of the
 // minimum and the second smallest holds the minimum over the other
@@ -119,10 +157,7 @@ struct Args {
   int N, M;
 };
 
-__host__ __device__ constexpr int words_per_column(int mode) {
-  // stereo, dense: descriptor words + (u, v, level, band) or validity
-  return kWords + (mode == kStereo ? 4 : 1);
-}
+constexpr int kDenseWords = kWords + 1;   // dense: descriptor words + validity a column
 
 __device__ __forceinline__ void keep_two(int& k1, int& k2, int k) {
   k2 = min(k2, max(k1, k));
@@ -131,18 +166,14 @@ __device__ __forceinline__ void keep_two(int& k1, int& k2, int k) {
 
 static_assert(kRows * kWords == 32, "a warp stages its rows' descriptors one word a lane");
 
-template <int MODE, bool MUTUAL>
+template <bool MUTUAL>
 __global__ void __launch_bounds__(kThreads)
 match_best2_kernel(const Args a) {
   extern __shared__ uint32_t smem[];
   __shared__ uint32_t srow[kWarps][kRows * kWords];   // each warp's row descriptors
   const int M = a.M;
   uint32_t* sdesc = smem;                                     // [8][M]
-  float* su = reinterpret_cast<float*>(smem + kWords * M);    // [M]
-  float* sv = su + M;                                         // [M]
-  int* slvl = reinterpret_cast<int*>(sv + M);                 // [M]
-  float* sband = reinterpret_cast<float*>(slvl + M);          // [M]
-  int* svalid = reinterpret_cast<int*>(smem + kWords * M);    // [M] dense
+  int* svalid = reinterpret_cast<int*>(smem + kWords * M);    // [M]
   TC2LI_LAP_START
 
   for (int i = threadIdx.x; i < M * kWords; i += kThreads) {
@@ -150,17 +181,7 @@ match_best2_kernel(const Args a) {
     const int w = i - m * kWords;
     sdesc[w * M + m] = a.d2[i];
   }
-  for (int m = threadIdx.x; m < M; m += kThreads) {
-    const bool ok = a.valid2[m] != 0;
-    if (MODE == kDense) {
-      svalid[m] = ok;
-    } else {
-      su[m] = ok ? a.uv2[2 * m] : NAN;
-      sv[m] = a.uv2[2 * m + 1];
-      slvl[m] = a.lvl2[m];
-      sband[m] = a.band[m];
-    }
-  }
+  for (int m = threadIdx.x; m < M; m += kThreads) svalid[m] = a.valid2[m] != 0;
   __syncthreads();
   TC2LI_LAP(0);
 
@@ -186,41 +207,13 @@ match_best2_kernel(const Args a) {
       const size_t word = (size_t)r0 * kWords + lane;
       srow[warp][lane] = word < (size_t)a.N * kWords ? a.d1[word] : 0u;
       __syncwarp();
-      float u1[kRows], v1[kRows];
-      int l1[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int row = rv[r] ? r0 + r : 0;   // an invalid row reads row 0, admits nothing
-        if (MODE != kDense) {
-          u1[r] = a.uv1[2 * row];
-          v1[r] = a.uv1[2 * row + 1];
-          l1[r] = a.lvl1[row];
-        }
-      }
 #pragma unroll 2
       for (int m = lane; m < M; m += 32) {
-        float u2, v2, bnd;
-        int l2, ok2;
-        if (MODE == kDense) {
-          ok2 = svalid[m];
-        } else {
-          u2 = su[m];
-          v2 = sv[m];
-          l2 = slvl[m];
-          bnd = sband[m];
-        }
+        const int ok2 = svalid[m];
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
-          bool admit = rv[r];
-          if (MODE == kStereo) {
-            const int dl = l2 - l1[r];
-            const float disp = u1[r] - u2;
-            admit = admit && fabsf(v1[r] - v2) <= bnd && disp >= -2.0f && disp <= a.max_d
-                    && dl >= a.lo && dl <= a.hi;
-          } else {
-            admit = admit && ok2 != 0
-                    && (a.dense == nullptr || a.dense[(size_t)(r0 + r) * M + m] != 0);
-          }
+          const bool admit = rv[r] && ok2 != 0
+                             && (a.dense == nullptr || a.dense[(size_t)(r0 + r) * M + m] != 0);
           if (admit) {
             int dist = 0;
 #pragma unroll
@@ -262,6 +255,271 @@ match_best2_kernel(const Args a) {
     }
   }
   TC2LI_LAP(1);
+}
+
+
+// ---------------------------------------------------------------------------
+// the stereo mode: side 2 in row bins, built by each block
+// ---------------------------------------------------------------------------
+
+constexpr int kBinsLog2 = 10;
+constexpr int kBins = 1 << kBinsLog2;   // row bins over the binned columns' v extent
+constexpr int kStereoThreads = 512;     // 16 warps, a warp a row
+constexpr int kStereoWarps = kStereoThreads / 32;
+constexpr int kBinCols = 10;            // columns a build thread holds in registers
+constexpr int kStereoMaxColumns = kStereoThreads * kBinCols;   // 5,120
+constexpr int kStereoBatch = 4;         // columns a lane loads before it tests them
+
+static_assert(kBins == 2 * kStereoThreads, "the scan gives two bins to a thread");
+
+struct StereoBins {        // the build's head, in shared memory
+  int start[kBins + 1];    // counts, then bin b's columns at [start[b], start[b + 1]);
+                           // start[kBins] = the binned columns, then the +inf list
+  int n_wide;              // columns of band +inf, after the binned ones
+  float vmin, scale;       // bin(v) = clamp(floor((v - vmin) x scale), 0, kBins - 1)
+  float reach;             // the largest band of a binned column, or -1 (none)
+  unsigned vlo, vhi;       // the binned columns' v extent, as order keys
+  int band_bits;           // the largest band's bits
+  int warp_sum[kStereoWarps];
+};
+
+// a float's bits as an unsigned key in the order of the floats
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float from_key(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
+// A power of two with extent x scale < kBins (within a factor of two of the
+// largest such); the bins' exactness does not depend on it, only their
+// width: any positive finite scale keeps bin() monotone.
+__device__ __forceinline__ float bin_scale(float extent) {
+  if (!(extent > 0.f)) return 1.f;
+  if (!isfinite(extent)) return 0x1p-126f;
+  int ex;
+  frexpf(extent, &ex);   // extent < 2^ex
+  return ldexpf(1.f, max(-126, min(kBinsLog2 - ex, 126)));
+}
+
+// the bin of a row coordinate: monotone in v for any finite vmin and
+// positive finite scale (every step rounds monotonically; fmaxf takes 0 for
+// a NaN, which no finite v and vmin make)
+__device__ __forceinline__ int bin_of(float v, float vmin, float scale) {
+  const float f = floorf(__fmul_rn(__fsub_rn(v, vmin), scale));
+  return static_cast<int>(fminf(fmaxf(f, 0.f), static_cast<float>(kBins - 1)));
+}
+
+// The block's build: side 2 in CSR order in `rec` / `col` (u, v, band,
+// level bits; the column), `sb` its head.
+__device__ __forceinline__ void build_bins(const Args& a, StereoBins& sb, float4* rec,
+                                           int* col) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // 1. each thread's columns, loads first
+  float2 p[kBinCols];
+  float bnd[kBinCols];
+  int lv[kBinCols];
+  bool ok[kBinCols];
+#pragma unroll
+  for (int k = 0; k < kBinCols; ++k) {
+    const int m = tid + k * kStereoThreads;
+    ok[k] = false;
+    if (m < a.M) {
+      ok[k] = a.valid2[m] != 0;
+      p[k] = reinterpret_cast<const float2*>(a.uv2)[m];
+      bnd[k] = a.band[m];
+      lv[k] = a.lvl2[m];
+    }
+  }
+  sb.start[2 * tid] = sb.start[2 * tid + 1] = 0;
+  if (tid == 0) {
+    sb.vlo = 0xFFFFFFFFu;
+    sb.vhi = 0u;
+    sb.band_bits = -1;
+    sb.n_wide = 0;
+  }
+  __syncthreads();
+  // 2. classes: binned (v, band finite, band >= 0), the +inf list, none;
+  // the v extent and the largest band reduced over the warp first
+  int cls[kBinCols], rank[kBinCols], bin[kBinCols];
+  unsigned klo = 0xFFFFFFFFu, khi = 0u;
+  int top = -1;
+#pragma unroll
+  for (int k = 0; k < kBinCols; ++k) {
+    cls[k] = 0;
+    if (ok[k] && isfinite(p[k].y) && isfinite(bnd[k]) && bnd[k] >= 0.f) {
+      cls[k] = 1;
+      klo = min(klo, order_key(p[k].y));
+      khi = max(khi, order_key(p[k].y));
+      top = max(top, __float_as_int(bnd[k] + 0.f));   // (-0 as +0: bits order as floats)
+    } else if (ok[k] && bnd[k] == INFINITY) {
+      cls[k] = 2;
+      rank[k] = atomicAdd(&sb.n_wide, 1);
+    }
+  }
+  klo = __reduce_min_sync(kFull, klo);
+  khi = __reduce_max_sync(kFull, khi);
+  top = __reduce_max_sync(kFull, top);
+  if (lane == 0) {
+    atomicMin(&sb.vlo, klo);
+    atomicMax(&sb.vhi, khi);
+    atomicMax(&sb.band_bits, top);
+  }
+  __syncthreads();
+  TC2LI_LAP(7);
+  const bool any = sb.vlo <= sb.vhi;
+  const float vmin = any ? from_key(sb.vlo) : 0.f;
+  const float scale = any ? bin_scale(__fsub_rn(from_key(sb.vhi), vmin)) : 1.f;
+#pragma unroll
+  for (int k = 0; k < kBinCols; ++k) {
+    if (cls[k] == 1) {
+      bin[k] = bin_of(p[k].y, vmin, scale);
+      rank[k] = atomicAdd(&sb.start[bin[k]], 1);
+    }
+  }
+  __syncthreads();
+  TC2LI_LAP(8);
+  // 3. exclusive scan of the counts, two bins a thread
+  const int c0 = sb.start[2 * tid], c1 = sb.start[2 * tid + 1];
+  int incl = c0 + c1;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += o;
+  }
+  if (lane == 31) sb.warp_sum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kStereoWarps ? sb.warp_sum[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < kStereoWarps; off <<= 1) {
+      const int o = __shfl_up_sync(kFull, w, off);
+      if (lane >= off) w += o;
+    }
+    if (lane < kStereoWarps) sb.warp_sum[lane] = w;   // inclusive over warps
+  }
+  __syncthreads();
+  const int first = incl - c0 - c1 + (warp > 0 ? sb.warp_sum[warp - 1] : 0);
+  const int n_binned = sb.warp_sum[kStereoWarps - 1];
+  sb.start[2 * tid] = first;   // (only this thread read its two counts)
+  sb.start[2 * tid + 1] = first + c0;
+  if (tid == 0) {
+    sb.start[kBins] = n_binned;
+    sb.vmin = vmin;
+    sb.scale = scale;
+    sb.reach = sb.band_bits < 0 ? -1.f : __int_as_float(sb.band_bits);
+  }
+  __syncthreads();
+  TC2LI_LAP(9);
+  // 4. the scatter into the CSR layout
+#pragma unroll
+  for (int k = 0; k < kBinCols; ++k) {
+    if (cls[k] != 0) {
+      const int pos = cls[k] == 1 ? sb.start[bin[k]] + rank[k] : n_binned + rank[k];
+      rec[pos] = make_float4(p[k].x, p[k].y, bnd[k], __int_as_float(lv[k]));
+      col[pos] = tid + k * kStereoThreads;
+    }
+  }
+  TC2LI_LAP(10);
+}
+
+template <bool MUTUAL>
+__global__ void __launch_bounds__(kStereoThreads)
+match_best2_stereo_kernel(const Args a) {
+  extern __shared__ float4 rec[];       // [M] records in CSR order, then int [M] columns
+  __shared__ StereoBins sb;             // the build's head
+  const int* col = reinterpret_cast<const int*>(rec + a.M);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // a warp a row; neighbouring rows go to different blocks
+  const int row = warp * gridDim.x + blockIdx.x;
+  const uint4* d2v = reinterpret_cast<const uint4*>(a.d2);
+  TC2LI_LAP_START
+  // the row's inputs, loaded before the build
+  const bool ok = row < a.N && a.valid1[row] != 0;
+  float2 p1 = make_float2(0.f, 0.f);
+  int l1 = 0;
+  uint4 q0 = make_uint4(0, 0, 0, 0), q1 = q0;
+  if (ok) {
+    p1 = reinterpret_cast<const float2*>(a.uv1)[row];
+    l1 = a.lvl1[row];
+    q0 = reinterpret_cast<const uint4*>(a.d1)[2 * row];
+    q1 = reinterpret_cast<const uint4*>(a.d1)[2 * row + 1];
+  }
+  build_bins(a, sb, rec, reinterpret_cast<int*>(rec + a.M));
+  __syncthreads();
+  TC2LI_LAP(11);
+  int k1 = kNoKey, k2 = kNoKey;
+  if (ok) {
+    int p0 = 0, n_bin = 0;
+    const float r = sb.reach;
+    if (isfinite(p1.y) && r >= 0.f) {
+      const float vmin = sb.vmin, sc = sb.scale;
+      const float e = __fmul_rn(__fadd_rn(fabsf(p1.y), r), 0x1p-20f);
+      const int b0 = bin_of(__fsub_rn(__fsub_rn(p1.y, r), e), vmin, sc);
+      const int b1 = bin_of(__fadd_rn(__fadd_rn(p1.y, r), e), vmin, sc);
+      p0 = sb.start[b0];
+      n_bin = sb.start[b1 + 1] - p0;
+    }
+    const int w0 = sb.start[kBins];
+    const int total = n_bin + sb.n_wide;
+    // a batch: the lane's next kStereoBatch columns loaded, then tested, then
+    // the admitted ones' descriptors loaded, then their keys and atomics
+    for (int t0 = lane; t0 < total; t0 += 32 * kStereoBatch) {
+      float4 c[kStereoBatch];
+      int m[kStereoBatch];
+#pragma unroll
+      for (int j = 0; j < kStereoBatch; ++j) {
+        const int t = t0 + 32 * j;
+        c[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+        m[j] = 0;
+        if (t < total) {
+          const int pos = t < n_bin ? p0 + t : w0 + (t - n_bin);
+          c[j] = rec[pos];
+          m[j] = col[pos];
+        }
+      }
+      bool adm[kStereoBatch];
+      uint4 w0v[kStereoBatch], w1v[kStereoBatch];
+#pragma unroll
+      for (int j = 0; j < kStereoBatch; ++j) {
+        const int dl = __float_as_int(c[j].w) - l1;
+        const float disp = p1.x - c[j].x;
+        adm[j] = t0 + 32 * j < total && fabsf(p1.y - c[j].y) <= c[j].z && disp >= -2.0f
+                 && disp <= a.max_d && dl >= a.lo && dl <= a.hi;
+        if (adm[j]) {
+          w0v[j] = __ldg(&d2v[2 * m[j]]);
+          w1v[j] = __ldg(&d2v[2 * m[j] + 1]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kStereoBatch; ++j) {
+        if (adm[j]) {
+          const int dist = __popc(q0.x ^ w0v[j].x) + __popc(q0.y ^ w0v[j].y)
+                           + __popc(q0.z ^ w0v[j].z) + __popc(q0.w ^ w0v[j].w)
+                           + __popc(q1.x ^ w1v[j].x) + __popc(q1.y ^ w1v[j].y)
+                           + __popc(q1.z ^ w1v[j].z) + __popc(q1.w ^ w1v[j].w);
+          keep_two(k1, k2, (dist << 16) | m[j]);
+          if (MUTUAL) {
+            atomicMin(&a.colbest[m[j]], ((unsigned long long)dist << 32) | (unsigned)row);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const int o1 = __shfl_xor_sync(kFull, k1, off);
+    const int o2 = __shfl_xor_sync(kFull, k2, off);
+    k2 = min(max(k1, o1), min(k2, o2));
+    k1 = min(k1, o1);
+  }
+  if (lane == 0 && row < a.N) {
+    a.idx[row] = k1 == kNoKey ? 0 : (k1 & 0xffff);
+    a.best[row] = k1 == kNoKey ? kBig : (k1 >> 16);
+    a.second[row] = k2 == kNoKey ? kBig : (k2 >> 16);
+  }
+  TC2LI_LAP(12);
 }
 
 
@@ -506,30 +764,49 @@ int launch_window(const Args& a, cudaStream_t stream) {
                              : launch_grid<MUTUAL, false>(a, stream);
 }
 
-template <int MODE, bool MUTUAL>
-int launch(const Args& a, cudaStream_t stream) {
-  const int smem = words_per_column(MODE) * a.M * (int)sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(match_best2_kernel<MODE, MUTUAL>,
+template <bool MUTUAL>
+int launch_dense(const Args& a, cudaStream_t stream) {
+  const int smem = kDenseWords * a.M * (int)sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(match_best2_kernel<MUTUAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // at least ~4 row groups a block, so a small N still spreads over the card
   const int n_groups = (a.N + kRows - 1) / kRows;
   int blocks = (n_groups + 3) / 4;
   if (blocks > sm_count()) blocks = sm_count();
-  match_best2_kernel<MODE, MUTUAL><<<blocks, kThreads, smem, stream>>>(a);
+  match_best2_kernel<MUTUAL><<<blocks, kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a block a 16 rows; its dynamic shared memory holds side 2 in CSR order
+// (20 bytes a column)
+template <bool MUTUAL>
+int launch_stereo(const Args& a, cudaStream_t stream) {
+  static int smem_set = 0;
+  const int smem = 20 * a.M;
+  if (smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        match_best2_stereo_kernel<MUTUAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        20 * kStereoMaxColumns);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = 20 * kStereoMaxColumns;
+  }
+  const int blocks = (a.N + kStereoWarps - 1) / kStereoWarps;
+  match_best2_stereo_kernel<MUTUAL><<<blocks, kStereoThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The most columns (M) whose side fits one block's shared memory in `mode`
-// (0 window: the grid; 1 stereo, 2 dense: side 2 staged); also bounded by
-// the 16-bit column key.
+// The most columns (M) a launch takes in `mode`: 0 window, the grid's
+// columns in shared memory; 1 stereo, the build's registers (10 a thread);
+// 2 dense, side 2 staged in shared memory; each also bounded by the 16-bit
+// column key.
 extern "C" int tc2li_match_max_columns(int mode) {
   // (the window kernel's static shared memory: 1 KB at most)
-  const int fit = mode == kWindow
-                      ? (kMaxSmem - 1024 - window_smem(0, false)) / 16
-                      : kMaxSmem / (words_per_column(mode) * (int)sizeof(uint32_t));
+  const int fit = mode == kWindow   ? (kMaxSmem - 1024 - window_smem(0, false)) / 16
+                  : mode == kStereo ? kStereoMaxColumns
+                                    : kMaxSmem / (kDenseWords * (int)sizeof(uint32_t));
   return fit < 65535 ? fit : 65535;
 }
 
@@ -540,8 +817,8 @@ extern "C" int tc2li_match_func_attrs(int which, int* out) {
   cudaFuncAttributes a;
   const void* fns[4] = {reinterpret_cast<const void*>(window_grid_kernel<false, true>),
                         reinterpret_cast<const void*>(window_grid_kernel<true, true>),
-                        reinterpret_cast<const void*>(match_best2_kernel<kStereo, true>),
-                        reinterpret_cast<const void*>(match_best2_kernel<kDense, true>)};
+                        reinterpret_cast<const void*>(match_best2_stereo_kernel<true>),
+                        reinterpret_cast<const void*>(match_best2_kernel<true>)};
   if (which < 0 || which > 3) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = cudaFuncGetAttributes(&a, fns[which]);
   out[0] = a.numRegs;
@@ -555,8 +832,10 @@ extern "C" int tc2li_match_func_attrs(int which, int* out) {
 // arrays of the shapes in `Args`; those a mode does not use may be null.
 // colbest (mutual != 0) must hold (1 << 20) << 32 on entry and receives
 // min over admitted rows of (distance << 32 | row). N, M > 0 and
-// M <= tc2li_match_max_columns(mode). Launches on `stream`; returns
-// cudaGetLastError() or the error of the shared-memory attribute call.
+// M <= tc2li_match_max_columns(mode). The window and stereo modes read d1,
+// d2 as 16-byte and uv1, uv2 as 8-byte words: those pointers must be
+// aligned. Launches on `stream`; returns cudaGetLastError() or the error of
+// the shared-memory attribute call.
 extern "C" int tc2li_match_best2(
     int mode, int mutual, const uint32_t* d1, const uint8_t* valid1, const uint32_t* d2,
     const uint8_t* valid2, const float* uv1, const int* lvl1, const float* radius,
@@ -573,9 +852,9 @@ extern "C" int tc2li_match_best2(
   switch (mode * 2 + (mutual ? 1 : 0)) {
     case 0: return launch_window<false>(a, s);
     case 1: return launch_window<true>(a, s);
-    case 2: return launch<kStereo, false>(a, s);
-    case 3: return launch<kStereo, true>(a, s);
-    case 4: return launch<kDense, false>(a, s);
-    default: return launch<kDense, true>(a, s);
+    case 2: return launch_stereo<false>(a, s);
+    case 3: return launch_stereo<true>(a, s);
+    case 4: return launch_dense<false>(a, s);
+    default: return launch_dense<true>(a, s);
   }
 }

@@ -21,7 +21,8 @@ two launches over one flat grid of tiles:
   full test runs with all lanes busy. With one plane and the gate off the
   ungated variant of the same pass is ``fast_score_raw``.
 - ``fast_nms_planes``: the per-cell threshold choice, 3x3 non-maximum
-  suppression and the margin.
+  suppression and the margin; a stencil bound by bytes, on 120 x 32 tiles
+  staged with their halo in shared memory by aligned 16-byte loads.
 
 All operations are subtractions, comparisons and min/max, so both are
 bit-equal to their plain versions.
@@ -249,6 +250,8 @@ def nms_planes(gated: torch.Tensor, flags: torch.Tensor, shapes, ini_th: float =
     if not _on_cuda(gated, "nms_planes"):
         return nms_planes_plain(gated, flags, shapes, ini_th, min_th, cell)
     gated, flags = gated.contiguous(), flags.contiguous()
+    if gated.data_ptr() % 16:   # the kernel reads and writes aligned 16-byte chunks
+        gated = gated.clone()
     out = torch.empty_like(gated)
     lib = build.library()
     stream = torch.cuda.current_stream(gated.device).cuda_stream

@@ -14,9 +14,12 @@ per row the first column of the minimum, the minimum and the minimum over
 the other columns; for the mutual test also, per column, the first row of
 the column's minimum. [N, M] never reaches device memory. In the window
 mode each block lists side 2's columns by 16-px cell in shared memory and
-a row tests only the columns of the cells its window overlaps; the
-stereo and dense modes keep all of side 2 in one block's shared memory and
-a warp tests four rows against every column.
+a row tests only the columns of the cells its window overlaps. In the
+stereo mode each block sorts side 2's columns into row bins of v in its
+shared memory, and a warp a row walks only the bins its band can reach. The
+dense
+mode keeps all of side 2 in one block's shared memory and a warp tests four
+rows against every column.
 
 The pair mask is one of:
 
@@ -26,9 +29,10 @@ The pair mask is one of:
   gate (``stereo.match_stereo``);
 - a dense bool [N, M], or ``None`` (the public ``match_descriptors``);
 
-each ANDed with ``valid1[n] & valid2[m]``. Side 2 must fit one block's shared
-memory (13,440 columns in the window mode, 4,842 in the stereo mode,
-``DENSE_MAX_COLUMNS`` in the dense mode). A dense or unmasked match
+each ANDed with ``valid1[n] & valid2[m]``. Side 2 must fit one launch
+(13,440 columns in the window mode's shared memory, 5,120 in the stereo
+mode's build registers, ``DENSE_MAX_COLUMNS`` in the dense mode's
+shared memory). A dense or unmasked match
 against more columns (a frame against the landmark pool, in relocalization)
 is matched one column chunk at a time and the per-row pairs merged, which is
 exact: the earlier chunk wins a tie, so the first column of the minimum stays
@@ -257,11 +261,11 @@ def _match_best2_cuda(d1, d2, valid1, valid2, mask, mutual: bool, chunk: bool = 
         return idx, best, second, colbest & 0xFFFFFFFF if unpack else colbest
     lib = build.library()
     if M == 0 or M > lib.tc2li_match_max_columns(mode):
-        raise ValueError(f"match_best2: M={M} columns do not fit one block's shared "
-                         f"memory (1..{lib.tc2li_match_max_columns(mode)})")
+        raise ValueError(f"match_best2: M={M} columns do not fit one launch "
+                         f"(1..{lib.tc2li_match_max_columns(mode)})")
     a, b = d1.contiguous(), d2.contiguous()
     v1, v2 = valid1.contiguous(), valid2.contiguous()
-    if mode == 0:   # the window kernel reads 16-byte descriptor words and 8-byte positions
+    if mode in (0, 1):   # these kernels read 16-byte descriptor words and 8-byte positions
         a, b = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (a, b))
         uv1, uv2 = (x if x.data_ptr() % 8 == 0 else x.clone() for x in (uv1, uv2))
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -8,7 +8,7 @@ jit-compiled there) with the tails of ``match_stereo`` and of
 
 ``stereo_refine`` computes, on CUDA tensors, what ``stereo_refine_plain``
 computes: the descriptor match under the row band (``csrc/match.cu``,
-unchanged), then ``csrc/stereo.cu`` for the rest. Four launches a frame
+its stereo mode), then ``csrc/stereo.cu`` for the rest. Four launches a frame
 build: the prep launch (the right keypoints' bands and the matcher's
 column-best buffer), the match, the per-keypoint refinement (a warp a
 keypoint) and the gate (one block: the median gate, the depth, (u, v, u_r)).

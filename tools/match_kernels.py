@@ -22,7 +22,9 @@ A`` compares two in turns on one card) a child process imports that tree's
 - times a call behind a device backlog (``chip_smoke.cuda_ms``), device ms;
 - the phase split through the lapped library (``build.variant(
   "-DTC2LI_LAPS")``, ``csrc/laps.cuh``): cycles a call by phase on thread 0
-  of block 0, each phase's share.
+  of block 0, each phase's share (in the stereo mode: block 0's build of
+  the row bins, its barrier, then its first warp's walk);
+- device ms a call by kernel name (``chip_smoke.kernel_split``).
 
 It also reports each matcher kernel's registers, local (spill) bytes and
 static shared memory (``cudaFuncGetAttributes`` through
@@ -45,11 +47,17 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# the lap slots of csrc/match.cu: the staged kernel (stereo and dense modes,
-# side 2 in shared memory; 0-1) and the window mode's column grid (3, 5, 6)
+# the lap slots of csrc/match.cu: the staged kernel (the dense mode, side 2
+# in shared memory, and the stereo mode before its row bins; 0-1), the
+# window mode's column grid (3, 5, 6) and the stereo mode's row bins: block
+# 0's build (7-10), the barrier after it (11), the walk of warp 0's row (12)
 LAPS = {0: "stage side 2", 1: "rows of warp 0 (every column)",
         3: "columns and descriptors to shared memory, cells cleared",
-        5: "columns to their cells' lists", 6: "rows of warp 0 (their cells)"}
+        5: "columns to their cells' lists", 6: "rows of warp 0 (their cells)",
+        7: "bins: columns loaded, classed, extent and band",
+        8: "bins: columns counted into their bins", 9: "bins: scan, head",
+        10: "bins: scatter to the CSR layout", 11: "barrier after the build",
+        12: "walk of warp 0's row"}
 N_SLOTS = 64   # laps.cuh kLapSlots
 
 
@@ -124,7 +132,9 @@ def measure(tree: Path, cases_path: Path, times_only: bool = False) -> dict:
         row = {"N": d1.shape[0], "M": d2.shape[0], "mask": type(mask).__name__,
                "mutual": mutual, "valid rows": int(v1.sum()), "admitted pairs": int(full.sum()),
                "bit-equal to plain": cs.same(torch, got, ref), "launches a call": n_launch,
-               "ms a call": cs.cuda_ms(torch, call, 50, True)}
+               "ms a call": cs.cuda_ms(torch, call, 50, True),
+               "ms by kernel": {k: v["ms_a_launch"] for k, v in
+                                cs.kernel_split(torch, call, 20).items()}}
         del full
         if lapped is not None:
             row["phases"] = laps(call)

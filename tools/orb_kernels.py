@@ -17,6 +17,13 @@ size is reported so); and the device ms of each kernel name a call on the
 KITTI pair (``chip_smoke.kernel_split``), ``orb_level_planes`` on the first
 1, 2, 4, 6 and 8 levels of one and of two images, and the bound of the eager
 ``stereo.subpixel_refine`` on 2,000 keypoints (``chip_smoke.subpixel_bound``).
+``fast_nms_planes`` is split apart at the three camera sizes
+(``chip_smoke.nms_row``: bit-equal to its plain version, device ms behind a
+backlog and by kernel name, its bound) and, where the tree's ``fast.cu``
+has clock laps, by phase on the KITTI pair (``nms_phases``: thread 0 of
+block 0 through the lapped build), and the stereo half of a frame build
+(``ops/kernels/stereo.stereo_refine``: prep, the match, refine, gate) is timed
+on the KITTI pair's keypoints, device ms a call and by kernel name.
 Prints one JSON object a tree,
 with the card's name and power limit, and writes them to ``--out``."""
 
@@ -30,6 +37,33 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+# the lap slots of csrc/fast.cu's fast_nms_planes_kernel (laps.cuh)
+NMS_LAPS = {0: "loads issued, cell flags and tables", 1: "pixels in, thresholded to shared memory",
+            2: "suppression and stores"}
+N_SLOTS = 64   # laps.cuh kLapSlots
+
+
+def nms_phases(torch, imgs) -> dict | None:
+    """Cycles of thread 0 of block 0 (plane 0's first tile) by phase of
+    ``fast_nms_planes`` on the stacks of ``imgs``, through the lapped library
+    (``build.variant("-DTC2LI_LAPS")``); None for a tree whose ``fast.cu``
+    has no laps."""
+    import ctypes
+    from tc2li_slam_torch.ops.kernels import build, fast, orb as korb
+    lapped = build.variant("-DTC2LI_LAPS")
+    if not hasattr(lapped, "tc2li_laps_read_fast"):
+        return None
+    st, _, shapes = korb.orb_level_planes(imgs, 8, 1.2)
+    gated, flags = fast.score_planes(st, shapes, korb.PAD)
+    buf = (ctypes.c_longlong * (2 * N_SLOTS))()
+    with build.routed_to(lapped):
+        fast.nms_planes(gated, flags, shapes)
+        torch.cuda.synchronize()
+        lapped.tc2li_laps_reset_fast()
+        fast.nms_planes(gated, flags, shapes)
+        torch.cuda.synchronize()
+        lapped.tc2li_laps_read_fast(buf)
+    return {name: buf[k] for k, name in NMS_LAPS.items() if buf[N_SLOTS + k]}
 
 
 def render_pair(path: Path) -> None:
@@ -75,7 +109,13 @@ def measure(tree: Path, pair_path: Path) -> dict:
             torch, lambda: korb.orb_level_planes(imgs, 8, 1.2), 20),
         "orb_select_grid": chip_smoke.kernel_split(
             torch, lambda: korb.orb_select_grid(scores, shapes, per, 1.2), 20)}
+    import torch.nn.functional as F
+    out["fast_nms_planes"] = {"1241x376": chip_smoke.nms_row(torch, imgs)}
+    out["fast_nms_planes_phases"] = nms_phases(torch, imgs)
     for H, W in ((720, 1280), (1080, 1920)):
+        big = F.interpolate(imgs[:, None], size=(H, W), mode="bilinear",
+                            antialias=True)[:, 0].round().clamp(0, 255).contiguous()
+        out["fast_nms_planes"][f"{W}x{H}"] = chip_smoke.nms_row(torch, big)
         try:
             out[f"{W}x{H}"] = chip_smoke.orb_hd_rows(torch, pair, (H, W), log=log.append)
         except ValueError as e:
@@ -87,6 +127,19 @@ def measure(tree: Path, pair_path: Path) -> dict:
             True)
         for B in (1, 2) for nl in (1, 2, 4, 6, 8)}
     out["subpixel_refine_bound_2000"] = chip_smoke.subpixel_bound(2000)
+    # the stereo half of a frame build on the pair (prep, the match, refine,
+    # gate): device ms a call behind a backlog and by kernel name
+    from tc2li_slam_torch.io import synthetic as syn
+    from tc2li_slam_torch.ops.kernels import stereo as kst
+    u8 = [x.to(torch.uint8) for x in pair]
+    kl, kr = orb.extract_images(u8, 2000, 8)
+    sf = (1.2 ** torch.arange(8, dtype=torch.float64)).to(torch.float32).to(dev)
+    rig = syn.KITTI_LIKE
+    bf = float(np.float32(rig.fx) * np.float32(rig.baseline))
+    half = lambda: kst.stereo_refine(u8[0], u8[1], kl, kr, sf, bf, rig.baseline)
+    out["stereo_half"] = {"ms": chip_smoke.cuda_ms(torch, half, 50, True),
+                          "split": {k: v["ms_a_launch"] for k, v in
+                                    chip_smoke.kernel_split(torch, half, 20).items()}}
     out["log"] = log
     return out
 
