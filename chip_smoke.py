@@ -41,7 +41,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    trained on the host from the first frames' descriptors: 14 of the same
    frames, every frame OK, new map points triangulated, the same ATE limit,
    launch counts by call shape against what the run implies (one
-   epipolar-masked match per triangulated keyframe pair); the cost and the host syncs of the batched
+   epipolar match per triangulated keyframe pair); the cost and the host syncs of the batched
    4x4 SVD beside the null-vector iteration that replaces it;
 4b. recovery: the motion model set far off and an earlier frame fed at the
    next timestamp: ``track_step`` fails, ``track_step_recover`` brings the
@@ -111,12 +111,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    every keypoint whose angle is), the first two also on the pair resampled
    to 1280x720 (7,200 grid candidates at level 0), and no host sync in one
    ``build_frame``;
-   the fused matcher in its three mask modes on the slice's own data (the
+   the fused matcher in its mask modes on the slice's own data (the
    last frame's stereo pair at 2000x2000; the landmark pool against a
    keyframe's features at 32768x2000), on a full pool, on a dense worst
    case and on edge rows, on the window mode's grid edge cases
-   (``window_case``), and in the three call shapes of 4a-4d on that
-   run's data (a keyframe pair under its epipolar mask, the pool against a
+   (``window_case``), the stereo mode's row bins (``stereo_bins_case``) and
+   the epipolar mode's gate (``epipolar_case``: a pair on the gate, lines
+   of l0^2 + l1^2 below 1e-12, non-finite inputs, no valid row, ties, side 2
+   in two column chunks, one row), and in the three call shapes of 4a-4d on
+   that run's data (a keyframe pair under its epipolar gate, the pool against a
    frame, a frame against one column chunk of the pool and against all of
    it), and in the call shape of 4f (two keyframes' 2000 features, no mask,
    mutual); the Hamming matrix at 2000x2000 and 32768x2000; the pose-only
@@ -156,8 +159,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    voxel invalid (exactly 0); the stereo half of the frame build
    (``stereo_refine``) on phase 3's last pair, on its every-keypoint-ok
    case (the reference's median gate fires) and on keypoints at the image
-   borders, bit-equal to the plain chain (u_r, ok, depth, uvr), the same bits
-   twice, no host sync, its three launches' device ms by kernel
+   borders, and on ``STEREO_EDGE_CASES`` (no, one, an odd and an even count
+   of keypoints; one not ok, so that the gate is off; SAD ties; float32
+   images; the right keypoints in two column chunks), bit-equal to the plain
+   chain (u_r, ok, depth, uvr), the same bits twice, its launches and the
+   match's as ``launches_per_call`` and the chunks imply, no host sync, its
+   two launches' device ms by kernel
    (``torch.profiler``) beside the bound and the plain chain after the
    match; the BALM clusters (``balm_clusters``) on the windows of phase 3's
    and 4e's last ``build_clusters`` calls and on six planar keyframes:
@@ -189,9 +196,10 @@ LOOP_DRIFT_XI = (0.8, 0.0, 0.5, 0.0, 0.22, 0.0)   # its total, an se3 tangent
 ATE_BOUND_M = 0.5
 # the kernels of one frame build and their launches: ORB (ops/orb.extract_images)
 # one each, the grid top-k two (its cell pass, then its selection); the stereo
-# half three (csrc/stereo.cu: prep, refine, gate; the match is match_best2's)
+# half two (csrc/stereo.cu: prep, refine with the gate; the match between
+# them is match_best2's)
 FRAME_LAUNCHES = {"orb_level_planes": 1, "fast_score_planes": 1, "fast_nms_planes": 1,
-                  "orb_select_grid": 2, "orb_describe": 1, "stereo_refine": 3}
+                  "orb_select_grid": 2, "orb_describe": 1, "stereo_refine": 2}
 FRAME_KERNELS = tuple(FRAME_LAUNCHES)
 RECOVER_BOUND_M = 0.3
 
@@ -1393,6 +1401,140 @@ def stereo_bins_args(torch, match, c: dict, dev):
                              c["lo"], c["hi"]))
 
 
+# the epipolar mode's edge cases (csrc/match.cu match_best2_epipolar_kernel)
+EPI_CASES = ("pair", "on the gate", "tiny lines", "non-finite", "rows invalid", "ties",
+             "wide", "one row")
+EPI_MAX_COLUMNS = 14464   # tc2li_match_max_columns(3)
+
+
+def epipolar_pair(rng, N: int, M: int, n_common: int | None = None):
+    """Two keyframes of a KITTI-shaped rig ~1.5 m apart: ``n_common`` points
+    seen by both (keypoints with 0.5 px noise, descriptors a few bits
+    apart), the rest of each view's keypoints unrelated; 40% of the
+    features already matched (invalid). As numpy: d1, d2 (uint32), valid1,
+    valid2, uv1 [N, 2], uv2 [M, 2], F12 [3, 3] (view 1 -> view 2), sigma2
+    [M] (1.2^(2 level)), thresh."""
+    import numpy as np
+    fx, cx, cy = 718.856, 607.1928, 185.2157
+    K = np.array([[fx, 0, cx], [0, fx, cy], [0, 0, 1]])
+    n_common = min(N, M) * 2 // 3 if n_common is None else n_common
+    X = np.stack([rng.uniform(-20, 20, n_common), rng.uniform(-3, 2, n_common),
+                  rng.uniform(6, 60, n_common)], -1)
+    a = 0.03
+    R21 = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+    t21 = np.array([-0.2, 0.02, -1.5])
+
+    def proj(Xc):
+        return (Xc[:, :2] / Xc[:, 2:]) * fx + np.array([cx, cy])
+    uv1 = rng.uniform([0, 0], [1241, 376], (N, 2))
+    uv2 = rng.uniform([0, 0], [1241, 376], (M, 2))
+    i1, i2 = rng.permutation(N)[:n_common], rng.permutation(M)[:n_common]
+    uv1[i1] = proj(X) + rng.normal(0, 0.5, (n_common, 2))
+    uv2[i2] = proj(X @ R21.T + t21) + rng.normal(0, 0.5, (n_common, 2))
+    d2 = rng.integers(0, 1 << 32, (M, 8), dtype=np.uint64).astype(np.uint32)
+    d1 = rng.integers(0, 1 << 32, (N, 8), dtype=np.uint64).astype(np.uint32)
+    d1[i1] = d2[i2]
+    d1[i1, 0] ^= rng.integers(0, 1 << 10, n_common).astype(np.uint32)
+    tx = np.array([[0, -t21[2], t21[1]], [t21[2], 0, -t21[0]], [-t21[1], t21[0], 0]])
+    Ki = np.linalg.inv(K)
+    F12 = (Ki.T @ tx @ R21 @ Ki).astype(np.float32)
+    lvl2 = rng.integers(0, 8, M)
+    return dict(d1=d1, d2=d2, valid1=rng.random(N) > 0.4, valid2=rng.random(M) > 0.4,
+                uv1=uv1.astype(np.float32), uv2=uv2.astype(np.float32), F12=F12,
+                sigma2=(1.2 ** (2 * lvl2)).astype(np.float32), thresh=3.84)
+
+
+def epipolar_case(rng, case: str, N: int = 600, M: int = 700) -> dict:
+    """An epipolar match's inputs as numpy arrays, ``EPI_CASES``: a keyframe
+    pair (``epipolar_pair``); pairs exactly on the gate d2 == thresh x
+    sigma2 and one float below it (rows 0-5); lines whose l0^2 + l1^2 is 0,
+    below 1e-12, and just above it (rows 0-7); NaN and infinite positions,
+    lines and sigma2; no valid row; tied distances across columns (rows
+    0-3, columns 5, 9, 40); side 2 wider than one launch
+    (``EPI_MAX_COLUMNS`` + 37 columns, 64 rows); a single row. A case with
+    ``lines`` holds its rows' epipolar lines, else ``uv1`` and ``F12`` give
+    them (``epipolar_args``)."""
+    import numpy as np
+    f32 = np.float32
+    if case == "wide":
+        N, M = 64, EPI_MAX_COLUMNS + 37
+    if case == "one row":
+        N = 1
+    c = epipolar_pair(rng, N, M)
+    if case in ("on the gate", "tiny lines", "non-finite", "ties", "wide"):
+        x1 = np.concatenate([c["uv1"], np.ones((N, 1), f32)], -1)
+        c["lines"] = (x1.astype(np.float64) @ c["F12"].T.astype(np.float64)).astype(f32)
+    if case == "on the gate":
+        # line u2 = 0 (l = (1, 0, 0), den2 1): d2 = u2^2; sigma2 s with
+        # fl(3.84 s) == 4 exactly, so u2 = 2 lies on the gate (not admitted)
+        # and the float below 2 inside it
+        s = f32(4.0) / f32(3.84)
+        while f32(3.84) * s != f32(4.0):
+            s = np.nextafter(s, f32(np.inf) if f32(3.84) * s < 4 else f32(0))
+        c["lines"][:6] = [1.0, 0.0, 0.0]
+        c["lines"][3:6] *= f32(-8.0)      # l = (-8, 0, 0): d2 = 64 u2^2 / 64
+        for k, m in enumerate((10, 11, 12)):
+            c["uv2"][m] = [(f32(2.0), np.nextafter(f32(2.0), f32(0)), f32(-2.0))[k], 50.0]
+            c["sigma2"][m] = s
+            c["valid2"][m] = True
+            c["d2"][m] = c["d1"][k]
+            c["d2"][m, 1] ^= np.uint32(1 << k)
+        c["valid1"][:6] = True
+        c["d1"][3:6] = c["d1"][:3]
+    elif case == "tiny lines":
+        c["lines"][:8] = [[0, 0, 1], [0, 0, 0], [1e-7, 0, 2], [0, -9e-7, 1e-6],
+                          [f32(1e-6), f32(0), f32(-1e-4)], [1.1e-6, 0, 0], [3e-7, 4e-7, 0],
+                          [0, 0, -5e-7]]
+        c["valid1"][:8] = True
+        c["uv2"][:4] = [[0, 0], [1e-3, 2e-3], [-1e-2, 5], [100, 7e-4]]
+        c["valid2"][:4] = True
+    elif case == "non-finite":
+        c["lines"][:6] = [[np.nan, 0, 1], [0, np.inf, 1], [1, 0, -np.inf], [np.inf, np.inf, 0],
+                          [0, 0, np.nan], [-np.inf, 1, np.inf]]
+        c["valid1"][:8] = True
+        c["uv2"][:6] = [[np.nan, 10], [10, np.inf], [np.inf, np.inf], [-np.inf, 3],
+                        [3e38, 3e38], [5, np.nan]]
+        c["sigma2"][6:9] = [np.nan, np.inf, -1.0]
+        c["valid2"][:9] = True
+    elif case == "rows invalid":
+        c["valid1"][:] = False
+    elif case == "ties":
+        for m in (5, 9, 40):
+            c["d2"][m] = c["d2"][5]
+            c["uv2"][m] = c["uv2"][5]
+            c["sigma2"][m] = c["sigma2"][5]
+            c["valid2"][m] = True
+        c["d1"][:4] = c["d2"][5]
+        c["lines"][:4] = [0.0, 1.0, -c["uv2"][5, 1]]   # the row v = v2 of column 5
+        c["valid1"][:4] = True
+    elif case == "wide":
+        # the tie across the chunk boundary: a column in each chunk
+        half = -(-M // 2)
+        c["d2"][half + 3] = c["d2"][7]
+        c["uv2"][half + 3] = c["uv2"][7]
+        c["sigma2"][half + 3] = c["sigma2"][7]
+        c["valid2"][[7, half + 3]] = True
+        c["d1"][0] = c["d2"][7]
+        c["lines"][0] = [0.0, 1.0, -c["uv2"][7, 1]]
+        c["valid1"][0] = True
+    elif case == "one row":
+        c["valid1"][0] = True
+    elif case != "pair":
+        raise ValueError(case)
+    return c
+
+
+def epipolar_args(torch, match, c: dict, dev):
+    """``match_best2``'s (d1, d2, valid1, valid2, EpipolarMask) on ``dev`` for
+    an ``epipolar_case``: its lines, or ``match.epipolar_lines`` of its
+    keypoints and fundamental matrix."""
+    import numpy as np
+    up = lambda a: torch.as_tensor(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+    lines = up(c["lines"]) if "lines" in c else match.epipolar_lines(up(c["uv1"]), up(c["F12"]))
+    return (up(c["d1"]), up(c["d2"]), up(c["valid1"]), up(c["valid2"]),
+            match.EpipolarMask(lines, up(c["uv2"]), up(c["sigma2"]), c["thresh"]))
+
+
 def window_args(torch, match, c: dict, dev, lo: int = -1, hi: int = 1):
     """``match_best2``'s (d1, d2, valid1, valid2, WindowMask) on ``dev`` for a
     ``window_case``."""
@@ -2181,19 +2323,24 @@ def orb_select_bound(torch, korb, scores, shapes, per, n_levels, K):
 
 def subpixel_bound(n: int, m: int = 0):
     """The least time of the stereo half of a frame build after the match
-    (``ops/kernels/stereo.stereo_refine``'s three launches) on n left and m
+    (``ops/kernels/stereo.stereo_refine``'s prep and refine launches) on n left and m
     right keypoints: each keypoint's 11 x 11 left patch and 11 x 21 right
     strip read once (uint8 pixels), its coordinates, flag and the match's
     index, best and second in (29 bytes), a right keypoint's level, the
     matcher's packed column best and the band (16 bytes) in and out; u_r, the
-    flag, the depth and (u, v, u_r) out (25); per keypoint 121 subtractions to
-    centre the patch, then for each of the 11 offsets 121 each to centre,
-    subtract, take the absolute value and add, the matcher's tail, the
-    arg-min, the parabola and the depth (~30)."""
-    return bound(n * (121 + 231 + 29 + 25) + 16 * m, n * (121 + 11 * 4 * 121 + 30))
+    flag, the depth and (u, v, u_r) out (25); per keypoint, for each of the
+    11 offsets the centres' difference wc - pc and 121 terms of two
+    subtractions, an absolute value and an add, |(w - p) - (wc - pc)| (the
+    plain chain's centred windows, exact on grey levels), the matcher's tail,
+    the arg-min, the parabola and the depth (~30), and the median's radix
+    select, two 8-bit digits of two order statistics (~8)."""
+    return bound(n * (121 + 231 + 29 + 25) + 16 * m, n * (11 + 11 * 4 * 121 + 30 + 8))
 
 
 STEREO_CASES = ("frame", "all_ok", "borders")
+# the refine launch's edge cases, each from ``all_ok``'s keypoints
+STEREO_EDGE_CASES = ("no keypoint", "one keypoint", "odd", "even", "one not ok", "sad ties",
+                     "float images", "wide right")
 
 
 def stereo_case(rng, case: str, img_l, img_r, kl: dict, kr: dict, shift: int = 8):
@@ -2209,11 +2356,51 @@ def stereo_case(rng, case: str, img_l, img_r, kl: dict, kr: dict, shift: int = 8
     and the gate rejects the overwritten ones. ``borders``: 48 keypoints of
     distinct random descriptors on and next to the image borders (half
     pixels included, where rounding half to even matters) at disparities of
-    0.5 to 12 px, some of whose strip centres fall outside the image."""
+    0.5 to 12 px, some of whose strip centres fall outside the image.
+
+    ``STEREO_EDGE_CASES``, from ``all_ok``'s keypoints (every keypoint ok, so
+    the median gate fires, unless one is not): no left keypoint; one; an odd
+    and an even count; one left keypoint invalid (the gate is off); every
+    5th keypoint's patch and strip on a flat grey region of both images (all
+    its SADs 0: ties in the arg-min and the median); the images as float32
+    grey levels (the float route); the right keypoints padded with invalid
+    and far-away ones to ``STEREO_MAX_COLUMNS`` + 880 (the match in two
+    column chunks)."""
     import numpy as np
     H, W = img_l.shape
     if case == "frame":
         return img_l, img_r, kl, kr
+    if case in STEREO_EDGE_CASES:
+        il, ir, left, right = stereo_case(rng, "all_ok", img_l, img_r, kl, kr, shift)
+        N = left["xy"].shape[0]
+        take = lambda d, n: {k: v[:n] for k, v in d.items()}
+        if case == "no keypoint":
+            return il, ir, take(left, 0), right
+        if case == "one keypoint":
+            return il, ir, take(left, 1), right
+        if case in ("odd", "even"):
+            n = N - int(N % 2 == (0 if case == "odd" else 1))
+            return il, ir, take(left, n), right
+        if case == "one not ok":
+            left["valid"] = left["valid"].copy()
+            left["valid"][N // 2] = False
+            return il, ir, left, right
+        if case == "sad ties":
+            il, ir = il.copy(), ir.copy()
+            for (x, y), (xr, _) in zip(np.rint(left["xy"][::5]).astype(int),
+                                       np.rint(right["xy"][::5]).astype(int)):
+                il[max(y - 6, 0):y + 7, max(x - 6, 0):x + 7] = 120
+                ir[max(y - 6, 0):y + 7, max(xr - 11, 0):xr + 12] = 120
+            return il, ir, left, right
+        if case == "float images":
+            return il.astype(np.float32), ir.astype(np.float32), left, right
+        extra = STEREO_MAX_COLUMNS + 880 - right["xy"].shape[0]   # "wide right"
+        pad = dict(xy=np.stack([rng.uniform(0, W, extra) + 2 * W, rng.uniform(0, H, extra)],
+                               1).astype(np.float32),
+                   level=rng.integers(0, 8, extra).astype(np.int32),
+                   desc=rng.integers(-2 ** 31, 2 ** 31, (extra, 8)).astype(np.int32),
+                   valid=rng.random(extra) > 0.5)
+        return il, ir, left, {k: np.concatenate([right[k], pad[k]]) for k in right}
     if case == "all_ok":
         xy, N = kl["xy"], kl["xy"].shape[0]
         inside = (kl["valid"] & (xy[:, 0] >= 20) & (xy[:, 0] < W - 20) & (xy[:, 1] >= 8)
@@ -2416,12 +2603,59 @@ def save_match_cases(torch, path, cases: dict) -> None:
 
 def load_match_cases(torch, match, path, dev) -> dict:
     """What ``save_match_cases`` wrote, on ``dev``: {name: (d1, d2, valid1,
-    valid2, mask, mutual)}."""
+    valid2, mask, mutual)}. An ``EpipolarMask`` case becomes the tree's own
+    mask: the descriptor where ``match`` has it, else the dense bool [N, M]
+    of the plain chain's gate (``epipolar_dense``)."""
     kinds = {"WindowMask": match.WindowMask, "StereoMask": match.StereoMask}
     up = lambda v: v.to(dev) if isinstance(v, torch.Tensor) else v
-    return {name: (up(c["d1"]), up(c["d2"]), up(c["valid1"]), up(c["valid2"]),
-                   kinds[c["kind"]](**{k: up(v) for k, v in c["mask"].items()}), c["mutual"])
-            for name, c in torch.load(path).items()}
+    out = {}
+    for name, c in torch.load(path).items():
+        fields = {k: up(v) for k, v in c["mask"].items()}
+        if c["kind"] == "EpipolarMask":
+            mask = (match.EpipolarMask(**fields) if hasattr(match, "EpipolarMask")
+                    else epipolar_dense(torch, **fields))
+        else:
+            mask = kinds[c["kind"]](**fields)
+        out[name] = (up(c["d1"]), up(c["d2"]), up(c["valid1"]), up(c["valid2"]), mask,
+                     c["mutual"])
+    return out
+
+
+def epipolar_dense(torch, lines, uv2, sigma2, thresh: float = 3.84):
+    """The plain chain's epipolar gate (``ops/matching.epipolar_mask`` after
+    its lines) as a bool [N, M]."""
+    num = torch.abs(lines[:, None, 0] * uv2[None, :, 0] + lines[:, None, 1] * uv2[None, :, 1]
+                    + lines[:, None, 2])
+    den2 = lines[:, 0] ** 2 + lines[:, 1] ** 2
+    d2 = num * num / torch.clamp(den2[:, None], min=1e-12)
+    return d2 < thresh * sigma2[None, :]
+
+
+def epipolar_whole_call(torch, path, dev):
+    """{name: a call of the triangulation match from its geometry} for the
+    ``EpipolarMask`` cases that ``save_match_cases`` wrote with their
+    keypoints ``uv1`` and fundamental matrix ``F12``: the gate's inputs and
+    the matcher, by the importing tree's own route (an ``EpipolarMask`` of
+    ``matching.epipolar_lines`` where it has one, else the dense mask of
+    ``matching.epipolar_mask``)."""
+    from tc2li_slam_torch.ops import matching
+    from tc2li_slam_torch.ops.kernels import match
+    calls = {}
+    for name, c in torch.load(path).items():
+        if c["kind"] != "EpipolarMask" or "F12" not in c:
+            continue
+        d1, d2, v1, v2, uv1, F12 = (c[k].to(dev) for k in ("d1", "d2", "valid1", "valid2",
+                                                          "uv1", "F12"))
+        uv2, s2, th = c["mask"]["uv2"].to(dev), c["mask"]["sigma2"].to(dev), c["mask"]["thresh"]
+        if hasattr(match, "EpipolarMask"):
+            calls[name] = lambda d1=d1, d2=d2, v1=v1, v2=v2, uv1=uv1, F12=F12, uv2=uv2, s2=s2, \
+                th=th: match.match_best2(d1, d2, v1, v2, match.EpipolarMask(
+                    matching.epipolar_lines(uv1, F12), uv2, s2, th), True)
+        else:
+            calls[name] = lambda d1=d1, d2=d2, v1=v1, v2=v2, uv1=uv1, F12=F12, uv2=uv2, s2=s2, \
+                th=th: match.match_best2(d1, d2, v1, v2, matching.epipolar_mask(
+                    uv1, uv2, F12, s2, th), True)
+    return calls
 
 
 def phase_text(phases: dict, ms: float) -> str:
@@ -3182,7 +3416,7 @@ def main() -> int:
 
     # the matcher's wrapper counts its launches by call shape; the rows of
     # the three new shapes report the sum of the readings of phases 4a-4d
-    SHAPES = {"match_best2/epipolar": "dense+mutual", "match_best2/global": "none+mutual",
+    SHAPES = {"match_best2/epipolar": "epipolar+mutual", "match_best2/global": "none+mutual",
               "match_best2/reloc": "none+mutual+chunk"}
     shape_launches = dict.fromkeys(SHAPES, 0)
 
@@ -3223,10 +3457,10 @@ def main() -> int:
         if get("none+mutual+chunk", 0) % chunks or \
                 get("none+mutual+chunk", 0) > 5 * chunks * n_reloc_calls:
             faults.append(f"sets of {chunks} chunk matches, at most {5 * n_reloc_calls}")
-        if get("dense+mutual", 0) > cfg2.tracking.tri_pairs * d["n_ba"]:
+        if get("epipolar+mutual", 0) > cfg2.tracking.tri_pairs * d["n_ba"]:
             faults.append(f"at most {cfg2.tracking.tri_pairs * d['n_ba']} epipolar matches")
         if set(modes) - {"stereo+mutual", "window", "none+mutual", "none+mutual+chunk",
-                         "dense+mutual"}:
+                         "epipolar+mutual"}:
             faults.append("no other call shape")
         # a track_frame per tracked frame and per recovery, one to three per
         # relocalization; a pnp_ransac per recovery, at most five per
@@ -3282,7 +3516,7 @@ def main() -> int:
     t_end = time.perf_counter()
     counts_a, modes_a = read_counts(), read_modes()
     after = snap(slam2)
-    tri_pairs_a = modes_a.get("dense+mutual", 0)
+    tri_pairs_a = modes_a.get("epipolar+mutual", 0)
     n_lm2, n_kf2 = int(slam2.map.n_lm), slam2.n_kf_host
     stats2 = slam2.timers.stats()
     est2 = slam2.trajectory_world_from_cam()
@@ -3294,7 +3528,7 @@ def main() -> int:
           f"landmarks {n_lm2} ({n_lm2 / max(n_kf2, 1):.1f} a keyframe; without triangulation "
           f"{n_lm1} landmarks, {n_lm1 / max(n_kf1, 1):.1f} a keyframe at the same frame), "
           f"{n_tri_lm} landmarks triangulated in {slam2.n_ba} mapping passes over "
-          f"{tri_pairs_a} keyframe pairs (one epipolar-masked match launch each)", flush=True)
+          f"{tri_pairs_a} keyframe pairs (one epipolar match launch each)", flush=True)
     print(f"{tag} triangulate=True frames/s: {N_TRI / (t_end - t_start):.3f} over all {N_TRI} "
           f"frames, {(N_TRI - N_WARM) / (t_end - t_warm):.3f} over frames {N_WARM}..{N_TRI - 1}; "
           f"maintain stage {1e3 * maintain['total_s'] / max(maintain['n'], 1):.2f} ms a pass "
@@ -3571,7 +3805,7 @@ def main() -> int:
                     "pose_only_lm": counts_e["pose_only_lm"],
                     "match_best2": modes_e.get("window", 0),
                     "match_best2/stereo": modes_e.get("stereo+mutual", 0),
-                    "match_best2/epipolar": modes_e.get("dense+mutual", 0),
+                    "match_best2/epipolar": modes_e.get("epipolar+mutual", 0),
                     "balm_quadratic": counts_e["balm_quadratic"],
                     "balm_clusters": counts_e["balm_clusters"],
                     "local_ba_lm": counts_e["local_ba_lm"],
@@ -3777,7 +4011,7 @@ def main() -> int:
     match_inputs = {}   # the window and stereo cases, for tools/match_kernels.py
 
     def match_case(name, d1, d2, v1, v2, mask, mutual, reps_plain=3):
-        if isinstance(mask, (match.WindowMask, match.StereoMask)):
+        if isinstance(mask, (match.WindowMask, match.StereoMask, match.EpipolarMask)):
             match_inputs[name] = (d1, d2, v1, v2, mask, mutual)
         got = match.match_best2(d1, d2, v1, v2, mask, mutual)
         ref = match.match_best2_plain(d1, d2, v1, v2, mask, mutual)
@@ -3798,11 +4032,15 @@ def main() -> int:
         # flag, a valid one's descriptor and mask inputs, the outputs; the
         # tests of the pairs a mask admits (a window's cells, a stereo band
         # in v prune the rest) or, for a dense mask, its entries of valid
-        # pairs; a distance for each admitted pair
-        per_row = {match.WindowMask: 16, match.StereoMask: 12}.get(type(mask), 0)
-        per_col = {match.WindowMask: 12, match.StereoMask: 16}.get(type(mask), 0)
+        # pairs, or for an epipolar one its gate on every valid pair (no
+        # band prunes a line); a distance for each admitted pair
+        per_row = {match.WindowMask: 16, match.StereoMask: 12,
+                   match.EpipolarMask: 12}.get(type(mask), 0)
+        per_col = {match.WindowMask: 12, match.StereoMask: 16,
+                   match.EpipolarMask: 12}.get(type(mask), 0)
         dense = isinstance(mask, torch.Tensor)
-        tested = valid_rows * valid_cols if dense else admitted
+        tested = (valid_rows * valid_cols if dense or isinstance(mask, match.EpipolarMask)
+                  else admitted)
         n_bytes = (N * 17 + valid_rows * (32 + per_row) + M + valid_cols * (32 + per_col)
                    + (8 * M if mutual else 0) + (tested if dense else 0))
         b = bound(n_bytes, 8 * tested + 10 * admitted, 8 * admitted)
@@ -3912,14 +4150,32 @@ def main() -> int:
         if edge != (0, 0, 0, 0, match.BIG, 0, match.BIG):
             return fail(f"match_best2 edge rows (tie, none admitted, invalid): {edge}")
         # (e) the call shapes of the triangulate=True run, on its own map: a
-        # keyframe pair under its epipolar mask; the whole pool against a
+        # keyframe pair under its epipolar gate; the whole pool against a
         # frame (global tracking); a frame against the landmarks seen from
         # one keyframe, the pool as side 2 (relocalization)
         kf1c, kf2c = max(kf_a, 1), max(kf_a, 1) - 1
         gates = triangulation.pair_gates(m2, kf1c, kf2c, slam2.cam, slam2.sigma2)
         rows["match_best2/epipolar"] = match_case(
-            "dense epipolar mask, keyframe pair", m2.kf_desc[kf1c], m2.kf_desc[kf2c],
+            "epipolar gate, keyframe pair", m2.kf_desc[kf1c], m2.kf_desc[kf2c],
             gates.unm1, gates.unm2, gates.epi, True)
+        # the epipolar mode on its edge cases (epipolar_case), bit-equal, the
+        # same bits twice, a launch a call (a launch a column chunk)
+        for case in EPI_CASES:
+            c_e = epipolar_case(np.random.default_rng(40 + EPI_CASES.index(case)), case)
+            a_e = epipolar_args(torch, match, c_e, dev)
+            for mutual in (False, True):
+                n0 = match.launches
+                got_e = match.match_best2(*a_e, mutual)
+                again_e = match.match_best2(*a_e, mutual)
+                n_e = match.launches - n0
+                want_e = 2 * len(match.chunk_bounds(a_e[1].shape[0], match.EpipolarMask))
+                if not (same(torch, got_e, match.match_best2_plain(*a_e, mutual))
+                        and same(torch, got_e, again_e)) or n_e != want_e:
+                    raise RuntimeError(f"match_best2 disagrees with its plain version or "
+                                       f"itself, or launched {n_e} times for {want_e}: "
+                                       f"epipolar case {case}{', mutual' if mutual else ''}")
+        print(f"{tag} match_best2 epipolar cases {', '.join(EPI_CASES)} (with and without the "
+              f"mutual test): exact, the same bits twice, a launch a column chunk", flush=True)
         rows["match_best2/global"] = match_case(
             "no mask, landmark pool x frame", m2.lm_desc, frame_c.desc, m2.lm_valid,
             frame_c.valid, None, True)
@@ -3953,6 +4209,8 @@ def main() -> int:
                  "match_best2/global", "match_best2/reloc", "match_best2/loop"):
         rows[name].update(source="tc2li_slam_torch/csrc/match.cu",
                           replaces="tc2li_slam_tpu/ops/matching.py:62", max_abs_err=0.0)
+    # (the epipolar mode evaluates epipolar_mask's gate too)
+    rows["match_best2/epipolar"]["replaces"] = "tc2li_slam_tpu/ops/matching.py:185"
 
     g = torch.Generator(device=dev).manual_seed(0)
     ham_err = 0
@@ -4214,26 +4472,34 @@ def main() -> int:
     as_np = lambda k: {f: getattr(k, f).cpu().numpy() for f in ("xy", "level", "desc", "valid")}
     pair3 = (il3.cpu().numpy(), ir3.cpu().numpy(), as_np(kl3), as_np(kr3))
     st_args = {}
-    for case in STEREO_CASES:
+    for case in STEREO_CASES + STEREO_EDGE_CASES:
         il, ir, kl, kr = stereo_case(np.random.default_rng(1), case, *pair3)
         a = (torch.as_tensor(il).to(dev), torch.as_tensor(ir).to(dev),
              stereo_keypoints(torch, orb, kl, dev), stereo_keypoints(torch, orb, kr, dev),
              slam.scale_factors, slam.cam.bf, slam.cam.baseline)
+        n0, m0 = kst.launches, match.launches
         got, again = kst.stereo_refine(*a), kst.stereo_refine(*a)
+        n_st, n_m = kst.launches - n0, match.launches - m0
         ref = kst.stereo_refine_plain(*a)
         torch.cuda.synchronize()
-        print(f"{tag} stereo_refine {case}: N {kl['xy'].shape[0]}, {int(ref.ok.sum())} ok, "
+        N_c, M_c = kl["xy"].shape[0], kr["xy"].shape[0]
+        want = (2 * kst.launches_per_call(N_c, M_c),
+                2 * int(N_c > 0) * len(match.chunk_bounds(M_c, match.StereoMask)))
+        print(f"{tag} stereo_refine {case}: N {N_c}, M {M_c}, {int(ref.ok.sum())} ok, "
               f"{int((ref.depth > 0).sum())} with depth; bit-equal to the plain chain "
               f"{bit_equal(torch, got, ref)}, the same bits on a second call "
-              f"{bit_equal(torch, got, again)}", flush=True)
+              f"{bit_equal(torch, got, again)}; launches in two calls {n_st} + {n_m} "
+              f"(the match's), implied {want[0]} + {want[1]}", flush=True)
         if not bit_equal(torch, got, ref) or not bit_equal(torch, got, again):
             return fail(f"stereo_refine disagrees with its plain chain or itself ({case})")
+        if (n_st, n_m) != want:
+            return fail(f"stereo_refine launches ({case}): {n_st} + {n_m}, implied {want}")
         st_args[case] = a
     a = st_args["frame"]
     N_, M_ = a[2].xy.shape[0], a[3].xy.shape[0]
     n_sync = syncs_of(torch, lambda: kst.stereo_refine(*a))
     split = kernel_split(torch, lambda: kst.stereo_refine(*a), 10)
-    own = ("prep_kernel", "refine_kernel", "gate_kernel")
+    own = ("prep_kernel", "refine_kernel")
     matcher = ("match_best2_stereo_kernel",)
     ms_k = sum(split[k]["ms_a_call"] for k in own if k in split)
     ms_call = cuda_ms(torch, lambda: kst.stereo_refine(*a), 50, True)
@@ -4242,12 +4508,12 @@ def main() -> int:
     ms_p = cuda_ms(torch, lambda: kst.refine_plain(a[0], a[1], a[2].xy, disp, ok, a[5]), 5)
     ms_route_p = cuda_ms(torch, lambda: kst.stereo_refine_plain(*a), 5)
     b_st = subpixel_bound(N_, M_)
-    print(f"{tag} stereo_refine, phase 3's last pair (N {N_}, M {M_}): its three launches "
+    print(f"{tag} stereo_refine, phase 3's last pair (N {N_}, M {M_}): its two launches "
           f"{ms_k:.4f} ms on the device (" + ", ".join(
               f"{k} {split[k]['ms_a_call']:.4f}" for k in own if k in split)
           + f"), bound {b_st[0]:.6f} ms ({b_st[1]}), the plain chain after the match "
-          f"{ms_p:.4f} ms; the whole stereo half (prep, the match, refine, "
-          f"gate; {sum(v['launches_a_call'] for v in split.values()):g} device launches: "
+          f"{ms_p:.4f} ms; the whole stereo half (prep, the match, refine with the gate; "
+          f"{sum(v['launches_a_call'] for v in split.values()):g} device launches: "
           + ", ".join(f"{k} {split[k]['ms_a_call']:.4f}" for k in matcher if k in split)
           + f") {ms_call:.4f} ms behind a backlog, the parent's eager route with its match "
           f"launch {ms_route_p:.4f} ms; host syncs in a call {n_sync}", flush=True)

@@ -11,7 +11,7 @@
 // Bound on the H100: operations, and they depend on the data. Inputs are
 // ~1.7 MB at 32768 x 2000 (0.5 us). Every tested (valid row, column) pair
 // costs a mask test of ~8 simple operations; only a pair that passes it
-// costs the 8 XOR + 8 __popc of a distance. Three kernels:
+// costs the 8 XOR + 8 __popc of a distance. Four kernels:
 //
 // window_grid_kernel (the window mode, SearchByProjection: the tracking and
 // fuse matches of every frame). A window of 15 px x 1.2^level in a
@@ -89,6 +89,34 @@
 //   beside its rows' loads, 11.4 us a call (the kernel 6.2 us, the rest the
 //   column-best fill and the launch), the walk in local shared memory.
 //
+// match_best2_epipolar_kernel (the epipolar mode, the triangulation match
+// of each keyframe pair: tc2li_slam_tpu/ops/matching.py:185 epipolar_mask
+// with _masked_best2 and match_descriptors, :62, :79). The plain chain
+// builds a dense bool [F, F] mask by ~8 eager ops over [N, M] float32
+// temporaries (16 MB each at 2,000 x 2,000), and the staged kernel then
+// read a mask byte a pair. Here the gate is evaluated per pair from the
+// rows' epipolar lines (x1 F12^T, one tensor op before the launch, as the
+// plain chain computes them) and each column's position and sigma2. A line
+// is not a band in v, so every valid pair is tested: the bound is the
+// gate's ~8 operations a valid pair and a distance an admitted pair. One
+// launch of 32-warp blocks, two warps a row (125 blocks at N 2,000, one an
+// SM; smaller blocks were slower, each block staging all of side 2, and so
+// were a warp or four a row: PERF.md, section 6):
+// - each block stages side 2's valid columns, 16 bytes each (u2, v2,
+//   thresh x sigma2, the column) and, up to 4,821 columns, their 32-byte
+//   descriptors, compacted by a warp ballot and a shared atomicAdd, every
+//   load in flight before the first store; a block without a valid row
+//   stages nothing, an invalid row reads only its flag;
+// - a lane tests every 64th staged column in batches of 2, then takes the
+//   admitted columns' descriptors (from shared memory, or above 4,821
+//   columns one 32-byte L2 sector each), then their keys and atomics; the
+//   row's two warps merge their pairs through shared memory; the walk is
+//   latency bound (~10 valid rows an SM). The gate repeats the
+//   plain chain's rounding one operation at a time (__fmul_rn, __fadd_rn,
+//   __fdiv_rn, no contraction, the clamp of l0^2 + l1^2 at 1e-12 that keeps
+//   NaN), so every admitted pair is the plain chain's
+//   (tests/test_torch_epipolar_emulation.py).
+//
 // match_best2_kernel (the dense mode): all of side 2 (descriptors
 // word-major, so a warp's lanes hit distinct banks, and validity) is staged
 // once per block in dynamic shared memory, 36 bytes a column. A grid of at
@@ -134,7 +162,12 @@ constexpr int kNoKey = INT_MAX;
 constexpr int kMaxSmem = 232448;    // bytes a block may use on sm_90
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Mode { kWindow = 0, kStereo = 1, kDense = 2 };
+enum Mode { kWindow = 0, kStereo = 1, kDense = 2, kEpipolar = 3 };
+
+// programmatic dependent launch: a kernel launched as a dependent of the
+// one before it waits for that kernel's writes here (a no-op in a kernel
+// launched without the attribute)
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
 
 struct Args {
   const uint32_t* d1;      // [N, 8]
@@ -148,8 +181,11 @@ struct Args {
   const int* lvl2;         // [M]      window, stereo
   const float* band;       // [M]      stereo
   const uint8_t* dense;    // [N, M] or null   dense
+  const float* lines;      // [N, 3]   epipolar: the rows' epipolar lines in view 2
+  const float* sigma2;     // [M]      epipolar: the columns' squared level sigma
   int lo, hi;              // level gate lo <= lvl2 - lvl1 <= hi
   float max_d;             // stereo: -2 <= u1 - u2 <= max_d
+  float thresh;            // epipolar: d2 < thresh x sigma2
   long long* idx;          // [N]
   int* best;               // [N]
   int* second;             // [N]
@@ -328,9 +364,19 @@ __device__ __forceinline__ void build_bins(const Args& a, StereoBins& sb, float4
     if (m < a.M) {
       ok[k] = a.valid2[m] != 0;
       p[k] = reinterpret_cast<const float2*>(a.uv2)[m];
-      bnd[k] = a.band[m];
       lv[k] = a.lvl2[m];
     }
+  }
+  // chained behind the stereo prep launch (csrc/stereo.cu), which writes the
+  // bands and fills the column-best buffer: everything above is older. The
+  // dependent (the refine launch) is let start only as these blocks exit:
+  // started at the wait, its blocks crowded the few SMs that no block of
+  // this launch holds and slowed its own tail (PERF.md, section 6)
+  pdl_wait();
+#pragma unroll
+  for (int k = 0; k < kBinCols; ++k) {
+    const int m = tid + k * kStereoThreads;
+    if (m < a.M) bnd[k] = a.band[m];
   }
   sb.start[2 * tid] = sb.start[2 * tid + 1] = 0;
   if (tid == 0) {
@@ -520,6 +566,186 @@ match_best2_stereo_kernel(const Args a) {
     a.second[row] = k2 == kNoKey ? kBig : (k2 >> 16);
   }
   TC2LI_LAP(12);
+}
+
+
+// ---------------------------------------------------------------------------
+// the epipolar mode: the triangulation match's gate evaluated per pair
+// ---------------------------------------------------------------------------
+
+constexpr int kEpiWarps = 32;                 // warps a block
+constexpr int kEpiRowWarps = 2;               // warps a row: a lane every (32 x this)th column
+constexpr int kEpiRows = kEpiWarps / kEpiRowWarps;   // rows a block
+constexpr int kEpiThreads = 32 * kEpiWarps;
+constexpr int kEpiBatch = 2;                  // columns a lane tests before their keys
+constexpr int kEpiStage = 2;                  // columns a thread loads before it stages them
+static_assert(kEpiWarps % kEpiRowWarps == 0, "a block holds whole rows");
+// columns a launch takes: 16 bytes a staged column in dynamic shared memory;
+// up to kEpiDescColumns the block also stages their descriptors (32 bytes)
+constexpr int kEpiMaxColumns = (kMaxSmem - 1024) / 16;
+constexpr int kEpiDescColumns = (kMaxSmem - 1024) / 48;
+
+// The plain chain's gate of one pair (ops/kernels/match.py epipolar_gate):
+// num = |(l0 u2 + l1 v2) + l2|, d2 = num^2 / max(l0^2 + l1^2, 1e-12) (NaN
+// kept), admitted where d2 < thresh x sigma2; each operation rounded alone,
+// as eager PyTorch computes it, so no multiply-add is contracted. (A quick
+// decision by n2 x (1 / den) against widened margins, with the division
+// only near the gate, was exact but 13% slower on the card: its branches
+// cost more than the division's few instructions.)
+__device__ __forceinline__ bool epi_admits(float l0, float l1, float l2, float den,
+                                           const float4& c) {
+  const float num = fabsf(__fadd_rn(__fadd_rn(__fmul_rn(l0, c.x), __fmul_rn(l1, c.y)), l2));
+  return __fdiv_rn(__fmul_rn(num, num), den) < c.z;
+}
+
+// Each block stages side 2's valid columns once, 16 bytes each (u2, v2,
+// thresh x sigma2, the column) and, with SDESC, their descriptors, compacted
+// in any order by a warp ballot and a shared counter: an invalid column
+// costs its loads alone and no row walks it. A row takes kEpiRowWarps of
+// the block's warps; an invalid row reads only its flag, and a block
+// without a valid row stages nothing. A lane tests every (32 kEpiRowWarps)th
+// staged column in batches of kEpiBatch, then takes the admitted ones'
+// descriptors (from
+// shared memory with SDESC, else one L2 sector each, loaded before any key:
+// a load after an atomicMin is not hoisted above it), their keys and
+// atomics; the row's warps merge their pairs through shared memory. The
+// keys are unique per column, so neither the staging order nor the split of
+// a row between warps changes a bit.
+template <bool MUTUAL, bool SDESC>
+__global__ void __launch_bounds__(kEpiThreads)
+match_best2_epipolar_kernel(const Args a) {
+  extern __shared__ uint4 epi_smem[];
+  float4* ecol = reinterpret_cast<float4*>(epi_smem);   // [M] at most: the valid columns
+  uint4* edesc = epi_smem + a.M;                        // [M][2] their descriptors (SDESC)
+  __shared__ int n_cols;
+  __shared__ int2 part[kEpiWarps];                      // each warp's two keys
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub = warp % kEpiRowWarps;                  // the warp's share of its row
+  const int row = blockIdx.x * kEpiRows + warp / kEpiRowWarps;
+  const uint4* d2v = reinterpret_cast<const uint4*>(a.d2);
+  TC2LI_LAP_START
+  if (threadIdx.x == 0) n_cols = 0;
+  // the row's inputs first
+  const bool ok = row < a.N && a.valid1[row] != 0;
+  float l0 = 0.f, l1 = 0.f, l2 = 0.f;
+  uint4 q0 = make_uint4(0, 0, 0, 0), q1 = q0;
+  if (ok) {
+    l0 = a.lines[3 * row];
+    l1 = a.lines[3 * row + 1];
+    l2 = a.lines[3 * row + 2];
+    q0 = reinterpret_cast<const uint4*>(a.d1)[2 * row];
+    q1 = reinterpret_cast<const uint4*>(a.d1)[2 * row + 1];
+  }
+  int k1 = kNoKey, k2 = kNoKey;
+  if (__syncthreads_or(ok)) {
+    // side 2's valid columns to shared memory: kEpiStage columns a thread,
+    // every load issued before any is used (the loop bound is the warp's,
+    // so that every lane takes the ballots)
+    for (int w0 = 32 * warp; w0 < a.M; w0 += kEpiStage * kEpiThreads) {
+      const int m0 = w0 + lane;
+      bool v[kEpiStage];
+      float2 p[kEpiStage];
+      float s2[kEpiStage];
+      uint4 g0[kEpiStage], g1[kEpiStage];
+#pragma unroll
+      for (int j = 0; j < kEpiStage; ++j) {
+        const int m = m0 + j * kEpiThreads;
+        v[j] = false;
+        if (m < a.M) {
+          v[j] = a.valid2[m] != 0;
+          p[j] = reinterpret_cast<const float2*>(a.uv2)[m];
+          s2[j] = a.sigma2[m];
+          if (SDESC) {
+            g0[j] = __ldg(&d2v[2 * m]);
+            g1[j] = __ldg(&d2v[2 * m + 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kEpiStage; ++j) {
+        const unsigned mask = __ballot_sync(kFull, v[j]);
+        int base = 0;
+        if (lane == 0 && mask) base = atomicAdd(&n_cols, __popc(mask));
+        base = __shfl_sync(kFull, base, 0);
+        if (v[j]) {
+          const int t = base + __popc(mask & ((1u << lane) - 1u));
+          ecol[t] = make_float4(p[j].x, p[j].y, __fmul_rn(a.thresh, s2[j]),
+                                __int_as_float(m0 + j * kEpiThreads));
+          if (SDESC) {
+            edesc[2 * t] = g0[j];
+            edesc[2 * t + 1] = g1[j];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    TC2LI_LAP(13);
+    if (ok) {
+      const float den2 = __fadd_rn(__fmul_rn(l0, l0), __fmul_rn(l1, l1));
+      const float den = den2 < 1e-12f ? 1e-12f : den2;   // torch.clamp(min=1e-12); NaN stays
+      const int total = n_cols;
+      constexpr int kStride = 32 * kEpiRowWarps;   // a row's lanes
+      for (int t0 = 32 * sub + lane; t0 < total; t0 += kStride * kEpiBatch) {
+        float4 c[kEpiBatch];
+        bool adm[kEpiBatch];
+#pragma unroll
+        for (int j = 0; j < kEpiBatch; ++j) {
+          const int t = t0 + kStride * j;
+          c[j] = ecol[t < total ? t : 0];
+          adm[j] = t < total && epi_admits(l0, l1, l2, den, c[j]);
+        }
+        uint4 w0v[kEpiBatch], w1v[kEpiBatch];
+#pragma unroll
+        for (int j = 0; j < kEpiBatch; ++j) {
+          if (adm[j]) {
+            const int t = t0 + kStride * j;
+            const int m = __float_as_int(c[j].w);
+            w0v[j] = SDESC ? edesc[2 * t] : __ldg(&d2v[2 * m]);
+            w1v[j] = SDESC ? edesc[2 * t + 1] : __ldg(&d2v[2 * m + 1]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kEpiBatch; ++j) {
+          if (adm[j]) {
+            const int m = __float_as_int(c[j].w);
+            const int dist = __popc(q0.x ^ w0v[j].x) + __popc(q0.y ^ w0v[j].y)
+                             + __popc(q0.z ^ w0v[j].z) + __popc(q0.w ^ w0v[j].w)
+                             + __popc(q1.x ^ w1v[j].x) + __popc(q1.y ^ w1v[j].y)
+                             + __popc(q1.z ^ w1v[j].z) + __popc(q1.w ^ w1v[j].w);
+            keep_two(k1, k2, (dist << 16) | m);
+            if (MUTUAL) {
+              atomicMin(&a.colbest[m], ((unsigned long long)dist << 32) | (unsigned)row);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const int o1 = __shfl_xor_sync(kFull, k1, off);
+      const int o2 = __shfl_xor_sync(kFull, k2, off);
+      k2 = min(max(k1, o1), min(k2, o2));
+      k1 = min(k1, o1);
+    }
+    if (kEpiRowWarps > 1) {   // the row's warps' pairs, merged on its first warp
+      if (lane == 0) part[warp] = make_int2(k1, k2);
+      __syncthreads();
+      if (sub == 0) {
+#pragma unroll
+        for (int h = 1; h < kEpiRowWarps; ++h) {
+          const int2 o = part[warp + h];
+          k2 = min(max(k1, o.x), min(k2, o.y));
+          k1 = min(k1, o.x);
+        }
+      }
+    }
+    TC2LI_LAP(14);
+  }
+  if (lane == 0 && sub == 0 && row < a.N) {
+    a.idx[row] = k1 == kNoKey ? 0 : (k1 & 0xffff);
+    a.best[row] = k1 == kNoKey ? kBig : (k1 >> 16);
+    a.second[row] = k2 == kNoKey ? kBig : (k2 >> 16);
+  }
 }
 
 
@@ -778,10 +1004,29 @@ int launch_dense(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// `kernel` on `blocks` x `threads` with `smem` bytes of dynamic shared
+// memory; `chained`: as a programmatic dependent of the launch before it
+template <typename K>
+int launch(K kernel, const Args& a, int blocks, int threads, int smem, bool chained,
+           cudaStream_t stream) {
+  cudaLaunchAttribute at;
+  at.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  at.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &at;
+  cfg.numAttrs = chained ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 // a block a 16 rows; its dynamic shared memory holds side 2 in CSR order
 // (20 bytes a column)
 template <bool MUTUAL>
-int launch_stereo(const Args& a, cudaStream_t stream) {
+int launch_stereo(const Args& a, bool chained, cudaStream_t stream) {
   static int smem_set = 0;
   const int smem = 20 * a.M;
   if (smem > smem_set) {
@@ -792,34 +1037,61 @@ int launch_stereo(const Args& a, cudaStream_t stream) {
     smem_set = 20 * kStereoMaxColumns;
   }
   const int blocks = (a.N + kStereoWarps - 1) / kStereoWarps;
-  match_best2_stereo_kernel<MUTUAL><<<blocks, kStereoThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch(match_best2_stereo_kernel<MUTUAL>, a, blocks, kStereoThreads, smem, chained,
+                stream);
+}
+
+// a block kEpiRows rows; its dynamic shared memory holds side 2's valid
+// columns (16 bytes a column) and, up to kEpiDescColumns, their descriptors
+template <bool MUTUAL, bool SDESC>
+int launch_epi(const Args& a, cudaStream_t stream) {
+  static int smem_set = 0;
+  const int smem = (SDESC ? 48 : 16) * a.M;
+  if (smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        match_best2_epipolar_kernel<MUTUAL, SDESC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem - 1024);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = kMaxSmem - 1024;
+  }
+  const int blocks = (a.N + kEpiRows - 1) / kEpiRows;
+  return launch(match_best2_epipolar_kernel<MUTUAL, SDESC>, a, blocks, kEpiThreads, smem, false,
+                stream);
+}
+
+template <bool MUTUAL>
+int launch_epipolar(const Args& a, cudaStream_t stream) {
+  return a.M <= kEpiDescColumns ? launch_epi<MUTUAL, true>(a, stream)
+                                : launch_epi<MUTUAL, false>(a, stream);
 }
 
 }  // namespace
 
 // The most columns (M) a launch takes in `mode`: 0 window, the grid's
 // columns in shared memory; 1 stereo, the build's registers (10 a thread);
-// 2 dense, side 2 staged in shared memory; each also bounded by the 16-bit
-// column key.
+// 2 dense, side 2 staged in shared memory; 3 epipolar, the valid columns
+// staged in shared memory; each also bounded by the 16-bit column key.
 extern "C" int tc2li_match_max_columns(int mode) {
   // (the window kernel's static shared memory: 1 KB at most)
   const int fit = mode == kWindow   ? (kMaxSmem - 1024 - window_smem(0, false)) / 16
                   : mode == kStereo ? kStereoMaxColumns
-                                    : kMaxSmem / (kDenseWords * (int)sizeof(uint32_t));
+                  : mode == kDense  ? kMaxSmem / (kDenseWords * (int)sizeof(uint32_t))
+                                    : kEpiMaxColumns;
   return fit < 65535 ? fit : 65535;
 }
 
 // registers, local (spill) bytes, static shared bytes and the largest block
 // of the matcher's kernels: which 0 window, 1 window mutual (both with the
-// descriptors in shared memory), 2 stereo mutual, 3 dense mutual
+// descriptors in shared memory), 2 stereo mutual, 3 dense mutual, 4
+// epipolar mutual
 extern "C" int tc2li_match_func_attrs(int which, int* out) {
   cudaFuncAttributes a;
-  const void* fns[4] = {reinterpret_cast<const void*>(window_grid_kernel<false, true>),
+  const void* fns[5] = {reinterpret_cast<const void*>(window_grid_kernel<false, true>),
                         reinterpret_cast<const void*>(window_grid_kernel<true, true>),
                         reinterpret_cast<const void*>(match_best2_stereo_kernel<true>),
-                        reinterpret_cast<const void*>(match_best2_kernel<true>)};
-  if (which < 0 || which > 3) return static_cast<int>(cudaErrorInvalidValue);
+                        reinterpret_cast<const void*>(match_best2_kernel<true>),
+                        reinterpret_cast<const void*>(match_best2_epipolar_kernel<true, true>)};
+  if (which < 0 || which > 4) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = cudaFuncGetAttributes(&a, fns[which]);
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.localSizeBytes);
@@ -832,29 +1104,35 @@ extern "C" int tc2li_match_func_attrs(int which, int* out) {
 // arrays of the shapes in `Args`; those a mode does not use may be null.
 // colbest (mutual != 0) must hold (1 << 20) << 32 on entry and receives
 // min over admitted rows of (distance << 32 | row). N, M > 0 and
-// M <= tc2li_match_max_columns(mode). The window and stereo modes read d1,
-// d2 as 16-byte and uv1, uv2 as 8-byte words: those pointers must be
-// aligned. Launches on `stream`; returns cudaGetLastError() or the error of
-// the shared-memory attribute call.
+// M <= tc2li_match_max_columns(mode). The window, stereo and epipolar modes
+// read d1, d2 as 16-byte and uv1, uv2 as 8-byte words: those pointers must
+// be aligned. `chained` (the stereo mode only): the launch is a programmatic
+// dependent of the one before it on `stream`, which may still be writing
+// `band` and `colbest` (csrc/stereo.cu's prep launch). Launches on
+// `stream`; returns cudaGetLastError() or the error of the shared-memory
+// attribute call.
 extern "C" int tc2li_match_best2(
-    int mode, int mutual, const uint32_t* d1, const uint8_t* valid1, const uint32_t* d2,
-    const uint8_t* valid2, const float* uv1, const int* lvl1, const float* radius,
-    const float* uv2, const int* lvl2, const float* band, const uint8_t* dense, int lo,
-    int hi, float max_d, long long* idx, int* best, int* second,
-    unsigned long long* colbest, int N, int M, void* stream) {
-  if (N <= 0 || M <= 0 || mode < 0 || mode > 2 || M > tc2li_match_max_columns(mode)
-      || (mutual && colbest == nullptr)) {
+    int mode, int mutual, int chained, const uint32_t* d1, const uint8_t* valid1,
+    const uint32_t* d2, const uint8_t* valid2, const float* uv1, const int* lvl1,
+    const float* radius, const float* uv2, const int* lvl2, const float* band,
+    const uint8_t* dense, const float* lines, const float* sigma2, int lo, int hi, float max_d,
+    float thresh, long long* idx, int* best, int* second, unsigned long long* colbest, int N,
+    int M, void* stream) {
+  if (N <= 0 || M <= 0 || mode < 0 || mode > 3 || M > tc2li_match_max_columns(mode)
+      || (mutual && colbest == nullptr) || (chained && mode != kStereo)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{d1, valid1, d2, valid2, uv1, lvl1, radius, uv2, lvl2, band, dense,
-               lo, hi, max_d, idx, best, second, colbest, N, M};
+  const Args a{d1, valid1, d2, valid2, uv1, lvl1, radius, uv2, lvl2, band, dense, lines,
+               sigma2, lo, hi, max_d, thresh, idx, best, second, colbest, N, M};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode * 2 + (mutual ? 1 : 0)) {
     case 0: return launch_window<false>(a, s);
     case 1: return launch_window<true>(a, s);
-    case 2: return launch_stereo<false>(a, s);
-    case 3: return launch_stereo<true>(a, s);
+    case 2: return launch_stereo<false>(a, chained != 0, s);
+    case 3: return launch_stereo<true>(a, chained != 0, s);
     case 4: return launch_dense<false>(a, s);
-    default: return launch_dense<true>(a, s);
+    case 5: return launch_dense<true>(a, s);
+    case 6: return launch_epipolar<false>(a, s);
+    default: return launch_epipolar<true>(a, s);
   }
 }

@@ -142,7 +142,7 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.tc2li_match_max_columns.restype = i
     lib.tc2li_match_func_attrs.argtypes = [i, vp]
     lib.tc2li_match_func_attrs.restype = i
-    lib.tc2li_match_best2.argtypes = [i, i] + [vp] * 11 + [i, i, f] + [vp] * 4 + [i, i, vp]
+    lib.tc2li_match_best2.argtypes = [i, i, i] + [vp] * 13 + [i, i, f, f] + [vp] * 4 + [i, i, vp]
     lib.tc2li_match_best2.restype = i
     lib.tc2li_pose_only_lm.argtypes = [vp] * 6 + [i] + [f] * 5 + [i, i] + [vp] * 5
     lib.tc2li_pose_only_lm.restype = i
@@ -162,7 +162,7 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.tc2li_orb_describe.restype = i
     lib.tc2li_stereo_prep.argtypes = [vp, vp, i, i, vp, vp, vp]
     lib.tc2li_stereo_prep.restype = i
-    lib.tc2li_stereo_refine.argtypes = [vp, vp, i, i, i] + [vp] * 7 + [i, f] + [vp] * 6
+    lib.tc2li_stereo_refine.argtypes = [vp, vp, i, i, i] + [vp] * 7 + [i, f] + [vp] * 7
     lib.tc2li_stereo_refine.restype = i
     lib.tc2li_clusters_scratch.argtypes = [i, i, i]
     lib.tc2li_clusters_scratch.restype = ctypes.c_longlong

@@ -50,6 +50,7 @@ launches = 0   # kernel launches by local_ba_lm (plain-version calls excluded)
 CHUNK = 32        # pairs a chunk at least: the reduction's unit of work (a warp)
 MAX_CHUNKS = 32   # chunks a block of the reduced system at most
 MAX_POSES = 67    # poses of a window: the solve's shared memory (csrc/local_ba.cu)
+MAX_OBS = 32      # observations of a landmark (K): a lane each (csrc/local_ba.cu)
 
 
 def launches_per_call(iters: int) -> int:
@@ -250,8 +251,8 @@ def local_ba_lm(cam: cam_mod.Pinhole, T_cw0, X_w0, obs, fixed_pose, valid_lm,
             ("valid", obs.valid, (L, K), flag), ("fixed_pose", fixed_pose, (P,), flag),
             ("valid_lm", valid_lm, (L,), flag)):
         _check(name, x, shape, dts, dev)
-    if not 1 <= K <= 32 or P < 1 or iters < 0:
-        raise ValueError(f"local_ba_lm: K {K} (1 to 32), P {P}, iters {iters}")
+    if not 1 <= K <= MAX_OBS or P < 1 or iters < 0:
+        raise ValueError(f"local_ba_lm: K {K} (1 to {MAX_OBS}), P {P}, iters {iters}")
     if trace is not None:
         _check("trace", trace, (iters, 4), (torch.float64,), dev)
         if not trace.is_contiguous():

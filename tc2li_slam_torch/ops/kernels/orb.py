@@ -408,6 +408,15 @@ def tile_span(first_col: np.ndarray, taps: int, Wl: int, sx0: int, sx1: int) -> 
     return int(first_col[lxb] + taps - first_col[lxa])
 
 
+def level_table(B: int, H: int, W: int, n_levels: int, scale: float,
+                device: torch.device | str = "cpu") -> _LevelTable:
+    """``orb_level_planes``' plane and tap tables for ``B`` images of H x W
+    at ``n_levels`` levels of ``scale``; raises ValueError for a pyramid the
+    kernel does not take (a level under 4 x 4, more than ``MAX_TAPS`` taps an
+    output, a tile reading more than ``MAX_SPAN`` image columns)."""
+    return _level_table(B, H, W, n_levels, float(scale), torch.device(device))
+
+
 @functools.lru_cache(maxsize=16)
 def _level_table(B: int, H: int, W: int, n_levels: int, scale: float,
                  device: torch.device) -> _LevelTable:

@@ -8,11 +8,13 @@ jit-compiled there) with the tails of ``match_stereo`` and of
 
 ``stereo_refine`` computes, on CUDA tensors, what ``stereo_refine_plain``
 computes: the descriptor match under the row band (``csrc/match.cu``,
-its stereo mode), then ``csrc/stereo.cu`` for the rest. Four launches a frame
-build: the prep launch (the right keypoints' bands and the matcher's
-column-best buffer), the match, the per-keypoint refinement (a warp a
-keypoint) and the gate (one block: the median gate, the depth, (u, v, u_r)).
-``launches`` counts this module's three. Bound on the H100: operations,
+its stereo mode), then ``csrc/stereo.cu`` for the rest. Three launches a
+frame build, each the programmatic dependent of the one before it: the prep
+launch (the right keypoints' bands and the matcher's column-best buffer),
+the match, and the refinement with the gate (a warp a keypoint; the last
+block to finish takes the median gate where every keypoint is ok). A side 2
+wider than the stereo mode's columns is matched in column chunks, a launch
+each. ``launches`` counts this module's two. Bound on the H100: operations,
 121 x 11 absolute differences a keypoint (``chip_smoke.subpixel_bound``).
 Every output is bit-equal to the plain chain on grey-level images (each SAD
 is then an exact integer in float32).
@@ -32,6 +34,10 @@ from .. import stereo as stereo_mod
 from . import build, match
 
 launches = 0   # kernel launches of csrc/stereo.cu (the match's are counted in match.py)
+# the arrival counter of the refine launch's last-block gate, one int a
+# (device, stream): launches on one stream run one at a time, and the
+# kernel leaves it zero for the next call
+_sync: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
 class StereoResult(NamedTuple):
@@ -79,7 +85,10 @@ def _arg(x, shape, dtype, name):
 def stereo_refine(img_l, img_r, kl, kr, scale_factors, bf: float,
                   min_z: float) -> StereoResult:
     """Launch the match and ``csrc/stereo.cu`` on the current stream: what
-    ``stereo_refine_plain`` computes, on CUDA tensors, without a host sync."""
+    ``stereo_refine_plain`` computes, on CUDA tensors, without a host sync.
+    The refine launch's gate counts its blocks in at a counter of the
+    current stream's own; a refine launch that failed part way may leave it
+    non-zero, and the calls after it on that stream are then wrong."""
     global launches
     dev = kl.xy.device
     tensors = (img_l, img_r, scale_factors, *kl, *kr)
@@ -103,8 +112,17 @@ def stereo_refine(img_l, img_r, kl, kr, scale_factors, bf: float,
         raise ValueError("stereo_refine: scale_factors must be float32 [n_levels]")
     sf = _arg(scale_factors, scale_factors.shape, f32, "scale_factors")
     img_l, img_r = img_l.contiguous(), img_r.contiguous()
+    # (the uint8 route reads 4-byte words of the images; the match, 16-byte
+    # descriptor words and 8-byte positions, aligned here: a copy launched
+    # between prep and the match would break their chain)
+    img_l, img_r = (match.aligned(x, 4) for x in (img_l, img_r))
+    desc_l, desc_r = (match.aligned(x, 16) for x in (desc_l, desc_r))
+    xy_l, xy_r = (match.aligned(x, 8) for x in (xy_l, xy_r))
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    counter = _sync.get((dev, stream))
+    if counter is None:   # (made before prep: a fill between two chained launches breaks them)
+        counter = _sync[(dev, stream)] = torch.zeros(1, dtype=torch.int32, device=dev)
 
     band = torch.empty(M, dtype=f32, device=dev)
     colbest = torch.empty(M, dtype=torch.int64, device=dev)
@@ -126,12 +144,13 @@ def stereo_refine(img_l, img_r, kl, kr, scale_factors, bf: float,
         img_l.data_ptr(), img_r.data_ptr(), int(img_l.dtype == torch.uint8), H, W,
         xy_l.data_ptr(), valid_l.view(torch.uint8).data_ptr(), xy_r.data_ptr(), idx.data_ptr(),
         best.data_ptr(), second.data_ptr(), colbest.data_ptr(), N, float(bf), ur.data_ptr(),
-        sad.data_ptr(), ok.data_ptr(), depth.data_ptr(), uvr.data_ptr(), stream),
-        "stereo_refine")
-    launches += int(N > 0) + 1
+        sad.data_ptr(), ok.data_ptr(), depth.data_ptr(), uvr.data_ptr(), counter.data_ptr(),
+        stream), "stereo_refine")
+    launches += int(N > 0)
     return StereoResult(ur, ok.view(torch.bool), depth, uvr)
 
 
 def launches_per_call(n: int, m: int) -> int:
-    """This module's launches for n left and m right keypoints (3 at n, m > 0)."""
-    return int(m > 0) + int(n > 0) + 1
+    """This module's launches for n left and m right keypoints (2 at n, m > 0:
+    prep, then refine with the gate)."""
+    return int(m > 0) + int(n > 0)

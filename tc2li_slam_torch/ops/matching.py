@@ -3,7 +3,7 @@
 Every matcher is a masked row-wise best/second-best over Hamming distances
 with distance and ratio tests, and optional rotation-histogram consistency.
 The mask and the reduction run fused in the CUDA kernel of
-``ops.kernels.match`` (window, stereo-band or dense masks), so no [N, M]
+``ops.kernels.match`` (window, stereo-band, epipolar or dense masks), so no [N, M]
 tensor is built on the card; on the CPU the same call runs the dense plain
 chain. Thresholds mirror ORBmatcher: TH_LOW=50, TH_HIGH=100, HISTO_LENGTH=30.
 """
@@ -15,8 +15,8 @@ import math
 import torch
 
 from .kernels.hamming import hamming_matrix  # noqa: F401  (public: all distances)
-from .kernels.match import (BIG, WindowMask, level_mask,  # noqa: F401
-                            match_best2, window_mask)
+from .kernels.match import (BIG, EpipolarMask, WindowMask, epipolar_gate,  # noqa: F401
+                            epipolar_lines, level_mask, match_best2, window_mask)
 from .orb import topk_stable
 
 TH_LOW = 50
@@ -29,8 +29,8 @@ def match_descriptors(d1, d2, valid1, valid2, mask=None, max_dist: int = TH_LOW,
     """Guarded nearest-neighbour match: (idx2 [N], dist [N], matched [N]).
 
     ``mask`` is an extra pair predicate: a bool [N, M], or a ``WindowMask`` /
-    ``StereoMask`` of ``ops.kernels.match`` that the kernel evaluates per
-    pair without building it."""
+    ``StereoMask`` / ``EpipolarMask`` of ``ops.kernels.match`` that the
+    kernel evaluates per pair without building it."""
     idx, best, second, back = match_best2(d1, d2, valid1, valid2, mask, mutual)
     ok = (best <= max_dist) & valid1
     if ratio < 1.0:
@@ -82,11 +82,7 @@ def epipolar_mask(uv1, uv2, F12, sigma2, thresh: float = 3.84) -> torch.Tensor:
 
     ``uv1`` [N, 2] keypoints in view 1, ``uv2`` [M, 2] in view 2, ``F12``
     [3, 3] the fundamental matrix view 1 -> view 2, ``sigma2`` [M] the
-    squared level sigma of the view-2 keypoints."""
-    x1 = torch.cat([uv1, torch.ones_like(uv1[:, :1])], dim=-1)
-    lines = x1 @ F12.T                                    # [N, 3] epilines in view 2
-    num = torch.abs(lines[:, None, 0] * uv2[None, :, 0]
-                    + lines[:, None, 1] * uv2[None, :, 1] + lines[:, None, 2])
-    den2 = lines[:, 0] ** 2 + lines[:, 1] ** 2
-    d2 = num * num / torch.clamp(den2[:, None], min=1e-12)
-    return d2 < thresh * sigma2[None, :]
+    squared level sigma of the view-2 keypoints. The matcher takes the same
+    gate without the [N, M] tensor as ``EpipolarMask(epipolar_lines(uv1,
+    F12), uv2, sigma2, thresh)``."""
+    return epipolar_gate(epipolar_lines(uv1, F12), uv2, sigma2, thresh)

@@ -94,6 +94,23 @@ def check_kernel_limits(cfg: cfg_mod.SystemConfig) -> None:
             f"orb.n_features {o.n_features} over {o.n_levels} levels: {max(per_level)} "
             f"keypoints a level; the grid top-k (orb_select_grid) orders at most "
             f"{orb_kernel.MAX_LEVEL_K} a level on the card")
+    # the pyramid kernel's level table (orb_level_planes builds the same one
+    # at the first frame; host arithmetic): its resize taps and the image
+    # columns a tile reads at the configured camera size
+    c = cfg.camera
+    try:
+        orb_kernel.level_table(2, c.height, c.width, o.n_levels, o.scale_factor)
+    except ValueError as e:
+        raise ValueError(
+            f"orb.n_levels {o.n_levels} at scale_factor {o.scale_factor} on a {c.width} x "
+            f"{c.height} camera: {e}") from None
+    # the window BA's observations a landmark (mapstate's max_obs is its K)
+    if t.max_obs > local_ba_kernel.MAX_OBS:
+        raise ValueError(
+            f"tracking.max_obs {t.max_obs}: the window BA's kernel (local_ba_lm) takes at most "
+            f"{local_ba_kernel.MAX_OBS} observations a landmark on the card")
+    # (the matcher takes any keypoint count: a side 2 wider than one launch
+    # is matched in column chunks, ops/kernels/match.py)
 
 
 class TrackingState:

@@ -5,9 +5,11 @@ For the new keyframe and each of its best covisible neighbours:
 epipolar-gated mutual descriptor matching over the still unmatched
 features, a parallax test, batched DLT triangulation, then reprojection,
 positive-depth and scale-consistency checks before landmarks observed by
-both views are allocated. The epipolar gate is a dense bool [F, F] handed
-to the fused matcher (``ops.kernels.match``, one launch a pair); no
-distance matrix is built. Keyframe ids are host ints, as everywhere in the
+both views are allocated. The epipolar gate goes to the fused matcher
+(``ops.kernels.match``) as an ``EpipolarMask``, the epipolar lines of the
+first view's keypoints: on the card one launch a pair evaluates it per pair
+and builds neither the [F, F] mask nor a distance matrix; on the CPU the
+plain chain expands it. Keyframe ids are host ints, as everywhere in the
 port's mapping pass.
 """
 
@@ -34,7 +36,7 @@ class PairGates(NamedTuple):
 
     unm1: torch.Tensor         # [F] unmatched mono or far-stereo features of kf1
     unm2: torch.Tensor         # [F] ... of kf2
-    epi: torch.Tensor          # [F, F] bool epipolar gate
+    epi: matching.EpipolarMask  # the epipolar gate, evaluated by the matcher per pair
     baseline_ok: torch.Tensor  # [] the keyframes are further apart than the rig's baseline
     z1s: torch.Tensor          # [F] stereo depth of kf1's features
     s2_kp2: torch.Tensor       # [F] squared level sigma of kf2's features
@@ -75,7 +77,7 @@ def pair_gates(m: mapstate.MapState, kf1c: int, kf2c: int, cam: cam_mod.Pinhole,
 
     lvl2 = m.kf_level[kf2c]
     s2_kp2 = sigma2[torch.clamp(lvl2, 0, sigma2.shape[0] - 1).long()]
-    epi = matching.epipolar_mask(uv1, uv2, F21, s2_kp2)
+    epi = matching.EpipolarMask(matching.epipolar_lines(uv1, F21), uv2, s2_kp2)
     return PairGates(unm1, unm2, epi, baseline_ok, z1s, s2_kp2, c1w, c2w)
 
 

@@ -186,12 +186,15 @@ def test_match_best2_all_invalid_and_limits(cuda):
     wide = torch.zeros((8000, 8), dtype=torch.int32, device=cuda)
     ones = torch.ones(8000, dtype=torch.bool, device=cuda)
     wider = 14000                          # above the window mode's 13,440 columns
-    with pytest.raises(ValueError):        # side 2 does not fit shared memory
-        match.match_best2(c["d1"], torch.zeros((wider, 8), dtype=torch.int32, device=cuda),
-                          c["valid1"], torch.ones(wider, dtype=torch.bool, device=cuda),
-                          match.WindowMask(c["uv1"], c["radius"], c["lvl1"],
-                                           torch.zeros((wider, 2), device=cuda),
-                                           torch.zeros(wider, dtype=torch.int32, device=cuda)))
+    wmask = match.WindowMask(c["uv1"], c["radius"], c["lvl1"],
+                             torch.zeros((wider, 2), device=cuda),
+                             torch.zeros(wider, dtype=torch.int32, device=cuda))
+    d2w = torch.zeros((wider, 8), dtype=torch.int32, device=cuda)
+    v2w = torch.ones(wider, dtype=torch.bool, device=cuda)
+    before = match.launches                # side 2 in two column chunks, a launch each
+    _same(match.match_best2(c["d1"], d2w, c["valid1"], v2w, wmask),
+          match.match_best2_plain(c["d1"], d2w, c["valid1"], v2w, wmask))
+    assert match.launches - before == 2
     before = match.launches                # the dense mode takes it in two chunks
     _same(match.match_best2(c["d1"], wide, c["valid1"], ones, None, True),
           match.match_best2_plain(c["d1"], wide, c["valid1"], ones, None, True))
@@ -386,8 +389,8 @@ def test_default_config_and_recovery_on_cuda(cuda):
     by_mode = {k: v - by_mode0.get(k, 0) for k, v in match.launches_by_mode.items()}
     by_mode = {k: v for k, v in by_mode.items() if v}
     # a stereo match per frame; a windowed match per tracked frame and per
-    # fuse pass; one epipolar-masked match per triangulated keyframe pair
-    n_pairs = by_mode.pop("dense+mutual")
+    # fuse pass; one epipolar match per triangulated keyframe pair
+    n_pairs = by_mode.pop("epipolar+mutual")
     assert by_mode == {"stereo+mutual": 10, "window": 9 + sg.n_fuse}
     assert 3 <= n_pairs <= cfg.tracking.tri_pairs * sg.n_ba
     assert match.launches - launches0 == 10 + 9 + sg.n_fuse + n_pairs

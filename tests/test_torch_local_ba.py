@@ -314,6 +314,24 @@ def test_system_refuses_a_window_over_the_kernel_limit(window):
             tsys.System(cfg, torch.device("cuda"))
 
 
+@pytest.mark.parametrize("max_obs", [32, 33])
+def test_system_refuses_more_observations_than_the_kernel_takes(max_obs):
+    """A landmark's observations (``tracking.max_obs``) are the window BA's
+    K, and ``local_ba_lm`` takes at most 32: on the card ``System`` refuses
+    more at construction; 32 builds; on the CPU it takes any."""
+    import dataclasses
+    from tc2li_slam_torch.slam import config as tcfg, system as tsys
+    from torch_parity import small_config
+    cfg = small_config(tcfg)
+    cfg = dataclasses.replace(cfg, tracking=dataclasses.replace(cfg.tracking, max_obs=max_obs))
+    assert tsys.System(cfg, "cpu").map.lm_obs_kf.shape[1] == max_obs
+    if max_obs > klba.MAX_OBS:
+        with pytest.raises(ValueError, match="at most 32 observations"):
+            tsys.System(cfg, torch.device("cuda"))
+    else:
+        tsys.check_kernel_limits(cfg)
+
+
 @pytest.mark.parametrize("balm_window,window,lidar", [(16, 20, True), (17, 16, True),
                                                       (17, 17, True), (30, 20, True),
                                                       (30, 20, False)])

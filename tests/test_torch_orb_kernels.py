@@ -243,15 +243,60 @@ def _system_config(**orb):
 def test_system_refuses_more_levels_than_the_kernels_take(n_levels):
     """A stereo pair's pyramids are one stack of 2 x n_levels planes, and the
     ORB kernels take at most 32: on the card ``System`` refuses more levels at
-    construction; on the CPU it takes any."""
+    construction; on the CPU it takes any. (At scale 1.1, where 16 levels of
+    the 640 x 240 camera fit the pyramid kernel's level table: at 1.2 a tile
+    of level 9 reads more image columns than it holds, refused by
+    ``test_system_refuses_a_pyramid_over_the_level_kernel_limits``'s check.)"""
     from tc2li_slam_torch.slam import system as tsys
-    cfg = _system_config(n_levels=n_levels)
+    cfg = _system_config(n_levels=n_levels, scale_factor=1.1)
     assert tsys.System(cfg, "cpu").cfg.orb.n_levels == n_levels
     if 2 * n_levels > korb.MAX_PLANES:
         with pytest.raises(ValueError, match="at most 32 planes"):
             tsys.System(cfg, torch.device("cuda"))
     else:
         tsys.check_kernel_limits(cfg)
+
+
+@pytest.mark.parametrize("n_levels,scale,refused", [
+    (9, 1.2, False), (10, 1.2, True), (6, 1.3, False), (7, 1.3, True),
+    (5, 1.4, False), (6, 1.4, True), (3, 2.0, False), (4, 2.0, True), (8, 2.0, True)])
+def test_system_refuses_a_pyramid_over_the_level_kernel_limits(n_levels, scale, refused):
+    """``orb_level_planes`` reads at most ``MAX_SPAN`` image columns a tile
+    and ``MAX_TAPS`` taps an output: at a 1241 x 376 camera 10 levels at
+    scale 1.2, 7 at 1.3, 6 at 1.4 and 4 at 2.0 exceed them, and on the card
+    ``System`` refuses each at construction from the same level table; the
+    largest count below each builds; the CPU takes all."""
+    import dataclasses
+    from tc2li_slam_torch.slam import system as tsys
+    cfg = _system_config(n_levels=n_levels, scale_factor=scale)
+    cfg = dataclasses.replace(cfg, camera=dataclasses.replace(cfg.camera, width=1241, height=376))
+    assert tsys.System(cfg, "cpu").cfg.orb.n_levels == n_levels
+    if refused:
+        with pytest.raises(ValueError, match="the kernel takes at most"):
+            tsys.System(cfg, torch.device("cuda"))
+        with pytest.raises(ValueError):
+            korb.level_table(2, 376, 1241, n_levels, scale)
+    else:
+        tsys.check_kernel_limits(cfg)
+        assert len(korb.level_table(2, 376, 1241, n_levels, scale).shapes) == 2 * n_levels
+
+
+@pytest.mark.parametrize("n_features", [5120, 5121, 13440, 13441])
+def test_system_takes_more_keypoints_than_a_match_launch(n_features):
+    """A stereo pair's keypoints are padded to ``n_features``, side 2 of the
+    stereo match (5,120 columns a launch) and of the tracking match (13,440):
+    beyond either the matcher runs in column chunks, so ``System`` on the
+    card takes the count (the check passes) and the chunks are the ones the
+    CPU tests hold exact (``test_torch_epipolar_emulation.py``)."""
+    from tc2li_slam_torch.ops.kernels import match
+    from tc2li_slam_torch.slam import system as tsys
+    cfg = _system_config(n_features=n_features)
+    tsys.check_kernel_limits(cfg)
+    padded = sum(torb.features_per_level(n_features, cfg.orb.n_levels, cfg.orb.scale_factor))
+    assert padded == n_features
+    assert len(match.chunk_bounds(padded, match.StereoMask)) == -(-padded // 5120)
+    assert len(match.chunk_bounds(padded, match.WindowMask)) == -(-padded // 13440)
+    assert len(match.chunk_bounds(padded, match.EpipolarMask)) == 1
 
 
 @pytest.mark.parametrize("extra", [0, 1])

@@ -82,17 +82,19 @@ def test_stereo_frame_cases(cuda, case):
 
 
 def test_stereo_limits_and_unaligned_inputs(cuda):
-    """The column limit (``tc2li_match_max_columns(1)``), a view whose
-    positions and descriptors are not 16-byte aligned, N 1."""
+    """The column limit (``tc2li_match_max_columns(1)``; one column more
+    runs as two column chunks), a view whose positions and descriptors are
+    not 16-byte aligned, N 1."""
     lib = build.library()
     assert lib.tc2li_match_max_columns(1) == chip_smoke.STEREO_MAX_COLUMNS
     c = chip_smoke.stereo_bins_case(np.random.default_rng(3), "full width")
     d1, d2, v1, v2, mask = chip_smoke.stereo_bins_args(torch, match, c, cuda)
-    wide = torch.cat([d2, d2[:1]])
-    with pytest.raises(ValueError):
-        match.match_best2(d1, wide, v1, torch.cat([v2, v2[:1]]), mask._replace(
-            uv2=torch.cat([mask.uv2, mask.uv2[:1]]), lvl2=torch.cat([mask.lvl2, mask.lvl2[:1]]),
-            band=torch.cat([mask.band, mask.band[:1]])), True)
+    wide = (d1, torch.cat([d2, d2[:1]]), v1, torch.cat([v2, v2[:1]]), mask._replace(
+        uv2=torch.cat([mask.uv2, mask.uv2[:1]]), lvl2=torch.cat([mask.lvl2, mask.lvl2[:1]]),
+        band=torch.cat([mask.band, mask.band[:1]])))
+    before = match.launches
+    _same(match.match_best2(*wide, True), match.match_best2_plain(*wide, True))
+    assert match.launches - before == 2
     # views 4 bytes into a buffer: positions and descriptors off their 8- and
     # 16-byte boundaries (the wrapper copies them)
     odd = lambda x: torch.cat([x.reshape(-1)[:1], x.reshape(-1)])[1:].view(x.shape)

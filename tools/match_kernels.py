@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Where ``match_best2`` (``csrc/match.cu``) spends its time on its window
-and stereo call shapes, on one CUDA card, for one or several checkouts in
-turns.
+"""Where ``match_best2`` (``csrc/match.cu``) spends its time on its window,
+stereo and epipolar call shapes, on one CUDA card, for one or several
+checkouts in turns.
 
     python3 tools/match_kernels.py [--cases PATH] [--tree DIR ...] [--out DIR] [--times-only]
 
-The cases are ``chip_smoke.py``'s own window and stereo matches, which it
-writes to ``build/match_cases.pt`` (``chip_smoke.save_match_cases``): the
-last frame's stereo pair, the landmark pool projected into a keyframe, a
-full pool of 32,768 valid landmarks, and the edge rows (1,003 x 517, with
-and without the mutual test). Copy the file into ``proof/`` to reuse it in
-a later chip call without running ``chip_smoke.py`` first.
+The cases are ``chip_smoke.py``'s own window, stereo and epipolar matches,
+which it writes to ``build/match_cases.pt`` (``chip_smoke.save_match_cases``):
+the last frame's stereo pair, the landmark pool projected into a keyframe,
+a full pool of 32,768 valid landmarks, the edge rows (1,003 x 517, with
+and without the mutual test), and 4a's keyframe pair under its epipolar
+gate. Copy the file into ``proof/`` to reuse it in a later chip call
+without running ``chip_smoke.py`` first. An epipolar case runs as the
+tree's own route: an ``EpipolarMask`` where the tree has one, else the
+dense mask the plain chain builds (``chip_smoke.load_match_cases``); a
+case saved with its keypoints ``uv1`` and fundamental matrix ``F12`` is
+also timed as the whole call from the pair's geometry, the gate's inputs
+included (``chip_smoke.epipolar_whole_call``), with its device events.
 
 For each tree (default: this checkout; ``--tree A --tree B --tree B --tree
 A`` compares two in turns on one card) a child process imports that tree's
@@ -48,16 +54,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 # the lap slots of csrc/match.cu: the staged kernel (the dense mode, side 2
-# in shared memory, and the stereo mode before its row bins; 0-1), the
-# window mode's column grid (3, 5, 6) and the stereo mode's row bins: block
-# 0's build (7-10), the barrier after it (11), the walk of warp 0's row (12)
+# in shared memory; 0-1), the window mode's column grid (3, 5, 6), the
+# stereo mode's row bins: block 0's build (7-10), the barrier after it (11),
+# the walk of warp 0's row (12), and the epipolar mode's staging of the
+# valid columns (13) and warp 0's walk of its row (14)
 LAPS = {0: "stage side 2", 1: "rows of warp 0 (every column)",
         3: "columns and descriptors to shared memory, cells cleared",
         5: "columns to their cells' lists", 6: "rows of warp 0 (their cells)",
         7: "bins: columns loaded, classed, extent and band",
         8: "bins: columns counted into their bins", 9: "bins: scan, head",
         10: "bins: scatter to the CSR layout", 11: "barrier after the build",
-        12: "walk of warp 0's row"}
+        12: "walk of warp 0's row",
+        13: "epipolar: the valid columns staged", 14: "epipolar: warp 0's row walked"}
 N_SLOTS = 64   # laps.cuh kLapSlots
 
 
@@ -98,7 +106,7 @@ def measure(tree: Path, cases_path: Path, times_only: bool = False) -> dict:
     lapped = None
     if not times_only:
         for which, name in enumerate(("window", "window mutual", "stereo mutual",
-                                      "dense mutual")):
+                                      "dense mutual", "epipolar mutual")):
             a = (ctypes.c_int * 4)()
             if lib.tc2li_match_func_attrs(which, a) == 0:
                 res["attributes"][name] = dict(registers=a[0], local_bytes=a[1],
@@ -120,22 +128,34 @@ def measure(tree: Path, cases_path: Path, times_only: bool = False) -> dict:
             v: {"cycles": buf[k], "laps": buf[N_SLOTS + k], "share": buf[k] / max(tot, 1)}
             for k, v in LAPS.items() if buf[N_SLOTS + k]}}
 
+    whole = cs.epipolar_whole_call(torch, cases_path, dev)
     for name, (d1, d2, v1, v2, mask, mutual) in cs.load_match_cases(
             torch, match, cases_path, dev).items():
         call = lambda: match.match_best2(d1, d2, v1, v2, mask, mutual)
+        dense = isinstance(mask, torch.Tensor)
         n0 = match.launches
         got = call()
         n_launch = match.launches - n0
         ref = match.match_best2_plain(d1, d2, v1, v2, mask, mutual)
         torch.cuda.synchronize()
-        full = v1[:, None] & v2[None, :] & mask.dense()
-        row = {"N": d1.shape[0], "M": d2.shape[0], "mask": type(mask).__name__,
-               "mutual": mutual, "valid rows": int(v1.sum()), "admitted pairs": int(full.sum()),
+        full = v1[:, None] & v2[None, :] & (mask if dense else mask.dense())
+        row = {"N": d1.shape[0], "M": d2.shape[0],
+               "mask": "dense" if dense else type(mask).__name__, "mutual": mutual,
+               "valid rows": int(v1.sum()), "valid columns": int(v2.sum()),
+               "admitted pairs": int(full.sum()),
                "bit-equal to plain": cs.same(torch, got, ref), "launches a call": n_launch,
                "ms a call": cs.cuda_ms(torch, call, 50, True),
                "ms by kernel": {k: v["ms_a_launch"] for k, v in
                                 cs.kernel_split(torch, call, 20).items()}}
         del full
+        if name in whole:   # the call from the pair's geometry: the gate's inputs too
+            row["whole call"] = {
+                "ms": cs.cuda_ms(torch, whole[name], 50, True),
+                "ms by kernel": {k: v["ms_a_launch"] for k, v in
+                                 cs.kernel_split(torch, whole[name], 20).items()},
+                "device events": sum(round(v["launches_a_call"]) for v in
+                                     cs.kernel_split(torch, whole[name], 5).values()),
+                "bit-equal to the mask's call": cs.same(torch, whole[name](), got)}
         if lapped is not None:
             row["phases"] = laps(call)
         res["cases"][name] = row

@@ -2,7 +2,7 @@
 """Device time of the ORB kernels of ``csrc/orb.cu`` on one card, for one
 or several checkouts in turns.
 
-    python3 tools/orb_kernels.py [--tree DIR ...] [--out DIR]
+    python3 tools/orb_kernels.py [--tree DIR ...] [--out DIR] [--stereo-only]
 
 Renders frame 0 of ``chip_smoke.py``'s KITTI-shaped sequence (a 1241x376
 stereo pair of the synthetic world) once, then for each tree (default: this
@@ -22,8 +22,11 @@ KITTI pair (``chip_smoke.kernel_split``), ``orb_level_planes`` on the first
 backlog and by kernel name, its bound) and, where the tree's ``fast.cu``
 has clock laps, by phase on the KITTI pair (``nms_phases``: thread 0 of
 block 0 through the lapped build), and the stereo half of a frame build
-(``ops/kernels/stereo.stereo_refine``: prep, the match, refine, gate) is timed
-on the KITTI pair's keypoints, device ms a call and by kernel name.
+(``ops/kernels/stereo.stereo_refine``: prep, the match, refine with the
+gate; refine and gate apart in an older tree) is timed on the KITTI pair's
+keypoints, device ms a call (three readings) and by kernel name, with the
+refine launch's phases where the tree's ``stereo.cu`` has clock laps
+(``stereo_phases``). ``--stereo-only`` times the stereo half alone.
 Prints one JSON object a tree,
 with the card's name and power limit, and writes them to ``--out``."""
 
@@ -66,6 +69,32 @@ def nms_phases(torch, imgs) -> dict | None:
     return {name: buf[k] for k, name in NMS_LAPS.items() if buf[N_SLOTS + k]}
 
 
+# the lap slots of csrc/stereo.cu's refine_kernel (laps.cuh)
+STEREO_LAPS = {0: "wait, inputs, left patch staged", 1: "matcher's tail, right strip staged",
+               2: "SADs", 3: "arg-min, parabola, outputs", 4: "published, counted in",
+               5: "the last block's median gate"}
+
+
+def stereo_phases(torch, half) -> dict | None:
+    """Cycles of thread 0 of block 0 by phase of the stereo half's refine
+    launch (``half()`` a call of ``stereo_refine``), through the lapped
+    library; None for a tree whose ``stereo.cu`` has no laps."""
+    import ctypes
+    from tc2li_slam_torch.ops.kernels import build
+    lapped = build.variant("-DTC2LI_LAPS")
+    if not hasattr(lapped, "tc2li_laps_read_stereo"):
+        return None
+    buf = (ctypes.c_longlong * (2 * N_SLOTS))()
+    with build.routed_to(lapped):
+        half()
+        torch.cuda.synchronize()
+        lapped.tc2li_laps_reset_stereo()
+        half()
+        torch.cuda.synchronize()
+        lapped.tc2li_laps_read_stereo(buf)
+    return {name: buf[k] for k, name in STEREO_LAPS.items() if buf[N_SLOTS + k]}
+
+
 def render_pair(path: Path) -> None:
     """Frame 0's stereo pair of chip_smoke.py's sequence, uint8 [2, H, W]."""
     import numpy as np
@@ -78,7 +107,7 @@ def render_pair(path: Path) -> None:
     np.save(path, np.stack([np.clip(l, 0, 255), np.clip(r, 0, 255)]).astype(np.uint8))
 
 
-def measure(tree: Path, pair_path: Path) -> dict:
+def measure(tree: Path, pair_path: Path, stereo_only: bool = False) -> dict:
     sys.path.insert(0, str(tree))
     import numpy as np
     import torch
@@ -95,11 +124,35 @@ def measure(tree: Path, pair_path: Path) -> dict:
     pair = [torch.as_tensor(x).to(dev).to(torch.float32) for x in np.load(pair_path)]
     log = []
     out = {"tree": str(Path(tc2li_slam_torch.__file__).resolve().parents[1]),
-           "card": chip_smoke.nvidia_smi_line(),
-           "kitti": chip_smoke.orb_kernel_rows(torch, pair, log=log.append, hd_size=None)}
-    # device ms a call by kernel name (the grid top-k's two launches apart)
+           "card": chip_smoke.nvidia_smi_line()}
+    from tc2li_slam_torch.ops import orb
+    if not stereo_only:
+        orb_rows(torch, chip_smoke, pair, out, log)
+    # the stereo half of a frame build on the pair (prep, the match, refine
+    # and gate): device ms a call behind a backlog and by kernel name
+    from tc2li_slam_torch.io import synthetic as syn
+    from tc2li_slam_torch.ops.kernels import stereo as kst
+    u8 = [x.to(torch.uint8) for x in pair]
+    kl, kr = orb.extract_images(u8, 2000, 8)
+    sf = (1.2 ** torch.arange(8, dtype=torch.float64)).to(torch.float32).to(dev)
+    rig = syn.KITTI_LIKE
+    bf = float(np.float32(rig.fx) * np.float32(rig.baseline))
+    half = lambda: kst.stereo_refine(u8[0], u8[1], kl, kr, sf, bf, rig.baseline)
+    split = chip_smoke.kernel_split(torch, half, 20)
+    out["stereo_half"] = {"ms": [chip_smoke.cuda_ms(torch, half, 50, True) for _ in range(3)],
+                          "split": {k: v["ms_a_launch"] for k, v in split.items()},
+                          "launches": {k: v["launches_a_call"] for k, v in split.items()},
+                          "refine phases": stereo_phases(torch, half)}
+    out["log"] = log
+    return out
+
+
+def orb_rows(torch, chip_smoke, pair, out: dict, log) -> None:
+    """The ORB kernels' rows, splits and sizes into ``out``."""
     from tc2li_slam_torch.ops import orb
     from tc2li_slam_torch.ops.kernels import fast, orb as korb
+    out["kitti"] = chip_smoke.orb_kernel_rows(torch, pair, log=log.append, hd_size=None)
+    # device ms a call by kernel name (the grid top-k's two launches apart)
     imgs = torch.stack(pair)
     st, _, shapes = korb.orb_level_planes(imgs, 8, 1.2)
     scores = fast.detect_planes(st, shapes, korb.PAD)
@@ -127,21 +180,6 @@ def measure(tree: Path, pair_path: Path) -> dict:
             True)
         for B in (1, 2) for nl in (1, 2, 4, 6, 8)}
     out["subpixel_refine_bound_2000"] = chip_smoke.subpixel_bound(2000)
-    # the stereo half of a frame build on the pair (prep, the match, refine,
-    # gate): device ms a call behind a backlog and by kernel name
-    from tc2li_slam_torch.io import synthetic as syn
-    from tc2li_slam_torch.ops.kernels import stereo as kst
-    u8 = [x.to(torch.uint8) for x in pair]
-    kl, kr = orb.extract_images(u8, 2000, 8)
-    sf = (1.2 ** torch.arange(8, dtype=torch.float64)).to(torch.float32).to(dev)
-    rig = syn.KITTI_LIKE
-    bf = float(np.float32(rig.fx) * np.float32(rig.baseline))
-    half = lambda: kst.stereo_refine(u8[0], u8[1], kl, kr, sf, bf, rig.baseline)
-    out["stereo_half"] = {"ms": chip_smoke.cuda_ms(torch, half, 50, True),
-                          "split": {k: v["ms_a_launch"] for k, v in
-                                    chip_smoke.kernel_split(torch, half, 20).items()}}
-    out["log"] = log
-    return out
 
 
 def main() -> int:
@@ -149,18 +187,21 @@ def main() -> int:
     ap.add_argument("--tree", action="append", default=None,
                     help="a checkout whose tc2li_slam_torch to time (repeatable)")
     ap.add_argument("--out", default=str(ROOT / "build" / "orb_kernels"))
+    ap.add_argument("--stereo-only", action="store_true",
+                    help="time the stereo half of a frame build alone")
     ap.add_argument("--child", nargs=2, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(measure(Path(args.child[0]).resolve(), Path(args.child[1]))),
-              flush=True)
+        print(json.dumps(measure(Path(args.child[0]).resolve(), Path(args.child[1]),
+                                 args.stereo_only)), flush=True)
         return 0
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     pair_path = out / "pair.npy"
     render_pair(pair_path)
     for i, tree in enumerate(args.tree or [str(ROOT)]):
-        res = subprocess.run([sys.executable, __file__, "--child", tree, str(pair_path)],
+        res = subprocess.run([sys.executable, __file__, "--child", tree, str(pair_path)]
+                             + (["--stereo-only"] if args.stereo_only else []),
                              capture_output=True, text=True, timeout=1200)
         if res.returncode != 0:
             print(res.stdout[-4000:], res.stderr[-8000:], file=sys.stderr)

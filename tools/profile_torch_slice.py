@@ -277,7 +277,11 @@ def main() -> int:
 
     n_meas = args.frames - args.warm
     frame_ms, frame_syncs, frame_kf = [], [], []
-    pairs0 = match.launches_by_mode.get("dense+mutual", 0)
+    # the triangulation's match: "epipolar+mutual" (the dense mask's
+    # "dense+mutual" in a tree from before its kernel)
+    pairs_of = lambda: sum(match.launches_by_mode.get(k, 0)
+                           for k in ("epipolar+mutual", "dense+mutual"))
+    pairs0 = pairs_of()
     sync_lines = []
 
     with warnings.catch_warnings(record=True) as caught:
@@ -406,7 +410,7 @@ def main() -> int:
         "lvi_ba_passes": getattr(slam, "n_lvi_ba", 0),
         "vocabulary_words": None if voc is None else voc.n_words,
         "keyframes": slam.n_kf_host,
-        "triangulated_pairs": match.launches_by_mode.get("dense+mutual", 0) - pairs0,
+        "triangulated_pairs": pairs_of() - pairs0,
         "triangulated_landmarks": int(slam.n_tri_landmarks),
         "host_ms_per_frame": frame_ms,
         "window_s": t_win,
