@@ -64,8 +64,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against what the run implies: ``imu_preintegrate`` once an
    ``estimation.imu.integrate`` call, ``pose_inertial_lm`` once a frame
    refined (``n_vi_refine_kf + n_vi_refine_frame``), the scan step's
-   ``esekf_predict`` and ``lio_fences`` once, ``lio_rows`` max_iters + 2 and
-   ``esekf_step`` max_iters + 1 times a ``lio_scan_step`` call; ``vi_refine``'s and
+   ``esekf_predict`` and ``lio_fences`` once (the fence table in the predict
+   launch), ``lio_rows`` max_iters + 2 and ``esekf_step`` max_iters + 1
+   times a ``lio_scan_step`` call, 2 max_iters + 4 device launches in all;
+   ``vi_refine``'s and
    ``lio``'s ms a frame; then a forced bad-IMU event (a
    window with non-finite samples): ``lio_scan_step`` returns ``bad`` with
    the filter and the voxel map as they were, and through ``track`` the
@@ -141,8 +143,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (``lio_phase``) on 4e's last scan step, the same at ``work_cap`` 32768,
    with the extrinsic estimated, against an empty map and with a
    non-finite IMU sample: ``esekf_predict`` (also at 10, 20 and 40 live
-   samples and 40 in 1,024 slots, ``predict_window``), the fence table of
-   ``lio_fences`` (equal) and the neighbour sets of ``lio_rows`` against the
+   samples and 40 in 1,024 slots, ``predict_window``), the fence table
+   that the predict launch's ``lio_fences`` blocks write (equal; the
+   prediction bit-equal with and without them, and the launch timed both
+   ways) and the neighbour sets of ``lio_rows`` against the
    plain versions, the rows' normal equations and
    the whole update against the plain version or else no farther from its
    float64 run, every ``esekf_step`` launch against ``esekf.map_step`` /
@@ -1597,21 +1601,22 @@ def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> di
     for ci, (label, args) in enumerate(cases):
         filt0, m, scan, t_pts, sv, gyro, acc, dts, trel, noise, cfg = args
         k = cfg.max_iters
-        # the prediction
+        # the prediction, alone and with the pool's fence table in its launch
         fk, Rk, pk = klio.esekf_predict(filt0, gyro, acc, dts, noise)
+        fk2, Rk2, pk2, fences = klio.predict_with_fences(filt0, gyro, acc, dts, noise, m.keys)
         fp, Rp, pp = klio.predict_plain(filt0, gyro, acc, dts, noise)
         sync()
+        fenced_same = bit_equal(torch, [fk.P, *fk.x, Rk, pk], [fk2.P, *fk2.x, Rk2, pk2])
         d_pred = {"state": max(finite_dmax(a, b) for a, b in zip(fk.x, fp.x)),
                   "P": finite_dmax(fk.P, fp.P, diag_scale(torch, fp.P)),
                   "traj": max(dmax(Rk, Rp), dmax(pk, pp))}
         pts, pv = lio.scan_points(fk, scan, t_pts, sv, trel, Rk, pk, cfg)
         M = pts.shape[0]
         # the rows at the prediction
-        w = klio.LioWork(filt0, fk, m, pts, pv, cfg)
+        w = klio.LioWork(filt0, fk, m, pts, pv, cfg, fences)
         slots = torch.empty((M, 5), dtype=torch.int32, device=dev)
-        w.fences()
         w.rows(0, slots)
-        d_fence = dmax(w.fence_table, klio.fences_plain(m.keys, w.lg))
+        d_fence = dmax(fences, klio.fences_plain(m.keys, w.lg))
         Nk, vk, ck = w.sums()
         r32 = klio.rows_plain(m, pts, pv, fk.x, cfg, with_slots=True)
         r64 = klio.rows_plain(m.replace(points=m.points.double()), pts.double(), pv,
@@ -1656,8 +1661,8 @@ def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> di
         d_fin = dmax(res.filt.P, f_fin.P, diag_scale(torch, P64)) if not bool(res.bad) else \
             (0.0 if torch.equal(res.filt.P, filt0.P) else float("inf"))
         # the whole update against the plain version, twice
-        got = klio.scan_update(filt0, fk, m, pts, pv, cfg)
-        again = klio.scan_update(filt0, fk, m, pts, pv, cfg)
+        got = klio.scan_update(filt0, fk, m, pts, pv, cfg, fences)
+        again = klio.scan_update(filt0, fk, m, pts, pv, cfg, fences)
         ref = klio.scan_update_plain(filt0, fk, m, pts, pv, cfg)
         f64 = lambda f: esekf.Filter(lio_state64(torch, f.x), f.P.double())
         ref64 = klio.scan_update_plain(f64(filt0), f64(fk), m.replace(points=m.points.double()),
@@ -1677,8 +1682,9 @@ def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> di
         whole = dict(n_iters=(int(got.n_iters), int(ref.n_iters)), bad=(bool(got.bad),
                      bool(ref.bad)), n_eff=(int(got.n_effective), int(ref.n_effective)))
         log(f"lio {label} (M {M}, {int(pv.sum())} valid, map {int(m.count)} points, "
-            f"{w.ncols} columns, max_iters {k}): lio_fences against the plain version "
-            f"{d_fence:g} ({w.n_fences} fences, stride 2^{w.lg}); esekf_predict state "
+            f"{w.ncols} columns, max_iters {k}): lio_fences (in the predict launch) against "
+            f"the plain version {d_fence:g} ({w.n_fences} fences, stride 2^{w.lg}), the "
+            f"prediction bit-equal with and without them {fenced_same}; esekf_predict state "
             f"{d_pred['state']:.2e}, P {d_pred['P']:.2e} (scaled), trajectory "
             f"{d_pred['traj']:.2e}; lio_rows neighbour sets equal {nb_frac:.5f}, "
             + ", ".join(f"{key} {val:.2e}" for key, val in d_rows.items())
@@ -1692,7 +1698,7 @@ def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> di
         if d_pred["state"] > LIO_TOL["predict_state"] or d_pred["P"] > LIO_TOL["predict_P"] \
                 or d_pred["traj"] > LIO_TOL["predict_state"]:
             faults.append("esekf_predict")
-        if d_fence != 0.0:
+        if d_fence != 0.0 or not fenced_same:
             faults.append("lio_fences")
         if nb_frac < LIO_TOL["nbr_equal"] or rows_out:
             faults.append(f"lio_rows {rows_out}")
@@ -1747,13 +1753,20 @@ def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> di
             by_window[label_w] = timer(lambda: klio.esekf_predict(filt0, gw, aw, dw, noise), 50)
         log("lio: esekf_predict ms on the device by window (within LIO_TOL of predict_plain): "
             + ", ".join(f"{k} {v:.4f}" for k, v in by_window.items()))
-        ms_f = timer(w.fences, 50)
+        # the fence table has no launch of its own: its row's ms is the
+        # predict launch with its fence blocks, beside it without them, in
+        # turns
+        with_f = lambda: klio.predict_with_fences(filt0, gyro, acc, dts, noise, m.keys)
+        alone = lambda: klio.esekf_predict(filt0, gyro, acc, dts, noise)
+        ms_pf = [timer(fn, 50) for fn in (with_f, alone, alone, with_f)]
+        ms_f, ms_alone = (ms_pf[0] + ms_pf[3]) / 2, (ms_pf[1] + ms_pf[2]) / 2
         ms_fp = timer(lambda: klio.fences_plain(m.keys, w.lg), 20)
         # the keys at the fences read, the table and its count written
         b_f = bound(4 * w.n_fences + 4 * (w.n_fences + 1))
         rows["lio_fences"] = dict(
             source="tc2li_slam_torch/csrc/lio.cu", replaces="tc2li_slam_tpu/ops/voxel_map.py:154",
-            ms=ms_f, plain_ms=ms_fp, bound_ms=b_f[0], bound_by=b_f[1], library_ms=None)
+            ms=ms_f, plain_ms=ms_fp, bound_ms=b_f[0], bound_by=b_f[1], library_ms=None,
+            predict_alone_ms=ms_alone)
         ms_k = timer(lambda: w.rows(1), 30)
         ms_p = timer(lambda: klio.rows_plain(m, pts, pv, fk.x, cfg), 3)
         # the points and the occupied part of the pool read once; the live
@@ -1793,10 +1806,13 @@ def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> di
             source="tc2li_slam_torch/csrc/lio.cu",
             replaces="tc2li_slam_tpu/estimation/esekf.py:266", ms=ms_k, plain_ms=ms_p,
             bound_ms=b_s[0], bound_by=b_s[1], library_ms=None, **ms_kinds)
-        ms_u = timer(lambda: klio.scan_update(filt0, fk, m, pts, pv, cfg), 20)
+        ms_u = timer(lambda: klio.scan_update(filt0, fk, m, pts, pv, cfg, fences), 20)
         ms_up = timer(lambda: klio.scan_update_plain(filt0, fk, m, pts, pv, cfg), 3)
-        log(f"lio {label}: lio_fences {ms_f:.4f} ms on the device, bound {b_f[0]:.6f} "
-            f"({b_f[1]}), plain {ms_fp:.4f}; esekf_predict {rows['esekf_predict']['ms']:.4f} ms on the device "
+        log(f"lio {label}: the predict launch with the lio_fences blocks {ms_f:.4f} ms on the "
+            f"device, without them {ms_alone:.4f} (readings "
+            + " / ".join(f"{v:.4f}" for v in ms_pf)
+            + f"), the table's bound {b_f[0]:.6f} ({b_f[1]}), plain {ms_fp:.4f}; "
+            f"esekf_predict {rows['esekf_predict']['ms']:.4f} ms on the device "
             f"(N {N_s}, {n_live} live), bound {b_p[0]:.6f} ({b_p[1]}), plain "
             f"{rows['esekf_predict']['plain_ms']:.4f}; lio_rows {rows['lio_rows']['ms']:.4f} "
             f"(M {M}, {w.blocks} blocks), bound {b_r[0]:.6f} ({b_r[1]}), plain "
@@ -1804,7 +1820,7 @@ def lio_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None) -> di
             f"a scan step's {k + 1}; first / middle / final "
             + " / ".join(f"{v:.4f}" for v in ms_kinds.values())
             + f"), bound {b_s[0]:.6f} ({b_s[1]}, float64), plain step "
-            f"{ms_p:.4f}; the update's {2 * k + 4} launches {ms_u:.4f}, its plain version "
+            f"{ms_p:.4f}; the update's {2 * k + 3} launches {ms_u:.4f}, its plain version "
             f"{ms_up:.4f}")
     for name in rows:
         rows[name]["max_abs_err"] = err[name]
@@ -3787,15 +3803,21 @@ def main() -> int:
     n_scans = counts_e["calls:lio_scan_step"]
     want_lio = {name: n * n_scans
                 for name, n in klio.launches_per_scan(cfg3.lidar.max_iters).items()}
+    # the fence table rides in the predict launch: no launch of its own
+    n_device = sum(counts_e[name] for name in ("esekf_predict", "lio_rows", "esekf_step"))
+    want_device = klio.device_launches_per_scan(cfg3.lidar.max_iters) * n_scans
     print(f"{tag} IMU mode: {n_scans} scan steps (max_iters {cfg3.lidar.max_iters}): "
           + ", ".join(f"{name} launched {counts_e[name]} times (implied {n})"
                       for name, n in want_lio.items())
-          + f"; lio {1e3 * stats3['lio']['total_s'] / n_steady3:.3f} ms a frame (frames "
-          f"{N_IMU_WARM}..{N_IMU - 1})", flush=True)
-    if n_scans < N_IMU - 1 or any(counts_e[name] != n for name, n in want_lio.items()):
+          + f" (lio_fences in the predict launch); {n_device} device launches (implied "
+          f"{want_device}); lio {1e3 * stats3['lio']['total_s'] / n_steady3:.3f} ms a frame "
+          f"(frames {N_IMU_WARM}..{N_IMU - 1})", flush=True)
+    if n_scans < N_IMU - 1 or any(counts_e[name] != n for name, n in want_lio.items()) \
+            or n_device != want_device:
         return fail(f"IMU mode: the scan step's kernels launched "
                     f"{[counts_e[name] for name in want_lio]} times for {n_scans} scan steps, "
-                    f"implied {list(want_lio.values())}")
+                    f"implied {list(want_lio.values())}; device launches {n_device}, implied "
+                    f"{want_device}")
     launches["imu_preintegrate"] = counts_e["imu_preintegrate"]
     launches["pose_inertial_lm"] = counts_e["pose_inertial_lm"]
     launches.update({name: counts_e[name] for name in want_lio})
@@ -4580,7 +4602,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                         "launches_imu_mode": imu_launches.get(name, 0),
-                        **{k: r[k] for k in ("first_ms", "middle_ms", "final_ms") if k in r}})
+                        **{k: r[k] for k in ("first_ms", "middle_ms", "final_ms",
+                                             "predict_alone_ms") if k in r}})
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

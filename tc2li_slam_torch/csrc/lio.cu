@@ -4,30 +4,35 @@
 // Replaces, in tc2li_slam_tpu, what the TPU runs inside the one jit of
 // slam/lio.py:99 (lio_scan_step):
 // - predict_kernel: estimation/esekf.py:192 (predict, its lax.scan :257);
-// - fence_kernel and rows_kernel: slam/lio.py:46 (make_h_fn, the measurement
-//   of an iterate) with ops/voxel_map.py:154 (knn, radius 2; its
-//   searchsorted) and ops/plane_fit.py:90 (fit_planes), and the
-//   normal-equation products of update_iterated;
+// - the predict launch's fence blocks and rows_kernel: slam/lio.py:46
+//   (make_h_fn, the measurement of an iterate) with ops/voxel_map.py:154
+//   (knn, radius 2; its searchsorted) and ops/plane_fit.py:90
+//   (fit_planes), and the normal-equation products of update_iterated;
 // - step_kernel: estimation/esekf.py:266 (update_iterated, its lax.scan
 //   :308) after the products, and the divergence guard of lio_scan_step.
 // Eager PyTorch ran a scan step as ~5,000 small ops, each a launch.
 //
 // What they compute is the plain versions' (ops/kernels/lio.py:
 // predict_plain, fences_plain, make_h_fn, scan_update_plain); a scan step
-// at max_iters k is 1 + 1 + (k + 2) + (k + 1) launches:
-//   predict; fences; rows(x_0), step, ..., rows(x_{k-1}), step; rows(x_k),
-//   final; rows(guarded x, last)
+// at max_iters k is 1 + (k + 2) + (k + 1) launches:
+//   predict with the fence table; rows(x_0), step, ..., rows(x_{k-1}),
+//   step; rows(x_k), final; rows(guarded x, last)
 // with the filter state packed as 36 float32 (pos, R, R_LI, t_LI, vel, bg,
-// ba, grav) followed by P [23, 23]. The fence, rows and step launches are
-// programmatic dependents of the launch before them: their blocks start
-// while it ends. The rule they keep: each kernel runs griddepcontrol.wait
-// before it reads anything and before it triggers its dependents. The wait
-// orders a kernel after its immediate primary only; that primary completes
-// only after its own wait, so waits chain the order back to every older
-// launch. A read before the wait, or a trigger before it, lets a launch read
-// the fence table or the iterate before an older launch has written them
-// (on the card: a garbage fence count, and shared memory indexed out of
-// bounds, in a chain of bad-IMU scan steps).
+// ba, grav) followed by P [23, 23]. The predict launch is an ordinary one:
+// it starts after everything before it on the stream (the last scan step's
+// map insert and recentring included), and the pool's keys do not change
+// until the step's own insert, after its last rows launch. The rows and
+// step launches are programmatic dependents of the launch before them:
+// their blocks start while it ends. The rule they keep: each kernel runs
+// griddepcontrol.wait before it reads anything and before it triggers its
+// dependents. The wait orders a kernel after its immediate primary only;
+// that primary completes only after its own wait, so waits chain the order
+// back to every older launch (the first rows launch's primary is the last
+// of the eager ops after the predict launch, which complete after it). A
+// read before the wait, or a trigger before it, lets a launch read the
+// fence table or the iterate before an older launch has written them (on
+// the card: a garbage fence count, and shared memory indexed out of bounds,
+// in a chain of bad-IMU scan steps).
 //
 // predict_kernel, two warps, the window in rounds of 32 slots, a sample
 // with dt <= 0 skipped (an exact no-op at any launch size). Warp 1: (a) a
@@ -47,9 +52,13 @@
 // P_new, G's row c outside them and F's rows applied to G's row c inside.
 // One block barrier a round. float32, as both packages are.
 //
-// fence_kernel, once a scan step (the pool does not change inside it): every
-// 32nd pool key (more apart above 2^19 slots: the table stays within 64 KB)
-// and the number of fences below the first kEmpty one.
+// The fence table, once a scan step (the pool does not change inside it):
+// every 32nd pool key (more apart above 2^19 slots: the table stays within
+// 64 KB) and the number of fences below the first kEmpty one, written by
+// the predict launch's blocks after its first, 4 fences a thread with their
+// loads side by side (64 blocks at 2^19 slots). A launch of its own cost
+// ~1.5 us for a 39 ns bound: the floor of a launch. Beside the predict
+// block (one SM, ~6 us) the fence blocks run on other SMs.
 //
 // rows_kernel: 256 blocks of 8 warps at most, a function of M alone; block
 // b takes batches b, b + G, ... of 32 queries, so every sum's order is
@@ -467,6 +476,41 @@ __device__ __forceinline__ float block_noise(const float* wi, float q, const flo
   return (wi[0] * q) * wj[0] + (wi[1] * q) * wj[1] + (wi[2] * q) * wj[2];
 }
 
+// The fence table of the pool keys, written by the predict launch's blocks
+// after its first: F[j] = keys[j << lg] for j < nf = ceil(cap / 2^lg), and
+// at F[nf] the number of fences below the first kEmpty one (exactly one
+// thread writes it: the keys ascend). keys null: no table, no such blocks.
+struct FenceArgs {
+  const int* keys;   // [cap] ascending, kEmpty pad
+  int cap, lg, nf;
+  int* F;            // [nf + 1]
+};
+constexpr int kPredictThreads = 64;
+constexpr int kFencesThread = 4;   // consecutive fences a thread, their loads side by side
+constexpr int kFencesBlock = kPredictThreads * kFencesThread;
+
+// fence block b (block b + 1 of the launch): fences j0 .. j0 + 3 of a
+// thread, and the first fence of the next thread's run for the count
+__device__ __forceinline__ void fence_blocks(const FenceArgs& fa, int b) {
+  const int j0 = (b * kPredictThreads + static_cast<int>(threadIdx.x)) * kFencesThread;
+  if (j0 >= fa.nf) return;
+  int f[kFencesThread + 1];
+#pragma unroll
+  for (int q = 0; q <= kFencesThread; ++q) {
+    const int j = j0 + q;
+    f[q] = j < fa.nf ? __ldg(fa.keys + (static_cast<size_t>(j) << fa.lg)) : kEmpty;
+  }
+#pragma unroll
+  for (int q = 0; q < kFencesThread; ++q) {
+    const int j = j0 + q;
+    if (j < fa.nf) {
+      fa.F[j] = f[q];
+      if (f[q] != kEmpty && f[q + 1] == kEmpty) fa.F[fa.nf] = j + 1;
+    }
+  }
+  if (j0 == 0 && f[0] == kEmpty) fa.F[fa.nf] = 0;
+}
+
 // Two warps. Warp 1, the chain: a round's per-sample terms a lane a
 // sample, then on lanes 0-8 the chain over the round's live samples, each
 // published to warp 0 by a counter in shared memory, then every slot's pose.
@@ -474,10 +518,16 @@ __device__ __forceinline__ float block_noise(const float* wi, float q, const flo
 // as soon as the chain has published it. A barrier a round hands the
 // round's terms over; the rounds' shared memory alternates between two
 // buffers, so warp 1 fills the next round's while warp 0 reads this one's.
-__global__ void __launch_bounds__(64)
+// Blocks 1 .. of the launch write the fence table (fence_blocks) beside it.
+__global__ void __launch_bounds__(kPredictThreads)
 predict_kernel(const float* __restrict__ xin, const float* __restrict__ gyro,
                const float* __restrict__ acc, const float* __restrict__ dts, int N, Noise q,
-               float* __restrict__ xout, float* __restrict__ R_traj, float* __restrict__ p_traj) {
+               float* __restrict__ xout, float* __restrict__ R_traj, float* __restrict__ p_traj,
+               const FenceArgs fa) {
+  if (blockIdx.x > 0) {
+    fence_blocks(fa, blockIdx.x - 1);
+    return;
+  }
   __shared__ PredictRound rds[2];
   __shared__ __align__(16) float ga[2][kRowsA][32];   // G = F P's rows A, a column a lane (two buffers)
   __shared__ float s[kState];
@@ -952,22 +1002,6 @@ struct MapIn {
   int cap;
   float vs;
 };
-
-// the fence table of the pool keys: F[j] = keys[j << lg] for j < nf =
-// ceil(cap / 2^lg), and at F[nf] the number of fences below the first
-// kEmpty one (exactly one thread writes it: the keys ascend)
-__global__ void __launch_bounds__(256)
-fence_kernel(const int* __restrict__ keys, int cap, int lg, int nf, int* __restrict__ F) {
-  pdl_wait();
-  pdl_trigger();
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= nf) return;
-  const int f = __ldg(keys + (static_cast<size_t>(j) << lg));
-  F[j] = f;
-  if (f != kEmpty && (j + 1 == nf || __ldg(keys + (static_cast<size_t>(j + 1) << lg)) == kEmpty))
-    F[nf] = j + 1;
-  if (j == 0 && f == kEmpty) F[nf] = 0;
-}
 
 // a batch's queries as the search leaves them for the fit
 struct RowsSmem {
@@ -1648,14 +1682,14 @@ extern "C" int tc2li_lio_fence_log2(int cap) {
 }
 
 // registers, local (spill) bytes, static shared bytes and the largest block
-// of the scan step's kernels: which 0 predict, 1 rows, 2 step, 3 fences
+// of the scan step's kernels: which 0 predict (with the fence blocks), 1
+// rows, 2 step
 extern "C" int tc2li_lio_func_attrs(int which, int* out) {
   cudaFuncAttributes a;
-  const void* fns[4] = {reinterpret_cast<const void*>(predict_kernel),
+  const void* fns[3] = {reinterpret_cast<const void*>(predict_kernel),
                         reinterpret_cast<const void*>(rows_kernel),
-                        reinterpret_cast<const void*>(step_kernel),
-                        reinterpret_cast<const void*>(fence_kernel)};
-  if (which < 0 || which > 3) return static_cast<int>(cudaErrorInvalidValue);
+                        reinterpret_cast<const void*>(step_kernel)};
+  if (which < 0 || which > 2) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = cudaFuncGetAttributes(&a, fns[which]);
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.localSizeBytes);
@@ -1664,24 +1698,25 @@ extern "C" int tc2li_lio_func_attrs(int which, int* out) {
   return static_cast<int>(e);
 }
 
+// The prediction, one block; with keys (not null) the pool's fence table
+// too, fences: int32 [ceil(cap / 2^lg) + 1], by blocks of their own in the
+// same launch.
 extern "C" int tc2li_esekf_predict(const float* xin, const float* gyro, const float* acc,
                                    const float* dts, int N, float qg, float qa, float qbg,
                                    float qba, float* xout, float* R_traj, float* p_traj,
+                                   const int* keys, int cap, int lg, int* fences,
                                    void* stream) {
   if (N < 0) return static_cast<int>(cudaErrorInvalidValue);
+  FenceArgs fa{keys, cap, lg, 0, fences};
+  if (keys != nullptr) {
+    if (cap < 1 || lg != tc2li_lio_fence_log2(cap) || fences == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    fa.nf = static_cast<int>((static_cast<long long>(cap) + (1ll << lg) - 1) >> lg);
+  }
   const Noise q{qg, qa, qbg, qba};
-  predict_kernel<<<1, 64, 0, static_cast<cudaStream_t>(stream)>>>(
-      xin, gyro, acc, dts, N, q, xout, R_traj, p_traj);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// fences: int32 [ceil(cap / 2^lg) + 1]
-extern "C" int tc2li_lio_fences(const int* keys, int cap, int lg, int* fences, void* stream) {
-  if (cap < 1 || lg != tc2li_lio_fence_log2(cap)) return static_cast<int>(cudaErrorInvalidValue);
-  const int nf = static_cast<int>((static_cast<long long>(cap) + (1ll << lg) - 1) >> lg);
-  const cudaError_t e = launch_pdl(fence_kernel, (nf + 255) / 256, 256, 0, stream, keys, cap, lg,
-                                   nf, fences);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  predict_kernel<<<1 + (fa.nf + kFencesBlock - 1) / kFencesBlock, kPredictThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(xin, gyro, acc, dts, N, q, xout, R_traj,
+                                                        p_traj, fa);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -55,15 +55,36 @@
 // between a plane's cells, which many blocks compute, and its selection.
 //
 // orb_describe. Bound: bytes (4,000 keypoints a stereo pair; the distinct
-// pixels the patches and taps read). A warp a keypoint: lane dx sums its
-// patch column of both moments in float64 (every product of two floats is
-// exact there), the columns are added in order, the moments rounded to
-// float32 before atan2f; then each lane takes 8 of the 256 tests (rintf,
-// half to even, as torch.round) and a ballot packs each word.
+// pixels the patches and taps read, ~2.7 us). Two keypoints a warp, side by
+// side, 8 a block: a lane loads its 32 pattern coordinates beside the
+// keypoints' indices, then its two patch columns' 62 pixels at once, and
+// runs the four float64 chains of the moments (column dx over its rows in
+// order, fma(p, u, s): p u is exact, so it rounds where the plain
+// version's add does); lanes 2 k and 2 k + 1 add keypoint k's column sums
+// in column order from shared memory; the moments are rounded to float32
+// before atan2f; then a lane gathers its 16 blurred pixels of each
+// keypoint (8 of the 256 tests, rintf, half to even, as torch.round), all
+// 32 in flight before the first compare, a ballot packs each word and lane
+// 8 k + w stores word w of keypoint k. The parent's form (a warp a
+// keypoint, a pattern load before each of eight tap rounds) took 0.0119 ms
+// on a KITTI pair; this one 0.0096 (NVIDIA H100 80GB HBM3, 700 W,
+// tools/orb_kernels.py --describe-only); block 0's warp spends ~5k cycles
+// on the patch and ~3k on the gathers. Staging each keypoint's 37 x 40 blur
+// window in shared memory by cp.async, so that no tap is read from L2 after
+// the angle, was slower (0.0128-0.0158 ms): it reads the whole window where
+// the gathers read only the sectors the taps touch.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#ifdef TC2LI_LAPS   // clock laps of a phase split (laps.cuh, tools/orb_kernels.py)
+#define TC2LI_LAP_TAG orb
+#include "laps.cuh"
+#else
+#define TC2LI_LAP_START
+#define TC2LI_LAP(k)
+#endif
 
 namespace {
 
@@ -495,7 +516,10 @@ select_top_kernel(const float* __restrict__ scores,
 // ---------------------------------------------------------------------------
 
 constexpr int kHalfPatch = 15;
-constexpr int kDescWarps = 8;
+constexpr int kTapRadius = 19;                  // the pattern's clip radius
+constexpr int kDescKp = 2;                      // keypoints a warp, side by side
+constexpr int kDescWarps = 4;                   // 8 keypoints a block
+constexpr int kSumStride = 33;                  // doubles a row of column sums
 
 struct DescArgs {
   int n;              // keypoints
@@ -504,58 +528,117 @@ struct DescArgs {
   int pad;
   int stride;         // row stride of the stacks
   int plane;          // floats a plane
-  int radius;         // pattern radius
   int umax[kHalfPatch + 1];
 };
 
+// kDescKp keypoints a warp, side by side: kp0 + k for k < kDescKp (past
+// the last keypoint a warp repeats it and stores nothing).
 __global__ void __launch_bounds__(32 * kDescWarps)
 describe_kernel(const float* __restrict__ img_stack, const float* __restrict__ blur_stack,
                 const int* __restrict__ rows, const int* __restrict__ cols,
                 const int* __restrict__ level, const float* __restrict__ pattern,
                 float* __restrict__ angle, int* __restrict__ desc, const DescArgs a) {
-  const int lane = threadIdx.x & 31;
-  const int kp = blockIdx.x * kDescWarps + (threadIdx.x >> 5);
-  if (kp >= a.n) return;
-  const int plane = (kp / a.per_image) * a.n_levels + level[kp];
-  const int r = rows[kp] + a.pad, c = cols[kp] + a.pad;
-  // column sums of the two moments, in float64, rows in order
-  double s10 = 0.0, s01 = 0.0;
-  if (lane <= 2 * kHalfPatch) {
-    const int u = lane - kHalfPatch;
-    const float* base = img_stack + static_cast<size_t>(plane) * a.plane
-                        + static_cast<size_t>(r - kHalfPatch) * a.stride + c + u;
-    for (int dy = 0; dy <= 2 * kHalfPatch; ++dy) {
-      const int v = dy - kHalfPatch;
-      const bool in = abs(u) <= a.umax[abs(v)];
-      const double p = static_cast<double>(base[static_cast<size_t>(dy) * a.stride]);
-      s10 = __dadd_rn(s10, __dmul_rn(p, in ? static_cast<double>(u) : 0.0));
-      s01 = __dadd_rn(s01, __dmul_rn(p, in ? static_cast<double>(v) : 0.0));
-    }
-  }
-  double m10 = 0.0, m01 = 0.0;
-  for (int dx = 0; dx <= 2 * kHalfPatch; ++dx) {
-    m10 = __dadd_rn(m10, __shfl_sync(0xffffffffu, s10, dx));
-    m01 = __dadd_rn(m01, __shfl_sync(0xffffffffu, s01, dx));
-  }
-  const float ang = atan2f(static_cast<float>(m01), static_cast<float>(m10));
-  if (lane == 0) angle[kp] = ang;
-  const float ca = cosf(ang), sb = sinf(ang);
-  const float R = static_cast<float>(a.radius);
-  const float* blur = blur_stack + static_cast<size_t>(plane) * a.plane;
-  for (int w = 0; w < 8; ++w) {
-    const int j = 32 * w + lane;
-    float tap[2];
+  constexpr int KP = kDescKp;
+  __shared__ double sum_rows[kDescWarps][2 * KP][kSumStride];   // the column sums
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int kp0 = (blockIdx.x * kDescWarps + warp) * KP;
+  TC2LI_LAP_START
+  if (kp0 >= a.n) return;
+  // the lane's pattern taps, the same for every keypoint, loaded beside the
+  // indices: test j = 32 w + lane compares tap j with tap j + 256 (x at
+  // [0, 512), y at [512, 1024))
+  float px[8][2], py[8][2];
+#pragma unroll
+  for (int w = 0; w < 8; ++w)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float px = pattern[j + 256 * h], py = pattern[512 + j + 256 * h];
-      const float ro = fminf(fmaxf(rintf(__fadd_rn(__fmul_rn(px, sb), __fmul_rn(py, ca))), -R), R);
-      const float co = fminf(fmaxf(rintf(__fsub_rn(__fmul_rn(px, ca), __fmul_rn(py, sb))), -R), R);
-      tap[h] = rintf(blur[static_cast<size_t>(r + static_cast<int>(ro)) * a.stride
-                          + c + static_cast<int>(co)]);
+      px[w][h] = __ldg(pattern + 32 * w + lane + 256 * h);
+      py[w][h] = __ldg(pattern + 512 + 32 * w + lane + 256 * h);
     }
-    const unsigned word = __ballot_sync(0xffffffffu, tap[0] < tap[1]);
-    if (lane == 0) desc[kp * 8 + w] = static_cast<int>(word);
+  long long base[KP];   // the keypoint's pixel in the stacks (a flat index)
+#pragma unroll
+  for (int k = 0; k < KP; ++k) {
+    const int kp = min(kp0 + k, a.n - 1);
+    const int plane = (kp / a.per_image) * a.n_levels + __ldg(level + kp);
+    base[k] = static_cast<long long>(plane) * a.plane
+              + static_cast<long long>(__ldg(rows + kp) + a.pad) * a.stride + __ldg(cols + kp) + a.pad;
   }
+  TC2LI_LAP(0);
+  // column sums of the two moments in float64, rows in order: lane dx <= 30
+  // takes column u = dx - 15 (lane 31 repeats column 15, never read); the
+  // patches' 31 KP loads a lane all in flight first. p u and p v are exact in
+  // float64 (24 + 4 bits), so the fma rounds once where the plain
+  // version's add does.
+  const int u = min(lane, 2 * kHalfPatch) - kHalfPatch;
+  float p[KP][2 * kHalfPatch + 1];
+#pragma unroll
+  for (int k = 0; k < KP; ++k)
+#pragma unroll
+    for (int dy = 0; dy <= 2 * kHalfPatch; ++dy)
+      p[k][dy] = __ldg(img_stack + base[k] + static_cast<long long>(dy - kHalfPatch) * a.stride + u);
+  double s10[KP], s01[KP];
+#pragma unroll
+  for (int k = 0; k < KP; ++k) s10[k] = s01[k] = 0.0;
+#pragma unroll
+  for (int dy = 0; dy <= 2 * kHalfPatch; ++dy) {
+    const int v = dy - kHalfPatch;
+    const bool in = abs(u) <= a.umax[v < 0 ? -v : v];
+    const double wu = in ? static_cast<double>(u) : 0.0, wv = in ? static_cast<double>(v) : 0.0;
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+      const double q = static_cast<double>(p[k][dy]);
+      s10[k] = __fma_rn(q, wu, s10[k]);
+      s01[k] = __fma_rn(q, wv, s01[k]);
+    }
+  }
+  TC2LI_LAP(1);
+  // the columns added in order: lane 2 k the m10 of keypoint k, lane 2 k + 1
+  // its m01, each from the warp's row of column sums in shared memory
+#pragma unroll
+  for (int k = 0; k < KP; ++k) {
+    sum_rows[warp][2 * k][lane] = s10[k];
+    sum_rows[warp][2 * k + 1][lane] = s01[k];
+  }
+  __syncwarp();
+  const double* srow = sum_rows[warp][min(lane, 2 * KP - 1)];
+  double m = 0.0;
+#pragma unroll
+  for (int dx = 0; dx <= 2 * kHalfPatch; ++dx) m = __dadd_rn(m, srow[dx]);
+  TC2LI_LAP(2);
+  // lane k < KP: keypoint k's angle, its cosine and sine
+  const int kq = min(lane, KP - 1);
+  const double m10 = __shfl_sync(0xffffffffu, m, 2 * kq), m01 = __shfl_sync(0xffffffffu, m, 2 * kq + 1);
+  const float ang = atan2f(static_cast<float>(m01), static_cast<float>(m10));
+  if (lane < KP && kp0 + lane < a.n) angle[kp0 + lane] = ang;
+  const float ca_l = cosf(ang), sb_l = sinf(ang);
+  TC2LI_LAP(3);
+  // the taps: a lane's 16 KP blurred pixels all loaded before any compare
+  const float R = static_cast<float>(kTapRadius);
+  float tap[KP][8][2];
+#pragma unroll
+  for (int k = 0; k < KP; ++k) {
+    const float ca = __shfl_sync(0xffffffffu, ca_l, k), sb = __shfl_sync(0xffffffffu, sb_l, k);
+#pragma unroll
+    for (int w = 0; w < 8; ++w)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float x = px[w][h], y = py[w][h];
+        const int ro = static_cast<int>(fminf(fmaxf(rintf(__fadd_rn(__fmul_rn(x, sb), __fmul_rn(y, ca))), -R), R));
+        const int co = static_cast<int>(fminf(fmaxf(rintf(__fsub_rn(__fmul_rn(x, ca), __fmul_rn(y, sb))), -R), R));
+        tap[k][w][h] = __ldg(blur_stack + base[k] + static_cast<long long>(ro) * a.stride + co);
+      }
+  }
+  // a ballot a word; lane 8 k + w keeps word w of keypoint k and stores it
+  int word = 0;
+#pragma unroll
+  for (int k = 0; k < KP; ++k)
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      const unsigned b = __ballot_sync(0xffffffffu, rintf(tap[k][w][0]) < rintf(tap[k][w][1]));
+      if (lane == 8 * k + w) word = static_cast<int>(b);
+    }
+  if (lane < 8 * KP && kp0 + (lane >> 3) < a.n) desc[static_cast<long long>(kp0) * 8 + lane] = word;
+  TC2LI_LAP(4);
 }
 
 }  // namespace
@@ -658,13 +741,15 @@ extern "C" int tc2li_orb_select_grid(const float* scores, void* keys, void* pix,
 }
 
 // Orientation and rBRIEF of n keypoints (per_image of each image in turn).
-// pattern: float32 [2, 512] (x of the 512 taps, then y); umax: 16 ints.
+// pattern: float32 [2, 512] (x of the 512 taps, then y), clipped to
+// kTapRadius = radius; umax: 16 ints.
 extern "C" int tc2li_orb_describe(const float* img_stack, const float* blur_stack,
                                   const int* rows, const int* cols, const int* level,
                                   const float* pattern, float* angle, int* desc, int n,
                                   int per_image, int n_levels, int pad, int stride,
                                   int plane, int radius, const int* umax, void* stream) {
-  if (n < 1 || per_image < 1 || n_levels < 1 || pad < kHalfPatch || pad < radius) {
+  if (n < 1 || per_image < 1 || n_levels < 1 || pad < kHalfPatch || pad < radius ||
+      radius != kTapRadius) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DescArgs a;
@@ -674,10 +759,10 @@ extern "C" int tc2li_orb_describe(const float* img_stack, const float* blur_stac
   a.pad = pad;
   a.stride = stride;
   a.plane = plane;
-  a.radius = radius;
   for (int i = 0; i <= kHalfPatch; ++i) a.umax[i] = umax[i];
-  const int blocks = (n + kDescWarps - 1) / kDescWarps;
-  describe_kernel<<<blocks, 32 * kDescWarps, 0, static_cast<cudaStream_t>(stream)>>>(
-      img_stack, blur_stack, rows, cols, level, pattern, angle, desc, a);
+  constexpr int per_block = kDescWarps * kDescKp;
+  describe_kernel<<<(n + per_block - 1) / per_block, 32 * kDescWarps, 0,
+                    static_cast<cudaStream_t>(stream)>>>(img_stack, blur_stack, rows, cols, level,
+                                                         pattern, angle, desc, a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -182,12 +182,10 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.tc2li_lio_work_doubles.restype = i
     lib.tc2li_lio_func_attrs.argtypes = [i, vp]
     lib.tc2li_lio_func_attrs.restype = i
-    lib.tc2li_esekf_predict.argtypes = [vp] * 4 + [i] + [f] * 4 + [vp] * 4
+    lib.tc2li_esekf_predict.argtypes = [vp] * 4 + [i] + [f] * 4 + [vp] * 4 + [i, i, vp, vp]
     lib.tc2li_esekf_predict.restype = i
     lib.tc2li_lio_fence_log2.argtypes = [i]
     lib.tc2li_lio_fence_log2.restype = i
-    lib.tc2li_lio_fences.argtypes = [vp, i, i, vp, vp]
-    lib.tc2li_lio_fences.restype = i
     lib.tc2li_lio_rows.argtypes = [vp] * 3 + [i] + [vp] * 3 + [i, vp, i, f, f, i, i] + [vp] * 5
     lib.tc2li_lio_rows.restype = i
     lib.tc2li_esekf_step.argtypes = [vp, i, i, d, d, vp, vp, i, i] + [vp] * 6

@@ -11,8 +11,9 @@ its ``lax.scan`` :308) with the divergence guard. Written as eager PyTorch
 ~5,000 small ops, each a launch, on every frame of the IMU mode.
 
 Bound on the H100: latency (``csrc/lio.cu`` says how). A scan step at
-``max_iters`` k is ``launches_per_scan(k)`` = 1 + 1 + (k + 2) + (k + 1)
-launches on the current stream and no host sync:
+``max_iters`` k is ``device_launches_per_scan(k)`` = 1 + (k + 2) + (k + 1)
+launches on the current stream and no host sync; ``launches_per_scan(k)``
+counts the kernels' runs, the fence table's in the predict launch:
 
 - ``esekf_predict`` (``predict_launches``): two warps, the window in rounds
   of 32 slots: a sample's terms a lane a sample and the chain of R, p and v
@@ -21,7 +22,9 @@ launches on the current stream and no host sync:
   column of P, each sample as soon as the chain has reached it; a sample
   with ``dt <= 0`` is skipped, an exact no-op at any launch size.
 - ``lio_fences`` (``fence_launches``): the pool keys' fence table, every
-  32nd key, once a scan step (``fences_plain``).
+  32nd key, once a scan step (``fences_plain``), written by blocks of their
+  own in the predict launch (``predict_with_fences``): the table has no
+  launch of its own.
 - ``lio_rows`` (``rows_launches``): one evaluation of the measurement at an
   iterate's state in device memory: kNN of radius 2 in the voxel pool (a
   warp 4 points, a lane a voxel column, the key search through the fence
@@ -47,7 +50,9 @@ float32 one does. The same bits on every call.
 
 ``estimation/esekf.predict`` and ``slam/lio.iterated_update`` send CUDA
 tensors to the kernels and CPU tensors to the plain versions; any other
-device raises. There is no other route.
+device raises. There is no other route. On the card ``slam/lio.
+lio_scan_step`` predicts with ``predict_with_fences`` and hands the table
+to the update.
 """
 
 from __future__ import annotations
@@ -63,7 +68,7 @@ from ...tensors import count
 from . import build
 
 predict_launches = 0   # kernel launches by esekf_predict (plain-version calls excluded)
-fence_launches = 0     # ... by lio_fences
+fence_launches = 0     # fence tables written (by the fence blocks of a predict launch)
 rows_launches = 0      # ... by lio_rows
 step_launches = 0      # ... by esekf_step
 STATE_FLOATS = 36      # pos, R, R_LI, t_LI, vel, bg, ba, grav
@@ -74,9 +79,16 @@ _SHAPES = (("pos", (3,)), ("R", (3, 3)), ("R_LI", (3, 3)), ("t_LI", (3,)), ("vel
 
 
 def launches_per_scan(max_iters: int) -> dict:
-    """The kernels' launches a scan step at ``max_iters``."""
+    """The kernels' runs a scan step at ``max_iters``, by their counters:
+    ``lio_fences``' run is the fence blocks of the predict launch."""
     return {"esekf_predict": 1, "lio_fences": 1, "lio_rows": max_iters + 2,
             "esekf_step": max_iters + 1}
+
+
+def device_launches_per_scan(max_iters: int) -> int:
+    """The launches a scan step makes on the device: predict (with the
+    fence table), k + 2 evaluations, k + 1 steps."""
+    return 1 + (max_iters + 2) + (max_iters + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -298,10 +310,8 @@ def state_vector(x: esekf.State) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for t in x])
 
 
-def esekf_predict(f: esekf.Filter, gyro, acc, dts, noise: esekf.NoiseCfg):
-    """Launch ``csrc/lio.cu``'s prediction on the current stream: what
-    ``predict_plain`` computes, in one launch and without a host sync."""
-    global predict_launches
+def _predict(f: esekf.Filter, gyro, acc, dts, noise: esekf.NoiseCfg, keys):
+    global predict_launches, fence_launches
     N = gyro.shape[0]
     dev = gyro.device
     _check("esekf_predict gyro", gyro, (N, 3), torch.float32, dev)
@@ -315,26 +325,54 @@ def esekf_predict(f: esekf.Filter, gyro, acc, dts, noise: esekf.NoiseCfg):
     R_traj = torch.empty((N, 3, 3), dtype=torch.float32, device=dev)
     p_traj = torch.empty((N, 3), dtype=torch.float32, device=dev)
     lib = build.library()
+    fences, fence_args = None, (None, 0, 0, None)
+    if keys is not None:
+        cap = keys.shape[0]
+        _check("lio_fences pool keys", keys, (cap,), torch.int32, dev)
+        keys = keys.contiguous()
+        lg = lib.tc2li_lio_fence_log2(cap)
+        fences = torch.empty(-(-cap // (1 << lg)) + 1, dtype=torch.int32, device=dev)
+        fence_args = (keys.data_ptr(), cap, lg, fences.data_ptr())
     build.check(lib.tc2li_esekf_predict(
         xin.data_ptr(), g.data_ptr(), a.data_ptr(), d.data_ptr(), N, noise.gyr ** 2,
         noise.acc ** 2, noise.bg_rw ** 2, noise.ba_rw ** 2, out.data_ptr(), R_traj.data_ptr(),
-        p_traj.data_ptr(), torch.cuda.current_stream(dev).cuda_stream), "esekf_predict")
+        p_traj.data_ptr(), *fence_args, torch.cuda.current_stream(dev).cuda_stream),
+        "esekf_predict")
     predict_launches += 1
-    return unpack(out), R_traj, p_traj
+    if keys is not None:
+        fence_launches += 1
+    return unpack(out), R_traj, p_traj, fences
+
+
+def esekf_predict(f: esekf.Filter, gyro, acc, dts, noise: esekf.NoiseCfg):
+    """Launch ``csrc/lio.cu``'s prediction on the current stream: what
+    ``predict_plain`` computes, in one launch of one block and without a
+    host sync."""
+    return _predict(f, gyro, acc, dts, noise, None)[:3]
+
+
+def predict_with_fences(f: esekf.Filter, gyro, acc, dts, noise: esekf.NoiseCfg,
+                        keys: torch.Tensor):
+    """``esekf_predict`` whose launch also writes the fence table of the
+    sorted pool keys [cap] (``fences_plain``) by blocks of their own: the
+    scan step's first launch. Returns (filter, R_traj, p_traj, the table
+    int32 [ceil(cap / 2^lg) + 1]) for ``LioWork``."""
+    return _predict(f, gyro, acc, dts, noise, keys)
 
 
 class LioWork:
     """The device buffers of one scan step's update and its launches, in
-    the order ``scan_update`` makes them: ``fences()``, ``rows(0)``,
-    ``step(0)``, ..., ``rows(k - 1)``, ``step(k - 1)``; ``rows(k)``,
-    ``step(k, final=True)``; ``rows_last()``. ``filt0`` is the filter before the scan
-    (the guard's fallback), ``filt`` the prediction; ``points_l`` [M, 3],
-    ``valid`` [M]. The fence, rows and step launches are programmatic
-    dependents of the launch before them on the stream: their blocks start
-    while it ends and read nothing before its writes are done."""
+    the order ``scan_update`` makes them: ``rows(0)``, ``step(0)``, ...,
+    ``rows(k - 1)``, ``step(k - 1)``; ``rows(k)``, ``step(k, final=True)``;
+    ``rows_last()``. ``filt0`` is the filter before the scan (the guard's
+    fallback), ``filt`` the prediction; ``points_l`` [M, 3], ``valid`` [M];
+    ``fences`` the pool keys' fence table that ``predict_with_fences``
+    wrote. The rows and step launches are programmatic dependents of the
+    launch before them on the stream: their blocks start while it ends and
+    read nothing before its writes are done."""
 
     def __init__(self, filt0: esekf.Filter, filt: esekf.Filter, m: voxel_map.VoxelMap,
-                 points_l, valid, cfg):
+                 points_l, valid, cfg, fences: torch.Tensor):
         dev = points_l.device
         M = points_l.shape[0]
         _check("lio_rows points", points_l, (M, 3), torch.float32, dev)
@@ -358,8 +396,8 @@ class LioWork:
         self.n_fences = -(-m.capacity // (1 << self.lg))
         f32, f64 = torch.float32, torch.float64
         # the fence table: every 2^lg-th pool key, then the count below kEmpty
-        self.fence_table = torch.empty(self.n_fences + 1, dtype=torch.int32, device=dev)
-        self.fenced = False
+        _check("lio_rows fence table", fences, (self.n_fences + 1,), torch.int32, dev)
+        self.fence_table = fences
         self.partials = torch.empty(self.entries * self.blocks, dtype=f64, device=dev)   # [E, B]
         self.work = torch.empty(self.lib.tc2li_lio_work_doubles(), dtype=f64, device=dev)
         self.xs = torch.empty((max(cfg.max_iters, 1), STATE_FLOATS), dtype=f32, device=dev)
@@ -373,20 +411,8 @@ class LioWork:
         """The float32 state an evaluation at iterate i reads."""
         return self.xp if i == 0 else self.xs[i - 1]
 
-    def fences(self) -> None:
-        """The pool keys' fence table (the pool does not change inside a
-        scan step)."""
-        global fence_launches
-        build.check(self.lib.tc2li_lio_fences(
-            self.keys.data_ptr(), self.m.capacity, self.lg, self.fence_table.data_ptr(),
-            self.stream), "lio_fences")
-        fence_launches += 1
-        self.fenced = True
-
     def _rows(self, x: torch.Tensor, last: bool, slots) -> None:
         global rows_launches
-        if not self.fenced:
-            raise RuntimeError("lio_rows: the fence table is not built (call fences() first)")
         nbr = 0
         if slots is not None:
             _check("lio_rows slots", slots, (self.M, 5), torch.int32, self.dev)
@@ -443,12 +469,12 @@ class LioWork:
 
 
 def scan_update(filt0: esekf.Filter, filt: esekf.Filter, m: voxel_map.VoxelMap, points_l,
-                valid, cfg) -> ScanUpdate:
+                valid, cfg, fences: torch.Tensor) -> ScanUpdate:
     """Launch ``csrc/lio.cu``'s update on the current stream: what
-    ``scan_update_plain`` computes, in 2 max_iters + 4 launches and without
-    a host sync."""
-    w = LioWork(filt0, filt, m, points_l, valid, cfg)
-    w.fences()
+    ``scan_update_plain`` computes, in 2 max_iters + 3 launches and without
+    a host sync, searching the pool through ``fences`` (the fence table
+    ``predict_with_fences`` wrote for ``m``'s keys)."""
+    w = LioWork(filt0, filt, m, points_l, valid, cfg, fences)
     for i in range(cfg.max_iters):
         w.rows(i)
         w.step(i)

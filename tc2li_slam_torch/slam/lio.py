@@ -42,15 +42,17 @@ class LioConfig(NamedTuple):
 
 
 def iterated_update(filt0: esekf.Filter, filt: esekf.Filter, m: voxel_map.VoxelMap, points_l,
-                    valid, cfg: LioConfig) -> klio.ScanUpdate:
+                    valid, cfg: LioConfig, fences=None) -> klio.ScanUpdate:
     """The scan step's iterated point-to-plane update of the prediction
     ``filt`` against the voxel map, the divergence guard back to ``filt0``
     and the inliers at the result. CUDA tensors go to the kernels
-    (``ops/kernels/lio.py`` ``scan_update``: 2 max_iters + 4 launches), CPU
-    tensors to their plain version; any other device raises."""
+    (``ops/kernels/lio.py`` ``scan_update``: 2 max_iters + 3 launches,
+    through ``fences``, the fence table of ``m``'s keys that the predict
+    launch wrote), CPU tensors to their plain version; any other device
+    raises."""
     args = (filt0, filt, m, points_l, valid, cfg)
     if points_l.device.type == "cuda":
-        return klio.scan_update(*args)
+        return klio.scan_update(*args, fences)
     if points_l.device.type == "cpu":
         return klio.scan_update_plain(*args)
     raise ValueError(f"iterated_update: unsupported device {points_l.device}")
@@ -102,14 +104,21 @@ def lio_scan_step(filt: esekf.Filter, m: voxel_map.VoxelMap, scan_l, t_points, s
     before the scan and suppresses the map insert; ``bad`` is a device
     scalar for the caller to fetch when it next talks to the host."""
     filt0 = filt
-    # 1. propagate through the scan's IMU samples
-    filt, R_traj, p_traj = esekf.predict(filt, gyro, acc, dts, noise)
+    # 1. propagate through the scan's IMU samples; on the card the launch
+    # also writes the fence table of the pool keys that the update searches
+    # (the pool does not change before the insert)
+    fences = None
+    if gyro.device.type == "cuda":
+        filt, R_traj, p_traj, fences = klio.predict_with_fences(filt, gyro, acc, dts, noise,
+                                                                m.keys)
+    else:
+        filt, R_traj, p_traj = esekf.predict(filt, gyro, acc, dts, noise)
     # 2.-3. the scan at its end, downsampled
     pts_ds, ds_valid = scan_points(filt, scan_l, t_points, scan_valid, t_samples, R_traj,
                                    p_traj, cfg)
     # 4. iterated point-to-plane update, 5. divergence guard: back to the
     # filter before the scan on a bad state
-    upd = iterated_update(filt0, filt, m, pts_ds, ds_valid, cfg)
+    upd = iterated_update(filt0, filt, m, pts_ds, ds_valid, cfg, fences)
     # 6. map insert at the converged pose
     if map_insert:
         m = voxel_map.insert(m, upd.points_world, ds_valid & ~upd.bad)

@@ -788,6 +788,29 @@ def test_orb_describe_matches_plain(cuda, shape, n_images):
     assert torch.equal(desc, ref_desc)
 
 
+@pytest.mark.parametrize("shape", [(376, 1241), (64, 64), (101, 203)])
+@pytest.mark.parametrize("n_images", [1, 2])
+def test_orb_describe_odd_keypoint_counts(cuda, shape, n_images):
+    """``orb_describe`` walks two keypoints a warp: with an odd count a
+    warp (one image) holds one keypoint, and with two images a warp holds
+    the last of one image and the first of the next (another plane); bit-
+    equal to the plain version, the same bits twice, one launch a call."""
+    st, bl, shapes, pad, scores = _orb_scores(cuda, shape, n_images)
+    per = orb.features_per_level(2000 if shape[0] > 300 else 500, 8, 1.2)
+    rows, cols, sel, level, _ = orb.select_grid(scores, shapes, per, 1.2)
+    K = rows.shape[1] - (rows.shape[1] % 2 == 0)
+    rows, cols, level = (x[:, :K].contiguous() for x in (rows, cols, level))
+    before = korb.describe_launches
+    got = korb.orb_describe(st, bl, rows, cols, level, 8, pad)
+    again = korb.orb_describe(st, bl, rows, cols, level, 8, pad)
+    ref_ang, ref_desc = korb.describe_plain(st, bl, rows, cols, level, 8, pad)
+    torch.cuda.synchronize()
+    assert K % 2 == 1 and korb.describe_launches - before == 2
+    assert _same_bits(got, again)
+    assert torch.equal(got[0].view(torch.int32), ref_ang.view(torch.int32))
+    assert torch.equal(got[1], ref_desc)
+
+
 def test_system_tracks_a_1280x720_pair_on_cuda(cuda):
     """A 1280x720 stereo camera at the default 2,000 features: level 0 holds
     7,200 grid candidates. Four frames are built and tracked on the card,
@@ -1262,9 +1285,9 @@ def test_lio_rows_cases(cuda, case):
     M = pts.shape[0]
     outs = []
     for _ in range(2):
-        w = klio.LioWork(filt0, fk, m, pts, pv, cfg)
+        fences = klio.predict_with_fences(filt0, gyro, acc, dts, noise, m.keys)[3]
+        w = klio.LioWork(filt0, fk, m, pts, pv, cfg, fences)
         slots = torch.empty((M, 5), dtype=torch.int32, device=cuda)
-        w.fences()
         w.rows(0, slots)
         outs.append((w.partials.clone(), slots, w.fence_table.clone()))
     torch.cuda.synchronize()
@@ -1297,9 +1320,10 @@ def test_lio_rows_cases(cuda, case):
 
 @pytest.mark.parametrize("max_iters", [1, 3, 4])
 def test_lio_scan_step_launches(cuda, max_iters):
-    """A scan step launches esekf_predict and lio_fences once, lio_rows k + 2
-    and esekf_step k + 1 times, counted by the wrappers: one launch more
-    than the predict, evaluations and steps' 1 + (k + 2) + (k + 1)."""
+    """A scan step runs esekf_predict and lio_fences once, lio_rows k + 2
+    and esekf_step k + 1 times, counted by the wrappers; the fence table
+    rides in the predict launch, so the step makes 1 + (k + 2) + (k + 1)
+    launches on the device, the predict, evaluations and steps alone."""
     from tc2li_slam_torch.ops.kernels import lio as klio
     from tc2li_slam_torch.slam import lio
     a = _lio_case(cuda, "full")
@@ -1311,10 +1335,41 @@ def test_lio_scan_step_launches(cuda, max_iters):
     torch.cuda.synchronize()
     n1 = counts()
     want = klio.launches_per_scan(max_iters)
-    assert tuple(b - c for b, c in zip(n1, n0)) == (
-        want["esekf_predict"], want["lio_fences"], want["lio_rows"], want["esekf_step"])
-    assert sum(want.values()) == 1 + (max_iters + 2) + (max_iters + 1) + 1
+    got = tuple(b - c for b, c in zip(n1, n0))
+    assert got == (want["esekf_predict"], want["lio_fences"], want["lio_rows"],
+                   want["esekf_step"])
+    assert got[0] + got[2] + got[3] == klio.device_launches_per_scan(max_iters) \
+        == 1 + (max_iters + 2) + (max_iters + 1)
     assert not bool(res.bad) and 0 < int(res.n_iters) <= max_iters
+
+
+@pytest.mark.parametrize("pool", ["2^19", "2^19 + 1,000", "near-full", "empty", "full"])
+def test_lio_predict_launch_writes_the_fence_table(cuda, pool):
+    """The predict launch's fence blocks write ``fences_plain``'s table of
+    the pool keys (a capacity off the stride, no key, every slot a key);
+    the prediction's state, P, R_traj and p_traj are bit-equal with and
+    without the fence blocks; one predict launch and one fence table a
+    call."""
+    from tc2li_slam_torch.ops.kernels import build, lio as klio
+    cap = {"2^19 + 1,000": (1 << 19) + 1000, "near-full": 11_850}.get(pool, 1 << 19)
+    filt0, m, _, _, _, gyro, acc, dts, _, noise, _ = chip_smoke.lio_problem(torch, cuda, cap=cap)
+    EMPTY = torch.iinfo(torch.int32).max
+    if pool == "empty":
+        m = m.replace(keys=torch.full_like(m.keys, EMPTY), count=torch.zeros_like(m.count))
+    if pool == "full":
+        gen = torch.Generator().manual_seed(5)
+        keys = torch.randint(0, 1 << 30, (cap,), generator=gen, dtype=torch.int32)
+        m = m.replace(keys=torch.sort(keys)[0].to(cuda))
+    n0 = (klio.predict_launches, klio.fence_launches)
+    fa, Ra, pa, table = klio.predict_with_fences(filt0, gyro, acc, dts, noise, m.keys)
+    f1, R1, p1 = klio.esekf_predict(filt0, gyro, acc, dts, noise)
+    torch.cuda.synchronize()
+    assert (klio.predict_launches - n0[0], klio.fence_launches - n0[1]) == (2, 1)
+    want = klio.fences_plain(m.keys, build.library().tc2li_lio_fence_log2(cap))
+    assert torch.equal(table, want)
+    assert int(table[-1]) == {"empty": 0, "full": table.shape[0] - 1}.get(
+        pool, int((want[:-1] != EMPTY).sum()))
+    assert chip_smoke.bit_equal(torch, [fa.P, *fa.x, Ra, pa], [f1.P, *f1.x, R1, p1])
 
 
 def test_lio_predict_padding_is_a_no_op(cuda):
@@ -1395,8 +1450,11 @@ def test_lio_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         klio.esekf_predict(filt, gyro, acc, dts.cpu(), noise)
     pts = torch.zeros((10, 3), device=cuda)
+    fences = klio.predict_with_fences(filt, gyro, acc, dts, noise, m.keys)[3]
     with pytest.raises(ValueError, match="bool"):
-        klio.LioWork(filt, filt, m, pts, torch.ones(10, device=cuda), a[10])
-    w = klio.LioWork(filt, filt, m, pts, torch.ones(10, dtype=torch.bool, device=cuda), a[10])
-    with pytest.raises(RuntimeError, match="fence"):
-        w.rows(0)
+        klio.LioWork(filt, filt, m, pts, torch.ones(10, device=cuda), a[10], fences)
+    with pytest.raises(ValueError, match="fence"):   # a table of another pool's size
+        klio.LioWork(filt, filt, m, pts, torch.ones(10, dtype=torch.bool, device=cuda), a[10],
+                     torch.zeros(3, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="int32"):   # pool keys of another type
+        klio.predict_with_fences(filt, gyro, acc, dts, noise, m.keys.long())

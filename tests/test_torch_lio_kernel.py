@@ -5,8 +5,9 @@ kernels' structure against the JAX ``lio_scan_step``, on the same numpy
 inputs (``test_torch_esekf.lio_fixture``'s planar world).
 
 The emulation repeats what the kernels do in their order: the prediction
-from F's blocks; the fence table of the pool keys (every 32nd key) and the
-search of a fence, then of its bucket, which equals ``searchsorted``; the
+from F's blocks; the fence table of the pool keys (every 32nd key) as the
+predict launch's fence blocks write it, and the search of a fence, then of
+its bucket, which equals ``searchsorted``; the
 candidate order of the 25 voxel columns, the 5 nearest by (d^2, candidate
 index) as 64-bit keys in float32 and the plane fit, gate and row in float64,
 a lane a query; each block's partial sums over its batches of 32 queries in
@@ -410,18 +411,46 @@ def emu_fence_log2(cap):
     return lg
 
 
-def emu_fences(keys):
-    """``fence_kernel``: (F = every 2^lg-th key, u = the fences below the
-    first kEmpty one, lg); u as the kernel's one writing thread finds it."""
+PREDICT_THREADS, FENCES_THREAD = 64, 4   # csrc/lio.cu kPredictThreads, kFencesThread
+
+
+def emu_fence_blocks(keys):
+    """The predict launch's fence blocks (``fence_blocks``): blocks 1 .. of
+    its grid, a thread 4 consecutive fences and the next one's key; the
+    table as they write it [nf + 1] (-1 where nothing wrote), the grid
+    size, and how many threads wrote the count."""
     cap = keys.shape[0]
     lg = emu_fence_log2(cap)
-    F = keys[::1 << lg]
-    nf = F.shape[0]
-    u = 0
-    for jj in range(nf):
-        if F[jj] != EMPTY and (jj + 1 == nf or F[jj + 1] == EMPTY):
-            u = jj + 1
-    return F, u, lg
+    nf = -(-cap // (1 << lg))
+    per_block = PREDICT_THREADS * FENCES_THREAD
+    grid = 1 + -(-nf // per_block)
+    table = np.full(nf + 1, -1, np.int64)
+    writers = 0
+    for b in range(grid - 1):
+        for tid in range(PREDICT_THREADS):
+            j0 = (b * PREDICT_THREADS + tid) * FENCES_THREAD
+            if j0 >= nf:
+                continue
+            f = [keys[(j0 + q) << lg] if j0 + q < nf else EMPTY
+                 for q in range(FENCES_THREAD + 1)]
+            for q in range(FENCES_THREAD):
+                if j0 + q < nf:
+                    table[j0 + q] = f[q]
+                    if f[q] != EMPTY and f[q + 1] == EMPTY:
+                        table[nf] = j0 + q + 1
+                        writers += 1
+            if j0 == 0 and f[0] == EMPTY:
+                table[nf] = 0
+                writers += 1
+    return table, grid, writers
+
+
+def emu_fences(keys):
+    """The fence table as ``rows_kernel`` reads it: (F = every 2^lg-th key,
+    u = the fences below the first kEmpty one, lg), from the predict
+    launch's fence blocks."""
+    table, _, _ = emu_fence_blocks(keys)
+    return table[:-1], int(table[-1]), emu_fence_log2(keys.shape[0])
 
 
 def emu_lower_bound(keys, fences, key):
@@ -854,6 +883,40 @@ def test_fence_search_equals_searchsorted(case):
     F, u, lg = fences
     assert F.shape[0] <= MAX_FENCES and F.shape[0] == -(-keys.shape[0] // (1 << lg))
     assert u == int((F != EMPTY).sum()) and (lg > 5) == (case == "a fence stride above 32")
+
+
+@pytest.mark.parametrize("case", ["2^19 + 1,000 slots", "2^19 slots", "an empty pool",
+                                  "a full pool", "capacity not a multiple of the stride",
+                                  "duplicates across a fence"])
+def test_fence_blocks_of_the_predict_launch(case):
+    """The fence table as the predict launch's blocks after its first write
+    it (a thread 4 fences): every entry written once, equal to
+    ``fences_plain``, the count by exactly one thread; 64 fence blocks at
+    2^19 slots, 33 at 2^19 + 1,000 (a fence every 64 keys)."""
+    rng = np.random.default_rng(4)
+    if case == "2^19 + 1,000 slots":
+        cap, n = (1 << 19) + 1000, 300_000
+    elif case == "2^19 slots":
+        cap, n = 1 << 19, 200_001
+    elif case == "an empty pool":
+        cap, n = 1 << 19, 0
+    elif case == "a full pool":
+        cap, n = (1 << 19) + 1000, (1 << 19) + 1000
+    else:
+        keys, _ = _pool(case, rng)
+        cap, n = keys.shape[0], None
+    if n is not None:
+        keys = np.full(cap, EMPTY, np.int64)
+        keys[:n] = np.sort(rng.integers(0, 1 << 30, n))
+    table, grid, writers = emu_fence_blocks(keys)
+    lg = emu_fence_log2(cap)
+    want = klio.fences_plain(torch.as_tensor(keys.astype(np.int32)), lg).numpy()
+    np.testing.assert_array_equal(table, want)
+    assert writers == 1 and grid == 1 + -(-(want.shape[0] - 1) // 256)
+    if cap >= 1 << 19:
+        assert (grid, lg) == ((34, 6) if cap > 1 << 19 else (65, 5))
+    assert table[-1] == {"an empty pool": 0, "a full pool": want.shape[0] - 1}.get(
+        case, int((want[:-1] != EMPTY).sum()))
 
 
 def _serial_pivot(col, c):

@@ -12,14 +12,21 @@ prediction:
 
 - ``lio_rows`` (``csrc/lio.cu``) at ``work_cap`` 8,192 and 32,768 points,
   with 6 and 12 columns (``estimate_extrinsic``): device ms a launch behind
-  a device backlog (``chip_smoke.cuda_ms``), and where the tree has it the
-  fence table's launch (``LioWork.fences``) apart;
+  a device backlog (``chip_smoke.cuda_ms``), and in an older tree whose
+  fence table has a launch of its own (``LioWork.fences``) that launch
+  apart;
 - ``esekf_predict`` on ``lio_problem``'s filter at 1, 10, 20 and 40 live
   samples and at 40 live samples spread over 1,024 slots, the rest padding
   (``chip_smoke.predict_window``): device ms a call behind a backlog,
   and the slope in us a live sample between 10 and 40; and at 10, 20 and
   40 live samples the spread of ``--calls`` single calls (``call_times``:
   median, p99, largest, and the calls over twice the median);
+- the prediction with the pool's fence table and without, on
+  ``lio_problem``'s own window and pool: ``predict_with_fences`` (one
+  launch: the fence blocks ride in the predict launch) where the tree has
+  it, else ``esekf_predict`` followed by the fence table's own launch
+  (``LioWork.fences``), device ms a call behind a backlog, two readings
+  of each in turns;
 - ``esekf_step``'s first launch (from the prediction; it inverts P0), a
   middle one and the final one (it inverts the posterior information and
   runs the guard), each timed apart behind a backlog (steps back to back),
@@ -32,7 +39,8 @@ prediction:
   (``cudaFuncGetAttributes`` through ``tc2li_lio_func_attrs``), and the
   spill stores ``ptxas`` reported for the build.
 
-``--predict-only`` measures ``esekf_predict`` alone. Prints one JSON object
+``--predict-only`` measures ``esekf_predict`` alone, with and without the
+fence table. Prints one JSON object
 a tree, with the card's name and power limit, and writes them to ``--out``.
 """
 
@@ -73,7 +81,7 @@ LAPS = {"rows": {0: "state load", 1: "search of the 25 columns", 2: "candidate l
                     51: "P: waiting for the chain", 52: "P: F's blocks and G's rows A",
                     53: "P: the new columns", 50: "output"}}
 N_SLOTS = 64   # laps.cuh kLapSlots
-KERNELS = ("predict_kernel", "rows_kernel", "step_kernel", "fence_kernel")
+KERNELS = ("predict_kernel", "rows_kernel", "step_kernel")
 
 
 def ptxas_spills(log: str) -> dict:
@@ -179,17 +187,47 @@ def measure(tree: Path, predict_only: bool = False, calls: int = 200) -> dict:
     p = res["esekf_predict"]
     res["esekf_predict"]["us a live sample, 10 to 40"] = (
         1e3 * (p["40 live"]["ms a call"] - p["10 live"]["ms a call"]) / 30)
+    fk, Rk, pk = klio.esekf_predict(filt0, gyro, acc, dts, noise)
+    # the prediction with the fence table and without; the update's work
+    # (the table handed over, or built by its own launch in an older tree)
+    pred = lambda: klio.esekf_predict(filt0, gyro, acc, dts, noise)
+    if hasattr(klio, "predict_with_fences"):
+        fenced = lambda: klio.predict_with_fences(filt0, gyro, acc, dts, noise, m.keys)
+        form = "one launch: the fence blocks in the predict launch"
+        fences = fenced()[3]
+        new_work = lambda pts, pv, cfg: klio.LioWork(filt0, fk, m, pts, pv, cfg, fences)
+        update = lambda pts, pv, cfg: klio.scan_update(filt0, fk, m, pts, pv, cfg, fences)
+    else:
+        def new_work(pts, pv, cfg):
+            w = klio.LioWork(filt0, fk, m, pts, pv, cfg)
+            w.fences()
+            return w
+        update = lambda pts, pv, cfg: klio.scan_update(filt0, fk, m, pts, pv, cfg)
+        pts0, pv0 = lio.scan_points(fk, scan, t_pts, sv, trel, Rk, pk, cfg0)
+        w0 = new_work(pts0, pv0, cfg0)
+
+        def fenced():
+            pred()
+            w0.fences()
+        form = "two launches: the prediction, then the fence table's own"
+    readings = [(name, ms(fn, 50)) for name, fn in (("alone", pred), ("with", fenced),
+                                                    ("with", fenced), ("alone", pred))]
+    res["predict with fences"] = {
+        "form": form, "slots": dts.shape[0], "live": int((dts > 0).sum()),
+        "pool slots": m.capacity,
+        "alone ms": [v for k, v in readings if k == "alone"],
+        "with the fence table ms": [v for k, v in readings if k == "with"]}
+    print(f"predict with fences: {json.dumps(res['predict with fences'])}", file=sys.stderr,
+          flush=True)
     if predict_only:
         return res
-    fk, Rk, pk = klio.esekf_predict(filt0, gyro, acc, dts, noise)
     for cap in (8192, 32768):
         for ext in (False, True):
             cfg = cfg0._replace(work_cap=cap, estimate_extrinsic=ext)
             pts, pv = lio.scan_points(fk, scan, t_pts, sv, trel, Rk, pk, cfg)
 
             def work():
-                w = klio.LioWork(filt0, fk, m, pts, pv, cfg)
-                w.fences()
+                w = new_work(pts, pv, cfg)
                 w.rows(0)
                 w.step(0)
                 return w
@@ -197,15 +235,15 @@ def measure(tree: Path, predict_only: bool = False, calls: int = 200) -> dict:
             w = work()
             k = cfg.max_iters
             row = {"M": pts.shape[0], "ncols": w.ncols, "blocks": w.blocks,
-                   "ms a launch": ms(lambda: w.rows(1), 50),
-                   "fence ms a launch": ms(w.fences, 50)}
+                   "ms a launch": ms(lambda: w.rows(1), 50)}
+            if hasattr(w, "fences"):
+                row["fence ms a launch"] = ms(w.fences, 50)
             srow = {}
             if cap == 8192 or ext:
                 srow = {"first ms": ms(lambda: w.step(0), 50),
                         "middle ms": ms(lambda: w.step(1), 50),
                         "final ms": ms(lambda: w.step(k, final=True), 50),
-                        "update ms (whole scan_update)": ms(
-                            lambda: klio.scan_update(filt0, fk, m, pts, pv, cfg), 20)}
+                        "update ms (whole scan_update)": ms(lambda: update(pts, pv, cfg), 20)}
             with build.routed_to(lapped):
                 wl = work()
                 row["phases"] = laps(lambda: wl.rows(1))

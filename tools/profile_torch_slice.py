@@ -26,7 +26,8 @@ the ``vi_refine`` stage is split into its preintegration
 (``estimation/imu.integrate``) and its optimizer
 (``solver/pose_inertial.optimize_last_kf`` / ``optimize_last_frame``), each
 counted inside the stage only, and the ``lio`` stage into contiguous
-segments (``lio:predict``, ``lio:undistort``, ``lio:downsample`` from
+segments (``lio:predict`` from ``ops/kernels/lio.predict_with_fences``, or
+``esekf.predict`` in a tree without it, ``lio:undistort``, ``lio:downsample`` from
 ``pointcloud.preprocess`` with the ``work_cap`` subset, ``lio:update`` from
 the update's entry to the map insert, ``lio:insert``, ``lio:recenter``),
 the same on a tree from before the scan step's kernels. In every mode
@@ -117,7 +118,7 @@ def main() -> int:
         undistort as undist_mod
     from tc2li_slam_torch.io import synthetic as syn
     from tc2li_slam_torch.ops import bow, orb, pointcloud as pc_mod, stereo, voxel_map as vm_mod
-    from tc2li_slam_torch.ops.kernels import fast, match
+    from tc2li_slam_torch.ops.kernels import fast, lio as klio_mod, match
     from tc2li_slam_torch.slam import config as cfg_mod, lio as lio_mod, system as sys_mod, \
         tracking
     from tc2li_slam_torch.solver import balm as balm_mod, lm as lm_mod, pose_inertial as pi_mod
@@ -208,7 +209,11 @@ def main() -> int:
     LIO_PARTS = ()
     if args.imu:
         update_entry = "iterated_update" if hasattr(lio_mod, "iterated_update") else "make_h_fn"
-        LIO_PARTS = (("predict", esekf_mod, "predict", True),
+        # the scan step predicts through predict_with_fences on the card (the
+        # launch that also writes the fence table), esekf.predict in an older tree
+        predict_entry = ((klio_mod, "predict_with_fences")
+                         if hasattr(klio_mod, "predict_with_fences") else (esekf_mod, "predict"))
+        LIO_PARTS = (("predict", *predict_entry, True),
                      ("undistort", undist_mod, "undistort", True),
                      ("downsample", pc_mod, "preprocess", False),
                      ("update", lio_mod, update_entry, False),
