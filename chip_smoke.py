@@ -120,13 +120,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (``window_case``), the stereo mode's row bins (``stereo_bins_case``) and
    the epipolar mode's gate (``epipolar_case``: a pair on the gate, lines
    of l0^2 + l1^2 below 1e-12, non-finite inputs, no valid row, ties, side 2
-   in two column chunks, one row), and in the three call shapes of 4a-4d on
-   that run's data (a keyframe pair under its epipolar gate, the pool against a
-   frame, a frame against one column chunk of the pool and against all of
-   it), and in the call shape of 4f (two keyframes' 2000 features, no mask,
-   mutual); the Hamming matrix at 2000x2000 and 32768x2000; the pose-only
-   LM on the inputs of phase 3's last ``pose_only_optimize`` call, on 4b's
-   PnP polish, at N = 5000, with nothing valid and with a masked NaN row
+   in two column chunks, one row), the dense mode's tiles (``dense_case``,
+   300 x 12,037: no valid column or row, a tie across a tile boundary, a
+   repeated column, a row whose only admitted column is in the last tile, a
+   bool mask, one row), and in the three call shapes of 4a-4d on that run's
+   data (a keyframe pair under its epipolar gate, the pool against a frame,
+   a frame against the whole pool), and in the call shape of 4f (two
+   keyframes' 2000 features, no mask, mutual), each case the same bits on a
+   second call and a launch a call (a launch a column chunk); the Hamming
+   matrix at 2000x2000 and 32768x2000; the pose-only LM on the inputs of
+   phase 3's last ``pose_only_optimize`` call, on 4b's PnP polish, at N =
+   5000, with nothing valid and with a masked NaN row
    (poses to 1e-4, costs to 1e-3 relative, inlier flags equal but where a
    row's chi2, re-derived in float64, sits at its threshold; times behind a
    device backlog beside the plain version's, and a pass's share); the
@@ -1528,6 +1532,72 @@ def epipolar_case(rng, case: str, N: int = 600, M: int = 700) -> dict:
     return c
 
 
+# the dense mode's edge cases (csrc/match.cu match_best2_dense_kernel)
+DENSE_CASES = ("pool", "no valid column", "no valid row", "tie across tiles",
+               "repeated column", "last tile only", "mask", "one row")
+
+
+def dense_case(rng, case: str, tile: int, N: int = 300, M: int | None = None) -> dict:
+    """An unmasked (or bool-masked) match's inputs as numpy arrays,
+    ``DENSE_CASES``, side 2 of ``M`` columns (2 tile + 37 by default: two
+    tiles of ``tile`` valid columns and a ragged third): a pool against a
+    frame (the valid rows in the first slots, each a frame feature with a
+    few bits flipped); no valid column; no valid row; a tie across the first tile boundary (all
+    columns valid, columns tile - 1 and tile equal, rows 0 and 3 their
+    copy); a column repeated in the same tile and in the last one (3, 5, M
+    - 1); a mask under which row 1 admits only column M - 2, in the last
+    tile; a random mask with rows that admit nothing; a single row. d1, d2
+    uint32 words, valid1, valid2 and ``mask`` (a bool [N, M], or None)."""
+    import numpy as np
+    M = 2 * tile + 37 if M is None else M
+    if case == "one row":
+        N = 1
+    d2 = rng.integers(0, 1 << 32, (M, 8), dtype=np.uint64).astype(np.uint32)
+    src = rng.integers(0, M, N)
+    d1 = d2[src] ^ (rng.integers(0, 1 << 6, (N, 8)).astype(np.uint32)
+                    & rng.integers(0, 2, (N, 8)).astype(np.uint32) * np.uint32(0xffffffff))
+    valid1 = np.arange(N) < max(1, (2 * N) // 5)
+    valid1 &= rng.random(N) > 0.1
+    valid2 = rng.random(M) > 0.3
+    mask = None
+    if case == "no valid column":
+        valid2[:] = False
+    elif case == "no valid row":
+        valid1[:] = False
+    elif case == "tie across tiles":
+        valid2[:] = True
+        d2[tile] = d2[tile - 1]
+        d1[[0, 3]] = d2[tile - 1]
+        valid1[[0, 3]] = True
+    elif case == "repeated column":
+        d2[[5, M - 1]] = d2[3]
+        valid2[[3, 5, M - 1]] = True
+        d1[0] = d2[3]
+        valid1[0] = True
+    elif case == "last tile only":
+        mask = rng.random((N, M)) > 0.5
+        mask[1] = False
+        mask[1, M - 2] = valid1[1] = valid2[M - 2] = True
+    elif case == "mask":
+        mask = rng.random((N, M)) > 0.7
+        mask[[2, 4]] = False
+        valid1[[2, 4]] = True
+    elif case not in ("pool", "one row"):
+        raise ValueError(case)
+    if case == "one row":
+        valid1[0] = True
+    return dict(d1=d1, d2=d2, valid1=valid1, valid2=valid2, mask=mask)
+
+
+def dense_args(torch, c: dict, dev):
+    """``match_best2``'s (d1, d2, valid1, valid2, mask) on ``dev`` for a
+    ``dense_case``."""
+    import numpy as np
+    up = lambda a: torch.as_tensor(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+    return (up(c["d1"]), up(c["d2"]), up(c["valid1"]), up(c["valid2"]),
+            None if c["mask"] is None else up(c["mask"]))
+
+
 def epipolar_args(torch, match, c: dict, dev):
     """``match_best2``'s (d1, d2, valid1, valid2, EpipolarMask) on ``dev`` for
     an ``epipolar_case``: its lines, or ``match.epipolar_lines`` of its
@@ -2606,12 +2676,14 @@ def balm_phase_split(root, build):
 
 def save_match_cases(torch, path, cases: dict) -> None:
     """``cases`` ({name: match_best2's arguments: d1, d2, valid1, valid2, a
-    WindowMask or StereoMask, mutual}) to ``path``, on the CPU, for
-    ``load_match_cases`` (``tools/match_kernels.py``)."""
+    WindowMask, StereoMask or EpipolarMask or None, mutual}) to ``path``, on
+    the CPU, for ``load_match_cases`` (``tools/match_kernels.py``)."""
     out = {name: {"d1": d1.cpu(), "d2": d2.cpu(), "valid1": v1.cpu(), "valid2": v2.cpu(),
-                  "kind": type(mask).__name__, "mutual": bool(mutual),
-                  "mask": {k: v.cpu() if isinstance(v, torch.Tensor) else v
-                           for k, v in mask._asdict().items()}}
+                  "kind": "none" if mask is None else type(mask).__name__,
+                  "mutual": bool(mutual),
+                  "mask": {} if mask is None else {
+                      k: v.cpu() if isinstance(v, torch.Tensor) else v
+                      for k, v in mask._asdict().items()}}
            for name, (d1, d2, v1, v2, mask, mutual) in cases.items()}
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     torch.save(out, path)
@@ -2619,15 +2691,18 @@ def save_match_cases(torch, path, cases: dict) -> None:
 
 def load_match_cases(torch, match, path, dev) -> dict:
     """What ``save_match_cases`` wrote, on ``dev``: {name: (d1, d2, valid1,
-    valid2, mask, mutual)}. An ``EpipolarMask`` case becomes the tree's own
-    mask: the descriptor where ``match`` has it, else the dense bool [N, M]
-    of the plain chain's gate (``epipolar_dense``)."""
+    valid2, mask, mutual)}; a case saved without a mask has mask None. An
+    ``EpipolarMask`` case becomes the tree's own mask: the descriptor where
+    ``match`` has it, else the dense bool [N, M] of the plain chain's gate
+    (``epipolar_dense``)."""
     kinds = {"WindowMask": match.WindowMask, "StereoMask": match.StereoMask}
     up = lambda v: v.to(dev) if isinstance(v, torch.Tensor) else v
     out = {}
     for name, c in torch.load(path).items():
         fields = {k: up(v) for k, v in c["mask"].items()}
-        if c["kind"] == "EpipolarMask":
+        if c["kind"] == "none":
+            mask = None
+        elif c["kind"] == "EpipolarMask":
             mask = (match.EpipolarMask(**fields) if hasattr(match, "EpipolarMask")
                     else epipolar_dense(torch, **fields))
         else:
@@ -3428,19 +3503,23 @@ def main() -> int:
     # --- 4a. the default configuration: triangulate=True, with a vocabulary ---
     S = sys_mod.TrackingState
     dt = float(frames[1].t - frames[0].t)
-    chunks = -(-cfg.tracking.max_lm // match.DENSE_MAX_COLUMNS)
 
     # the matcher's wrapper counts its launches by call shape; the rows of
     # the three new shapes report the sum of the readings of phases 4a-4d
-    SHAPES = {"match_best2/epipolar": "epipolar+mutual", "match_best2/global": "none+mutual",
-              "match_best2/reloc": "none+mutual+chunk"}
-    shape_launches = dict.fromkeys(SHAPES, 0)
+    shape_launches = dict.fromkeys(("match_best2/epipolar", "match_best2/global",
+                                    "match_best2/reloc"), 0)
 
     def read_modes():
-        modes = dict(match.launches_by_mode)
-        for name, key in SHAPES.items():
-            shape_launches[name] += modes.get(key, 0)
-        return modes
+        return dict(match.launches_by_mode)
+
+    def tally(modes, before, after):
+        """A phase's launches of the three shapes: the epipolar ones; of the
+        unmasked mutual ones, one a recovery (global tracking) and the rest
+        relocalization candidates'."""
+        n_global = min(modes.get("none+mutual", 0), after["n_recover"] - before["n_recover"])
+        shape_launches["match_best2/epipolar"] += modes.get("epipolar+mutual", 0)
+        shape_launches["match_best2/global"] += n_global
+        shape_launches["match_best2/reloc"] += modes.get("none+mutual", 0) - n_global
 
     def snap(sl):
         return dict(n_recover=sl.n_recover, n_reloc=sl.n_reloc, n_fuse=sl.n_fuse, n_ba=sl.n_ba,
@@ -3451,10 +3530,10 @@ def main() -> int:
         """What the system's own counts say of the measured launches, or
         None: a detection and a stereo match per frame built; a windowed
         match per tracked frame, per recovery and per fuse pass, and one to
-        three per relocalization (its refinement); a global match per
-        recovery; whole sets of column chunks, at most five candidates a
-        relocalization; at most ``tri_pairs`` epipolar matches a mapping
-        pass; no other call shape."""
+        three per relocalization (its refinement); an unmasked mutual match
+        per recovery (global tracking) and per relocalization candidate, at
+        most five candidates a relocalization, one launch each; at most
+        ``tri_pairs`` epipolar matches a mapping pass; no other call shape."""
         d = {k: after[k] - before[k] for k in after}
         get = modes.get
         window_lo = n_tracked + d["n_recover"] + d["n_fuse"]
@@ -3468,15 +3547,12 @@ def main() -> int:
             faults.append(f"{n_built} stereo matches")
         if not window_lo <= get("window", 0) <= window_lo + 3 * n_reloc_calls:
             faults.append(f"{window_lo}..{window_lo + 3 * n_reloc_calls} windowed matches")
-        if get("none+mutual", 0) != d["n_recover"]:
-            faults.append(f"{d['n_recover']} global matches")
-        if get("none+mutual+chunk", 0) % chunks or \
-                get("none+mutual+chunk", 0) > 5 * chunks * n_reloc_calls:
-            faults.append(f"sets of {chunks} chunk matches, at most {5 * n_reloc_calls}")
+        if not d["n_recover"] <= get("none+mutual", 0) <= d["n_recover"] + 5 * n_reloc_calls:
+            faults.append(f"{d['n_recover']} global matches and at most {5 * n_reloc_calls} "
+                          f"relocalization candidates' matches")
         if get("epipolar+mutual", 0) > cfg2.tracking.tri_pairs * d["n_ba"]:
             faults.append(f"at most {cfg2.tracking.tri_pairs * d['n_ba']} epipolar matches")
-        if set(modes) - {"stereo+mutual", "window", "none+mutual", "none+mutual+chunk",
-                         "epipolar+mutual"}:
+        if set(modes) - {"stereo+mutual", "window", "none+mutual", "epipolar+mutual"}:
             faults.append("no other call shape")
         # a track_frame per tracked frame and per recovery, one to three per
         # relocalization; a pnp_ransac per recovery, at most five per
@@ -3559,6 +3635,7 @@ def main() -> int:
         return fail("triangulate=True: no mapping pass allocated a triangulated landmark")
     if not ate2 < ATE_BOUND_M:
         return fail(f"triangulate=True: ATE {ate2:.4f} m >= {ATE_BOUND_M} m")
+    tally(modes_a, before, after)
     fault = cross_check(counts_a, modes_a, N_TRI, N_TRI - 1, before, after, 0)
     if fault:
         return fail(f"triangulate=True: {fault}")
@@ -3624,6 +3701,7 @@ def main() -> int:
         return fail(f"recovery: {err_b:.4f} m from ground truth")
     if n_after < max(cfg2.tracking.min_inliers, 10):
         return fail(f"recovery: only {n_after} inliers at the recovered pose")
+    tally(modes_b, before, after)
     fault = cross_check(counts_b, modes_b, 1, 1, before, after, 0)
     if fault or modes_b.get("none+mutual", 0) != 1:
         return fail(f"recovery: {fault or modes_b}")
@@ -3645,8 +3723,9 @@ def main() -> int:
           f"{modes_c}", flush=True)
     if not rr.ok or not err_c < RECOVER_BOUND_M:
         return fail(f"relocalize: ok {rr.ok}, {err_c:.4f} m from ground truth")
+    tally(modes_c, after, after)
     fault = cross_check(counts_c, modes_c, 1, 0, after, after, 1)
-    if fault or modes_c.get("none+mutual+chunk", 0) < chunks or modes_c.get("window", 0) < 1 \
+    if fault or modes_c.get("none+mutual", 0) < 1 or modes_c.get("window", 0) < 1 \
             or counts_c["calls:pnp_ransac"] < 1:
         return fail(f"relocalize: {fault or modes_c}")
     # the map of this run, for the kernel cases of phase 5
@@ -3698,6 +3777,7 @@ def main() -> int:
         return fail("blackout and atlas: non-finite poses")
     if est_all.shape[0] != N_TRI + 1 + len(feed) or est_all.shape[0] != len(slam2.traj):
         return fail(f"trajectory has {est_all.shape[0]} poses for {N_TRI + 1 + len(feed)} frames")
+    tally(modes_d, before, after)
     fault = cross_check(counts_d, modes_d, len(feed), n_tracked_d, before, after,
                         after["n_reloc"] - before["n_reloc"])
     if fault:
@@ -4030,17 +4110,24 @@ def main() -> int:
 
     # matching: cases on the slice's own data, a full pool, a dense worst
     # case, and edge rows
-    match_inputs = {}   # the window and stereo cases, for tools/match_kernels.py
+    match_inputs = {}   # the cases of a mask descriptor or none, for tools/match_kernels.py
 
     def match_case(name, d1, d2, v1, v2, mask, mutual, reps_plain=3):
-        if isinstance(mask, (match.WindowMask, match.StereoMask, match.EpipolarMask)):
+        if not isinstance(mask, torch.Tensor):
             match_inputs[name] = (d1, d2, v1, v2, mask, mutual)
+        N, M = d1.shape[0], d2.shape[0]
+        n0 = match.launches
         got = match.match_best2(d1, d2, v1, v2, mask, mutual)
+        n_launch = match.launches - n0
         ref = match.match_best2_plain(d1, d2, v1, v2, mask, mutual)
         torch.cuda.synchronize()
         if not same(torch, got, ref):
             raise RuntimeError(f"match_best2 disagrees with its plain version: {name}")
-        N, M = d1.shape[0], d2.shape[0]
+        if not same(torch, got, match.match_best2(d1, d2, v1, v2, mask, mutual)):
+            raise RuntimeError(f"match_best2 gave other bits on a second call: {name}")
+        if n_launch != len(match.chunk_bounds(M, mask)):
+            raise RuntimeError(f"match_best2 launched {n_launch} times for "
+                               f"{len(match.chunk_bounds(M, mask))} column chunks: {name}")
         full = v1[:, None] & v2[None, :]
         if mask is not None:
             full = full & (mask if isinstance(mask, torch.Tensor) else mask.dense())
@@ -4202,19 +4289,32 @@ def main() -> int:
             "no mask, landmark pool x frame", m2.lm_desc, frame_c.desc, m2.lm_valid,
             frame_c.valid, None, True)
         seen = torch.any(m2.lm_obs_kf == kf1c, dim=1) & m2.lm_valid
-        # the kernel's own shape there is a frame against one column chunk of
-        # the pool: the row times the chunk that holds the most of the
-        # keyframe's landmarks; the whole call (all chunks, merged per row by
-        # tensor operations the host enqueues) is held exact and timed beside it
-        step = -(-m2.L // chunks)
-        c0 = step * max(range(chunks), key=lambda c: int(seen[c * step:(c + 1) * step].sum()))
-        c1 = min(c0 + step, m2.L)
         rows["match_best2/reloc"] = match_case(
-            f"no mask, frame x column chunk [{c0}:{c1}] of the pool, landmarks of keyframe {kf1c}",
-            frame_c.desc, m2.lm_desc[c0:c1], frame_c.valid, seen[c0:c1], None, True)
-        match_case(f"no mask, frame x whole pool, landmarks of keyframe {kf1c} ({chunks} chunk "
-                   f"launches and their merge)", frame_c.desc, m2.lm_desc, frame_c.valid, seen,
-                   None, True)
+            f"no mask, frame x whole pool, landmarks of keyframe {kf1c}", frame_c.desc,
+            m2.lm_desc, frame_c.valid, seen, None, True)
+        # the dense mode on its edge cases (dense_case) over tiles of the
+        # card's own size (12,037 columns): bit-equal, the same bits on a
+        # second call, a launch a call
+        tile = build.library().tc2li_match_dense_tile(12037)
+        if not 0 < 2 * tile < 12037 < 3 * tile:
+            raise RuntimeError(f"match_best2 dense mode: a tile of {tile} columns at 12,037")
+        for case in DENSE_CASES:
+            c_d = dense_case(np.random.default_rng(60 + DENSE_CASES.index(case)), case, tile,
+                             M=12037)
+            a_d = dense_args(torch, c_d, dev)
+            for mutual in (False, True):
+                n0 = match.launches
+                got_d = match.match_best2(*a_d, mutual)
+                again_d = match.match_best2(*a_d, mutual)
+                n_d = match.launches - n0
+                if not (same(torch, got_d, match.match_best2_plain(*a_d, mutual))
+                        and same(torch, got_d, again_d)) or n_d != 2:
+                    raise RuntimeError(f"match_best2 disagrees with its plain version or "
+                                       f"itself, or launched {n_d} times for 2: dense case "
+                                       f"{case}{', mutual' if mutual else ''}")
+        print(f"{tag} match_best2 dense cases {', '.join(DENSE_CASES)} (300 x 12,037, tiles of "
+              f"{tile} valid columns; with and without the mutual test): exact, the same bits "
+              f"twice, a launch a call", flush=True)
         # (f) the call shape of loop verification, on the first closure's own
         # keyframes as the map held them: the features linked to a landmark
         c4 = lp["closures"][0]

@@ -117,22 +117,39 @@
 //   NaN), so every admitted pair is the plain chain's
 //   (tests/test_torch_epipolar_emulation.py).
 //
-// match_best2_kernel (the dense mode): all of side 2 (descriptors
-// word-major, so a warp's lanes hit distinct banks, and validity) is staged
-// once per block in dynamic shared memory, 36 bytes a column. A grid of at
-// most one 32-warp block per SM walks groups of 4 rows. A warp owns a group:
-// the rows' descriptors sit in a 128-byte slot of shared memory that the
-// warp fills with one load, the lanes stride the columns, and each column's
-// data is read from shared memory once for the 4 rows.
+// match_best2_dense_kernel (the dense mode: no mask, or a bool [N, M]; the
+// pool against a frame in global tracking, a frame against the pool in
+// relocalization, a keyframe pair in loop verification, the public
+// match_descriptors). Few rows and columns are valid there (a pool of
+// 32,768 slots holds hundreds of landmarks; relocalization keeps one
+// keyframe's), and the staged kernel it replaces staged all of side 2 in
+// every block, walked every column from every row group holding a valid
+// row, made a device atomic an admitted pair, and took side 2 in column
+// chunks of 6,456 (six launches and eager merges a relocalization
+// candidate). One launch for any M up to the 16-bit column key, of at most
+// one 16-warp block an SM:
+// - each block reads side 2's valid flags into a bit a column and scans
+//   their counts, then stages only the valid columns' descriptors
+//   (word-major, with their columns) in tiles of shared memory, a tile
+//   ~5,000 columns; the walk loops over the tiles and keeps each row's two
+//   keys in shared memory across them;
+// - it compacts its valid rows (rows b, b + G, ...: a landmark pool fills
+//   from slot 0) in row order; a warp takes 4 valid rows and a slice of the
+//   tile's columns, so that a block's warps share its few groups; an
+//   invalid row is written without a walk;
+// - the mutual test takes each column's minimum over a warp's 4 rows in
+//   registers, then over the block by shared atomics, and makes one device
+//   atomic a staged column that a row of the block admitted.
 //
 // All: the mask is tested first, XOR/__popc runs only on admitted pairs.
 // Each lane keeps its two smallest keys (distance << 16 | column) per row;
 // keys are unique per column, so the smallest is the first column of the
 // minimum and the second smallest holds the minimum over the other
 // columns. A shuffle tree merges the lanes' pairs. For the mutual test
-// every admitted pair also does atomicMin on a packed 64-bit (distance <<
-// 32 | row) per column, which gives the first row of the column's minimum
-// whatever the block order.
+// each column's packed 64-bit (distance << 32 | row) takes atomicMin in
+// device memory (an admitted pair's in the window, stereo and epipolar
+// modes; a block's minimum in the dense mode), which gives the first row
+// of the column's minimum whatever the block order.
 //
 // The pair tests are the plain chain's comparisons and subtractions, and
 // the distances XOR and popcount: every output is equal to the plain
@@ -191,106 +208,347 @@ struct Args {
   int* second;             // [N]
   unsigned long long* colbest;   // [M] or null (mutual)
   int N, M;
+  int tile;                // dense: the valid columns a tile of shared memory holds
 };
-
-constexpr int kDenseWords = kWords + 1;   // dense: descriptor words + validity a column
 
 __device__ __forceinline__ void keep_two(int& k1, int& k2, int k) {
   k2 = min(k2, max(k1, k));
   k1 = min(k1, k);
 }
 
-static_assert(kRows * kWords == 32, "a warp stages its rows' descriptors one word a lane");
 
+// ---------------------------------------------------------------------------
+// the dense mode: valid rows and columns compacted, the columns in tiles
+// ---------------------------------------------------------------------------
+
+constexpr int kDenseThreads = 512;    // 16 warps: one block an SM
+constexpr int kDenseWarps = kDenseThreads / 32;
+constexpr int kDenseBatch = kDenseThreads;   // rows a block compacts at once, one a thread
+constexpr int kDenseRowsPerBlock = 8;        // the grid: a block per 8 rows, at most one an SM
+constexpr int kDenseStage = 2;               // columns a thread stages with their loads in flight
+constexpr int kDenseFlagWords = 4;           // words of 32 column flags a thread reads
+// a staged column in dynamic shared memory: its 8 words, its column and,
+// for the mutual test, the block's smallest (distance << 16 | row slot)
+constexpr int kDenseColBytes = 4 * (kWords + 2);
+constexpr int kDenseMaxColumns = 65535;      // the 16-bit column of a row key
+constexpr unsigned kNoCol = 0xffffffffu;     // a staged column no row of the block admitted
+
+static_assert(kRows * kWords == 32, "a warp holds its rows' descriptors one word a lane");
+static_assert(kDenseFlagWords * 32 * kDenseThreads > kDenseMaxColumns, "every flag read");
+
+struct DenseShared {
+  int rows[kDenseBatch];        // the batch's valid rows, in row order
+  int rk1[kDenseBatch];         // each one's two smallest keys over the tiles walked so far
+  int rk2[kDenseBatch];
+  uint32_t rdesc[kDenseWarps][kRows * kWords];   // each warp's 4 rows' descriptors
+  int wsum[2][kDenseWarps];     // each warp's valid rows and valid columns, then their prefix
+  int n_rows, n_cols;
+};
+
+// bit k: byte k of x is not 0
+__device__ __forceinline__ unsigned nonzero_bytes(unsigned x) {
+  return ((__vcmpne4(x, 0u) & 0x01010101u) * 0x10204080u) >> 28;
+}
+__device__ __forceinline__ unsigned nonzero_bytes(uint4 q) {
+  return nonzero_bytes(q.x) | nonzero_bytes(q.y) << 4 | nonzero_bytes(q.z) << 8
+         | nonzero_bytes(q.w) << 12;
+}
+
+// the position of b's k-th set bit (k from 0; b has more than k)
+__device__ __forceinline__ int select_bit(unsigned b, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const int c = __popc(b & ((1u << s) - 1u));
+    if (k >= c) {
+      k -= c;
+      b >>= s;
+      pos += s;
+    }
+  }
+  return pos;
+}
+
+// A warp's exclusive prefix of v over its lanes; the warp's total in `total`.
+__device__ __forceinline__ int warp_prefix(int v, int lane, int& total) {
+  int x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(kFull, x, off);
+    if (lane >= off) x += o;
+  }
+  total = __shfl_sync(kFull, x, 31);
+  return x - v;
+}
+
+// A row key k into a row's two smallest (*k1, *k2) in shared memory, in any
+// order beside other inserts: the key a minimum displaces, or k itself where
+// it displaces none, goes on to *k2. Every key but the final *k1 reaches
+// *k2, so both end as the two smallest of all inserted keys.
+__device__ __forceinline__ void insert_key(int* k1, int* k2, int k) {
+  const int old = atomicMin(k1, k);
+  atomicMin(k2, max(old, k));
+}
+
+// Block b takes rows b, b + G, b + 2G, ... (G blocks: a landmark pool fills
+// from slot 0, so neighbouring rows go to different blocks), a batch of
+// kDenseBatch at a time, and compacts the valid ones in row order by a warp
+// ballot and a scan; an invalid row gets (0, BIG, BIG) written at once.
+// Every block reads side 2's valid flags (eight 16-byte loads a thread, in
+// flight before the first use) into a bit a column and scans the bits'
+// counts, so the r-th valid column is known to every thread. The valid
+// columns go to shared memory in tiles of `a.tile` (all of them in one tile
+// up to ~5,000 columns), word-major with their columns: a thread stages
+// ranks tid, tid + 512, ... of the tile, finding each rank's word by a
+// binary search over the counts, kDenseStage columns' loads in flight. A
+// warp takes 4 valid rows and 1/S of the tile's columns (S slices: the
+// block's 16 warps spread over its groups of rows), a lane every (32 S)th
+// staged column, the mask's byte read only for a valid row and a staged
+// column; its lanes' two smallest keys (distance << 16 | column) merge by a
+// shuffle tree and go into the rows' keys in shared memory by insert_key,
+// which keeps them across slices and tiles. For the mutual test a lane
+// takes its column's minimum over the warp's 4 rows of (distance << 16 |
+// row slot) in registers, then one shared atomicMin a column; after the
+// tile each column that a row of the block admitted makes one atomicMin of
+// (distance << 32 | row) in device memory. Minima over unique keys do not
+// depend on the order of the visits, the inserts or the blocks, and the
+// slots are in row order, so every output is the plain chain's.
 template <bool MUTUAL>
-__global__ void __launch_bounds__(kThreads)
-match_best2_kernel(const Args a) {
-  extern __shared__ uint32_t smem[];
-  __shared__ uint32_t srow[kWarps][kRows * kWords];   // each warp's row descriptors
-  const int M = a.M;
-  uint32_t* sdesc = smem;                                     // [8][M]
-  int* svalid = reinterpret_cast<int*>(smem + kWords * M);    // [M]
+__global__ void __launch_bounds__(kDenseThreads)
+match_best2_dense_kernel(const Args a) {
+  extern __shared__ uint32_t dense_smem[];
+  __shared__ DenseShared sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int M = a.M, nw = (M + 31) >> 5, cap = a.tile;
+  uint32_t* bits = dense_smem;                                   // [nw] a bit a valid column
+  int* pre = reinterpret_cast<int*>(dense_smem + nw);            // [nw + 1] valid before word w
+  uint32_t* tdesc = dense_smem + 2 * nw + 1;                     // [8][cap] staged descriptors
+  int* tcol = reinterpret_cast<int*>(tdesc + kWords * cap);      // [cap] their columns
+  unsigned* tmin = reinterpret_cast<unsigned*>(tcol + cap);      // [cap] (mutual) block minima
+  const uint4* d2v = reinterpret_cast<const uint4*>(a.d2);
   TC2LI_LAP_START
 
-  for (int i = threadIdx.x; i < M * kWords; i += kThreads) {
-    const int m = i / kWords;
-    const int w = i - m * kWords;
-    sdesc[w * M + m] = a.d2[i];
-  }
-  for (int m = threadIdx.x; m < M; m += kThreads) svalid[m] = a.valid2[m] != 0;
-  __syncthreads();
-  TC2LI_LAP(0);
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_groups = (a.N + kRows - 1) / kRows;
-  // neighbouring groups go to different blocks: valid rows cluster (a
-  // landmark pool fills from slot 0) and would otherwise load a few SMs
-  for (int g = warp * gridDim.x + blockIdx.x; g < n_groups; g += gridDim.x * kWarps) {
-    const int r0 = g * kRows;
-    bool rv[kRows];
-    bool any = false;
+  // the first batch's row flag, and side 2's flags as this thread's words
+  // of bits: columns [128 tid, 128 tid + 128) as eight 16-byte loads, a
+  // ragged last piece by bytes; every load issued before any is used
+  const long long r0 = (long long)tid * gridDim.x + blockIdx.x;
+  const bool ok0 = r0 < a.N && a.valid1[r0] != 0;
+  unsigned fb[kDenseFlagWords];
+  {
+    uint4 fq[2 * kDenseFlagWords];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      rv[r] = r0 + r < a.N && a.valid1[r0 + r] != 0;
-      any = any || rv[r];
+    for (int k = 0; k < 2 * kDenseFlagWords; ++k) {
+      const int c0 = 32 * kDenseFlagWords * tid + 16 * k;
+      fq[k] = c0 + 16 <= M ? reinterpret_cast<const uint4*>(a.valid2)[c0 >> 4]
+                           : make_uint4(0u, 0u, 0u, 0u);
     }
-    int k1[kRows], k2[kRows];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) k1[r] = k2[r] = kNoKey;
+    for (int w = 0; w < kDenseFlagWords; ++w) {
+      fb[w] = nonzero_bytes(fq[2 * w]) | nonzero_bytes(fq[2 * w + 1]) << 16;
+    }
+#pragma unroll
+    for (int k = 0; k < 2 * kDenseFlagWords; ++k) {
+      const int c0 = 32 * kDenseFlagWords * tid + 16 * k;
+      if (c0 < M && c0 + 16 > M) {
+        for (int i = 0; i < M - c0; ++i) {
+          fb[k >> 1] |= (unsigned)(a.valid2[c0 + i] != 0) << (16 * (k & 1) + i);
+        }
+      }
+    }
+  }
 
-    if (any) {
-      const size_t word = (size_t)r0 * kWords + lane;
-      srow[warp][lane] = word < (size_t)a.N * kWords ? a.d1[word] : 0u;
-      __syncwarp();
-#pragma unroll 2
-      for (int m = lane; m < M; m += 32) {
-        const int ok2 = svalid[m];
+  for (int j0 = 0; (long long)j0 * gridDim.x + blockIdx.x < a.N; j0 += kDenseBatch) {
+    const bool first = j0 == 0;
+    const long long r = (long long)(j0 + tid) * gridDim.x + blockIdx.x;
+    const bool ok = first ? ok0 : r < a.N && a.valid1[r] != 0;
+    int cpre = 0, ctot = 0;
+    if (first) {   // the bits to shared memory, their counts' prefix over the warp
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const bool admit = rv[r] && ok2 != 0
-                             && (a.dense == nullptr || a.dense[(size_t)(r0 + r) * M + m] != 0);
-          if (admit) {
-            int dist = 0;
+      for (int w = 0; w < kDenseFlagWords; ++w) {
+        const int wi = kDenseFlagWords * tid + w;
+        if (wi < nw) bits[wi] = fb[w];
+        cpre += __popc(fb[w]);
+      }
+      cpre = warp_prefix(cpre, lane, ctot);
+      if (lane == 0) sh.wsum[1][warp] = ctot;
+    }
+    const unsigned bal = __ballot_sync(kFull, ok);
+    if (lane == 0) sh.wsum[0][warp] = __popc(bal);
+    if (r < a.N && !ok) {
+      a.idx[r] = 0;
+      a.best[r] = kBig;
+      a.second[r] = kBig;
+    }
+    __syncthreads();
+    if (warp == 0) {   // the warps' prefixes: rows, and in the first batch columns
+      int tot;
+      const int p = warp_prefix(lane < kDenseWarps ? sh.wsum[0][lane] : 0, lane, tot);
+      if (lane < kDenseWarps) sh.wsum[0][lane] = p;
+      if (lane == 0) sh.n_rows = tot;
+      if (first) {
+        const int q = warp_prefix(lane < kDenseWarps ? sh.wsum[1][lane] : 0, lane, tot);
+        if (lane < kDenseWarps) sh.wsum[1][lane] = q;
+        if (lane == 0) sh.n_cols = tot;
+      }
+    }
+    __syncthreads();
+    if (ok) {
+      const int p = sh.wsum[0][warp] + __popc(bal & below);
+      sh.rows[p] = static_cast<int>(r);
+      sh.rk1[p] = sh.rk2[p] = kNoKey;
+    }
+    if (first) {
+      int c = sh.wsum[1][warp] + cpre;
 #pragma unroll
-            for (int w = 0; w < kWords; ++w) {
-              dist += __popc(srow[warp][r * kWords + w] ^ sdesc[w * M + m]);
+      for (int w = 0; w < kDenseFlagWords; ++w) {
+        const int wi = kDenseFlagWords * tid + w;
+        if (wi < nw) pre[wi] = c;
+        c += __popc(fb[w]);
+      }
+      if (tid == 0) pre[nw] = sh.n_cols;
+    }
+    const int R = sh.n_rows, V = sh.n_cols;
+    __syncthreads();
+    TC2LI_LAP(15);
+    if (R == 0) continue;   // (block-uniform; every barrier above is behind it)
+
+    const int groups = (R + kRows - 1) / kRows;
+    for (int base = 0; base < V; base += cap) {
+      const int C = min(cap, V - base);
+      // warps' items (a group of 4 rows, a slice of the columns)
+      const int S = max(1, min((kDenseWarps + groups - 1) / groups, (C + 31) >> 5));
+      const int items = groups * S;
+      auto row_word = [&](int it) -> uint32_t {
+        const int pr = kRows * (it / S) + (lane >> 3);
+        return pr < R ? __ldg(&a.d1[(size_t)sh.rows[pr] * kWords + (lane & 7)]) : 0u;
+      };
+      uint32_t rw = warp < items ? row_word(warp) : 0u;   // in flight beside the staging
+      // stage the tile: ranks [base, base + C)
+      for (int t0 = tid; t0 < C; t0 += kDenseStage * kDenseThreads) {
+        int col[kDenseStage];
+        uint4 g0[kDenseStage], g1[kDenseStage];
+#pragma unroll
+        for (int k = 0; k < kDenseStage; ++k) {
+          const int t = t0 + k * kDenseThreads;
+          col[k] = -1;
+          if (t < C) {
+            const int rank = base + t;
+            int lo = 0, hi = nw;   // the last word with pre[w] <= rank
+            while (hi - lo > 1) {
+              const int mid = (lo + hi) >> 1;
+              if (pre[mid] <= rank) lo = mid;
+              else hi = mid;
             }
-            keep_two(k1[r], k2[r], (dist << 16) | m);
-            if (MUTUAL) {
-              atomicMin(&a.colbest[m],
-                        ((unsigned long long)dist << 32) | (unsigned)(r0 + r));
-            }
+            col[k] = 32 * lo + select_bit(bits[lo], rank - pre[lo]);
+            g0[k] = __ldg(&d2v[2 * col[k]]);
+            g1[k] = __ldg(&d2v[2 * col[k] + 1]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kDenseStage; ++k) {
+          const int t = t0 + k * kDenseThreads;
+          if (col[k] >= 0) {
+            tdesc[0 * cap + t] = g0[k].x;
+            tdesc[1 * cap + t] = g0[k].y;
+            tdesc[2 * cap + t] = g0[k].z;
+            tdesc[3 * cap + t] = g0[k].w;
+            tdesc[4 * cap + t] = g1[k].x;
+            tdesc[5 * cap + t] = g1[k].y;
+            tdesc[6 * cap + t] = g1[k].z;
+            tdesc[7 * cap + t] = g1[k].w;
+            tcol[t] = col[k];
+            if (MUTUAL) tmin[t] = kNoCol;
           }
         }
       }
+      __syncthreads();
+      TC2LI_LAP(17);
+
+      for (int it = warp; it < items; it += kDenseWarps) {
+        if (it != warp) rw = row_word(it);
+        const int g = it / S, s = it - g * S, p0 = kRows * g;
+        sh.rdesc[warp][lane] = rw;
+        __syncwarp();
+        const uint32_t* q = sh.rdesc[warp];
+        bool rv[kRows];
+        int row[kRows], k1[kRows], k2[kRows];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+        for (int j = 0; j < kRows; ++j) {
+          rv[j] = p0 + j < R;
+          row[j] = rv[j] ? sh.rows[p0 + j] : 0;
+          k1[j] = k2[j] = kNoKey;
+        }
+        for (int t = 32 * s + lane; t < C; t += 32 * S) {
+          uint32_t cw[kWords];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          const int o1 = __shfl_xor_sync(0xffffffffu, k1[r], off);
-          const int o2 = __shfl_xor_sync(0xffffffffu, k2[r], off);
-          k2[r] = min(max(k1[r], o1), min(k2[r], o2));
-          k1[r] = min(k1[r], o1);
+          for (int w = 0; w < kWords; ++w) cw[w] = tdesc[w * cap + t];
+          const int m = tcol[t];
+          bool adm[kRows];
+#pragma unroll
+          for (int j = 0; j < kRows; ++j) {
+            adm[j] = rv[j] && (a.dense == nullptr || a.dense[(size_t)row[j] * M + m] != 0);
+          }
+          unsigned cm = kNoCol;
+#pragma unroll
+          for (int j = 0; j < kRows; ++j) {
+            if (adm[j]) {
+              int dist = 0;
+#pragma unroll
+              for (int w = 0; w < kWords; ++w) dist += __popc(q[j * kWords + w] ^ cw[w]);
+              keep_two(k1[j], k2[j], (dist << 16) | m);
+              if (MUTUAL) cm = min(cm, ((unsigned)dist << 16) | (unsigned)(p0 + j));
+            }
+          }
+          if (MUTUAL && cm != kNoCol) atomicMin(&tmin[t], cm);
+        }
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            const int o1 = __shfl_xor_sync(kFull, k1[j], off);
+            const int o2 = __shfl_xor_sync(kFull, k2[j], off);
+            k2[j] = min(max(k1[j], o1), min(k2[j], o2));
+            k1[j] = min(k1[j], o1);
+          }
+        }
+        if (lane < kRows && p0 + lane < R) {
+          int c1 = kNoKey, c2 = kNoKey;
+#pragma unroll
+          for (int j = 0; j < kRows; ++j) {
+            if (lane == j) {
+              c1 = k1[j];
+              c2 = k2[j];
+            }
+          }
+          if (c1 != kNoKey) insert_key(&sh.rk1[p0 + lane], &sh.rk2[p0 + lane], c1);
+          if (c2 != kNoKey) insert_key(&sh.rk1[p0 + lane], &sh.rk2[p0 + lane], c2);
+        }
+        __syncwarp();   // all lanes are done with rdesc before the next item's words land
+      }
+      __syncthreads();
+      TC2LI_LAP(18);
+      if (MUTUAL) {   // the block's column minima, one device atomic a column it admitted
+        for (int t = tid; t < C; t += kDenseThreads) {
+          const unsigned v = tmin[t];
+          if (v != kNoCol) {
+            atomicMin(&a.colbest[tcol[t]],
+                      ((unsigned long long)(v >> 16) << 32) | (unsigned)sh.rows[v & 0xffffu]);
+          }
         }
       }
-      __syncwarp();   // all lanes are done with srow before the next group's words land
+      __syncthreads();   // the tile's space is free for the next one
+      TC2LI_LAP(19);
     }
-    if (lane < kRows && r0 + lane < a.N) {
-      int b1 = kNoKey, b2 = kNoKey;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (lane == r) {
-          b1 = k1[r];
-          b2 = k2[r];
-        }
-      }
-      a.idx[r0 + lane] = b1 == kNoKey ? 0 : (b1 & 0xffff);
-      a.best[r0 + lane] = b1 == kNoKey ? kBig : (b1 >> 16);
-      a.second[r0 + lane] = b2 == kNoKey ? kBig : (b2 >> 16);
+    for (int p = tid; p < R; p += kDenseThreads) {
+      const int row = sh.rows[p], k1 = sh.rk1[p], k2 = sh.rk2[p];
+      a.idx[row] = k1 == kNoKey ? 0 : (k1 & 0xffff);
+      a.best[row] = k1 == kNoKey ? kBig : (k1 >> 16);
+      a.second[row] = k2 == kNoKey ? kBig : (k2 >> 16);
     }
+    __syncthreads();   // the batch's rows and keys are free for the next batch
+    TC2LI_LAP(20);
   }
-  TC2LI_LAP(1);
 }
 
 
@@ -990,17 +1248,41 @@ int launch_window(const Args& a, cudaStream_t stream) {
                              : launch_grid<MUTUAL, false>(a, stream);
 }
 
+// The dynamic shared memory a dense-mode block may take (its static part
+// read once), or a negative CUDA error.
 template <bool MUTUAL>
-int launch_dense(const Args& a, cudaStream_t stream) {
-  const int smem = kDenseWords * a.M * (int)sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(match_best2_kernel<MUTUAL>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // at least ~4 row groups a block, so a small N still spreads over the card
-  const int n_groups = (a.N + kRows - 1) / kRows;
-  int blocks = (n_groups + 3) / 4;
+int dense_room() {
+  static int room = -1;
+  if (room < 0) {
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaFuncGetAttributes(&fa, match_best2_dense_kernel<MUTUAL>);
+    if (e != cudaSuccess) return -static_cast<int>(e);
+    const int r = kMaxSmem - static_cast<int>(fa.sharedSizeBytes);
+    e = cudaFuncSetAttribute(match_best2_dense_kernel<MUTUAL>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, r);
+    if (e != cudaSuccess) return -static_cast<int>(e);
+    room = r;
+  }
+  return room;
+}
+
+// the bytes of side 2's flag bits and their counts' prefix (8 bytes a word
+// of 32 columns) at M columns
+constexpr int dense_flag_bytes(int M) { return 4 * (2 * ((M + 31) / 32) + 1); }
+
+// a block per kDenseRowsPerBlock rows, at most one an SM; its dynamic shared
+// memory holds side 2's flag bits and their counts' prefix and a tile of
+// valid columns, as many as the rest holds
+template <bool MUTUAL>
+int launch_dense(const Args& a0, cudaStream_t stream) {
+  const int room = dense_room<MUTUAL>();
+  if (room < 0) return -room;
+  Args a = a0;
+  a.tile = min(a.M, (room - dense_flag_bytes(a.M)) / kDenseColBytes);
+  const int smem = dense_flag_bytes(a.M) + kDenseColBytes * a.tile;
+  int blocks = (a.N + kDenseRowsPerBlock - 1) / kDenseRowsPerBlock;
   if (blocks > sm_count()) blocks = sm_count();
-  match_best2_kernel<MUTUAL><<<blocks, kThreads, smem, stream>>>(a);
+  match_best2_dense_kernel<MUTUAL><<<blocks, kDenseThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1069,15 +1351,24 @@ int launch_epipolar(const Args& a, cudaStream_t stream) {
 
 // The most columns (M) a launch takes in `mode`: 0 window, the grid's
 // columns in shared memory; 1 stereo, the build's registers (10 a thread);
-// 2 dense, side 2 staged in shared memory; 3 epipolar, the valid columns
-// staged in shared memory; each also bounded by the 16-bit column key.
+// 2 dense, the 16-bit column key (the valid columns go through shared
+// memory in tiles); 3 epipolar, the valid columns staged in shared memory;
+// each also bounded by the 16-bit column key.
 extern "C" int tc2li_match_max_columns(int mode) {
   // (the window kernel's static shared memory: 1 KB at most)
   const int fit = mode == kWindow   ? (kMaxSmem - 1024 - window_smem(0, false)) / 16
                   : mode == kStereo ? kStereoMaxColumns
-                  : mode == kDense  ? kMaxSmem / (kDenseWords * (int)sizeof(uint32_t))
+                  : mode == kDense  ? kDenseMaxColumns
                                     : kEpiMaxColumns;
   return fit < 65535 ? fit : 65535;
+}
+
+// The valid columns a tile of the dense mode's shared memory holds at M
+// columns (1 <= M <= 65,535), or a negative CUDA error.
+extern "C" int tc2li_match_dense_tile(int M) {
+  const int room = dense_room<true>();
+  if (room < 0) return room;
+  return min(M, (room - dense_flag_bytes(M)) / kDenseColBytes);
 }
 
 // registers, local (spill) bytes, static shared bytes and the largest block
@@ -1089,7 +1380,7 @@ extern "C" int tc2li_match_func_attrs(int which, int* out) {
   const void* fns[5] = {reinterpret_cast<const void*>(window_grid_kernel<false, true>),
                         reinterpret_cast<const void*>(window_grid_kernel<true, true>),
                         reinterpret_cast<const void*>(match_best2_stereo_kernel<true>),
-                        reinterpret_cast<const void*>(match_best2_kernel<true>),
+                        reinterpret_cast<const void*>(match_best2_dense_kernel<true>),
                         reinterpret_cast<const void*>(match_best2_epipolar_kernel<true, true>)};
   if (which < 0 || which > 4) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = cudaFuncGetAttributes(&a, fns[which]);
@@ -1105,9 +1396,10 @@ extern "C" int tc2li_match_func_attrs(int which, int* out) {
 // colbest (mutual != 0) must hold (1 << 20) << 32 on entry and receives
 // min over admitted rows of (distance << 32 | row). N, M > 0 and
 // M <= tc2li_match_max_columns(mode). The window, stereo and epipolar modes
-// read d1, d2 as 16-byte and uv1, uv2 as 8-byte words: those pointers must
-// be aligned. `chained` (the stereo mode only): the launch is a programmatic
-// dependent of the one before it on `stream`, which may still be writing
+// read d1, d2 as 16-byte and uv1, uv2 as 8-byte words, the dense mode d2 and
+// valid2 as 16-byte words: those pointers must be aligned. `chained` (the
+// stereo mode only): the launch is a programmatic dependent of the one
+// before it on `stream`, which may still be writing
 // `band` and `colbest` (csrc/stereo.cu's prep launch). Launches on
 // `stream`; returns cudaGetLastError() or the error of the shared-memory
 // attribute call.

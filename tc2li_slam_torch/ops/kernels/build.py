@@ -140,6 +140,8 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.tc2li_hamming.restype = i
     lib.tc2li_match_max_columns.argtypes = [i]
     lib.tc2li_match_max_columns.restype = i
+    lib.tc2li_match_dense_tile.argtypes = [i]
+    lib.tc2li_match_dense_tile.restype = i
     lib.tc2li_match_func_attrs.argtypes = [i, vp]
     lib.tc2li_match_func_attrs.restype = i
     lib.tc2li_match_best2.argtypes = [i, i, i] + [vp] * 13 + [i, i, f, f] + [vp] * 4 + [i, i, vp]

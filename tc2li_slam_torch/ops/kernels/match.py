@@ -18,9 +18,11 @@ a row tests only the columns of the cells its window overlaps. In the
 stereo mode each block sorts side 2's columns into row bins of v in its
 shared memory, and a warp a row walks only the bins its band can reach. In
 the epipolar mode each block stages side 2's valid columns and two warps
-a row evaluate the gate on each. The dense
-mode keeps all of side 2 in one block's shared memory and a warp tests four
-rows against every column.
+a row evaluate the gate on each. In the dense mode each block stages only
+side 2's valid columns, in tiles of its shared memory, compacts its valid
+rows, and gives a warp four of them and a slice of the tile; the mutual
+test's column minima are merged over the block before one device atomic a
+column.
 
 The pair mask is one of:
 
@@ -38,15 +40,15 @@ The pair mask is one of:
 each ANDed with ``valid1[n] & valid2[m]``. One launch takes at most
 ``max_columns(mask)`` columns of side 2 (13,440 in the window mode's shared
 memory, 5,120 in the stereo mode's build registers, 14,464 in the epipolar
-mode's and 6,456 in the dense mode's shared memory). A wider side 2 (a
-frame against the landmark pool in relocalization, a large
-``n_features``) is matched one column chunk at a time and the per-row pairs
-merged, which is exact: the earlier chunk wins a tie, so the first column
-of the minimum stays the first, and a column's mutual best lies in its own
-chunk. ``match_best2`` launches the kernel for CUDA tensors and runs the
-plain chain (``hamming_matrix_plain``, the dense mask, ``masked_best2_plain``)
-for CPU tensors, per chunk where it chunks; there is no other route. Every
-output is equal between the two.
+mode's shared memory, and 65,535 in the dense mode, the 16-bit column of
+its keys: a frame against the whole landmark pool in relocalization is one
+launch). A wider side 2 (a large ``n_features``) is matched one column
+chunk at a time and the per-row pairs merged, which is exact: the earlier
+chunk wins a tie, so the first column of the minimum stays the first, and a
+column's mutual best lies in its own chunk. ``match_best2`` launches the
+kernel for CUDA tensors and runs the plain chain (``hamming_matrix_plain``,
+the dense mask, ``masked_best2_plain``) for CPU tensors, per chunk where it
+chunks; there is no other route. Every output is equal between the two.
 
 ``launches`` counts the kernel's launches; ``launches_by_mode`` splits the
 same count by call shape (``mode_key``: the mask kind, ``+mutual``, and
@@ -66,12 +68,13 @@ from .hamming import hamming_matrix_plain
 BIG = 1 << 20     # distance of a row or column with no admitted pair
 # columns of side 2 that one launch takes, by mode (tc2li_match_max_columns
 # of csrc/match.cu): the window grid's columns in shared memory, the stereo
-# build's registers, side 2 staged in shared memory (dense), the valid
-# columns staged in shared memory (epipolar). A larger side 2 is matched in
-# column chunks of at most that many.
+# build's registers, the 16-bit column key (dense: the valid columns go
+# through shared memory in tiles), the valid columns staged in shared memory
+# (epipolar). A larger side 2 is matched in column chunks of at most that
+# many.
 WINDOW_MAX_COLUMNS = 13440
 STEREO_MAX_COLUMNS = 5120
-DENSE_MAX_COLUMNS = 6456
+DENSE_MAX_COLUMNS = 65535
 EPI_MAX_COLUMNS = 14464
 
 launches = 0   # kernel launches by match_best2 (plain-version calls excluded)
@@ -360,11 +363,13 @@ def _match_best2_cuda(d1, d2, valid1, valid2, mask, mutual: bool, chunk: bool = 
     if M == 0 or M > lib.tc2li_match_max_columns(mode):
         raise ValueError(f"match_best2: M={M} columns do not fit one launch "
                          f"(1..{lib.tc2li_match_max_columns(mode)})")
-    a, b = d1.contiguous(), d2.contiguous()
+    # the kernels read 16-byte descriptor words, 8-byte positions and (the
+    # dense mode) 16-byte words of side 2's flags
+    a, b = aligned(d1.contiguous(), 16), aligned(d2.contiguous(), 16)
     v1, v2 = valid1.contiguous(), valid2.contiguous()
-    if mode != 2:   # these kernels read 16-byte descriptor words and 8-byte positions
-        a, b = aligned(a, 16), aligned(b, 16)
-        uv1, uv2 = aligned(uv1, 8), aligned(uv2, 8)
+    uv1, uv2 = aligned(uv1, 8), aligned(uv2, 8)
+    if mode == 2:
+        v2 = aligned(v2, 16)
     if chained:   # a copy made here would run between the match and its primary
         given = (d1, d2, valid1, valid2, mask.uv1, mask.lvl1, mask.uv2, mask.lvl2, mask.band)
         used = (a, b, v1, v2, uv1, lvl1, uv2, lvl2, band)

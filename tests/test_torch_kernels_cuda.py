@@ -195,10 +195,10 @@ def test_match_best2_all_invalid_and_limits(cuda):
     _same(match.match_best2(c["d1"], d2w, c["valid1"], v2w, wmask),
           match.match_best2_plain(c["d1"], d2w, c["valid1"], v2w, wmask))
     assert match.launches - before == 2
-    before = match.launches                # the dense mode takes it in two chunks
+    before = match.launches                # the dense mode takes it in one launch
     _same(match.match_best2(c["d1"], wide, c["valid1"], ones, None, True),
           match.match_best2_plain(c["d1"], wide, c["valid1"], ones, None, True))
-    assert match.launches - before == 2
+    assert match.launches - before == 1
     with pytest.raises(ValueError):        # wrong dtype for the kernel
         match.match_best2(c["d1"], c["d2"], c["valid1"], c["valid2"],
                           match.WindowMask(c["uv1"].double(), c["radius"], c["lvl1"],
@@ -241,19 +241,49 @@ def test_match_best2_pool_against_frame_shape(cuda, n_valid):
 def test_match_best2_frame_against_pool_shape(cuda, n_seen):
     """Relocalization's call: a frame's 2000 features against the 32768-slot
     pool as side 2 (only the landmarks seen from one keyframe valid),
-    mutual: six column chunks merged, exact, first column on ties."""
+    mutual: one launch over the whole pool (tiles of valid columns inside
+    it), exact, first column on ties, the same bits on a second call."""
     c = _match_case(23, 2000, 32768, cuda)
-    c["d2"][20000] = c["d2"][0]             # a tie across chunks
+    c["d2"][20000] = c["d2"][0]             # a tie across the old chunk boundary
     c["d2"][1] = c["d2"][0]
     seen = c["valid2"] & (torch.rand(32768, device=cuda) < n_seen / 32768)
     seen[0] = seen[1] = seen[20000] = True
     from tc2li_slam_torch.ops.kernels import build
-    assert build.library().tc2li_match_max_columns(2) == match.DENSE_MAX_COLUMNS
-    before = match.launches, match.launches_by_mode.get("none+mutual+chunk", 0)
+    assert build.library().tc2li_match_max_columns(2) == match.DENSE_MAX_COLUMNS == 65535
+    before = match.launches, match.launches_by_mode.get("none+mutual", 0)
     got = match.match_best2(c["d1"], c["d2"], c["valid1"], seen, None, True)
-    assert match.launches - before[0] == -(-32768 // match.DENSE_MAX_COLUMNS) == 6
-    assert match.launches_by_mode["none+mutual+chunk"] - before[1] == 6
+    assert match.launches - before[0] == 1
+    assert match.launches_by_mode["none+mutual"] - before[1] == 1
+    assert "none+mutual+chunk" not in match.launches_by_mode
     _same(got, match.match_best2_plain(c["d1"], c["d2"], c["valid1"], seen, None, True))
+    _same(got, match.match_best2(c["d1"], c["d2"], c["valid1"], seen, None, True))
+
+
+@pytest.mark.parametrize("mutual", [False, True])
+@pytest.mark.parametrize("case", chip_smoke.DENSE_CASES)
+def test_match_best2_dense_tiles(cuda, case, mutual):
+    """The dense mode over more than one tile of valid columns
+    (``chip_smoke.dense_case`` at 300 x 12,037, the card's own tile): a tie
+    across a tile boundary, a column repeated in the last tile, a row whose
+    only admitted column is in the last tile, no valid row or column, a bool
+    mask: bit-equal to the plain version, the same bits on a second call,
+    one launch a call."""
+    from tc2li_slam_torch.ops.kernels import build
+    tile = build.library().tc2li_match_dense_tile(12037)
+    assert 0 < 2 * tile < 12037 < 3 * tile
+    c = chip_smoke.dense_case(np.random.default_rng(60 + chip_smoke.DENSE_CASES.index(case)),
+                              case, tile, M=12037)
+    args = chip_smoke.dense_args(torch, c, cuda)
+    before = match.launches
+    got = match.match_best2(*args, mutual)
+    again = match.match_best2(*args, mutual)
+    assert match.launches - before == 2
+    _same(got, match.match_best2_plain(*args, mutual))
+    _same(got, again)
+    if case == "tie across tiles":
+        assert (int(got[0][0]), int(got[1][0])) == (tile - 1, 0)
+    if case == "last tile only":
+        assert int(got[0][1]) == 12037 - 2
 
 
 # --- match_best2's window mode: the column grid (csrc/match.cu window_grid_kernel) ---

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """Where ``match_best2`` (``csrc/match.cu``) spends its time on its window,
-stereo and epipolar call shapes, on one CUDA card, for one or several
-checkouts in turns.
+stereo, epipolar and dense call shapes, on one CUDA card, for one or
+several checkouts in turns.
 
     python3 tools/match_kernels.py [--cases PATH] [--tree DIR ...] [--out DIR] [--times-only]
 
-The cases are ``chip_smoke.py``'s own window, stereo and epipolar matches,
-which it writes to ``build/match_cases.pt`` (``chip_smoke.save_match_cases``):
-the last frame's stereo pair, the landmark pool projected into a keyframe,
-a full pool of 32,768 valid landmarks, the edge rows (1,003 x 517, with
-and without the mutual test), and 4a's keyframe pair under its epipolar
-gate. Copy the file into ``proof/`` to reuse it in a later chip call
-without running ``chip_smoke.py`` first. An epipolar case runs as the
-tree's own route: an ``EpipolarMask`` where the tree has one, else the
-dense mask the plain chain builds (``chip_smoke.load_match_cases``); a
-case saved with its keypoints ``uv1`` and fundamental matrix ``F12`` is
+The cases are ``chip_smoke.py``'s own matches under a mask descriptor or
+none, which it writes to ``build/match_cases.pt``
+(``chip_smoke.save_match_cases``): the last frame's stereo pair, the
+landmark pool projected into a keyframe, a full pool of 32,768 valid
+landmarks, the edge rows (1,003 x 517, with and without the mutual test),
+4a's keyframe pair under its epipolar gate, the dense worst case (2,000 x
+2,000, every pair admitted) and the three unmasked shapes of 4a-4f: the
+landmark pool against a frame (global tracking), a frame against the pool
+with only one keyframe's landmarks valid (relocalization) and 4f's loop
+keyframe pair (loop verification). Copy the file into ``proof/`` to reuse
+it in a later chip call without running ``chip_smoke.py`` first. An
+epipolar case runs as the tree's own route: an ``EpipolarMask`` where the
+tree has one, else the dense mask the plain chain builds
+(``chip_smoke.load_match_cases``); a case saved with its keypoints ``uv1`` and fundamental matrix ``F12`` is
 also timed as the whole call from the pair's geometry, the gate's inputs
 included (``chip_smoke.epipolar_whole_call``), with its device events.
 
@@ -24,8 +28,10 @@ A`` compares two in turns on one card) a child process imports that tree's
 
 - holds the kernel's outputs equal to ``match_best2_plain``'s, bit for bit;
 - counts the launches of a call (the wrapper's ``launches``), the valid
-  rows and the admitted pairs;
-- times a call behind a device backlog (``chip_smoke.cuda_ms``), device ms;
+  rows, the valid columns and the admitted pairs;
+- times a call behind a device backlog (``chip_smoke.cuda_ms``), device ms,
+  and a call on the host clock up to its synchronize (host ms), with its
+  device events (kernels of any kind, eager tensor ops included);
 - the phase split through the lapped library (``build.variant(
   "-DTC2LI_LAPS")``, ``csrc/laps.cuh``): cycles a call by phase on thread 0
   of block 0, each phase's share (in the stereo mode: block 0's build of
@@ -53,12 +59,20 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# the lap slots of csrc/match.cu: the staged kernel (the dense mode, side 2
-# in shared memory; 0-1), the window mode's column grid (3, 5, 6), the
-# stereo mode's row bins: block 0's build (7-10), the barrier after it (11),
-# the walk of warp 0's row (12), and the epipolar mode's staging of the
-# valid columns (13) and warp 0's walk of its row (14)
-LAPS = {0: "stage side 2", 1: "rows of warp 0 (every column)",
+# the lap slots of csrc/match.cu: the window mode's column grid (3, 5, 6),
+# the stereo mode's row bins: block 0's build (7-10), the barrier after it
+# (11), the walk of warp 0's row (12), the epipolar mode's staging of the
+# valid columns (13) and warp 0's walk of its row (14), and the dense mode
+# (15, 17-20: a phase of block 0, each tile's phases added up). Slots 0-1
+# are those of the staged kernel the dense mode had before (side 2 staged
+# whole, then warp 0's groups of 4 rows against every column), for a
+# checkout that has it.
+LAPS = {0: "staged: stage side 2", 1: "staged: rows of warp 0 (every column)",
+        15: "dense: rows compacted, invalid rows written, column flags to bits and scanned",
+        17: "dense: the tiles' valid columns staged, to the barrier after them",
+        18: "dense: the tiles' walks and key merges, to the barrier after them",
+        19: "dense: the tiles' column minima to device memory",
+        20: "dense: the valid rows' outputs written",
         3: "columns and descriptors to shared memory, cells cleared",
         5: "columns to their cells' lists", 6: "rows of warp 0 (their cells)",
         7: "bins: columns loaded, classed, extent and band",
@@ -84,6 +98,19 @@ def ptxas_kernels(log: str) -> dict:
         if m and cur:
             out.setdefault(cur, {})["ptxas_registers"] = int(m.group(1))
     return out
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Mean host-clock ms of a call of ``fn`` up to the synchronize after it,
+    after one warm-up."""
+    import time
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def measure(tree: Path, cases_path: Path, times_only: bool = False) -> dict:
@@ -123,10 +150,12 @@ def measure(tree: Path, cases_path: Path, times_only: bool = False) -> dict:
             fn()
             torch.cuda.synchronize()
             lapped.tc2li_laps_read_match(buf)
-        tot = sum(buf[k] for k in LAPS if buf[N_SLOTS + k])
+        # (a slot this tool does not name, as a patched form may lap, by number)
+        names = {k: LAPS.get(k, f"slot {k}") for k in range(N_SLOTS) if buf[N_SLOTS + k]}
+        tot = sum(buf[k] for k in names)
         return {"total cycles": tot, **{
             v: {"cycles": buf[k], "laps": buf[N_SLOTS + k], "share": buf[k] / max(tot, 1)}
-            for k, v in LAPS.items() if buf[N_SLOTS + k]}}
+            for k, v in names.items()}}
 
     whole = cs.epipolar_whole_call(torch, cases_path, dev)
     for name, (d1, d2, v1, v2, mask, mutual) in cs.load_match_cases(
@@ -138,15 +167,21 @@ def measure(tree: Path, cases_path: Path, times_only: bool = False) -> dict:
         n_launch = match.launches - n0
         ref = match.match_best2_plain(d1, d2, v1, v2, mask, mutual)
         torch.cuda.synchronize()
-        full = v1[:, None] & v2[None, :] & (mask if dense else mask.dense())
+        full = v1[:, None] & v2[None, :]
+        if mask is not None:
+            full = full & (mask if dense else mask.dense())
+        split = cs.kernel_split(torch, call, 20)
         row = {"N": d1.shape[0], "M": d2.shape[0],
-               "mask": "dense" if dense else type(mask).__name__, "mutual": mutual,
+               "mask": "none" if mask is None else "dense" if dense else type(mask).__name__,
+               "mutual": mutual,
                "valid rows": int(v1.sum()), "valid columns": int(v2.sum()),
                "admitted pairs": int(full.sum()),
-               "bit-equal to plain": cs.same(torch, got, ref), "launches a call": n_launch,
+               "bit-equal to plain": cs.same(torch, got, ref),
+               "same bits twice": cs.same(torch, got, call()), "launches a call": n_launch,
                "ms a call": cs.cuda_ms(torch, call, 50, True),
-               "ms by kernel": {k: v["ms_a_launch"] for k, v in
-                                cs.kernel_split(torch, call, 20).items()}}
+               "host ms a call": host_ms(torch, call, 20),
+               "device events a call": sum(round(v["launches_a_call"]) for v in split.values()),
+               "ms by kernel": {k: v["ms_a_launch"] for k, v in split.items()}}
         del full
         if name in whole:   # the call from the pair's geometry: the gate's inputs too
             row["whole call"] = {
