@@ -33,7 +33,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    iterations on the mesh path of 4g), once per LVI-BA pass with it
    (``n_lvi_ba_balm``); the window BA's kernels ``launches_per_call(iters)``
    times per ``run_local_ba`` call off the mesh (``_global_ba``'s included),
-   counted where ``System`` calls it;
+   counted where ``System`` calls it; the LVI-BA's kernels
+   (``lvi_ba_lm``) ``launches_per_call(iters)`` times per
+   ``inertial_ba.lvi_ba`` call, one a pass of ``n_lvi_ba`` (none in the
+   STEREO_LIDAR phases);
 4. the duplicate-fusion pass (``culling.fuse_duplicates``, the caller of the
    Hamming-matrix kernel) over the slice's landmarks, counted the same way
    and held against the same call on the CPU;
@@ -67,6 +70,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``esekf_predict`` and ``lio_fences`` once (the fence table in the predict
    launch), ``lio_rows`` max_iters + 2 and ``esekf_step`` max_iters + 1
    times a ``lio_scan_step`` call, 2 max_iters + 4 device launches in all;
+   ``lvi_ba_lm`` ``n_lvi_ba`` x ``launches_per_call(ba_iters)`` times;
    ``vi_refine``'s and
    ``lio``'s ms a frame; then a forced bad-IMU event (a
    window with non-finite samples): ``lio_scan_step`` returns ``bad`` with
@@ -161,7 +165,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    no valid landmark (poses to 1e-4, landmarks to 1e-3 m, cost to 1e-4
    relative, or else no farther from the plain version run in float64; the
    same bits on a second call; the device time of a call split by launch
-   with ``torch.profiler``), the BALM quadratic
+   with ``torch.profiler``); the LVI-BA's kernels (``lvi_phase``) on 4e's
+   last pass (the BALM term on) and on a synthetic FullInertialBA window
+   (``lvi_problem``: P 20, 8192 landmarks, 10 iterations) to ``LVI_TOL`` or
+   else no farther from the plain version run in float64 on the host, the
+   inlier flags equal but at a gate, the same bits twice, no
+   host sync, device ms by kernel, the BALM quadratic
    on phase 3's last clusters (H and g to 1e-3 of their largest entry, the
    cost to 1e-3 relative, the same bits on a second call) and with every
    voxel invalid (exactly 0); the stereo half of the frame build
@@ -1005,6 +1014,372 @@ def imu_distance(torch, field, a, ref) -> float:
     if field == "C":
         return float((d / diag_scale(torch, ref)).max())
     return float(d.max()) / max(float(ref.abs().max()), 1e-30) if d.numel() else 0.0
+
+
+LVI_CASES = ("4e-like", "full_inertial", "padded", "non-finite")
+LVI_KERNELS = ("init_kernel", "build_kernel", "reduce_kernel", "solve_kernel", "eval_kernel",
+               "commit_kernel")   # csrc/lvi_ba.cu
+# the LVI-BA kernel against its plain version (vi_agreement's rule): the
+# states as VI_TOL, landmarks to 1e-3 m (ba_outside's), the cost relative
+LVI_TOL = {"T_wb": 1e-4, "vel": 1e-4, "bg": 1e-5, "ba": 1e-4, "X_w": 1e-3, "cost": 1e-3}
+# float64 operations of csrc/lvi_ba.cu beyond the window BA's: a factor's
+# residual chain (~1,000), J1 and J2 (~2,700), I J1, I J2 (~2,500), its
+# three 15x15 blocks (~6,100) and gradients, a block a factor a pass
+LVI_OPS_FACTOR = 12_000
+
+
+def lvi_problem(rng, case: str = "4e-like", P: int | None = None, L: int = 2000, K: int = 8):
+    """Inputs of the LVI-BA (numpy, from ``rng``): P keyframe body states of
+    a KITTI-like rig (camera looking along body x, ``vi_problem``'s
+    extrinsic) moving at ~1.5 m/s with a slow turn, their IMU windows at
+    100 Hz with small biases (4e's noise figures in ``VI_CALIB``), preintegrated
+    by the port's plain ``estimation.imu.integrate`` on the host with
+    ``slam.imu_mode``'s covariance floor; L landmarks ahead, each seen from K
+    consecutive states (70% stereo, 8 pyramid levels, 0.5 px of noise at
+    level 0, 3% outliers of 20-50 px, 3% masked, out-of-image rows masked). The initial state: the first
+    fixed and true, the others ~0.6 degrees, ~5 cm and ~0.1 m/s off, biases
+    0; landmarks ~5 cm off. Cases: ``4e-like`` (P 6, the BALM term over the
+    first 4 states: 3,000 points a LiDAR keyframe on three planes, 6
+    iterations), ``full_inertial`` (P 20, no BALM, 10 iterations: the
+    FullInertialBA's shape), ``padded`` (P 6, the last two slots padding as
+    ``System._run_lvi_ba`` pads: fixed identity states, no observation, the
+    store's empty factors, invalid), ``non-finite`` (P 6, a landmark NaN
+    with valid observations). Returns a dict of numpy arrays and numbers."""
+    import numpy as np
+    import torch
+
+    from tc2li_slam_torch.estimation import imu
+    from tc2li_slam_torch.io.synthetic import KITTI_LIKE as rig
+    from tc2li_slam_torch.slam import imu_mode
+
+    P = P or (20 if case == "full_inertial" else 6)
+    dt_kf = 0.4   # s between keyframes
+    pad = 2 if case == "padded" else 0
+    n_lidar = min(4, P) if case == "4e-like" else 0
+    iters = 10 if case == "full_inertial" else 6
+
+    def se3(R, t):
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, t
+        return T
+
+    fx, fy, cx, cy, bf = rig.fx, rig.fy, rig.cx, rig.cy, rig.fx * rig.baseline
+    g = np.asarray(VI_GRAVITY)
+    T_bc = se3(np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+               @ _so3_np(np.array([0.01, -0.02, 0.005])), np.array([0.2, 0.01, 0.1]))
+    R0 = _so3_np(rng.normal(0, 0.02, 3))
+    w_b = np.array([0.0, 0.0, 0.03]) + rng.normal(0, 0.01, 3)
+    v0 = np.array([1.5, 0.1, 0.0]) + rng.normal(0, 0.1, 3)
+    a_w = rng.normal(0, 0.1, 3)
+    bg_t, ba_t = rng.normal(0, 2e-4, 3), rng.normal(0, 2e-3, 3)
+    dt, n_sub = 0.01, int(round(dt_kf / 0.01))
+    pose = lambda t: se3(R0 @ _so3_np(w_b * t), v0 * t + 0.5 * a_w * t * t)
+    T_gt = np.stack([pose(i * dt_kf) for i in range(P)])
+    v_gt = np.stack([v0 + a_w * i * dt_kf for i in range(P)])
+    cal = imu.ImuCalib.create(*VI_CALIB)
+    keys = ("dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa", "dt")
+    fac = {k: [] for k in keys + ("C_inv",)}
+    for i in range(P - 1):
+        t0 = i * dt_kf
+        gyro = np.stack([w_b + bg_t + rng.normal(0, VI_CALIB[0], 3) for _ in range(n_sub)])
+        acc = np.stack([pose(t0 + k * dt)[:3, :3].T @ (a_w - g) + ba_t
+                        + rng.normal(0, VI_CALIB[1], 3) for k in range(n_sub)])
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+        pre = imu.integrate(cal, t(gyro), t(acc), t(np.full(n_sub, dt)), t(np.zeros(3)),
+                            t(np.zeros(3)))
+        for k in keys:
+            fac[k].append(np.asarray(getattr(pre, k)))
+        fac["C_inv"].append(np.asarray(torch.linalg.inv(imu_mode.floor_cov9(pre.C[:9, :9]))))
+    shapes = {"dV": (3,), "dP": (3,), "dt": (), "C_inv": (9, 9)}
+    fac = {k: np.stack(v).astype(np.float32) if v else np.zeros((0,) + shapes.get(k, (3, 3)),
+                                                                np.float32)
+           for k, v in fac.items()}
+    F = P - 1
+    fac.update(bg_lin=np.zeros((F, 3), np.float32), ba_lin=np.zeros((F, 3), np.float32),
+               info_bg=np.full(F, 1e5, np.float32), info_ba=np.full(F, 1e4, np.float32),
+               valid=np.ones(F, bool))
+    # landmarks ahead of the path, each seen from K consecutive states
+    X = np.stack([rng.uniform(6, 60, L) + v0[0] * dt_kf * P * 0.5, rng.uniform(-15, 15, L),
+                  rng.uniform(-2, 6, L)], -1)
+    Kp = min(K, P - pad)
+    first = rng.integers(0, P - pad - Kp + 1, L)
+    pose_idx = np.full((L, K), 0, np.int32)
+    valid = np.zeros((L, K), bool)
+    uvr = np.zeros((L, K, 3))
+    level = rng.integers(0, 8, (L, K))
+    sig = 1.2 ** level
+    stereo = rng.random((L, K)) < 0.7
+    for k in range(Kp):
+        pi = first + k
+        pose_idx[:, k] = pi
+        T_cw = np.linalg.inv(T_gt[pi] @ T_bc)
+        Xc = np.einsum("lij,lj->li", T_cw[:, :3, :3], X) + T_cw[:, :3, 3]
+        z = Xc[:, 2]
+        zs = np.where(np.abs(z) < 1e-9, 1e-9, z)
+        u, v = fx * Xc[:, 0] / zs + cx, fy * Xc[:, 1] / zs + cy
+        uvr[:, k] = (np.stack([u, v, u - bf / zs], -1)
+                     + rng.normal(0, 0.5, (L, 3)) * sig[:, k, None])
+        valid[:, k] = (z > 0.5) & (u > 0) & (u < rig.width) & (v > 0) & (v < rig.height)
+    out = rng.random((L, K)) < 0.03
+    uvr[out, :2] += rng.normal(0, 1, (int(out.sum()), 2)) * rng.uniform(20, 50, (int(out.sum()), 1))
+    uvr[..., 2] = np.where(stereo, uvr[..., 2], -1.0)
+    valid &= rng.random((L, K)) >= 0.03
+    # the initial state
+    T0 = T_gt.copy()
+    v_0 = v_gt.copy()
+    for i in range(1, P):
+        T0[i] = T0[i] @ se3(_so3_np(rng.normal(0, 0.01, 3)), rng.normal(0, 0.05, 3))
+        v_0[i] += rng.normal(0, 0.1, 3)
+    X0 = X + rng.normal(0, 0.05, X.shape)
+    fixed = np.zeros(P, bool)
+    fixed[0] = True
+    if pad:
+        fixed[P - pad:] = True
+        T0[P - pad:] = np.eye(4)
+        v_0[P - pad:] = 0.0
+        valid &= pose_idx < P - pad
+        for k in keys + ("C_inv",):   # the store's row of a keyframe without a factor
+            fac[k][P - pad - 1:] = np.eye(3) if k == "dR" else 0.0
+        fac["valid"][P - pad - 1:] = False
+    if case == "non-finite":
+        X0[0] = np.nan
+        valid[0, :Kp] = True
+    f32 = lambda a: np.asarray(a, np.float32)
+    p = dict(cam=(fx, fy, cx, cy, bf), T_cb=f32(np.linalg.inv(T_bc)), gravity=f32(g),
+             T_wb=f32(T0), vel=f32(v_0), bg=np.zeros((P, 3), np.float32),
+             ba=np.zeros((P, 3), np.float32), X0=f32(X0), pose_idx=pose_idx, uv=f32(uvr),
+             inv_sigma2=f32(1.0 / sig ** 2), stereo=stereo, valid=valid, fixed=fixed,
+             valid_lm=np.ones(L, bool), fac=fac, iters=iters, n_lidar=n_lidar,
+             T_gt=f32(T_gt))
+    if n_lidar:
+        T_bl = se3(_so3_np(np.array([0.0, 0.01, -0.01])), np.array([0.3, 0.0, 0.5]))
+        pts, pvalid = [], []
+        for i in range(n_lidar):
+            M = 3000
+            a_, b_ = rng.uniform(-3, 12, M), rng.uniform(-6, 6, M)
+            face = rng.integers(0, 3, M)
+            pw = np.stack([a_, b_, np.full(M, -1.7)], 1)
+            pw[face == 1] = np.stack([a_, np.full(M, 8.0), rng.uniform(-1.7, 4, M)], 1)[face == 1]
+            pw[face == 2] = np.stack([a_, np.full(M, -8.0), rng.uniform(-1.7, 4, M)], 1)[face == 2]
+            T_lw = np.linalg.inv(T_gt[i] @ T_bl)
+            pts.append(pw @ T_lw[:3, :3].T + T_lw[:3, 3] + rng.normal(0, 0.01, pw.shape))
+            pvalid.append(rng.random(M) > 0.05)
+        p.update(T_bl=f32(T_bl), points=f32(np.stack(pts)), pvalid=np.stack(pvalid))
+    return p
+
+
+def lvi_args(torch, p, dev, dtype=None):
+    """``solver.inertial_ba.lvi_ba``'s arguments ``(a, kw)`` for
+    ``lvi_problem``'s ``p`` on ``dev``; the BALM clusters built by
+    ``solver.balm.build_clusters`` on ``dev`` at the initial LiDAR poses, as
+    ``System._run_lvi_ba`` builds them (1 m voxels, 512 slots). With
+    ``dtype`` every float tensor is cast after that."""
+    from tc2li_slam_torch.geom import camera as cam_mod
+    from tc2li_slam_torch.solver import balm as balm_mod, inertial_ba as iba, lm
+
+    up = lambda a: torch.as_tensor(a).to(dev)
+    fac = iba.ImuWindowFactors(*(up(p["fac"][k]) for k in iba.ImuWindowFactors._fields))
+    state0 = iba.InertialState(*(up(p[k]) for k in ("T_wb", "vel", "bg", "ba")))
+    obs = lm.BAObservations(*(up(p[k]) for k in ("pose_idx", "uv", "inv_sigma2", "stereo",
+                                                  "valid")))
+    a = (cam_mod.Pinhole.create(*p["cam"]), up(p["T_cb"]), state0, up(p["X0"]), obs, fac,
+         up(p["fixed"]), up(p["valid_lm"]), up(p["gravity"]))
+    kw = dict(iters=p["iters"])
+    if p["n_lidar"]:
+        n = p["n_lidar"]
+        T_bl = up(p["T_bl"])
+        clusters = balm_mod.build_clusters(up(p["points"]), up(p["pvalid"]),
+                                           state0.T_wb[:n] @ T_bl, voxel_size=1.0,
+                                           max_voxels=512, min_points=15)
+        kw.update(balm_clusters=clusters, T_bl=T_bl, w_lidar=0.01, use_balm=True, n_lidar=n)
+    if dtype is not None:
+        a, kw = _vi_cast(torch, a, dtype), {k: _vi_cast(torch, v, dtype) for k, v in kw.items()}
+    return a, kw
+
+
+def lvi_cpu64(torch, a, kw):
+    """``lvi_ba``'s arguments ``(a, kw)`` on the CPU in float64: the plain
+    version's float64 run (the reference the kernel's float64 sums are held
+    to)."""
+    def cpu(x):
+        if isinstance(x, tuple):
+            parts = (cpu(v) for v in x)
+            return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+        return x.cpu() if torch.is_tensor(x) else x
+    return (_vi_cast(torch, cpu(a), torch.float64),
+            {k: _vi_cast(torch, cpu(v), torch.float64) for k, v in kw.items()})
+
+
+def lvi_agreement(torch, a, got, ref, ref64=None) -> dict:
+    """How two ``LviBaResult``s on the arguments ``a`` agree
+    (``vi_agreement``'s rule): the largest difference of T_wb, vel, bg, ba,
+    the landmarks and the cost (relative, absolute below 1); the inlier
+    flags that differ (``flips``) and of them those at a gate (``near``:
+    their chi2, re-derived in float64 at either result, within 1e-3
+    relative of its threshold or on both sides of it, or their depth so at
+    0.05). With ``ref64`` (the plain version run in float64), ``outside``
+    lists the quantities beyond ``LVI_TOL`` that are also farther from
+    ``ref64`` than ``ref`` is."""
+    import numpy as np
+    cam, T_cb, obs = a[0], a[1], a[4]
+    P = got.state.T_wb.shape[0]
+    L, K = obs.pose_idx.shape
+    host = lambda x: np.asarray(x.detach().cpu(), np.float64)
+    pidx = np.clip(np.asarray(obs.pose_idx.cpu()), 0, P - 1).reshape(-1)
+    uvr, s2 = host(obs.uv).reshape(-1, 3), host(obs.inv_sigma2).reshape(-1)
+    st = np.asarray(obs.stereo.cpu()).reshape(-1).astype(bool)
+    thr = np.where(st, 7.815, 5.991)
+    Tcb = host(T_cb)
+
+    def gates(r):
+        T = np.linalg.inv(host(r.state.T_wb))[pidx]
+        X = np.repeat(host(r.X_w), K, axis=0)
+        Xb = np.einsum("oij,oj->oi", T[:, :3, :3], X) + T[:, :3, 3]
+        Xc = Xb @ Tcb[:3, :3].T + Tcb[:3, 3]
+        zz = np.where(np.abs(Xc[:, 2]) < 1e-9, 1e-9, Xc[:, 2])
+        u = cam.fx * Xc[:, 0] / zz + cam.cx
+        res = np.stack([u - uvr[:, 0], cam.fy * Xc[:, 1] / zz + cam.cy - uvr[:, 1],
+                        np.where(st, u - cam.bf / zz - uvr[:, 2], 0.0)], -1)
+        return s2 * np.sum(res * res, -1), Xc[:, 2]
+
+    with np.errstate(invalid="ignore", over="ignore"):
+        (c1, z1), (c2, z2) = gates(got), gates(ref)
+        near = ((np.minimum(np.abs(c1 - thr), np.abs(c2 - thr)) <= 1e-3 * thr)
+                | ((c1 - thr) * (c2 - thr) <= 0)
+                | (np.minimum(np.abs(z1 - 0.05), np.abs(z2 - 0.05)) <= 5e-5)
+                | ((z1 - 0.05) * (z2 - 0.05) <= 0))
+    flips = np.asarray((got.obs_inlier.cpu() != ref.obs_inlier.cpu())).reshape(-1)
+
+    def quantities(r):
+        return {"T_wb": r.state.T_wb, "vel": r.state.vel, "bg": r.state.bg, "ba": r.state.ba,
+                "X_w": r.X_w, "cost": r.cost}
+
+    def dist(a, b, key):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        d = torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(a), (a - b).abs())
+        d = float(d.max()) if d.numel() else 0.0
+        if key == "cost":
+            d /= max(float(b.abs().nan_to_num(0.0).max()), 1.0)
+        return d if d == d else float("inf")
+
+    qg, qr = quantities(got), quantities(ref)
+    out = {k: dist(qg[k], qr[k], k) for k in qg}
+    out.update(flips=int(flips.sum()), near=int((flips & near).sum()))
+    out["n_inliers"] = (int(got.obs_inlier.sum()), int(ref.obs_inlier.sum()))
+    if ref64 is not None:
+        q64 = quantities(ref64)
+        out["vs_float64"] = {k: (dist(qg[k], q64[k], k), dist(qr[k], q64[k], k)) for k in qg}
+        out["outside"] = [k for k, tol in LVI_TOL.items()
+                          if out[k] > tol and out["vs_float64"][k][0] > out["vs_float64"][k][1]]
+    return out
+
+
+def lvi_bound(torch, a, kw) -> tuple:
+    """(least ms on the card, what bounds it) of one ``lvi_ba_lm`` call on
+    ``(a, kw)``: bytes read and written once (the observation table, the
+    landmarks, the states, the factors, the BALM term); float32 operations a
+    live observation an iteration (the window BA's) at the float32 rate and
+    float64 ones at the float64 rate: the pairs of the reduced system, each
+    landmark's inverse, the factors, the dense solve of the free rows."""
+    from tc2li_slam_torch.solver import inertial_ba as iba
+
+    cam, T_cb, s0, X0, obs, fac, fixed, vlm, grav = a
+    P, (L, K), it = s0.T_wb.shape[0], obs.pose_idx.shape, kw["iters"]
+    r, _, _, w, _ = iba._visual_residuals(cam, T_cb, s0, X0, obs)
+    live = (w != 0).reshape(L, K).cpu()
+    on_free = ~fixed.cpu()[obs.pose_idx.long().cpu().clamp(0, P - 1)]
+    n_live = int(live.sum())
+    n_pairs = int((((live & on_free).sum(1) ** 2) * vlm.cpu()).sum())
+    Df = 15 * int((~fixed).sum())
+    nl = kw.get("n_lidar", 0) if kw.get("use_balm") else 0
+    n_bytes = (4 * 25 * P * 2 + L * (13 + 12) + 22 * L * K + K * L + 4 * 151 * (P - 1) + 64 + 12
+               + (4 * 36 * nl * nl + 24 * nl + 4 if nl else 0))
+    t_b = n_bytes / PEAK_BYTES_S
+    f64 = it * (LBA_OPS_PAIR * n_pairs + LBA_OPS_LANDMARK * L + LVI_OPS_FACTOR * (P - 1)
+                + 2 * Df ** 3 / 3 + 3 * Df ** 2)
+    t_o = it * LBA_OPS_LIVE * n_live / PEAK_SIMPLE_S + f64 / PEAK_F64_S
+    return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"), n_live, n_pairs, Df
+
+
+def lvi_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None, split=None) -> dict:
+    """Phase 5, the LVI-BA kernel against its plain version on ``dev``
+    through the dispatcher a user calls (``solver.inertial_ba.lvi_ba``):
+    ``cases`` lists ``(label, a, kw)``; each is held to ``LVI_TOL`` or else
+    no farther from the plain version run in float64 on the CPU, the inlier
+    flags equal but at a gate (``lvi_agreement``'s ``near``), the same
+    bits on a second call, no host sync; a non-finite case returns its entry
+    state. ``timer(fn, reps) -> ms`` times a call behind a device backlog for
+    the first two cases (none: not taken), ``split(fn) -> {kernel: ...}``
+    splits them by kernel name (the kernels' device ms: the six of
+    ``csrc/lvi_ba.cu``). Returns the kernel's row; raises RuntimeError where
+    a check fails."""
+    from tc2li_slam_torch.ops.kernels import lvi_ba as klvi
+    from tc2li_slam_torch.solver import inertial_ba as iba
+
+    timer = timer or (lambda fn, reps: float("nan"))
+    row, err = None, 0.0
+    for n, (label, a, kw) in enumerate(cases):
+        got, again = iba.lvi_ba(*a, **kw), iba.lvi_ba(*a, **kw)
+        ref = klvi.lvi_ba_plain(*a, **kw)
+        ref64 = klvi.lvi_ba_plain(*lvi_cpu64(torch, a, kw)[0], **lvi_cpu64(torch, a, kw)[1])
+        sync()
+        agr = lvi_agreement(torch, a, got, ref, ref64)
+        twice = bit_equal(torch, [got.state.T_wb, got.state.vel, got.state.bg, got.state.ba,
+                                  got.X_w, got.cost, got.obs_inlier],
+                          [again.state.T_wb, again.state.vel, again.state.bg, again.state.ba,
+                           again.X_w, again.cost, again.obs_inlier])
+        P, (L, K) = a[2].T_wb.shape[0], a[4].pose_idx.shape
+        log(f"lvi_ba_lm {label} (P {P}, L {L}, K {K}, {kw['iters']} iterations, BALM "
+            f"{bool(kw.get('use_balm'))}, {int(a[6].sum())} fixed): cost {float(got.cost):.6f} / "
+            f"plain {float(ref.cost):.6f} / plain in float64 {float(ref64.cost):.6f}; "
+            + ", ".join(f"{k} {v:.2e}" for k, v in agr.items() if isinstance(v, float))
+            + f"; inliers {agr['n_inliers']}, flags that differ {agr['flips']}, of which at a "
+            f"gate {agr['near']}; |kernel - "
+            f"float64|, |plain - float64| "
+            + ", ".join(f"{k} {v[0]:.2e} / {v[1]:.2e}" for k, v in agr["vs_float64"].items())
+            + f"; beyond tolerance and farther from float64 than the plain version "
+            f"{agr['outside']}; the same bits on a second call {twice}")
+        if agr["outside"] or agr["flips"] != agr["near"] or not twice:
+            raise RuntimeError(f"lvi_ba_lm disagrees with its plain version on {label}: {agr}, "
+                               f"the same bits twice {twice}")
+        if "non-finite" in label and not (torch.equal(got.state.T_wb, a[2].T_wb)
+                                           and torch.equal(got.state.vel, a[2].vel)
+                                           and torch.equal(got.X_w[1:], a[3][1:])):
+            raise RuntimeError(f"lvi_ba_lm on {label}: the state moved")
+        fixed = a[6]
+        if not torch.equal(got.state.T_wb[fixed], a[2].T_wb[fixed]):
+            raise RuntimeError(f"lvi_ba_lm on {label}: a fixed state moved")
+        err = max(err, agr["T_wb"])
+        if n < 2:
+            # the call enqueues ~100 tensor ops around its launches: its host
+            # time outlasts a backlog, so the kernels' device ms come from the
+            # profiler (the six of csrc/lvi_ba.cu, and the whole call's)
+            call_ms = timer(lambda: iba.lvi_ba(*a, **kw), 20)
+            ms_p = timer(lambda: klvi.lvi_ba_plain(*a, **kw), 3)
+            b, n_live, n_pairs, Df = lvi_bound(torch, a, kw)
+            parts = split(lambda: iba.lvi_ba(*a, **kw)) if split else {}
+            ms_k = sum(v["ms_a_call"] for k, v in parts.items() if k in LVI_KERNELS) \
+                if parts else call_ms
+            dev_ms = sum(v["ms_a_call"] for v in parts.values()) if parts else call_ms
+            log(f"lvi_ba_lm {label}: {klvi.launches_per_call(kw['iters'])} launches, "
+                f"{n_live} observations of non-zero weight, {n_pairs} pairs, {Df} free rows: "
+                f"kernels {ms_k:.4f} ms on the device (torch.profiler), the whole call "
+                f"{dev_ms:.4f} device ms and {call_ms:.4f} ms a call behind a backlog, bound "
+                f"{b[0]:.6f} ms ({b[1]}), plain {ms_p:.4f} ms"
+                + ("; device ms a call by kernel (torch.profiler): "
+                   + ", ".join(f"{k} {v['ms_a_call']:.4f} ({v['launches_a_call']:g})"
+                               for k, v in parts.items()) if parts else ""))
+            if n == 0:
+                row = dict(source="tc2li_slam_torch/csrc/lvi_ba.cu",
+                           replaces="tc2li_slam_tpu/solver/inertial_ba.py:191", ms=ms_k,
+                           call_ms=dev_ms, plain_ms=ms_p, bound_ms=b[0], bound_by=b[1],
+                           library_ms=None)
+    n_sync = [syncs_of(torch, lambda: iba.lvi_ba(*a, **kw)) for _, a, kw in cases]
+    log(f"lvi_ba_lm: host syncs in a call {n_sync}")
+    if any(n_sync):
+        raise RuntimeError(f"lvi_ba_lm synchronised the host in a call: {n_sync}")
+    row["max_abs_err"] = err
+    return {"lvi_ba_lm": row}
 
 
 def vi_phase(torch, dev, vi_inputs, rng, log=print, sync=lambda: None, timer=None) -> dict:
@@ -3162,13 +3537,14 @@ def main() -> int:
     from tc2li_slam_torch.ops import bow, orb, stereo
     from tc2li_slam_torch.ops.kernels import (balm as kbalm, build, clusters as kcl, fast,
                                               hamming, imu_preint as kimu, lio as klio,
-                                              local_ba as klba, match, orb as korb,
-                                              pose_inertial as kpi, pose_lm, stereo as kst)
+                                              local_ba as klba, lvi_ba as klvi, match,
+                                              orb as korb, pose_inertial as kpi, pose_lm,
+                                              stereo as kst)
     from tc2li_slam_torch.slam import (config as cfg_mod, culling, lio, local_mapping,
                                        relocalization, system as sys_mod, tracking,
                                        triangulation)
-    from tc2li_slam_torch.solver import (balm as balm_mod, lm as lm_mod, pnp as pnp_mod,
-                                         pose_inertial as pi_mod)
+    from tc2li_slam_torch.solver import (balm as balm_mod, inertial_ba as iba_mod, lm as lm_mod,
+                                         pnp as pnp_mod, pose_inertial as pi_mod)
 
     t_script = time.perf_counter()
     dev = torch.device("cuda")
@@ -3303,6 +3679,20 @@ def main() -> int:
             return _fn(*a, **kw)
         setattr(pi_mod, name, vi_spy)
 
+    # ... and of the LVI-BA's kernels: launches_per_call(iters) an
+    # inertial_ba.lvi_ba call (System's n_lvi_ba), and the last call's
+    # arguments, for phase 5
+    lvi_calls = {"lvi_ba": 0, "implied": 0}
+    lvi_inputs = {}
+    lvi_ba = iba_mod.lvi_ba
+
+    def lvi_spy(*a, **kw):
+        lvi_calls["lvi_ba"] += 1
+        lvi_calls["implied"] += klvi.launches_per_call(kw.get("iters", 8))
+        lvi_inputs["last"] = (a, kw)
+        return lvi_ba(*a, **kw)
+
+    iba_mod.lvi_ba = lvi_spy
     local_mapping.run_local_ba = run_local_ba_spy
     sys_mod.System._global_ba = global_ba_spy
     lm_mod.local_ba = local_ba_spy
@@ -3314,6 +3704,7 @@ def main() -> int:
         pose_lm.launches = calls["track_frame"] = calls["pnp_ransac"] = 0
         kbalm.launches = klba.launches = kst.launches = kcl.launches = 0
         kimu.launches = kpi.launches = vi_calls["integrate"] = 0
+        klvi.launches = lvi_calls["lvi_ba"] = lvi_calls["implied"] = 0
         klio.predict_launches = klio.fence_launches = klio.rows_launches = 0
         klio.step_launches = 0
         lio_calls["lio_scan_step"] = 0
@@ -3335,6 +3726,8 @@ def main() -> int:
                 "implied:local_ba_lm": ba_calls["implied"],
                 "imu_preintegrate": kimu.launches, "pose_inertial_lm": kpi.launches,
                 "calls:integrate": vi_calls["integrate"],
+                "lvi_ba_lm": klvi.launches, "calls:lvi_ba": lvi_calls["lvi_ba"],
+                "implied:lvi_ba_lm": lvi_calls["implied"],
                 "esekf_predict": klio.predict_launches, "lio_fences": klio.fence_launches,
                 "lio_rows": klio.rows_launches, "esekf_step": klio.step_launches,
                 "calls:lio_scan_step": lio_calls["lio_scan_step"]}
@@ -3451,6 +3844,7 @@ def main() -> int:
                 "calls:run_local_ba": n_ba3, "calls:global_ba": 0,
                 "implied:local_ba_lm": klba.launches_per_call(cfg.tracking.ba_iters) * n_ba3,
                 "imu_preintegrate": 0, "pose_inertial_lm": 0, "calls:integrate": 0,
+                "lvi_ba_lm": 0, "calls:lvi_ba": 0, "implied:lvi_ba_lm": 0,
                 "esekf_predict": 0, "lio_fences": 0, "lio_rows": 0, "esekf_step": 0,
                 "calls:lio_scan_step": 0}
     if launches != expected or slam.n_recover or slam.n_reloc:
@@ -3570,6 +3964,11 @@ def main() -> int:
             faults.append(ba_fault(counts, d["n_ba_balm"], d["n_lvi_ba_balm"]))
         if counts["calls:run_local_ba"] != d["n_ba"] - d["n_lvi_ba"] + counts["calls:global_ba"]:
             faults.append(f"{d['n_ba'] - d['n_lvi_ba']} run_local_ba calls")
+        # ... and an inertial_ba.lvi_ba call, launches_per_call(iters) launches
+        if counts["calls:lvi_ba"] != d["n_lvi_ba"] \
+                or counts["lvi_ba_lm"] != counts["implied:lvi_ba_lm"]:
+            faults.append(f"{d['n_lvi_ba']} lvi_ba calls, lvi_ba_lm launched "
+                          f"{counts['implied:lvi_ba_lm']} times")
         if faults:
             return f"launches {counts} by shape {modes} against {d}: expected " + "; ".join(faults)
         return None
@@ -3880,6 +4279,17 @@ def main() -> int:
     if counts_e["imu_preintegrate"] != counts_e["calls:integrate"]:
         return fail(f"IMU mode: imu_preintegrate launched {counts_e['imu_preintegrate']} times "
                     f"for {counts_e['calls:integrate']} integrate calls")
+    n_lvi = after["n_lvi_ba"] - before["n_lvi_ba"]
+    want_lvi = n_lvi * klvi.launches_per_call(cfg3.tracking.ba_iters)
+    print(f"{tag} IMU mode: lvi_ba_lm launched {counts_e['lvi_ba_lm']} times for {n_lvi} LVI-BA "
+          f"passes ({klvi.launches_per_call(cfg3.tracking.ba_iters)} a pass at "
+          f"{cfg3.tracking.ba_iters} iterations; inertial_ba.lvi_ba called "
+          f"{counts_e['calls:lvi_ba']} times); local_ba "
+          f"{[round(1e3 * x, 3) for x in slam3.timers.samples.get('local_ba', [])]} ms by pass "
+          f"over frames {N_IMU_WARM}..{N_IMU - 1} (CUDA events)", flush=True)
+    if n_lvi < 1 or counts_e["lvi_ba_lm"] != want_lvi or counts_e["calls:lvi_ba"] != n_lvi:
+        return fail(f"IMU mode: lvi_ba_lm launched {counts_e['lvi_ba_lm']} times for {n_lvi} "
+                    f"LVI-BA passes (expected {want_lvi})")
     n_scans = counts_e["calls:lio_scan_step"]
     want_lio = {name: n * n_scans
                 for name, n in klio.launches_per_scan(cfg3.lidar.max_iters).items()}
@@ -3900,9 +4310,11 @@ def main() -> int:
                     f"{want_device}")
     launches["imu_preintegrate"] = counts_e["imu_preintegrate"]
     launches["pose_inertial_lm"] = counts_e["pose_inertial_lm"]
+    launches["lvi_ba_lm"] = counts_e["lvi_ba_lm"]
     launches.update({name: counts_e[name] for name in want_lio})
     pose_launches["4e"] = counts_e["pose_only_lm"]
     clusters_case4e = ba_inputs.get("clusters")   # the IMU run's last LVI-BA window
+    lvi_case4e = lvi_inputs.get("last")           # ... and the pass's arguments
     imu_launches = {**{k: counts_e[k] for k in FRAME_KERNELS},
                     "pose_only_lm": counts_e["pose_only_lm"],
                     "match_best2": modes_e.get("window", 0),
@@ -3913,6 +4325,7 @@ def main() -> int:
                     "local_ba_lm": counts_e["local_ba_lm"],
                     "imu_preintegrate": counts_e["imu_preintegrate"],
                     "pose_inertial_lm": counts_e["pose_inertial_lm"],
+                    "lvi_ba_lm": counts_e["lvi_ba_lm"],
                     **{name: counts_e[name] for name in want_lio}}
     for name, n_launched in imu_launches.items():
         if n_launched < 1:
@@ -4525,6 +4938,22 @@ def main() -> int:
                 replaces="tc2li_slam_tpu/solver/lm.py:194", max_abs_err=lba_err, ms=ms_k,
                 plain_ms=ms_p, bound_ms=b_l[0], bound_by=b_l[1])
 
+    # the LVI-BA: 4e's last pass (its inputs as System passed them, the BALM
+    # term on) and a synthetic FullInertialBA window (P 20, 10 iterations, no
+    # BALM: the shape of System's full inertial BA at the VIBA rungs)
+    lvi_cases = [("4e's last LVI-BA pass",) + tuple(lvi_case4e),
+                 ("a FullInertialBA window",)
+                 + lvi_args(torch, lvi_problem(np.random.default_rng(20), "full_inertial",
+                                               L=8192), dev)]
+    try:
+        rows.update(lvi_phase(torch, dev, lvi_cases,
+                              log=lambda m: print(f"{tag} {m}", flush=True),
+                              sync=torch.cuda.synchronize,
+                              timer=lambda fn, reps: cuda_ms(torch, fn, reps, True),
+                              split=lambda fn: kernel_split(torch, fn, 5)))
+    except RuntimeError as e:
+        return fail(str(e))
+
     # the BALM quadratic on phase 3's last clusters, on them with every voxel
     # invalid, and on a window of 6 LiDAR keyframes of 20000 points on three
     # planes (phase 3's keyframes hold 2048 points each, too few for a 1 m
@@ -4693,8 +5122,8 @@ def main() -> int:
                  "orb_describe", "stereo_refine", "hamming_matrix", "match_best2",
                  "match_best2/stereo", "match_best2/epipolar", "match_best2/global", "match_best2/reloc",
                  "match_best2/loop", "pose_only_lm", "balm_clusters", "balm_quadratic",
-                 "local_ba_lm", "imu_preintegrate", "pose_inertial_lm", "esekf_predict",
-                 "lio_fences", "lio_rows", "esekf_step"):
+                 "local_ba_lm", "lvi_ba_lm", "imu_preintegrate", "pose_inertial_lm",
+                 "esekf_predict", "lio_fences", "lio_rows", "esekf_step"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": r["source"],
                         "replaces": r["replaces"], "launches": launches[name],
@@ -4702,7 +5131,7 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                         "launches_imu_mode": imu_launches.get(name, 0),
-                        **{k: r[k] for k in ("first_ms", "middle_ms", "final_ms",
+                        **{k: r[k] for k in ("first_ms", "middle_ms", "final_ms", "call_ms",
                                              "predict_alone_ms") if k in r}})
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))

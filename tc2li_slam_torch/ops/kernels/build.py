@@ -156,6 +156,10 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.tc2li_local_ba_scratch.restype = ctypes.c_longlong
     lib.tc2li_local_ba_lm.argtypes = [vp] * 16 + [i] * 6 + [f] * 5 + [i] + [vp] * 6
     lib.tc2li_local_ba_lm.restype = i
+    lib.tc2li_lvi_ba_scratch.argtypes = [i, i, i, i]
+    lib.tc2li_lvi_ba_scratch.restype = ctypes.c_longlong
+    lib.tc2li_lvi_ba_lm.argtypes = [vp] * 22 + [i] * 7 + [f] * 5 + [i] + [vp] * 9
+    lib.tc2li_lvi_ba_lm.restype = i
     lib.tc2li_orb_level_planes.argtypes = [vp] * 6 + [i] * 5 + [vp, vp]
     lib.tc2li_orb_level_planes.restype = i
     lib.tc2li_orb_select_grid.argtypes = [vp] * 9 + [i, i, vp]

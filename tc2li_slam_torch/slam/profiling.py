@@ -106,15 +106,24 @@ class StageTimer:
 def device_trace(log_dir: str | os.PathLike, device: torch.device | str):
     """``torch.profiler`` over the enclosed region: host activity, and the
     card's when ``device`` is CUDA. Yields the path of the Chrome trace JSON
-    that is written into ``log_dir`` on exit."""
-    from torch.profiler import ProfilerActivity, profile
+    that is written into ``log_dir`` on exit.
 
-    activities = [ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
+    The profiler warms up for one step before the region (a launch, waited
+    for, on a CUDA device) and records the region as its one active step:
+    a trace started cold lost the card's records of the region's first
+    kernels once in several runs on an H100 (the host's launches were there)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     out = Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
     path = out / f"trace_{os.getpid()}_{time.time_ns()}.json"
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(str(path))) as prof:
+        if cuda:
+            torch.ones(1, device=device).add_(1)
+            torch.cuda.synchronize(device)
+        prof.step()   # the region is the active step
         yield path
-    prof.export_chrome_trace(str(path))
+        prof.step()

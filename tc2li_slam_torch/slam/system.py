@@ -56,7 +56,8 @@ import torch
 from ..estimation import esekf, imu as imu_est
 from ..geom import camera as cam_mod, lie
 from ..ops import bow, orb as orb_mod, plane_fit, pointcloud, voxel_map
-from ..ops.kernels import balm as balm_kernel, local_ba as local_ba_kernel, orb as orb_kernel
+from ..ops.kernels import (balm as balm_kernel, local_ba as local_ba_kernel,
+                           lvi_ba as lvi_ba_kernel, orb as orb_kernel)
 from ..solver import balm as balm_mod, inertial_ba, inertial_init, pose_inertial as pi_mod
 from ..tensors import axis_vector, count, to_device
 from . import (atlas as atlas_mod, config as cfg_mod, culling, imu_mode, lio, local_mapping,
@@ -74,6 +75,12 @@ def check_kernel_limits(cfg: cfg_mod.SystemConfig) -> None:
         raise ValueError(
             f"tracking.local_window {t.local_window}: the window BA's kernel "
             f"(local_ba_lm) takes at most {local_ba_kernel.MAX_POSES} poses on the card")
+    # the IMU mode's window pass (System._run_lvi_ba): 15-dim states, a
+    # smaller solve; its FullInertialBA (20 states) fits
+    if cfg.use_imu and cfg.inertial_ba and t.local_window > lvi_ba_kernel.MAX_POSES:
+        raise ValueError(
+            f"tracking.local_window {t.local_window} with use_imu and inertial_ba: the LVI-BA's "
+            f"kernel (lvi_ba_lm) takes at most {lvi_ba_kernel.MAX_POSES} states on the card")
     # the BALM window of a local BA or an LVI-BA pass (local_mapping.run_local_ba,
     # System._run_lvi_ba): the last min(balm_window, window) keyframes
     bw = min(lc.balm_window, t.local_window)

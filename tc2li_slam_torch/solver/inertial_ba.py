@@ -12,8 +12,10 @@ cross-pose quadratic.
 The pose tangent is the right-multiplicative se3 (rho, phi), ``T_wb <- T_wb
 exp(xi)``, so the BALM body-frame chain rule is one adjoint transport
 ``Adj(T_lb)`` a pose. Landmarks are Schur-eliminated; the reduced [15P, 15P]
-system is dense. The LM loop is a Python loop of fixed length with the
-accept/reject decision kept on the device.
+system is dense. ``lvi_ba`` runs the LM loop as a fixed sequence of
+hand-written kernels on the card (``ops/kernels/lvi_ba.py``), whose plain
+version on the CPU is a Python loop of fixed length with the accept/reject
+decision kept on the device.
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ from typing import NamedTuple
 import torch
 
 from ..geom import camera as cam_mod, lie
+from ..ops.kernels import lvi_ba as lvi_ba_kernel
 from ..tensors import matvec
-from . import balm as balm_mod, factors
-from .lm import BAObservations, inv3x3, precond_solve
+from . import factors
+from .lm import BAObservations
 
 D = 15  # per-KF state dim
 POSE = slice(0, 6)   # (rho, phi)
@@ -168,105 +171,14 @@ def lvi_ba(cam: cam_mod.Pinhole, T_cb, state0: InertialState, X_w0, obs: BAObser
     edge. ``state0`` holds the [P] window states in temporal order, ``T_cb``
     the camera-from-body extrinsic, ``fixed`` [P] the anchored poses,
     ``balm_clusters`` the voxel clusters over the first ``n_lidar`` poses
-    and ``T_bl`` the body-from-lidar extrinsic."""
-    P = state0.T_wb.shape[0]
-    L, K = obs.pose_idx.shape
-    PD = P * D
-    dt_, dev = X_w0.dtype, X_w0.device
-    eye3 = torch.eye(3, dtype=dt_, device=dev)
-    eyePD = torch.eye(PD, dtype=dt_, device=dev)
-    arP = torch.arange(P, device=dev)
-    free = (~fixed).to(dt_)
-    free_d = free.repeat_interleave(D)
-    lmw = valid_lm.to(dt_)
-    oh = (torch.clamp(obs.pose_idx, 0, P - 1).reshape(-1)[:, None] == arP[None, :]).to(dt_)
-    ohk = oh.reshape(L, K, P)
+    and ``T_bl`` the body-from-lidar extrinsic.
 
-    # lazy relinearization: the eigen-Hessian once at the entry state; the
-    # gradient and cost follow the quadratic model along the accumulated
-    # pose tangent (see lm.local_ba)
-    if use_balm:
-        Adj_lb = lie.se3_adjoint(lie.se3_inverse(T_bl))     # tangent_b -> tangent_l
-        q = balm_mod.quadratic(balm_clusters, state0.T_wb[:n_lidar] @ T_bl)
-        A = torch.block_diag(*([Adj_lb] * n_lidar))         # [6n, 6n]
-        Hb0 = A.T @ q.H @ A * w_lidar
-        gb0 = A.T @ q.g * w_lidar
-        cb0 = q.cost * w_lidar
-        ar6 = torch.arange(n_lidar * 6, device=dev)
-        bidx = (ar6 // 6) * D + (ar6 % 6)      # the BALM block in full pose coordinates
-        fb = free_d[bidx]
-
-    def visual_cost(r, w):
-        return torch.sum(w * torch.sum(r * r, dim=-1))
-
-    def assemble(s: InertialState, X_w, lam, xi):
-        r, J_pose, J_lm, w, _ = _visual_residuals(cam, T_cb, s, X_w, obs)
-        Jpw = J_pose * w[:, None, None]
-        Hpp_blk = torch.einsum("oij,oik->ojk", Jpw, J_pose)
-        gp_blk = torch.einsum("oij,oi->oj", Jpw, r)
-        Hpp = torch.einsum("op,ojk->pjk", oh, Hpp_blk)
-        gp6 = torch.einsum("op,oj->pj", oh, gp_blk)
-        H, g, _ = _imu_terms(s, imu_fac, gravity)
-
-        Jlw = J_lm * w[:, None, None]
-        Hll = torch.einsum("oij,oik->ojk", Jlw, J_lm).reshape(L, K, 3, 3).sum(dim=1)
-        gl = torch.einsum("oij,oi->oj", Jlw, r).reshape(L, K, 3).sum(dim=1)
-        B6 = torch.einsum("oij,oik->ojk", Jpw, J_lm).reshape(L, K, 6, 3)
-        Hll_d = Hll + (lam * torch.diag_embed(torch.diagonal(Hll, dim1=-2, dim2=-1))
-                       + 1e-6 * eye3)
-        Hll_inv = inv3x3(Hll_d) * lmw[:, None, None]
-        BHinv6 = torch.einsum("lkij,ljm->lkim", B6, Hll_inv)
-        U = torch.einsum("lkp,lkim->lpim", ohk, BHinv6)     # [L, P, 6, 3]
-        V = torch.einsum("lkp,lkjm->lpjm", ohk, B6)
-        corr_pq = torch.einsum("lpim,lqjm->pqij", U, V)     # [P, P, 6, 6]
-        Hv = -corr_pq
-        Hv[arP, arP] = Hv[arP, arP] + Hpp
-        H[:, :, POSE, POSE] += Hv
-        g[:, POSE] += gp6 - torch.einsum("lpim,lm->pi", U, gl)
-
-        H = H * free[:, None, None, None] * free[None, :, None, None]
-        Hd = H.permute(0, 2, 1, 3).reshape(PD, PD)
-        g = g.reshape(-1)
-        if use_balm:
-            gb = gb0 + Hb0 @ xi.reshape(-1)
-            Hd.index_put_((bidx[:, None], bidx[None, :]), Hb0 * fb[:, None] * fb[None, :],
-                          accumulate=True)
-            g.index_put_((bidx,), gb * fb, accumulate=True)
-        Hd = Hd + torch.diag(1.0 - free_d)
-        Hd = Hd + lam * torch.diag(torch.abs(torch.diagonal(Hd))) + 1e-8 * eyePD
-        g = g * free_d
-        # Jacobi-preconditioned: IMU information (1e6 and more) and visual
-        # information (O(1)) share this float32 system
-        dx = -precond_solve(Hd, g).reshape(P, D) * free[:, None]
-        dp_per_obs = torch.einsum("lkp,pj->lkj", ohk, dx[:, :6])
-        Bt_dp = torch.einsum("lkij,lki->lj", B6, dp_per_obs)
-        dl = -torch.einsum("lij,lj->li", Hll_inv, gl + Bt_dp) * valid_lm[:, None]
-        return dx, dl
-
-    def total_cost(s: InertialState, X_w, xi):
-        r, _, _, w, _ = _visual_residuals(cam, T_cb, s, X_w, obs)
-        c = visual_cost(r, w) + _imu_terms(s, imu_fac, gravity)[2]
-        if use_balm:
-            x = xi.reshape(-1)
-            c = c + cb0 + gb0 @ x + 0.5 * (x @ (Hb0 @ x))
-        return c
-
-    s, X_w = state0, X_w0
-    xi = torch.zeros((max(n_lidar, 1), 6), dtype=dt_, device=dev)
-    lam = torch.full((), 1e-3, dtype=dt_, device=dev)
-    cost = total_cost(s, X_w, xi)
-    for _ in range(iters):
-        dx, dl = assemble(s, X_w, lam, xi)
-        s_new = _apply_delta(s, dx)
-        X_new = X_w + dl
-        xi_new = xi + dx[:n_lidar, :6] if use_balm else xi
-        cost_new = total_cost(s_new, X_new, xi_new)
-        accept = cost_new < cost
-        s = InertialState(*[torch.where(accept, a, b) for a, b in zip(s_new, s)])
-        X_w = torch.where(accept, X_new, X_w)
-        xi = torch.where(accept, xi_new, xi)
-        lam = torch.where(accept, lam * 0.5, lam * 4.0)
-        cost = torch.where(accept, cost_new, cost)
-
-    inlier = _visual_residuals(cam, T_cb, s, X_w, obs)[4].reshape(L, K)
-    return LviBaResult(s, X_w, cost, inlier)
+    CUDA tensors go to the kernel sequence (``ops/kernels/lvi_ba.py``), CPU
+    tensors to its plain version; any other device raises."""
+    args = (cam, T_cb, state0, X_w0, obs, imu_fac, fixed, valid_lm, gravity, balm_clusters,
+            T_bl, w_lidar, iters, use_balm, n_lidar)
+    if X_w0.device.type == "cuda":
+        return lvi_ba_kernel.lvi_ba_lm(*args)
+    if X_w0.device.type == "cpu":
+        return lvi_ba_kernel.lvi_ba_plain(*args)
+    raise ValueError(f"lvi_ba: unsupported device {X_w0.device}")

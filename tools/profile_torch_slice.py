@@ -32,8 +32,11 @@ segments (``lio:predict`` from ``ops/kernels/lio.predict_with_fences``, or
 the update's entry to the map insert, ``lio:insert``, ``lio:recenter``),
 the same on a tree from before the scan step's kernels. In every mode
 the window BA's parts are named ranges too (``balm.build_clusters``,
-``balm.quadratic``, ``lm.local_ba``, the last holding the quadratic's calls):
-calls, host ms and device events a call of each (``ba_split``), and the
+``balm.quadratic``, ``lm.local_ba``, the last holding the quadratic's calls;
+with ``--imu`` also ``inertial_ba.lvi_ba``, a keyframe's LVI-BA pass):
+calls, host ms and device events a call of each (``ba_split``), each LVI-BA
+pass apart (``ba_split["lvi_ba passes"]``: device events, device ms, host
+ms, and device launches and ms by kernel name), and the
 device ms and launches a frame of each kernel of ``csrc/local_ba.cu``
 (``ba_split["local_ba_lm kernels"]``). The frame build is split the same
 way (``orb_split``): ``build_frame`` and its parts ``orb:level_stacks`` (the
@@ -64,6 +67,7 @@ from __future__ import annotations
 import argparse
 import gzip
 import json
+import os
 import re
 import shutil
 import sys
@@ -121,7 +125,8 @@ def main() -> int:
     from tc2li_slam_torch.ops.kernels import fast, lio as klio_mod, match
     from tc2li_slam_torch.slam import config as cfg_mod, lio as lio_mod, system as sys_mod, \
         tracking
-    from tc2li_slam_torch.solver import balm as balm_mod, lm as lm_mod, pose_inertial as pi_mod
+    from tc2li_slam_torch.solver import balm as balm_mod, inertial_ba as iba_mod, lm as lm_mod, \
+        pose_inertial as pi_mod
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -245,8 +250,11 @@ def main() -> int:
             with record_function(f"stage:{_name}"):
                 return _fn(*a, **kw)
         setattr(slam, name, ranged)
-    # the window BA's parts, as module attributes the mapping pass calls
-    BA_PARTS = (("build_clusters", balm_mod), ("quadratic", balm_mod), ("local_ba", lm_mod))
+    # the window BA's parts, as module attributes the mapping pass calls; in
+    # the IMU mode the LVI-BA pass (``inertial_ba.lvi_ba``, the kernel
+    # sequence or, in an older tree, the eager loop)
+    BA_PARTS = (("build_clusters", balm_mod), ("quadratic", balm_mod), ("local_ba", lm_mod)) + (
+        (("lvi_ba", iba_mod),) if args.imu else ())
     for name, mod in BA_PARTS:
         def ranged_part(*a, _fn=getattr(mod, name), _name=name, **kw):
             with record_function(f"ba:{_name}"):
@@ -300,7 +308,9 @@ def main() -> int:
                 inner = [f for f in traceback.extract_stack() if "tc2li_slam_torch" in f.filename]
                 if inner:
                     f = inner[-1]
-                    sync_lines.append(f"{Path(f.filename).relative_to(ROOT)}:{f.lineno} {f.line}")
+                    # (relative to this checkout; a --tree outside it gets "../")
+                    where = os.path.relpath(f.filename, ROOT)
+                    sync_lines.append(f"{where}:{f.lineno} {f.line}")
             record(message, *a, **kw)
 
         warnings.showwarning = showwarning
@@ -347,17 +357,20 @@ def main() -> int:
     launch_at = {e.id: e.time_range.start for e in launch_events}
     dev_by_launch = []
     n_dev, n_linked = 0, 0
+    kernel_of = lambda name: (re.search(r"([A-Za-z_]\w*)(?:<[^(]*>)?\(", name)
+                              or re.search(r"(.*)", name)).group(1)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA and \
                 not e.name.startswith(RANGE_PREFIXES):
             n_dev += 1
             if e.id in launch_at:
                 n_linked += 1
-                dev_by_launch.append((launch_at[e.id], e.time_range.elapsed_us()))
+                dev_by_launch.append((launch_at[e.id], e.time_range.elapsed_us(),
+                                      kernel_of(e.name)))
     dev_by_launch.sort()
-    dev_starts = [t for t, _ in dev_by_launch]
+    dev_starts = [t for t, _, _ in dev_by_launch]
     dev_cum = [0.0]
-    for _, us in dev_by_launch:
+    for _, us, _ in dev_by_launch:
         dev_cum.append(dev_cum[-1] + us)
 
     def range_events(rname, within=None):
@@ -384,6 +397,25 @@ def main() -> int:
         stage_events[f"_vi_frame_refine/{name}"] = range_events(
             f"vi:{name}", within="stage:_vi_frame_refine")
     ba_split = {name: range_events(f"ba:{name}") for name, _ in BA_PARTS}
+    if args.imu:
+        # each LVI-BA pass apart: its device events, device ms and host ms,
+        # and device ms and launches by kernel name
+        passes = []
+        for e in cpu_events:
+            if e.name != "ba:lvi_ba":
+                continue
+            a, b = e.time_range.start, e.time_range.end
+            i0, i1 = bisect.bisect_left(dev_starts, a), bisect.bisect_right(dev_starts, b)
+            by = {}
+            for _, us, k in dev_by_launch[i0:i1]:
+                n, t = by.get(k, (0, 0.0))
+                by[k] = (n + 1, t + us)
+            passes.append({
+                "device_events": bisect.bisect_right(launches, b) - bisect.bisect_left(launches, a),
+                "device_ms": (dev_cum[i1] - dev_cum[i0]) / 1e3, "host_ms": (b - a) / 1e3,
+                "by_kernel": {k: [n, round(t / 1e3, 4)] for k, (n, t) in
+                              sorted(by.items(), key=lambda kv: -kv[1][1])[:12]}})
+        ba_split["lvi_ba passes"] = passes
     orb_split = {rname: range_events(rname) for rname, _ in ORB_PARTS}
     orb_split["device events linked to their launch"] = f"{n_linked} of {n_dev}"
     # csrc/local_ba.cu's launches apart: device ms and launches a frame by kernel
