@@ -36,7 +36,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    counted where ``System`` calls it; the LVI-BA's kernels
    (``lvi_ba_lm``) ``launches_per_call(iters)`` times per
    ``inertial_ba.lvi_ba`` call, one a pass of ``n_lvi_ba`` (none in the
-   STEREO_LIDAR phases);
+   STEREO_LIDAR phases); ``inertial_init_gn`` once per
+   ``inertial_init.inertial_optimization`` call (none there either);
 4. the duplicate-fusion pass (``culling.fuse_duplicates``, the caller of the
    Hamming-matrix kernel) over the slice's landmarks, counted the same way
    and held against the same call on the CPU;
@@ -71,8 +72,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    launch), ``lio_rows`` max_iters + 2 and ``esekf_step`` max_iters + 1
    times a ``lio_scan_step`` call, 2 max_iters + 4 device launches in all;
    ``lvi_ba_lm`` ``n_lvi_ba`` x ``launches_per_call(ba_iters)`` times;
-   ``vi_refine``'s and
-   ``lio``'s ms a frame; then a forced bad-IMU event (a
+   ``inertial_init_gn`` once for the one ``inertial_optimization`` call
+   (the initialization, frame ~14); ``vi_refine``'s and
+   ``lio``'s ms a frame; then the two VIBA rungs on that ``System``
+   (``_initialize_imu(kf, stage=1)``, then ``stage=2``, as
+   ``_maybe_refine_imu_init`` calls them 5 s and 15 s after the
+   initialization, which 26 frames never reach): each runs, |gravity|
+   within 0.2 of 9.81, velocities, biases and poses finite, the ATE limit,
+   ``inertial_init_gn`` once and the FullInertialBA's ``lvi_ba_lm``
+   ``launches_per_call(10)`` times at P 20; then a forced bad-IMU event (a
    window with non-finite samples): ``lio_scan_step`` returns ``bad`` with
    the filter and the voxel map as they were, and through ``track`` the
    inertial stack is re-armed at that frame's sync and initialises again on
@@ -89,7 +97,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    edge's residual after ``close_loop`` below 0.3 of what it was; the ATE of
    the frames so far lower after the closure than just before it; finite
    poses and landmarks; the matcher's unmasked mutual launches equal to the
-   candidates verified; host syncs counted frame by frame. Then a
+   candidates verified; host syncs counted frame by frame; the first
+   closure's verification, closure and pose-graph optimization (the last
+   beside its bound, ``pose_graph_bound``) replayed under the profiler
+   (device events, device ms, host ms). Then a
    checkpoint round trip on the card: ``save_system``, ``load_system``, two
    more frames on both, poses equal to 1e-4;
 4g. the modules off the frame loop: phase 3's ``System`` (stage timers on,
@@ -170,7 +181,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (``lvi_problem``: P 20, 8192 landmarks, 10 iterations) to ``LVI_TOL`` or
    else no farther from the plain version run in float64 on the host, the
    inlier flags equal but at a gate, the same bits twice, no
-   host sync, device ms by kernel, the BALM quadratic
+   host sync, device ms by kernel, and on the second VIBA rung's
+   FullInertialBA pass; the visual-inertial initialization's kernel
+   (``init_phase``) on 4e's call, both rungs' and ``init_problem``'s
+   windows (free gravity and scale, free gravity, 6 keyframes padded to
+   20, a NaN in a valid and in an invalid factor) to ``INIT_TOL`` or else no
+   farther from the plain version run in float64 on the host, the same
+   bits twice, one launch a call, no host sync, device ms at 4e's call and
+   the free-gravity and free-scale windows behind a backlog; the BALM quadratic
    on phase 3's last clusters (H and g to 1e-3 of their largest entry, the
    cost to 1e-3 relative, the same bits on a second call) and with every
    voxel invalid (exactly 0); the stereo half of the frame build
@@ -245,7 +263,9 @@ POSE_OPS_ROW = 180
 # 6 sums, B and Hll, gl, B Hll^-1 and its gradient term, and the candidate's
 # back-substitution and cost; per ordered pair of such observations of one
 # valid landmark half of a 6x6 Schur block (S is symmetric); per landmark
-# the damped 3x3 inverse; then the dense solve, (2/3) D^3 + 3 D^2
+# the damped 3x3 inverse; then the dense solve's multiply-adds, each one
+# operation: D^3 / 3 for the elimination, D^2 for the substitutions, D^2 for
+# the scaling
 LBA_OPS_LIVE = 670
 LBA_OPS_PAIR = 108
 LBA_OPS_LANDMARK = 80
@@ -333,34 +353,49 @@ def cuda_ms(torch, fn, reps: int, backlog: bool = False) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+# device events ``kernel_split`` launches at the head of a profile window:
+# torch.profiler drops the first events of a window from its record, more of
+# them the older the process (one more about every 15 s on an H100 machine,
+# PERF.md section 7), so spin kernels take those places
+PROFILE_LEAD = 256
+
+
 def kernel_split(torch, fn, calls: int) -> dict:
     """Device ms a call of each kernel name that ``fn`` launches, from a
     ``torch.profiler`` trace of ``calls`` calls after one warm-up: {name:
     {"launches_a_call", "ms_a_call", "ms_a_launch"}}, the largest first.
     Names are cut to the function's (``build_kernel`` for ``(anonymous
-    namespace)::build_kernel(...)``). The trace can miss a launch of a
-    cluster kernel (``clusters_kernel``, PERF.md section 7), so a count of
-    launches comes from the kernels' own counters, and the time of a
-    one-launch kernel from ``ms_a_launch``."""
+    namespace)::build_kernel(...)``). The window opens with
+    ``PROFILE_LEAD`` spin kernels and a sync, left out of the result; the
+    record is whole when one of them is in it (the profiler loses the
+    window's first events), else the window is taken again with four times
+    the lead, twice at most, and then RuntimeError."""
     import re
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        m = re.search(r"([A-Za-z_]\w*)(?:<[^(]*>)?\(", e.name)
-        k = m.group(1) if m else e.name
-        n, us = per.get(k, (0, 0.0))
-        per[k] = (n + 1, us + e.time_range.elapsed_us())
-    return {k: {"launches_a_call": n / calls, "ms_a_call": us / 1e3 / calls,
-                "ms_a_launch": us / 1e3 / n}
-            for k, (n, us) in sorted(per.items(), key=lambda kv: -kv[1][1])}
+    for lead in (PROFILE_LEAD, 4 * PROFILE_LEAD, 16 * PROFILE_LEAD):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            m = re.search(r"([A-Za-z_]\w*)(?:<[^(]*>)?\(", e.name)
+            k = m.group(1) if m else e.name
+            n, us = per.get(k, (0, 0.0))
+            per[k] = (n + 1, us + e.time_range.elapsed_us())
+        if per.pop("spin_kernel", None):
+            return {k: {"launches_a_call": n / calls, "ms_a_call": us / 1e3 / calls,
+                        "ms_a_launch": us / 1e3 / n}
+                    for k, (n, us) in sorted(per.items(), key=lambda kv: -kv[1][1])}
+    raise RuntimeError(f"kernel_split: torch.profiler lost all {lead} lead events of the "
+                       f"window, so the record of the calls may not be whole")
 
 
 def bound(n_bytes: float, simple_ops: float = 0.0, popc: float = 0.0):
@@ -1296,7 +1331,7 @@ def lvi_bound(torch, a, kw) -> tuple:
                + (4 * 36 * nl * nl + 24 * nl + 4 if nl else 0))
     t_b = n_bytes / PEAK_BYTES_S
     f64 = it * (LBA_OPS_PAIR * n_pairs + LBA_OPS_LANDMARK * L + LVI_OPS_FACTOR * (P - 1)
-                + 2 * Df ** 3 / 3 + 3 * Df ** 2)
+                + Df ** 3 / 3 + 2 * Df ** 2)
     t_o = it * LBA_OPS_LIVE * n_live / PEAK_SIMPLE_S + f64 / PEAK_F64_S
     return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"), n_live, n_pairs, Df
 
@@ -1380,6 +1415,259 @@ def lvi_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None, split
         raise RuntimeError(f"lvi_ba_lm synchronised the host in a call: {n_sync}")
     row["max_abs_err"] = err
     return {"lvi_ba_lm": row}
+
+
+INIT_CASES = ("free gravity and scale", "free gravity", "4e-like padded", "non-finite valid",
+              "non-finite invalid")
+# the visual-inertial initialization's kernel against its plain version
+# (vi_agreement's rule; tests/test_torch_inertial.py's tolerances): R_wg,
+# the scale, the biases, the velocities, the cost (relative, absolute below 1)
+INIT_TOL = {"R_wg": 1e-5, "scale": 2e-3, "bg": 1e-6, "ba": 1e-4, "vel": 1e-4, "cost": 1e-3}
+# float64 operations of one iteration of csrc/inertial_init.cu a factor, a
+# fused multiply-add counted as one (as PEAK_F64_S): its residual at x and
+# at the candidate (INIT_OPS_RESIDUAL each: the bias correction 45, the three
+# 3x3 products 81, exp and log ~50, ev and ep ~51, the whitening's upper
+# triangle 45, the validity and the squares 18), its whitened 9 x 15
+# Jacobian in closed form (~800: ~220 for the columns, ~580 for L^T on
+# them), the upper triangle of its symmetric 15 x 15 block (120 x 9) and
+# its gradient (15 x 9)
+INIT_OPS_RESIDUAL = 290
+INIT_OPS_FACTOR = 2 * INIT_OPS_RESIDUAL + 800 + 120 * 9 + 15 * 9
+
+
+def init_problem(rng, case: str = "free gravity and scale", K: int = 20,
+                 n_real: int | None = None):
+    """Inputs of the visual-inertial initialization (numpy, from ``rng``):
+    ``n_real`` keyframe body states 0.4 s apart on a slow turn with a small
+    acceleration (``tests/test_inertial_init.simulate``'s kind: gravity ~3
+    degrees off -z, biases of a few mrad/s and cm/s^2), their IMU windows at
+    100 Hz with 4e's noise figures (``VI_CALIB``), preintegrated at zero
+    biases by the port's plain ``estimation.imu.integrate`` on the host
+    with ``slam.imu_mode``'s covariance floor; padded to K slots as
+    ``System._initialize_imu`` pads (the last keyframe repeated, each padded
+    factor the last real one's, invalid). R_wg0 is the bootstrap
+    ``estimate_gravity_direction`` where gravity is free, the true gravity
+    (the filter's) where it is fixed; vel0 the true velocities 0.3 m/s off.
+    Cases (``INIT_CASES``): ``free gravity and scale`` (20 real keyframes,
+    the first rung's priors, 8 iterations), ``free gravity`` (20 real, the
+    initialization's priors and fixed scale, 20 iterations), ``4e-like
+    padded`` (6 real, fixed gravity and scale), ``non-finite valid`` (the
+    former with a NaN in a valid factor's dV), ``non-finite invalid`` (a
+    NaN in a padded factor's dP). Returns a dict: the arrays of
+    ``inertial_optimization``'s positional arguments and its keywords."""
+    import numpy as np
+    import torch
+
+    from tc2li_slam_torch.estimation import imu
+    from tc2li_slam_torch.slam import imu_mode
+    from tc2li_slam_torch.solver import inertial_init
+
+    padded = case in ("4e-like padded", "non-finite invalid")
+    n_real = n_real or (6 if padded else K)
+    dt_kf, dt = 0.4, 0.01
+    n_sub = int(round(dt_kf / dt))
+    g_w = np.array([0.05, -0.02, -1.0])
+    g_w *= 9.81 / np.linalg.norm(g_w)
+    R0 = _so3_np(rng.normal(0, 0.05, 3))
+    w_b = np.array([0.0, 0.0, 0.12]) + rng.normal(0, 0.02, 3)
+    v0 = np.array([1.2, 0.3, 0.05]) + rng.normal(0, 0.1, 3)
+    a_w = rng.normal(0, 0.3, 3)
+    bg_t = np.array([0.004, -0.002, 0.003])
+    ba_t = np.array([0.05, -0.03, 0.08])
+    rot = lambda t: R0 @ _so3_np(w_b * t)
+    T_wb = np.tile(np.eye(4), (n_real, 1, 1))
+    for i in range(n_real):
+        t = i * dt_kf
+        T_wb[i, :3, :3], T_wb[i, :3, 3] = rot(t), v0 * t + 0.5 * a_w * t * t
+    vel = np.stack([v0 + a_w * i * dt_kf for i in range(n_real)])
+    cal = imu.ImuCalib.create(*VI_CALIB)
+    keys = ("dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa", "dt")
+    fac = {k: [] for k in keys + ("C_inv",)}
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    for i in range(n_real - 1):
+        t0 = i * dt_kf
+        gyro = np.stack([w_b + bg_t + rng.normal(0, VI_CALIB[0], 3) for _ in range(n_sub)])
+        acc = np.stack([rot(t0 + k * dt).T @ (a_w - g_w) + ba_t + rng.normal(0, VI_CALIB[1], 3)
+                        for k in range(n_sub)])
+        pre = imu.integrate(cal, t32(gyro), t32(acc), t32(np.full(n_sub, dt)), t32(np.zeros(3)),
+                            t32(np.zeros(3)))
+        for k in keys:
+            fac[k].append(np.asarray(getattr(pre, k)))
+        fac["C_inv"].append(np.asarray(torch.linalg.inv(imu_mode.floor_cov9(pre.C[:9, :9]))))
+    shapes = {"dV": (3,), "dP": (3,), "dt": (), "C_inv": (9, 9)}
+    fac = {k: np.stack(v).astype(np.float32) if v else np.zeros((0,) + shapes.get(k, (3, 3)),
+                                                                np.float32)
+           for k, v in fac.items()}
+    valid = np.ones(K - 1, bool)
+    if K > n_real:   # the last keyframe repeated; each padded factor the last real one's
+        T_wb = np.concatenate([T_wb, np.repeat(T_wb[-1:], K - n_real, 0)])
+        vel = np.concatenate([vel, np.repeat(vel[-1:], K - n_real, 0)])
+        fac = {k: np.concatenate([v, np.repeat(v[-1:], K - n_real, 0)]) for k, v in fac.items()}
+        valid[n_real - 1:] = False
+    fac.update(bg_lin=np.zeros((K - 1, 3), np.float32), ba_lin=np.zeros((K - 1, 3), np.float32),
+               valid=valid)
+    T_wb = T_wb.astype(np.float32)
+    if case == "non-finite valid":
+        fac["dV"][3, 0] = np.nan
+    if case == "non-finite invalid":
+        fac["dP"][-1, 2] = np.nan
+    free = case.startswith("free")
+    if free:
+        R_wg0 = inertial_init.estimate_gravity_direction(
+            t32(T_wb[:, :3, :3]), t32(fac["dV"]), torch.as_tensor(valid)).numpy()
+    else:
+        R_wg0 = inertial_init.gravity_to_rwg(t32(g_w)).numpy()
+    kw = dict(prior_g=1e2, prior_a=1e6, fix_scale=True, fix_gravity=not free, iters=20)
+    if case == "free gravity and scale":
+        kw.update(prior_g=1.0, prior_a=1e4, fix_scale=False, iters=8)
+    vel0 = (vel + 0.3).astype(np.float32)
+    return dict(T_wb=T_wb, **{k: fac[k] for k in keys + ("C_inv", "bg_lin", "ba_lin", "valid")},
+                R_wg0=R_wg0.astype(np.float32), vel0=vel0, kw=kw, g_w=g_w, bg_true=bg_t,
+                ba_true=ba_t, vel_true=vel, n_real=n_real)
+
+
+INIT_ARGS = ("T_wb", "dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa", "dt", "C_inv",
+             "bg_lin", "ba_lin", "valid", "R_wg0", "vel0")   # inertial_optimization's
+
+
+def init_args(torch, p, dev, dtype=None):
+    """``inertial_optimization``'s arguments ``(a, kw)`` for ``init_problem``'s
+    ``p`` on ``dev`` (every float tensor cast to ``dtype`` where given)."""
+    a = tuple(torch.as_tensor(p[k]).to(dev) for k in INIT_ARGS)
+    if dtype is not None:
+        a = _vi_cast(torch, a, dtype)
+    return a, dict(p["kw"])
+
+
+def init_cpu64(torch, a):
+    """``inertial_optimization``'s positional arguments on the CPU in float64:
+    the plain version's float64 run (the reference the kernel is held to)."""
+    return tuple(x.detach().cpu().double() if x.is_floating_point() else x.cpu() for x in a)
+
+
+def init_agreement(torch, got, ref64, ref32=None) -> dict:
+    """How an ``InertialInitResult`` agrees with the plain version run in
+    float64 (``ref64``; the kernel is float64 after its float32 inputs): the
+    largest difference of R_wg, the scale, the biases, the velocities and
+    the cost (relative, absolute below 1), a NaN beside a NaN 0; ``outside``
+    lists the quantities beyond ``INIT_TOL``. With ``ref32`` (the float32
+    plain run, a reference that is printed and gates nothing),
+    ``float32_vs_float64`` gives its distance from ``ref64`` the same way."""
+    def dist(a, b, key):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        d = torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(a), (a - b).abs())
+        d = float(d.max()) if d.numel() else 0.0
+        if key == "cost":
+            d /= max(float(b.abs().nan_to_num(0.0).max()), 1.0)
+        return d if d == d else float("inf")
+
+    q = lambda r: dict(zip(("R_wg", "scale", "bg", "ba", "vel", "cost"), r))
+    qg, q64 = q(got), q(ref64)
+    out = {k: dist(qg[k], q64[k], k) for k in qg}
+    out["outside"] = [k for k, tol in INIT_TOL.items() if not out[k] <= tol]
+    if ref32 is not None:
+        q32 = q(ref32)
+        out["float32_vs_float64"] = {k: dist(q32[k], q64[k], k) for k in qg}
+    return out
+
+
+def init_bound(K: int, iters: int) -> tuple:
+    """(least ms on the card, what bounds it) of one ``inertial_init_gn``
+    call: bytes read and written once (the poses, the K - 1 factors' fields
+    and flags, R_wg0, vel0, the result) over the memory rate; float64
+    operations over the float64 rate, a fused multiply-add counted as one:
+    a factor's ``INIT_OPS_FACTOR`` an iteration, and the solve of the 9 + 3K
+    rows (n^3 / 3 for the elimination, n^2 for the two substitutions, n^2 for
+    the Jacobi scaling), the entry cost."""
+    n, F = 9 + 3 * K, K - 1
+    n_bytes = 4 * (16 * K + F * (9 * 6 + 3 * 4 + 1 + 81) + 9 + 3 * K) + F + 4 * (17 + 3 * K)
+    f64 = iters * (INIT_OPS_FACTOR * F + n ** 3 / 3 + 2 * n ** 2) + INIT_OPS_RESIDUAL * F
+    t_b, t_o = n_bytes / PEAK_BYTES_S, f64 / PEAK_F64_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def init_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None, split=None,
+               timed=None) -> dict:
+    """Phase 5, the visual-inertial initialization's kernel against its plain
+    version on ``dev`` through the dispatcher a user calls
+    (``solver.inertial_init.inertial_optimization``): ``cases`` lists
+    ``(label, a, kw)``; each is held to ``INIT_TOL`` of the plain version
+    run in float64 on the CPU (``init_agreement``; the float32 plain run is
+    printed beside it), the same bits on a second call, one launch a call by
+    the wrapper's counter, no host sync; a case with a NaN returns its entry
+    state. ``timer(fn, reps) -> ms`` times a call behind a device backlog
+    for the cases whose labels ``timed`` lists (default the first; none: not
+    taken), the kernel's and the plain version's; ``split(fn) -> {kernel:
+    ...}`` gives a call's device events by kernel name, which must be one
+    ``inertial_init_kernel`` and the wrapper's copy of each input that is
+    not contiguous, nothing else. Returns the kernel's row, its times
+    those of the first timed case and ``ms_by_case`` every timed case's;
+    raises RuntimeError where a check fails."""
+    from tc2li_slam_torch.ops.kernels import inertial_init as kii
+    from tc2li_slam_torch.solver import inertial_init as ii
+
+    timer = timer or (lambda fn, reps: float("nan"))
+    timed = timed or [cases[0][0]]
+    row, err, by_case = None, 0.0, {}
+    for label, a, kw in cases:
+        n0 = kii.launches
+        got, again = ii.inertial_optimization(*a, **kw), ii.inertial_optimization(*a, **kw)
+        n_launch = kii.launches - n0
+        ref = kii.inertial_init_plain(*a, **kw)
+        ref64 = kii.inertial_init_plain(*init_cpu64(torch, a), **kw)
+        sync()
+        agr = init_agreement(torch, got, ref64, ref)
+        if not a[0].is_cuda:   # the CPU route is the plain version itself
+            agr["outside"] = [] if bit_equal(torch, list(got), list(ref)) else ["plain"]
+        twice = bit_equal(torch, list(got), list(again))
+        K = a[0].shape[0]
+        log(f"inertial_init_gn {label} (K {K}, {int(a[13].sum())} valid factors, {kw['iters']} "
+            f"iterations, priors {kw['prior_g']:g} / {kw['prior_a']:g}, fix_scale "
+            f"{kw['fix_scale']}, fix_gravity {kw['fix_gravity']}): cost {float(got.cost):.6f} / "
+            f"plain in float64 {float(ref64.cost):.6f} / plain in float32 {float(ref.cost):.6f}; "
+            "|kernel - float64|, |plain in float32 - float64| "
+            + ", ".join(f"{k} {agr[k]:.2e} / {v:.2e}" for k, v in agr["float32_vs_float64"].items())
+            + f"; beyond tolerance {agr['outside']}; the same bits on a second call {twice}; "
+            f"launches {n_launch}")
+        want = 2 if a[0].is_cuda else 0
+        if agr["outside"] or not twice or n_launch != want:
+            raise RuntimeError(f"inertial_init_gn disagrees with its plain version run in float64 "
+                               f"on {label}: {agr}, the same bits twice {twice}, launches "
+                               f"{n_launch} for 2 calls (expected {want})")
+        if bool(torch.isnan(ref64.cost)) and not (
+                torch.equal(got.vel, a[15]) and bool(torch.isnan(got.cost))
+                and torch.equal(got.R_wg, a[14])):
+            raise RuntimeError(f"inertial_init_gn on {label}: the state moved on a NaN cost")
+        err = max(err, agr["vel"])   # (beyond INIT_TOL, inf included, failed above)
+        if label in timed:
+            ms = timer(lambda: ii.inertial_optimization(*a, **kw), 20)
+            ms_p = timer(lambda: kii.inertial_init_plain(*a, **kw), 3)
+            b = init_bound(K, kw["iters"])
+            parts = split(lambda: ii.inertial_optimization(*a, **kw)) if split else None
+            log(f"inertial_init_gn {label}: {ms:.4f} ms a call behind a backlog, bound "
+                f"{b[0]:.6f} ms ({b[1]}), plain {ms_p:.4f} ms"
+                + ("; device events a call by kernel (torch.profiler): "
+                   + ", ".join(f"{k} {v['launches_a_call']:g} x {v['ms_a_launch']:.4f} ms"
+                               for k, v in parts.items()) if parts is not None else ""))
+            # the wrapper's only other device events: a copy of each input
+            # that is not contiguous (init_problem's C_inv where unpadded)
+            n_copy = sum(not x.is_contiguous() for x in a)
+            want = {"inertial_init_kernel": 1.0} | (
+                {"direct_copy_kernel_cuda": float(n_copy)} if n_copy else {})
+            if parts is not None and {k: v["launches_a_call"] for k, v in parts.items()} != want:
+                raise RuntimeError(f"inertial_init_gn on {label}: the profiler's record of a "
+                                   f"call is not {want}: {parts}")
+            by_case[label] = dict(ms=ms, plain_ms=ms_p, bound_ms=b[0])
+            if row is None:
+                row = dict(source="tc2li_slam_torch/csrc/inertial_init.cu",
+                           replaces="tc2li_slam_tpu/solver/inertial_init.py:85", ms=ms,
+                           plain_ms=ms_p, bound_ms=b[0], bound_by=b[1], library_ms=None)
+    n_sync = [syncs_of(torch, lambda: ii.inertial_optimization(*a, **kw)) for _, a, kw in cases]
+    log(f"inertial_init_gn: host syncs in a call {n_sync}")
+    if any(n_sync):
+        raise RuntimeError(f"inertial_init_gn synchronised the host in a call: {n_sync}")
+    row.update(max_abs_err=err, ms_by_case=by_case)
+    return {"inertial_init_gn": row}
 
 
 def vi_phase(torch, dev, vi_inputs, rng, log=print, sync=lambda: None, timer=None) -> dict:
@@ -2562,9 +2850,27 @@ def loop_phase(torch, dev, cam_rig, cfg, n_frames=N_LOOP, world=None, voc_stride
                            f"candidate")
     if cuda:
         # device events of one verification and one closure: the first
-        # closure replayed on the map as it was, under the profiler
+        # closure replayed on the map as it was, under the profiler; and of
+        # the closure's pose-graph optimization alone (its arguments caught
+        # on one replay), beside its bound
         from torch.profiler import ProfilerActivity, profile
+        from tc2li_slam_torch.solver import sim3 as sim3_mod
+        pgo, pgo_args = sim3_mod.pose_graph_optimize, []
+        sim3_mod.pose_graph_optimize = lambda *a, **kw: pgo_args.append((a, kw)) or pgo(*a, **kw)
+        try:
+            close_loop(first["map_before"], first["kf"], first["cand"], first["S"],
+                       n_kf=first["n_kf"])
+        finally:
+            sim3_mod.pose_graph_optimize = pgo
+        (pg_S, pg_edges, pg_fixed), pg_kw = pgo_args[0]
+        pg_iters = pg_kw.get("iters", 20)
+        pg_bound = pose_graph_bound(pg_S.shape[0], int(pg_edges.valid.sum()), pg_iters)
+        log(f"loop closing: the closure's pose_graph_optimize: K {pg_S.shape[0]} "
+            f"({7 * pg_S.shape[0]} rows), {int(pg_edges.valid.sum())} valid edges of "
+            f"{pg_edges.valid.shape[0]}, {int((~pg_fixed).sum())} free poses, {pg_iters} "
+            f"iterations; bound {pg_bound[0]:.4f} ms ({pg_bound[1]})")
         replay = {
+            "pose_graph_optimize": lambda: pgo(pg_S, pg_edges, pg_fixed, **pg_kw),
             "verify_candidate": lambda: loop_closing.verify_candidate(
                 first["map_before"], first["kf"], first["cand"],
                 generator=torch.Generator(device=dev).manual_seed(0)),
@@ -2577,12 +2883,16 @@ def loop_phase(torch, dev, cam_rig, cfg, n_frames=N_LOOP, world=None, voc_stride
             fn()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(PROFILE_LEAD):   # (kernel_split's lead)
+                    torch.cuda._sleep(1)
+                torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
                 ms = 1e3 * (time.perf_counter() - t0)
             dev_events = [e for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA]
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and "spin_kernel" not in e.name]
             log(f"loop closing: {name} replayed under the profiler: {len(dev_events)} device "
                 f"events, {sum(e.time_range.elapsed_us() for e in dev_events) / 1e3:.3f} ms of "
                 f"device time, {ms:.1f} ms on the host clock")
@@ -2615,6 +2925,26 @@ def loop_phase(torch, dev, cam_rig, cfg, n_frames=N_LOOP, world=None, voc_stride
     if not worst < 1e-4:
         raise RuntimeError(f"checkpoint: resumed poses differ by {worst}")
     return out
+
+
+def pose_graph_bound(K: int, n_edges: int, iters: int) -> tuple:
+    """(least ms on the card, what bounds it) of ``solver.sim3.pose_graph_optimize``
+    as the port writes it, over K poses and ``n_edges`` valid edges: bytes
+    read and written once (the poses, the edges' Sim3 measurements,
+    indices, weights and flags) over the memory rate; float32 operations
+    over the float32 rate, a fused multiply-add counted as one: an
+    iteration's dense LU solve of the 7K rows (D^3 / 3 for the elimination,
+    D^2 for the two substitutions), an edge's residual chain at the state
+    and the candidate (~300 each), its two 7 x 7 Jacobian blocks (~14
+    chains' tangents, ~600) and its symmetric share of H and g (the two
+    diagonal blocks' upper triangles 2 x 28 x 7, the off-diagonal block 49 x
+    7, the gradient 2 x 7 x 7)."""
+    D = 7 * K
+    n_bytes = 2 * 64 * K + n_edges * (64 + 4 * 4)
+    per_edge = 2 * 300 + 600 + 2 * 28 * 7 + 49 * 7 + 2 * 7 * 7
+    ops = iters * (D ** 3 / 3 + D ** 2 + n_edges * per_edge)
+    t_b, t_o = n_bytes / PEAK_BYTES_S, ops / PEAK_SIMPLE_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
 def ply_vertices(path) -> int:
@@ -3536,15 +3866,17 @@ def main() -> int:
     from tc2li_slam_torch.io import synthetic as syn
     from tc2li_slam_torch.ops import bow, orb, stereo
     from tc2li_slam_torch.ops.kernels import (balm as kbalm, build, clusters as kcl, fast,
-                                              hamming, imu_preint as kimu, lio as klio,
+                                              hamming, imu_preint as kimu,
+                                              inertial_init as kii, lio as klio,
                                               local_ba as klba, lvi_ba as klvi, match,
                                               orb as korb, pose_inertial as kpi, pose_lm,
                                               stereo as kst)
     from tc2li_slam_torch.slam import (config as cfg_mod, culling, lio, local_mapping,
                                        relocalization, system as sys_mod, tracking,
                                        triangulation)
-    from tc2li_slam_torch.solver import (balm as balm_mod, inertial_ba as iba_mod, lm as lm_mod,
-                                         pnp as pnp_mod, pose_inertial as pi_mod)
+    from tc2li_slam_torch.solver import (balm as balm_mod, inertial_ba as iba_mod,
+                                         inertial_init as ii_mod, lm as lm_mod, pnp as pnp_mod,
+                                         pose_inertial as pi_mod)
 
     t_script = time.perf_counter()
     dev = torch.device("cuda")
@@ -3693,6 +4025,19 @@ def main() -> int:
         return lvi_ba(*a, **kw)
 
     iba_mod.lvi_ba = lvi_spy
+    # ... and of the visual-inertial initialization's kernel: one launch an
+    # inertial_init.inertial_optimization call (System._initialize_imu), and
+    # every call's arguments, for the rungs' gates and phase 5
+    init_calls = {"inertial_optimization": 0}
+    init_inputs = []
+    inertial_optimization = ii_mod.inertial_optimization
+
+    def init_spy(*a, **kw):
+        init_calls["inertial_optimization"] += 1
+        init_inputs.append((a, kw))
+        return inertial_optimization(*a, **kw)
+
+    ii_mod.inertial_optimization = init_spy
     local_mapping.run_local_ba = run_local_ba_spy
     sys_mod.System._global_ba = global_ba_spy
     lm_mod.local_ba = local_ba_spy
@@ -3705,6 +4050,7 @@ def main() -> int:
         kbalm.launches = klba.launches = kst.launches = kcl.launches = 0
         kimu.launches = kpi.launches = vi_calls["integrate"] = 0
         klvi.launches = lvi_calls["lvi_ba"] = lvi_calls["implied"] = 0
+        kii.launches = init_calls["inertial_optimization"] = 0
         klio.predict_launches = klio.fence_launches = klio.rows_launches = 0
         klio.step_launches = 0
         lio_calls["lio_scan_step"] = 0
@@ -3728,6 +4074,8 @@ def main() -> int:
                 "calls:integrate": vi_calls["integrate"],
                 "lvi_ba_lm": klvi.launches, "calls:lvi_ba": lvi_calls["lvi_ba"],
                 "implied:lvi_ba_lm": lvi_calls["implied"],
+                "inertial_init_gn": kii.launches,
+                "calls:inertial_optimization": init_calls["inertial_optimization"],
                 "esekf_predict": klio.predict_launches, "lio_fences": klio.fence_launches,
                 "lio_rows": klio.rows_launches, "esekf_step": klio.step_launches,
                 "calls:lio_scan_step": lio_calls["lio_scan_step"]}
@@ -3845,6 +4193,7 @@ def main() -> int:
                 "implied:local_ba_lm": klba.launches_per_call(cfg.tracking.ba_iters) * n_ba3,
                 "imu_preintegrate": 0, "pose_inertial_lm": 0, "calls:integrate": 0,
                 "lvi_ba_lm": 0, "calls:lvi_ba": 0, "implied:lvi_ba_lm": 0,
+                "inertial_init_gn": 0, "calls:inertial_optimization": 0,
                 "esekf_predict": 0, "lio_fences": 0, "lio_rows": 0, "esekf_step": 0,
                 "calls:lio_scan_step": 0}
     if launches != expected or slam.n_recover or slam.n_reloc:
@@ -3920,14 +4269,17 @@ def main() -> int:
                     n_ba_balm=sl.n_ba_balm, n_lvi_ba=getattr(sl, "n_lvi_ba", 0),
                     n_lvi_ba_balm=getattr(sl, "n_lvi_ba_balm", 0))   # (IMU mode only)
 
-    def cross_check(counts, modes, n_built, n_tracked, before, after, n_reloc_calls):
+    def cross_check(counts, modes, n_built, n_tracked, before, after, n_reloc_calls,
+                    imu=False):
         """What the system's own counts say of the measured launches, or
         None: a detection and a stereo match per frame built; a windowed
         match per tracked frame, per recovery and per fuse pass, and one to
         three per relocalization (its refinement); an unmasked mutual match
         per recovery (global tracking) and per relocalization candidate, at
         most five candidates a relocalization, one launch each; at most
-        ``tri_pairs`` epipolar matches a mapping pass; no other call shape."""
+        ``tri_pairs`` epipolar matches a mapping pass; no other call shape;
+        ``inertial_init_gn`` once an ``inertial_optimization`` call, which
+        only the IMU mode (``imu``) makes."""
         d = {k: after[k] - before[k] for k in after}
         get = modes.get
         window_lo = n_tracked + d["n_recover"] + d["n_fuse"]
@@ -3964,6 +4316,11 @@ def main() -> int:
             faults.append(ba_fault(counts, d["n_ba_balm"], d["n_lvi_ba_balm"]))
         if counts["calls:run_local_ba"] != d["n_ba"] - d["n_lvi_ba"] + counts["calls:global_ba"]:
             faults.append(f"{d['n_ba'] - d['n_lvi_ba']} run_local_ba calls")
+        # ... the visual-inertial initialization one launch a call
+        n_init = counts["calls:inertial_optimization"]
+        if counts["inertial_init_gn"] != n_init or (n_init and not imu):
+            faults.append(f"inertial_init_gn launched {counts['inertial_init_gn']} times for "
+                          f"{n_init} inertial_optimization calls (IMU mode {imu})")
         # ... and an inertial_ba.lvi_ba call, launches_per_call(iters) launches
         if counts["calls:lvi_ba"] != d["n_lvi_ba"] \
                 or counts["lvi_ba_lm"] != counts["implied:lvi_ba_lm"]:
@@ -4264,7 +4621,7 @@ def main() -> int:
         return fail(f"IMU mode: bad-IMU flags {slam3.n_imu_bad}, resets {slam3.n_imu_reset}")
     if not np.all(np.isfinite(est3)) or not ate3 < ATE_BOUND_M:
         return fail(f"IMU mode: ATE {ate3:.4f} m")
-    fault = cross_check(counts_e, modes_e, N_IMU, N_IMU - 1, before, after, 0)
+    fault = cross_check(counts_e, modes_e, N_IMU, N_IMU - 1, before, after, 0, imu=True)
     if fault or after["n_recover"] != before["n_recover"]:
         return fail(f"IMU mode: {fault or 'a frame went through recovery'}")
     n_refined = slam3.n_vi_refine_kf + slam3.n_vi_refine_frame
@@ -4326,10 +4683,69 @@ def main() -> int:
                     "imu_preintegrate": counts_e["imu_preintegrate"],
                     "pose_inertial_lm": counts_e["pose_inertial_lm"],
                     "lvi_ba_lm": counts_e["lvi_ba_lm"],
+                    "inertial_init_gn": counts_e["inertial_init_gn"],
                     **{name: counts_e[name] for name in want_lio}}
     for name, n_launched in imu_launches.items():
         if n_launched < 1:
             return fail(f"IMU mode: {name} was launched no time")
+    # the visual-inertial initialization: one inertial_optimization call (the
+    # first mapping pass with four keyframes), inertial_init_gn once a call
+    n_init_e = counts_e["calls:inertial_optimization"]
+    print(f"{tag} IMU mode: inertial_init_gn launched {counts_e['inertial_init_gn']} times for "
+          f"{n_init_e} inertial_optimization calls (the initialization at frame {vi_at})",
+          flush=True)
+    if n_init_e != 1 or counts_e["inertial_init_gn"] != n_init_e:
+        return fail(f"IMU mode: inertial_init_gn launched {counts_e['inertial_init_gn']} times "
+                    f"for {n_init_e} inertial_optimization calls (expected one)")
+    init_case4e = init_inputs[-1]   # System._initialize_imu's arguments at stage 0
+
+    # the VIBA rungs on 4e's System: the calls System._maybe_refine_imu_init
+    # makes 5 s and 15 s after the initialization (26 frames reach neither),
+    # _initialize_imu(kf, stage) with the stage's loosened bias priors, then
+    # the FullInertialBA over a 20-slot window (10 iterations)
+    kf_last, rung_cases, rung_launches = slam3.n_kf_host - 1, [], 0
+    real_kf = torch.arange(slam3.n_kf_host, device=dev)
+    for stage in (1, 2):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        ran = slam3._initialize_imu(kf_last, stage=stage)
+        torch.cuda.synchronize()
+        rung_ms = 1e3 * (time.perf_counter() - t0)
+        counts_r = read_counts()
+        st_r = slam3.imu_store
+        finite = all(bool(torch.isfinite(x).all()) for x in (
+            st_r.vel[real_kf], st_r.bg[real_kf], st_r.ba[real_kf], slam3.map.kf_T_cw[real_kf]))
+        est_r = slam3.trajectory_world_from_cam()
+        ate_r = syn.ate_rmse(est_r, gt_all[:N_IMU])
+        g_vis = float(torch.linalg.norm(slam3.gravity_vis))
+        g_filt = float(torch.linalg.norm(slam3.filt.x.grav))
+        lvi_a, lvi_kw = lvi_inputs["last"]
+        P_r, want_r = lvi_a[2].T_wb.shape[0], klvi.launches_per_call(10)
+        print(f"{tag} VIBA rung {stage} on 4e's System (keyframe {kf_last}, priors "
+              f"{sys_mod.System.VI_STAGE_PRIORS[stage]}): ran {ran} in {rung_ms:.1f} ms host; "
+              f"|gravity| {g_vis:.4f} (the visual frame's), {g_filt:.4f} (the filter's); bg "
+              f"{st_r.bg[kf_last].tolist()}, ba {st_r.ba[kf_last].tolist()}; states finite "
+              f"{finite}; ATE {ate_r:.4f} m; inertial_init_gn launched "
+              f"{counts_r['inertial_init_gn']} times for {counts_r['calls:inertial_optimization']}"
+              f" calls; the FullInertialBA: lvi_ba_lm {counts_r['lvi_ba_lm']} launches for "
+              f"{counts_r['calls:lvi_ba']} lvi_ba calls (P {P_r}, {lvi_kw.get('iters')} "
+              f"iterations, {want_r} a call)", flush=True)
+        if not ran or not abs(g_vis - 9.81) < 0.2 or not abs(g_filt - 9.81) < 0.2 or not finite \
+                or not np.all(np.isfinite(est_r)) or not ate_r < ATE_BOUND_M:
+            return fail(f"VIBA rung {stage}: ran {ran}, |gravity| {g_vis} / {g_filt}, states "
+                        f"finite {finite}, ATE {ate_r:.4f} m")
+        if counts_r["inertial_init_gn"] != 1 or counts_r["calls:inertial_optimization"] != 1 \
+                or counts_r["lvi_ba_lm"] != want_r or counts_r["calls:lvi_ba"] != 1 \
+                or P_r != 20 or lvi_kw.get("iters") != 10:
+            return fail(f"VIBA rung {stage}: launches {counts_r}, the FullInertialBA at P {P_r}, "
+                        f"{lvi_kw.get('iters')} iterations (expected one inertial_init_gn "
+                        f"launch, {want_r} of lvi_ba_lm at P 20, 10 iterations)")
+        rung_cases.append((f"VIBA rung {stage}",) + tuple(init_inputs[-1]))
+        rung_launches += counts_r["inertial_init_gn"]
+        if stage == 2:
+            lvi_rung = (lvi_a, lvi_kw)   # the second rung's FullInertialBA pass
+    launches["inertial_init_gn"] = counts_e["inertial_init_gn"] + rung_launches
 
     # a forced bad-IMU event: a window with non-finite samples. First on the
     # scan step alone (it is functional), then through track.
@@ -4378,7 +4794,8 @@ def main() -> int:
           f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; kernel "
           f"launches {counts_f}", flush=True)
     if any(counts_f[k] != N_LOOP * FRAME_LAUNCHES[k] for k in FRAME_KERNELS) \
-            or counts_f["hamming_matrix"] \
+            or counts_f["hamming_matrix"] or counts_f["inertial_init_gn"] \
+            or counts_f["calls:inertial_optimization"] \
             or modes_f.get("stereo+mutual", 0) != N_LOOP:
         return fail(f"loop closing: launches {counts_f} by shape {modes_f} for {N_LOOP} frames")
     if pose_fault(counts_f):
@@ -4417,6 +4834,9 @@ def main() -> int:
                         log=log, reset_counts=reset_counts, read_counts=read_counts)
     except RuntimeError as e:
         return fail(str(e))
+    if dp["counts"]["inertial_init_gn"] or dp["counts"]["calls:inertial_optimization"]:
+        return fail(f"distributed BA: inertial_init_gn launched "
+                    f"{dp['counts']['inertial_init_gn']} times without the IMU mode")
     if pose_fault(dp["counts"]):
         return fail(f"System(mesh): {pose_fault(dp['counts'])}")
     mesh_fault = ba_fault(dp["counts"], dp["n_ba_balm"], mesh_iters=cfg.tracking.ba_iters)
@@ -4922,7 +5342,7 @@ def main() -> int:
         n_bytes = (128 * P_ + P_ + 24 * L_ + L_ + 22 * L_ * K_ + 12
                    + (4 * D_ * D_ + 4 * D_ + 4 if q0 is not None else 0))
         b_l = bound(n_bytes, it * (LBA_OPS_LIVE * n_live + LBA_OPS_PAIR * n_pairs
-                                   + LBA_OPS_LANDMARK * L_ + 2 * Df ** 3 / 3 + 3 * Df ** 2))
+                                   + LBA_OPS_LANDMARK * L_ + Df ** 3 / 3 + 2 * Df ** 2))
         split = kernel_split(torch, lambda: klba.local_ba_lm(*a, **kwc), 5)
         print(f"{tag} local_ba_lm {label}, P {P_}, L {L_}, K {K_}, {it} iterations "
               f"({klba.launches_per_call(it)} launches; {n_live} observations of non-zero "
@@ -4944,13 +5364,35 @@ def main() -> int:
     lvi_cases = [("4e's last LVI-BA pass",) + tuple(lvi_case4e),
                  ("a FullInertialBA window",)
                  + lvi_args(torch, lvi_problem(np.random.default_rng(20), "full_inertial",
-                                               L=8192), dev)]
+                                               L=8192), dev),
+                 ("the second VIBA rung's FullInertialBA pass",) + tuple(lvi_rung)]
     try:
         rows.update(lvi_phase(torch, dev, lvi_cases,
                               log=lambda m: print(f"{tag} {m}", flush=True),
                               sync=torch.cuda.synchronize,
                               timer=lambda fn, reps: cuda_ms(torch, fn, reps, True),
                               split=lambda fn: kernel_split(torch, fn, 5)))
+    except RuntimeError as e:
+        return fail(str(e))
+
+    # the visual-inertial initialization: 4e's call, the two rungs' (their
+    # inputs as System passed them), and init_problem's windows (free gravity
+    # and scale, free gravity, padded, non-finite); timed at 4e's call
+    # (gravity fixed, 20 iterations), the free-gravity window's (20) and the
+    # free-scale window's (8: the two give a call's cost an iteration)
+    norm = lambda a, kw: (a, {"iters": 20, **kw})
+    init_cases = ([("4e's initialization",) + norm(*init_case4e)]
+                  + [(label,) + norm(a, kw) for label, a, kw in rung_cases]
+                  + [(case,) + init_args(torch, init_problem(np.random.default_rng(25), case), dev)
+                     for case in INIT_CASES])
+    try:
+        rows.update(init_phase(torch, dev, init_cases,
+                               log=lambda m: print(f"{tag} {m}", flush=True),
+                               sync=torch.cuda.synchronize,
+                               timer=lambda fn, reps: cuda_ms(torch, fn, reps, True),
+                               split=lambda fn: kernel_split(torch, fn, 5),
+                               timed=["4e's initialization", "free gravity",
+                                      "free gravity and scale"]))
     except RuntimeError as e:
         return fail(str(e))
 
@@ -5122,7 +5564,8 @@ def main() -> int:
                  "orb_describe", "stereo_refine", "hamming_matrix", "match_best2",
                  "match_best2/stereo", "match_best2/epipolar", "match_best2/global", "match_best2/reloc",
                  "match_best2/loop", "pose_only_lm", "balm_clusters", "balm_quadratic",
-                 "local_ba_lm", "lvi_ba_lm", "imu_preintegrate", "pose_inertial_lm",
+                 "local_ba_lm", "lvi_ba_lm", "inertial_init_gn", "imu_preintegrate",
+                 "pose_inertial_lm",
                  "esekf_predict", "lio_fences", "lio_rows", "esekf_step"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": r["source"],
@@ -5132,7 +5575,7 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                         "launches_imu_mode": imu_launches.get(name, 0),
                         **{k: r[k] for k in ("first_ms", "middle_ms", "final_ms", "call_ms",
-                                             "predict_alone_ms") if k in r}})
+                                             "predict_alone_ms", "ms_by_case") if k in r}})
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

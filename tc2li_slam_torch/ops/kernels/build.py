@@ -160,6 +160,13 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.tc2li_lvi_ba_scratch.restype = ctypes.c_longlong
     lib.tc2li_lvi_ba_lm.argtypes = [vp] * 22 + [i] * 7 + [f] * 5 + [i] + [vp] * 9
     lib.tc2li_lvi_ba_lm.restype = i
+    lib.tc2li_inertial_init_smem.argtypes = [i]
+    lib.tc2li_inertial_init_smem.restype = ctypes.c_longlong
+    lib.tc2li_inertial_init_max_kf.argtypes = []
+    lib.tc2li_inertial_init_max_kf.restype = i
+    lib.tc2li_inertial_init_gn.argtypes = ([vp] * 16 + [i, ctypes.c_double, ctypes.c_double]
+                                           + [i] * 3 + [vp, vp])
+    lib.tc2li_inertial_init_gn.restype = i
     lib.tc2li_orb_level_planes.argtypes = [vp] * 6 + [i] * 5 + [vp, vp]
     lib.tc2li_orb_level_planes.restype = i
     lib.tc2li_orb_select_grid.argtypes = [vp] * 9 + [i, i, vp]

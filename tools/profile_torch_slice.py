@@ -2,8 +2,8 @@
 """Profile the PyTorch port's frame loop on one CUDA card.
 
     python3 tools/profile_torch_slice.py [--frames 14] [--warm 5] [--triangulate]
-                                         [--voc] [--imu] [--loop] [--out build/profile]
-                                         [--tree DIR]
+                                         [--voc] [--imu [--rungs]] [--loop]
+                                         [--out build/profile] [--tree DIR]
 
 Runs the sequence and configuration of ``chip_smoke.py`` (KITTI-shaped,
 1241x376, 2000 features, 32768-point scans); with ``--triangulate`` the
@@ -36,7 +36,11 @@ the window BA's parts are named ranges too (``balm.build_clusters``,
 with ``--imu`` also ``inertial_ba.lvi_ba``, a keyframe's LVI-BA pass):
 calls, host ms and device events a call of each (``ba_split``), each LVI-BA
 pass apart (``ba_split["lvi_ba passes"]``: device events, device ms, host
-ms, and device launches and ms by kernel name), and the
+ms, and device launches and ms by kernel name), with ``--imu`` each
+``inertial_init.inertial_optimization`` call apart the same way
+(``init_calls``, the range ``init:inertial_optimization``: the
+visual-inertial initialization at the first mapping pass with four
+keyframes, frame ~14, and each VIBA rung's), and the
 device ms and launches a frame of each kernel of ``csrc/local_ba.cu``
 (``ba_split["local_ba_lm kernels"]``). The frame build is split the same
 way (``orb_split``): ``build_frame`` and its parts ``orb:level_stacks`` (the
@@ -47,7 +51,15 @@ kernel; on the card the current one calls neither) and
 ``stereo:match+refine`` (``ops/stereo.match_and_refine``: the match and
 ``csrc/stereo.cu``), each with host ms, device ms (the
 kernels, copies and fills whose launch lies in the range, linked by the
-profiler's correlation ids) and device events a frame. ``--tree DIR`` runs
+profiler's correlation ids) and device events a frame. ``--rungs`` (with
+``--imu``) ends the profiled window with the two VIBA rungs on the system,
+``_initialize_imu(kf, stage=1)`` then ``stage=2`` at its last keyframe, as
+``_maybe_refine_imu_init`` calls them 5 s and 15 s after the
+initialization (ranges ``rung:1``, ``rung:2``: the rung's
+``inertial_optimization`` call and its FullInertialBA); with ``--imu`` the
+summary also gives the frames at which the ladder itself reached each rung
+(``vi_stage_frames``; a sequence of ~170 frames or more reaches both), the
+gravity's norm and the ATE over the run. ``--tree DIR`` runs
 the package of another checkout (an unpacked parent, say) under this
 script, so that two trees are split by the same code. Then over the
 frames after the warm-up:
@@ -87,6 +99,8 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=None, help="14, or 24 with --imu")
     ap.add_argument("--warm", type=int, default=None, help="5, or 18 with --imu")
     ap.add_argument("--imu", action="store_true", help="IMU mode (IMU_STEREO_LIDAR)")
+    ap.add_argument("--rungs", action="store_true",
+                    help="with --imu: end the profiled window with the two VIBA rungs")
     ap.add_argument("--triangulate", action="store_true",
                     help="tracking.triangulate=True, the configuration's default")
     ap.add_argument("--voc", action="store_true",
@@ -125,8 +139,8 @@ def main() -> int:
     from tc2li_slam_torch.ops.kernels import fast, lio as klio_mod, match
     from tc2li_slam_torch.slam import config as cfg_mod, lio as lio_mod, system as sys_mod, \
         tracking
-    from tc2li_slam_torch.solver import balm as balm_mod, inertial_ba as iba_mod, lm as lm_mod, \
-        pose_inertial as pi_mod
+    from tc2li_slam_torch.solver import balm as balm_mod, inertial_ba as iba_mod, \
+        inertial_init as ii_mod, lm as lm_mod, pose_inertial as pi_mod
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -260,6 +274,14 @@ def main() -> int:
             with record_function(f"ba:{_name}"):
                 return _fn(*a, **kw)
         setattr(mod, name, ranged_part)
+    # in the IMU mode the visual-inertial initialization's optimization
+    # (``inertial_init.inertial_optimization``, the kernel or, in an older
+    # tree, the eager loop), at the initialization and at each rung
+    if args.imu:
+        def ranged_init(*a, _fn=ii_mod.inertial_optimization, **kw):
+            with record_function("init:inertial_optimization"):
+                return _fn(*a, **kw)
+        ii_mod.inertial_optimization = ranged_init
     # the frame build's parts: each range wraps the module attributes that
     # compute it. ``select_topk_grid`` and ``compute_*_stacked`` are what a
     # checkout from before the ORB kernels calls (its ``orb`` lacks
@@ -283,8 +305,17 @@ def main() -> int:
                         return _fn(*a, **kw)
                 setattr(mod, name, ranged_orb)
 
-    for fr, sc in zip(frames[:args.warm], scans[:args.warm]):
+    # the frames at which the ladder reached each rung on its own clock
+    vi_stage_frames = {}
+
+    def note_stage(i):
+        st = getattr(slam, "_vi_stage", 0)
+        if args.imu and getattr(slam, "_vi_initialized", False) and st not in vi_stage_frames:
+            vi_stage_frames[st] = i
+
+    for i, (fr, sc) in enumerate(zip(frames[:args.warm], scans[:args.warm])):
         track(fr, sc)
+        note_stage(i)
     torch.cuda.synchronize()
     slam.timers.reset()
 
@@ -316,7 +347,7 @@ def main() -> int:
         warnings.showwarning = showwarning
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t_win0 = time.perf_counter()
-            for fr, sc in zip(frames[args.warm:], scans[args.warm:]):
+            for i, (fr, sc) in enumerate(zip(frames[args.warm:], scans[args.warm:])):
                 t0 = time.perf_counter()
                 n_warned, n_kf = len(caught), slam.n_kf_host
                 torch.cuda.set_sync_debug_mode("warn")
@@ -326,6 +357,15 @@ def main() -> int:
                 frame_ms.append(1e3 * (time.perf_counter() - t0))
                 frame_syncs.append(chip_smoke.n_syncs(caught[n_warned:]))
                 frame_kf.append(slam.n_kf_host > n_kf)
+                note_stage(args.warm + i)
+            rung_ran = []
+            if args.imu and args.rungs:
+                for stage in (1, 2):
+                    t0 = time.perf_counter()
+                    with record_function(f"rung:{stage}"):
+                        rung_ran.append(slam._initialize_imu(slam.n_kf_host - 1, stage=stage))
+                    torch.cuda.synchronize()
+                    rung_ran.append(1e3 * (time.perf_counter() - t0))
             t_win = time.perf_counter() - t_win0
     syncs = [str(w.message).splitlines()[0] for w in caught
              if chip_smoke.is_sync_warning(w.message)]
@@ -336,7 +376,8 @@ def main() -> int:
     trace.unlink()
 
     events = prof.key_averages()
-    RANGE_PREFIXES = ("stage:", "ba:", "orb:", "stereo:", "build_frame", "lio:", "vi:")
+    RANGE_PREFIXES = ("stage:", "ba:", "orb:", "stereo:", "build_frame", "lio:", "vi:", "init:",
+                      "rung:")
     dev_us = 0.0
     n_kernels = 0
     for e in prof.events():
@@ -397,12 +438,12 @@ def main() -> int:
         stage_events[f"_vi_frame_refine/{name}"] = range_events(
             f"vi:{name}", within="stage:_vi_frame_refine")
     ba_split = {name: range_events(f"ba:{name}") for name, _ in BA_PARTS}
-    if args.imu:
-        # each LVI-BA pass apart: its device events, device ms and host ms,
-        # and device ms and launches by kernel name
-        passes = []
+    def calls_of(rname):
+        """Each span of a named range apart: its device events, device ms
+        and host ms, and device ms and launches by kernel name."""
+        out = []
         for e in cpu_events:
-            if e.name != "ba:lvi_ba":
+            if e.name != rname:
                 continue
             a, b = e.time_range.start, e.time_range.end
             i0, i1 = bisect.bisect_left(dev_starts, a), bisect.bisect_right(dev_starts, b)
@@ -410,12 +451,19 @@ def main() -> int:
             for _, us, k in dev_by_launch[i0:i1]:
                 n, t = by.get(k, (0, 0.0))
                 by[k] = (n + 1, t + us)
-            passes.append({
+            out.append({
                 "device_events": bisect.bisect_right(launches, b) - bisect.bisect_left(launches, a),
                 "device_ms": (dev_cum[i1] - dev_cum[i0]) / 1e3, "host_ms": (b - a) / 1e3,
                 "by_kernel": {k: [n, round(t / 1e3, 4)] for k, (n, t) in
                               sorted(by.items(), key=lambda kv: -kv[1][1])[:12]}})
-        ba_split["lvi_ba passes"] = passes
+        return out
+
+    init_calls = {}
+    if args.imu:
+        ba_split["lvi_ba passes"] = calls_of("ba:lvi_ba")
+        # each inertial_optimization call apart, and the rungs whole
+        init_calls = {"init:inertial_optimization": calls_of("init:inertial_optimization"),
+                      **{f"rung:{st}": calls_of(f"rung:{st}") for st in (1, 2)}}
     orb_split = {rname: range_events(rname) for rname, _ in ORB_PARTS}
     orb_split["device events linked to their launch"] = f"{n_linked} of {n_dev}"
     # csrc/local_ba.cu's launches apart: device ms and launches a frame by kernel
@@ -445,6 +493,13 @@ def main() -> int:
         "frames_refined": [getattr(slam, "n_vi_refine_kf", 0),
                            getattr(slam, "n_vi_refine_frame", 0)],
         "lvi_ba_passes": getattr(slam, "n_lvi_ba", 0),
+        "init_calls": init_calls,
+        "rungs_ran_and_host_ms": rung_ran,
+        "vi_stage_frames": vi_stage_frames,
+        "gravity_norm": ([float(torch.linalg.norm(slam.gravity_vis)),
+                          float(torch.linalg.norm(slam.filt.x.grav))] if args.imu else None),
+        "ate_m": syn.ate_rmse(slam.trajectory_world_from_cam(),
+                              np.stack([fr.T_wb_gt @ syn.body_from_cam() for fr in frames])),
         "vocabulary_words": None if voc is None else voc.n_words,
         "keyframes": slam.n_kf_host,
         "triangulated_pairs": pairs_of() - pairs0,
