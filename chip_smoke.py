@@ -97,9 +97,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    edge's residual after ``close_loop`` below 0.3 of what it was; the ATE of
    the frames so far lower after the closure than just before it; finite
    poses and landmarks; the matcher's unmasked mutual launches equal to the
-   candidates verified; host syncs counted frame by frame; the first
-   closure's verification, closure and pose-graph optimization (the last
-   beside its bound, ``pose_graph_bound``) replayed under the profiler
+   candidates verified; host syncs counted frame by frame; the pose graph's
+   kernels (``pose_graph_gn``) launched ``launches_per_call(n_kf, iters)``
+   times a closure (``close_loop`` hands the optimizer the n_kf used slots);
+   the first closure's verification, closure and pose-graph optimization
+   (the last beside its bound, ``pose_graph_bound``, and at most
+   ``launches_per_call`` device events) replayed under the profiler
    (device events, device ms, host ms). Then a
    checkpoint round trip on the card: ``save_system``, ``load_system``, two
    more frames on both, poses equal to 1e-4;
@@ -188,7 +191,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    20, a NaN in a valid and in an invalid factor) to ``INIT_TOL`` or else no
    farther from the plain version run in float64 on the host, the same
    bits twice, one launch a call, no host sync, device ms at 4e's call and
-   the free-gravity and free-scale windows behind a backlog; the BALM quadratic
+   the free-gravity and free-scale windows behind a backlog; the pose
+   graph's kernels (``pose_graph_phase``) on 4f's closure and on
+   ``pose_graph_problem``'s graphs (drift, two fixed poses with invalid and
+   zero-weight edges, scale drift, a non-finite edge, 400 keyframes with
+   covisibility edges: 2,793 free rows, 2,048 keyframes: 14,329 free rows
+   at ``PG_ITERS_2048`` iterations) to ``PG_TOL`` (``PG_TOL_LARGE`` above
+   ``PG_LARGE_K`` keyframes) on every pose entry of the plain version run
+   in float64 on the card, the same bits twice, the wrapper's launches, no
+   host sync, each case's seconds, device ms at 4f's closure and the two
+   large graphs behind a backlog beside the bound, the plain version and
+   the library's Cholesky and solve of the free rows' H, and the launches
+   by kernel name; the BALM quadratic
    on phase 3's last clusters (H and g to 1e-3 of their largest entry, the
    cost to 1e-3 relative, the same bits on a second call) and with every
    voxel invalid (exactly 0); the stereo half of the frame build
@@ -279,6 +293,10 @@ BALM_OPS_ENTRY = 20
 # float64 outside the tensor cores: 34 TFLOP/s (NVIDIA's data sheet, H100
 # SXM), a fused multiply-add counted as two
 PEAK_F64_S = 34e12 / 2
+# float64 on the tensor cores (DMMA): 67 TFLOP/s (the same data sheet), a
+# fused multiply-add counted as two; a dense factorization's trailing update
+# and its substitutions are their shape
+PEAK_F64_TC_S = 67e12 / 2
 # IMU preintegration (csrc/imu_preint.cu), float32 operations a sample, a
 # fused multiply-add counted as one (as PEAK_SIMPLE_S): A C9 on A's block
 # structure (9 3x3 products, 243) and C9's six upper blocks of (A C9) A^T
@@ -2693,6 +2711,7 @@ def loop_phase(torch, dev, cam_rig, cfg, n_frames=N_LOOP, world=None, voc_stride
     ``cam_rig``'s); ``reset_counts`` is called just before the tracked run and
     ``read_counts`` just after it. Returns a dict of what was measured;
     raises RuntimeError where a check fails."""
+    import inspect
     import tempfile
     import warnings
 
@@ -2745,6 +2764,7 @@ def loop_phase(torch, dev, cam_rig, cfg, n_frames=N_LOOP, world=None, voc_stride
 
     closures = []
     close_loop = loop_closing.close_loop
+    close_iters = inspect.signature(close_loop).parameters["iters"].default
     caught_now = [[]]    # the warnings list of the frame in flight
 
     def spy(m, kf_id, cand_id, S_loop, **kw):
@@ -2755,7 +2775,7 @@ def loop_phase(torch, dev, cam_rig, cfg, n_frames=N_LOOP, world=None, voc_stride
         n_done = len(slam.traj)
         closures.append(dict(
             frame=slam.frame_idx, kf=kf_id, cand=cand_id, n_traj=n_done, map_before=m,
-            S=S_loop, n_kf=kw["n_kf"],
+            S=S_loop, n_kf=kw["n_kf"], iters=kw.get("iters", close_iters),
             edges=int(loop_closing.loop_edges(m, kf_id, cand_id, S_loop, kw["n_kf"]).i.shape[0]),
             residual=(edge_residual(m.kf_T_cw, kf_id, cand_id, S_loop),
                       edge_residual(out.kf_T_cw, kf_id, cand_id, S_loop)),
@@ -2864,11 +2884,14 @@ def loop_phase(torch, dev, cam_rig, cfg, n_frames=N_LOOP, world=None, voc_stride
             sim3_mod.pose_graph_optimize = pgo
         (pg_S, pg_edges, pg_fixed), pg_kw = pgo_args[0]
         pg_iters = pg_kw.get("iters", 20)
-        pg_bound = pose_graph_bound(pg_S.shape[0], int(pg_edges.valid.sum()), pg_iters)
+        pg_bound = pose_graph_bound(pg_S.shape[0], int((~pg_fixed).sum()),
+                                    int(pg_edges.valid.sum()), pg_iters)
         log(f"loop closing: the closure's pose_graph_optimize: K {pg_S.shape[0]} "
-            f"({7 * pg_S.shape[0]} rows), {int(pg_edges.valid.sum())} valid edges of "
-            f"{pg_edges.valid.shape[0]}, {int((~pg_fixed).sum())} free poses, {pg_iters} "
-            f"iterations; bound {pg_bound[0]:.4f} ms ({pg_bound[1]})")
+            f"({7 * pg_S.shape[0]} rows planned, {7 * int((~pg_fixed).sum())} free), "
+            f"{int(pg_edges.valid.sum())} valid edges of {pg_edges.valid.shape[0]}, "
+            f"{int((~pg_fixed).sum())} free poses, {pg_iters} iterations; bound "
+            f"{pg_bound[0]:.4f} ms ({pg_bound[1]})")
+        out["pose_graph_args"] = ((pg_S, pg_edges, pg_fixed), {"iters": pg_iters})
         replay = {
             "pose_graph_optimize": lambda: pgo(pg_S, pg_edges, pg_fixed, **pg_kw),
             "verify_candidate": lambda: loop_closing.verify_candidate(
@@ -2896,6 +2919,9 @@ def loop_phase(torch, dev, cam_rig, cfg, n_frames=N_LOOP, world=None, voc_stride
             log(f"loop closing: {name} replayed under the profiler: {len(dev_events)} device "
                 f"events, {sum(e.time_range.elapsed_us() for e in dev_events) / 1e3:.3f} ms of "
                 f"device time, {ms:.1f} ms on the host clock")
+            out[f"replay:{name}"] = dict(
+                events=len(dev_events), host_ms=ms,
+                device_ms=sum(e.time_range.elapsed_us() for e in dev_events) / 1e3)
 
     # checkpoint round trip: save, load on the same device, two more frames on both
     with tempfile.TemporaryDirectory() as tmp:
@@ -2927,24 +2953,263 @@ def loop_phase(torch, dev, cam_rig, cfg, n_frames=N_LOOP, world=None, voc_stride
     return out
 
 
-def pose_graph_bound(K: int, n_edges: int, iters: int) -> tuple:
-    """(least ms on the card, what bounds it) of ``solver.sim3.pose_graph_optimize``
-    as the port writes it, over K poses and ``n_edges`` valid edges: bytes
-    read and written once (the poses, the edges' Sim3 measurements,
-    indices, weights and flags) over the memory rate; float32 operations
-    over the float32 rate, a fused multiply-add counted as one: an
-    iteration's dense LU solve of the 7K rows (D^3 / 3 for the elimination,
-    D^2 for the two substitutions), an edge's residual chain at the state
-    and the candidate (~300 each), its two 7 x 7 Jacobian blocks (~14
-    chains' tangents, ~600) and its symmetric share of H and g (the two
-    diagonal blocks' upper triangles 2 x 28 x 7, the off-diagonal block 49 x
-    7, the gradient 2 x 7 x 7)."""
-    D = 7 * K
-    n_bytes = 2 * 64 * K + n_edges * (64 + 4 * 4)
-    per_edge = 2 * 300 + 600 + 2 * 28 * 7 + 49 * 7 + 2 * 7 * 7
-    ops = iters * (D ** 3 / 3 + D ** 2 + n_edges * per_edge)
-    t_b, t_o = n_bytes / PEAK_BYTES_S, ops / PEAK_SIMPLE_S
+# the pose graph's cases (pose_graph_problem): test_torch_sim3's graphs, an
+# essential graph of about 400 keyframes and one of 2,048 (run_kitti_torch's
+# max_kf) with its iterations cut to PG_ITERS_2048
+PG_CASES = ("drift", "fixed and invalid", "scale drift", "non-finite", "covisibility 400",
+            "2048 keyframes")
+PG_ITERS_2048 = 2
+# the kernels against the plain version run in float64, on every pose entry:
+# PG_TOL (test_torch_sim3's parity tolerance) up to PG_LARGE_K keyframes;
+# above, PG_TOL_LARGE, where two float64 solves of the same steps already
+# disagree by more (the 2,048-keyframe graph, whose 0.9 rad of accumulated
+# drift moves poses ~500 m in 2 iterations, far from the origin, where the
+# world-frame tangents leave H ill-conditioned: the kernels 3.59e-4 from the
+# plain version's LU on all rows, the library's Cholesky on the free rows
+# 3.53e-4 from it, on the H100)
+PG_TOL = 1e-4
+PG_TOL_LARGE = 2e-3
+PG_LARGE_K = 1000
+# float64 operations an edge an iteration that any implementation of the
+# step does, a fused multiply-add counted as one: its residual chain at the
+# state and at the candidate (~300 each), its two 7 x 7 Jacobian blocks
+# (~600 in closed form) and its symmetric share of H and g (the two
+# diagonal blocks' upper triangles 2 x 28 x 7, the off-diagonal block 49 x 7,
+# the gradient 2 x 7 x 7)
+PG_OPS_EDGE = 2 * 300 + 600 + 2 * 28 * 7 + 49 * 7 + 2 * 7 * 7
+PG_KERNELS = ("setup_kernel", "cost_kernel", "edge_kernel", "assemble_kernel", "panel_kernel",
+              "update_kernel", "back_kernel", "poses_kernel")   # csrc/pose_graph.cu
+
+
+def pose_graph_problem(rng, case: str = "drift", K: int | None = None) -> dict:
+    """Inputs of ``solver.sim3.pose_graph_optimize`` (numpy, from ``rng``):
+    ``test_torch_sim3._drift_chain``'s graph at K keyframes: true poses
+    1 m apart on a circle (T_{k+1} = T_k Exp(-(1, 0, 0, 0, 0, 2 pi / K))),
+    estimates whose every relative motion carries noise (0.02 in each
+    tangent component), the temporal chain's edges measured from the
+    estimates, a loop edge K-1 -> 0 with the true relative pose and weight 5,
+    pose 0 fixed. Cases (``PG_CASES``): ``drift`` (K 12, 15 iterations),
+    ``fixed and invalid`` (K 10: poses 0 and 5 fixed, a chain edge invalid,
+    one of weight 0, two wrong edges marked invalid; 10 iterations),
+    ``scale drift`` (K 8, the scales growing to e^0.15; 12 iterations),
+    ``non-finite`` (K 12, a NaN in a chain edge: every pose comes back
+    unmoved), ``covisibility 400`` (K 400: as ``loop_closing.loop_edges``
+    builds a closure's graph, covisibility edges of weight 1 from each
+    keyframe to the ones 2, 3 and 5 ahead measured from the estimates, and
+    loop edges from the last 8 keyframes to the first 8, true, weight 5;
+    2,793 free rows, 15 iterations), ``2048 keyframes`` (K 2048, the same
+    with covisibility to 2 and 3 ahead: 14,329 free rows, ``PG_ITERS_2048``
+    iterations). ``K`` resizes a case's graph. Returns a dict: S_w, i, j,
+    S_ij, weight, valid, fixed, iters (float32 poses and measurements)."""
+    import numpy as np
+    import torch
+
+    from tc2li_slam_torch.geom import lie
+
+    K = K or {"drift": 12, "fixed and invalid": 10, "scale drift": 8, "non-finite": 12,
+              "covisibility 400": 400, "2048 keyframes": 2048}[case]
+    exp = lambda xi: lie.se3_exp(torch.as_tensor(np.asarray(xi, np.float64))).numpy()
+    step_inv = np.linalg.inv(exp([1.0, 0, 0, 0, 0, 2 * np.pi / K]))
+    noise = exp(rng.normal(0, 0.02, (K - 1, 6)))
+    T_gt, T_est = [np.eye(4)], [np.eye(4)]
+    for k in range(K - 1):
+        T_gt.append(T_gt[-1] @ step_inv)
+        T_est.append(noise[k] @ (T_gt[k + 1] @ np.linalg.inv(T_gt[k])) @ T_est[-1])
+    T_gt, T_est = np.stack(T_gt), np.stack(T_est).astype(np.float32)
+    rel = lambda T, a, b: T[a] @ np.linalg.inv(T[b])
+    ii, jj = list(range(K - 1)), list(range(1, K))
+    S_ij = [rel(T_est, i, i + 1) for i in range(K - 1)]
+    weight, valid = [1.0] * (K - 1), [True] * (K - 1)
+    ahead = {"covisibility 400": (2, 3, 5), "2048 keyframes": (2, 3)}.get(case, ())
+    for d in ahead:
+        for i in range(K - d):
+            ii.append(i)
+            jj.append(i + d)
+            S_ij.append(rel(T_est, i, i + d))
+            weight.append(1.0)
+            valid.append(True)
+    n_loop = 8 if ahead else 1
+    for q in range(n_loop):
+        ii.append(K - 1 - q)
+        jj.append(q)
+        S_ij.append(rel(T_gt, K - 1 - q, q))
+        weight.append(5.0)
+        valid.append(True)
+    p = dict(S_w=T_est.copy(), i=np.asarray(ii, np.int32), j=np.asarray(jj, np.int32),
+             S_ij=np.stack(S_ij).astype(np.float32), weight=np.asarray(weight, np.float32),
+             valid=np.asarray(valid), fixed=np.zeros(K, bool), iters=15)
+    p["fixed"][0] = True
+    if case == "fixed and invalid":
+        wrong = exp([3.0, 1, -2, 0.5, 0.2, -0.4]).astype(np.float32)
+        p.update(i=np.append(p["i"], [2, 7]).astype(np.int32),
+                 j=np.append(p["j"], [6, 3]).astype(np.int32),
+                 S_ij=np.concatenate([p["S_ij"], np.stack([wrong, wrong])]),
+                 weight=np.append(p["weight"], [2.0, 2.0]).astype(np.float32),
+                 valid=np.append(p["valid"], [False, False]), iters=10)
+        p["weight"][4] = 0.0
+        p["valid"][1] = False
+        p["fixed"][5] = True
+    if case == "scale drift":
+        p["S_w"][:, :3, :3] *= np.exp(np.linspace(0.0, 0.15, K)).astype(np.float32)[:, None, None]
+        p["iters"] = 12
+    if case == "non-finite":
+        p["S_ij"][3, 1, 2] = np.nan
+    if case == "2048 keyframes":
+        p["iters"] = PG_ITERS_2048
+    return p
+
+
+def pose_graph_args(torch, p, dev, dtype=None):
+    """``pose_graph_optimize``'s arguments ``(a, kw)`` for
+    ``pose_graph_problem``'s ``p`` on ``dev`` (the poses, measurements and
+    weights cast to ``dtype`` where given)."""
+    from tc2li_slam_torch.solver import sim3
+
+    f = lambda x: torch.as_tensor(x).to(dev, dtype or torch.float32)
+    edges = sim3.PoseGraphEdges(i=torch.as_tensor(p["i"]).to(dev), j=torch.as_tensor(p["j"]).to(dev),
+                                S_ij=f(p["S_ij"]), weight=f(p["weight"]),
+                                valid=torch.as_tensor(p["valid"]).to(dev))
+    return (f(p["S_w"]), edges, torch.as_tensor(p["fixed"]).to(dev)), {"iters": p["iters"]}
+
+
+def pose_graph_cast(torch, a, dtype):
+    """``pose_graph_optimize``'s positional arguments with the poses,
+    measurements and weights cast to ``dtype`` (on their device)."""
+    S_w, e, fixed = a
+    return S_w.to(dtype), e._replace(S_ij=e.S_ij.to(dtype), weight=e.weight.to(dtype)), fixed
+
+
+def pose_graph_bound(K: int, n_free: int, n_edges: int, iters: int) -> tuple:
+    """(least ms on the card, what bounds it) of one ``pose_graph_optimize``
+    call over K poses, ``n_free`` of them free, and ``n_edges`` edges: bytes
+    read and written once (the poses in and out, the edges' Sim3
+    measurements, indices, weights and flags, the fixed flags) over the
+    memory rate; float64 operations, a fused multiply-add counted as one:
+    an iteration's Cholesky of the n = 7 n_free free rows (n^3 / 6) and its
+    two triangular substitutions (n^2) over the tensor cores' float64 rate,
+    each edge's ``PG_OPS_EDGE`` an iteration and the entry cost's residuals
+    over the float64 rate outside them."""
+    n = 7 * n_free
+    n_bytes = 2 * 64 * K + K + n_edges * (64 + 4 + 4 + 4 + 1)
+    t_b = n_bytes / PEAK_BYTES_S
+    t_o = (iters * (n ** 3 / 6 + n ** 2) / PEAK_F64_TC_S
+           + (iters * n_edges * PG_OPS_EDGE + 300 * n_edges) / PEAK_F64_S)
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def pose_graph_system(torch, a):
+    """H [7K, 7K] and g [7K] of the first step of the plain version run in
+    float64 on ``a``'s device (``ops.kernels.pose_graph.normal_equations``):
+    the free rows' part is what the library's Cholesky is timed on."""
+    from tc2li_slam_torch.ops.kernels import pose_graph as kpg
+
+    return kpg.normal_equations(*pose_graph_cast(torch, a, torch.float64))
+
+
+def pose_graph_tol(K: int) -> float:
+    """The kernels' limit on every pose entry from the plain version run in
+    float64, for a graph of K poses."""
+    return PG_TOL if K <= PG_LARGE_K else PG_TOL_LARGE
+
+
+def pose_distance(torch, a, b) -> float:
+    """The largest entry of |a - b| (a NaN beside a NaN 0, another NaN inf)."""
+    d = (a.double() - b.double()).abs()
+    d = float(torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(d), d).max())
+    return d if d == d else float("inf")
+
+
+def pose_graph_phase(torch, dev, cases, log=print, sync=lambda: None, timer=None, split=None,
+                     timed=None) -> dict:
+    """Phase 5, the pose graph's kernels against their plain version on
+    ``dev`` through the dispatcher a user calls
+    (``solver.sim3.pose_graph_optimize``): ``cases`` lists ``(label, a,
+    kw)``; each is held to ``pose_graph_tol(K)`` on every pose entry of the
+    plain version run in float64 on the same device (a NaN beside a NaN
+    counts 0, another NaN fails), the same bits on a second call,
+    ``launches_per_call(K, iters)`` launches a call by the wrapper's counter,
+    no host sync; a case with a NaN comes back as it went in. Each case's
+    seconds (two calls and their sync) are printed. ``timer(fn, reps) -> ms``
+    times a call behind a device backlog for the cases whose labels
+    ``timed`` lists (default the first): the kernels', the plain version's
+    in float32, and the library's Cholesky and solve of the free rows' H of
+    the first step in float64 (``library_ms``; ``torch.linalg.cholesky_ex``,
+    the factorization without its host check, and ``torch.cholesky_solve``);
+    ``split(fn)`` gives a call's device events
+    by kernel name, which must be ``csrc/pose_graph.cu``'s and sum to
+    ``launches_per_call``. Returns the
+    kernels' row, its times those of the first timed case and
+    ``ms_by_case`` every timed case's; raises RuntimeError where a check
+    fails."""
+    from tc2li_slam_torch.ops.kernels import pose_graph as kpg
+    from tc2li_slam_torch.solver import sim3
+
+    timer = timer or (lambda fn, reps: float("nan"))
+    timed = timed or [cases[0][0]]
+    row, err, by_case = None, 0.0, {}
+    for label, a, kw in cases:
+        K, E, iters = a[0].shape[0], a[1].i.shape[0], kw["iters"]
+        n_free = int((~a[2]).sum())
+        n0 = kpg.launches
+        t0 = time.perf_counter()
+        got = sim3.pose_graph_optimize(*a, **kw)
+        again = sim3.pose_graph_optimize(*a, **kw)
+        sync()
+        secs = time.perf_counter() - t0
+        n_launch = kpg.launches - n0
+        ref64 = kpg.pose_graph_plain(*pose_graph_cast(torch, a, torch.float64), **kw)
+        sync()
+        dist, tol = pose_distance(torch, got, ref64), pose_graph_tol(K)
+        twice = bit_equal(torch, got, again)
+        want = 2 * kpg.launches_per_call(K, iters) if a[0].is_cuda else 0
+        log(f"pose_graph_gn {label} (K {K}, {n_free} free poses, {7 * n_free} free rows, "
+            f"{E} edges, {int(a[1].valid.sum())} valid, {iters} iterations): |kernel - plain in "
+            f"float64| {dist:.2e} on the poses (limit {tol:g}); the same bits on a second call "
+            f"{twice}; launches {n_launch} (expected {want}); two calls in {secs:.3f} s")
+        if not dist <= tol or not twice or n_launch != want:
+            raise RuntimeError(f"pose_graph_gn disagrees with its plain version run in float64 "
+                               f"on {label}: {dist} (limit {tol}), the same bits twice {twice}, "
+                               f"launches {n_launch} for 2 calls (expected {want})")
+        if bool(torch.isnan(a[1].S_ij).any()) and not torch.equal(got, a[0]):
+            raise RuntimeError(f"pose_graph_gn on {label}: the poses moved on a NaN cost")
+        err = max(err, dist)
+        if label in timed:
+            fn = lambda: sim3.pose_graph_optimize(*a, **kw)
+            ms = timer(fn, 5)
+            ms_p = timer(lambda: kpg.pose_graph_plain(*a, **kw), 1)
+            b = pose_graph_bound(K, n_free, int(a[1].valid.sum()), iters)
+            H, g = pose_graph_system(torch, a)
+            rows = torch.nonzero(~a[2].repeat_interleave(7))[:, 0]
+            H, g = H[rows][:, rows], g[rows]
+            lib_ms = timer(lambda: torch.cholesky_solve(
+                g[:, None], torch.linalg.cholesky_ex(H, check_errors=False)[0]), 5)
+            del H, g
+            parts = split(fn) if split else None
+            log(f"pose_graph_gn {label}: {ms:.4f} ms a call behind a backlog, bound "
+                f"{b[0]:.6f} ms ({b[1]}), plain {ms_p:.4f} ms"
+                + f", the library's Cholesky and solve of the free rows' H in float64 "
+                f"{lib_ms:.4f} ms"
+                + ("; device events a call by kernel (torch.profiler): "
+                   + ", ".join(f"{k} {v['launches_a_call']:g} x {v['ms_a_launch']:.4f} ms"
+                               for k, v in parts.items()) if parts is not None else ""))
+            if parts is not None and (
+                    set(parts) - set(PG_KERNELS) or sum(v["launches_a_call"] for v in parts.values())
+                    != kpg.launches_per_call(K, iters)):
+                raise RuntimeError(f"pose_graph_gn on {label}: the profiler's record of a call "
+                                   f"is not csrc/pose_graph.cu's "
+                                   f"{kpg.launches_per_call(K, iters)} launches: {parts}")
+            by_case[label] = dict(ms=ms, plain_ms=ms_p, bound_ms=b[0], library_ms=lib_ms,
+                                  seconds=secs)
+            if row is None:
+                row = dict(source="tc2li_slam_torch/csrc/pose_graph.cu",
+                           replaces="tc2li_slam_tpu/solver/sim3.py:112", ms=ms, plain_ms=ms_p,
+                           bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
+    n_sync = [syncs_of(torch, lambda: sim3.pose_graph_optimize(*a, **kw)) for _, a, kw in cases]
+    log(f"pose_graph_gn: host syncs in a call {n_sync}")
+    if any(n_sync):
+        raise RuntimeError(f"pose_graph_gn synchronised the host in a call: {n_sync}")
+    row.update(max_abs_err=err, ms_by_case=by_case)
+    return {"pose_graph_gn": row}
 
 
 def ply_vertices(path) -> int:
@@ -3869,8 +4134,8 @@ def main() -> int:
                                               hamming, imu_preint as kimu,
                                               inertial_init as kii, lio as klio,
                                               local_ba as klba, lvi_ba as klvi, match,
-                                              orb as korb, pose_inertial as kpi, pose_lm,
-                                              stereo as kst)
+                                              orb as korb, pose_graph as kpg,
+                                              pose_inertial as kpi, pose_lm, stereo as kst)
     from tc2li_slam_torch.slam import (config as cfg_mod, culling, lio, local_mapping,
                                        relocalization, system as sys_mod, tracking,
                                        triangulation)
@@ -4050,7 +4315,7 @@ def main() -> int:
         kbalm.launches = klba.launches = kst.launches = kcl.launches = 0
         kimu.launches = kpi.launches = vi_calls["integrate"] = 0
         klvi.launches = lvi_calls["lvi_ba"] = lvi_calls["implied"] = 0
-        kii.launches = init_calls["inertial_optimization"] = 0
+        kii.launches = init_calls["inertial_optimization"] = kpg.launches = 0
         klio.predict_launches = klio.fence_launches = klio.rows_launches = 0
         klio.step_launches = 0
         lio_calls["lio_scan_step"] = 0
@@ -4076,6 +4341,7 @@ def main() -> int:
                 "implied:lvi_ba_lm": lvi_calls["implied"],
                 "inertial_init_gn": kii.launches,
                 "calls:inertial_optimization": init_calls["inertial_optimization"],
+                "pose_graph_gn": kpg.launches,
                 "esekf_predict": klio.predict_launches, "lio_fences": klio.fence_launches,
                 "lio_rows": klio.rows_launches, "esekf_step": klio.step_launches,
                 "calls:lio_scan_step": lio_calls["lio_scan_step"]}
@@ -4193,7 +4459,7 @@ def main() -> int:
                 "implied:local_ba_lm": klba.launches_per_call(cfg.tracking.ba_iters) * n_ba3,
                 "imu_preintegrate": 0, "pose_inertial_lm": 0, "calls:integrate": 0,
                 "lvi_ba_lm": 0, "calls:lvi_ba": 0, "implied:lvi_ba_lm": 0,
-                "inertial_init_gn": 0, "calls:inertial_optimization": 0,
+                "inertial_init_gn": 0, "calls:inertial_optimization": 0, "pose_graph_gn": 0,
                 "esekf_predict": 0, "lio_fences": 0, "lio_rows": 0, "esekf_step": 0,
                 "calls:lio_scan_step": 0}
     if launches != expected or slam.n_recover or slam.n_reloc:
@@ -4321,6 +4587,10 @@ def main() -> int:
         if counts["inertial_init_gn"] != n_init or (n_init and not imu):
             faults.append(f"inertial_init_gn launched {counts['inertial_init_gn']} times for "
                           f"{n_init} inertial_optimization calls (IMU mode {imu})")
+        # ... and no loop closure: no pose graph
+        if counts["pose_graph_gn"]:
+            faults.append(f"pose_graph_gn launched {counts['pose_graph_gn']} times without "
+                          f"loop closing")
         # ... and an inertial_ba.lvi_ba call, launches_per_call(iters) launches
         if counts["calls:lvi_ba"] != d["n_lvi_ba"] \
                 or counts["lvi_ba_lm"] != counts["implied:lvi_ba_lm"]:
@@ -4633,6 +4903,9 @@ def main() -> int:
     if counts_e["pose_inertial_lm"] != n_refined:
         return fail(f"IMU mode: pose_inertial_lm launched {counts_e['pose_inertial_lm']} times "
                     f"for {n_refined} refined frames")
+    if counts_e["pose_graph_gn"]:
+        return fail(f"IMU mode: pose_graph_gn launched {counts_e['pose_graph_gn']} times "
+                    f"without loop closing")
     if counts_e["imu_preintegrate"] != counts_e["calls:integrate"]:
         return fail(f"IMU mode: imu_preintegrate launched {counts_e['imu_preintegrate']} times "
                     f"for {counts_e['calls:integrate']} integrate calls")
@@ -4810,6 +5083,27 @@ def main() -> int:
           f"for {counts_f['calls:run_local_ba']} run_local_ba calls, of which "
           f"{counts_f['calls:global_ba']} from _global_ba (64 poses, 8 iterations: "
           f"{klba.launches_per_call(8)} launches each); balm_quadratic 0", flush=True)
+    # the pose graph: launches_per_call(n_kf, iters) a closure (close_loop hands
+    # it the n_kf used slots), and the first closure's call replayed under the
+    # profiler: at most that many device events (28,748 for the eager call)
+    want_pg = sum(kpg.launches_per_call(c["n_kf"], c["iters"]) for c in lp["closures"])
+    pg_replay = lp["replay:pose_graph_optimize"]
+    c0 = lp["closures"][0]
+    print(f"{tag} loop closing: pose_graph_gn launched {counts_f['pose_graph_gn']} times for "
+          f"{len(lp['closures'])} closures (implied {want_pg}; n_kf "
+          f"{[c['n_kf'] for c in lp['closures']]}); the first closure's call replayed: "
+          f"{pg_replay['events']} device events (launches_per_call "
+          f"{kpg.launches_per_call(c0['n_kf'], c0['iters'])}; the eager call made 28,748), "
+          f"{pg_replay['device_ms']:.3f} device ms, {pg_replay['host_ms']:.2f} host ms", flush=True)
+    if counts_f["pose_graph_gn"] != want_pg or not want_pg \
+            or not 0 < pg_replay["events"] <= kpg.launches_per_call(c0["n_kf"], c0["iters"]):
+        return fail(f"loop closing: pose_graph_gn launched {counts_f['pose_graph_gn']} times for "
+                    f"{want_pg} implied; replay events {pg_replay['events']}")
+    launches["pose_graph_gn"] = counts_f["pose_graph_gn"]
+    (pg_S, pg_e, pg_fixed), pg_kw = lp["pose_graph_args"]
+    (root / "build").mkdir(exist_ok=True)
+    torch.save({"S_w": pg_S.cpu(), "edges": tuple(x.cpu() for x in pg_e), "fixed": pg_fixed.cpu(),
+                "iters": pg_kw["iters"]}, root / "build" / "pose_graph_4f.pt")
     launches["match_best2/loop"] = modes_f.get("none+mutual", 0) - slam4.n_recover
     if launches["match_best2/loop"] != slam4.n_loop_verified or slam4.n_loop_verified < 1:
         return fail(f"loop closing: {launches['match_best2/loop']} launches of the verification "
@@ -4834,6 +5128,9 @@ def main() -> int:
                         log=log, reset_counts=reset_counts, read_counts=read_counts)
     except RuntimeError as e:
         return fail(str(e))
+    if dp["counts"]["pose_graph_gn"]:
+        return fail(f"distributed BA: pose_graph_gn launched {dp['counts']['pose_graph_gn']} "
+                    f"times without loop closing")
     if dp["counts"]["inertial_init_gn"] or dp["counts"]["calls:inertial_optimization"]:
         return fail(f"distributed BA: inertial_init_gn launched "
                     f"{dp['counts']['inertial_init_gn']} times without the IMU mode")
@@ -5396,6 +5693,23 @@ def main() -> int:
     except RuntimeError as e:
         return fail(str(e))
 
+    # the pose graph: 4f's closure (its arguments as close_loop passed them)
+    # and pose_graph_problem's graphs up to 2,048 keyframes; timed at 4f's
+    # closure, the 400- and the 2,048-keyframe graphs
+    pg_cases = ([("4f's closure",) + lp["pose_graph_args"]]
+                + [(case,) + pose_graph_args(torch, pose_graph_problem(
+                    np.random.default_rng(26), case), dev) for case in PG_CASES])
+    try:
+        rows.update(pose_graph_phase(torch, dev, pg_cases,
+                                     log=lambda m: print(f"{tag} {m}", flush=True),
+                                     sync=torch.cuda.synchronize,
+                                     timer=lambda fn, reps: cuda_ms(torch, fn, reps, True),
+                                     split=lambda fn: kernel_split(torch, fn, 3),
+                                     timed=["4f's closure", "covisibility 400",
+                                            "2048 keyframes"]))
+    except RuntimeError as e:
+        return fail(str(e))
+
     # the BALM quadratic on phase 3's last clusters, on them with every voxel
     # invalid, and on a window of 6 LiDAR keyframes of 20000 points on three
     # planes (phase 3's keyframes hold 2048 points each, too few for a 1 m
@@ -5564,7 +5878,8 @@ def main() -> int:
                  "orb_describe", "stereo_refine", "hamming_matrix", "match_best2",
                  "match_best2/stereo", "match_best2/epipolar", "match_best2/global", "match_best2/reloc",
                  "match_best2/loop", "pose_only_lm", "balm_clusters", "balm_quadratic",
-                 "local_ba_lm", "lvi_ba_lm", "inertial_init_gn", "imu_preintegrate",
+                 "local_ba_lm", "lvi_ba_lm", "inertial_init_gn", "pose_graph_gn",
+                 "imu_preintegrate",
                  "pose_inertial_lm",
                  "esekf_predict", "lio_fences", "lio_rows", "esekf_step"):
         r = rows[name]

@@ -167,6 +167,10 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.tc2li_inertial_init_gn.argtypes = ([vp] * 16 + [i, ctypes.c_double, ctypes.c_double]
                                            + [i] * 3 + [vp, vp])
     lib.tc2li_inertial_init_gn.restype = i
+    lib.tc2li_pose_graph_scratch.argtypes = [i, i]
+    lib.tc2li_pose_graph_scratch.restype = ctypes.c_longlong
+    lib.tc2li_pose_graph_gn.argtypes = [vp] * 7 + [i] * 3 + [vp] * 3
+    lib.tc2li_pose_graph_gn.restype = i
     lib.tc2li_orb_level_planes.argtypes = [vp] * 6 + [i] * 5 + [vp, vp]
     lib.tc2li_orb_level_planes.restype = i
     lib.tc2li_orb_select_grid.argtypes = [vp] * 9 + [i, i, vp]

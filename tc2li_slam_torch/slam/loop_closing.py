@@ -189,10 +189,12 @@ def close_loop(m: mapstate.MapState, kf_id: int, cand_id: int, S_cur_from_cand: 
     # Culled keyframes stay free vertices: they sit on the temporal chain and
     # their frozen poses still anchor the per-frame trajectory; holding them
     # fixed pins the whole drifted segment through their chain edges and
-    # cancels the correction.
-    ids = torch.arange(K, device=m.device)
-    fixed = (ids == cand_id) | (ids >= n_kf)
-    S_new = sim3_mod.pose_graph_optimize(S_w, edges, fixed, iters=iters)
+    # cancels the correction. The tail slots (from n_kf on) touch no edge and
+    # a fixed pose keeps its value, so the optimizer is handed the used slots
+    # alone and the tail is written back as it was.
+    fixed = torch.arange(n_kf, device=m.device) == cand_id
+    S_new = torch.cat([sim3_mod.pose_graph_optimize(S_w[:n_kf], edges, fixed, iters=iters),
+                       S_w[n_kf:]])
 
     # landmarks through their first observing keyframe: X' = S'_ref^-1 S_ref X
     ref = torch.clamp(m.lm_first_kf, 0, K - 1).long()

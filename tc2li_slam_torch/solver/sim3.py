@@ -17,11 +17,12 @@ loop correction along the keyframe chain.
   ``torch.Generator`` or are passed in (the parity tests pass the ones the
   reference's key draws).
 - ``pose_graph_optimize``: Gauss-Newton on Sim3 poses with relative-pose
-  constraints r = log(S_ij S_j S_i^-1). The residual of an edge depends on
-  its two poses only, so the Jacobian is taken as [E, 7, 2, 7] blocks
-  (forward mode over one shared 14-vector, not over all 7K unknowns) and
-  ``H = J^T J``, ``g = J^T r`` are assembled by scatter-add; the dense
-  solve is the library's.
+  constraints r = log(S_ij S_j S_i^-1). On the card it runs
+  ``csrc/pose_graph.cu`` (``ops/kernels/pose_graph.py``: the edges' Jacobian
+  blocks by dual numbers, H over the free rows, a blocked Cholesky); on the
+  CPU the plain version there (the Jacobian as [E, 7, 2, 7] blocks by
+  forward mode over one shared 14-vector, ``H = J^T J`` and ``g = J^T r``
+  by scatter-add, the library's dense solve).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ..geom import lie
+from ..ops.kernels import pose_graph as pose_graph_kernel
 from ..tensors import count
 from . import pnp
 
@@ -131,63 +133,19 @@ class PoseGraphEdges(NamedTuple):
     valid: torch.Tensor   # [E] bool
 
 
-def _edge_residuals(S: torch.Tensor, edges: PoseGraphEdges, i, j) -> torch.Tensor:
-    """Unweighted r_e = log(S_ij S_j S_i^-1), [E, 7]."""
-    return lie.sim3_log(edges.S_ij @ S[j] @ lie.sim3_inverse(S[i]))
-
-
 def pose_graph_optimize(S_w: torch.Tensor, edges: PoseGraphEdges, fixed: torch.Tensor,
                         iters: int = 20) -> torch.Tensor:
     """Gauss-Newton on r_e = log(S_ij S_j S_i^-1) over Sim3 poses ``S_w``
     [K, 4, 4] (OptimizeEssentialGraph semantics; right-multiplicative tangent
     updates, forward-mode Jacobian blocks). A step is kept only if the cost
-    falls; the decision stays on the device."""
-    K = S_w.shape[0]
-    D = 7 * K
-    dt, dev = S_w.dtype, S_w.device
-    i, j = edges.i.long(), edges.j.long()
-    w = (edges.weight * edges.valid.to(dt))[:, None]              # [E, 1]
-    sw = torch.sqrt(w)
-    free = (~fixed).to(dt)
-    free_i, free_j = free[i][:, None, None], free[j][:, None, None]
-    lanes = torch.arange(7, device=dev)
-    rows_i = i[:, None] * 7 + lanes                               # [E, 7]
-    rows_j = j[:, None] * 7 + lanes
-    diag = 1e-6 + (1.0 - free.repeat_interleave(7))
-
-    def cost_of(S):
-        r = _edge_residuals(S, edges, i, j)
-        return torch.sum(w * r * r)
-
-    S_cur, cost_prev = S_w, cost_of(S_w)
-    for _ in range(iters):
-        Si, Sj = S_cur[i], S_cur[j]
-
-        def res_at(d):
-            # one shared perturbation (xi_i, xi_j) [2, 7] for every edge: its
-            # Jacobian is each edge's own block. The leading axis of one
-            # keeps every intermediate at least 1-d under torch.func.
-            err = edges.S_ij @ (Sj @ lie.sim3_exp(d[1:2])) @ lie.sim3_inverse(
-                Si @ lie.sim3_exp(d[0:1]))
-            r = lie.sim3_log(err) * sw
-            return r, r
-
-        J, r = torch.func.jacfwd(res_at, has_aux=True)(torch.zeros((2, 7), dtype=dt, device=dev))
-        Ji = J[:, :, 0, :] * free_i                               # [E, 7, 7]
-        Jj = J[:, :, 1, :] * free_j
-        H = torch.zeros((D, D), dtype=dt, device=dev)
-        g = torch.zeros(D, dtype=dt, device=dev)
-        for ra, Ja in ((rows_i, Ji), (rows_j, Jj)):
-            g.index_put_((ra.reshape(-1),), torch.einsum("eki,ek->ei", Ja, r).reshape(-1),
-                         accumulate=True)
-            for rb, Jb in ((rows_i, Ji), (rows_j, Jj)):
-                H.index_put_((ra[:, :, None], rb[:, None, :]),
-                             torch.einsum("eki,ekj->eij", Ja, Jb), accumulate=True)
-        H.diagonal().add_(diag)
-        dx = -torch.linalg.solve_ex(H, g, check_errors=False).result * free.repeat_interleave(7)
-        S_new = S_cur @ lie.sim3_exp(dx.reshape(K, 7))
-        cost_new = cost_of(S_new)
-        accept = cost_new < cost_prev
-        S_cur = torch.where(accept, S_new, S_cur)
-        cost_prev = torch.where(accept, cost_new, cost_prev)
-    return S_cur
+    falls; the decision stays on the device. CUDA tensors go to the kernels
+    (``ops.kernels.pose_graph.pose_graph_gn``), CPU tensors to their plain
+    version; any other device raises. On the card the poses and
+    measurements are float32, the system's dtype (the kernels compute in
+    float64 and round the result once); another dtype raises there. The CPU
+    route keeps the dtype it is given."""
+    if S_w.device.type == "cuda":
+        return pose_graph_kernel.pose_graph_gn(S_w, edges, fixed, iters)
+    if S_w.device.type == "cpu":
+        return pose_graph_kernel.pose_graph_plain(S_w, edges, fixed, iters)
+    raise ValueError(f"pose_graph_optimize: unsupported device {S_w.device}")
