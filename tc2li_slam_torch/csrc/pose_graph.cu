@@ -35,7 +35,8 @@
 //
 // Bound on the H100: at 4f's closure (49 slots, 48 free poses, 181 edges)
 // latency: 15 iterations of a few tiny dependent steps; at a few thousand
-// free rows the Cholesky's n^3 / 6 float64 multiply-adds a step.
+// free rows the Cholesky's n^3 / 6 float64 multiply-adds a step, and the
+// trailing updates' traffic (each tile read and written once a panel).
 // Design: a fixed sequence of launches on the caller's stream, every sum in
 // an order that depends only on the inputs (the same bits on every call, no
 // atomics in a float sum). The host plans the sequence from K alone; the
@@ -47,40 +48,58 @@
 //   per iteration
 //   edge (14 threads an edge): r_e and J_e by dual numbers, weighted;
 //   assemble (a block a pose): the free pose's 7-row block-row of H (its
-//        lower part, in place in a [7K + 1, 7K + 1] float64 matrix) and its
-//        7 entries of g, which go in row n: a bordered matrix [[H], [g^T]]
-//        whose Cholesky leaves y = L^-1 g in its last row. The block walks
-//        the edge list in order, keeps the edges that touch its pose, and
-//        adds each edge's blocks in edge order (a thread an entry), then
-//        1e-6 on the diagonal;
-//   Cholesky, a panel of kNB columns at a time, right-looking:
-//     panel (rows below the panel, kPanelRows a block): every block factors
-//        the panel's kNB x kNB diagonal block in one warp's registers (a
-//        lane a row, shuffles), block 0 keeps it in Ldiag, and each thread
-//        solves one row of the panel, x L^T = a;
+//        lower part, in place in a [7K + 1, ld] float64 matrix, ld 7K + 1
+//        padded to kTile) and its 7 entries of g, which go in row n: a
+//        bordered matrix [[H], [g^T]] whose Cholesky leaves y = L^-1 g in its
+//        last row. The block walks the edge list in order, keeps the edges
+//        that touch its pose, and adds each edge's blocks in edge order (a
+//        thread an entry), then 1e-6 on the diagonal;
+//   the solve, right-looking over panels of kNB columns, each panel kW
+//   columns at a time:
+//     update (narrow; a kW-wide part after the first): its columns, rows
+//        below its top, take the update of the panel's parts before it;
+//     diag (one block): the part's kW x kW diagonal block factored once in
+//        shared memory (diag_block: a warp a kSub-wide half, the rest on the
+//        tensor cores), its inverse L^-1 formed there and kept in Linv;
+//     panel (kTile rows below a block, row n with them): the rows times
+//        L^-T, a tensor-core product (no division on any thread's path);
 //     update (a kTile x kTile tile of the trailing lower part a block):
-//        A -= L_r L_c^T over the panel's columns, row n (the g row) with it;
-//   back (one launch a panel, last to first): every block solves
-//        L_kk^T x_k = y_k in one warp; block k writes x_k, block i < k
-//        takes L_ki^T x_k off y_i;
+//        A -= L_r L_c^T over the panel's kNB columns on the float64 tensor
+//        cores (mma.sync m16n8k8), operands staged by cp.async in kBK-column
+//        chunks, double buffered; each tile read and written once a panel;
+//   back (kW rows a launch, last to first): every block forms x_k =
+//        L_kk^-T y_k, block 0 writes it, each block takes L_k.^T x_k off y
+//        over kSolveThreads columns left of the part;
 //   poses (a thread a pose): S_new = S Exp(-x) on the free poses;
 //   cost (an edge a thread): each edge's (w r) . r at S_new; the last block
 //        to finish adds them in edge order by a fixed tree, decides, keeps
 //        S_new and its cost where the cost fell, and writes the float32
 //        result.
-// Launches: 2 + iters x (4 + 3 ceil(7K / kNB)) (ops/kernels/pose_graph.py
-// launches_per_call).
+// Launches (for_each_solve_launch, tc2li_pose_graph_launches): 2 + iters x
+// (3 + 4 ceil(7K / kW)): a kW-wide part of the 7K rows has its diag, panel
+// and back launches and, but for the first part of a panel, its update; a
+// panel but the last its trailing update. (One cooperative launch an
+// iteration for the solve, the same steps between grid barriers, took
+// longer than these launches at 336 and 2,793 free rows, and a
+// back-substitution launch a panel longer than one a part at 336 to 14,329;
+// panels of 64 and 128 columns took longer than 256 at 14,329.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "dual.cuh"
 
 namespace {
 
-constexpr int kNB = 32;           // the Cholesky's panel width (a warp)
-constexpr int kTile = 64;         // the trailing update's tile
-constexpr int kPanelRows = 128;   // rows a panel block solves (a thread a row)
+constexpr int kW = 64;            // a diagonal block's width (factored in shared memory)
+constexpr int kNB = 256;          // a panel's width (the trailing update's), kW-wide parts
+constexpr int kSub = 32;          // a warp's part of it
+constexpr int kTile = 64;         // the tensor-core products' tiles (rows and columns)
+constexpr int kBK = 16;           // columns of a staged operand chunk
+constexpr int kStride = kBK + 4;  // doubles a staged row
+constexpr int kSolveThreads = 128;
 constexpr int kLanes = 14;        // tangents an edge: xi_i (0..6), xi_j (7..13)
 constexpr int kThreads = 256;
 constexpr int kSetupThreads = 1024;
@@ -94,13 +113,13 @@ struct Graph {
   const uint8_t* valid;  // [E]
   const uint8_t* fixed;  // [K]
   int K, E;
-  size_t ld;             // H's row stride: 7K + 1
+  size_t ld;             // H's row stride: 7K + 1 padded to kTile
   float* out;            // [K, 4, 4]
 };
 
 struct Work {
-  double* H;         // [7K + 1, 7K + 1]: rows and columns below n, and row n (g, then y)
-  double* Ldiag;     // [P, kNB, kNB]: each panel's factored diagonal block
+  double* H;         // [7K + 1, ld]: rows and columns below n, and row n (g, then y)
+  double* Linv;      // [ceil(7K / kW), kW, kW]: each diagonal block's L^-1
   double* x;         // [7K]: H^-1 g on the free rows
   double* J;         // [E, 7, 14]
   double* r;         // [E, 7]
@@ -418,147 +437,422 @@ __global__ void __launch_bounds__(kThreads) assemble_kernel(const Graph g, const
   else if (tid < 56) H[n * g.ld + row0 + a] = acc;
 }
 
-// the panel's diagonal block (rows and columns k0..k0 + kNB, identity past
-// n), factored in place in one warp: lane i holds row i
-__device__ __forceinline__ void warp_cholesky(double a[kNB], int lane) {
+// ---------------------------------------------------------------------------
+// the bordered Cholesky and the back-substitution
+// ---------------------------------------------------------------------------
+
+// 16 bytes into shared memory by cp.async, the first `bytes` of them from
+// `src` and the rest zeros (0 bytes: zeros, nothing read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// C (8 x 8) += A (8 x 4) B (4 x 8) on the float64 tensor cores: lane (g, t) =
+// (lane / 4, lane % 4) gives A[g][t] and B[t][g] and holds C[g][2t], C[g][2t + 1]
+__device__ __forceinline__ void dmma(double& c0, double& c1, double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+               : "+d"(c0), "+d"(c1)
+               : "d"(a), "d"(b));
+}
+
+// C (16 x 8) += A (16 x 8) B (8 x 8) on the float64 tensor cores: lane (g, t)
+// gives A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4] and B[t][g],
+// B[t + 4][g], and holds C[g][2t], C[g][2t + 1], C[g + 8][2t], C[g + 8][2t + 1]
+__device__ __forceinline__ void dmma16(double& c0, double& c1, double& c2, double& c3,
+                                       const double (&a)[4], const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(c0), "+d"(c1), "+d"(c2), "+d"(c3)
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// one staged chunk of a tile product's two operands: kTile rows of kBK
+// columns each, rows kStride doubles apart (the fragments' loads of a
+// half-warp fall in 16 distinct bank pairs)
+struct __align__(16) Stage {
+  double P[kTile][kStride];
+  double Q[kTile][kStride];
+};
+
+// columns [kc, kc + kBK) of rows [0, kTile) of P and Q into st by cp.async;
+// zeros past an operand's rows and past column kdim
+__device__ __forceinline__ void stage_chunk(Stage& st, const double* P, size_t ldp, int p_rows,
+                                            const double* Q, size_t ldq, int q_rows, int kc,
+                                            int kdim) {
+  constexpr int kPieces = kTile * kBK / 2;   // 16-byte pieces an operand
+  for (int idx = threadIdx.x; idx < 2 * kPieces; idx += kSolveThreads) {
+    const bool q = idx >= kPieces;
+    const int e = q ? idx - kPieces : idx, rr = e / (kBK / 2), cc = 2 * (e % (kBK / 2));
+    const int col = kc + cc;
+    const int bytes = rr < (q ? q_rows : p_rows) ? 8 * max(0, min(2, kdim - col)) : 0;
+    const double* base = q ? Q : P;
+    const double* src = bytes ? base + static_cast<size_t>(rr) * (q ? ldq : ldp) + col : base;
+    cp_async16(q ? &st.Q[rr][cc] : &st.P[rr][cc], src, bytes);
+  }
+}
+
+// acc = sum over m < kdim of P[r][m] Q[c][m] for a kTile x kTile tile on the
+// tensor cores (m16n8k8), the operands staged kBK columns at a time into
+// st[0] and st[1] in turns (the next chunk in flight while this one is
+// multiplied).
+// Warp (wm, wn) = (warp / 2, warp % 2) holds rows 32 wm + 8 i + g and columns
+// 32 wn + 8 j + 2 t + e of the tile in acc[i][j][e]. Every thread of the
+// block calls it; st is free again when it returns. The sum over m runs in
+// the same order for every entry and every call.
+__device__ void tile_product(Stage* st, const double* P, size_t ldp, int p_rows, const double* Q,
+                             size_t ldq, int q_rows, int kdim, double acc[4][4][2]) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, rm = 32 * (wid >> 1), cn = 32 * (wid & 1);
 #pragma unroll
-  for (int j = 0; j < kNB; ++j) {
-    const double ljj = sqrt(__shfl_sync(kFull, a[j], j));
-    if (lane == j) a[j] = ljj;
-    else if (lane > j) a[j] = a[j] / ljj;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int m = j + 1; m < kNB; ++m) {
-      const double lmj = __shfl_sync(kFull, a[j], m);
-      if (lane >= m) a[m] -= a[j] * lmj;
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
+  const int nk = (kdim + kBK - 1) / kBK;
+  if (nk <= 0) return;
+  stage_chunk(st[0], P, ldp, p_rows, Q, ldq, q_rows, 0, kdim);
+  cp_async_commit();
+  for (int kc = 0; kc < nk; ++kc) {
+    if (kc + 1 < nk) {
+      stage_chunk(st[(kc + 1) & 1], P, ldp, p_rows, Q, ldq, q_rows, (kc + 1) * kBK, kdim);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    const Stage& s = st[kc & 1];
+#pragma unroll
+    for (int k8 = 0; k8 < kBK; k8 += 8) {
+      double a[2][4], b[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          a[i][q] = s.P[rm + 16 * i + 8 * (q & 1) + g][k8 + t + 4 * (q >> 1)];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) b[j][q] = s.Q[cn + 8 * j + g][k8 + t + 4 * q];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          dmma16(acc[2 * i][j][0], acc[2 * i][j][1], acc[2 * i + 1][j][0], acc[2 * i + 1][j][1],
+                 a[i], b[j]);
+    }
+    __syncthreads();
   }
 }
 
-// panel k: L_kk, then the rows below it (up to and with row n) solved
-// against L_kk^T, kPanelRows a block
-__global__ void __launch_bounds__(kPanelRows) panel_kernel(const Work w, size_t ld, int k) {
-  __shared__ double Ls[kNB][kNB + 1];
-  __shared__ double As[kPanelRows][kNB + 1];
-  const int n = *w.n, k0 = kNB * k, tid = threadIdx.x;
-  if (k0 >= n) return;
-  const int wd = min(kNB, n - k0);
-  const int r0 = k0 + wd + kPanelRows * blockIdx.x;
-  if (r0 > n) return;
-  const double* H = w.H;
-  if (tid < 32) {
-    double a[kNB];
-#pragma unroll
-    for (int m = 0; m < kNB; ++m)
-      a[m] = tid < wd && m <= tid ? H[(k0 + tid) * ld + k0 + m] : (m == tid ? 1.0 : 0.0);
-    warp_cholesky(a, tid);
-#pragma unroll
-    for (int m = 0; m < kNB; ++m) Ls[tid][m] = a[m];
+// the tiles of an update's rows [c0, n] (row n is g's) and columns [c0, c1):
+// block b is tile (I, J); one column of tiles (J 0) where the columns are one
+// kW-wide panel (narrow), else the lower triangle (J <= I) in one linear grid
+__device__ __forceinline__ void tile_of(int b, bool narrow, int& I, int& J) {
+  if (narrow) {
+    I = b;
+    J = 0;
+    return;
   }
-  for (int idx = tid; idx < kPanelRows * kNB; idx += kPanelRows) {
-    const int rr = idx / kNB, cc = idx % kNB, r = r0 + rr;
-    As[rr][cc] = r <= n && cc < wd ? H[r * ld + k0 + cc] : 0.0;
-  }
-  __syncthreads();
-  if (blockIdx.x == 0)
-    for (int idx = tid; idx < kNB * kNB; idx += kPanelRows)
-      w.Ldiag[static_cast<size_t>(k) * kNB * kNB + idx] = Ls[idx / kNB][idx % kNB];
-  double* row = As[tid];
-  for (int c = 0; c < kNB; ++c) {
-    double v = row[c];
-    for (int m = 0; m < c; ++m) v -= row[m] * Ls[c][m];
-    row[c] = v / Ls[c][c];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < kPanelRows * kNB; idx += kPanelRows) {
-    const int rr = idx / kNB, cc = idx % kNB, r = r0 + rr;
-    if (r <= n && cc < wd) w.H[r * ld + k0 + cc] = As[rr][cc];
-  }
-}
-
-// the tiles of the lower part of the trailing matrix (rows t0..n, columns
-// t0..n - 1) in one linear grid: block b is tile (I, J), J <= I
-__device__ __forceinline__ void tile_of(int b, int& I, int& J) {
   I = static_cast<int>((sqrt(8.0 * b + 1.0) - 1.0) * 0.5);
   while ((I + 1) * (I + 2) / 2 <= b) ++I;
   while (I * (I + 1) / 2 > b) --I;
   J = b - I * (I + 1) / 2;
 }
 
-// panel k's trailing update: A[r][c] -= sum over the panel's columns of
-// L[r][m] L[c][m], a kTile x kTile tile a block, 4 x 4 entries a thread
-__global__ void __launch_bounds__(kThreads) update_kernel(const Work w, size_t ld, int k) {
-  __shared__ double Ar[kTile][kNB + 1], Bc[kTile][kNB + 1];
-  const int n = *w.n, k0 = kNB * k, t0 = k0 + kNB, tid = threadIdx.x;
-  if (t0 >= n) return;   // the last panel: no trailing column
+// tile b of an update of the lower part of rows [c0, n] and columns [c0, c1)
+// by the solved panel columns [k0, k0 + kdim): A[r][c] -= sum_{m < kdim}
+// A[r][k0 + m] A[c][k0 + m] (r >= c). The trailing update of a panel of kNB
+// columns has c0 = k0 + kNB and c1 = n; inside the panel, the
+// columns of its next kW-wide part take the update of the parts before it
+// first (narrow: c0 = k0 + kdim, c1 = c0 + kW)
+__device__ void update_tile(const Work& w, size_t ld, int n, int k0, int kdim, int c0, bool narrow,
+                            int b, Stage* st) {
   int I, J;
-  tile_of(blockIdx.x, I, J);
-  const int ri0 = t0 + kTile * I, ci0 = t0 + kTile * J;
-  if (ri0 > n || ci0 >= n) return;
-  const double* H = w.H;
-  for (int idx = tid; idx < kTile * kNB; idx += kThreads) {
-    const int rr = idx / kNB, cc = idx % kNB;
-    Ar[rr][cc] = ri0 + rr <= n ? H[(ri0 + rr) * ld + k0 + cc] : 0.0;
-    Bc[rr][cc] = ci0 + rr < n ? H[(ci0 + rr) * ld + k0 + cc] : 0.0;
-  }
-  __syncthreads();
-  const int tx = tid & 15, ty = tid >> 4;
-  double acc[4][4];
+  tile_of(b, narrow, I, J);
+  const int c1 = narrow ? min(c0 + kW, n) : n;
+  const int ri0 = c0 + kTile * I, ci0 = c0 + kTile * J;
+  if (ri0 > n || ci0 >= c1) return;
+  double* H = w.H;
+  double acc[4][4][2];
+  tile_product(st, H + static_cast<size_t>(ri0) * ld + k0, ld, n + 1 - ri0,
+               H + static_cast<size_t>(ci0) * ld + k0, ld, c1 - ci0, kdim, acc);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int u = 0; u < 4; ++u)
+  for (int i = 0; i < 4; ++i) {
+    const int r = ri0 + 32 * (wid >> 1) + 8 * i + g;
+    if (r > n) continue;
 #pragma unroll
-    for (int v = 0; v < 4; ++v) acc[u][v] = 0.0;
-#pragma unroll 4
-  for (int m = 0; m < kNB; ++m) {
-    double x[4], y[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      x[u] = Ar[ty + 16 * u][m];
-      y[u] = Bc[tx + 16 * u][m];
+    for (int j = 0; j < 4; ++j) {
+      const int c = ci0 + 32 * (wid & 1) + 8 * j + 2 * t;
+      double* h = H + static_cast<size_t>(r) * ld + c;
+      if (c + 1 < c1 && r > c) {
+        double2 v = __ldcg(reinterpret_cast<const double2*>(h));
+        v.x -= acc[i][j][0];
+        v.y -= acc[i][j][1];
+        __stcg(reinterpret_cast<double2*>(h), v);
+      } else {
+        if (c < c1 && r >= c) __stcg(h, __ldcg(h) - acc[i][j][0]);
+        if (c + 1 < c1 && r >= c + 1) __stcg(h + 1, __ldcg(h + 1) - acc[i][j][1]);
+      }
     }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[u][v] += x[u] * y[v];
   }
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int r = ri0 + ty + 16 * u, c = ci0 + tx + 16 * v;
-      if (r <= n && c < n && (I > J || r >= c)) w.H[r * ld + c] -= acc[u][v];
-    }
 }
 
-// back-substitution, panel k (launched last to first): L_kk^T x_k = y_k in
-// every block's warp; block k writes x_k, block i < k takes L_ki^T x_k off
-// y_i (row n, columns 32 i..32 i + 31)
-__global__ void __launch_bounds__(32) back_kernel(const Work w, size_t ld, int k) {
-  __shared__ double xs[kNB];
-  const int n = *w.n, k0 = kNB * k, lane = threadIdx.x;
-  if (k0 >= n) return;
-  const int wd = min(kNB, n - k0);
+// row block b below panel p's diagonal block (rows [kq + wd, n], kq = kW p):
+// the panel's columns times L_pp^-T in place, X[r][c] = sum_{m <= c}
+// A[r][kq + m] L_pp^-1[c][m] (a product, no division)
+__device__ void panel_rows(const Work& w, size_t ld, int n, int p, int b, Stage* st) {
+  const int kq = kW * p;
+  if (kq >= n) return;
+  const int wd = min(kW, n - kq), r0 = kq + wd + kTile * b;
+  if (r0 > n) return;
   double* H = w.H;
-  const double* L = w.Ldiag + static_cast<size_t>(k) * kNB * kNB;
-  double col[kNB];   // column `lane` of L_kk
+  double acc[4][4][2];
+  tile_product(st, H + static_cast<size_t>(r0) * ld + kq, ld, n + 1 - r0,
+               w.Linv + static_cast<size_t>(p) * kW * kW, kW, wd, wd, acc);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int m = 0; m < kNB; ++m) col[m] = L[m * kNB + lane];
-  double y = lane < wd ? H[n * ld + k0 + lane] : 0.0, x = 0.0;
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + 32 * (wid >> 1) + 8 * i + g;
+    if (r > n) continue;
 #pragma unroll
-  for (int j = kNB - 1; j >= 0; --j) {
-    const double xj = __shfl_sync(kFull, y / col[j], j);
-    if (lane == j) x = xj;
-    else if (lane < j) y -= col[j] * xj;
+    for (int j = 0; j < 4; ++j) {
+      const int c = 32 * (wid & 1) + 8 * j + 2 * t;
+      double* h = H + static_cast<size_t>(r) * ld + kq + c;
+      if (c + 1 < wd) {
+        __stcg(reinterpret_cast<double2*>(h), make_double2(acc[i][j][0], acc[i][j][1]));
+      } else if (c < wd) {
+        __stcg(h, acc[i][j][0]);
+      }
+    }
   }
-  if (static_cast<int>(blockIdx.x) == k) {
-    if (lane < wd) w.x[k0 + lane] = x;
-    return;
+}
+
+// the kSub x kSub block at (s0, s0) of A factored in one warp by
+// right-looking steps that scale each column by its pivot's reciprocal
+// square root (no division), with L^-1 formed beside it. Lane i holds
+// u[m] = L[i][m] for m <= i and, below the diagonal of column i of L^-1,
+// u[m] = L^-1[m][i] for m > i: step j broadcasts column j of L (col, two
+// buffers in turns) and every lane takes it off its row of L (lanes past j)
+// or off its column of L^-1 (lanes up to j, times L^-1[j][i]) in one
+// predicated loop. The next pivot comes from lane j + 1's own registers by
+// a shuffle (the same fma as its loop's, so the same bits), ahead of the
+// broadcast through shared memory. L goes into the lower part, L^-1 below
+// its diagonal into the upper part transposed (L^-1[m][i] at A[s0 + i][s0 +
+// m], m > i), its diagonal (the reciprocal roots) into dinv. col: 2 kSub
+// doubles of shared memory
+__device__ __forceinline__ void warp_factor(double (*A)[kW + 1], int s0, int lane, double* dinv,
+                                            double* col) {
+  double u[kSub];
+#pragma unroll
+  for (int m = 0; m < kSub; ++m) u[m] = m <= lane ? A[s0 + lane][s0 + m] : 0.0;
+  double d = __shfl_sync(kFull, u[0], 0);
+#pragma unroll
+  for (int j = 0; j < kSub; ++j) {
+    double* cj = col + kSub * (j & 1);
+    const double rj = rsqrt(d);
+    u[j] = lane == j ? d * rj : u[j] * rj;   // L[i][j] (i >= j), L^-1[j][i] (i < j)
+    const double coef = lane == j ? rj : u[j];
+    if (j + 1 < kSub) d = __shfl_sync(kFull, fma(-coef, u[j], u[j + 1]), j + 1);
+    cj[lane] = u[j];
+    __syncwarp();
+#pragma unroll
+    for (int m = j + 1; m < kSub; ++m)
+      if (m <= lane || lane <= j) u[m] = fma(-coef, cj[m], u[m]);
+    if (lane == 0) dinv[s0 + j] = rj;
   }
-  xs[lane] = x;
-  __syncwarp();
-  const size_t c = static_cast<size_t>(kNB) * blockIdx.x + lane;
-  double v = H[n * ld + c];
-  for (int m = 0; m < wd; ++m) v -= H[(k0 + m) * ld + c] * xs[m];
-  H[n * ld + c] = v;
+#pragma unroll
+  for (int m = 0; m < kSub; ++m) A[s0 + lane][s0 + m] = u[m];
+}
+
+// doubles of shared memory of diag_block: A, dinv, the warp's broadcasts, T
+constexpr int kDiagDoubles = kW * (kW + 1) + kW + 2 * kSub + kSub * (kSub + 1);
+
+// panel p's diagonal block (rows and columns [kq, kq + wd), kq = kW p, the
+// identity past wd), factored once, by one block in its shared memory, and
+// its inverse written to Linv[p] (kW x kW row-major, zeros above the
+// diagonal): the two kSub-wide halves by warp_factor, between them the lower
+// half's rows times L_00^-T and its trailing update on the tensor cores (a
+// warp 8 rows), then L^-1's lower-left block -L_11^-1 (L_10 L_00^-1)
+__device__ void diag_block(const Work& w, size_t ld, int n, int p, double* sm) {
+  const int kq = kW * p;
+  if (kq >= n) return;
+  double(*A)[kW + 1] = reinterpret_cast<double(*)[kW + 1]>(sm);
+  double* dinv = sm + kW * (kW + 1);
+  double* bc = dinv + kW;
+  double(*T)[kSub + 1] = reinterpret_cast<double(*)[kSub + 1]>(bc + 2 * kSub);
+  const int wd = min(kW, n - kq), tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, r = kSub + 8 * wid + g;   // the warp's row below
+  {   // every load of the block in flight at once, then into shared memory
+    constexpr int kPer = kW * kW / kSolveThreads;
+    double v[kPer];
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int i = (tid + kSolveThreads * q) / kW, j = tid % kW;
+      v[q] = i < wd && j <= i ? __ldcg(w.H + static_cast<size_t>(kq + i) * ld + kq + j)
+                              : (i == j ? 1.0 : 0.0);
+    }
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) A[(tid + kSolveThreads * q) / kW][tid % kW] = v[q];
+  }
+  __syncthreads();
+  if (wid == 0) warp_factor(A, 0, lane, dinv, bc);
+  __syncthreads();
+  {   // rows kSub.. of columns 0..kSub: X = A L_00^-T
+    double acc[4][2] = {};
+#pragma unroll
+    for (int k4 = 0; k4 < kSub; k4 += 4) {
+      const int k = k4 + t;
+      const double a = A[r][k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 8 * j + g;   // L_00^-1[c][k]
+        dmma(acc[j][0], acc[j][1], a, k < c ? A[k][c] : (k == c ? dinv[c] : 0.0));
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      A[r][8 * j + 2 * t] = acc[j][0];
+      A[r][8 * j + 2 * t + 1] = acc[j][1];
+    }
+  }
+  __syncthreads();
+  {   // the lower half's trailing update: A[r][c] -= sum_k X[r][k] X[c][k], c <= r
+    double acc[4][2] = {};
+#pragma unroll
+    for (int k4 = 0; k4 < kSub; k4 += 4) {
+      const double a = A[r][k4 + t];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j <= wid) dmma(acc[j][0], acc[j][1], a, A[kSub + 8 * j + g][k4 + t]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = kSub + 8 * j + 2 * t + e;
+        if (j <= wid && c <= r) A[r][c] -= acc[j][e];
+      }
+  }
+  __syncthreads();
+  if (wid == 0) warp_factor(A, kSub, lane, dinv, bc);
+  __syncthreads();
+  {   // T = L_10 L_00^-1
+    double acc[4][2] = {};
+#pragma unroll
+    for (int k4 = 0; k4 < kSub; k4 += 4) {
+      const int k = k4 + t;
+      const double a = A[r][k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 8 * j + g;   // L_00^-1[k][c]
+        dmma(acc[j][0], acc[j][1], a, c < k ? A[c][k] : (c == k ? dinv[k] : 0.0));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      T[8 * wid + g][8 * j + 2 * t] = acc[j][0];
+      T[8 * wid + g][8 * j + 2 * t + 1] = acc[j][1];
+    }
+  }
+  __syncthreads();
+  {   // L^-1[kSub + a][c] = -(L_11^-1 T)[a][c], kept at A[c][kSub + a]
+    double acc[4][2] = {};
+    const int a_ = 8 * wid + g;
+#pragma unroll
+    for (int k4 = 0; k4 < kSub; k4 += 4) {
+      const int k = k4 + t;   // L_11^-1[a_][k]
+      const double a = k < a_ ? A[kSub + k][kSub + a_] : (k == a_ ? dinv[kSub + a_] : 0.0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dmma(acc[j][0], acc[j][1], a, T[k][8 * j + g]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      A[8 * j + 2 * t][kSub + a_] = -acc[j][0];
+      A[8 * j + 2 * t + 1][kSub + a_] = -acc[j][1];
+    }
+  }
+  __syncthreads();
+  double* L = w.Linv + static_cast<size_t>(p) * kW * kW;
+  for (int idx = tid; idx < kW * kW; idx += kSolveThreads) {
+    const int c = idx / kW, m = idx % kW;
+    __stcg(L + idx, m < c ? A[m][c] : (m == c ? dinv[c] : 0.0));
+  }
+}
+
+// back-substitution, panel p (rows [k0, k0 + wd), k0 = kW p; panels last to
+// first): x_p = L_pp^-T y_p (y in row n) in every block, block 0 writes it,
+// and block b takes L_p.^T x_p off y over the columns [kSolveThreads b,
+// kSolveThreads (b + 1)) left of the panel. sm: 2 kW doubles
+__device__ void back_cols(const Work& w, size_t ld, int n, int p, int b, double* sm) {
+  const int k0 = kW * p;
+  if (k0 >= n) return;
+  const int wd = min(kW, n - k0), tid = threadIdx.x;
+  double* H = w.H;
+  double* yrow = H + static_cast<size_t>(n) * ld;
+  double *y = sm, *x = sm + kW;
+  if (tid < kW) y[tid] = tid < wd ? __ldcg(yrow + k0 + tid) : 0.0;
+  __syncthreads();
+  // the loops run over all kW rows, their loads in flight together: past wd
+  // L^-1 is the identity and y 0 (x 0 there), and H's rows are not read
+  if (tid < kW) {
+    const double* L = w.Linv + static_cast<size_t>(p) * kW * kW;
+    double Lc[kW];
+#pragma unroll
+    for (int m = 0; m < kW; ++m) Lc[m] = __ldcg(L + m * kW + tid);
+    double s = 0.0;
+#pragma unroll
+    for (int m = 0; m < kW; ++m) s += Lc[m] * y[m];
+    x[tid] = s;
+  }
+  const int c = kSolveThreads * b + tid;
+  double Hc[kW];
+#pragma unroll
+  for (int m = 0; m < kW; ++m)
+    Hc[m] = c < k0 && m < wd ? __ldcg(H + static_cast<size_t>(k0 + m) * ld + c) : 0.0;
+  __syncthreads();
+  if (b == 0 && tid < wd) __stcg(w.x + k0 + tid, x[tid]);
+  if (c < k0) {
+    double v = __ldcg(yrow + c);
+#pragma unroll
+    for (int m = 0; m < kW; ++m) v -= Hc[m] * x[m];
+    __stcg(yrow + c, v);
+  }
+}
+
+// the solve's launches, one step of the factorization each
+__global__ void __launch_bounds__(kSolveThreads) diag_kernel(const Work w, size_t ld, int p) {
+  __shared__ __align__(16) double sm[kDiagDoubles];
+  diag_block(w, ld, *w.n, p, sm);
+}
+
+__global__ void __launch_bounds__(kSolveThreads) panel_kernel(const Work w, size_t ld, int p) {
+  __shared__ Stage st[2];
+  panel_rows(w, ld, *w.n, p, blockIdx.x, st);
+}
+
+__global__ void __launch_bounds__(kSolveThreads)
+    update_kernel(const Work w, size_t ld, int k0, int kdim, int c0, int narrow) {
+  __shared__ Stage st[2];
+  update_tile(w, ld, *w.n, k0, kdim, c0, narrow != 0, blockIdx.x, st);
+}
+
+__global__ void __launch_bounds__(kSolveThreads) back_kernel(const Work w, size_t ld, int p) {
+  __shared__ double sm[2 * kW];
+  back_cols(w, ld, *w.n, p, blockIdx.x, sm);
 }
 
 // the candidate: S Exp(-x) on the free poses, the fixed ones copied
@@ -629,30 +923,23 @@ __global__ void __launch_bounds__(kThreads) cost_kernel(const Graph g, const Wor
   }
 }
 
-int panels(int K) { return (7 * K + kNB - 1) / kNB; }
-
-// blocks of a launch planned from K (7K rows at most, and the row of g)
-int panel_blocks(int K, int k) {
-  const int rows = 7 * K + 1 - kNB * (k + 1);
-  return rows > 0 ? (rows + kPanelRows - 1) / kPanelRows : 1;
-}
-
-int update_blocks(int K, int k) {
-  const int rows = 7 * K + 1 - kNB * (k + 1);
-  const int m = rows > 0 ? (rows + kTile - 1) / kTile : 1;
-  return m * (m + 1) / 2;
-}
+// tiles of a column of rows [r0, D] (D = 7K, the plan's bound on n)
+int row_tiles(int D, int r0) { return D + 1 > r0 ? (D + 1 - r0 + kTile - 1) / kTile : 1; }
 
 struct Layout {
-  size_t H, Ldiag, x, J, r, S, Sn, cost_e, cost, doubles;
+  size_t H, Linv, x, J, r, S, Sn, cost_e, cost, doubles;
 };
+
+// H's row stride: the 7K + 1 columns padded to the tile width (16-byte rows
+// for cp.async)
+size_t ld_of(int K) { return (7 * static_cast<size_t>(K) + 1 + kTile - 1) / kTile * kTile; }
 
 Layout layout_of(int K, int E) {
   Layout l;
   const size_t D = 7 * static_cast<size_t>(K);
   size_t o = 0;
-  l.H = o;      o += (D + 1) * (D + 1);
-  l.Ldiag = o;  o += static_cast<size_t>(panels(K)) * kNB * kNB;
+  l.H = o;      o += (D + 1) * ld_of(K);
+  l.Linv = o;   o += (D + kW - 1) / kW * kW * kW;
   l.x = o;      o += D;
   l.J = o;      o += 98 * static_cast<size_t>(E);
   l.r = o;      o += 7 * static_cast<size_t>(E);
@@ -664,6 +951,26 @@ Layout layout_of(int K, int E) {
   return l;
 }
 
+// the solve's launches of an iteration, in order, planned from D = 7K alone
+// (n <= D: no part or update past D): step(kind, k0, kq) for a part kq of
+// the panel k0 (kNarrow but for its first part, kDiag, kPanel), the panel's
+// kTrailing update but the last's; then a part's kBack launch, last to
+// first
+enum Step { kNarrow, kDiag, kPanel, kTrailing, kBack };
+
+template <class F>
+void for_each_solve_launch(int D, F step) {
+  for (int k0 = 0; k0 < D; k0 += kNB) {
+    for (int kq = k0; kq < std::min(k0 + kNB, D); kq += kW) {
+      if (kq > k0) step(kNarrow, k0, kq);
+      step(kDiag, k0, kq);
+      step(kPanel, k0, kq);
+    }
+    if (k0 + kNB < D) step(kTrailing, k0, k0 + kNB);
+  }
+  for (int kq = (D - 1) / kW * kW; kq >= 0; kq -= kW) step(kBack, kq, kq);
+}
+
 }  // namespace
 
 // scratch bytes of a call with K poses and E edges: the doubles of
@@ -672,11 +979,20 @@ extern "C" long long tc2li_pose_graph_scratch(int K, int E) {
   return static_cast<long long>(8 * layout_of(K, E).doubles + 4 * (static_cast<size_t>(K) + 2));
 }
 
+// kernel launches of a tc2li_pose_graph_gn call over K >= 1 poses: setup
+// and the entry cost, then an iteration's edge, assembly, pose and cost
+// launches and its solve's (ops/kernels/pose_graph.py launches_per_call)
+extern "C" long long tc2li_pose_graph_launches(int K, int iters) {
+  long long solve = 0;
+  for_each_solve_launch(7 * K, [&](Step, int, int) { ++solve; });
+  return 2 + static_cast<long long>(iters) * (4 + solve);
+}
+
 // S_w [K, 4, 4], S_ij [E, 4, 4], weight [E] float32; ei, ej [E] int32;
 // valid [E], fixed [K] uint8 (0 or 1); work: tc2li_pose_graph_scratch(K, E)
-// bytes, 8-byte aligned; out [K, 4, 4] float32. All contiguous on the
-// device. 2 + iters (4 + 3 panels(K)) launches on `stream`; returns
-// the first CUDA error code that is not cudaSuccess.
+// bytes, 16-byte aligned; out [K, 4, 4] float32. All contiguous on the
+// device. Launches tc2li_pose_graph_launches(K, iters) kernels on `stream`;
+// returns the first CUDA error code that is not cudaSuccess.
 extern "C" int tc2li_pose_graph_gn(const float* S_w, const int* ei, const int* ej,
                                    const float* S_ij, const float* weight, const uint8_t* valid,
                                    const uint8_t* fixed, int K, int E, int iters, void* work,
@@ -685,17 +1001,35 @@ extern "C" int tc2li_pose_graph_gn(const float* S_w, const int* ei, const int* e
   const Layout l = layout_of(K, E);
   double* base = static_cast<double*>(work);
   int* ints = reinterpret_cast<int*>(base + l.doubles);
-  const Work w{base + l.H, base + l.Ldiag, base + l.x, base + l.J, base + l.r, base + l.S,
+  const Work w{base + l.H, base + l.Linv, base + l.x, base + l.J, base + l.r, base + l.S,
                base + l.Sn, base + l.cost_e, base + l.cost, ints, ints + K,
                reinterpret_cast<unsigned*>(ints + K + 1)};
-  const Graph g{S_w, ei, ej, S_ij, weight, valid, fixed, K, E, 7 * static_cast<size_t>(K) + 1,
-                out};
+  size_t ld = ld_of(K);
+  const Graph g{S_w, ei, ej, S_ij, weight, valid, fixed, K, E, ld, out};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int edge_blocks = E > 0 ? (kLanes * E + kThreads - 1) / kThreads : 1;
   const int cost_blocks = E > 0 ? (E + kThreads - 1) / kThreads : 1;
   const int pose_blocks = (K + kThreads - 1) / kThreads;
-  const int P = panels(K);
-  int rc;
+  const int D = 7 * K;
+  int rc = 0;
+  // the solve's steps; after a failed launch the rest do nothing
+  const auto solve = [&](Step kind, int k0, int kq) {
+    if (rc) return;
+    if (kind == kNarrow) {
+      update_kernel<<<row_tiles(D, kq), kSolveThreads, 0, st>>>(w, ld, k0, kq - k0, kq, 1);
+    } else if (kind == kDiag) {
+      diag_kernel<<<1, kSolveThreads, 0, st>>>(w, ld, kq / kW);
+    } else if (kind == kPanel) {
+      panel_kernel<<<row_tiles(D, kq + kW), kSolveThreads, 0, st>>>(w, ld, kq / kW);
+    } else if (kind == kTrailing) {
+      const int R = row_tiles(D, kq);
+      update_kernel<<<R * (R + 1) / 2, kSolveThreads, 0, st>>>(w, ld, k0, kNB, kq, 0);
+    } else {
+      back_kernel<<<std::max(1, (kq + kSolveThreads - 1) / kSolveThreads), kSolveThreads, 0,
+                    st>>>(w, ld, kq / kW);
+    }
+    rc = static_cast<int>(cudaGetLastError());
+  };
 #define TC2LI_LAUNCH(...)                                              \
   do {                                                                 \
     __VA_ARGS__;                                                       \
@@ -706,12 +1040,8 @@ extern "C" int tc2li_pose_graph_gn(const float* S_w, const int* ei, const int* e
   for (int it = 0; it < iters; ++it) {
     TC2LI_LAUNCH(edge_kernel<<<edge_blocks, kThreads, 0, st>>>(g, w));
     TC2LI_LAUNCH(assemble_kernel<<<K, kThreads, 0, st>>>(g, w));
-    for (int k = 0; k < P; ++k) {
-      TC2LI_LAUNCH(panel_kernel<<<panel_blocks(K, k), kPanelRows, 0, st>>>(w, g.ld, k));
-      TC2LI_LAUNCH(update_kernel<<<update_blocks(K, k), kThreads, 0, st>>>(w, g.ld, k));
-    }
-    for (int k = P - 1; k >= 0; --k)
-      TC2LI_LAUNCH(back_kernel<<<k + 1, 32, 0, st>>>(w, g.ld, k));
+    for_each_solve_launch(D, solve);
+    if (rc) return rc;
     TC2LI_LAUNCH(poses_kernel<<<pose_blocks, kThreads, 0, st>>>(g, w));
     TC2LI_LAUNCH(cost_kernel<<<cost_blocks, kThreads, 0, st>>>(g, w, 1));
   }

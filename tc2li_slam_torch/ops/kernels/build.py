@@ -169,6 +169,8 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.tc2li_inertial_init_gn.restype = i
     lib.tc2li_pose_graph_scratch.argtypes = [i, i]
     lib.tc2li_pose_graph_scratch.restype = ctypes.c_longlong
+    lib.tc2li_pose_graph_launches.argtypes = [i, i]
+    lib.tc2li_pose_graph_launches.restype = ctypes.c_longlong
     lib.tc2li_pose_graph_gn.argtypes = [vp] * 7 + [i] * 3 + [vp] * 3
     lib.tc2li_pose_graph_gn.restype = i
     lib.tc2li_orb_level_planes.argtypes = [vp] * 6 + [i] * 5 + [vp, vp]

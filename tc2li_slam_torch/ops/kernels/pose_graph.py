@@ -17,22 +17,24 @@ an iteration is the edges' residuals and 7 x 14 Jacobians by forward-mode
 dual numbers (jacfwd's derivative of the chain as ``geom/lie.py`` writes
 it), H and g over the free rows only (a block a free pose summing its
 edges' blocks in edge order; g bordered below H, so that the Cholesky
-leaves L^-1 g in its last row), a blocked right-looking Cholesky of
-``PANEL`` columns a panel (a launch for the panel, one for the trailing
-update), the back-substitution (a launch a panel), the candidate
-S Exp(-x) and its cost (summed in edge order), the accept test. The plan
-is sized from K on the host: ``launches_per_call(K, iters)``; panels past
-the device's n return at once, so callers hand in only the slots in use
-(``slam.loop_closing.close_loop``).
+leaves L^-1 g in its last row), the solve, the candidate S Exp(-x) and its
+cost (summed in edge order), the accept test. The solve is a blocked
+right-looking Cholesky over panels of 256 columns, each taken 64 columns
+at a time: the diagonal block factored once in one block's shared memory
+with its inverse, the rows below times L^-T and the trailing update as
+float64 tensor-core products (``mma.sync``), then the back-substitution
+64 rows a launch. The plan is sized from K on the host:
+``launches_per_call(K, iters)``; steps past the device's n return at once,
+so callers hand in only the slots in use (``slam.loop_closing.close_loop``).
 
 Bound on the H100: the free rows' Cholesky and substitutions (n^3 / 6 +
 n^2 float64 multiply-adds an iteration, at the float64 tensor cores' 33.5
 T/s) and the edges' chains (17 T/s outside the tensor cores); at 4f's
-closure (336 free rows) latency, the ~38 dependent launches of an
-iteration; at 2,048 keyframes (14,329 free rows, H 1.64 GB) the
-factorization, ~4.9e11 multiply-adds, ~14.6 ms an iteration at that rate.
-The trailing update here runs outside the tensor cores, each 64 x 64 tile
-read and written once a panel.
+closure (336 free rows) latency, the dependent steps of an iteration (each
+diagonal block's 64 reciprocal square roots in a row); at 2,048 keyframes
+(14,329 free rows, H 1.65 GB) the factorization, ~4.9e11 multiply-adds,
+~14.6 ms an iteration at that rate, and the trailing updates' traffic, each
+tile read and written once a 256-column panel.
 
 ``pose_graph_gn`` launches the kernels (CUDA tensors only);
 ``solver.sim3.pose_graph_optimize`` sends CUDA tensors there and CPU
@@ -47,14 +49,14 @@ from ...geom import lie
 from . import build
 
 launches = 0   # kernel launches by pose_graph_gn (plain-version calls excluded)
-PANEL = 32     # the Cholesky's panel width (csrc/pose_graph.cu kNB)
 
 
 def launches_per_call(K: int, iters: int) -> int:
-    """Kernel launches of one ``pose_graph_gn`` call over K poses: setup and
-    the entry cost, then an iteration's edge, assembly, pose and cost
-    launches and three a panel of the 7K rows (panel, update, back)."""
-    return 2 + iters * (4 + 3 * -(-7 * K // PANEL))
+    """Kernel launches of one ``pose_graph_gn`` call over K >= 1 poses, as
+    ``csrc/pose_graph.cu`` plans them (``tc2li_pose_graph_launches``):
+    setup and the entry cost, then an iteration's edge, assembly, pose and
+    cost launches and its solve's."""
+    return build.library().tc2li_pose_graph_launches(K, iters)
 
 
 def _edge_residuals(S: torch.Tensor, edges, i, j) -> torch.Tensor:
@@ -165,7 +167,7 @@ def pose_graph_gn(S_w: torch.Tensor, edges, fixed: torch.Tensor, iters: int = 20
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(lib.tc2li_pose_graph_gn(
         S.data_ptr(), ei.data_ptr(), ej.data_ptr(), Sij.data_ptr(), wt.data_ptr(),
-        val.data_ptr(), fx.data_ptr(), K, E, int(iters), work.data_ptr(), out.data_ptr(), stream),
-        "pose_graph_gn")
+        val.data_ptr(), fx.data_ptr(), K, E, int(iters), work.data_ptr(),
+        out.data_ptr(), stream), "pose_graph_gn")
     launches += launches_per_call(K, iters)
     return out

@@ -1037,8 +1037,9 @@ def _cluster_check(cuda, pts, valid, T, V):
     # enqueued and the kernel's own count of launches that ran, on the device
     # (torch.profiler's record can miss a launch of this cluster kernel)
     runs, n0 = kcl.device_runs(), kcl.launches
-    split = chip_smoke.kernel_split(torch, lambda: kcl.balm_clusters(pts, valid, T, **kw), 10)
-    assert kcl.launches - n0 == 11 and kcl.device_runs() - runs == 11, split
+    fn, calls = chip_smoke.counted(lambda: kcl.balm_clusters(pts, valid, T, **kw))
+    split = chip_smoke.kernel_split(torch, fn, 10)
+    assert kcl.launches - n0 == calls[0] and kcl.device_runs() - runs == calls[0], split
     return got
 
 
@@ -1135,8 +1136,9 @@ def test_pose_inertial_lm_one_launch_a_call(cuda, nf):
     p = chip_smoke.vi_problem(np.random.default_rng(5), 2000, nf)
     name, args = chip_smoke.vi_args(torch, p, cuda)
     n0 = kpi.launches
-    split = chip_smoke.kernel_split(torch, lambda: getattr(tpi, name)(*args), 10)
-    assert kpi.launches - n0 == 11
+    fn, calls = chip_smoke.counted(lambda: getattr(tpi, name)(*args))
+    split = chip_smoke.kernel_split(torch, fn, 10)
+    assert kpi.launches - n0 == calls[0]
     assert set(split) <= {"pose_inertial_kernel"}, split
 
 
@@ -1226,8 +1228,9 @@ def test_imu_preintegrate_one_launch_a_call(cuda, N):
     """As test_pose_inertial_lm_one_launch_a_call."""
     a = _imu_window(cuda, N)
     n0 = kimu.launches
-    split = chip_smoke.kernel_split(torch, lambda: timu.integrate(*a), 10)
-    assert kimu.launches - n0 == 11
+    fn, calls = chip_smoke.counted(lambda: timu.integrate(*a))
+    split = chip_smoke.kernel_split(torch, fn, 10)
+    assert kimu.launches - n0 == calls[0]
     assert set(split) <= {"imu_preint_kernel"}, split
 
 

@@ -9,9 +9,10 @@ so they are held to the plain version run in float64 on the card from the
 same float32 inputs, within ``chip_smoke.PG_TOL`` (1e-4, test_torch_sim3's
 tolerance) on every pose entry. Cases: ``chip_smoke.pose_graph_problem``'s
 graphs up to 400 keyframes (``chip_smoke.py`` runs the 2,048-keyframe one),
-free-row counts that fill the last Cholesky panel and that leave one row in
-it, no edge, every pose fixed, no iteration, one pose; the same bits on a
-second call, the launches the wrapper counts, no host sync.
+free-row counts that fill the last Cholesky panel and its last part and
+that leave one row in them, no edge, every pose fixed, no iteration, one
+pose; the same bits on a second call, the launches the wrapper counts and
+the library's plan, no host sync.
 """
 
 import numpy as np
@@ -61,10 +62,23 @@ def test_pose_graph_gn_matches_plain(cuda, case):
         assert float((got - a[0]).abs().max()) > 1e-3
 
 
-@pytest.mark.parametrize("n_free", [32, 23, 1])
+def test_launches_per_call(cuda):
+    """The library's plan (``tc2li_pose_graph_launches``): 2 + iters (3 + 4 P)
+    over the P 64-row parts of the 7K rows, the counts that
+    ``test_torch_pose_graph_kernel.py``'s emulation walks."""
+    for K, iters, want in ((49, 15, 407), (256, 15, 1727), (400, 15, 2687), (2048, 2, 1800),
+                           (2048, 0, 2), (1, 1, 9)):
+        P = -(-7 * K // 64)
+        assert kpg.launches_per_call(K, iters) == 2 + iters * (3 + 4 * P) == want
+
+
+@pytest.mark.parametrize("n_free", [256, 183, 64, 55, 9, 1])
 def test_panel_edges(cuda, n_free):
-    """Free rows 7 x 32 = 224 (the last panel full, row n alone below it),
-    7 x 23 = 161 (one row in the last panel) and 7."""
+    """Free rows (pose 0 fixed, K = n_free + 1) at the edges of the solve's
+    plan: 7 x 256 = 1,792 (the last 256-column panel full, row n alone below
+    it), 7 x 183 = 1,281 (one row in the last panel), 7 x 64 = 448 (the
+    last 64-column part full), 7 x 55 = 385 (one row in the last part), 63
+    (below one diagonal block) and 7."""
     a, kw = _args("covisibility 400", cuda)
     S_w, e, fixed = a
     K = n_free + 1

@@ -13,15 +13,17 @@ branches, ``so3_log``'s branch near pi, the clamps, the adjugate solve),
 one tangent a local column of (xi_i, xi_j); H and g over the free poses
 only, a block-row a free pose summed over its edges in edge order, g
 bordered below H; the blocked right-looking Cholesky of that bordered
-matrix a panel of columns at a time and the back-substitution a panel at a
-time; S Exp(-x), the candidate's cost and the accept test. Cases: residuals
-in each branch of ``geom/lie.py`` (generic, theta below ``_EPS``, |sigma|
+matrix a panel of columns at a time and the back-substitution a part of
+rows at a time, in the launch plan's order; S Exp(-x), the candidate's
+cost and the accept test. Cases: residuals in each branch of ``geom/lie.py`` (generic, theta below ``_EPS``, |sigma|
 below it, both, near pi, the identity), ``chip_smoke.pose_graph_problem``'s
 graphs (``test_torch_sim3._drift_chain``'s: fixed poses, invalid and
 zero-weight edges, scale drift, a non-finite edge), a duplicated (i, j)
 pair and an edge from a pose to itself; and ``close_loop``'s call on the used slots against the call over
 every slot.
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +36,7 @@ from tc2li_slam_tpu.geom import lie as jlie
 from tc2li_slam_tpu.solver import sim3 as jsim3
 from tc2li_slam_torch import interop
 from tc2li_slam_torch.geom import lie as tlie
+from tc2li_slam_torch.ops.kernels import build
 from tc2li_slam_torch.ops.kernels import pose_graph as kpg
 from tc2li_slam_torch.slam import loop_closing as tlc
 from tc2li_slam_torch.solver import sim3 as tsim3
@@ -43,6 +46,9 @@ from torch_parity import n, t
 F64 = torch.float64
 EPS = 5e-3     # geom/lie.py _EPS (csrc/imu_factor.cuh kEps)
 NT = 14        # tangents an edge: xi_i, xi_j
+# a diagonal block's and a panel's widths, as the kernel's source states them
+KW, KNB = (int(re.search(rf"constexpr int {k} = (\d+);",
+                         (build.CSRC / "pose_graph.cu").read_text())[1]) for k in ("kW", "kNB"))
 
 
 # ---------------------------------------------------------------------------
@@ -332,48 +338,95 @@ def assemble(ei, ej, J, r, fixed):
     return M
 
 
-def blocked_cholesky_solve(M, nb=32):
-    """``panel_kernel`` + ``update_kernel`` on the bordered matrix (lower part
-    read only), then ``back_kernel``: x = H^-1 g. Returns x and the factor."""
+def warp_factor(A):
+    """``warp_factor``: a 32 x 32 block's Cholesky by right-looking steps,
+    each column scaled by its pivot's reciprocal square root, and its
+    inverse formed beside it (step j takes column j of L off each column of
+    L^-1 up to j, times its entry in row j). Returns L and L^-1."""
+    a, z = np.tril(A).copy(), np.eye(len(A))
+    for j in range(len(A)):
+        rj = 1.0 / np.sqrt(a[j, j])
+        a[j, j] *= rj
+        a[j + 1:, j] *= rj
+        z[j, :j + 1] *= rj
+        for m in range(j + 1, len(A)):
+            a[m:, m] -= a[m:, j] * a[m, j]
+        z[j + 1:, :j + 1] -= a[j + 1:, j:j + 1] * z[j, :j + 1]
+    return np.tril(a), z
+
+
+def diag_block(A, w=KW):
+    """``diag_block``: the inverse of the w x w diagonal block's Cholesky
+    factor (the block's lower part read; the identity past its ``len``), by
+    ``warp_factor`` on each 32-wide half, the lower half's rows times
+    L_00^-T and its trailing update between them, and L^-1's lower-left block
+    -L_11^-1 (L_10 L_00^-1)."""
+    B = np.eye(w)
+    B[:len(A), :len(A)] = np.tril(A)
+    h = w // 2
+    L00, Li0 = warp_factor(B[:h, :h])
+    X = B[h:, :h] @ Li0.T
+    L11, Li1 = warp_factor(np.tril(B[h:, h:] - X @ X.T))
+    Linv = np.zeros((w, w))
+    Linv[:h, :h], Linv[h:, h:] = Li0, Li1
+    Linv[h:, :h] = -Li1 @ (X @ Li0)
+    return Linv
+
+
+def solve_plan(D):
+    """``for_each_solve_launch``: the solve's launches of an iteration over
+    D rows, in order, as (kind, k0, kq): for each panel k0 of KNB columns,
+    each KW-wide part kq its update by the panel's parts before it (but the
+    first), its diagonal block and its rows below; then the panel's trailing
+    update (but the last's); then a back-substitution launch a part, last
+    to first."""
+    for k0 in range(0, D, KNB):
+        for kq in range(k0, min(k0 + KNB, D), KW):
+            if kq > k0:
+                yield "narrow", k0, kq
+            yield "diag", k0, kq
+            yield "panel", k0, kq
+        if k0 + KNB < D:
+            yield "trailing", k0, k0 + KNB
+    for kq in reversed(range(0, D, KW)):
+        yield "back", kq, kq
+
+
+def blocked_cholesky_solve(M):
+    """The solve on the bordered matrix (lower part read only), launch by
+    launch in ``solve_plan``'s order: a part's update by the panel's parts
+    before it, ``diag_block``, the rows below (row n with them) times L^-T, a
+    panel's trailing update; a part's back-substitution launch, x_k =
+    L_kk^-T y_k, taken off y left of the part. Returns x, the factor L (each diagonal block the
+    inverse of the L^-1 that the kernels keep) and the L^-1 blocks by their
+    first row."""
     n = len(M) - 1
     A = np.tril(M).copy()
-    Ldiag = []
-    for k0 in range(0, n, nb):
-        wd = min(nb, n - k0)
-        L = np.eye(nb)
-        L[:wd, :wd] = np.tril(A[k0:k0 + wd, k0:k0 + wd])
-        for j in range(nb):                       # warp_cholesky
-            L[j, j] = np.sqrt(L[j, j])
-            L[j + 1:, j] /= L[j, j]
-            for m in range(j + 1, nb):
-                L[m:, m] -= L[m:, j] * L[m, j]
-        Ldiag.append(L)
-        rows = A[k0 + wd:, k0:k0 + wd]            # the rows below, with row n
-        for c in range(wd):
-            v = rows[:, c].copy()
-            for m in range(c):
-                v -= rows[:, m] * L[c, m]
-            rows[:, c] = v / L[c, c]
-        t0 = k0 + wd                              # the trailing lower part
-        A[t0:, t0:n] -= np.tril(rows @ rows[:n - t0].T)
-    y = A[n, :n].copy()
-    x = np.zeros(n)
-    for k in reversed(range(len(Ldiag))):
-        k0 = k * nb
-        wd = min(nb, n - k0)
-        L = Ldiag[k]
-        yk = np.zeros(nb)
-        yk[:wd] = y[k0:k0 + wd]
-        xk = np.zeros(nb)
-        for j in reversed(range(nb)):
-            xk[j] = yk[j] / L[j, j]
-            yk[:j] -= L[j, :j] * xk[j]
-        x[k0:k0 + wd] = xk[:wd]
-        y[:k0] -= A[k0:k0 + wd, :k0].T @ xk[:wd]
-    return x, A
+    y, x = A[n], np.zeros(n)                           # row n: g, then y
+    lower = lambda r0, c0, c1: np.arange(r0, n + 1)[:, None] >= np.arange(c0, c1)[None, :]
+    Linvs = {}
+    for kind, k0, kq in solve_plan(n):
+        wd = min(KW, n - kq)
+        if kind == "narrow":
+            c1 = kq + wd
+            A[kq:, kq:c1] -= lower(kq, kq, c1) * (A[kq:, k0:kq] @ A[kq:c1, k0:kq].T)
+        elif kind == "diag":
+            Linvs[kq] = diag_block(A[kq:kq + wd, kq:kq + wd])
+        elif kind == "panel":
+            A[kq + wd:, kq:kq + wd] = A[kq + wd:, kq:kq + wd] @ Linvs[kq][:wd, :wd].T
+        elif kind == "trailing":
+            A[kq:, kq:n] -= lower(kq, kq, n) * (A[kq:, k0:kq] @ A[kq:n, k0:kq].T)
+        else:
+            x[kq:kq + wd] = Linvs[kq][:wd, :wd].T @ y[kq:kq + wd]
+            y[:kq] -= A[kq:kq + wd, :kq].T @ x[kq:kq + wd]
+    L = np.tril(A[:n, :n])                             # the factor: the rows below
+    for kq, Linv in Linvs.items():                     # each block, L_kk from L_kk^-1
+        wd = min(KW, n - kq)
+        L[kq:kq + wd, kq:kq + wd] = np.linalg.inv(Linv[:wd, :wd])
+    return x, L, Linvs
 
 
-def emulate(p, nb=32):
+def emulate(p):
     """The whole call on ``graph_case``'s ``p`` as the kernels make it, in
     float64: the result [K, 4, 4] and the costs accepted."""
     S = np.asarray(p["S_w"], np.float64).copy()
@@ -386,7 +439,7 @@ def emulate(p, nb=32):
     costs = [cost]
     for _ in range(iters):
         r, J = edge_chain(Sij, S[ei], S[ej], w)
-        x, _ = blocked_cholesky_solve(assemble(ei, ej, J, r, fixed), nb)
+        x, _, _ = blocked_cholesky_solve(assemble(ei, ej, J, r, fixed))
         Sn = S.copy()
         for p in np.flatnonzero(~fixed):
             xi = [Dual(np.asarray([-x[7 * slot[p] + c]])) for c in range(7)]
@@ -508,12 +561,23 @@ def test_dispatch_by_device():
 
 
 def test_launches_per_call():
-    """Setup and the entry cost, then per iteration edge, assembly, poses and
-    cost and three launches a 32-column panel of the 7K rows."""
-    assert kpg.launches_per_call(49, 15) == 2 + 15 * (4 + 3 * 11)
-    assert kpg.launches_per_call(256, 15) == 2 + 15 * (4 + 3 * 56)
-    assert kpg.launches_per_call(2048, 0) == 2
-    assert kpg.launches_per_call(1, 1) == 2 + 4 + 3
+    """The launch plan the emulation walks (``solve_plan``, the kernel's
+    ``for_each_solve_launch``; the card test holds ``launches_per_call`` to
+    the same counts): setup and the entry cost, then per iteration edge,
+    assembly, poses, cost and the solve's launches up to the 7K rows: each
+    64-column part's diagonal block, rows below and back-substitution and,
+    but for a panel's first part, its update; each panel's trailing update
+    but the last's."""
+    assert (KW, KNB) == (64, 256)
+    per_call = lambda K, iters: 2 + iters * (4 + sum(1 for _ in solve_plan(7 * K)))
+    # 4f's closure, 7 x 49 = 343 rows: 6 parts, 4 in the first panel and 2
+    # in the second: 6 x 3 + (3 + 1) narrow updates + 1 trailing update
+    assert per_call(49, 15) == 2 + 15 * (4 + 6 * 3 + 4 + 1) == 407
+    assert per_call(256, 15) == 2 + 15 * (3 + 4 * 28) == 1727
+    assert per_call(400, 15) == 2 + 15 * (3 + 4 * 44) == 2687
+    assert per_call(2048, 2) == 2 + 2 * (3 + 4 * 224) == 1800
+    assert per_call(2048, 0) == 2
+    assert per_call(1, 1) == 2 + 4 + 3
 
 
 @pytest.mark.parametrize("branch", BRANCHES)
@@ -564,12 +628,16 @@ def test_free_row_assembly_equals_plain(case):
     assert not H.numpy()[np.ix_(fr, rows)].any() and not g.numpy()[fr].any()
 
 
-@pytest.mark.parametrize("nb,n_poses", [(4, 9), (32, 11), (32, 30)])
-def test_blocked_cholesky_solves_as_dense(nb, n_poses):
-    """The bordered blocked Cholesky and the panel back-substitution solve
-    H x = g as torch.linalg.solve does (1e-9 relative), with a small panel
-    over many panels and with the kernel's 32 over a partial last panel."""
-    rng = np.random.default_rng(nb + n_poses)
+@pytest.mark.parametrize("n_poses", [9, 11, 30, 37, 40, 64, 73, 256])
+def test_blocked_cholesky_solves_as_dense(n_poses):
+    """The bordered blocked Cholesky and the back-substitution solve H x = g
+    as torch.linalg.solve does (1e-9 relative) and L L^T = H (1e-9): n below
+    one diagonal block (63 rows), a partial last part (77, 210, 259, 280,
+    511 rows), n below one panel (63, 77, 210), a partial last panel (259,
+    280, 448, 511: 3, 24, 192 and 255 rows in it), the last part filled
+    exactly (448) and the last panel filled exactly (1,792). Each L^-1 is
+    lower triangular and the identity past the rows it inverts."""
+    rng = np.random.default_rng(n_poses)
     n = 7 * n_poses
     J = rng.normal(size=(3 * n, n)) * rng.uniform(0.1, 10.0, n)
     H = J.T @ J + 1e-6 * np.eye(n)
@@ -577,9 +645,15 @@ def test_blocked_cholesky_solves_as_dense(nb, n_poses):
     M = np.zeros((n + 1, n + 1))
     M[:n, :n] = np.tril(H)
     M[n, :n] = g
-    x, _ = blocked_cholesky_solve(M, nb)
+    x, L, Linvs = blocked_cholesky_solve(M)
     ref = torch.linalg.solve(torch.as_tensor(H), torch.as_tensor(g)).numpy()
     assert np.abs(x - ref).max() <= 1e-9 * np.abs(ref).max()
+    assert np.abs(np.tril(L @ L.T - H)).max() <= 1e-9 * np.abs(H).max()
+    assert sorted(Linvs) == list(range(0, n, KW))
+    for kq, Linv in Linvs.items():
+        wd = min(KW, n - kq)
+        assert not np.triu(Linv, 1).any() and not Linv[wd:, :wd].any()
+        np.testing.assert_array_equal(Linv[wd:, wd:], np.eye(KW - wd))
 
 
 @pytest.mark.parametrize("case", GRAPH_CASES)
